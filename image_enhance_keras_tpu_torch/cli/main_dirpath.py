@@ -1,0 +1,117 @@
+"""Directory inference CLI (mirror of ``cli/main_dirpath.py``).
+
+x4-upscales every image of a directory into ``<stem>_<suffix>(<scale>x)<ext>``
+beside it.  The JAX CLI's flags all parse; those this slice does not run
+are rejected with "not yet ported", never ignored.
+
+Usage:  python -m image_enhance_keras_tpu_torch.cli.main_dirpath <imgdir> [options]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from image_enhance_keras_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+_NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
+
+#: values this slice runs, for flags whose other JAX values are not ported
+_PORTED_VALUES = {
+    "model": ("didbl",),
+    "mode": ("patch", "fast"),
+    "forward": ("xla", "pallas"),
+    "dtype": ("float32",),
+}
+#: JAX flags this slice does not run at all: dest -> (flag, default)
+_UNPORTED_FLAGS = {
+    "save_intermediate": ("--save_intermediate", False),
+    "devices": ("--devices", 1),
+    "split_tile": ("--split-tile", None),
+    "split_tile_w": ("--split-tile-w", None),
+    "self_ensemble": ("--self-ensemble", False),
+    "back_projection": ("--back-projection", 0),
+    "internal_learn": ("--internal-learn", 0),
+    "internal_learn_lr": ("--internal-learn-lr", None),
+    "pipeline": ("--pipeline", False),
+    "int8_acc": ("--int8-acc", None),
+    "int8_calib_dir": ("--int8-calib-dir", None),
+    "int8_emit": ("--int8-emit", None),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="x4 super-resolve every image in a directory (PyTorch/CUDA)")
+    p.add_argument("imgpath", help="directory of images to upscale")
+    p.add_argument("--model", default="didbl")
+    p.add_argument("--scale", default=1, type=int, help="scale label used in output names")
+    p.add_argument("--mode", default="patch", choices=["fast", "patch", "split"],
+                   help="patch: reference-exact overlapped tiling; fast: whole-frame forward")
+    p.add_argument("--forward", default="xla",
+                   choices=["xla", "int8", "pallas", "pallas_chain", "pallas_int8"],
+                   help="xla: the plain torch module; pallas: LR blocks on the CUDA kernels")
+    p.add_argument("--suffix", default="scaled", help="suffix of output images")
+    p.add_argument("--patch_size", default=96, type=int, help="tile size (reference: 96)")
+    p.add_argument("--step", default=64, type=int, help="tile step (reference: 64)")
+    p.add_argument("--geometry", default=None, choices=["ref", "perf"],
+                   help="tile geometry preset (overrides patch_size/step)")
+    p.add_argument("--weights", default=None,
+                   help="params .npz; omitted = the model's committed demo checkpoint; "
+                        "'none' = explicit random-init smoke run")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed", "mixed-tail"])
+    p.add_argument("--tile_chunk", default=16, type=int)
+    p.add_argument("--round-mode", default="round", choices=["round", "trunc"],
+                   help="final uint8 cast: round (half to even) or trunc (the reference's cast)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run (cuda must be present unless cpu is asked for)")
+    # JAX flags that parse but are rejected below
+    p.add_argument("--save_intermediate", default=False, action="store_true")
+    p.add_argument("--devices", default=1, type=int)
+    p.add_argument("--split-tile", type=int, default=None)
+    p.add_argument("--split-tile-w", type=int, default=None)
+    p.add_argument("--self-ensemble", action="store_true")
+    p.add_argument("--back-projection", type=int, default=0)
+    p.add_argument("--internal-learn", type=int, default=0)
+    p.add_argument("--internal-learn-lr", type=float, default=None)
+    p.add_argument("--pipeline", action="store_true")
+    p.add_argument("--int8-acc", default=None, choices=["bf16", "s32", "f32"])
+    p.add_argument("--int8-calib-dir", default=None)
+    p.add_argument("--int8-emit", default=None, choices=["wide", "s8"])
+    return p
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for dest, ported in _PORTED_VALUES.items():
+        if getattr(args, dest) not in ported:
+            parser.error(f"--{dest} {getattr(args, dest)} is {_NOT_PORTED}")
+    for dest, (flag, default) in _UNPORTED_FLAGS.items():
+        if getattr(args, dest) != default:
+            parser.error(f"{flag} is {_NOT_PORTED}")
+
+    from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+
+    weights = resolve_cli_weights(args.model, args.weights)
+    resolver = SuperResolver(
+        model=args.model,
+        weights=weights,
+        patch=args.patch_size,
+        step=args.step,
+        geometry=args.geometry,
+        tile_chunk=args.tile_chunk,
+        mode=args.mode,
+        forward=args.forward,
+        round_mode=args.round_mode,
+        device=args.device,
+    )
+    outs = resolver.upscale_dir(args.imgpath, suffix=args.suffix, scale_label=args.scale)
+    log.info("wrote %d images", len(outs))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

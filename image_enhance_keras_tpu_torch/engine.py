@@ -1,0 +1,242 @@
+"""SuperResolver, the inference engine (mirror of ``engine.py``, this slice's subset).
+
+Per image, on the resolver's device:
+
+    uint8 image -> pad -> extract tiles -> /255 -> generator over the tile
+    batch in chunks of ``tile_chunk`` -> *255 -> stitch -> crop ->
+    round/clip -> uint8
+
+(``mode='patch'``, the reference's overlapped tiling), or the generator
+over the whole frame (``mode='fast'``).  ``forward='xla'`` runs the
+``nn.Module``; ``forward='pallas'`` runs ``apply_didbl_pallas``, whose LR
+blocks are the CUDA kernels.  Float32 only; TF32 is switched off.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from image_enhance_keras_tpu_torch.data.io import imread, imwrite, list_images
+from image_enhance_keras_tpu_torch.models.weights import load_params, params_of_module
+from image_enhance_keras_tpu_torch.models.zoo import get_model, init_params
+from image_enhance_keras_tpu_torch.tiling.tiles import (
+    TilePlan,
+    crop_output,
+    extract_tiles,
+    pad_to_plan,
+    plan_tiles,
+    stitch_tiles,
+)
+from image_enhance_keras_tpu_torch.utils.logging import get_logger
+
+__all__ = ["SuperResolver", "output_name", "resolve_device", "TILE_GEOMETRIES"]
+
+log = get_logger(__name__)
+
+_NOT_PORTED = "is not yet ported in image_enhance_keras_tpu_torch"
+
+
+def output_name(img_path: str, suffix: str = "scaled", scale_label: int = 1) -> str:
+    """`<stem>_<suffix>(<k>x)<ext>` — the reference naming contract."""
+    stem, ext = os.path.splitext(img_path)
+    return f"{stem}_{suffix}({scale_label}x){ext}"
+
+
+#: tile geometries (patch, step, crop): "ref" is the reference's 96/64/8
+TILE_GEOMETRIES = {"ref": (96, 64, 8), "perf": (192, 176, 8)}
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device to run on; CUDA must be present unless the caller asks for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu, got {device!r}")
+    return dev
+
+
+def disable_tf32() -> None:
+    """Full float32 convs and matmuls on the card: the parity bounds assume it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+class SuperResolver:
+    """Directory / image x4 upscaler around one model and its weights."""
+
+    def __init__(
+        self,
+        model: str = "didbl",
+        weights: str | None = None,
+        dtype: Any = None,
+        patch: int = 96,
+        step: int = 64,
+        crop: int = 8,
+        geometry: str | None = None,
+        tile_chunk: int = 16,
+        params: Any = None,
+        seed: int = 0,
+        forward: str = "xla",
+        mode: str = "patch",
+        fast_max_pixels: int = 1 << 20,
+        round_mode: str = "round",
+        module_and_spec: tuple | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        disable_tf32()
+        if forward not in ("xla", "pallas"):
+            raise NotImplementedError(f"forward={forward!r} {_NOT_PORTED}")
+        if mode not in ("patch", "fast"):
+            raise NotImplementedError(f"mode={mode!r} {_NOT_PORTED}")
+        if round_mode not in ("round", "trunc"):
+            raise ValueError(f"round_mode must be 'round' or 'trunc', got {round_mode!r}")
+        self.model_name = model
+        if module_and_spec is not None:
+            self.module, self.spec = module_and_spec
+        else:
+            self.module, self.spec = get_model(model, dtype=dtype)
+        if forward == "pallas" and not model.startswith("didbl"):
+            raise ValueError("pallas forwards are implemented for the didbl family")
+        self._dtype = dtype
+        self.forward_mode = forward
+        if geometry is not None:
+            patch, step, crop = TILE_GEOMETRIES[geometry]
+        self.patch = patch
+        self.step = step
+        self.crop = crop
+        # tile_chunk is calibrated for 96px tiles; scale it with tile area
+        self.tile_chunk = max(1, tile_chunk * (96 * 96) // (patch * patch))
+        self.mode = mode
+        self.fast_max_pixels = fast_max_pixels
+        self.round_mode = round_mode
+
+        self.module = self.module.to(self.device).eval().requires_grad_(False)
+        if params is not None:
+            load_params(self.module, params)
+        else:
+            init_params(self.module, seed)
+            if weights is not None:
+                self.load_weights(weights)
+        self.params = params_of_module(self.module)
+
+    # ------------------------------------------------------------------
+    # weights
+    # ------------------------------------------------------------------
+    def load_weights(self, path: str) -> None:
+        """Load a params .npz export (Keras .h5 and orbax come in later slices)."""
+        if not path.endswith(".npz"):
+            raise NotImplementedError(f"loading {path!r}: only .npz params {_NOT_PORTED} so far")
+        from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
+
+        load_params(self.module, load_params_npz(path))
+        self.params = params_of_module(self.module)
+
+    # ------------------------------------------------------------------
+    # tiled pipeline
+    # ------------------------------------------------------------------
+    def _pipeline_for(self, plan: TilePlan) -> Callable:
+        """params, uint8 (H, W, 3) tensor -> uint8 (4H, 4W, 3) over the tile plan."""
+        forward = self._forward_fn()
+        n = plan.n_tiles
+        # full chunks of tile_chunk plus one remainder call; no dummy tiles
+        chunk = min(self.tile_chunk, n)
+        rem = n % chunk
+        n_full = n - rem
+
+        def run(params, img_u8: torch.Tensor) -> torch.Tensor:
+            img = img_u8.to(torch.float32)
+            padded = pad_to_plan(img, plan)
+            tiles = extract_tiles(padded, plan) / 255.0
+            outs = [forward(params, tiles[i : i + chunk]) for i in range(0, n_full, chunk)]
+            if rem:
+                outs.append(forward(params, tiles[n_full:]))
+            out = torch.cat(outs) * 255.0
+            canvas = stitch_tiles(out, plan)
+            return self._finalize_u8(crop_output(canvas, plan))
+
+        return run
+
+    def _forward_fn(self) -> Callable:
+        """params, (N,h,w,3) [0,1] -> (N,sh,sw,3): the module or the kernel forward."""
+        if self.forward_mode == "pallas":
+            from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_pallas
+
+            m = self.module
+            return lambda params, b: apply_didbl_pallas(
+                params, b, dtype=self._dtype, n_body53=m.n_body53, n_light=m.n_light,
+                n_tail53=m.n_tail53, scale=m.scale,
+            )
+        module = self.module
+        return lambda params, b: module(b)
+
+    def _finalize_u8(self, y: torch.Tensor) -> torch.Tensor:
+        """[0,255]-domain float -> uint8: "round" is half-to-even, "trunc" the reference's cast."""
+        if self.round_mode == "trunc":
+            return torch.clamp(torch.floor(y), 0.0, 255.0).to(torch.uint8)
+        return torch.clamp(torch.round(y), 0.0, 255.0).to(torch.uint8)
+
+    def _fast_fn(self) -> Callable:
+        """Whole-frame forward with no tiling."""
+        forward = self._forward_fn()
+
+        def run(params, img_u8: torch.Tensor) -> torch.Tensor:
+            x = img_u8.to(torch.float32)[None] / 255.0
+            y = forward(params, x)[0] * 255.0
+            return self._finalize_u8(y)
+
+        return run
+
+    def plan_for(self, height: int, width: int) -> TilePlan:
+        return plan_tiles(height, width, patch=self.patch, step=self.step,
+                          scale=self.spec.net_scale, crop=self.crop)
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def upscale(self, img: np.ndarray) -> np.ndarray:
+        """uint8 RGB (H, W, 3) -> uint8 RGB x4 (``mode`` 'patch' or 'fast')."""
+        img = np.ascontiguousarray(img)
+        x = torch.tensor(img, device=self.device)
+        if self.mode == "fast":
+            if img.shape[0] * img.shape[1] <= self.fast_max_pixels:
+                return self._fast_fn()(self.params, x).cpu().numpy()
+            log.warning(
+                "mode='fast' frame %dx%d exceeds fast_max_pixels=%d; falling back to the "
+                "tiled patch pipeline (interior-identical, borders differ within the conv "
+                "receptive field)", img.shape[1], img.shape[0], self.fast_max_pixels,
+            )
+        plan = self.plan_for(img.shape[0], img.shape[1])
+        return self._pipeline_for(plan)(self.params, x).cpu().numpy()
+
+    def upscale_file(self, img_path: str, suffix: str = "scaled", scale_label: int = 1) -> str:
+        t0 = time.time()
+        img = imread(img_path)
+        out = self.upscale(img)
+        dst = output_name(img_path, suffix, scale_label)
+        imwrite(dst, out)
+        log.info(
+            "%s (%dx%d) -> %s (%dx%d) in %.2fs",
+            os.path.basename(img_path), img.shape[1], img.shape[0],
+            os.path.basename(dst), out.shape[1], out.shape[0], time.time() - t0,
+        )
+        return dst
+
+    def upscale_dir(self, dir_path: str, suffix: str = "scaled", scale_label: int = 1) -> list[str]:
+        """Upscale every image of a directory, skipping outputs of earlier runs."""
+        outs = []
+        tag = f"_{suffix}("
+        for path in list_images(dir_path):
+            base = os.path.basename(path)
+            if tag in base or "_intermediate_" in base:
+                continue
+            outs.append(self.upscale_file(path, suffix, scale_label))
+        return outs

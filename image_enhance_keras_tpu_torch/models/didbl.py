@@ -1,0 +1,78 @@
+"""DifvdsrDouble ("didbl"), the x4 generator (mirror of ``models/didbl.py``).
+
+  input (N, H, W, 3) in [0, 1]
+  -> 1x1 conv, 128 feats, relu        (level1)
+  -> 16x Light53Block                 (body53_i)
+  -> 6x LightBlock                    (light_i)
+  -> TF1 bilinear x4 phase upsample
+  -> 2x Light53Block                  (tail53_i)
+  -> 3x3 conv -> 3 feats, relu        (out)
+
+Float32 with the ``tf1_bilinear`` head only in this slice.  Submodule names
+are the flax param scopes, so the npz checkpoints load one to one.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from image_enhance_keras_tpu_torch.models.blocks import Light53Block, LightBlock, check_profile, make_conv
+from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
+
+__all__ = ["DifvdsrDouble"]
+
+
+class DifvdsrDouble(nn.Module):
+    """x4 super-resolution generator; NHWC in [0,1] -> NHWC x4 in [0,inf)."""
+
+    def __init__(self, features: int = 128, n_body53: int = 16, n_light: int = 6, n_tail53: int = 2,
+                 scale: int = 4, upsampler: str = "tf1_bilinear", dtype: Any = None,
+                 mixed: bool = False, mixed_tail: bool = False):
+        super().__init__()
+        if upsampler == "subpixel":
+            raise NotImplementedError("upsampler='subpixel' is not yet ported in image_enhance_keras_tpu_torch")
+        if upsampler != "tf1_bilinear":
+            raise ValueError(f"unknown upsampler {upsampler!r}")
+        check_profile(dtype, mixed or mixed_tail)
+        self.features = features
+        self.n_body53 = n_body53
+        self.n_light = n_light
+        self.n_tail53 = n_tail53
+        self.scale = scale
+        self.upsampler = upsampler
+        self.level1 = make_conv(features, (1, 1), in_features=3)
+        for i in range(n_body53):
+            self.add_module(f"body53_{i}", Light53Block(features))
+        for i in range(n_light):
+            self.add_module(f"light_{i}", LightBlock(features))
+        for i in range(n_tail53):
+            self.add_module(f"tail53_{i}", Light53Block(features))
+        self.out = make_conv(3, (3, 3), in_features=features)
+
+    @property
+    def split_halo(self) -> int:
+        """LR halo the split-mode tail needs: ceil((3*n_tail53 + 1) / scale) + 1."""
+        rf_hr = 3 * self.n_tail53 + 1
+        return -(-rf_hr // self.scale) + 1
+
+    def body(self, x: torch.Tensor) -> torch.Tensor:
+        """Pre-upsample tower at LR: level1 + Light53 blocks + Light blocks."""
+        h = torch.relu(self.level1(x))
+        for i in range(self.n_body53):
+            h = getattr(self, f"body53_{i}")(h)
+        for i in range(self.n_light):
+            h = getattr(self, f"light_{i}")(h)
+        return h
+
+    def tail(self, h: torch.Tensor) -> torch.Tensor:
+        """x4 upsample + post-upsample Light53 blocks + out conv."""
+        h = upsample_phase_tf1(h, self.scale)
+        for i in range(self.n_tail53):
+            h = getattr(self, f"tail53_{i}")(h)
+        return torch.relu(self.out(h))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tail(self.body(x))

@@ -1,0 +1,20 @@
+"""SAME convolution on NHWC activations with HWIO weights, through ``F.conv2d``.
+
+The JAX package keeps activations NHWC and kernels HWIO; the port keeps
+both layouts and permutes views for ``F.conv2d`` (NCHW / OIHW), so the
+result comes back NHWC with channels-last memory.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def conv2d_nhwc(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, H, W, Cin) * (kh, kw, Cin, Cout) -> (N, H, W, Cout), SAME zero padding."""
+    kh, kw = int(kernel.shape[0]), int(kernel.shape[1])
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"SAME padding needs odd kernel sizes, got {kh}x{kw}")
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), bias, padding=(kh // 2, kw // 2))
+    return y.permute(0, 2, 3, 1).contiguous()

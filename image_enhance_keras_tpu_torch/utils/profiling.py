@@ -1,0 +1,79 @@
+"""Where the device time of the main path goes: kernels by name, and the idle share.
+
+    python -m image_enhance_keras_tpu_torch.utils.profiling [--size 128] [--iters 3]
+
+Upscales one seeded ``size`` x ``size`` image in patch mode (96/64/8, the
+demo weights) with ``--forward pallas`` and ``--forward xla`` under
+``torch.profiler``, after a warm-up, and prints for each forward the wall
+time per image, the device time of every kernel (summed over the timed
+images), and the share of the wall time in which no kernel ran.  Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def device_kernel_times(prof) -> list[tuple[str, float, int]]:
+    """(kernel name, device ms, calls) for every kernel the profiler saw, longest first."""
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((evt.key, us / 1e3, evt.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_upscale(resolver, img: np.ndarray, iters: int) -> tuple[float, list]:
+    """Wall seconds per image and the kernel table over ``iters`` upscales."""
+    from torch.profiler import ProfilerActivity, profile
+
+    resolver.upscale(img)  # warm-up: cuDNN algorithm choice, kernel build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(iters):
+            resolver.upscale(img)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / iters
+    return wall, device_kernel_times(prof)
+
+
+def main(argv=None) -> int:
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, default=128)
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profiling needs a CUDA card", file=sys.stderr)
+        return 1
+    weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
+    img = np.random.default_rng(0).integers(0, 256, (args.size, args.size, 3), dtype=np.uint8)
+    print(f"card: {torch.cuda.get_device_name(0)}; image {args.size}x{args.size}, patch mode 96/64/8")
+    for forward in ("pallas", "xla"):
+        res = SuperResolver(weights=weights, forward=forward, device="cuda")
+        wall, rows = profile_upscale(res, img, args.iters)
+        busy = sum(ms for _, ms, _ in rows) / args.iters
+        print(f"--forward {forward}: {wall * 1e3:.3f} ms per image wall, {busy:.3f} ms device busy, "
+              f"idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+        for name, ms, calls in rows[: args.top]:
+            print(f"  {ms / args.iters:9.3f} ms/image {100 * ms / args.iters / busy:5.1f}%  "
+                  f"{calls // args.iters:4d} calls/image  {name[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

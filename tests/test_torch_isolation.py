@@ -1,0 +1,42 @@
+"""The port and chip_smoke.py import nothing of JAX or of the JAX package."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "image_enhance_keras_tpu"}
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "image_enhance_keras_tpu_torch")):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", getattr(node.func, "attr", "")) in (
+                "import_module", "__import__") and node.args and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def test_port_has_sources():
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert "chip_smoke.py" in names
+    assert os.path.join("image_enhance_keras_tpu_torch", "engine.py") in names
+    assert len(names) > 20
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
