@@ -5,15 +5,24 @@
 
 Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
-  1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``;
-  2. each kernel at the main path's shape (9 tiles of 96x96x128, float32,
-     demo weights, inputs taken from the main path itself) against its plain
-     PyTorch version, with its time, the plain version's, one F.conv2d
-     formulation's and the card's bound;
-  3. the main path: ``cli.main_dirpath`` with ``--forward pallas`` on a
-     seeded 128x128 BMP (9 tiles at 96/64/8, 512x512 out), with the kernel
-     launches counted, then ``--forward xla`` and a CPU run on a crop as
-     references.
+  1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
+     (one nvcc per source, all started together);
+  2. each kernel at the main paths' shapes against its plain PyTorch
+     version, with its time, the plain version's, a library call's where
+     one computes the same function, and the card's bound:
+       float32 (9 tiles of 96x96x128, demo weights, inputs from the pallas
+       path itself): the Light53 and Light blocks (K1, K2);
+       int8 path (the demo weights quantized by the port's calibration,
+       bf16 inputs from the int8 path itself): the int8 Light53 block at
+       (9,96,96,128) and at the tail's (9,384,384,128) (K4), the int8 Light
+       block (K5), and the TF1 x4 upsample in bf16 and float32 (K3);
+  3. the main paths through ``cli.main_dirpath`` on a seeded 128x128 BMP
+     (9 tiles at 96/64/8, 512x512 out), each with its kernel launches
+     counted: ``--forward pallas`` (K1, K2), ``--forward xla`` as its
+     reference, ``--forward pallas_int8`` (K3, K4, K5; calibration
+     included), and the int8 run again with the plain x4 in place of K3
+     (byte-equal); then the engines timed in turns and CPU references on a
+     crop.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -40,8 +49,16 @@ KERNEL_ATOL = 2e-5
 #: uint8 outputs of two float32 forwards that sum in other orders
 U8_MAX_DIFF = 1
 U8_MAX_FRAC = 1e-3
-#: H100 SXM data sheet: float32 on the CUDA cores, HBM3 rate
+#: int8 kernels and the upsample against their plain versions: they repeat
+#: the same integer sums and rounded float steps, so they are expected to
+#: agree bit for bit; the bound is the CPU tests' (at most 0.1% of values
+#: differ, none by more than 1% of max|plain|)
+INT8_MAX_FRAC, INT8_MAX_REL = 1e-3, 1e-2
+#: uint8 outputs of two int8 forwards (tests/test_split_mode.py:97-98)
+INT8_U8_MAX_DIFF, INT8_U8_MAX_FRAC = 3, 0.05
+#: H100 SXM data sheet: float32 on the CUDA cores, dense int8 tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 MIN_TIMED = 12
 
@@ -96,6 +113,25 @@ def _u8_agreement(a, b) -> tuple[int, float]:
     return int(d.max()), float((d > 0).mean())
 
 
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def _bound(ops: float, peak_ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time on the card (ms) and what bounds it."""
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -110,11 +146,15 @@ def main() -> int:
     from image_enhance_keras_tpu_torch.cli import main_dirpath
     from image_enhance_keras_tpu_torch.data.io import imread, imwrite
     from image_enhance_keras_tpu_torch.engine import SuperResolver, disable_tf32
+    from image_enhance_keras_tpu_torch.models import didbl_pallas
     from image_enhance_keras_tpu_torch.models.didbl_pallas import _conv
     from image_enhance_keras_tpu_torch.models.weights import params_from_numpy
     from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
     from image_enhance_keras_tpu_torch.ops.cuda import _build
     from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+    from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain, upsample_phase_tf1
     from image_enhance_keras_tpu_torch.tiling.tiles import extract_tiles, pad_to_plan, plan_tiles
     from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
 
@@ -215,7 +255,111 @@ def main() -> int:
             print(f"[chip_smoke] {name}: err {err:.3g} (F.conv2d formulation vs plain {lib_err:.3g}), "
                   f"{ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms F.conv2d, "
                   f"{rows[-1]['bound_ms']:.3f} ms bound, {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
-    del x53, xl, h, tiles
+    del x53, xl, h
+
+    # int8 path: the demo weights quantized by the port's own calibration on
+    # the card, the kernels' inputs taken from the int8 path itself
+    res8 = SuperResolver(weights=weights, forward="pallas_int8", device="cuda")
+    with torch.inference_mode():
+        qp = res8._fwd_params()
+    print(f"[chip_smoke] int8 calibration source: {res8.int8_calib_source}", flush=True)
+    l53_names = ("conv_a1", "conv_a2", "conv_b1", "conv_b2")
+
+    def i8_args(p, convs):
+        return [p[c][k] for c in convs for k in ("q", "s", "bias")]
+
+    with torch.inference_mode():
+        x8 = torch.relu(_conv(tiles.to(torch.bfloat16), qp["level1"])).contiguous()
+        h = x8
+        for i in range(16):
+            p = qp[f"body53_{i}"]
+            h = ki8.light53_int8_plain(h, *i8_args(p, l53_names), p["act"])
+        xl8 = h
+        for i in range(6):
+            p = qp[f"light_{i}"]
+            h = ki8.light_int8_plain(h, *i8_args(p, ("conv_a", "conv_b")), p["act"])
+        xu8 = h
+        xh8 = upsample_phase_plain(xu8, 4).contiguous()
+    del tiles, h
+    p53, pl8, pt8 = qp["body53_0"], qp["light_0"], qp["tail53_0"]
+    i8_specs = [
+        # name, kernel call, plain call, input, ops, peak, bytes, iters of the plain timing
+        ("light53_int8",
+         lambda x: ki8.light53_int8(x, *i8_args(p53, l53_names), act_scales=p53["act"]),
+         lambda x: ki8.light53_int8_plain(x, *i8_args(p53, l53_names), p53["act"]),
+         x8, 2.0 * 68 * c * c * x8[..., 0].numel(), PEAK_INT8_OPS,
+         4.0 * x8.numel() + 68 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:263"),
+        ("light_int8",
+         lambda x: ki8.light_int8(x, *i8_args(pl8, ("conv_a", "conv_b")), act_scales=pl8["act"]),
+         lambda x: ki8.light_int8_plain(x, *i8_args(pl8, ("conv_a", "conv_b")), pl8["act"]),
+         xl8, 2.0 * 18 * c * c * xl8[..., 0].numel(), PEAK_INT8_OPS,
+         4.0 * xl8.numel() + 18 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:335"),
+        ("light53_int8_hr",
+         lambda x: ki8.light53_int8(x, *i8_args(pt8, l53_names), act_scales=pt8["act"]),
+         lambda x: ki8.light53_int8_plain(x, *i8_args(pt8, l53_names), pt8["act"]),
+         xh8, 2.0 * 68 * c * c * xh8[..., 0].numel(), PEAK_INT8_OPS,
+         4.0 * xh8.numel() + 68 * c * c, 3,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:263"),
+        ("upsample_phase_tf1",
+         lambda x: kup.upsample_phase_tf1_kernel(x, 4),
+         lambda x: upsample_phase_plain(x, 4),
+         xu8, 9.0 * 16 * xu8.numel(), PEAK_F32_FLOPS, 2.0 * 17 * xu8.numel(), MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/upsample.py:94"),
+        ("upsample_phase_tf1_f32",
+         lambda x: kup.upsample_phase_tf1_kernel(x, 4),
+         lambda x: upsample_phase_plain(x, 4),
+         xu8.float().contiguous(), 9.0 * 16 * xu8.numel(), PEAK_F32_FLOPS,
+         4.0 * 17 * xu8.numel(), MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/upsample.py:94"),
+    ]
+    i8_rows = {}
+    with torch.inference_mode():
+        for name, kern, plain, x, ops, peak, nbytes, plain_iters, replaces in i8_specs:
+            got, want = kern(x), plain(x)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            err = d.max().item()
+            frac = (d > 0).float().mean().item()
+            rel = err / max(want.float().abs().max().item(), 1e-30)
+            exact = bool(torch.equal(got, want))
+            if name.startswith("upsample") and not exact:
+                failures.append(f"{name}: kernel not bit-equal to plain (max |diff| {err:.3g})")
+            if frac > INT8_MAX_FRAC or rel > INT8_MAX_REL:
+                failures.append(f"{name}: kernel vs plain differ on {frac:.3g} of values, "
+                                f"max {rel:.3g} of max|plain|")
+            ms = _time_ms(lambda: kern(x))
+            plain_ms = _time_ms(lambda: plain(x), iters=plain_iters, warmup=1)
+            bound_ms, bound_by = _bound(ops, peak, nbytes)
+            i8_rows[name] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err, "bit_equal": exact, "shape": list(x.shape),
+                "dtype": str(x.dtype).replace("torch.", ""), "replaces": replaces,
+                "tops": ops / (ms * 1e-3) / 1e12,
+            }
+            print(f"[chip_smoke] {name} {tuple(x.shape)} {x.dtype}: bit-equal {exact}, max |diff| "
+                  f"{err:.3g}, {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, {bound_ms:.4f} ms bound "
+                  f"({bound_by}), {ops / (ms * 1e-3) / 1e12:.2f} T(FL)OP/s", flush=True)
+    del x8, xl8, xu8, xh8
+    up32, hr = i8_rows.pop("upsample_phase_tf1_f32"), i8_rows.pop("light53_int8_hr")
+    for name, row in i8_rows.items():
+        extra = {}
+        if name == "light53_int8":
+            extra = {f"hr_{k}": hr[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shape")}
+        if name == "upsample_phase_tf1":
+            extra = {f"f32_{k}": up32[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "image_enhance_keras_tpu_torch/csrc/"
+                      + ("upsample.cu" if name.startswith("upsample") else "int8_blocks.cu"),
+            "replaces": row["replaces"], "launches": None, "max_abs_err": row["max_abs_err"],
+            "tolerance": 0.0 if name.startswith("upsample") else f"{INT8_MAX_FRAC} of values, "
+                                                                    f"{INT8_MAX_REL} of max|plain|",
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None, "shape": row["shape"],
+            "dtype": row["dtype"], "bit_equal": row["bit_equal"], **extra,
+        })
     _phase("2 kernels", t0)
 
     # -- 3. the main path ----------------------------------------------------
@@ -238,7 +382,8 @@ def main() -> int:
         print(f"[chip_smoke] main_dirpath --forward pallas: rc {rc}, {cli_s:.2f} s, launches {launches}",
               flush=True)
         for row in rows:
-            row["launches"] = launches[row["name"]]
+            if row["name"] in launches:
+                row["launches"] = launches[row["name"]]
         if rc != 0:
             failures.append(f"main_dirpath --forward pallas returned {rc}")
         if launches != {"light53_block": 16, "light_block": 6}:
@@ -259,16 +404,72 @@ def main() -> int:
                 failures.append(f"pallas vs xla outputs differ: max {dmax}, fraction {frac:.3g}")
         if float(out_p.astype(np.float64).std()) < 1.0:
             failures.append("pallas output is flat")
+        _phase("3a pallas and xla paths (CLI)", t0)
+
+        # the int8 path: calibration, quantization and the forward, all in the
+        # CLI run; K3 takes the x4 (one launch in calibration, one per chunk of
+        # tiles).  Then the same run with the plain x4 in place of K3, which
+        # must give the same bytes (its launches are not the main path's).
+        t0 = time.time()
+        outs8 = {}
+        for up in ("kernel", "plain"):
+            d = os.path.join(tmp, f"int8_{up}")
+            os.makedirs(d)
+            imwrite(os.path.join(d, "img.bmp"), img)
+            ki8.light53_int8.launches = 0
+            ki8.light_int8.launches = 0
+            kup.upsample_phase_tf1_kernel.launches = 0
+            if up == "plain":
+                didbl_pallas.upsample_phase_tf1 = upsample_phase_plain
+            try:
+                torch.cuda.synchronize()
+                t1 = time.time()
+                rc = main_dirpath.main([d, "--forward", "pallas_int8"])
+                torch.cuda.synchronize()
+                cli_s = time.time() - t1
+            finally:
+                didbl_pallas.upsample_phase_tf1 = upsample_phase_tf1
+            launches8 = {"light53_int8": ki8.light53_int8.launches,
+                         "light_int8": ki8.light_int8.launches,
+                         "upsample_phase_tf1": kup.upsample_phase_tf1_kernel.launches}
+            print(f"[chip_smoke] main_dirpath --forward pallas_int8, {up} x4: rc {rc}, "
+                  f"{cli_s:.2f} s (calibration included), launches {launches8}", flush=True)
+            want8 = {"light53_int8": 18, "light_int8": 6, "upsample_phase_tf1": 2 if up == "kernel" else 0}
+            if rc != 0:
+                failures.append(f"main_dirpath --forward pallas_int8 ({up} x4) returned {rc}")
+            if launches8 != want8:
+                failures.append(f"int8 path launches {launches8} != {want8}")
+            if up == "kernel":
+                for row in rows:
+                    if row["name"] in launches8:
+                        row["launches"] = launches8[row["name"]]
+            outs8[up] = imread(os.path.join(d, "img_scaled(1x).bmp"))
+        out_8 = outs8["kernel"]
+        if out_8.shape != (512, 512, 3) or float(out_8.astype(np.float64).std()) < 1.0:
+            failures.append(f"int8 output shape {out_8.shape} or flat")
+        same8 = bool(np.array_equal(outs8["kernel"], outs8["plain"]))
+        if not same8:
+            dmax, frac = _u8_agreement(outs8["kernel"], outs8["plain"])
+            failures.append(f"int8 outputs with the upsample kernel and with the plain x4 differ: "
+                            f"max {dmax}, fraction {frac:.3g}")
+        psnr8 = _psnr(out_8, out_p)
+        dmax, frac = _u8_agreement(out_8, out_p)
+        print(f"[chip_smoke] int8 output byte-equal with the upsample kernel and with the plain x4: "
+              f"{same8}; PSNR of int8 against the float32 pallas "
+              f"output {psnr8:.2f} dB (max diff {dmax}, differing fraction {frac:.3g})", flush=True)
+        if psnr8 < 30.0:
+            failures.append(f"int8 output is far from the float32 output: PSNR {psnr8:.2f} dB")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    _phase("3a main path (CLI)", t0)
+    _phase("3a' pallas_int8 path (CLI)", t0)
 
     # timing of the engine alone (weights loaded once), in turns, and a CPU
     # reference on a crop (plain torch on the CPU, no CUDA kernel involved)
     t0 = time.time()
     res = {f: SuperResolver(weights=weights, forward=f, device="cuda") for f in ("pallas", "xla")}
-    secs = {"pallas": [], "xla": []}
-    for f in ("pallas", "xla", "xla", "pallas"):
+    res["pallas_int8"] = res8  # weights quantized in phase 2
+    secs = {f: [] for f in res}
+    for f in ("pallas_int8", "pallas", "xla", "xla", "pallas", "pallas_int8"):
         torch.cuda.synchronize()
         t1 = time.time()
         res[f].upscale(img)
@@ -286,14 +487,28 @@ def main() -> int:
           f"differing fraction {frac:.3g}", flush=True)
     if dmax > U8_MAX_DIFF or frac > U8_MAX_FRAC:
         failures.append(f"card vs CPU reference differ: max {dmax}, fraction {frac:.3g}")
-    _phase("3b engine timing and CPU reference", t0)
+    # the int8 forward on the CPU with the card's quantized tree (no CPU
+    # calibration at full width)
+    cpu8 = SuperResolver(weights=weights, forward="pallas_int8", mode="fast", device="cpu")
+    cpu8._qparams = _tree_to(qp, "cpu")
+    card8 = SuperResolver(weights=weights, forward="pallas_int8", mode="fast", device="cuda")
+    card8._qparams = qp
+    dmax, frac = _u8_agreement(card8.upscale(crop), cpu8.upscale(crop))
+    print(f"[chip_smoke] fast mode 20x24 crop, card pallas_int8 vs cpu pallas_int8 (card's quantized "
+          f"tree): max diff {dmax}, differing fraction {frac:.3g} (bound {INT8_U8_MAX_DIFF} on under "
+          f"{INT8_U8_MAX_FRAC})", flush=True)
+    if dmax > INT8_U8_MAX_DIFF or frac >= INT8_U8_MAX_FRAC:
+        failures.append(f"int8 card vs CPU reference differ: max {dmax}, fraction {frac:.3g}")
+    _phase("3b engine timing and CPU references", t0)
     _phase("total", t_all)
 
     if failures:
         for f in failures:
             print(f"[chip_smoke] FAIL: {f}", file=sys.stderr, flush=True)
         return 1
-    print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu}), flush=True)
+    print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu,
+                      "int8_calib_source": res8.int8_calib_source, "int8_psnr_vs_f32": psnr8,
+                      "engine_s_per_image": {f: min(v) for f, v in secs.items()}}), flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

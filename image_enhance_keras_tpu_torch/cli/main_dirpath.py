@@ -22,7 +22,7 @@ _NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
 _PORTED_VALUES = {
     "model": ("didbl",),
     "mode": ("patch", "fast"),
-    "forward": ("xla", "pallas"),
+    "forward": ("xla", "pallas", "pallas_int8"),
     "dtype": ("float32",),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
@@ -37,7 +37,6 @@ _UNPORTED_FLAGS = {
     "internal_learn_lr": ("--internal-learn-lr", None),
     "pipeline": ("--pipeline", False),
     "int8_acc": ("--int8-acc", None),
-    "int8_calib_dir": ("--int8-calib-dir", None),
     "int8_emit": ("--int8-emit", None),
 }
 
@@ -51,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="patch: reference-exact overlapped tiling; fast: whole-frame forward")
     p.add_argument("--forward", default="xla",
                    choices=["xla", "int8", "pallas", "pallas_chain", "pallas_int8"],
-                   help="xla: the plain torch module; pallas: LR blocks on the CUDA kernels")
+                   help="xla: the plain torch module; pallas: LR blocks on the CUDA kernels; "
+                        "pallas_int8: every residual block on the int8 CUDA kernels")
     p.add_argument("--suffix", default="scaled", help="suffix of output images")
     p.add_argument("--patch_size", default=96, type=int, help="tile size (reference: 96)")
     p.add_argument("--step", default=64, type=int, help="tile step (reference: 64)")
@@ -66,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="final uint8 cast: round (half to even) or trunc (the reference's cast)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (cuda must be present unless cpu is asked for)")
+    p.add_argument("--int8-calib-dir", default=None,
+                   help="int8 forwards: calibrate activation scales on these images "
+                        "(default: the package-bundled photos, else procedural images)")
     # JAX flags that parse but are rejected below
     p.add_argument("--save_intermediate", default=False, action="store_true")
     p.add_argument("--devices", default=1, type=int)
@@ -77,7 +80,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--internal-learn-lr", type=float, default=None)
     p.add_argument("--pipeline", action="store_true")
     p.add_argument("--int8-acc", default=None, choices=["bf16", "s32", "f32"])
-    p.add_argument("--int8-calib-dir", default=None)
     p.add_argument("--int8-emit", default=None, choices=["wide", "s8"])
     return p
 
@@ -108,6 +110,8 @@ def main(argv=None) -> int:
         round_mode=args.round_mode,
         device=args.device,
     )
+    if args.int8_calib_dir:
+        resolver.int8_calib_dir = args.int8_calib_dir
     outs = resolver.upscale_dir(args.imgpath, suffix=args.suffix, scale_label=args.scale)
     log.info("wrote %d images", len(outs))
     return 0

@@ -1,0 +1,334 @@
+"""Procedural and bundled images for int8 calibration (mirror of ``data/pipeline.py``).
+
+Only what calibration needs is ported: ``builtin_photos`` (real photographs
+shipped inside installed packages), ``synthetic_images`` and the procedural
+corpus of ``rich_synthetic_images`` (dead leaves, pink noise, fibers).  All
+numpy, deterministic per (n, size, seed); the training data plane comes
+with the training slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from image_enhance_keras_tpu_torch.data.io import imread
+
+__all__ = [
+    "builtin_photos",
+    "synthetic_images",
+    "pink_noise_images",
+    "dead_leaves_images",
+    "fiber_images",
+    "rich_synthetic_images",
+]
+
+
+#: real photographs that ship INSIDE installed Python packages — the only
+#: natural-image data reachable in a zero-egress environment beyond the
+#: Set5 GTs themselves.  Each entry: (package, resource-relative path).
+_BUILTIN_PHOTO_SOURCES: tuple[tuple[str, str], ...] = (
+    # Temple of Heaven — architecture, roof-tile texture, foliage (640x427)
+    ("sklearn", "datasets/images/china.jpg"),
+    # flower macro — saturated color, soft gradients, fine stamens (640x427)
+    ("sklearn", "datasets/images/flower.jpg"),
+    # Grace Hopper portrait — face, skin, hair, glasses, fabric (512x600);
+    # the face/hair statistics the procedural corpus cannot synthesise
+    # (the LOO "head" fold is the measured weak spot, EVAL_LOO_*.json)
+    ("matplotlib", "mpl-data/sample_data/grace_hopper.jpg"),
+    # real photographic material textures bundled as simulator assets
+    # (RGB photos, not game art): leather/skin pore texture 1024²
+    ("gymnasium_robotics",
+     "envs/assets/adroit_hand/resources/textures/skin.png"),
+    # bamboo wood grain 1024² — fine directional high-frequency texture
+    ("gymnasium_robotics",
+     "envs/assets/kitchen_franka/kitchen_assets/textures/wood1.png"),
+    # blue mosaic tile 512² — saturated regular pattern with sharp edges
+    ("gymnasium_robotics",
+     "envs/assets/kitchen_franka/kitchen_assets/textures/tile1.png"),
+    # grass 512² — chaotic fine natural texture (fur/feather statistics)
+    ("dm_control",
+     "locomotion/arenas/assets/outdoor_natural/OutdoorGrassFloorD.png"),
+)
+
+
+def builtin_photos(min_side: int = 96) -> list[np.ndarray]:
+    """Real natural photographs bundled with installed packages, as RGB
+    uint8 arrays.  Sources whose package or file is absent are skipped, so
+    callers must handle an empty list.  These are not evaluation images
+    (Set5 stays the only eval set).
+    """
+    import importlib.util
+    import os
+
+    out: list[np.ndarray] = []
+    for pkg, rel in _BUILTIN_PHOTO_SOURCES:
+        try:
+            # find_spec locates the package directory WITHOUT executing the
+            # package (gymnasium_robotics/dm_control imports are heavy and
+            # side-effectful; we only want their bundled asset files)
+            spec = importlib.util.find_spec(pkg)
+            if spec is None or not spec.submodule_search_locations:
+                continue
+            pkg_dir = list(spec.submodule_search_locations)[0]
+            path = os.path.join(pkg_dir, *rel.split("/"))
+            if not os.path.exists(path):
+                continue
+            img = imread(path)
+        except Exception:
+            continue
+        if img.ndim == 3 and min(img.shape[:2]) >= min_side:
+            out.append(img)
+    return out
+
+
+def synthetic_images(n: int = 8, size: int = 128, seed: int = 0) -> list[np.ndarray]:
+    """Structured synthetic HR images (gradients + edges + texture) for smoke
+    training when no dataset is mounted."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+        img = np.stack(
+            [
+                127 + 80 * np.sin(2 * np.pi * (rng.uniform(1, 4) * xx + rng.uniform())),
+                127 + 80 * np.cos(2 * np.pi * (rng.uniform(1, 4) * yy + rng.uniform())),
+                255 * ((xx * rng.uniform(2, 8)).astype(int) % 2 == 0),
+            ],
+            axis=-1,
+        )
+        img += rng.normal(0, 8, img.shape)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def pink_noise_images(
+    n: int = 8, size: int = 256, seed: int = 0
+) -> list[np.ndarray]:
+    """1/f^alpha ("pink") random fields with channel-correlated color.
+
+    Natural images have ~1/f amplitude spectra; training a restorer on
+    spectra-matched noise teaches broadband texture statistics that the
+    sinusoid/stripe corpus (synthetic_images) lacks.
+    """
+    rng = np.random.default_rng(seed)
+    fy = np.fft.fftfreq(size)[:, None]
+    fx = np.fft.rfftfreq(size)[None, :]
+    rad = np.sqrt(fy * fy + fx * fx)
+    rad[0, 0] = 1.0
+    out = []
+    for _ in range(n):
+        alpha = rng.uniform(0.8, 1.5)
+        amp = rad ** (-alpha)
+        fields = []
+        for _c in range(3):
+            phase = rng.standard_normal((size, size))
+            f = np.fft.irfft2(np.fft.rfft2(phase) * amp, s=(size, size))
+            f = (f - f.mean()) / (f.std() + 1e-8)
+            fields.append(f)
+        fields = np.stack(fields, axis=-1)
+        # luminance-correlated color: mostly-shared field + per-channel part
+        w = rng.uniform(0.6, 0.95)
+        shared = fields[..., :1]
+        img = 127.0 + rng.uniform(30, 55) * (
+            w * shared + (1.0 - w) * fields
+        )
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def dead_leaves_images(
+    n: int = 8,
+    size: int = 256,
+    seed: int = 0,
+    palette_images: list[np.ndarray] | None = None,
+    textured: bool = True,
+) -> list[np.ndarray]:
+    """Dead-leaves occlusion images: disks with a power-law (r^-3) radius
+    distribution painted back-to-front — the classic scale-invariant model
+    of natural-image edge/occlusion statistics (used for fully-synthetic
+    restoration training).  ``palette_images`` supplies realistic colors
+    (pixels sampled from those images — pass the TRAIN-side images only in
+    held-out protocols); ``textured`` shades each disk with a random linear
+    gradient so cells carry low-frequency content, and ~half the images get
+    a 0.5 px blur so edges are not all perfectly sharp.
+    """
+    rng = np.random.default_rng(seed)
+    rmin, rmax = 4.0, size / 2.0
+    a2, b2 = rmin**-2, rmax**-2
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    pal = None
+    if palette_images:
+        cols = [
+            im.reshape(-1, 3)[rng.integers(0, im.shape[0] * im.shape[1], 4096)]
+            for im in palette_images
+        ]
+        pal = np.concatenate(cols, axis=0).astype(np.float32)
+    out = []
+    for _ in range(n):
+        img = np.empty((size, size, 3), np.float32)
+        img[:] = rng.uniform(0, 255, 3)
+        covered = np.zeros((size, size), bool)
+        for _d in range(600):
+            u = rng.random()
+            r = float((a2 - u * (a2 - b2)) ** -0.5)
+            cy, cx = rng.uniform(-r, size + r), rng.uniform(-r, size + r)
+            y0, y1 = max(int(cy - r), 0), min(int(cy + r) + 1, size)
+            x0, x1 = max(int(cx - r), 0), min(int(cx + r) + 1, size)
+            if y0 >= y1 or x0 >= x1:
+                continue
+            m = (yy[y0:y1, x0:x1] - cy) ** 2 + (xx[y0:y1, x0:x1] - cx) ** 2 <= r * r
+            if not m.any():
+                continue
+            if pal is not None:
+                col = pal[rng.integers(0, len(pal))]
+            else:
+                col = rng.uniform(0, 255, 3).astype(np.float32)
+            patch = np.broadcast_to(col, (y1 - y0, x1 - x0, 3)).copy()
+            if textured:
+                gy, gx = rng.uniform(-1, 1, 2)
+                ramp = (
+                    gy * (yy[y0:y1, x0:x1] - cy) + gx * (xx[y0:y1, x0:x1] - cx)
+                ) / max(r, 1.0)
+                patch = patch + rng.uniform(5, 30) * ramp[..., None]
+            img[y0:y1, x0:x1][m] = patch[m]
+            covered[y0:y1, x0:x1] |= m
+            if _d % 50 == 49 and covered.all():
+                break
+        if rng.random() < 0.5:
+            # separable [1 2 1]/4 blur ~ 0.5 px: sub-pixel-soft edges
+            k = np.array([0.25, 0.5, 0.25], np.float32)
+            img = np.apply_along_axis(
+                lambda v: np.convolve(v, k, mode="same"), 0, img
+            )
+            img = np.apply_along_axis(
+                lambda v: np.convolve(v, k, mode="same"), 1, img
+            )
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def fiber_images(
+    n: int = 8,
+    size: int = 256,
+    seed: int = 0,
+    palette_images: list[np.ndarray] | None = None,
+) -> list[np.ndarray]:
+    """Hair/fur-like fiber fields: anti-aliased strands integrated along a
+    smooth orientation field over a soft skin-tone background.
+
+    Motivation: the LOO "head" fold (skin + fine hair) is the held-out
+    floor (EVAL.md) — dead-leaves/pink-noise statistics carry occlusion
+    edges and broadband texture but no long thin ANISOTROPIC structures,
+    which is exactly what x4 SR must hallucinate on hair.  Strand colors
+    jitter around a base sampled from ``palette_images`` (train-side only
+    in held-out protocols) or a brown/grey range.
+    """
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    pal = None
+    if palette_images:
+        cols = [
+            im.reshape(-1, 3)[rng.integers(0, im.shape[0] * im.shape[1], 2048)]
+            for im in palette_images
+        ]
+        pal = np.concatenate(cols, axis=0).astype(np.float32)
+    out = []
+    for _ in range(n):
+        # soft background: two palette (or skin-range) colors in a smooth ramp
+        if pal is not None:
+            c0, c1 = pal[rng.integers(0, len(pal), 2)]
+        else:
+            c0 = np.array([rng.uniform(120, 220)] * 3) * np.array([1.0, 0.85, 0.7])
+            c1 = c0 * rng.uniform(0.6, 1.1)
+        gdir = rng.uniform(0, 2 * np.pi)
+        t = (np.cos(gdir) * xx + np.sin(gdir) * yy)[..., None]
+        t = (t - t.min()) / (np.ptp(t) + 1e-8)
+        img = (1 - t) * c0 + t * c1
+        # smooth orientation field: low-frequency sinusoid mix
+        th0 = rng.uniform(0, np.pi)
+        theta = th0 + rng.uniform(0.2, 0.9) * (
+            np.sin(2 * np.pi * (rng.uniform(0.5, 2) * xx + rng.uniform()))
+            + np.cos(2 * np.pi * (rng.uniform(0.5, 2) * yy + rng.uniform()))
+        ) * 0.5
+        # strand base color: dark fiber tone (palette-shaded)
+        if pal is not None:
+            base = pal[rng.integers(0, len(pal))] * rng.uniform(0.25, 0.7)
+        else:
+            base = np.array([rng.uniform(20, 90)]) * np.array([1.0, 0.8, 0.6])
+        n_strands = int(rng.integers(250, 500))
+        length = int(rng.integers(60, 160))
+        pos = rng.uniform(0, size - 1, (n_strands, 2)).astype(np.float32)
+        shade = rng.uniform(0.6, 1.5, (n_strands, 1)).astype(np.float32)
+        cols_s = np.clip(base[None, :] * shade, 0, 255)
+        alpha = rng.uniform(0.25, 0.6)
+        canvas = img.copy()
+        for _step in range(length):
+            iy = np.clip(pos[:, 0].astype(np.int32), 0, size - 1)
+            ix = np.clip(pos[:, 1].astype(np.int32), 0, size - 1)
+            ang = theta[iy, ix] + rng.normal(0, 0.03, n_strands)
+            pos[:, 0] += np.sin(ang)
+            pos[:, 1] += np.cos(ang)
+            fy, fx = pos[:, 0], pos[:, 1]
+            inside = (fy >= 0) & (fy < size - 1) & (fx >= 0) & (fx < size - 1)
+            if not inside.any():
+                break
+            fy, fx, c = fy[inside], fx[inside], cols_s[inside]
+            y0, x0 = fy.astype(np.int32), fx.astype(np.int32)
+            wy, wx = fy - y0, fx - x0
+            # bilinear splat (anti-aliased sub-pixel strand deposition)
+            for dy, dx, w in (
+                (0, 0, (1 - wy) * (1 - wx)),
+                (0, 1, (1 - wy) * wx),
+                (1, 0, wy * (1 - wx)),
+                (1, 1, wy * wx),
+            ):
+                a = (alpha * w)[:, None]
+                np.add.at(
+                    canvas,
+                    (y0 + dy, x0 + dx),
+                    a * (c - canvas[y0 + dy, x0 + dx]),
+                )
+        # half get sub-pixel softening like the dead-leaves corpus
+        if rng.random() < 0.5:
+            k = np.array([0.25, 0.5, 0.25], np.float32)
+            canvas = np.apply_along_axis(
+                lambda v: np.convolve(v, k, mode="same"), 0, canvas
+            )
+            canvas = np.apply_along_axis(
+                lambda v: np.convolve(v, k, mode="same"), 1, canvas
+            )
+        out.append(np.clip(canvas, 0, 255).astype(np.uint8))
+    return out
+
+
+def rich_synthetic_images(
+    n: int = 48,
+    size: int = 256,
+    seed: int = 0,
+    palette_images: list[np.ndarray] | None = None,
+    fibers: bool = False,
+) -> list[np.ndarray]:
+    """Mixed procedural corpus for training without a mounted dataset:
+    1/2 textured dead-leaves (occlusion edges at all scales), 1/4 pink
+    noise (natural spectra), 1/8 sharp dead-leaves, 1/8 legacy
+    sinusoid/stripe textures.  Deterministic per (n, size, seed).
+
+    ``fibers=True`` re-allocates a quarter of the dead-leaves share to
+    hair/fur-like fiber fields (fiber_images) — anisotropic thin
+    structures the default mix lacks; kept opt-in so recorded protocols
+    (EVAL_LOO_RICH.json) stay reproducible."""
+    n_fib = n // 4 if fibers else 0
+    n_dl = n // 2 - n_fib
+    n_pink = n // 4
+    n_sharp = n // 8
+    n_legacy = n - n_dl - n_fib - n_pink - n_sharp
+    imgs = (
+        dead_leaves_images(n_dl, size, seed, palette_images, textured=True)
+        + fiber_images(n_fib, size, seed + 4, palette_images)
+        + pink_noise_images(n_pink, size, seed + 1)
+        + dead_leaves_images(
+            n_sharp, size, seed + 2, palette_images, textured=False
+        )
+        + synthetic_images(n_legacy, size, seed + 3)
+    )
+    return imgs

@@ -9,7 +9,9 @@ Per image, on the resolver's device:
 (``mode='patch'``, the reference's overlapped tiling), or the generator
 over the whole frame (``mode='fast'``).  ``forward='xla'`` runs the
 ``nn.Module``; ``forward='pallas'`` runs ``apply_didbl_pallas``, whose LR
-blocks are the CUDA kernels.  Float32 only; TF32 is switched off.
+blocks are the CUDA kernels; ``forward='pallas_int8'`` runs
+``apply_didbl_int8`` on a one-time quantized tree (``_fwd_params``), every
+residual block on the int8 kernels.  Float32 weights; TF32 is switched off.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class SuperResolver:
     ):
         self.device = resolve_device(device)
         disable_tf32()
-        if forward not in ("xla", "pallas"):
+        if forward not in ("xla", "pallas", "pallas_int8"):
             raise NotImplementedError(f"forward={forward!r} {_NOT_PORTED}")
         if mode not in ("patch", "fast"):
             raise NotImplementedError(f"mode={mode!r} {_NOT_PORTED}")
@@ -103,7 +105,7 @@ class SuperResolver:
             self.module, self.spec = module_and_spec
         else:
             self.module, self.spec = get_model(model, dtype=dtype)
-        if forward == "pallas" and not model.startswith("didbl"):
+        if forward.startswith("pallas") and not model.startswith("didbl"):
             raise ValueError("pallas forwards are implemented for the didbl family")
         self._dtype = dtype
         self.forward_mode = forward
@@ -126,6 +128,9 @@ class SuperResolver:
             if weights is not None:
                 self.load_weights(weights)
         self.params = params_of_module(self.module)
+        self._qparams = None
+        self._calib_x = None
+        self.int8_calib_source: str | None = None
 
     # ------------------------------------------------------------------
     # weights
@@ -138,6 +143,7 @@ class SuperResolver:
 
         load_params(self.module, load_params_npz(path))
         self.params = params_of_module(self.module)
+        self._qparams = None  # re-quantize int8 weights on next use
 
     # ------------------------------------------------------------------
     # tiled pipeline
@@ -165,7 +171,16 @@ class SuperResolver:
         return run
 
     def _forward_fn(self) -> Callable:
-        """params, (N,h,w,3) [0,1] -> (N,sh,sw,3): the module or the kernel forward."""
+        """params, (N,h,w,3) [0,1] -> (N,sh,sw,3): the module or a kernel forward."""
+        if self.forward_mode == "pallas_int8":
+            from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_int8
+
+            m = self.module
+            if getattr(m, "upsampler", "tf1_bilinear") != "tf1_bilinear":
+                raise ValueError("pallas_int8 supports the tf1_bilinear head")
+            return lambda qp, b: apply_didbl_int8(
+                qp, b, n_body53=m.n_body53, n_light=m.n_light, n_tail53=m.n_tail53, scale=m.scale,
+            )
         if self.forward_mode == "pallas":
             from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_pallas
 
@@ -194,6 +209,138 @@ class SuperResolver:
 
         return run
 
+    # ------------------------------------------------------------------
+    # int8 serving parameters
+    # ------------------------------------------------------------------
+    #: int8 calibration source:
+    #:   "images"      (default): serving-distribution LR crops of real
+    #:                 images, from ``int8_calib_dir`` when set, else the
+    #:                 package-bundled photos (never eval images), else
+    #:                 procedural dead-leaves / pink-noise images;
+    #:   "synthetic"   4 deterministic procedural tiles;
+    #:   "first_frame" a central crop of the first frame served.
+    int8_calib: str = "images"
+    #: image directory for int8_calib="images" (None: the bundled photos)
+    int8_calib_dir: str | None = None
+
+    def _calib_from_images(self) -> torch.Tensor | None:
+        """(N, s, s, 3) [0,1] calibration inputs from ``int8_calib_dir``, or None."""
+        from image_enhance_keras_tpu_torch.utils.paths import find_repo_asset
+
+        if not self.int8_calib_dir:
+            return None
+        calib_dir = find_repo_asset(self.int8_calib_dir)  # CWD-independent
+        if calib_dir is None:
+            return None
+        try:
+            paths = [p for p in list_images(calib_dir) if "scaled" not in os.path.basename(p)]
+        except OSError:
+            return None
+        s = self._calib_scale()
+        imgs = []
+        for p in paths:
+            # cap after the usability filter: small files must not use up the cap
+            if len(imgs) >= 8:
+                break
+            try:
+                img = np.asarray(imread(p))
+            except (OSError, ValueError):
+                continue
+            if min(img.shape[:2]) < s * 16:
+                continue
+            imgs.append(img)
+        return self._calib_from_arrays(imgs, s)
+
+    def _calib_scale(self) -> int:
+        """Degradation factor of the serving distribution: the net's own scale."""
+        if self.spec.pre_upscaled_input:
+            raise NotImplementedError(f"int8 calibration of pre-upscaled-input models {_NOT_PORTED}")
+        return max(1, int(self.spec.net_scale))
+
+    def _calib_from_arrays(self, imgs, s: int) -> torch.Tensor | None:
+        """HR uint8 arrays -> (N, cs, cs, 3) [0,1] LR crops: central crop to a
+        multiple of ``s``, PIL-bicubic /s, common central square of at most 128."""
+        from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
+
+        crops = []
+        for img in imgs:
+            h, w = img.shape[:2]
+            if min(h, w) < s * 16:
+                continue
+            hh, ww = (h // s) * s, (w // s) * s
+            img = img[(h - hh) // 2 : (h - hh) // 2 + hh, (w - ww) // 2 : (w - ww) // 2 + ww]
+            crops.append(resize_pil_uint8(torch.from_numpy(np.array(img)), (hh // s, ww // s)).numpy())
+        if not crops:
+            return None
+        cs = min(min(min(c.shape[0], c.shape[1]) for c in crops), 128)
+        crops = [
+            c[(c.shape[0] - cs) // 2 : (c.shape[0] - cs) // 2 + cs,
+              (c.shape[1] - cs) // 2 : (c.shape[1] - cs) // 2 + cs]
+            for c in crops
+        ]
+        return torch.from_numpy(np.stack(crops).astype(np.float32)) / 255.0
+
+    def _maybe_calibrate_int8(self, img_u8: np.ndarray) -> None:
+        """First-frame int8 calibration (``int8_calib="first_frame"``)."""
+        if self.int8_calib != "first_frame" or self.forward_mode != "pallas_int8":
+            return
+        if self._qparams is not None:
+            return
+        h, w = img_u8.shape[:2]
+        ch, cw = min(h, 128), min(w, 128)
+        y0, x0 = (h - ch) // 2, (w - cw) // 2
+        crop = np.asarray(img_u8[y0 : y0 + ch, x0 : x0 + cw], np.float32)
+        self._calib_x = torch.from_numpy(crop)[None] / 255.0
+
+    def _calibration_input(self) -> torch.Tensor:
+        """The calibration batch, by ``int8_calib``, with its fallbacks.
+
+        Logs the source and keeps it in ``int8_calib_source``."""
+        from image_enhance_keras_tpu_torch.data.pipeline import (
+            builtin_photos,
+            rich_synthetic_images,
+            synthetic_images,
+        )
+
+        calib, src = None, "central crop of the first frame"
+        if self._calib_x is not None:
+            calib = self._calib_x
+        elif self.int8_calib == "images":
+            calib, src = self._calib_from_images(), f"images under {self.int8_calib_dir!r}"
+            if calib is None:
+                photos = builtin_photos()
+                src = "package-bundled real photos" if photos else "procedural dead-leaves images"
+                if self.int8_calib_dir:
+                    log.warning("int8_calib='images' but no usable images under %r; calibrating on %s",
+                                self.int8_calib_dir, src)
+                if photos:
+                    calib = self._calib_from_arrays(photos, self._calib_scale())
+                if calib is None:
+                    src = "procedural dead-leaves images"
+                    calib = self._calib_from_arrays(rich_synthetic_images(8, 256, seed=17),
+                                                    self._calib_scale())
+        if calib is None:
+            src = "synthetic 128x128 tiles"
+            calib = torch.from_numpy(np.stack(synthetic_images(4, 128)).astype(np.float32)) / 255.0
+        self.int8_calib_source = src
+        log.info("int8 calibration: %s, %d x %dx%d", src, *calib.shape[:3])
+        return calib
+
+    def _fwd_params(self) -> Any:
+        """Tree fed to the forward: the float params, or for ``pallas_int8``
+        the one-time quantized tree with calibrated activation scales."""
+        if self.forward_mode != "pallas_int8":
+            return self.params
+        if self._qparams is None:
+            from image_enhance_keras_tpu_torch.models.didbl_pallas import quantize_didbl_params
+
+            m = self.module
+            self._qparams = quantize_didbl_params(
+                self.params, n_body53=m.n_body53, n_light=m.n_light, n_tail53=m.n_tail53,
+                calib_x=self._calibration_input().to(self.device), scale=m.scale,
+            )
+        return self._qparams
+
     def plan_for(self, height: int, width: int) -> TilePlan:
         return plan_tiles(height, width, patch=self.patch, step=self.step,
                           scale=self.spec.net_scale, crop=self.crop)
@@ -205,17 +352,18 @@ class SuperResolver:
     def upscale(self, img: np.ndarray) -> np.ndarray:
         """uint8 RGB (H, W, 3) -> uint8 RGB x4 (``mode`` 'patch' or 'fast')."""
         img = np.ascontiguousarray(img)
+        self._maybe_calibrate_int8(img)
         x = torch.tensor(img, device=self.device)
         if self.mode == "fast":
             if img.shape[0] * img.shape[1] <= self.fast_max_pixels:
-                return self._fast_fn()(self.params, x).cpu().numpy()
+                return self._fast_fn()(self._fwd_params(), x).cpu().numpy()
             log.warning(
                 "mode='fast' frame %dx%d exceeds fast_max_pixels=%d; falling back to the "
                 "tiled patch pipeline (interior-identical, borders differ within the conv "
                 "receptive field)", img.shape[1], img.shape[0], self.fast_max_pixels,
             )
         plan = self.plan_for(img.shape[0], img.shape[1])
-        return self._pipeline_for(plan)(self.params, x).cpu().numpy()
+        return self._pipeline_for(plan)(self._fwd_params(), x).cpu().numpy()
 
     def upscale_file(self, img_path: str, suffix: str = "scaled", scale_label: int = 1) -> str:
         t0 = time.time()

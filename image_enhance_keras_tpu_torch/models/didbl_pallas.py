@@ -1,11 +1,20 @@
-"""Kernel forward of the didbl generator (mirror of ``apply_didbl_pallas``).
+"""Kernel forwards of the didbl generator (mirror of ``models/didbl_pallas.py``).
 
-Runs the DifvdsrDouble graph over the same parameter tree with the 16
-Light53 and 6 Light LR blocks on the CUDA kernels of ``ops/cuda/blocks.py``.
-The 1x1 ``level1`` conv, the TF1 x4 (as two dense contractions), the two
-HR Light53 blocks and the 3x3 ``out`` conv are plain torch, as the JAX
-version leaves them to XLA.  On CPU tensors the block wrappers run their
-plain versions.
+``apply_didbl_pallas`` runs the DifvdsrDouble graph over the same parameter
+tree with the 16 Light53 and 6 Light LR blocks on the CUDA kernels of
+``ops/cuda/blocks.py``.  The 1x1 ``level1`` conv, the TF1 x4 (as two dense
+contractions), the two HR Light53 blocks and the 3x3 ``out`` conv are plain
+torch, as the JAX version leaves them to XLA.
+
+The int8 serving path (``--forward pallas_int8``): ``quantize_didbl_params``
+turns the tree into int8 weights with per-channel scales and, given a
+calibration input, static activation scales from
+``calibrate_didbl_act_scales``; ``apply_didbl_int8`` then runs every
+residual block, the two HR tail blocks included, on the int8 kernels of
+``ops/cuda/int8_blocks.py``, with bf16 activations between blocks and the
+x4 through ``ops.resize.upsample_phase_tf1``.
+
+On CPU tensors the kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -17,13 +26,28 @@ import torch
 from image_enhance_keras_tpu_torch.models.blocks import check_profile
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
 from image_enhance_keras_tpu_torch.ops.cuda.blocks import fused_light53_block, fused_light_block
-from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1
+from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import (
+    light53_int8,
+    light_int8,
+    quantize_weights_per_channel,
+)
+from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1, upsample_phase_tf1
 
-__all__ = ["apply_didbl_pallas"]
+__all__ = [
+    "apply_didbl_pallas",
+    "calibrate_didbl_act_scales",
+    "quantize_didbl_params",
+    "apply_didbl_int8",
+    "apply_didbl_int8_body",
+    "apply_didbl_int8_tail",
+]
+
+_SUBPIXEL_NOT_PORTED = "upsampler='subpixel' is not yet ported in image_enhance_keras_tpu_torch"
 
 
 def _conv(x: torch.Tensor, p: dict) -> torch.Tensor:
-    return conv2d_nhwc(x, p["kernel"]) + p["bias"]
+    """SAME conv in x's dtype (kernel and bias cast to it) plus bias."""
+    return conv2d_nhwc(x, p["kernel"].to(x.dtype)) + p["bias"].to(x.dtype)
 
 
 def _light53(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -67,3 +91,149 @@ def apply_didbl_pallas(params: Any, x: torch.Tensor, dtype: Any = None, n_body53
     for i in range(n_tail53):
         h = _light53_xla(h, params[f"tail53_{i}"])
     return torch.relu(_conv(h, params["out"]))
+
+
+# ---------------------------------------------------------------------------
+# int8 serving path (ops/cuda/int8_blocks.py)
+# ---------------------------------------------------------------------------
+
+def calibrate_didbl_act_scales(params: Any, x: torch.Tensor, n_body53: int = 16, n_light: int = 6,
+                               n_tail53: int = 2, scale: int = 4,
+                               per_channel: bool = False, upsampler: str = "tf1_bilinear") -> dict:
+    """Activation scales for the int8 path: float32 abs-max / 127 at every
+    quantization point (each block's input and each branch's post-relu
+    intermediate) of the didbl graph run on ``x``.  Returns
+    {block_name: {"x": s, "a": s, "b": s}} for Light53 blocks and
+    {"x": s, "t": s} for Light blocks; ``per_channel`` gives (C,) vectors."""
+    if upsampler != "tf1_bilinear":
+        raise NotImplementedError(_SUBPIXEL_NOT_PORTED)
+    scales: dict = {}
+
+    def amax(t):
+        m = t.abs().amax(dim=tuple(range(t.dim() - 1))) if per_channel else t.abs().amax()
+        return torch.clamp_min(m, 1e-6) * (1.0 / 127.0)
+
+    def l53(h, p, name):
+        a = torch.relu(_conv(h, p["conv_a1"]))
+        b = torch.relu(_conv(h, p["conv_b1"]))
+        scales[name] = {"x": amax(h), "a": amax(a), "b": amax(b)}
+        a = _conv(a, p["conv_a2"])
+        b = _conv(b, p["conv_b2"])
+        return 0.9 * h + 0.1 * (a + b)
+
+    def light(h, p, name):
+        t = torch.relu(_conv(h, p["conv_a"]))
+        scales[name] = {"x": amax(h), "t": amax(t)}
+        return h + 0.1 * _conv(t, p["conv_b"])
+
+    h = torch.relu(_conv(x.to(torch.float32), params["level1"]))
+    for i in range(n_body53):
+        h = l53(h, params[f"body53_{i}"], f"body53_{i}")
+    for i in range(n_light):
+        h = light(h, params[f"light_{i}"], f"light_{i}")
+    h = upsample_phase_tf1(h, scale)
+    for i in range(n_tail53):
+        h = l53(h, params[f"tail53_{i}"], f"tail53_{i}")
+    return scales
+
+
+def quantize_didbl_params(params: Any, n_body53: int = 16, n_light: int = 6, n_tail53: int = 2,
+                          calib_x: torch.Tensor | None = None, scale: int = 4,
+                          upsampler: str = "tf1_bilinear") -> dict:
+    """One-time weight quantization: every residual-block conv becomes
+    {"q": int8 HWIO, "s": (Cout,) scale, "bias"}; level1/out stay float.
+
+    With ``calib_x`` ((N, H, W, 3) in [0, 1]) each block also gets "act"
+    (stacked per-tensor scales, what the kernels take), "actc" (per-channel
+    scale vectors) and, per conv, "qf"/"sf": the weights with the input
+    channel scales folded in (conv(x, w) = conv(x / s_c, w * s_c)), which the
+    XLA-style int8 path of the JAX package consumes."""
+    if upsampler != "tf1_bilinear":
+        raise NotImplementedError(_SUBPIXEL_NOT_PORTED)
+
+    def qconv(p):
+        q, s = quantize_weights_per_channel(p["kernel"])
+        return {"q": q, "s": s, "bias": p["bias"].to(torch.float32)}
+
+    def fold(entry, p, s_in):
+        entry["qf"], entry["sf"] = quantize_weights_per_channel(
+            p["kernel"].to(torch.float32) * s_in[None, None, :, None])
+
+    actc = (
+        calibrate_didbl_act_scales(params, calib_x, n_body53=n_body53, n_light=n_light,
+                                   n_tail53=n_tail53, scale=scale, per_channel=True)
+        if calib_x is not None
+        else {}
+    )
+    out = {"level1": params["level1"], "out": params["out"]}
+    for prefix, n in (("body53", n_body53), ("tail53", n_tail53)):
+        for i in range(n):
+            name = f"{prefix}_{i}"
+            blk = params[name]
+            out[name] = {k: qconv(blk[k]) for k in ("conv_a1", "conv_a2", "conv_b1", "conv_b2")}
+            if name in actc:
+                sc = actc[name]
+                out[name]["actc"] = sc
+                out[name]["act"] = torch.stack([sc["x"].max(), sc["a"].max(), sc["b"].max()])
+                fold(out[name]["conv_a1"], blk["conv_a1"], sc["x"])
+                fold(out[name]["conv_a2"], blk["conv_a2"], sc["a"])
+                fold(out[name]["conv_b1"], blk["conv_b1"], sc["x"])
+                fold(out[name]["conv_b2"], blk["conv_b2"], sc["b"])
+    for i in range(n_light):
+        name = f"light_{i}"
+        blk = params[name]
+        out[name] = {k: qconv(blk[k]) for k in ("conv_a", "conv_b")}
+        if name in actc:
+            sc = actc[name]
+            out[name]["actc"] = sc
+            out[name]["act"] = torch.stack([sc["x"].max(), sc["t"].max()])
+            fold(out[name]["conv_a"], blk["conv_a"], sc["x"])
+            fold(out[name]["conv_b"], blk["conv_b"], sc["t"])
+    return out
+
+
+def _light53_i8(x: torch.Tensor, p: dict, tile: tuple[int, int]) -> torch.Tensor:
+    return light53_int8(
+        x,
+        p["conv_a1"]["q"], p["conv_a1"]["s"], p["conv_a1"]["bias"],
+        p["conv_a2"]["q"], p["conv_a2"]["s"], p["conv_a2"]["bias"],
+        p["conv_b1"]["q"], p["conv_b1"]["s"], p["conv_b1"]["bias"],
+        p["conv_b2"]["q"], p["conv_b2"]["s"], p["conv_b2"]["bias"],
+        res_scale=0.1, identity_scale=0.9, tile=tile, act_scales=p.get("act"),
+    )
+
+
+def apply_didbl_int8_body(qparams: Any, x: torch.Tensor, n_body53: int = 16, n_light: int = 6,
+                          tile: tuple[int, int] = (64, 128)) -> torch.Tensor:
+    """int8 pre-upsample tower at LR: bf16 level1 + relu, then the int8 blocks."""
+    h = torch.relu(_conv(x.to(torch.bfloat16), qparams["level1"]))
+    for i in range(n_body53):
+        h = _light53_i8(h, qparams[f"body53_{i}"], tile)
+    for i in range(n_light):
+        p = qparams[f"light_{i}"]
+        h = light_int8(
+            h,
+            p["conv_a"]["q"], p["conv_a"]["s"], p["conv_a"]["bias"],
+            p["conv_b"]["q"], p["conv_b"]["s"], p["conv_b"]["bias"],
+            res_scale=0.1, tile=tile, act_scales=p.get("act"),
+        )
+    return h
+
+
+def apply_didbl_int8_tail(qparams: Any, h: torch.Tensor, n_tail53: int = 2, scale: int = 4,
+                          tile: tuple[int, int] = (64, 128)) -> torch.Tensor:
+    """bf16 x4 upsample, the int8 HR Light53 blocks, bf16 out conv + relu -> float32."""
+    h = upsample_phase_tf1(h.to(torch.bfloat16), scale)
+    for i in range(n_tail53):
+        h = _light53_i8(h, qparams[f"tail53_{i}"], tile)
+    return torch.relu(_conv(h, qparams["out"])).to(torch.float32)
+
+
+def apply_didbl_int8(qparams: Any, x: torch.Tensor, n_body53: int = 16, n_light: int = 6,
+                     n_tail53: int = 2, scale: int = 4,
+                     tile: tuple[int, int] = (64, 128)) -> torch.Tensor:
+    """(N, H, W, 3) [0,1] -> (N, 4H, 4W, 3): the didbl graph with every
+    residual block on the int8 kernels; identity paths carry no quantization
+    error, activations are bf16 between blocks."""
+    h = apply_didbl_int8_body(qparams, x, n_body53=n_body53, n_light=n_light, tile=tile)
+    return apply_didbl_int8_tail(qparams, h, n_tail53=n_tail53, scale=scale, tile=tile)

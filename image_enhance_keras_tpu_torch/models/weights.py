@@ -20,15 +20,21 @@ __all__ = ["params_from_numpy", "flatten_params", "load_params", "params_of_modu
 
 
 def params_from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
-    """Nested dict of arrays -> the same dict of float32 tensors on ``device``.
+    """Nested dict of arrays -> the same dict of tensors on ``device``.
 
-    The committed demo checkpoints store fp16; every leaf comes back float32.
+    Float leaves come back float32 (the committed demo checkpoints store
+    fp16); int8 leaves stay int8, so a quantized tree of the JAX package
+    (``quantize_didbl_params``: "q"/"qf" int8 codes beside float32 "s",
+    "sf", "bias", "act", "actc") carries over as the port's.
     """
     if hasattr(tree, "items"):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to(device=device, dtype=torch.float32).contiguous()
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+        dtype = torch.int8 if tree.dtype == torch.int8 else torch.float32
+        return tree.detach().to(device=device, dtype=dtype).contiguous()
+    arr = np.asarray(tree)
+    arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr)).to(device)
 
 
 def flatten_params(tree: Any, prefix: str = "") -> dict[str, Any]:

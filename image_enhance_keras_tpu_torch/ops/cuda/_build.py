@@ -34,6 +34,13 @@ SIGNATURES = {
         "iek_light53_block": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
         "iek_light_block": [_P] * 7 + [_I] * 4 + [_F, _P],
     },
+    "int8_blocks": {
+        "iek_light53_int8": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
+        "iek_light_int8": [_P] * 10 + [_I] * 4 + [_F, _P],
+    },
+    "upsample": {
+        "iek_upsample_phase_tf1": [_P, _P] + [_I] * 6 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,74 @@
+"""TF1 integer-factor bilinear upsample: the CUDA kernel and its autograd wrapper.
+
+Counterpart of ``ops/pallas/upsample.py``.  ``upsample_phase_tf1_kernel``
+takes (N, H, W, C) float32 or bfloat16 on a CUDA device, any factor and any
+H and W, and launches ``csrc/upsample.cu``, bit-identical to the plain phase
+construction ``ops.resize.upsample_phase_plain``; it counts its launches in
+``.launches``.  It has no CPU path: ``ops.resize.upsample_phase_tf1``
+dispatches here only for CUDA tensors.
+
+The op is linear and JAX has no backward kernel for it (``_upsample_pallas_ad``
+differentiates the XLA construction); likewise the backward here is the
+transpose of the plain construction, taken by autograd.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from image_enhance_keras_tpu_torch.ops.cuda import _build
+
+__all__ = ["upsample_phase_tf1_kernel"]
+
+
+def _launch(x: torch.Tensor, f: int) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"the upsample kernel runs on cuda tensors, not {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, C), got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the upsample kernel takes float32 or bfloat16, got {x.dtype}")
+    n, h, w, c = (int(s) for s in x.shape)
+    vec = 16 // x.element_size()
+    if c % vec:
+        raise ValueError(f"the upsample kernel needs C % {vec} == 0 for {x.dtype}, got C={c}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("the upsample kernel takes contiguous, 16-byte aligned tensors")
+    lib = _build.library("upsample")
+    out = torch.empty((n, f * h, f * w, c), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        code = lib.iek_upsample_phase_tf1(
+            x.data_ptr(), out.data_ptr(), n, h, w, c, f, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, code, "upsample_phase_tf1")
+    upsample_phase_tf1_kernel.launches += 1
+    return out
+
+
+class _Upsample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, f):
+        ctx.f = f
+        ctx.shape = x.shape
+        return _launch(x, f)
+
+    @staticmethod
+    def backward(ctx, g):
+        from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
+
+        with torch.enable_grad():
+            z = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device, requires_grad=True)
+            (grad,) = torch.autograd.grad(upsample_phase_plain(z, ctx.f), z, g)
+        return grad, None
+
+
+def upsample_phase_tf1_kernel(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, f*H, f*W, C) on the CUDA kernel, differentiable."""
+    f = int(factor)
+    if f == 1:
+        return x
+    return _Upsample.apply(x, f)
+
+
+upsample_phase_tf1_kernel.launches = 0

@@ -1,9 +1,13 @@
-"""TF1 bilinear resampling (mirror of ``ops/resize.py``, the didbl subset).
+"""TF1 bilinear and PIL bicubic resampling (mirror of ``ops/resize.py``, a subset).
 
 ``resize_bilinear_tf1`` is the in-network x4 of the ``pallas`` forward: two
 float32 contractions with dense (out, in) weight matrices built in numpy.
-``upsample_phase_tf1`` is the closed form the module forward uses: per axis
-``out[f*k + r] = (1 - r/f)*in[k] + (r/f)*in[k+1]``, last row clamped.
+``upsample_phase_tf1`` is the closed form the module and int8 forwards use:
+per axis ``out[f*k + r] = (1 - r/f)*in[k] + (r/f)*in[k+1]``, last row
+clamped; on a CUDA tensor it runs on the CUDA kernel
+(``ops/cuda/upsample.py``), on a CPU tensor the plain construction.  ``resize_pil_uint8`` is
+PIL's uint8 bicubic resampling, which int8 calibration uses to degrade
+images to the serving distribution.
 """
 
 from __future__ import annotations
@@ -17,33 +21,68 @@ __all__ = [
     "resize_weight_matrix",
     "resize2d",
     "resize_bilinear_tf1",
+    "resize_pil_uint8",
+    "upsample_phase_plain",
     "upsample_phase_tf1",
 ]
+
+
+def _kernel_cubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
+    """Keys cubic with a=-0.5, the kernel of PIL BICUBIC."""
+    ax = np.abs(x)
+    ax2 = ax * ax
+    ax3 = ax2 * ax
+    return np.where(
+        ax < 1.0,
+        (a + 2.0) * ax3 - (a + 3.0) * ax2 + 1.0,
+        np.where(ax < 2.0, a * ax3 - 5.0 * a * ax2 + 8.0 * a * ax - 4.0 * a, 0.0),
+    )
 
 
 @functools.lru_cache(maxsize=None)
 def resize_weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     """Dense (out_size, in_size) float32 resampling matrix for one axis.
 
-    Only ``tf1_bilinear`` is ported: TF1 ``resize_bilinear`` with
-    align_corners=False, ``src = dst * in/out``, edge-clamped.
+    Methods ported:
+      * ``tf1_bilinear`` - TF1 ``resize_bilinear`` with align_corners=False,
+        ``src = dst * in/out``, edge-clamped;
+      * ``pil_bicubic`` - PIL convolution resampling: half-pixel centres,
+        kernel support scaled by the downscale factor (antialias), weights
+        normalised per row.
     """
     if in_size <= 0 or out_size <= 0:
         raise ValueError("sizes must be positive")
-    if method != "tf1_bilinear":
+    if method == "tf1_bilinear":
+        scale = in_size / out_size
+        src = np.arange(out_size, dtype=np.float64) * scale
+        i0 = np.floor(src).astype(np.int64)
+        frac = src - i0
+        i0 = np.clip(i0, 0, in_size - 1)
+        i1 = np.clip(i0 + 1, 0, in_size - 1)
+        w = np.zeros((out_size, in_size), dtype=np.float64)
+        rows = np.arange(out_size)
+        w[rows, i0] += 1.0 - frac
+        w[rows, i1] += frac
+        return w.astype(np.float32)
+    if method != "pil_bicubic":
         raise NotImplementedError(
             f"resize method {method!r} is not yet ported in image_enhance_keras_tpu_torch"
         )
     scale = in_size / out_size
-    src = np.arange(out_size, dtype=np.float64) * scale
-    i0 = np.floor(src).astype(np.int64)
-    frac = src - i0
-    i0 = np.clip(i0, 0, in_size - 1)
-    i1 = np.clip(i0 + 1, 0, in_size - 1)
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale  # the cubic's support at scale 1
+    inv = 1.0 / filterscale
     w = np.zeros((out_size, in_size), dtype=np.float64)
-    rows = np.arange(out_size)
-    w[rows, i0] += 1.0 - frac
-    w[rows, i1] += frac
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        js = np.arange(xmin, xmax)
+        ws = _kernel_cubic((js + 0.5 - center) * inv)
+        total = ws.sum()
+        if total != 0.0:
+            ws = ws / total
+        w[i, xmin:xmax] = ws
     return w.astype(np.float32)
 
 
@@ -64,11 +103,31 @@ def resize_bilinear_tf1(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tenso
     return resize2d(x, out_hw, "tf1_bilinear")
 
 
-def upsample_phase_tf1(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Integer-factor TF1 bilinear upsample as phase interleaving.
+def resize_pil_uint8(x: torch.Tensor, out_hw: tuple[int, int], method: str = "pil_bicubic") -> torch.Tensor:
+    """PIL resampling with uint8 image semantics (``scipy.misc.imresize`` on uint8).
+
+    Horizontal pass first, then the intermediate is rounded half up and
+    clamped to [0, 255] (PIL's fixed-point ``(v + 0.5) >> PRECISION``), then
+    the vertical pass, rounded and clamped again.  Input (..., H, W, C) uint8
+    or float 0..255; output float32 holding exact uint8 values.
+    """
+    h, w = int(x.shape[-3]), int(x.shape[-2])
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    xf = x.to(torch.float32)
+    ww = torch.from_numpy(resize_weight_matrix(w, ow, method)).to(xf.device)
+    wh = torch.from_numpy(resize_weight_matrix(h, oh, method)).to(xf.device)
+    y = torch.einsum("pw,...hwc->...hpc", ww, xf)
+    y = torch.clamp(torch.floor(y + 0.5), 0.0, 255.0)
+    y = torch.einsum("oh,...hpc->...opc", wh, y)
+    return torch.clamp(torch.floor(y + 0.5), 0.0, 255.0)
+
+
+def upsample_phase_plain(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Integer-factor TF1 bilinear upsample as phase interleaving, in plain torch.
 
     Same construction as the JAX ``_upsample_phase_xla``: H pass, then W
-    pass; each phase is ``a*(1 - r/f) + next*(r/f)`` in ``x``'s dtype.
+    pass; each phase is ``a*(1 - r/f) + next*(r/f)`` in ``x``'s dtype, each
+    product and sum rounded to it.
     """
     f = int(factor)
     if f == 1:
@@ -85,3 +144,20 @@ def upsample_phase_tf1(x: torch.Tensor, factor: int) -> torch.Tensor:
         return up.reshape(a.shape[:ax] + (n * f,) + a.shape[ax + 1 :])
 
     return axis_up(axis_up(x, x.dim() - 3), x.dim() - 2)
+
+
+def upsample_phase_tf1(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Integer-factor TF1 bilinear upsample, (..., H, W, C) -> (..., fH, fW, C).
+
+    CPU tensors take :func:`upsample_phase_plain`; any other tensor runs on
+    the CUDA kernel, bit-identical to it and differentiable through it, which
+    raises on what it cannot take (a device other than CUDA, a dtype other
+    than float32 or bfloat16, C not a multiple of 16 bytes).
+    """
+    if x.device.type == "cpu":
+        return upsample_phase_plain(x, factor)
+    from image_enhance_keras_tpu_torch.ops.cuda.upsample import upsample_phase_tf1_kernel
+
+    lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
+    y = upsample_phase_tf1_kernel(x.reshape(-1, h, w, c).contiguous(), factor)
+    return y.reshape(*lead, *y.shape[1:])

@@ -1,13 +1,14 @@
 """Where the device time of the main path goes: kernels by name, and the idle share.
 
     python -m image_enhance_keras_tpu_torch.utils.profiling [--size 128] [--iters 3]
+        [--forwards pallas_int8 pallas xla]
 
 Upscales one seeded ``size`` x ``size`` image in patch mode (96/64/8, the
-demo weights) with ``--forward pallas`` and ``--forward xla`` under
-``torch.profiler``, after a warm-up, and prints for each forward the wall
-time per image, the device time of every kernel (summed over the timed
-images), and the share of the wall time in which no kernel ran.  Needs a
-CUDA card.
+demo weights) with each of ``--forwards`` under ``torch.profiler``, after a
+warm-up (which also builds the kernels and, for ``pallas_int8``, calibrates
+and quantizes the weights), and prints for each forward the wall time per
+image, the device time of every kernel (summed over the timed images), and
+the share of the wall time in which no kernel ran.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--forwards", nargs="+", default=["pallas_int8", "pallas", "xla"],
+                    choices=["pallas_int8", "pallas", "xla"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling needs a CUDA card", file=sys.stderr)
@@ -63,7 +66,7 @@ def main(argv=None) -> int:
     weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
     img = np.random.default_rng(0).integers(0, 256, (args.size, args.size, 3), dtype=np.uint8)
     print(f"card: {torch.cuda.get_device_name(0)}; image {args.size}x{args.size}, patch mode 96/64/8")
-    for forward in ("pallas", "xla"):
+    for forward in args.forwards:
         res = SuperResolver(weights=weights, forward=forward, device="cuda")
         wall, rows = profile_upscale(res, img, args.iters)
         busy = sum(ms for _, ms, _ in rows) / args.iters

@@ -7,6 +7,7 @@ sitting on a rounding boundary may flip: at most 0.1% of the values may
 differ, each by at most 1.
 """
 
+import logging
 import os
 
 import jax
@@ -161,3 +162,88 @@ def test_bmp_codec_roundtrip(tmp_path):
 def test_output_name_contract():
     assert port_engine.output_name("/d/a.png") == "/d/a_scaled(1x).png"
     assert port_engine.output_name("b.bmp", "x", 4) == "b_x(4x).bmp"
+
+
+# -- --forward pallas_int8 -------------------------------------------------
+# Two int8 forwards that round bf16 activations differently may flip an int8
+# code and move a pixel by a few levels: the bound JAX holds between two of
+# its own int8 forwards (tests/test_split_mode.py:97-98).
+INT8_MAX_DIFF, INT8_MAX_FRAC = 3, 0.05
+
+
+def _assert_u8_int8_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    print(f"uint8: max diff {d.max()}, differing fraction {(d > 0).mean():.3g}")
+    assert d.max() <= INT8_MAX_DIFF and (d > 0).mean() < INT8_MAX_FRAC, (d.max(), (d > 0).mean())
+
+
+@pytest.mark.parametrize("mode", ["patch", "fast"])
+def test_engine_pallas_int8_matches_jax(tiny, mode):
+    jr, pr = _resolvers(tiny, mode=mode, forward="pallas_int8")
+    img = tiny[2]
+    got = pr.upscale(img)
+    assert got.shape == (80, 112, 3)
+    _assert_u8_int8_close(got, np.asarray(jr.upscale(img)))
+    assert pr._qparams["body53_0"]["conv_a1"]["q"].dtype == torch.int8
+
+
+@pytest.mark.parametrize("source", ["photos", "procedural", "synthetic", "first_frame"])
+def test_calibration_source_matches_jax(tiny, monkeypatch, caplog, source):
+    """Each calibration source, with its fallbacks, gives JAX's calibration batch."""
+    from image_enhance_keras_tpu.data import pipeline as jax_pipeline
+    from image_enhance_keras_tpu_torch.data import pipeline
+
+    jr, pr = _resolvers(tiny, forward="pallas_int8")
+    img = tiny[2]
+    if source == "photos":
+        want = jr._calib_from_arrays(jax_pipeline.builtin_photos(), 4)
+    elif source == "procedural":
+        monkeypatch.setattr(pipeline, "builtin_photos", lambda: [])
+        want = jr._calib_from_arrays(jax_pipeline.rich_synthetic_images(8, 256, seed=17), 4)
+    elif source == "synthetic":
+        pr.int8_calib = "synthetic"
+        want = np.stack(jax_pipeline.synthetic_images(4, 128)).astype(np.float32) / 255.0
+    else:
+        pr.int8_calib = jr.int8_calib = "first_frame"
+        jr._maybe_calibrate_int8(img)
+        pr._maybe_calibrate_int8(img)
+        want = jr._calib_x
+    logger = logging.getLogger("image_enhance_keras_tpu_torch")
+    logger.addHandler(caplog.handler)
+    try:
+        got = pr._calibration_input()
+    finally:
+        logger.removeHandler(caplog.handler)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert any(r.getMessage().startswith("int8 calibration:") for r in caplog.records)
+
+
+@pytest.mark.parametrize("mode", ["patch", "fast"])
+def test_cli_pallas_int8_matches_jax_cli_and_honours_calib_dir(cli_setup, tmp_path, monkeypatch, mode):
+    dirs, npz = cli_setup
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    _bmp_write(str(calib / "frame.bmp"),
+               np.random.default_rng(12).integers(0, 256, (72, 88, 3), dtype=np.uint8))
+    seen = []
+    orig = port_engine.SuperResolver._calib_from_images
+    monkeypatch.setattr(port_engine.SuperResolver, "_calib_from_images",
+                        lambda self: seen.append(orig(self)) or seen[-1])
+    common = ["--weights", npz, "--forward", "pallas_int8", "--mode", mode, "--patch_size", "24",
+              "--step", "16", "--int8-calib-dir", str(calib)]
+    assert jax_main([str(dirs["jax"]), *common]) == 0
+    assert port_main([str(dirs["port"]), *common, "--device", "cpu"]) == 0
+    assert len(seen) == 1 and tuple(seen[0].shape) == (1, 18, 18, 3)  # 72x88 / 4, central square
+    got = imread(str(dirs["port"] / "img_scaled(1x).bmp"))
+    _assert_u8_int8_close(got, imread(str(dirs["jax"] / "img_scaled(1x).bmp")))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--forward", "pallas_int8", "--int8-acc", "s32"], ["--forward", "pallas_int8", "--int8-emit", "s8"],
+    ["--forward", "pallas_chain"], ["--forward", "pallas_int8", "--mode", "split"],
+])
+def test_cli_rejects_other_int8_options(tmp_path, capsys, argv):
+    with pytest.raises(SystemExit):
+        port_main([str(tmp_path), "--device", "cpu", *argv])
+    assert "not yet ported in image_enhance_keras_tpu_torch" in capsys.readouterr().err

@@ -57,4 +57,4 @@ def test_upsample_phase_equals_dense_resize():
 
 def test_other_methods_not_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        resize.resize_weight_matrix(4, 8, "pil_bicubic")
+        resize.resize_weight_matrix(4, 8, "pil_lanczos")
