@@ -11,7 +11,9 @@ Phases (each prints its elapsed seconds):
      version, with its time, the plain version's, a library call's where
      one computes the same function, and the card's bound:
        float32 (9 tiles of 96x96x128, demo weights, inputs from the pallas
-       path itself): the Light53 and Light blocks (K1, K2);
+       path itself): the Light53 and Light blocks (K1, K2), and the Light53
+       and Light chains over the 16 / 6 stacked blocks (K6, K7), each also
+       against the per-block kernels;
        int8 path (the demo weights quantized by the port's calibration,
        bf16 inputs from the int8 path itself): the int8 Light53 block at
        (9,96,96,128) and at the tail's (9,384,384,128) (K4), the int8 Light
@@ -19,10 +21,15 @@ Phases (each prints its elapsed seconds):
   3. the main paths through ``cli.main_dirpath`` on a seeded 128x128 BMP
      (9 tiles at 96/64/8, 512x512 out), each with its kernel launches
      counted: ``--forward pallas`` (K1, K2), ``--forward xla`` as its
-     reference, ``--forward pallas_int8`` (K3, K4, K5; calibration
-     included), and the int8 run again with the plain x4 in place of K3
-     (byte-equal); then the engines timed in turns and CPU references on a
-     crop.
+     reference, ``--forward pallas_chain`` (K6, K7), ``--forward
+     pallas_int8`` (K3, K4, K5; calibration included), and the int8 run
+     again with the plain x4 in place of K3 (byte-equal); then the engines
+     timed in turns and CPU references on a crop;
+  4. Set5 x4 (``data_set5``, read by the numpy PNG decoder where PIL is
+     missing): ``scorpath --generate`` with ``--forward xla`` and
+     ``pallas_chain`` (launches counted), the bicubic baseline on the card
+     and the CPU, and ``evaluate_model`` on fast-mode ``xla`` and
+     ``pallas_int8`` resolvers, against each other and the recorded rows.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -46,6 +53,9 @@ SHAPE = (9, 96, 96, 128)
 #: kernel vs plain version on the card: float32 sums over 128*68 terms in
 #: another order, on activations of order 1-10
 KERNEL_ATOL = 2e-5
+#: chain kernels against their plain versions and the per-block kernels:
+#: 16 (or 6) float32 blocks summed in other orders (tests/test_pallas_tower.py)
+CHAIN_ATOL = 5e-5
 #: uint8 outputs of two float32 forwards that sum in other orders
 U8_MAX_DIFF = 1
 U8_MAX_FRAC = 1e-3
@@ -61,6 +71,17 @@ PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 MIN_TIMED = 12
+#: Set5 x4 (phase 4): xla and pallas_chain through scorpath against each
+#: other (float32 forwards that sum in other orders), and every score
+#: against its recorded row (EVAL_RESULTS.json, EVAL_PROFILES.json); those
+#: rows came from TPU runs at default precision, so the bounds allow for it
+SET5_PAIR_DB, SET5_PAIR_SSIM = 0.002, 1e-5
+SET5_DB, SET5_SSIM = 0.05, 5e-4
+BICUBIC_DB = 1e-3
+#: pallas_int8 on Set5, calibrated on the package-bundled photos (the port
+#: carries copies), against the recorded pallas_int8 row calibrated on the
+#: same photos, and against the --forward int8 row (SSIM-Y only)
+INT8_SSIM = 1e-3
 
 
 def _phase(name: str, t0: float) -> None:
@@ -132,6 +153,183 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def _y_tpu_default(rgb):
+    """The Y channel as the JAX scorer computes it on a TPU at default
+    precision: its einsum rounds x/255 and the BT.601 row to bfloat16 and
+    sums in float32.  The quality rows of EVAL_RESULTS.json and
+    EVAL_PROFILES.json were scored so (the bicubic row, 28.420074, is
+    reproduced by it; exact float32 gives 28.4477)."""
+    import torch
+
+    x = (rgb.to(torch.float32) / 255.0).to(torch.bfloat16).to(torch.float32)
+    m = torch.tensor([65.481, 128.553, 24.966]).to(torch.bfloat16).to(torch.float32)
+    return x[..., 0] * m[0] + x[..., 1] * m[1] + x[..., 2] * m[2] + 16.0
+
+
+def _scored(run, crop: int = 10):
+    """Run ``run()`` (an evaluation through ``eval.evaluate``) and return its
+    (per-image scores, means) and the means of the same pairs scored with
+    the TPU's default-precision Y (:func:`_y_tpu_default`)."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.eval import evaluate
+    from image_enhance_keras_tpu_torch.ops.metrics import psnr_nitre, ssim
+
+    pairs, orig = [], evaluate.score_pair
+
+    def record(gt, sr, **kw):
+        pairs.append((gt, sr))
+        return orig(gt, sr, **kw)
+
+    evaluate.score_pair = record
+    try:
+        result = run()
+    finally:
+        evaluate.score_pair = orig
+    ps, ss = [], []
+    for gt, sr in pairs:
+        g = _y_tpu_default(torch.from_numpy(np.array(gt[crop:-crop, crop:-crop])).cuda())
+        p = _y_tpu_default(torch.from_numpy(np.array(sr[crop:-crop, crop:-crop])).cuda())
+        ps.append(float(psnr_nitre(p, g)))
+        ss.append(float(ssim(p, g, data_range=255.0)))
+    return result, {"psnr_y": float(np.mean(ps)), "ssim_y": float(np.mean(ss))}
+
+
+def _set5_phase(failures: list) -> dict:
+    """scorpath --generate (xla, pallas_chain) and evaluate_model (bicubic,
+    fast xla, fast pallas_int8) on data_set5, against each other, a CPU run
+    and the recorded quality rows.  The PNGs are read by the port's numpy
+    decoder (held bit-equal to PIL first where PIL is installed)."""
+    import numpy as np
+
+    from image_enhance_keras_tpu_torch.data import io as pio
+
+    pil = pio._pil
+    if pil() is not None:
+        for p in pio.list_images(os.path.join(HERE, "data_set5")):
+            with pil().open(p) as im:
+                same = np.array_equal(pio._png_read(p), np.asarray(im.convert("RGB")))
+            print(f"[chip_smoke] numpy PNG decoder vs PIL on {os.path.basename(p)}: bit-equal {same}", flush=True)
+            if not same:
+                failures.append(f"numpy PNG decoder differs from PIL on {os.path.basename(p)}")
+    pio._pil = lambda: None
+    try:
+        return _set5_scores(failures)
+    finally:
+        pio._pil = pil
+
+
+def _set5_scores(failures: list) -> dict:
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import scorpath
+    from image_enhance_keras_tpu_torch.data import io as pio
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.eval import BicubicResolver, evaluate_model
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+    from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
+    from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
+    from image_enhance_keras_tpu_torch.tiling.tiles import plan_tiles
+
+    set5 = os.path.join(HERE, "data_set5")
+    with open(os.path.join(HERE, "EVAL_RESULTS.json")) as f:
+        rows = json.load(f)
+    with open(os.path.join(HERE, "EVAL_PROFILES.json")) as f:
+        profiles = json.load(f)
+    decoder = "PIL" if pio._pil() is not None else "the port's numpy PNG decoder"
+    print(f"[chip_smoke] Set5 PNGs are read by {decoder} (data/io.py _png_read)", flush=True)
+    out: dict = {"png_decoder": decoder}
+
+    def report(label, exact, tpu, ref=None):
+        ref_s = f"; recorded {ref['psnr_y']:.4f} / {ref['ssim_y']:.5f}" if ref else ""
+        print(f"[chip_smoke] Set5 {label}: PSNR-Y {exact['psnr_y']:.4f} SSIM-Y {exact['ssim_y']:.5f} "
+              f"(float32 Y); {tpu['psnr_y']:.4f} / {tpu['ssim_y']:.5f} (TPU default-precision Y){ref_s}",
+              flush=True)
+        out[label] = {"exact": exact, "tpu_default_y": tpu, "recorded": ref}
+
+    def check_row(label, tpu, ref, db, ssim_tol):
+        dp, ds = abs(tpu["psnr_y"] - ref["psnr_y"]), abs(tpu["ssim_y"] - ref["ssim_y"])
+        if dp > db or ds > ssim_tol:
+            failures.append(f"Set5 {label}: {tpu['psnr_y']:.4f} / {tpu['ssim_y']:.5f} vs recorded "
+                            f"{ref['psnr_y']:.4f} / {ref['ssim_y']:.5f} (bounds {db} dB, {ssim_tol})")
+
+    # scorpath --generate in patch mode (the CLI default), xla and pallas_chain
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_set5_")
+    cli = {}
+    try:
+        lr_shapes = []
+        for p in pio.list_images(set5):
+            h, w = pio.imread(p).shape[:2]
+            lr_shapes.append((h // 4, w // 4))
+        chunks = sum(-(-plan_tiles(h, w, patch=96, step=64, scale=4, crop=8).n_tiles // 16)
+                     for h, w in lr_shapes)
+        for fwd in ("xla", "pallas_chain"):
+            counted = (kb.fused_light53_block, kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain)
+            for fn in counted:
+                fn.launches = 0
+            path = os.path.join(tmp, f"{fwd}.json")
+            (rc, tpu) = _scored(lambda: scorpath.main([set5, "--generate", "--forward", fwd, "--json", path]))
+            launches = [fn.launches for fn in counted]
+            if rc != 0:
+                failures.append(f"scorpath --generate --forward {fwd} returned {rc}")
+                continue
+            with open(path) as f:
+                cli[fwd] = json.load(f)
+            report(f"scorpath --generate --forward {fwd}", cli[fwd], tpu, rows["didbl"])
+            check_row(f"{fwd} patch", tpu, rows["didbl"], SET5_DB, SET5_SSIM)
+            want = [0, 0, chunks, chunks] if fwd == "pallas_chain" else [0, 0, 0, 0]
+            print(f"[chip_smoke] scorpath --forward {fwd} launches (K1, K2, K6, K7): {launches}, "
+                  f"expected {want}", flush=True)
+            if launches != want:
+                failures.append(f"scorpath --forward {fwd} launches {launches} != {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(cli) == 2:
+        dp = abs(cli["xla"]["psnr_y"] - cli["pallas_chain"]["psnr_y"])
+        ds = abs(cli["xla"]["ssim_y"] - cli["pallas_chain"]["ssim_y"])
+        print(f"[chip_smoke] Set5 xla vs pallas_chain: {dp:.3g} dB PSNR-Y, {ds:.3g} SSIM-Y "
+              f"(bounds {SET5_PAIR_DB}, {SET5_PAIR_SSIM})", flush=True)
+        if dp > SET5_PAIR_DB or ds > SET5_PAIR_SSIM:
+            failures.append(f"Set5 xla vs pallas_chain differ by {dp:.3g} dB, {ds:.3g} SSIM-Y")
+
+    # the bicubic baseline, on the card and on the CPU
+    (_, exact), tpu = _scored(lambda: evaluate_model(BicubicResolver(4), set5, verbose=False))
+    _, cpu = evaluate_model(BicubicResolver(4, device="cpu"), set5, verbose=False)
+    report("bicubic", exact, tpu, rows["bicubic"])
+    check_row("bicubic", tpu, rows["bicubic"], BICUBIC_DB, SET5_SSIM)
+    print(f"[chip_smoke] Set5 bicubic card vs CPU: {abs(exact['psnr_y'] - cpu['psnr_y']):.3g} dB", flush=True)
+    if abs(exact["psnr_y"] - cpu["psnr_y"]) > 1e-4:
+        failures.append(f"Set5 bicubic card {exact['psnr_y']:.6f} vs CPU {cpu['psnr_y']:.6f} dB")
+
+    # evaluate_model on fast-mode resolvers: f32 xla, and pallas_int8
+    weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
+    (_, exact), tpu = _scored(lambda: evaluate_model(
+        SuperResolver(weights=weights, forward="xla", mode="fast"), set5, verbose=False))
+    report("fast xla", exact, tpu, profiles["f32_fast_5img"])
+    check_row("fast xla", tpu, profiles["f32_fast_5img"], SET5_DB, SET5_SSIM)
+    # pallas_int8 with the engine's default calibration, the package-bundled
+    # photos, which the recorded pallas_int8 row (int8_pallas_fast_5img) was
+    # calibrated on; int8_fast_excal_5img is --forward int8 (per-channel
+    # scales folded into the weights, procedural calibration), held on SSIM-Y
+    r8 = SuperResolver(weights=weights, forward="pallas_int8", mode="fast")
+    (_, exact), tpu = _scored(lambda: evaluate_model(r8, set5, verbose=False))
+    out["int8_calib_source"] = r8.int8_calib_source
+    ref_p, ref_x = profiles["int8_pallas_fast_5img"], profiles["int8_fast_excal_5img"]
+    report(f"fast pallas_int8 (calibration: {r8.int8_calib_source})", exact, tpu, ref_p)
+    print(f"[chip_smoke] int8_fast_excal_5img (--forward int8, procedural calibration): "
+          f"{ref_x['psnr_y']:.4f} / {ref_x['ssim_y']:.5f}; this run's SSIM-Y is "
+          f"{abs(tpu['ssim_y'] - ref_x['ssim_y']):.3g} from it (bound {INT8_SSIM})", flush=True)
+    if r8.int8_calib_source != "package-bundled real photos":
+        failures.append(f"Set5 fast pallas_int8 calibrated on {r8.int8_calib_source}, not the bundled photos")
+    check_row("fast pallas_int8", tpu, ref_p, SET5_DB, INT8_SSIM)
+    if abs(tpu["ssim_y"] - ref_x["ssim_y"]) > INT8_SSIM:
+        failures.append(f"Set5 fast pallas_int8 SSIM-Y {tpu['ssim_y']:.5f} vs int8_fast_excal_5img "
+                        f"{ref_x['ssim_y']:.5f} (bound {INT8_SSIM})")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -147,12 +345,13 @@ def main() -> int:
     from image_enhance_keras_tpu_torch.data.io import imread, imwrite
     from image_enhance_keras_tpu_torch.engine import SuperResolver, disable_tf32
     from image_enhance_keras_tpu_torch.models import didbl_pallas
-    from image_enhance_keras_tpu_torch.models.didbl_pallas import _conv
+    from image_enhance_keras_tpu_torch.models.didbl_pallas import _conv, _stacked
     from image_enhance_keras_tpu_torch.models.weights import params_from_numpy
     from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
     from image_enhance_keras_tpu_torch.ops.cuda import _build
     from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
     from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+    from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
     from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
     from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain, upsample_phase_tf1
     from image_enhance_keras_tpu_torch.tiling.tiles import extract_tiles, pad_to_plan, plan_tiles
@@ -255,7 +454,67 @@ def main() -> int:
             print(f"[chip_smoke] {name}: err {err:.3g} (F.conv2d formulation vs plain {lib_err:.3g}), "
                   f"{ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms F.conv2d, "
                   f"{rows[-1]['bound_ms']:.3f} ms bound, {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
-    del x53, xl, h
+    # the chains (K6, K7) over the 16 stacked Light53 and 6 stacked Light
+    # sets, on the chain path's own activations: the level1 output, then K6's
+    # output; each against its plain version and against K1 x16 / K2 x6
+    l53c = ("conv_a1", "conv_a2", "conv_b1", "conv_b2")
+    s53 = _stacked([params[f"body53_{i}"] for i in range(16)], l53c)
+    sl = _stacked([params[f"light_{i}"] for i in range(6)], ("conv_a", "conv_b"))
+
+    def chained(block, k_blocks):
+        """block applied k_blocks times, block i taking entry i of each stacked argument."""
+        def run(x, *args):
+            for i in range(k_blocks):
+                x = block(x, *(a[i] for a in args))
+            return x
+        return run
+
+    with torch.inference_mode():
+        xc6 = x53
+        xc7 = kt.fused_light53_chain(xc6, *s53).contiguous()
+    chain_specs = [
+        ("light53_chain", kt.fused_light53_chain, kt.light53_chain_plain,
+         chained(kb.fused_light53_block, 16), chained(lib53, 16), xc6, s53, 16 * 68,
+         "image_enhance_keras_tpu/ops/pallas/tower.py:166"),
+        ("light_chain", kt.fused_light_chain, kt.light_chain_plain,
+         chained(kb.fused_light_block, 6), chained(libl, 6), xc7, sl, 6 * 18,
+         "image_enhance_keras_tpu/ops/pallas/tower.py:191"),
+    ]
+    with torch.inference_mode():
+        for name, kern, plain, blocks, lib, x, args, taps, replaces in chain_specs:
+            got = kern(x, *args)
+            want = plain(x, *args)
+            by_blocks = blocks(x, *args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            err_blocks = (got - by_blocks).abs().max().item()
+            if not (err <= CHAIN_ATOL and err_blocks <= CHAIN_ATOL):
+                failures.append(f"{name}: max |kernel - plain| = {err:.3g}, |kernel - blocks| = "
+                                f"{err_blocks:.3g} (bound {CHAIN_ATOL})")
+            ms = _time_ms(lambda: kern(x, *args))
+            plain_ms = _time_ms(lambda: plain(x, *args), iters=3, warmup=1)
+            blocks_ms = _time_ms(lambda: blocks(x, *args))
+            xc = x.permute(0, 3, 1, 2)
+            largs = [a.permute(0, 4, 3, 1, 2).contiguous() if a.dim() == 5 else a for a in args]
+            lib_err = (lib(xc, *largs).permute(0, 2, 3, 1) - want).abs().max().item()
+            library_ms = _time_ms(lambda: lib(xc, *largs), iters=3, warmup=1)
+            flops = 2.0 * taps * c * c * n * hh * ww
+            nbytes = 4.0 * (2 * x.numel() + sum(a.numel() for a in args))
+            bound_ms, bound_by = _bound(flops, PEAK_F32_FLOPS, nbytes)
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "image_enhance_keras_tpu_torch/csrc/tower.cu",
+                "replaces": replaces, "launches": None, "max_abs_err": err,
+                "tolerance": CHAIN_ATOL, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "blocks_ms": blocks_ms, "max_abs_err_vs_blocks": err_blocks,
+                "tflops": flops / (ms * 1e-3) / 1e12,
+            })
+            print(f"[chip_smoke] {name}: err {err:.3g} vs plain, {err_blocks:.3g} vs the per-block "
+                  f"kernels (F.conv2d chain vs plain {lib_err:.3g}), {ms:.3f} ms kernel, "
+                  f"{blocks_ms:.3f} ms per-block kernels, {plain_ms:.3f} ms plain, {library_ms:.3f} ms "
+                  f"F.conv2d, {bound_ms:.3f} ms bound, {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
+    del x53, xl, h, xc6, xc7, s53, sl
 
     # int8 path: the demo weights quantized by the port's own calibration on
     # the card, the kernels' inputs taken from the int8 path itself
@@ -404,7 +663,42 @@ def main() -> int:
                 failures.append(f"pallas vs xla outputs differ: max {dmax}, fraction {frac:.3g}")
         if float(out_p.astype(np.float64).std()) < 1.0:
             failures.append("pallas output is flat")
-        _phase("3a pallas and xla paths (CLI)", t0)
+
+        # the chain path: one K6 and one K7 launch for the one chunk of 9 tiles
+        d = os.path.join(tmp, "pallas_chain")
+        os.makedirs(d)
+        imwrite(os.path.join(d, "img.bmp"), img)
+        counted = (kb.fused_light53_block, kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain)
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.time()
+        rc = main_dirpath.main([d, "--forward", "pallas_chain"])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t1
+        launches_c = dict(zip(("light53_block", "light_block", "light53_chain", "light_chain"),
+                              (fn.launches for fn in counted)))
+        print(f"[chip_smoke] main_dirpath --forward pallas_chain: rc {rc}, {cli_s:.2f} s, "
+              f"launches {launches_c}", flush=True)
+        for row in rows:
+            if row["name"] in ("light53_chain", "light_chain"):
+                row["launches"] = launches_c[row["name"]]
+        if rc != 0:
+            failures.append(f"main_dirpath --forward pallas_chain returned {rc}")
+        want_c = {"light53_block": 0, "light_block": 0, "light53_chain": 1, "light_chain": 1}
+        if launches_c != want_c:
+            failures.append(f"pallas_chain launches {launches_c} != {want_c}")
+        out_c = imread(os.path.join(d, "img_scaled(1x).bmp"))
+        for ref_name, ref in (("pallas", out_p), ("xla", out_x)):
+            if out_c.shape != ref.shape:
+                failures.append(f"pallas_chain output shape {out_c.shape} != {ref_name}'s {ref.shape}")
+                continue
+            dmax, frac = _u8_agreement(out_c, ref)
+            print(f"[chip_smoke] pallas_chain vs {ref_name} uint8: max diff {dmax}, differing fraction "
+                  f"{frac:.3g} (bound {U8_MAX_DIFF} on {U8_MAX_FRAC})", flush=True)
+            if dmax > U8_MAX_DIFF or frac > U8_MAX_FRAC:
+                failures.append(f"pallas_chain vs {ref_name} outputs differ: max {dmax}, fraction {frac:.3g}")
+        _phase("3a pallas, pallas_chain and xla paths (CLI)", t0)
 
         # the int8 path: calibration, quantization and the forward, all in the
         # CLI run; K3 takes the x4 (one launch in calibration, one per chunk of
@@ -466,10 +760,11 @@ def main() -> int:
     # timing of the engine alone (weights loaded once), in turns, and a CPU
     # reference on a crop (plain torch on the CPU, no CUDA kernel involved)
     t0 = time.time()
-    res = {f: SuperResolver(weights=weights, forward=f, device="cuda") for f in ("pallas", "xla")}
+    res = {f: SuperResolver(weights=weights, forward=f, device="cuda") for f in ("pallas", "pallas_chain", "xla")}
     res["pallas_int8"] = res8  # weights quantized in phase 2
     secs = {f: [] for f in res}
-    for f in ("pallas_int8", "pallas", "xla", "xla", "pallas", "pallas_int8"):
+    order = ("pallas_int8", "pallas", "pallas_chain", "xla")
+    for f in order + order[::-1]:
         torch.cuda.synchronize()
         t1 = time.time()
         res[f].upscale(img)
@@ -481,12 +776,13 @@ def main() -> int:
               f"{min(s):.3f} s, {mpix / min(s):.3f} out-Mpix/s on {gpu}", flush=True)
     crop = np.ascontiguousarray(img[:20, :24])
     ref = SuperResolver(weights=weights, forward="xla", mode="fast", device="cpu").upscale(crop)
-    got = SuperResolver(weights=weights, forward="pallas", mode="fast", device="cuda").upscale(crop)
-    dmax, frac = _u8_agreement(got, ref)
-    print(f"[chip_smoke] fast mode 20x24 crop, card pallas vs cpu xla: max diff {dmax}, "
-          f"differing fraction {frac:.3g}", flush=True)
-    if dmax > U8_MAX_DIFF or frac > U8_MAX_FRAC:
-        failures.append(f"card vs CPU reference differ: max {dmax}, fraction {frac:.3g}")
+    for f in ("pallas", "pallas_chain"):
+        got = SuperResolver(weights=weights, forward=f, mode="fast", device="cuda").upscale(crop)
+        dmax, frac = _u8_agreement(got, ref)
+        print(f"[chip_smoke] fast mode 20x24 crop, card {f} vs cpu xla: max diff {dmax}, "
+              f"differing fraction {frac:.3g}", flush=True)
+        if dmax > U8_MAX_DIFF or frac > U8_MAX_FRAC:
+            failures.append(f"card {f} vs CPU reference differ: max {dmax}, fraction {frac:.3g}")
     # the int8 forward on the CPU with the card's quantized tree (no CPU
     # calibration at full width)
     cpu8 = SuperResolver(weights=weights, forward="pallas_int8", mode="fast", device="cpu")
@@ -500,6 +796,11 @@ def main() -> int:
     if dmax > INT8_U8_MAX_DIFF or frac >= INT8_U8_MAX_FRAC:
         failures.append(f"int8 card vs CPU reference differ: max {dmax}, fraction {frac:.3g}")
     _phase("3b engine timing and CPU references", t0)
+
+    # -- 4. Set5 scoring ------------------------------------------------------
+    t0 = time.time()
+    set5 = _set5_phase(failures)
+    _phase("4 Set5 scoring", t0)
     _phase("total", t_all)
 
     if failures:
@@ -508,7 +809,8 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu,
                       "int8_calib_source": res8.int8_calib_source, "int8_psnr_vs_f32": psnr8,
-                      "engine_s_per_image": {f: min(v) for f, v in secs.items()}}), flush=True)
+                      "engine_s_per_image": {f: min(v) for f, v in secs.items()}, "set5": set5}),
+          flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,10 @@ Module names mirror the JAX package so each port module sits at the same
 relative path as its reference.  It runs the didbl x4 generator through
 ``cli.main_dirpath``: ``--forward xla`` (plain torch), ``pallas`` (the
 float32 Light53 and Light blocks on hand-written CUDA kernels,
-``csrc/blocks.cu``) and ``pallas_int8`` (every residual block on int8 CUDA
-kernels, ``csrc/int8_blocks.cu``, the x4 optionally on ``csrc/upsample.cu``).
+``csrc/blocks.cu``), ``pallas_chain`` (the same blocks as two chain
+kernels, ``csrc/tower.cu``) and ``pallas_int8`` (every residual block on
+int8 CUDA kernels, ``csrc/int8_blocks.cu``, the x4 on ``csrc/upsample.cu``),
+and scores outputs with ``cli.scorpath`` (PSNR-Y / SSIM-Y, NTIRE protocol).
 Nothing here imports JAX.
 """
 

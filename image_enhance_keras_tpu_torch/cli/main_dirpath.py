@@ -22,7 +22,7 @@ _NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
 _PORTED_VALUES = {
     "model": ("didbl",),
     "mode": ("patch", "fast"),
-    "forward": ("xla", "pallas", "pallas_int8"),
+    "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
     "dtype": ("float32",),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
@@ -51,6 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--forward", default="xla",
                    choices=["xla", "int8", "pallas", "pallas_chain", "pallas_int8"],
                    help="xla: the plain torch module; pallas: LR blocks on the CUDA kernels; "
+                        "pallas_chain: the LR blocks as two chain kernels; "
                         "pallas_int8: every residual block on the int8 CUDA kernels")
     p.add_argument("--suffix", default="scaled", help="suffix of output images")
     p.add_argument("--patch_size", default=96, type=int, help="tile size (reference: 96)")

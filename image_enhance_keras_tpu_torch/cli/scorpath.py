@@ -1,0 +1,106 @@
+"""Scoring CLI (mirror of ``cli/scorpath.py``): walk a directory, pair each
+ground truth with its ``<stem>_<suffix>(<k>x)<ext>`` sibling, print per-image
+and mean PSNR-Y / SSIM-Y / SSIM-RGB under the NTIRE protocol.
+
+``--generate`` degrades each ground truth by ``--scale-factor``, runs the
+model and scores the reconstruction.  The JAX CLI's flags all parse; those
+this slice does not run are rejected with "not yet ported", never ignored.
+
+Usage:  python -m image_enhance_keras_tpu_torch.cli.scorpath <dir> [options]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+_NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
+
+#: the JAX package's model registry
+_JAX_MODELS = ("didbl", "didbl_subpixel", "difv4", "difv4_x2", "difvdsr")
+#: values this slice runs, for flags whose other JAX values are not ported
+_PORTED_VALUES = {
+    "model": ("didbl",),
+    "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
+    "dtype": ("float32",),
+}
+#: JAX flags this slice does not run at all: dest -> (flag, default)
+_UNPORTED_FLAGS = {
+    "self_ensemble": ("--self-ensemble", False),
+    "back_projection": ("--back-projection", 0),
+    "internal_learn": ("--internal-learn", 0),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="NTIRE PSNR/SSIM scoring (PyTorch/CUDA)")
+    p.add_argument("path_dir", nargs="?", default="val_images/set5nitre")
+    p.add_argument("--suffix", default="scaled")
+    p.add_argument("--scale", default=1, type=int, help="scale label in prediction names")
+    p.add_argument("--crop", default=10, type=int, help="border crop (reference: 10)")
+    p.add_argument("--json", default=None, help="write means to this JSON file")
+    p.add_argument("--gmsd", action="store_true",
+                   help="also report GMSD-Y (perceptual gradient metric, lower=better)")
+    p.add_argument("--allow-shape-mismatch", action="store_true",
+                   help="score the top-left common region of mismatched pairs instead of erroring")
+    p.add_argument("--generate", action="store_true",
+                   help="degrade+reconstruct with --model instead of reading saved outputs")
+    p.add_argument("--model", default="didbl", choices=_JAX_MODELS)
+    p.add_argument("--weights", default=None,
+                   help="params .npz; omitted = the model's committed demo checkpoint; "
+                        "'none' = explicit random-init smoke run")
+    p.add_argument("--scale-factor", default=4, type=int)
+    p.add_argument("--forward", default="xla",
+                   choices=["xla", "int8", "pallas", "pallas_chain", "pallas_int8"],
+                   help="with --generate: forward implementation (xla: the plain torch module; "
+                        "pallas / pallas_chain / pallas_int8: the CUDA kernels)")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed"],
+                   help="with --generate: serving precision")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run (cuda must be present unless cpu is asked for)")
+    # JAX flags that parse but are rejected below
+    p.add_argument("--self-ensemble", action="store_true")
+    p.add_argument("--back-projection", type=int, default=0, metavar="N")
+    p.add_argument("--internal-learn", type=int, default=0, metavar="N")
+    return p
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for dest, ported in _PORTED_VALUES.items():
+        if getattr(args, dest) not in ported:
+            parser.error(f"--{dest.replace('_', '-')} {getattr(args, dest)} is {_NOT_PORTED}")
+    for dest, (flag, default) in _UNPORTED_FLAGS.items():
+        if getattr(args, dest) != default:
+            parser.error(f"{flag} is {_NOT_PORTED}")
+    if args.generate:
+        from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
+        from image_enhance_keras_tpu_torch.engine import SuperResolver
+        from image_enhance_keras_tpu_torch.eval import evaluate_model
+
+        resolver = SuperResolver(model=args.model, weights=resolve_cli_weights(args.model, args.weights),
+                                 forward=args.forward, device=args.device)
+        scores, means = evaluate_model(resolver, args.path_dir, scale=args.scale_factor,
+                                       crop_border=args.crop, with_gmsd=args.gmsd)
+    else:
+        from image_enhance_keras_tpu_torch.eval import score_directory
+
+        try:
+            scores, means = score_directory(
+                args.path_dir, suffix=args.suffix, scale_label=args.scale, crop_border=args.crop,
+                allow_shape_mismatch=args.allow_shape_mismatch, with_gmsd=args.gmsd,
+                device=args.device,
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    if args.json and means:
+        with open(args.json, "w") as f:
+            json.dump(means, f, indent=2)
+    return 0 if scores else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

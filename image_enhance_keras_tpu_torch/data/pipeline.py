@@ -1,10 +1,10 @@
 """Procedural and bundled images for int8 calibration (mirror of ``data/pipeline.py``).
 
-Only what calibration needs is ported: ``builtin_photos`` (real photographs
-shipped inside installed packages), ``synthetic_images`` and the procedural
-corpus of ``rich_synthetic_images`` (dead leaves, pink noise, fibers).  All
-numpy, deterministic per (n, size, seed); the training data plane comes
-with the training slice.
+Only what calibration needs is ported: ``builtin_photos`` (copies of the
+real photographs that ship inside installed packages), ``synthetic_images``
+and the procedural corpus of ``rich_synthetic_images`` (dead leaves, pink
+noise, fibers).  All numpy, deterministic per (n, size, seed); the training
+data plane comes with the training slice.
 """
 
 from __future__ import annotations
@@ -23,62 +23,45 @@ __all__ = [
 ]
 
 
-#: real photographs that ship INSIDE installed Python packages — the only
-#: natural-image data reachable in a zero-egress environment beyond the
-#: Set5 GTs themselves.  Each entry: (package, resource-relative path).
-_BUILTIN_PHOTO_SOURCES: tuple[tuple[str, str], ...] = (
+#: real photographs that ship inside installed Python packages, which the
+#: JAX package's ``builtin_photos`` reads from there.  The port carries
+#: their decoded pixels as 8-bit RGB PNGs under ``photos/`` (so calibration
+#: does not depend on what a machine has installed), in the same order.
+#: Each entry: (file under photos/, source package, resource path, licence).
+_BUILTIN_PHOTO_SOURCES: tuple[tuple[str, str, str, str], ...] = (
     # Temple of Heaven — architecture, roof-tile texture, foliage (640x427)
-    ("sklearn", "datasets/images/china.jpg"),
+    ("china.png", "sklearn", "datasets/images/china.jpg", "CC BY 2.0, danielbuechele"),
     # flower macro — saturated color, soft gradients, fine stamens (640x427)
-    ("sklearn", "datasets/images/flower.jpg"),
+    ("flower.png", "sklearn", "datasets/images/flower.jpg", "CC BY 2.0, vultilion"),
     # Grace Hopper portrait — face, skin, hair, glasses, fabric (512x600);
     # the face/hair statistics the procedural corpus cannot synthesise
-    # (the LOO "head" fold is the measured weak spot, EVAL_LOO_*.json)
-    ("matplotlib", "mpl-data/sample_data/grace_hopper.jpg"),
+    ("grace_hopper.png", "matplotlib", "mpl-data/sample_data/grace_hopper.jpg", "public domain"),
     # real photographic material textures bundled as simulator assets
     # (RGB photos, not game art): leather/skin pore texture 1024²
-    ("gymnasium_robotics",
-     "envs/assets/adroit_hand/resources/textures/skin.png"),
+    ("skin.png", "gymnasium_robotics",
+     "envs/assets/adroit_hand/resources/textures/skin.png", "MIT"),
     # bamboo wood grain 1024² — fine directional high-frequency texture
-    ("gymnasium_robotics",
-     "envs/assets/kitchen_franka/kitchen_assets/textures/wood1.png"),
+    ("wood1.png", "gymnasium_robotics",
+     "envs/assets/kitchen_franka/kitchen_assets/textures/wood1.png", "MIT"),
     # blue mosaic tile 512² — saturated regular pattern with sharp edges
-    ("gymnasium_robotics",
-     "envs/assets/kitchen_franka/kitchen_assets/textures/tile1.png"),
+    ("tile1.png", "gymnasium_robotics",
+     "envs/assets/kitchen_franka/kitchen_assets/textures/tile1.png", "MIT"),
     # grass 512² — chaotic fine natural texture (fur/feather statistics)
-    ("dm_control",
-     "locomotion/arenas/assets/outdoor_natural/OutdoorGrassFloorD.png"),
+    ("grass.png", "dm_control",
+     "locomotion/arenas/assets/outdoor_natural/OutdoorGrassFloorD.png", "Apache-2.0"),
 )
 
 
 def builtin_photos(min_side: int = 96) -> list[np.ndarray]:
-    """Real natural photographs bundled with installed packages, as RGB
-    uint8 arrays.  Sources whose package or file is absent are skipped, so
-    callers must handle an empty list.  These are not evaluation images
-    (Set5 stays the only eval set).
+    """The package-bundled real photographs (``_BUILTIN_PHOTO_SOURCES``), as
+    RGB uint8 arrays read from the port's own copies.  These are not
+    evaluation images (Set5 stays the only eval set).
     """
-    import importlib.util
     import os
 
-    out: list[np.ndarray] = []
-    for pkg, rel in _BUILTIN_PHOTO_SOURCES:
-        try:
-            # find_spec locates the package directory WITHOUT executing the
-            # package (gymnasium_robotics/dm_control imports are heavy and
-            # side-effectful; we only want their bundled asset files)
-            spec = importlib.util.find_spec(pkg)
-            if spec is None or not spec.submodule_search_locations:
-                continue
-            pkg_dir = list(spec.submodule_search_locations)[0]
-            path = os.path.join(pkg_dir, *rel.split("/"))
-            if not os.path.exists(path):
-                continue
-            img = imread(path)
-        except Exception:
-            continue
-        if img.ndim == 3 and min(img.shape[:2]) >= min_side:
-            out.append(img)
-    return out
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "photos")
+    out = [imread(os.path.join(here, name)) for name, *_ in _BUILTIN_PHOTO_SOURCES]
+    return [img for img in out if img.ndim == 3 and min(img.shape[:2]) >= min_side]
 
 
 def synthetic_images(n: int = 8, size: int = 128, seed: int = 0) -> list[np.ndarray]:

@@ -9,7 +9,9 @@ Per image, on the resolver's device:
 (``mode='patch'``, the reference's overlapped tiling), or the generator
 over the whole frame (``mode='fast'``).  ``forward='xla'`` runs the
 ``nn.Module``; ``forward='pallas'`` runs ``apply_didbl_pallas``, whose LR
-blocks are the CUDA kernels; ``forward='pallas_int8'`` runs
+blocks are the CUDA kernels, one launch per block; ``forward='pallas_chain'``
+the same with the 16 Light53 and the 6 Light blocks as one chain kernel
+each; ``forward='pallas_int8'`` runs
 ``apply_didbl_int8`` on a one-time quantized tree (``_fwd_params``), every
 residual block on the int8 kernels.  Float32 weights; TF32 is switched off.
 """
@@ -94,7 +96,7 @@ class SuperResolver:
     ):
         self.device = resolve_device(device)
         disable_tf32()
-        if forward not in ("xla", "pallas", "pallas_int8"):
+        if forward not in ("xla", "pallas", "pallas_chain", "pallas_int8"):
             raise NotImplementedError(f"forward={forward!r} {_NOT_PORTED}")
         if mode not in ("patch", "fast"):
             raise NotImplementedError(f"mode={mode!r} {_NOT_PORTED}")
@@ -181,13 +183,14 @@ class SuperResolver:
             return lambda qp, b: apply_didbl_int8(
                 qp, b, n_body53=m.n_body53, n_light=m.n_light, n_tail53=m.n_tail53, scale=m.scale,
             )
-        if self.forward_mode == "pallas":
+        if self.forward_mode in ("pallas", "pallas_chain"):
             from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_pallas
 
             m = self.module
+            chain = self.forward_mode == "pallas_chain"
             return lambda params, b: apply_didbl_pallas(
                 params, b, dtype=self._dtype, n_body53=m.n_body53, n_light=m.n_light,
-                n_tail53=m.n_tail53, scale=m.scale,
+                n_tail53=m.n_tail53, scale=m.scale, chain=chain,
             )
         module = self.module
         return lambda params, b: module(b)

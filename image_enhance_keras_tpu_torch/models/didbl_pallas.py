@@ -2,9 +2,10 @@
 
 ``apply_didbl_pallas`` runs the DifvdsrDouble graph over the same parameter
 tree with the 16 Light53 and 6 Light LR blocks on the CUDA kernels of
-``ops/cuda/blocks.py``.  The 1x1 ``level1`` conv, the TF1 x4 (as two dense
-contractions), the two HR Light53 blocks and the 3x3 ``out`` conv are plain
-torch, as the JAX version leaves them to XLA.
+``ops/cuda/blocks.py``, or with ``chain=True`` (``--forward pallas_chain``)
+on the two chain kernels of ``ops/cuda/tower.py``.  The 1x1 ``level1``
+conv, the TF1 x4 (as two dense contractions), the two HR Light53 blocks and
+the 3x3 ``out`` conv are plain torch, as the JAX version leaves them to XLA.
 
 The int8 serving path (``--forward pallas_int8``): ``quantize_didbl_params``
 turns the tree into int8 weights with per-channel scales and, given a
@@ -31,6 +32,7 @@ from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import (
     light_int8,
     quantize_weights_per_channel,
 )
+from image_enhance_keras_tpu_torch.ops.cuda.tower import fused_light53_chain, fused_light_chain
 from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1, upsample_phase_tf1
 
 __all__ = [
@@ -69,24 +71,37 @@ def _light53_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
     return 0.9 * x + 0.1 * (a + b)
 
 
+def _stacked(blocks: list, convs: tuple) -> list:
+    """[kernel, bias] of each conv, stacked over the blocks on a leading K axis."""
+    return [torch.stack([b[c][k] for b in blocks]) for c in convs for k in ("kernel", "bias")]
+
+
 def apply_didbl_pallas(params: Any, x: torch.Tensor, dtype: Any = None, n_body53: int = 16,
                        n_light: int = 6, n_tail53: int = 2, scale: int = 4,
                        chain: bool = False) -> torch.Tensor:
-    """(N, H, W, 3) [0,1] -> (N, 4H, 4W, 3); same math as DifvdsrDouble."""
-    if chain:
-        raise NotImplementedError("chain=True (pallas_chain) is not yet ported in image_enhance_keras_tpu_torch")
+    """(N, H, W, 3) [0,1] -> (N, 4H, 4W, 3); same math as DifvdsrDouble.
+
+    ``chain=True`` runs the 16 Light53 and the 6 Light blocks as one chain
+    kernel each (``ops/cuda/tower.py``), over weights stacked on a K axis."""
     check_profile(dtype, False)
     h = torch.relu(_conv(x.to(torch.float32), params["level1"]))
-    for i in range(n_body53):
-        h = _light53(h, params[f"body53_{i}"])
-    for i in range(n_light):
-        p = params[f"light_{i}"]
-        h = fused_light_block(
-            h,
-            p["conv_a"]["kernel"], p["conv_a"]["bias"],
-            p["conv_b"]["kernel"], p["conv_b"]["bias"],
-            res_scale=0.1,
-        )
+    if chain:
+        b53 = [params[f"body53_{i}"] for i in range(n_body53)]
+        h = fused_light53_chain(h, *_stacked(b53, ("conv_a1", "conv_a2", "conv_b1", "conv_b2")),
+                                res_scale=0.1, identity_scale=0.9)
+        bl = [params[f"light_{i}"] for i in range(n_light)]
+        h = fused_light_chain(h, *_stacked(bl, ("conv_a", "conv_b")), res_scale=0.1)
+    else:
+        for i in range(n_body53):
+            h = _light53(h, params[f"body53_{i}"])
+        for i in range(n_light):
+            p = params[f"light_{i}"]
+            h = fused_light_block(
+                h,
+                p["conv_a"]["kernel"], p["conv_a"]["bias"],
+                p["conv_b"]["kernel"], p["conv_b"]["bias"],
+                res_scale=0.1,
+            )
     h = resize_bilinear_tf1(h, (scale * h.shape[-3], scale * h.shape[-2]))
     for i in range(n_tail53):
         h = _light53_xla(h, params[f"tail53_{i}"])

@@ -1,7 +1,8 @@
 """Build ``csrc/*.cu`` with nvcc into plain-C shared libraries, load them with ctypes.
 
 Each source compiles at first use into ``_build/lib<stem>-<hash>.so`` (the
-hash covers the source and the flags, so an edit rebuilds).  All sources
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edit rebuilds).  All sources
 start compiling together, one nvcc process each.  A failed build raises with
 nvcc's output; there is no fallback.
 """
@@ -41,6 +42,10 @@ SIGNATURES = {
     "upsample": {
         "iek_upsample_phase_tf1": [_P, _P] + [_I] * 6 + [_P],
     },
+    "tower": {
+        "iek_light53_chain": [_P] * 13 + [_I] * 5 + [_F, _F, _P],
+        "iek_light_chain": [_P] * 8 + [_I] * 5 + [_F, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -64,10 +69,12 @@ def nvcc_path() -> str:
 
 
 def _target(stem: str) -> str:
-    src = os.path.join(CSRC, f"{stem}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    """The library's path; its hash covers the source, the shared headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [os.path.join(CSRC, f"{stem}.cu"), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
 def build_all() -> dict[str, str]:

@@ -44,17 +44,20 @@ def light_block_plain(x, w1, b1, w2, b2, res_scale: float = 0.1):
     return x + res_scale * conv2d_nhwc(t, w2, b2)
 
 
-def _check(x: torch.Tensor, kernels, biases) -> None:
-    """Validate what both paths take; on CUDA also what the kernels take."""
+def check_args(x: torch.Tensor, kernels, biases, lead: tuple = ()) -> None:
+    """Validate what both paths take; on CUDA also what the kernels take.
+
+    ``kernels`` are (w, k) pairs of (*lead, k, k, C, C) HWIO weights,
+    ``biases`` (*lead, C); ``lead`` is (K,) for stacked chain weights."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got shape {tuple(x.shape)}")
     c = int(x.shape[-1])
     for w, k in kernels:
-        if tuple(w.shape) != (k, k, c, c):
-            raise ValueError(f"kernel shape {tuple(w.shape)} != {(k, k, c, c)}")
+        if tuple(w.shape) != (*lead, k, k, c, c):
+            raise ValueError(f"kernel shape {tuple(w.shape)} != {(*lead, k, k, c, c)}")
     for b in biases:
-        if tuple(b.shape) != (c,):
-            raise ValueError(f"bias shape {tuple(b.shape)} != {(c,)}")
+        if tuple(b.shape) != (*lead, c):
+            raise ValueError(f"bias shape {tuple(b.shape)} != {(*lead, c)}")
     tensors = [x, *(w for w, _ in kernels), *biases]
     for t in tensors:
         if t.dtype != torch.float32:
@@ -74,14 +77,14 @@ def _check(x: torch.Tensor, kernels, biases) -> None:
             raise ValueError("the CUDA kernels take 16-byte aligned tensors")
 
 
-def _stream(x: torch.Tensor) -> int:
+def stream_of(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def fused_light53_block(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
                         res_scale: float = 0.1, identity_scale: float = 0.9):
     """Batched Light53 block, (N, H, W, C) float32, SAME semantics."""
-    _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)], [ba1, ba2, bb1, bb2])
+    check_args(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)], [ba1, ba2, bb1, bb2])
     if x.device.type == "cpu":
         return light53_block_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
                                    res_scale, identity_scale)
@@ -94,7 +97,7 @@ def fused_light53_block(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
             wa1.data_ptr(), ba1.data_ptr(), wa2.data_ptr(), ba2.data_ptr(),
             wb1.data_ptr(), bb1.data_ptr(), wb2.data_ptr(), bb2.data_ptr(),
             ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
-            n, h, w, c, float(res_scale), float(identity_scale / res_scale), _stream(x),
+            n, h, w, c, float(res_scale), float(identity_scale / res_scale), stream_of(x),
         )
     _build.check(lib, code, "fused_light53_block")
     fused_light53_block.launches += 1
@@ -103,7 +106,7 @@ def fused_light53_block(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
 
 def fused_light_block(x, w1, b1, w2, b2, res_scale: float = 0.1):
     """Batched Light block, (N, H, W, C) float32, SAME semantics."""
-    _check(x, [(w1, 3), (w2, 3)], [b1, b2])
+    check_args(x, [(w1, 3), (w2, 3)], [b1, b2])
     if x.device.type == "cpu":
         return light_block_plain(x, w1, b1, w2, b2, res_scale)
     lib = _build.library("blocks")
@@ -112,7 +115,7 @@ def fused_light_block(x, w1, b1, w2, b2, res_scale: float = 0.1):
     with torch.cuda.device(x.device):
         code = lib.iek_light_block(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            t.data_ptr(), out.data_ptr(), n, h, w, c, float(res_scale), _stream(x),
+            t.data_ptr(), out.data_ptr(), n, h, w, c, float(res_scale), stream_of(x),
         )
     _build.check(lib, code, "fused_light_block")
     fused_light_block.launches += 1

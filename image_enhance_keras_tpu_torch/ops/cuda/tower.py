@@ -1,0 +1,98 @@
+"""Chains of Light53 and Light blocks: CUDA kernels and their plain versions.
+
+Counterpart of ``ops/pallas/tower.py``.  ``fused_light53_chain`` and
+``fused_light_chain`` keep the JAX signatures: x NHWC, weights stacked on a
+leading K axis, (K, kh, kw, C, C) HWIO, biases (K, C).  On a CUDA tensor
+they run the K blocks in one cooperative launch of ``csrc/tower.cu`` (see
+the notes there) or raise; on a CPU tensor they run the plain PyTorch
+versions below, loops of ``conv2d_nhwc`` in the chain body's order
+(``_light53_body``: ``identity*x + res*(ya + yb)`` with each branch's
+second conv and bias summed before the combine).  Each wrapper counts its
+kernel launches in ``.launches`` (one per call).  An empty chain (K = 0)
+returns x, as the JAX block loop does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
+from image_enhance_keras_tpu_torch.ops.cuda import _build
+from image_enhance_keras_tpu_torch.ops.cuda.blocks import check_args, stream_of
+
+__all__ = [
+    "fused_light53_chain",
+    "fused_light_chain",
+    "light53_chain_plain",
+    "light_chain_plain",
+]
+
+
+def light53_chain_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
+                        res_scale: float = 0.1, identity_scale: float = 0.9):
+    """K Light53 blocks: x = id*x + res*(ya + yb), with
+    ya = conv5(relu(conv3(x) + ba1)) + ba2 and yb = conv3(relu(conv5(x) + bb1)) + bb2."""
+    for k in range(wa1.shape[0]):
+        ya = conv2d_nhwc(torch.relu(conv2d_nhwc(x, wa1[k], ba1[k])), wa2[k], ba2[k])
+        yb = conv2d_nhwc(torch.relu(conv2d_nhwc(x, wb1[k], bb1[k])), wb2[k], bb2[k])
+        x = identity_scale * x + res_scale * (ya + yb)
+    return x
+
+
+def light_chain_plain(x, wa1, ba1, wa2, ba2, res_scale: float = 0.1):
+    """K Light blocks: x = x + res * (conv3(relu(conv3(x) + b1)) + b2)."""
+    for k in range(wa1.shape[0]):
+        x = x + res_scale * conv2d_nhwc(torch.relu(conv2d_nhwc(x, wa1[k], ba1[k])), wa2[k], ba2[k])
+    return x
+
+
+def _k_blocks(w: torch.Tensor) -> int:
+    if w.dim() != 5:
+        raise ValueError(f"chain weights are stacked (K, kh, kw, C, C), got shape {tuple(w.shape)}")
+    return int(w.shape[0])
+
+
+def fused_light53_chain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
+                        res_scale: float = 0.1, identity_scale: float = 0.9):
+    """K chained Light53 blocks, (N, H, W, C) float32, SAME semantics per image."""
+    k = _k_blocks(wa1)
+    check_args(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)], [ba1, ba2, bb1, bb2], lead=(k,))
+    if x.device.type == "cpu" or k == 0:
+        return light53_chain_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2, res_scale, identity_scale)
+    lib = _build.library("tower")
+    n, h, w, c = (int(s) for s in x.shape)
+    act, ta, tb, out = (torch.empty_like(x) for _ in range(4))
+    with torch.cuda.device(x.device):
+        code = lib.iek_light53_chain(
+            x.data_ptr(),
+            wa1.data_ptr(), ba1.data_ptr(), wa2.data_ptr(), ba2.data_ptr(),
+            wb1.data_ptr(), bb1.data_ptr(), wb2.data_ptr(), bb2.data_ptr(),
+            act.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+            k, n, h, w, c, float(res_scale), float(identity_scale), stream_of(x),
+        )
+    _build.check(lib, code, "fused_light53_chain")
+    fused_light53_chain.launches += 1
+    return out
+
+
+def fused_light_chain(x, wa1, ba1, wa2, ba2, res_scale: float = 0.1):
+    """K chained Light blocks, (N, H, W, C) float32, SAME semantics per image."""
+    k = _k_blocks(wa1)
+    check_args(x, [(wa1, 3), (wa2, 3)], [ba1, ba2], lead=(k,))
+    if x.device.type == "cpu" or k == 0:
+        return light_chain_plain(x, wa1, ba1, wa2, ba2, res_scale)
+    lib = _build.library("tower")
+    n, h, w, c = (int(s) for s in x.shape)
+    act, t, out = (torch.empty_like(x) for _ in range(3))
+    with torch.cuda.device(x.device):
+        code = lib.iek_light_chain(
+            x.data_ptr(), wa1.data_ptr(), ba1.data_ptr(), wa2.data_ptr(), ba2.data_ptr(),
+            act.data_ptr(), t.data_ptr(), out.data_ptr(), k, n, h, w, c, float(res_scale), stream_of(x),
+        )
+    _build.check(lib, code, "fused_light_chain")
+    fused_light_chain.launches += 1
+    return out
+
+
+fused_light53_chain.launches = 0
+fused_light_chain.launches = 0

@@ -1,0 +1,70 @@
+"""Separable filters for the metrics (the subset of ``ops/filters.py`` that SSIM needs).
+
+``separable_filter2d`` filters each channel with k_h along H and k_w along W
+after symmetric edge padding (scipy.ndimage's mode='reflect').  Each pass is
+a weighted sum of shifted slices in float32: no convolution library, and so
+no TF32, on the card.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["separable_filter2d"]
+
+
+@functools.lru_cache(maxsize=None)
+def _gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
+    """Matches scipy.ndimage.gaussian_filter's discrete Gaussian."""
+    radius = int(truncate * sigma + 0.5)
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k /= k.sum()
+    return k.astype(np.float32)
+
+
+def _pad_symmetric(x: torch.Tensor, axis: int, before: int, after: int) -> torch.Tensor:
+    """np.pad(mode='symmetric') along one axis (edge sample repeated), pads up to the axis length."""
+    n = x.shape[axis]
+    if before > n or after > n:
+        raise ValueError(f"symmetric padding of {before}/{after} exceeds the axis length {n}")
+    parts = []
+    if before:
+        parts.append(x.narrow(axis, 0, before).flip(axis))
+    parts.append(x)
+    if after:
+        parts.append(x.narrow(axis, n - after, after).flip(axis))
+    return torch.cat(parts, dim=axis)
+
+
+def _filter_axis(x: torch.Tensor, kern: np.ndarray, axis: int) -> torch.Tensor:
+    """Valid correlation with ``kern`` along ``axis``: sum_i kern[i] * x[i : i + n - len + 1]."""
+    m = x.shape[axis] - len(kern) + 1
+    out = x.narrow(axis, 0, m) * float(kern[0])
+    for i in range(1, len(kern)):
+        out = out + x.narrow(axis, i, m) * float(kern[i])
+    return out
+
+
+def separable_filter2d(x: torch.Tensor, k_h: np.ndarray, k_w: np.ndarray | None = None,
+                       pad_mode: str = "symmetric") -> torch.Tensor:
+    """Apply a separable (k_h outer k_w) filter per channel with edge padding.
+
+    x is (H, W), (H, W, C) or (N, H, W, C); the output has x's shape."""
+    if pad_mode != "symmetric":
+        raise NotImplementedError(f"pad_mode={pad_mode!r} is not yet ported in image_enhance_keras_tpu_torch")
+    if k_w is None:
+        k_w = k_h
+    if x.dim() not in (2, 3, 4):
+        raise ValueError(f"expected 2D/3D/4D array, got {x.dim()}D")
+    ax_h, ax_w = (0, 1) if x.dim() == 2 else (x.dim() - 3, x.dim() - 2)
+    k_h, k_w = np.asarray(k_h, np.float32), np.asarray(k_w, np.float32)
+    # scipy origin-0 convention: an even-length kernel spans
+    # [-(n//2), n - n//2 - 1], so pad n//2 before and (n-1)//2 after
+    y = _pad_symmetric(x, ax_h, len(k_h) // 2, (len(k_h) - 1) // 2)
+    y = _filter_axis(y, k_h, ax_h)
+    y = _pad_symmetric(y, ax_w, len(k_w) // 2, (len(k_w) - 1) // 2)
+    return _filter_axis(y, k_w, ax_w)

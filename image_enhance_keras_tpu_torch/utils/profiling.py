@@ -1,7 +1,7 @@
 """Where the device time of the main path goes: kernels by name, and the idle share.
 
     python -m image_enhance_keras_tpu_torch.utils.profiling [--size 128] [--iters 3]
-        [--forwards pallas_int8 pallas xla]
+        [--forwards pallas_int8 pallas pallas_chain xla]
 
 Upscales one seeded ``size`` x ``size`` image in patch mode (96/64/8, the
 demo weights) with each of ``--forwards`` under ``torch.profiler``, after a
@@ -57,8 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--forwards", nargs="+", default=["pallas_int8", "pallas", "xla"],
-                    choices=["pallas_int8", "pallas", "xla"])
+    ap.add_argument("--forwards", nargs="+", default=["pallas_int8", "pallas", "pallas_chain", "xla"],
+                    choices=["pallas_int8", "pallas", "pallas_chain", "xla"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling needs a CUDA card", file=sys.stderr)

@@ -76,6 +76,15 @@ def test_engine_pallas_forward_matches_module_forward(tiny):
     _assert_u8_close(pk.upscale(tiny[2]), pr.upscale(tiny[2]))
 
 
+@pytest.mark.parametrize("mode", ["patch", "fast"])
+def test_engine_pallas_chain_matches_jax(tiny, mode):
+    jr, pr = _resolvers(tiny, mode=mode, forward="pallas_chain")
+    img = tiny[2]
+    got = pr.upscale(img)
+    assert got.shape == (80, 112, 3)
+    _assert_u8_close(got, np.asarray(jr.upscale(img)))
+
+
 def test_round_modes():
     r = port_engine.SuperResolver.__new__(port_engine.SuperResolver)
     y = torch.tensor([-3.0, 0.5, 1.5, 2.5, 254.5, 254.7, 300.0])
@@ -116,6 +125,16 @@ def test_cli_pallas_matches_jax_cli(cli_setup):
     # a rerun skips the outputs of the first run
     assert port_main([str(dirs["port"]), *common, "--device", "cpu"]) == 0
     assert sorted(os.listdir(dirs["port"])) == ["img.bmp", "img_scaled(1x).bmp"]
+
+
+def test_cli_pallas_chain_matches_jax_cli(cli_setup):
+    dirs, npz = cli_setup
+    common = ["--weights", npz, "--forward", "pallas_chain", "--patch_size", "24", "--step", "16"]
+    assert jax_main([str(dirs["jax"]), *common]) == 0
+    assert port_main([str(dirs["port"]), *common, "--device", "cpu"]) == 0
+    got = imread(str(dirs["port"] / "img_scaled(1x).bmp"))
+    assert got.shape == (80, 112, 3)
+    _assert_u8_close(got, imread(str(dirs["jax"] / "img_scaled(1x).bmp")))
 
 
 def test_cli_defaults_to_cuda(cli_setup, monkeypatch):
@@ -241,7 +260,7 @@ def test_cli_pallas_int8_matches_jax_cli_and_honours_calib_dir(cli_setup, tmp_pa
 
 @pytest.mark.parametrize("argv", [
     ["--forward", "pallas_int8", "--int8-acc", "s32"], ["--forward", "pallas_int8", "--int8-emit", "s8"],
-    ["--forward", "pallas_chain"], ["--forward", "pallas_int8", "--mode", "split"],
+    ["--forward", "pallas_chain", "--dtype", "bfloat16"], ["--forward", "pallas_int8", "--mode", "split"],
 ])
 def test_cli_rejects_other_int8_options(tmp_path, capsys, argv):
     with pytest.raises(SystemExit):
