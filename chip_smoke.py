@@ -6,7 +6,8 @@
 Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together); the int8 kernels' SASS
+     must hold wgmma (GMMA) and no dp4a (IDP);
   2. each kernel at the main paths' shapes against its plain PyTorch
      version, with its time, the plain version's, a library call's where
      one computes the same function, and the card's bound:
@@ -17,13 +18,18 @@ Phases (each prints its elapsed seconds):
        int8 path (the demo weights quantized by the port's calibration,
        bf16 inputs from the int8 path itself): the int8 Light53 block at
        (9,96,96,128) and at the tail's (9,384,384,128) (K4), the int8 Light
-       block (K5), and the TF1 x4 upsample in bf16 and float32 (K3);
+       block (K5), and the TF1 x4 upsample in bf16 and float32 (K3), each
+       bit-equal to its plain version; K4 and K5 also on ragged crops of
+       the path's input (1x57x86, 1x70x70, 1x86x57, 1x5x70, 1x8x64: widths
+       above and below one 64-column tile); one yardstick line, cuDNN's
+       bf16 ``F.conv2d`` of the four Light53 convs at the tail's shape;
   3. the main paths through ``cli.main_dirpath`` on a seeded 128x128 BMP
      (9 tiles at 96/64/8, 512x512 out), each with its kernel launches
      counted: ``--forward pallas`` (K1, K2), ``--forward xla`` as its
      reference, ``--forward pallas_chain`` (K6, K7), ``--forward
      pallas_int8`` (K3, K4, K5; calibration included), and the int8 run
-     again with the plain x4 in place of K3 (byte-equal); then the engines
+     again with the plain x4 in place of K3 and with the plain int8 blocks
+     in place of K4 and K5 (each byte-equal); then the engines
      timed in turns and CPU references on a crop;
   4. Set5 x4 (``data_set5``, read by the numpy PNG decoder where PIL is
      missing): ``scorpath --generate`` with ``--forward xla`` and
@@ -60,10 +66,11 @@ CHAIN_ATOL = 5e-5
 U8_MAX_DIFF = 1
 U8_MAX_FRAC = 1e-3
 #: int8 kernels and the upsample against their plain versions: they repeat
-#: the same integer sums and rounded float steps, so they are expected to
-#: agree bit for bit; the bound is the CPU tests' (at most 0.1% of values
-#: differ, none by more than 1% of max|plain|)
-INT8_MAX_FRAC, INT8_MAX_REL = 1e-3, 1e-2
+#: the same exact integer sums and rounded float steps, so each must be
+#: bit-equal (torch.equal)
+#: ragged crops (N, H, W) of the int8 path's LR input for K4 and K5, with
+#: widths above and below one 64-column tile (Set5's LR widths run 57-128)
+INT8_RAGGED = ((0, 57, 86), (1, 70, 70), (2, 86, 57), (3, 5, 70), (4, 8, 64))
 #: uint8 outputs of two int8 forwards (tests/test_split_mode.py:97-98)
 INT8_U8_MAX_DIFF, INT8_U8_MAX_FRAC = 3, 0.05
 #: H100 SXM data sheet: float32 on the CUDA cores, dense int8 tensor cores, HBM3 rate
@@ -94,6 +101,21 @@ def _gpu_name_power() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def _sass_counts(so_path: str) -> dict:
+    """Lines of the library's SASS with a GMMA (wgmma) and an IDP (dp4a)
+    instruction, by ``cuobjdump`` beside nvcc or on PATH; raises where it
+    cannot be found, so that the check never passes unrun."""
+    from image_enhance_keras_tpu_torch.ops.cuda import _build
+
+    beside = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    tool = beside if os.path.isfile(beside) else shutil.which("cuobjdump")
+    if tool is None:
+        raise RuntimeError(f"cuobjdump is neither at {beside} nor on PATH")
+    sass = subprocess.run([tool, "--dump-sass", so_path], check=True, capture_output=True,
+                          text=True, timeout=120).stdout.splitlines()
+    return {op: sum(op in line for line in sass) for op in ("GMMA", "IDP")}
 
 
 def _time_ms(fn, iters: int = MIN_TIMED, warmup: int = 3) -> float:
@@ -377,6 +399,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[chip_smoke] nvcc {stem}: {line.strip()}", flush=True)
     build_s = time.time() - t0
+    # the int8 kernels' products are tensor-core wgmma (SASS *GMMA), no __dp4a
+    try:
+        sass = _sass_counts(_build.build_all()["int8_blocks"])
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        sass = None
+        failures.append(f"int8 kernels: the SASS could not be read ({e})")
+    print(f"[chip_smoke] SASS of csrc/int8_blocks.cu: {sass}", flush=True)
+    if sass is not None and (sass["GMMA"] == 0 or sass["IDP"] > 0):
+        failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass}")
     _phase(f"1 build ({build_s:.2f} s)", t0)
 
     # -- 2. kernels against their plain versions ------------------------------
@@ -583,11 +614,9 @@ def main() -> int:
             frac = (d > 0).float().mean().item()
             rel = err / max(want.float().abs().max().item(), 1e-30)
             exact = bool(torch.equal(got, want))
-            if name.startswith("upsample") and not exact:
-                failures.append(f"{name}: kernel not bit-equal to plain (max |diff| {err:.3g})")
-            if frac > INT8_MAX_FRAC or rel > INT8_MAX_REL:
-                failures.append(f"{name}: kernel vs plain differ on {frac:.3g} of values, "
-                                f"max {rel:.3g} of max|plain|")
+            if not exact:
+                failures.append(f"{name}: kernel not bit-equal to plain (differ on {frac:.3g} of "
+                                f"values, max |diff| {err:.3g} = {rel:.3g} of max|plain|)")
             ms = _time_ms(lambda: kern(x))
             plain_ms = _time_ms(lambda: plain(x), iters=plain_iters, warmup=1)
             bound_ms, bound_by = _bound(ops, peak, nbytes)
@@ -600,12 +629,41 @@ def main() -> int:
             print(f"[chip_smoke] {name} {tuple(x.shape)} {x.dtype}: bit-equal {exact}, max |diff| "
                   f"{err:.3g}, {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, {bound_ms:.4f} ms bound "
                   f"({bound_by}), {ops / (ms * 1e-3) / 1e12:.2f} T(FL)OP/s", flush=True)
+        # K4 and K5 on ragged crops of the path's LR input (tiles of 64
+        # columns and 4 rows cut by the image's edge)
+        for n_i, rh, rw in INT8_RAGGED:
+            xr = x8[n_i:n_i + 1, :rh, :rw].contiguous()
+            for name, kern, plain, *_ in i8_specs[:2]:
+                same = bool(torch.equal(kern(xr), plain(xr)))
+                print(f"[chip_smoke] {name} ragged {tuple(xr.shape)}: bit-equal {same}", flush=True)
+                if not same:
+                    failures.append(f"{name} on a ragged {tuple(xr.shape)} input: not bit-equal to plain")
+        # a yardstick, not the same function: cuDNN's bf16 convolutions of
+        # the four Light53 convs (float weights) at the tail's shape
+        xc = xh8.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        w4 = [oihw(params["tail53_0"][cv]["kernel"]).to(torch.bfloat16)
+              .contiguous(memory_format=torch.channels_last) for cv in l53_names]
+
+        def four_convs():
+            for w in w4:
+                F.conv2d(xc, w, padding=w.shape[-1] // 2)
+
+        yard_ms = _time_ms(four_convs, iters=5, warmup=1)
+        yard_ops = 2.0 * 68 * c * c * xh8[..., 0].numel()
+        yardstick = {"what": "cuDNN bf16 F.conv2d, the four Light53 convs (no quantization, no "
+                             "epilogue)", "shape": list(xh8.shape), "ms": yard_ms,
+                     "tflops": yard_ops / (yard_ms * 1e-3) / 1e12}
+        print(f"[chip_smoke] yardstick: cuDNN bf16 F.conv2d of the four Light53 convs at "
+              f"{tuple(xh8.shape)}: {yard_ms:.4f} ms, {yardstick['tflops']:.1f} TFLOP/s "
+              f"(K4 at this shape {i8_rows['light53_int8_hr']['ms']:.4f} ms) on {gpu}", flush=True)
+        del xc, w4
     del x8, xl8, xu8, xh8
     up32, hr = i8_rows.pop("upsample_phase_tf1_f32"), i8_rows.pop("light53_int8_hr")
     for name, row in i8_rows.items():
         extra = {}
         if name == "light53_int8":
-            extra = {f"hr_{k}": hr[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shape")}
+            extra = {f"hr_{k}": hr[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shape",
+                                                 "bit_equal", "tops")}
         if name == "upsample_phase_tf1":
             extra = {f"f32_{k}": up32[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
         rows.append({
@@ -613,11 +671,9 @@ def main() -> int:
             "source": "image_enhance_keras_tpu_torch/csrc/"
                       + ("upsample.cu" if name.startswith("upsample") else "int8_blocks.cu"),
             "replaces": row["replaces"], "launches": None, "max_abs_err": row["max_abs_err"],
-            "tolerance": 0.0 if name.startswith("upsample") else f"{INT8_MAX_FRAC} of values, "
-                                                                    f"{INT8_MAX_REL} of max|plain|",
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "tolerance": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None, "shape": row["shape"],
-            "dtype": row["dtype"], "bit_equal": row["bit_equal"], **extra,
+            "dtype": row["dtype"], "bit_equal": row["bit_equal"], "tops": row["tops"], **extra,
         })
     _phase("2 kernels", t0)
 
@@ -702,19 +758,29 @@ def main() -> int:
 
         # the int8 path: calibration, quantization and the forward, all in the
         # CLI run; K3 takes the x4 (one launch in calibration, one per chunk of
-        # tiles).  Then the same run with the plain x4 in place of K3, which
-        # must give the same bytes (its launches are not the main path's).
+        # tiles).  Then the same run with the plain x4 in place of K3, and
+        # with the plain int8 blocks in place of K4 and K5: each must give the
+        # same bytes (their launches are not the main path's).
         t0 = time.time()
+
+        def plain53(x, *a, res_scale=0.1, identity_scale=0.9, tile=None, act_scales=None):
+            return ki8.light53_int8_plain(x, *a, act_scales, res_scale, identity_scale)
+
+        def plain_light(x, *a, res_scale=0.1, tile=None, act_scales=None):
+            return ki8.light_int8_plain(x, *a, act_scales, res_scale)
+
         outs8 = {}
-        for up in ("kernel", "plain"):
+        for up in ("kernel", "plain_x4", "plain_blocks"):
             d = os.path.join(tmp, f"int8_{up}")
             os.makedirs(d)
             imwrite(os.path.join(d, "img.bmp"), img)
             ki8.light53_int8.launches = 0
             ki8.light_int8.launches = 0
             kup.upsample_phase_tf1_kernel.launches = 0
-            if up == "plain":
+            if up == "plain_x4":
                 didbl_pallas.upsample_phase_tf1 = upsample_phase_plain
+            if up == "plain_blocks":
+                didbl_pallas.light53_int8, didbl_pallas.light_int8 = plain53, plain_light
             try:
                 torch.cuda.synchronize()
                 t1 = time.time()
@@ -723,14 +789,17 @@ def main() -> int:
                 cli_s = time.time() - t1
             finally:
                 didbl_pallas.upsample_phase_tf1 = upsample_phase_tf1
+                didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
             launches8 = {"light53_int8": ki8.light53_int8.launches,
                          "light_int8": ki8.light_int8.launches,
                          "upsample_phase_tf1": kup.upsample_phase_tf1_kernel.launches}
-            print(f"[chip_smoke] main_dirpath --forward pallas_int8, {up} x4: rc {rc}, "
+            print(f"[chip_smoke] main_dirpath --forward pallas_int8, {up}: rc {rc}, "
                   f"{cli_s:.2f} s (calibration included), launches {launches8}", flush=True)
-            want8 = {"light53_int8": 18, "light_int8": 6, "upsample_phase_tf1": 2 if up == "kernel" else 0}
+            want8 = {"light53_int8": 0 if up == "plain_blocks" else 18,
+                     "light_int8": 0 if up == "plain_blocks" else 6,
+                     "upsample_phase_tf1": 0 if up == "plain_x4" else 2}
             if rc != 0:
-                failures.append(f"main_dirpath --forward pallas_int8 ({up} x4) returned {rc}")
+                failures.append(f"main_dirpath --forward pallas_int8 ({up}) returned {rc}")
             if launches8 != want8:
                 failures.append(f"int8 path launches {launches8} != {want8}")
             if up == "kernel":
@@ -741,15 +810,18 @@ def main() -> int:
         out_8 = outs8["kernel"]
         if out_8.shape != (512, 512, 3) or float(out_8.astype(np.float64).std()) < 1.0:
             failures.append(f"int8 output shape {out_8.shape} or flat")
-        same8 = bool(np.array_equal(outs8["kernel"], outs8["plain"]))
-        if not same8:
-            dmax, frac = _u8_agreement(outs8["kernel"], outs8["plain"])
-            failures.append(f"int8 outputs with the upsample kernel and with the plain x4 differ: "
-                            f"max {dmax}, fraction {frac:.3g}")
+        same8 = {}
+        for other in ("plain_x4", "plain_blocks"):
+            same8[other] = bool(np.array_equal(outs8["kernel"], outs8[other]))
+            if not same8[other]:
+                dmax, frac = _u8_agreement(outs8["kernel"], outs8[other])
+                failures.append(f"int8 outputs of the kernels and of the {other} run differ: "
+                                f"max {dmax}, fraction {frac:.3g}")
         psnr8 = _psnr(out_8, out_p)
         dmax, frac = _u8_agreement(out_8, out_p)
-        print(f"[chip_smoke] int8 output byte-equal with the upsample kernel and with the plain x4: "
-              f"{same8}; PSNR of int8 against the float32 pallas "
+        print(f"[chip_smoke] int8 output of the kernels byte-equal with the plain x4 "
+              f"{same8['plain_x4']}, with the plain int8 blocks {same8['plain_blocks']}; "
+              f"PSNR of int8 against the float32 pallas "
               f"output {psnr8:.2f} dB (max diff {dmax}, differing fraction {frac:.3g})", flush=True)
         if psnr8 < 30.0:
             failures.append(f"int8 output is far from the float32 output: PSNR {psnr8:.2f} dB")
@@ -807,7 +879,8 @@ def main() -> int:
         for f in failures:
             print(f"[chip_smoke] FAIL: {f}", file=sys.stderr, flush=True)
         return 1
-    print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu,
+    print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu, "int8_yardstick": yardstick,
+                      "int8_sass": sass,
                       "int8_calib_source": res8.int8_calib_source, "int8_psnr_vs_f32": psnr8,
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()}, "set5": set5}),
           flush=True)

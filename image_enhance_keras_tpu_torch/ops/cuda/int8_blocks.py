@@ -8,7 +8,8 @@ scales, float32 biases, ``act_scales``, ``tile``).  On a CUDA tensor they
 launch the kernels of ``csrc/int8_blocks.cu`` (two launches per block, see
 the notes there) or raise; on a CPU tensor they run the plain PyTorch
 versions below.  Each wrapper counts in ``.launches`` the blocks it ran on
-the kernels.
+the kernels.  The kernels run the s8 x s8 -> s32 products on the tensor
+cores (wgmma) and take exactly C = 128 channels (:data:`CUDA_CHANNELS`).
 
 Only the static-scale serving mode is ported: with calibrated
 ``act_scales`` the TPU kernel's halo'd tiles give exactly the whole-image
@@ -37,8 +38,9 @@ __all__ = [
     "light_int8_plain",
 ]
 
-#: channel granularity of the CUDA kernels (output channels per thread block)
-CUDA_CHANNEL_MULTIPLE = 64
+#: channels the CUDA kernels take: the N of their wgmma tile, and the input
+#: window they hold in shared memory for all 25 (or 9) taps
+CUDA_CHANNELS = 128
 
 
 def quantize_weights_per_channel(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -92,9 +94,12 @@ def light_int8_plain(x, w1q, s1, b1, w2q, s2, b2, act_scales, res_scale: float =
 
 
 def _packed(wq: torch.Tensor) -> torch.Tensor:
-    """HWIO int8 -> [ky][kx][cin/4][cout][4] int8 (one 32-bit word = 4 cin).
+    """HWIO int8 -> [ky*k + kx][cin/32][2][cout][16] int8, the kernels' B operand.
 
-    Cached on the weight tensor itself, so a quantized tree repacks once
+    Each (tap, 32-input-channel step) is one contiguous tile of cout x 32
+    bytes, K-major: the two 16-byte halves of the step are cout*16 bytes
+    apart, and within a half output channel ``co`` holds its 16 input
+    channels at ``co*16``.  Cached on the weight tensor itself, so a quantized tree repacks once
     (inference tensors carry no version counter: they are not repacked
     after an in-place change).
     """
@@ -103,7 +108,7 @@ def _packed(wq: torch.Tensor) -> torch.Tensor:
     if cached is not None and cached[0] == version:
         return cached[1]
     k, _, cin, cout = (int(s) for s in wq.shape)
-    packed = wq.reshape(k, k, cin // 4, 4, cout).permute(0, 1, 2, 4, 3).contiguous()
+    packed = wq.reshape(k * k, cin // 32, 2, 16, cout).permute(0, 1, 2, 4, 3).contiguous()
     wq._iek_packed = (version, packed)
     return packed
 
@@ -137,8 +142,8 @@ def _check(x, convs, vectors, act_scales, n_act: int) -> None:
         return
     if x.device.type != "cuda":
         raise ValueError(f"int8 blocks run on cpu or cuda tensors, not {x.device}")
-    if c % CUDA_CHANNEL_MULTIPLE:
-        raise ValueError(f"the CUDA kernels need C % {CUDA_CHANNEL_MULTIPLE} == 0, got C={c}")
+    if c != CUDA_CHANNELS:
+        raise ValueError(f"the CUDA kernels take C == {CUDA_CHANNELS}, got C={c}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from image_enhance_keras_tpu_torch.ops.cuda import tower
+from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks, tower
 
 C = 128
 #: K float32 blocks summed in another order (tests/test_pallas_tower.py)
@@ -42,3 +42,29 @@ def test_chain_kernels_match_plain(which, monkeypatch):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), plain(x, *args).cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(57, 86), (70, 70), (86, 57), (57, 57), (5, 70), (8, 64)])
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_int8_kernels_bit_equal_plain_on_ragged_shapes(which, hw):
+    """K4/K5 (s8 wgmma tiles of 4 rows x 64 columns) on images that cut the
+    tiles, wider and narrower than one tile, bit-equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    rng = np.random.default_rng(hw[0])
+    x = torch.from_numpy((rng.normal(size=(1, *hw, C)) * 0.5).astype(np.float32)).cuda().to(torch.bfloat16)
+    args = []
+    for k in (3, 5, 5, 3) if which == "light53" else (3, 3):
+        q, s = int8_blocks.quantize_weights_per_channel(
+            torch.from_numpy((rng.normal(size=(k, k, C, C)) * 0.05).astype(np.float32)).cuda())
+        args += [q, s, torch.from_numpy((rng.normal(size=C) * 0.01).astype(np.float32)).cuda()]
+    act = torch.tensor([x.float().abs().max().item() / 127, 0.03, 0.05], device="cuda")
+    wrapper, plain = {"light53": (int8_blocks.light53_int8, int8_blocks.light53_int8_plain),
+                      "light": (int8_blocks.light_int8, int8_blocks.light_int8_plain)}[which]
+    act = act if which == "light53" else act[:2].contiguous()
+    before = wrapper.launches
+    got = wrapper(x, *args, act_scales=act)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, plain(x, *args, act))

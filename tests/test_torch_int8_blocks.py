@@ -125,12 +125,12 @@ def test_wrapper_rejects_bad_args():
 
 
 def test_packed_weight_layout():
-    """One 32-bit word holds input channels 4w..4w+3 of one output channel."""
-    wq = torch.from_numpy(np.random.default_rng(7).integers(-127, 128, (3, 3, 16, 8), dtype=np.int8))
+    """[tap][cin/32][K half][cout][16]: 16 input channels of one output channel per row."""
+    wq = torch.from_numpy(np.random.default_rng(7).integers(-127, 128, (3, 3, 64, 8), dtype=np.int8))
     p = i8._packed(wq)
-    assert tuple(p.shape) == (3, 3, 4, 8, 4) and p.is_contiguous()
-    for ky, kx, cw, co, j in [(0, 0, 0, 0, 0), (2, 1, 3, 7, 2), (1, 2, 1, 4, 3)]:
-        assert p[ky, kx, cw, co, j] == wq[ky, kx, 4 * cw + j, co]
+    assert tuple(p.shape) == (9, 2, 2, 8, 16) and p.is_contiguous()
+    for ky, kx, ch, hf, co, j in [(0, 0, 0, 0, 0, 0), (2, 1, 1, 1, 7, 15), (1, 2, 0, 1, 4, 3)]:
+        assert p[3 * ky + kx, ch, hf, co, j] == wq[ky, kx, 32 * ch + 16 * hf + j, co]
     assert i8._packed(wq) is p  # cached with the tensor
     wq.add_(1)
     assert i8._packed(wq) is not p  # an in-place change repacks
