@@ -7,14 +7,18 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP);
+     must hold wgmma (GMMA) and no dp4a (IDP), the chain kernels' SASS
+     wgmma (their 3xTF32 products);
   2. each kernel at the main paths' shapes against its plain PyTorch
      version, with its time, the plain version's, a library call's where
      one computes the same function, and the card's bound:
        float32 (9 tiles of 96x96x128, demo weights, inputs from the pallas
        path itself): the Light53 and Light blocks (K1, K2), and the Light53
        and Light chains over the 16 / 6 stacked blocks (K6, K7), each also
-       against the per-block kernels;
+       against the per-block kernels, and on ragged crops of the chain
+       path's input (1x57x86, 1x86x57, 1x57x57, 1x5x70, 1x8x64); every
+       float32 row with two bounds, the CUDA cores' float32 FMA and the
+       TF32 tensor cores' 3xTF32, and the lesser as its bound;
        int8 path (the demo weights quantized by the port's calibration,
        bf16 inputs from the int8 path itself): the int8 Light53 block at
        (9,96,96,128) and at the tail's (9,384,384,128) (K4), the int8 Light
@@ -73,8 +77,15 @@ U8_MAX_FRAC = 1e-3
 INT8_RAGGED = ((0, 57, 86), (1, 70, 70), (2, 86, 57), (3, 5, 70), (4, 8, 64))
 #: uint8 outputs of two int8 forwards (tests/test_split_mode.py:97-98)
 INT8_U8_MAX_DIFF, INT8_U8_MAX_FRAC = 3, 0.05
-#: H100 SXM data sheet: float32 on the CUDA cores, dense int8 tensor cores, HBM3 rate
+#: ragged crops (N, H, W) of the chain path's input for K6 and K7: widths
+#: above and below one 16-column tile of their 3xTF32 conv tile
+CHAIN_RAGGED = ((0, 57, 86), (1, 86, 57), (2, 57, 57), (3, 5, 70), (4, 8, 64))
+#: H100 SXM data sheet: float32 on the CUDA cores, dense TF32 and int8 tensor
+#: cores, HBM3 rate.  Float32-accurate work on the TF32 tensor cores takes
+#: three products (3xTF32), so its bound is 3 x FLOP / PEAK_TF32_FLOPS; the
+#: TFLOP/s reported count the useful FLOP only.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 MIN_TIMED = 12
@@ -167,6 +178,16 @@ def _bound(ops: float, peak_ops: float, nbytes: float) -> tuple[float, str]:
     """Least time on the card (ms) and what bounds it."""
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _f32_bounds(flops: float, nbytes: float) -> dict:
+    """Both bounds of a float32 kernel (ms): float32 FMA on the CUDA cores and
+    3xTF32 on the tensor cores; ``bound_ms`` is the lesser, the least time
+    the card could take for float32-accurate work."""
+    cores, cores_by = _bound(flops, PEAK_F32_FLOPS, nbytes)
+    tc, tc_by = _bound(3.0 * flops, PEAK_TF32_FLOPS, nbytes)
+    best, by = (tc, tc_by) if tc <= cores else (cores, cores_by)
+    return {"bound_ms": best, "bound_by": by, "bound_f32_cores_ms": cores, "bound_tf32x3_ms": tc}
 
 
 def _tree_to(tree, device):
@@ -399,15 +420,20 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[chip_smoke] nvcc {stem}: {line.strip()}", flush=True)
     build_s = time.time() - t0
-    # the int8 kernels' products are tensor-core wgmma (SASS *GMMA), no __dp4a
-    try:
-        sass = _sass_counts(_build.build_all()["int8_blocks"])
-    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-        sass = None
-        failures.append(f"int8 kernels: the SASS could not be read ({e})")
-    print(f"[chip_smoke] SASS of csrc/int8_blocks.cu: {sass}", flush=True)
-    if sass is not None and (sass["GMMA"] == 0 or sass["IDP"] > 0):
-        failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass}")
+    # the int8 kernels' products are tensor-core wgmma (SASS *GMMA), no
+    # __dp4a; the chain kernels' 3xTF32 products are wgmma too
+    sass = {}
+    for stem in ("int8_blocks", "tower"):
+        try:
+            sass[stem] = _sass_counts(_build.build_all()[stem])
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            sass[stem] = None
+            failures.append(f"csrc/{stem}.cu: the SASS could not be read ({e})")
+        print(f"[chip_smoke] SASS of csrc/{stem}.cu: {sass[stem]}", flush=True)
+    if sass["int8_blocks"] is not None and (sass["int8_blocks"]["GMMA"] == 0 or sass["int8_blocks"]["IDP"] > 0):
+        failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass['int8_blocks']}")
+    if sass["tower"] is not None and sass["tower"]["GMMA"] == 0:
+        failures.append(f"chain kernels: expected wgmma (GMMA) in the SASS, got {sass['tower']}")
     _phase(f"1 build ({build_s:.2f} s)", t0)
 
     # -- 2. kernels against their plain versions ------------------------------
@@ -471,20 +497,19 @@ def main() -> int:
             library_ms = _time_ms(lambda: lib(xc, *largs))
             flops = 2.0 * taps * c * c * n * hh * ww
             nbytes = 4.0 * (2 * x.numel() + sum(a.numel() for a in args))
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+            bounds = _f32_bounds(flops, nbytes)
             rows.append({
                 "name": name, "route": "cuda",
                 "source": "image_enhance_keras_tpu_torch/csrc/blocks.cu",
                 "replaces": replaces, "launches": None, "max_abs_err": err,
-                "tolerance": KERNEL_ATOL, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": 1e3 * max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "tolerance": KERNEL_ATOL, "ms": ms, "plain_ms": plain_ms, **bounds,
                 "library_ms": library_ms,
                 "tflops": flops / (ms * 1e-3) / 1e12,
             })
             print(f"[chip_smoke] {name}: err {err:.3g} (F.conv2d formulation vs plain {lib_err:.3g}), "
                   f"{ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms F.conv2d, "
-                  f"{rows[-1]['bound_ms']:.3f} ms bound, {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
+                  f"bound {bounds['bound_ms']:.3f} ms (CUDA cores {bounds['bound_f32_cores_ms']:.3f}, "
+                  f"3xTF32 {bounds['bound_tf32x3_ms']:.3f}), {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
     # the chains (K6, K7) over the 16 stacked Light53 and 6 stacked Light
     # sets, on the chain path's own activations: the level1 output, then K6's
     # output; each against its plain version and against K1 x16 / K2 x6
@@ -531,20 +556,35 @@ def main() -> int:
             library_ms = _time_ms(lambda: lib(xc, *largs), iters=3, warmup=1)
             flops = 2.0 * taps * c * c * n * hh * ww
             nbytes = 4.0 * (2 * x.numel() + sum(a.numel() for a in args))
-            bound_ms, bound_by = _bound(flops, PEAK_F32_FLOPS, nbytes)
+            bounds = _f32_bounds(flops, nbytes)
+            # ragged crops of the path's input: tiles cut by the image's edge
+            ragged = {}
+            for n_i, rh, rw in CHAIN_RAGGED:
+                xr = x[n_i:n_i + 1, :rh, :rw].contiguous()
+                gr = kern(xr, *args)
+                er = (gr - plain(xr, *args)).abs().max().item()
+                erb = (gr - blocks(xr, *args)).abs().max().item()
+                ragged[f"{rh}x{rw}"] = max(er, erb)
+                print(f"[chip_smoke] {name} ragged {tuple(xr.shape)}: err {er:.3g} vs plain, {erb:.3g} "
+                      f"vs the per-block kernels (bound {CHAIN_ATOL})", flush=True)
+                if not (er <= CHAIN_ATOL and erb <= CHAIN_ATOL):
+                    failures.append(f"{name} on a ragged {tuple(xr.shape)} input: |kernel - plain| = "
+                                    f"{er:.3g}, |kernel - blocks| = {erb:.3g} (bound {CHAIN_ATOL})")
             rows.append({
                 "name": name, "route": "cuda",
                 "source": "image_enhance_keras_tpu_torch/csrc/tower.cu",
                 "replaces": replaces, "launches": None, "max_abs_err": err,
-                "tolerance": CHAIN_ATOL, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "tolerance": CHAIN_ATOL, "ms": ms, "plain_ms": plain_ms, **bounds,
+                "library_ms": library_ms,
                 "blocks_ms": blocks_ms, "max_abs_err_vs_blocks": err_blocks,
+                "max_abs_err_ragged": ragged,
                 "tflops": flops / (ms * 1e-3) / 1e12,
             })
             print(f"[chip_smoke] {name}: err {err:.3g} vs plain, {err_blocks:.3g} vs the per-block "
                   f"kernels (F.conv2d chain vs plain {lib_err:.3g}), {ms:.3f} ms kernel, "
                   f"{blocks_ms:.3f} ms per-block kernels, {plain_ms:.3f} ms plain, {library_ms:.3f} ms "
-                  f"F.conv2d, {bound_ms:.3f} ms bound, {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
+                  f"F.conv2d, bound {bounds['bound_ms']:.3f} ms (CUDA cores {bounds['bound_f32_cores_ms']:.3f}, "
+                  f"3xTF32 {bounds['bound_tf32x3_ms']:.3f}), {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
     del x53, xl, h, xc6, xc7, s53, sl
 
     # int8 path: the demo weights quantized by the port's own calibration on
@@ -880,7 +920,7 @@ def main() -> int:
             print(f"[chip_smoke] FAIL: {f}", file=sys.stderr, flush=True)
         return 1
     print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu, "int8_yardstick": yardstick,
-                      "int8_sass": sass,
+                      "sass": sass,
                       "int8_calib_source": res8.int8_calib_source, "int8_psnr_vs_f32": psnr8,
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()}, "set5": set5}),
           flush=True)

@@ -1,4 +1,5 @@
-// Chains of residual blocks of the didbl generator, float32, for sm_90a.
+// Chains of residual blocks of the didbl generator, float32, for sm_90a, on
+// the TF32 tensor cores in split precision (3xTF32, conv_tf32x3.cuh).
 //
 // Replaces the Pallas TPU kernels in image_enhance_keras_tpu/ops/pallas/tower.py:
 //   * iek_light53_chain <- fused_light53_chain (_light53_body): K Light53
@@ -8,41 +9,48 @@
 //       x  = identity*x + res*(ya + yb)
 //   * iek_light_chain   <- fused_light_chain (_light_body): K Light blocks,
 //       x = x + res*(conv3(relu(conv3(x) + b1)) + b2)
-// Weights are stacked on a leading K axis: (K, kh, kw, C, C) HWIO and (K, C).
-// All convs are SAME (zero padding) over NHWC activations: each image of the
-// batch is an independent tile.
+// Weights are stacked on a leading K axis and come split and repacked by the
+// wrapper (ops/cuda/tower.py _packed: [K][taps][C/8][hi/lo][2][C][4]);
+// biases are (K, C).  All convs are SAME (zero padding) over NHWC
+// activations with C = 128: each image of the batch is an independent tile.
 //
-// What bounds it on an H100: operations, as for one block (blocks.cu): 68
-// taps of a C x C product per pixel for Light53, 18 for Light, so K blocks
-// do K*2*68*C^2 FLOP per pixel against one read of x and one write of out.
+// What bounds it on an H100: operations.  K blocks do K*2*68*C^2 FLOP per
+// pixel for Light53 (K*2*18*C^2 for Light) against one read of x and one
+// write of out.  Float32 FMA on the CUDA cores bounds that at 67 TFLOP/s;
+// the tensor cores run TF32 at 495 TFLOP/s dense, and three TF32 products
+// per multiply-add (hi*hi + hi*lo + lo*hi) keep float32's accuracy at an
+// effective 165 TFLOP/s.  The split is the kernel's own: it does not depend
+// on PyTorch's TF32 switches (engine.disable_tf32 turns those off for cuDNN
+// and cuBLAS, whose single-pass TF32 would not meet the chain's 5e-5).
 //
 // Design.  The Pallas kernel keeps the tile's activation in VMEM across all
 // K blocks and streams each block's weights in by double-buffered DMA.  A
 // 96x96x128 float32 tile is 4.7 MB, far beyond one SM's 227 KB of shared
 // memory, so here the activations live in device memory (a ping-pong pair:
 // `act` and `out`, arranged so that block K-1 writes `out`) and the K blocks
-// run inside one persistent cooperative launch:
-//   per block k:  L2 prefetch of block k+1's weights (the counterpart of the
-//                 TPU's second weight slot; 4.5 MB for Light53, the L2 holds
-//                 50 MB);
-//                 phase 1: first convs + bias + relu into scratch ta (tb);
+// run inside one persistent cooperative launch, one thread block per SM:
+//   per block k:  L2 prefetch of block k+1's packed weights (the counterpart
+//                 of the TPU's second weight slot; 8.9 MB for Light53, the L2
+//                 holds 50 MB);
+//                 phase 1: first convs + bias + relu into scratch ta (tb),
+//                 one work item per (tile, conv), Light53's conv5 items
+//                 first (the longest first, then the conv3 items);
 //                 grid-wide barrier;
 //                 phase 2: second convs and the residual combine, in the
 //                 chain body's order; ya is parked in the destination and
-//                 read back by the same thread, so only one set of 64 sums
-//                 is live;
+//                 read back by the same thread block;
 //                 grid-wide barrier (except after the last block).
-// The grid is sized to what is co-resident (occupancy x SMs) and each
-// thread block loops over the work items of a phase (tile x 64-channel
-// block x image x branch), each computed by the conv tile of conv_tile.cuh.
-// Activations written inside the launch are read through L2 (__ldcg),
-// never through the read-only path; cooperative_groups' grid sync orders
-// the phases.  Plain FP32 FMA, no TF32; the combine uses explicitly rounded
-// multiplies and adds so it rounds as the plain PyTorch version does.
+// Each work item is one 8-row x TILE_W-column tile of conv_tf32x3.cuh's
+// implicit GEMM (wgmma.m64n128k8.f32.tf32.tf32).  Activations written
+// inside the launch are read through L2 (__ldcg), never through the
+// read-only path; cooperative_groups' grid sync orders the phases.  The
+// epilogues keep the explicitly rounded order of the plain version
+// (__fadd_rn/__fmul_rn, no FMA contraction), so only the products' order and
+// split differ from it.
 
 #include <cooperative_groups.h>
 
-#include "conv_tile.cuh"
+#include "conv_tf32x3.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -58,7 +66,7 @@ struct ChainArgs {
   const float* wa2; const float* ba2;  // Light53 conv_a2 (5x5); Light conv_b (3x3)
   const float* wb1; const float* bb1;  // Light53 conv_b1 (5x5)
   const float* wb2; const float* bb2;  // Light53 conv_b2 (3x3)
-  int k_blocks, n, h, w, c;
+  int k_blocks, n, h, w;
   float res_scale, identity_scale;
 };
 
@@ -70,114 +78,106 @@ __device__ __forceinline__ void prefetch_l2(const float* p, size_t n_floats) {
     asm volatile("prefetch.global.L2 [%0];" ::"l"(reinterpret_cast<const char*>(p) + i * 128));
 }
 
-__device__ __forceinline__ void load_bias(float (&b)[CO_THR], const float* src, const Tile& t) {
-  const int cb = t.co0 + (threadIdx.x >> 5) * CO_THR;
-#pragma unroll
-  for (int c = 0; c < CO_THR; ++c) b[c] = __ldg(src + cb + c);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ void load8(float (&v)[CO_THR], const float* p) {
-  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&v)[CO_THR]) {
-  float4* o = reinterpret_cast<float4*>(p);
-  o[0] = make_float4(v[0], v[1], v[2], v[3]);
-  o[1] = make_float4(v[4], v[5], v[6], v[7]);
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// dst = relu(acc + bias), through the staged tile
+__device__ __forceinline__ void emit_relu(const float (&acc)[MT][ACC], float* st, const float* bias,
+                                          float* dst, const Tile& t, int H, int W) {
+  stage_acc(acc, st);
+  for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+    const float4 v = add4(*reinterpret_cast<const float4*>(st + s), __ldg(reinterpret_cast<const float4*>(bias + ch)));
+    st4(dst + g, make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f)));
+  });
 }
 
 template <bool kLight53>
-__global__ void __launch_bounds__(THREADS, 2) chain_kernel(ChainArgs a) {
+__global__ void __launch_bounds__(THREADS, 1) chain_kernel(ChainArgs a) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ Smem s;
-  const int H = a.h, W = a.w, C = a.c, K = a.k_blocks;
-  const int n_tiles = tiles_per_image(H, W);
-  const int n_cob = C / CO_T;
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* st = reinterpret_cast<float*>(smem);
+  const int H = a.h, W = a.w, K = a.k_blocks;
+  const int tiles = tiles_per_image(H, W) * a.n;
   constexpr int branches = kLight53 ? 2 : 1;
-  const int items2 = n_tiles * n_cob * a.n;
-  const int items1 = items2 * branches;
-  const size_t cc = (size_t)C * C;
+  constexpr size_t TAP = 2 * C * C;  // packed floats per tap: hi and lo
   constexpr int KA2 = kLight53 ? 5 : 3;  // second conv of branch a
-  float acc[TILE_H][CO_THR];
-  float bias[CO_THR];
+  const float res = a.res_scale, ident = a.identity_scale;
+  float acc[MT][ACC];
+  Ring ring = make_ring(smem);
 
   for (int k = 0; k < K; ++k) {
     float* dst = (K - 1 - k) % 2 == 0 ? a.out : a.act;
     const float* src = k == 0 ? a.x : (dst == a.out ? a.act : a.out);
-    const float* wa1 = a.wa1 + k * 9 * cc;
-    const float* wa2 = a.wa2 + k * KA2 * KA2 * cc;
-    const float* wb1 = kLight53 ? a.wb1 + k * 25 * cc : nullptr;
-    const float* wb2 = kLight53 ? a.wb2 + k * 9 * cc : nullptr;
+    const float* wa1 = a.wa1 + k * 9 * TAP;
+    const float* wa2 = a.wa2 + k * KA2 * KA2 * TAP;
+    const float* wb1 = kLight53 ? a.wb1 + k * 25 * TAP : nullptr;
+    const float* wb2 = kLight53 ? a.wb2 + k * 9 * TAP : nullptr;
     if (k + 1 < K) {
-      prefetch_l2(wa1 + 9 * cc, 9 * cc);
-      prefetch_l2(wa2 + KA2 * KA2 * cc, KA2 * KA2 * cc);
+      prefetch_l2(wa1 + 9 * TAP, 9 * TAP);
+      prefetch_l2(wa2 + KA2 * KA2 * TAP, KA2 * KA2 * TAP);
       if constexpr (kLight53) {
-        prefetch_l2(wb1 + 25 * cc, 25 * cc);
-        prefetch_l2(wb2 + 9 * cc, 9 * cc);
+        prefetch_l2(wb1 + 25 * TAP, 25 * TAP);
+        prefetch_l2(wb2 + 9 * TAP, 9 * TAP);
       }
     }
 
-    // phase 1: ta = relu(conv3(src) + ba1); Light53 also tb = relu(conv5(src) + bb1)
-    for (int it = blockIdx.x; it < items1; it += gridDim.x) {
-      const int z = it / (n_tiles * n_cob);
-      const Tile t = make_tile(it % n_tiles, (it / n_tiles) % n_cob, z / branches, W);
-      const bool branch_b = kLight53 && (z % branches) == 1;
-      zero(acc);
-      if constexpr (kLight53) {
-        if (branch_b) conv_accumulate<5, true>(acc, s, src, wb1, t, H, W, C);
+    // phase 1: tb = relu(conv5(src) + bb1) (Light53), ta = relu(conv3(src) + ba1)
+    for (int it = blockIdx.x; it < tiles * branches; it += gridDim.x) {
+      const bool branch_b = kLight53 && it < tiles;
+      const Tile t = make_tile(branch_b || !kLight53 ? it : it - tiles, H, W);
+      if (branch_b) {
+        conv<5>(acc, smem, ring, src, wb1, t, H, W);
+        emit_relu(acc, st, a.bb1 + k * C, a.tb, t, H, W);
+      } else {
+        conv<3>(acc, smem, ring, src, wa1, t, H, W);
+        emit_relu(acc, st, a.ba1 + k * C, a.ta, t, H, W);
       }
-      if (!branch_b) conv_accumulate<3, true>(acc, s, src, wa1, t, H, W, C);
-      load_bias(bias, (branch_b ? a.bb1 : a.ba1) + k * C, t);
-      float* tdst = branch_b ? a.tb : a.ta;
-#pragma unroll
-      for (int j = 0; j < TILE_H; ++j)
-        if (pixel_inside(t, j, H, W)) store_relu_bias(tdst + pixel_offset(t, j, H, W, C), acc, j, bias);
     }
     grid.sync();
 
     // phase 2: the second convs and the residual combine
-    for (int it = blockIdx.x; it < items2; it += gridDim.x) {
-      const Tile t = make_tile(it % n_tiles, (it / n_tiles) % n_cob, it / (n_tiles * n_cob), W);
-      zero(acc);
-      conv_accumulate<KA2, true>(acc, s, a.ta, wa2, t, H, W, C);
-      load_bias(bias, a.ba2 + k * C, t);
+    for (int it = blockIdx.x; it < tiles; it += gridDim.x) {
+      const Tile t = make_tile(it, H, W);
+      conv<KA2>(acc, smem, ring, a.ta, wa2, t, H, W);
       if constexpr (kLight53) {
         // ya = conv5(ta) + ba2, parked in dst; then yb = conv3(tb) + bb2
-#pragma unroll
-        for (int j = 0; j < TILE_H; ++j) {
-          if (!pixel_inside(t, j, H, W)) continue;
-          float ya[CO_THR];
-#pragma unroll
-          for (int c = 0; c < CO_THR; ++c) ya[c] = __fadd_rn(acc[j][c], bias[c]);
-          store8(dst + pixel_offset(t, j, H, W, C), ya);
-        }
-        zero(acc);
-        conv_accumulate<3, true>(acc, s, a.tb, wb2, t, H, W, C);
-        load_bias(bias, a.bb2 + k * C, t);
-      }
-#pragma unroll
-      for (int j = 0; j < TILE_H; ++j) {
-        if (!pixel_inside(t, j, H, W)) continue;
-        const size_t off = pixel_offset(t, j, H, W, C);
-        float xv[CO_THR], o[CO_THR];
-        load8(xv, src + off);
-        if constexpr (kLight53) {
-          float ya[CO_THR];
-          load8(ya, dst + off);
-#pragma unroll
-          for (int c = 0; c < CO_THR; ++c) {
-            const float y = __fadd_rn(ya[c], __fadd_rn(acc[j][c], bias[c]));
-            o[c] = __fadd_rn(__fmul_rn(a.identity_scale, xv[c]), __fmul_rn(a.res_scale, y));
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < CO_THR; ++c)
-            o[c] = __fadd_rn(xv[c], __fmul_rn(a.res_scale, __fadd_rn(acc[j][c], bias[c])));
-        }
-        store8(dst + off, o);
+        stage_acc(acc, st);
+        const float* ba2 = a.ba2 + k * C;
+        for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+          st4(dst + g, add4(*reinterpret_cast<const float4*>(st + s),
+                            __ldg(reinterpret_cast<const float4*>(ba2 + ch))));
+        });
+        conv<3>(acc, smem, ring, a.tb, wb2, t, H, W);
+        stage_acc(acc, st);
+        const float* bb2 = a.bb2 + k * C;
+        for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+          const float4 xv = ld4(src + g), ya = ld4(dst + g);
+          const float4 y = add4(ya, add4(*reinterpret_cast<const float4*>(st + s),
+                                         __ldg(reinterpret_cast<const float4*>(bb2 + ch))));
+          st4(dst + g, make_float4(__fadd_rn(__fmul_rn(ident, xv.x), __fmul_rn(res, y.x)),
+                                   __fadd_rn(__fmul_rn(ident, xv.y), __fmul_rn(res, y.y)),
+                                   __fadd_rn(__fmul_rn(ident, xv.z), __fmul_rn(res, y.z)),
+                                   __fadd_rn(__fmul_rn(ident, xv.w), __fmul_rn(res, y.w))));
+        });
+      } else {
+        stage_acc(acc, st);
+        const float* ba2 = a.ba2 + k * C;
+        for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+          const float4 xv = ld4(src + g);
+          const float4 u = add4(*reinterpret_cast<const float4*>(st + s),
+                                __ldg(reinterpret_cast<const float4*>(ba2 + ch)));
+          st4(dst + g, make_float4(__fadd_rn(xv.x, __fmul_rn(res, u.x)), __fadd_rn(xv.y, __fmul_rn(res, u.y)),
+                                   __fadd_rn(xv.z, __fmul_rn(res, u.z)), __fadd_rn(xv.w, __fmul_rn(res, u.w))));
+        });
       }
     }
     if (k + 1 < K) grid.sync();
@@ -191,16 +191,17 @@ int launch_chain(ChainArgs a, void* stream) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<kLight53>, THREADS, 0);
+    err = cudaFuncSetAttribute(chain_kernel<kLight53>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<kLight53>, THREADS, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int items = (a.h + TILE_H - 1) / TILE_H * ((a.w + TILE_W - 1) / TILE_W) * (a.c / CO_T) * a.n *
-                    (kLight53 ? 2 : 1);
+  const int items = tiles_per_image(a.h, a.w) * a.n * (kLight53 ? 2 : 1);
   const int grid = items < per_sm * sms ? items : per_sm * sms;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_kernel<kLight53>), dim3(grid),
-                                    dim3(THREADS), args, 0, static_cast<cudaStream_t>(stream));
+                                    dim3(THREADS), args, SMEM_BYTES, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();  // also clears a refused launch
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -209,26 +210,28 @@ int launch_chain(ChainArgs a, void* stream) {
 
 extern "C" {
 
-// Shapes the launches accept: C % 64 == 0, K >= 1, every pointer 16-byte
-// aligned, all tensors contiguous (the Python wrapper checks).  act, ta, tb
-// and out are N*H*W*C float scratch/outputs, distinct from x.  Returns the
-// CUDA error code of the launch (0 = success).
+// Shapes the launches accept: C == 128, K >= 1, weights packed by the
+// wrapper, every pointer 16-byte aligned, all tensors contiguous (the Python
+// wrapper checks).  act, ta, tb and out are N*H*W*C float scratch/outputs,
+// distinct from x.  Returns the CUDA error code of the launch (0 = success).
 int iek_light53_chain(const float* x,
                       const float* wa1, const float* ba1, const float* wa2, const float* ba2,
                       const float* wb1, const float* bb1, const float* wb2, const float* bb2,
                       float* act, float* ta, float* tb, float* out,
                       int k_blocks, int n, int h, int w, int c,
                       float res_scale, float identity_scale, void* stream) {
+  if (c != C) return (int)cudaErrorInvalidValue;
   ChainArgs a{x, out, act, ta, tb, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
-              k_blocks, n, h, w, c, res_scale, identity_scale};
+              k_blocks, n, h, w, res_scale, identity_scale};
   return launch_chain<true>(a, stream);
 }
 
 int iek_light_chain(const float* x, const float* w1, const float* b1, const float* w2, const float* b2,
                     float* act, float* t, float* out, int k_blocks, int n, int h, int w, int c,
                     float res_scale, void* stream) {
+  if (c != C) return (int)cudaErrorInvalidValue;
   ChainArgs a{x, out, act, t, nullptr, w1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr,
-              k_blocks, n, h, w, c, res_scale, 1.0f};
+              k_blocks, n, h, w, res_scale, 1.0f};
   return launch_chain<false>(a, stream);
 }
 

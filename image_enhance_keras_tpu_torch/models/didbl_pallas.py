@@ -72,8 +72,25 @@ def _light53_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def _stacked(blocks: list, convs: tuple) -> list:
-    """[kernel, bias] of each conv, stacked over the blocks on a leading K axis."""
-    return [torch.stack([b[c][k] for b in blocks]) for c in convs for k in ("kernel", "bias")]
+    """[kernel, bias] of each conv, stacked over the blocks on a leading K axis.
+
+    Cached on the first block's first kernel, keyed by the identity and
+    version of every tensor stacked, so that a loaded tree is stacked (and
+    its chain weights split and repacked by the kernels' wrappers) once.
+    """
+    parts = [[b[c][k] for b in blocks] for c in convs for k in ("kernel", "bias")]
+    flat = [t for ts in parts for t in ts]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+        return [torch.stack(ts) for ts in parts]
+    versions = [None if t.is_inference() else t._version for t in flat]
+    holder = parts[0][0]
+    cached = getattr(holder, "_iek_stacked", None)
+    if (cached is not None and len(cached[0]) == len(flat)
+            and all(a is b for a, b in zip(cached[0], flat)) and cached[1] == versions):
+        return cached[2]
+    stacked = [torch.stack(ts) for ts in parts]
+    holder._iek_stacked = (flat, versions, stacked)
+    return stacked
 
 
 def apply_didbl_pallas(params: Any, x: torch.Tensor, dtype: Any = None, n_body53: int = 16,

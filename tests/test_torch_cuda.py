@@ -16,21 +16,26 @@ from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks, tower
 C = 128
 #: K float32 blocks summed in another order (tests/test_pallas_tower.py)
 ATOL = 5e-5
+#: which chain: wrapper, plain version, kernel sizes, K (the didbl tower's 16 / 6)
 CHAINS = {
-    "light53": (tower.fused_light53_chain, tower.light53_chain_plain, (3, 5, 5, 3), 3, (2, 8, 8, C)),
-    "light": (tower.fused_light_chain, tower.light_chain_plain, (3, 3), 4, (1, 10, 6, C)),
+    "light53": (tower.fused_light53_chain, tower.light53_chain_plain, (3, 5, 5, 3), 16),
+    "light": (tower.fused_light_chain, tower.light_chain_plain, (3, 3), 6),
 }
+#: (N, H, W): two full 96x96 tiles of the patch pipeline, small images, and
+#: ragged crops whose widths fall above and below one 16-column conv tile
+CHAIN_SHAPES = [(2, 96, 96), (2, 8, 8), (1, 10, 6), (1, 57, 86), (1, 86, 57), (1, 57, 57), (1, 5, 70), (1, 8, 64)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAIN_SHAPES)
 @pytest.mark.parametrize("which", sorted(CHAINS))
-def test_chain_kernels_match_plain(which, monkeypatch):
-    """One launch per chain, equal to the plain version within 5e-5."""
+def test_chain_kernels_match_plain(which, shape, monkeypatch):
+    """One launch per chain (3xTF32 wgmma), equal to the plain version within 5e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the chain kernels are CUDA C++ with no CPU mode")
-    wrapper, plain, sizes, k, shape = CHAINS[which]
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    wrapper, plain, sizes, k = CHAINS[which]
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(np.float32)).cuda()
     args = []
     for ks in sizes:
         args.append(torch.from_numpy((rng.normal(size=(k, ks, ks, C, C)) * (2.0 / (ks * ks * C)) ** 0.5)

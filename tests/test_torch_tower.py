@@ -4,10 +4,15 @@ The CUDA kernels (``csrc/tower.cu``) run only on the card: ``chip_smoke.py``
 and tests/test_torch_cuda.py hold them against these plain versions there.  Here the wrappers take their plain versions
 because the tensors lie on the CPU.  Tolerance 5e-5 as in
 tests/test_pallas_tower.py: K float32 blocks summed in another order.
+
+The kernels multiply in split precision (3xTF32): ``split_tf32`` is tested
+here, and a plain emulation of the scheme (TF32 hi and lo operands, the
+lo*lo term dropped) is held to the same 5e-5 against the JAX chains.
 """
 
 import jax
 import jax.numpy as jnp
+import torch.nn.functional as F
 import numpy as np
 import pytest
 import torch
@@ -103,3 +108,114 @@ def test_didbl_chain_forward_matches_jax_chain_and_block_forward():
     np.testing.assert_allclose(got, want, atol=3e-5)
     per_block = apply_didbl_pallas(pt, torch.from_numpy(x), **blocks).numpy()
     np.testing.assert_allclose(got, per_block, atol=3e-5)
+
+
+def _split_values(kind, rng):
+    if kind == "random":
+        return rng.normal(size=4096).astype(np.float32) * 10.0
+    if kind == "subnormal":
+        return (rng.uniform(-1.0, 1.0, 4096) * np.finfo(np.float32).tiny).astype(np.float32)
+    if kind == "zero":
+        return np.array([0.0, -0.0] * 8, dtype=np.float32)
+    return (np.sign(rng.normal(size=4096)) * 10.0 ** rng.uniform(30, 38, 4096)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "subnormal", "zero", "large"])
+def test_split_tf32_is_exact_with_ten_bit_hi(kind):
+    v = torch.from_numpy(_split_values(kind, np.random.default_rng(3)))
+    hi, lo = tower.split_tf32(v)
+    assert torch.equal(hi + lo, v)  # bit for bit (signed zeros compare equal)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0  # at most 10 explicit mantissa bits
+    # hi is the nearest TF32 value: lo is at most half of v's TF32 spacing
+    # (13 bits above float32's, 2^-136 among the subnormals)
+    exponent = torch.frexp(v.double())[1]
+    spacing = torch.clamp(torch.ldexp(torch.ones_like(v, dtype=torch.float64), exponent - 11), min=2.0 ** -136)
+    assert bool((lo.double().abs() <= spacing / 2).all())
+
+
+def _conv_3xtf32(x, w, b):
+    """SAME conv as the chain kernels multiply: round_tf32 hi and lo of both
+    operands, lo*Whi + hi*Wlo + hi*Whi summed exactly, lo*Wlo dropped; the sum
+    rounded once to float32, then the bias added."""
+    xh, xl = tower.split_tf32(x)
+    wh, wl = tower.split_tf32(w)
+    xh, xl, wh, wl = (t.double() for t in (xh, tower.round_tf32(xl), wh, tower.round_tf32(wl)))
+
+    def conv(a, k):
+        return F.conv2d(a.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=k.shape[0] // 2).permute(0, 2, 3, 1)
+
+    return (conv(xl, wh) + conv(xh, wl) + conv(xh, wh)).to(torch.float32) + b
+
+
+def _light53_chain_3xtf32(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2):
+    for k in range(wa1.shape[0]):
+        ya = _conv_3xtf32(torch.relu(_conv_3xtf32(x, wa1[k], ba1[k])), wa2[k], ba2[k])
+        yb = _conv_3xtf32(torch.relu(_conv_3xtf32(x, wb1[k], bb1[k])), wb2[k], bb2[k])
+        x = 0.9 * x + 0.1 * (ya + yb)
+    return x
+
+
+def _light_chain_3xtf32(x, wa1, ba1, wa2, ba2):
+    for k in range(wa1.shape[0]):
+        x = x + 0.1 * _conv_3xtf32(torch.relu(_conv_3xtf32(x, wa1[k], ba1[k])), wa2[k], ba2[k])
+    return x
+
+
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_3xtf32_emulation_matches_pallas_chain(which):
+    """The full chains (16 Light53, 6 Light) at C = 16 with the kernels'
+    3xTF32 products, against JAX's chain kernels in interpret mode."""
+    pallas, emulated, sizes, k = {
+        "light53": (pallas_light53_chain, _light53_chain_3xtf32, (3, 5, 5, 3), 16),
+        "light": (pallas_light_chain, _light_chain_3xtf32, (3, 3), 6),
+    }[which]
+    c = 16
+    rng = np.random.default_rng(8)
+    x = np.maximum(rng.normal(size=(1, 8, 8, c)), 0.0).astype(np.float32) * 2.0
+    args = []
+    for ks in sizes:
+        args.append((rng.normal(size=(k, ks, ks, c, c)) * (2.0 / (ks * ks * c)) ** 0.5).astype(np.float32))
+        args.append((rng.normal(size=(k, c)) * 0.05).astype(np.float32))
+    want = np.asarray(pallas(jnp.asarray(x), *(jnp.asarray(a) for a in args), interpret=True))
+    got = emulated(torch.from_numpy(x), *(torch.from_numpy(a) for a in args)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    # the split is not a no-op: one TF32 product alone is further off
+    one = np.asarray(want)
+    assert np.abs(got - one).max() < np.abs(tower.round_tf32(torch.from_numpy(x)).numpy() - x).max()
+
+
+@pytest.mark.parametrize("which", sorted(CHAINS))
+def test_cuda_wrapper_rejects_other_channels(which):
+    """The chain kernels take C = 128 only: a CUDA tensor with C = 64 raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the check applies to CUDA tensors")
+    _, wrapper, _, _, sizes, k, _, _ = CHAINS[which]
+    c = 64
+    x = torch.zeros(1, 8, 8, c, device="cuda")
+    args = []
+    for ks in sizes:
+        args += [torch.zeros(k, ks, ks, c, c, device="cuda"), torch.zeros(k, c, device="cuda")]
+    with pytest.raises(ValueError, match="C == 128"):
+        wrapper(x, *args)
+
+
+def test_stacked_chain_weights_are_cached_per_tree():
+    """The chain forward stacks (and the kernels' wrappers pack) a loaded tree
+    once: the same tensors come back until one of the blocks changes."""
+    from image_enhance_keras_tpu_torch.models.didbl_pallas import _stacked
+
+    rng = np.random.default_rng(2)
+
+    def conv():
+        return {"kernel": torch.from_numpy(rng.normal(size=(3, 3, 4, 4)).astype(np.float32)),
+                "bias": torch.from_numpy(rng.normal(size=4).astype(np.float32))}
+
+    blocks = [{"conv_a": conv(), "conv_b": conv()} for _ in range(3)]
+    first = _stacked(blocks, ("conv_a", "conv_b"))
+    assert all(a is b for a, b in zip(_stacked(blocks, ("conv_a", "conv_b")), first))
+    assert torch.equal(first[2][1], blocks[1]["conv_b"]["kernel"])
+    blocks[1]["conv_b"]["kernel"].add_(1.0)
+    again = _stacked(blocks, ("conv_a", "conv_b"))
+    assert again[2] is not first[2] and torch.equal(again[2][1], blocks[1]["conv_b"]["kernel"])
+    blocks[2]["conv_a"] = conv()  # a new tensor in the tree
+    assert torch.equal(_stacked(blocks, ("conv_a", "conv_b"))[0][2], blocks[2]["conv_a"]["kernel"])
