@@ -7,16 +7,16 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), the chain kernels' SASS
-     wgmma (their 3xTF32 products);
+     must hold wgmma (GMMA) and no dp4a (IDP), the block and chain kernels'
+     SASS wgmma (their 3xTF32 products);
   2. each kernel at the main paths' shapes against its plain PyTorch
      version, with its time, the plain version's, a library call's where
      one computes the same function, and the card's bound:
        float32 (9 tiles of 96x96x128, demo weights, inputs from the pallas
        path itself): the Light53 and Light blocks (K1, K2), and the Light53
        and Light chains over the 16 / 6 stacked blocks (K6, K7), each also
-       against the per-block kernels, and on ragged crops of the chain
-       path's input (1x57x86, 1x86x57, 1x57x57, 1x5x70, 1x8x64); every
+       against the per-block kernels; all four also on ragged crops of
+       their inputs (1x57x86, 1x86x57, 1x57x57, 1x5x70, 1x8x64); every
        float32 row with two bounds, the CUDA cores' float32 FMA and the
        TF32 tensor cores' 3xTF32, and the lesser as its bound;
        int8 path (the demo weights quantized by the port's calibration,
@@ -77,9 +77,9 @@ U8_MAX_FRAC = 1e-3
 INT8_RAGGED = ((0, 57, 86), (1, 70, 70), (2, 86, 57), (3, 5, 70), (4, 8, 64))
 #: uint8 outputs of two int8 forwards (tests/test_split_mode.py:97-98)
 INT8_U8_MAX_DIFF, INT8_U8_MAX_FRAC = 3, 0.05
-#: ragged crops (N, H, W) of the chain path's input for K6 and K7: widths
-#: above and below one 16-column tile of their 3xTF32 conv tile
-CHAIN_RAGGED = ((0, 57, 86), (1, 86, 57), (2, 57, 57), (3, 5, 70), (4, 8, 64))
+#: ragged crops (N, H, W) of the float32 kernels' inputs for K1, K2, K6 and
+#: K7: widths above and below one 16-column tile of their 3xTF32 conv tile
+F32_RAGGED = ((0, 57, 86), (1, 86, 57), (2, 57, 57), (3, 5, 70), (4, 8, 64))
 #: H100 SXM data sheet: float32 on the CUDA cores, dense TF32 and int8 tensor
 #: cores, HBM3 rate.  Float32-accurate work on the TF32 tensor cores takes
 #: three products (3xTF32), so its bound is 3 x FLOP / PEAK_TF32_FLOPS; the
@@ -421,9 +421,9 @@ def main() -> int:
                 print(f"[chip_smoke] nvcc {stem}: {line.strip()}", flush=True)
     build_s = time.time() - t0
     # the int8 kernels' products are tensor-core wgmma (SASS *GMMA), no
-    # __dp4a; the chain kernels' 3xTF32 products are wgmma too
+    # __dp4a; the block and chain kernels' 3xTF32 products are wgmma too
     sass = {}
-    for stem in ("int8_blocks", "tower"):
+    for stem in ("int8_blocks", "tower", "blocks"):
         try:
             sass[stem] = _sass_counts(_build.build_all()[stem])
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
@@ -432,8 +432,9 @@ def main() -> int:
         print(f"[chip_smoke] SASS of csrc/{stem}.cu: {sass[stem]}", flush=True)
     if sass["int8_blocks"] is not None and (sass["int8_blocks"]["GMMA"] == 0 or sass["int8_blocks"]["IDP"] > 0):
         failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass['int8_blocks']}")
-    if sass["tower"] is not None and sass["tower"]["GMMA"] == 0:
-        failures.append(f"chain kernels: expected wgmma (GMMA) in the SASS, got {sass['tower']}")
+    for stem, what in (("tower", "chain"), ("blocks", "block")):
+        if sass[stem] is not None and sass[stem]["GMMA"] == 0:
+            failures.append(f"{what} kernels: expected wgmma (GMMA) in the SASS, got {sass[stem]}")
     _phase(f"1 build ({build_s:.2f} s)", t0)
 
     # -- 2. kernels against their plain versions ------------------------------
@@ -498,12 +499,23 @@ def main() -> int:
             flops = 2.0 * taps * c * c * n * hh * ww
             nbytes = 4.0 * (2 * x.numel() + sum(a.numel() for a in args))
             bounds = _f32_bounds(flops, nbytes)
+            # ragged crops of the path's input: tiles cut by the image's edge
+            ragged = {}
+            for n_i, rh, rw in F32_RAGGED:
+                xr = x[n_i:n_i + 1, :rh, :rw].contiguous()
+                er = (kern(xr, *args) - plain(xr, *args)).abs().max().item()
+                ragged[f"{rh}x{rw}"] = er
+                print(f"[chip_smoke] {name} ragged {tuple(xr.shape)}: err {er:.3g} vs plain "
+                      f"(bound {KERNEL_ATOL})", flush=True)
+                if not (er <= KERNEL_ATOL):
+                    failures.append(f"{name} on a ragged {tuple(xr.shape)} input: |kernel - plain| = "
+                                    f"{er:.3g} (bound {KERNEL_ATOL})")
             rows.append({
                 "name": name, "route": "cuda",
                 "source": "image_enhance_keras_tpu_torch/csrc/blocks.cu",
                 "replaces": replaces, "launches": None, "max_abs_err": err,
                 "tolerance": KERNEL_ATOL, "ms": ms, "plain_ms": plain_ms, **bounds,
-                "library_ms": library_ms,
+                "library_ms": library_ms, "max_abs_err_ragged": ragged,
                 "tflops": flops / (ms * 1e-3) / 1e12,
             })
             print(f"[chip_smoke] {name}: err {err:.3g} (F.conv2d formulation vs plain {lib_err:.3g}), "
@@ -525,15 +537,28 @@ def main() -> int:
             return x
         return run
 
+    def per_block(block, names, convs, k_blocks):
+        """block applied to the tree's own per-block tensors, as the pallas
+        path calls it (their packed weights are cached on them)."""
+        blocks = [[params[f"{names}_{i}"][cv][k] for cv in convs for k in ("kernel", "bias")]
+                  for i in range(k_blocks)]
+
+        def run(x, *_stacked_args):
+            for a in blocks:
+                x = block(x, *a)
+            return x
+        return run
+
     with torch.inference_mode():
         xc6 = x53
         xc7 = kt.fused_light53_chain(xc6, *s53).contiguous()
     chain_specs = [
         ("light53_chain", kt.fused_light53_chain, kt.light53_chain_plain,
-         chained(kb.fused_light53_block, 16), chained(lib53, 16), xc6, s53, 16 * 68,
+         per_block(kb.fused_light53_block, "body53", l53c, 16), chained(lib53, 16), xc6, s53, 16 * 68,
          "image_enhance_keras_tpu/ops/pallas/tower.py:166"),
         ("light_chain", kt.fused_light_chain, kt.light_chain_plain,
-         chained(kb.fused_light_block, 6), chained(libl, 6), xc7, sl, 6 * 18,
+         per_block(kb.fused_light_block, "light", ("conv_a", "conv_b"), 6), chained(libl, 6), xc7, sl,
+         6 * 18,
          "image_enhance_keras_tpu/ops/pallas/tower.py:191"),
     ]
     with torch.inference_mode():
@@ -559,7 +584,7 @@ def main() -> int:
             bounds = _f32_bounds(flops, nbytes)
             # ragged crops of the path's input: tiles cut by the image's edge
             ragged = {}
-            for n_i, rh, rw in CHAIN_RAGGED:
+            for n_i, rh, rw in F32_RAGGED:
                 xr = x[n_i:n_i + 1, :rh, :rw].contiguous()
                 gr = kern(xr, *args)
                 er = (gr - plain(xr, *args)).abs().max().item()

@@ -1,183 +1,158 @@
-// Fused residual blocks of the didbl generator, float32, for sm_90a.
+// Fused residual blocks of the didbl generator, float32, for sm_90a, on the
+// TF32 tensor cores in split precision (3xTF32, conv_tf32x3.cuh).
 //
 // Replaces the Pallas TPU kernels in image_enhance_keras_tpu/ops/pallas/blocks.py:
 //   * iek_light53_block <- fused_light53_block (_light53_kernel):
-//       out = 0.1 * (9*x + (b_a2 + b_b2) + conv5(relu(conv3(x) + b_a1))
-//                                        + conv3(relu(conv5(x) + b_b1)))
+//       out = res * ((id/res)*x + (ba2 + bb2) + conv5(relu(conv3(x) + ba1))
+//                                             + conv3(relu(conv5(x) + bb1)))
 //   * iek_light_block   <- fused_light_block (_light_kernel):
-//       out = x + 0.1 * (conv3(relu(conv3(x) + b1)) + b2)
-// All convs are SAME (zero padding) over NHWC activations with HWIO weights.
+//       out = x + res * (conv3(relu(conv3(x) + b1)) + b2)
+// Weights come split and repacked by the wrapper (ops/cuda/tf32x3.py packed:
+// [taps][C/8][hi/lo][2][C][4]); biases are (C,).  All convs are SAME (zero
+// padding) over NHWC activations with C = 128.
 //
 // What bounds it on an H100: operations.  A Light53 block does 68 taps of a
-// C x C product per pixel (2*68*C^2 FLOP), a Light block 18; at C = 128 that
-// is ~2,200 FLOP per byte of activation read, far above the card's
-// FP32-to-bandwidth balance (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B).
+// C x C product per pixel (2*68*C^2 FLOP), a Light block 18, against one
+// read of x and one write of out.  Float32 FMA on the CUDA cores bounds that
+// at 67 TFLOP/s; the tensor cores run TF32 at 495 TFLOP/s dense, and three
+// TF32 products per multiply-add (hi*hi + hi*lo + lo*hi) keep float32's
+// accuracy at an effective 165 TFLOP/s.
 //
 // Design.  The Pallas kernel holds a whole 96x96x128 tile with its halo in
 // VMEM; that does not fit in one SM's 227 KB of shared memory, so each block
-// is two launches:
-//   1. first convs with bias and relu, written to N*H*W*C scratch (for
-//      Light53 both branches, blockIdx.z picks the branch);
-//   2. second convs plus the residual combine, in _light53_kernel's order
-//      (acc = (0.9/0.1)*x + bias sum; acc += conv5(ta); acc += conv3(tb);
-//      out = 0.1*acc).
+// is two ordinary launches, each a persistent grid of conv_tf32x3.cuh's
+// thread blocks looping over work items (one item: one 8-row x 16-column
+// tile of the implicit GEMM, wgmma.m64n128k8.f32.tf32.tf32):
+//   1. first convs with bias and relu into N*H*W*C scratch; Light53's conv5
+//      items (tb) first, then its conv3 items (ta), the longest first;
+//   2. second convs and the residual combine, one item per tile, in
+//      _light53_kernel's order: parked = (id/res)*x + (ba2 + bb2) + conv5(ta)
+//      is written to out and read back by the same thread block after
+//      conv3(tb): out = res * (parked + conv3(tb)).  Light: out = x + res *
+//      (conv3(t) + b2).
 // SAME padding is a bounds check that reads zero; on scratch that covers the
 // whole image this is exactly the zero-padded intermediate of _relu_pad.
-// The conv tile (conv_tile.cuh): a thread block computes 8 rows x 32
-// columns x 64 output channels, 64 sums per lane in registers, with the input
-// window and weight slice staged in shared memory per 4 input channels.
-// Plain FP32 FMA on the CUDA cores: no TF32 and no tensor cores, so the
-// result matches the float32 reference to rounding.  Double buffering, wgmma
-// and TMA are left for later work.
+// The epilogues keep the plain version's explicitly rounded order
+// (__fadd_rn/__fmul_rn, no FMA contraction), so only the products' order and
+// split differ from it.
 
-#include "conv_tile.cuh"
+#include "conv_tf32x3.cuh"
 
 namespace {
 
-__device__ __forceinline__ Tile tile_of_block(int W, int branches) {
-  return make_tile(blockIdx.x, blockIdx.y, blockIdx.z / branches, W);
-}
+struct BlockArgs {
+  const float* x;  // (N, H, W, C) input
+  float* ta;       // first-conv scratch: Light53 branch a, or Light
+  float* tb;       // Light53 branch b
+  float* out;
+  const float* wa1; const float* ba1;  // Light53 conv_a1 (3x3); Light conv_a (3x3)
+  const float* wa2; const float* ba2;  // Light53 conv_a2 (5x5); Light conv_b (3x3)
+  const float* wb1; const float* bb1;  // Light53 conv_b1 (5x5)
+  const float* wb2; const float* bb2;  // Light53 conv_b2 (3x3)
+  int n, h, w;
+  float res_scale, ident_over_res;
+};
 
-// Launch 1: t = relu(conv(x) + b).  branches == 2 runs the Light53 pair
-// (branch 0: conv3 -> t3, branch 1: conv5 -> t5); branches == 1 runs conv3.
-__global__ void __launch_bounds__(THREADS, 2)
-first_conv_kernel(const float* __restrict__ x,
-                  const float* __restrict__ w3, const float* __restrict__ b3, float* __restrict__ t3,
-                  const float* __restrict__ w5, const float* __restrict__ b5, float* __restrict__ t5,
-                  int H, int W, int C, int branches) {
-  __shared__ Smem s;
-  const Tile t = tile_of_block(W, branches);
-  const int branch = blockIdx.z % branches;
-  float acc[TILE_H][CO_THR];
-  zero(acc);
-
-  if (branch == 0)
-    conv_accumulate<3>(acc, s, x, w3, t, H, W, C);
-  else
-    conv_accumulate<5>(acc, s, x, w5, t, H, W, C);
-
-  const float* b = branch == 0 ? b3 : b5;
-  float* dst = branch == 0 ? t3 : t5;
-  const int cb = t.co0 + (threadIdx.x >> 5) * CO_THR;
-  float bias[CO_THR];
-#pragma unroll
-  for (int c = 0; c < CO_THR; ++c) bias[c] = __ldg(b + cb + c);
-#pragma unroll
-  for (int j = 0; j < TILE_H; ++j)
-    if (pixel_inside(t, j, H, W)) store_relu_bias(dst + pixel_offset(t, j, H, W, C), acc, j, bias);
-}
-
-// Launch 2 of Light53: out = res * ((id/res)*x + ba2 + bb2 + conv5(ta) + conv3(tb)).
-__global__ void __launch_bounds__(THREADS, 2)
-light53_second_kernel(const float* __restrict__ x,
-                      const float* __restrict__ ta, const float* __restrict__ wa2,
-                      const float* __restrict__ ba2,
-                      const float* __restrict__ tb, const float* __restrict__ wb2,
-                      const float* __restrict__ bb2, float* __restrict__ out,
-                      int H, int W, int C, float res_scale, float ident_over_res) {
-  __shared__ Smem s;
-  const Tile t = tile_of_block(W, 1);
-  const int cb = t.co0 + (threadIdx.x >> 5) * CO_THR;
-  float bsum[CO_THR];
-#pragma unroll
-  for (int c = 0; c < CO_THR; ++c) bsum[c] = __ldg(ba2 + cb + c) + __ldg(bb2 + cb + c);
-  float acc[TILE_H][CO_THR];
-#pragma unroll
-  for (int j = 0; j < TILE_H; ++j) {
-    float xv[CO_THR] = {};
-    if (pixel_inside(t, j, H, W)) {
-      const float4* xi = reinterpret_cast<const float4*>(x + pixel_offset(t, j, H, W, C));
-      const float4 a = __ldg(xi), b = __ldg(xi + 1);
-      xv[0] = a.x; xv[1] = a.y; xv[2] = a.z; xv[3] = a.w;
-      xv[4] = b.x; xv[5] = b.y; xv[6] = b.z; xv[7] = b.w;
+// Launch 1: tb = relu(conv5(x) + bb1) (Light53, items [0, tiles)), then
+// ta = relu(conv3(x) + ba1).
+template <bool kLight53>
+__global__ void __launch_bounds__(THREADS, 1) first_kernel(BlockArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* st = reinterpret_cast<float*>(smem);
+  const int H = a.h, W = a.w;
+  const int tiles = tiles_per_image(H, W) * a.n;
+  constexpr int branches = kLight53 ? 2 : 1;
+  float acc[MT][ACC];
+  Ring ring = make_ring(smem);
+  for (int it = blockIdx.x; it < tiles * branches; it += gridDim.x) {
+    if (kLight53 && it < tiles) {
+      const Tile t = make_tile(it, H, W);
+      conv<5>(acc, smem, ring, a.x, a.wb1, t, H, W);
+      emit_relu(acc, st, a.bb1, a.tb, t, H, W);
+    } else {
+      const Tile t = make_tile(kLight53 ? it - tiles : it, H, W);
+      conv<3>(acc, smem, ring, a.x, a.wa1, t, H, W);
+      emit_relu(acc, st, a.ba1, a.ta, t, H, W);
     }
-#pragma unroll
-    for (int c = 0; c < CO_THR; ++c) acc[j][c] = ident_over_res * xv[c] + bsum[c];
-  }
-
-  conv_accumulate<5>(acc, s, ta, wa2, t, H, W, C);
-  conv_accumulate<3>(acc, s, tb, wb2, t, H, W, C);
-
-#pragma unroll
-  for (int j = 0; j < TILE_H; ++j) {
-    if (!pixel_inside(t, j, H, W)) continue;
-    float4* o = reinterpret_cast<float4*>(out + pixel_offset(t, j, H, W, C));
-    o[0] = make_float4(res_scale * acc[j][0], res_scale * acc[j][1],
-                       res_scale * acc[j][2], res_scale * acc[j][3]);
-    o[1] = make_float4(res_scale * acc[j][4], res_scale * acc[j][5],
-                       res_scale * acc[j][6], res_scale * acc[j][7]);
   }
 }
 
-// Launch 2 of Light: out = x + res * (conv3(t) + b2).
-__global__ void __launch_bounds__(THREADS, 2)
-light_second_kernel(const float* __restrict__ x, const float* __restrict__ tin,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    float* __restrict__ out, int H, int W, int C, float res_scale) {
-  __shared__ Smem s;
-  const Tile t = tile_of_block(W, 1);
-  float acc[TILE_H][CO_THR];
-  zero(acc);
-
-  conv_accumulate<3>(acc, s, tin, w2, t, H, W, C);
-
-  const int cb = t.co0 + (threadIdx.x >> 5) * CO_THR;
-  float bias[CO_THR];
-#pragma unroll
-  for (int c = 0; c < CO_THR; ++c) bias[c] = __ldg(b2 + cb + c);
-#pragma unroll
-  for (int j = 0; j < TILE_H; ++j) {
-    if (!pixel_inside(t, j, H, W)) continue;
-    const size_t off = pixel_offset(t, j, H, W, C);
-    const float4* xi = reinterpret_cast<const float4*>(x + off);
-    const float4 a = __ldg(xi), b = __ldg(xi + 1);
-    float4* o = reinterpret_cast<float4*>(out + off);
-    o[0] = make_float4(a.x + res_scale * (acc[j][0] + bias[0]), a.y + res_scale * (acc[j][1] + bias[1]),
-                       a.z + res_scale * (acc[j][2] + bias[2]), a.w + res_scale * (acc[j][3] + bias[3]));
-    o[1] = make_float4(b.x + res_scale * (acc[j][4] + bias[4]), b.y + res_scale * (acc[j][5] + bias[5]),
-                       b.z + res_scale * (acc[j][6] + bias[6]), b.w + res_scale * (acc[j][7] + bias[7]));
+// Launch 2: the second convs and the residual combine.
+template <bool kLight53>
+__global__ void __launch_bounds__(THREADS, 1) second_kernel(BlockArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* st = reinterpret_cast<float*>(smem);
+  const int H = a.h, W = a.w;
+  const int tiles = tiles_per_image(H, W) * a.n;
+  const float res = a.res_scale;
+  float acc[MT][ACC];
+  Ring ring = make_ring(smem);
+  for (int it = blockIdx.x; it < tiles; it += gridDim.x) {
+    const Tile t = make_tile(it, H, W);
+    conv<kLight53 ? 5 : 3>(acc, smem, ring, a.ta, a.wa2, t, H, W);
+    stage_acc(acc, st);
+    if constexpr (kLight53) {
+      // (id/res)*x + (ba2 + bb2) + conv5(ta), parked in out
+      const float ior = a.ident_over_res;
+      for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+        const float4 acc0 = add4(scale4(ior, ld4(a.x + g)), add4(ldg4(a.ba2 + ch), ldg4(a.bb2 + ch)));
+        st4(a.out + g, add4(acc0, staged4(st, s)));
+      });
+      conv<3>(acc, smem, ring, a.tb, a.wb2, t, H, W);
+      stage_acc(acc, st);
+      for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+        st4(a.out + g, scale4(res, add4(ld4(a.out + g), staged4(st, s))));
+      });
+    } else {
+      for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+        st4(a.out + g, add4(ld4(a.x + g), scale4(res, add4(staged4(st, s), ldg4(a.ba2 + ch)))));
+      });
+    }
   }
 }
 
-dim3 grid_for(int n, int h, int w, int c, int branches) {
-  const unsigned tiles = (unsigned)(((h + TILE_H - 1) / TILE_H) * ((w + TILE_W - 1) / TILE_W));
-  return dim3(tiles, (unsigned)(c / CO_T), (unsigned)(n * branches));
+template <bool kLight53>
+int launch_block(const BlockArgs& a, void* stream) {
+  const int tiles = tiles_per_image(a.h, a.w) * a.n;
+  if (tiles == 0) return (int)cudaSuccess;
+  int grid1 = 0, grid2 = 0;
+  cudaError_t err = persistent_grid(first_kernel<kLight53>, tiles * (kLight53 ? 2 : 1), &grid1);
+  if (err == cudaSuccess) err = persistent_grid(second_kernel<kLight53>, tiles, &grid2);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  first_kernel<kLight53><<<grid1, THREADS, SMEM_BYTES, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  second_kernel<kLight53><<<grid2, THREADS, SMEM_BYTES, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shapes the launches accept: C % 64 == 0, every pointer 16-byte aligned,
-// all tensors contiguous (the Python wrapper checks).  Returns the CUDA
-// error code of the launches (0 = success).
+// Shapes the launches accept: C == 128, weights packed by the wrapper, every
+// pointer 16-byte aligned, all tensors contiguous (the Python wrapper
+// checks).  ta, tb and out are N*H*W*C float scratch/outputs, distinct from
+// x.  Returns the CUDA error code of the launches (0 = success).
 int iek_light53_block(const float* x,
                       const float* wa1, const float* ba1, const float* wa2, const float* ba2,
                       const float* wb1, const float* bb1, const float* wb2, const float* bb2,
                       float* ta, float* tb, float* out,
                       int n, int h, int w, int c, float res_scale, float ident_over_res,
                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  first_conv_kernel<<<grid_for(n, h, w, c, 2), THREADS, 0, st>>>(
-      x, wa1, ba1, ta, wb1, bb1, tb, h, w, c, 2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  light53_second_kernel<<<grid_for(n, h, w, c, 1), THREADS, 0, st>>>(
-      x, ta, wa2, ba2, tb, wb2, bb2, out, h, w, c, res_scale, ident_over_res);
-  return (int)cudaGetLastError();
+  if (c != C) return (int)cudaErrorInvalidValue;
+  const BlockArgs a{x, ta, tb, out, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2, n, h, w, res_scale, ident_over_res};
+  return launch_block<true>(a, stream);
 }
 
 int iek_light_block(const float* x, const float* w1, const float* b1,
                     const float* w2, const float* b2, float* t, float* out,
                     int n, int h, int w, int c, float res_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  first_conv_kernel<<<grid_for(n, h, w, c, 1), THREADS, 0, st>>>(
-      x, w1, b1, t, nullptr, nullptr, nullptr, h, w, c, 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  light_second_kernel<<<grid_for(n, h, w, c, 1), THREADS, 0, st>>>(
-      x, t, w2, b2, out, h, w, c, res_scale);
-  return (int)cudaGetLastError();
+  if (c != C) return (int)cudaErrorInvalidValue;
+  const BlockArgs a{x, t, nullptr, out, w1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr, n, h, w,
+                    res_scale, 1.0f};
+  return launch_block<false>(a, stream);
 }
 
 const char* iek_error_string(int code) {

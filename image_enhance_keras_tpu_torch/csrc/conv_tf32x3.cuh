@@ -1,5 +1,6 @@
-// The float32 convolution tile of the chain kernels (tower.cu): an implicit
-// GEMM on Hopper's TF32 tensor cores in split precision (3xTF32), for sm_90a.
+// The float32 convolution tile of the block and chain kernels (blocks.cu,
+// tower.cu): an implicit GEMM on Hopper's TF32 tensor cores in split
+// precision (3xTF32), for sm_90a.
 //
 // Each float32 operand v is split into hi = tf32(v) (round to nearest, ties
 // away, 10 explicit mantissa bits) and lo = tf32(v - hi); v - hi is exact in
@@ -30,7 +31,7 @@
 //     descriptor's start by ky window rows and kx pixels, so each slice is
 //     staged once for all taps.
 //   * B: the weights, split and repacked once by the wrapper to
-//     [tap][cin/8][hi/lo][2][cout][4] floats (ops/cuda/tower.py _packed):
+//     [tap][cin/8][hi/lo][2][cout][4] floats (ops/cuda/tf32x3.py packed):
 //     each (tap, 8-channel step) is one 8 KB tile (4 KB hi, then 4 KB lo),
 //     and the 4 tiles of one (slice, tap) step are contiguous: 32 KB per
 //     step, streamed through a ring of STAGES steps by bulk copies (one
@@ -43,7 +44,13 @@
 // that the tensor cores' accumulation over a whole conv is far less
 // accurate than float32 FMA).
 // Out-of-image window positions are zeros (SAME padding); the epilogues go
-// through shared memory as 16-byte pieces and mask pixels outside the image.
+// through shared memory as 16-byte pieces and mask pixels outside the image,
+// with the explicitly rounded float32 steps of the plain versions
+// (__fadd_rn/__fmul_rn: no FMA contraction).
+// A kernel on this tile is persistent: one thread block per SM (the tile
+// takes 192,832 bytes of shared memory), at most one per work item, looping
+// over the items, so the weight ring's mbarriers are set up once per thread
+// block (persistent_grid, make_ring).
 //
 // The product policy (split, three wgmmas) is one function, mma_step, so a
 // bf16 form (one product on bf16 operands, k16 steps) is a second policy over
@@ -107,7 +114,7 @@ __device__ __forceinline__ Tile make_tile(int item, int H, int W) {
 }
 
 // v rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
-// from zero, as cvt.rna.tf32.f32 and split_tf32 in ops/cuda/tower.py do.
+// from zero, as cvt.rna.tf32.f32 and split_tf32 in ops/cuda/tf32x3.py do.
 // Integer operations only: no conversion instruction.
 __device__ __forceinline__ float tf32_rna(float v) {
   return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xFFFFE000u);
@@ -225,9 +232,10 @@ __device__ __forceinline__ void mma_step(float (&d)[ACC], uint32_t a, uint32_t b
 // ---- the convolution --------------------------------------------------------
 
 // Slice `sl` (32 input channels) of the tile's input window with the halo of
-// a KxK conv, split into hi and lo planes; zeros outside the image.  src was
-// written earlier in the same launch by other thread blocks, so it is read
-// through L2 (ld.global.cg), never through the read-only path.
+// a KxK conv, split into hi and lo planes; zeros outside the image.  src
+// may have been written earlier in the same launch by other thread blocks (the
+// chains), so it is read through L2 (ld.global.cg), never through the
+// read-only path.
 template <int K>
 __device__ __forceinline__ void stage_slice(uint8_t* win, const float* src, const Tile& t, int H,
                                             int W, int sl) {
@@ -423,6 +431,61 @@ __device__ __forceinline__ void for_tile_pieces(const Tile& t, int H, int W, F&&
     const int x = t.x0 + p % TILE_W;
     if (y < H && x < W) f((((size_t)t.n * H + y) * W + x) * C + ch, p * PITCH + ch, ch);
   }
+}
+
+// Activations through L2 (they may have been written earlier in the same
+// launch), biases through the read-only path, stores; all 16 bytes.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// the staged sums of a piece (for_tile_pieces' second offset)
+__device__ __forceinline__ float4 staged4(const float* st, int s) {
+  return *reinterpret_cast<const float4*>(st + s);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float4 scale4(float s, float4 a) {
+  return make_float4(__fmul_rn(s, a.x), __fmul_rn(s, a.y), __fmul_rn(s, a.z), __fmul_rn(s, a.w));
+}
+
+// dst = relu(acc + bias), through the staged tile
+__device__ __forceinline__ void emit_relu(const float (&acc)[MT][ACC], float* st, const float* bias,
+                                          float* dst, const Tile& t, int H, int W) {
+  stage_acc(acc, st);
+  for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
+    const float4 v = add4(staged4(st, s), ldg4(bias + ch));
+    st4(dst + g, make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f)));
+  });
+}
+
+// ---- launches -----------------------------------------------------------------
+
+// The grid of a persistent kernel on this tile: min(items, SMs x resident
+// thread blocks per SM) at SMEM_BYTES of dynamic shared memory, which it
+// also allows the kernel.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int items, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = items < per_sm * sms ? items : per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace

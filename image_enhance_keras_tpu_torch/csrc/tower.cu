@@ -10,7 +10,7 @@
 //   * iek_light_chain   <- fused_light_chain (_light_body): K Light blocks,
 //       x = x + res*(conv3(relu(conv3(x) + b1)) + b2)
 // Weights are stacked on a leading K axis and come split and repacked by the
-// wrapper (ops/cuda/tower.py _packed: [K][taps][C/8][hi/lo][2][C][4]);
+// wrapper (ops/cuda/tf32x3.py packed: [K][taps][C/8][hi/lo][2][C][4]);
 // biases are (K, C).  All convs are SAME (zero padding) over NHWC
 // activations with C = 128: each image of the batch is an independent tile.
 //
@@ -78,28 +78,6 @@ __device__ __forceinline__ void prefetch_l2(const float* p, size_t n_floats) {
     asm volatile("prefetch.global.L2 [%0];" ::"l"(reinterpret_cast<const char*>(p) + i * 128));
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldcg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
-}
-
-// dst = relu(acc + bias), through the staged tile
-__device__ __forceinline__ void emit_relu(const float (&acc)[MT][ACC], float* st, const float* bias,
-                                          float* dst, const Tile& t, int H, int W) {
-  stage_acc(acc, st);
-  for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
-    const float4 v = add4(*reinterpret_cast<const float4*>(st + s), __ldg(reinterpret_cast<const float4*>(bias + ch)));
-    st4(dst + g, make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f)));
-  });
-}
-
 template <bool kLight53>
 __global__ void __launch_bounds__(THREADS, 1) chain_kernel(ChainArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -148,35 +126,24 @@ __global__ void __launch_bounds__(THREADS, 1) chain_kernel(ChainArgs a) {
     for (int it = blockIdx.x; it < tiles; it += gridDim.x) {
       const Tile t = make_tile(it, H, W);
       conv<KA2>(acc, smem, ring, a.ta, wa2, t, H, W);
+      stage_acc(acc, st);
       if constexpr (kLight53) {
         // ya = conv5(ta) + ba2, parked in dst; then yb = conv3(tb) + bb2
-        stage_acc(acc, st);
         const float* ba2 = a.ba2 + k * C;
         for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
-          st4(dst + g, add4(*reinterpret_cast<const float4*>(st + s),
-                            __ldg(reinterpret_cast<const float4*>(ba2 + ch))));
+          st4(dst + g, add4(staged4(st, s), ldg4(ba2 + ch)));
         });
         conv<3>(acc, smem, ring, a.tb, wb2, t, H, W);
         stage_acc(acc, st);
         const float* bb2 = a.bb2 + k * C;
         for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
-          const float4 xv = ld4(src + g), ya = ld4(dst + g);
-          const float4 y = add4(ya, add4(*reinterpret_cast<const float4*>(st + s),
-                                         __ldg(reinterpret_cast<const float4*>(bb2 + ch))));
-          st4(dst + g, make_float4(__fadd_rn(__fmul_rn(ident, xv.x), __fmul_rn(res, y.x)),
-                                   __fadd_rn(__fmul_rn(ident, xv.y), __fmul_rn(res, y.y)),
-                                   __fadd_rn(__fmul_rn(ident, xv.z), __fmul_rn(res, y.z)),
-                                   __fadd_rn(__fmul_rn(ident, xv.w), __fmul_rn(res, y.w))));
+          const float4 y = add4(ld4(dst + g), add4(staged4(st, s), ldg4(bb2 + ch)));
+          st4(dst + g, add4(scale4(ident, ld4(src + g)), scale4(res, y)));
         });
       } else {
-        stage_acc(acc, st);
         const float* ba2 = a.ba2 + k * C;
         for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
-          const float4 xv = ld4(src + g);
-          const float4 u = add4(*reinterpret_cast<const float4*>(st + s),
-                                __ldg(reinterpret_cast<const float4*>(ba2 + ch)));
-          st4(dst + g, make_float4(__fadd_rn(xv.x, __fmul_rn(res, u.x)), __fadd_rn(xv.y, __fmul_rn(res, u.y)),
-                                   __fadd_rn(xv.z, __fmul_rn(res, u.z)), __fadd_rn(xv.w, __fmul_rn(res, u.w))));
+          st4(dst + g, add4(ld4(src + g), scale4(res, add4(staged4(st, s), ldg4(ba2 + ch)))));
         });
       }
     }
@@ -186,19 +153,13 @@ __global__ void __launch_bounds__(THREADS, 1) chain_kernel(ChainArgs a) {
 
 template <bool kLight53>
 int launch_chain(ChainArgs a, void* stream) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  const int items = tiles_per_image(a.h, a.w) * a.n * (kLight53 ? 2 : 1);
+  int dev = 0, coop = 0, grid = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(chain_kernel<kLight53>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<kLight53>, THREADS, SMEM_BYTES);
+  if (err == cudaSuccess) err = persistent_grid(chain_kernel<kLight53>, items, &grid);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int items = tiles_per_image(a.h, a.w) * a.n * (kLight53 ? 2 : 1);
-  const int grid = items < per_sm * sms ? items : per_sm * sms;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_kernel<kLight53>), dim3(grid),
                                     dim3(THREADS), args, SMEM_BYTES, static_cast<cudaStream_t>(stream));

@@ -7,6 +7,11 @@ block, see the notes there) or raise; on a CPU tensor they run the plain
 PyTorch versions below, which repeat the kernels' arithmetic with
 ``F.conv2d``.  Each wrapper counts in ``.launches`` the blocks it ran on
 the kernels (one per call, two CUDA launches each).
+
+The kernels run the convolutions on the TF32 tensor cores in split
+precision (3xTF32, ``tf32x3.split_tf32``) and take exactly C = 128
+channels on CUDA tensors; their weights are split and repacked once per
+weight tensor (``tf32x3.packed``).  On CPU tensors any C is taken.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
 from image_enhance_keras_tpu_torch.ops.cuda import _build
+from image_enhance_keras_tpu_torch.ops.cuda.tf32x3 import CUDA_CHANNELS, packed
 
 __all__ = [
     "fused_light53_block",
@@ -22,10 +28,6 @@ __all__ = [
     "light53_block_plain",
     "light_block_plain",
 ]
-
-#: channel granularity of the CUDA kernels (output channels per thread block)
-CUDA_CHANNEL_MULTIPLE = 64
-
 
 def light53_block_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
                         res_scale: float = 0.1, identity_scale: float = 0.9):
@@ -68,8 +70,8 @@ def check_args(x: torch.Tensor, kernels, biases, lead: tuple = ()) -> None:
         return
     if x.device.type != "cuda":
         raise ValueError(f"fused blocks run on cpu or cuda tensors, not {x.device}")
-    if c % CUDA_CHANNEL_MULTIPLE:
-        raise ValueError(f"the CUDA kernels need C % {CUDA_CHANNEL_MULTIPLE} == 0, got C={c}")
+    if c != CUDA_CHANNELS:
+        raise ValueError(f"the CUDA kernels take C == {CUDA_CHANNELS}, got C={c}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
@@ -94,8 +96,8 @@ def fused_light53_block(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
     with torch.cuda.device(x.device):
         code = lib.iek_light53_block(
             x.data_ptr(),
-            wa1.data_ptr(), ba1.data_ptr(), wa2.data_ptr(), ba2.data_ptr(),
-            wb1.data_ptr(), bb1.data_ptr(), wb2.data_ptr(), bb2.data_ptr(),
+            packed(wa1).data_ptr(), ba1.data_ptr(), packed(wa2).data_ptr(), ba2.data_ptr(),
+            packed(wb1).data_ptr(), bb1.data_ptr(), packed(wb2).data_ptr(), bb2.data_ptr(),
             ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
             n, h, w, c, float(res_scale), float(identity_scale / res_scale), stream_of(x),
         )
@@ -114,7 +116,7 @@ def fused_light_block(x, w1, b1, w2, b2, res_scale: float = 0.1):
     t, out = torch.empty_like(x), torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = lib.iek_light_block(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            x.data_ptr(), packed(w1).data_ptr(), b1.data_ptr(), packed(w2).data_ptr(), b2.data_ptr(),
             t.data_ptr(), out.data_ptr(), n, h, w, c, float(res_scale), stream_of(x),
         )
     _build.check(lib, code, "fused_light_block")

@@ -12,9 +12,9 @@ kernel launches in ``.launches`` (one per call).  An empty chain (K = 0)
 returns x, as the JAX block loop does.
 
 The kernels run the convolutions on the TF32 tensor cores in split
-precision (3xTF32, :func:`split_tf32`) and take exactly C = 128 channels
-(:data:`CUDA_CHANNELS`); their weights are split and repacked once per
-weight tensor (:func:`_packed`).
+precision (3xTF32, :func:`split_tf32`, ``ops/cuda/tf32x3.py``) and take
+exactly C = 128 channels; their weights are split and repacked once per
+weight tensor (``tf32x3.packed``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
 from image_enhance_keras_tpu_torch.ops.cuda import _build
 from image_enhance_keras_tpu_torch.ops.cuda.blocks import check_args, stream_of
+from image_enhance_keras_tpu_torch.ops.cuda.tf32x3 import packed, round_tf32, split_tf32
 
 __all__ = [
     "fused_light53_chain",
@@ -33,23 +34,6 @@ __all__ = [
     "round_tf32",
     "split_tf32",
 ]
-
-#: channels the CUDA kernels take: the N of their wgmma tile
-CUDA_CHANNELS = 128
-
-
-def round_tf32(v: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value (10 explicit mantissa bits, ties away
-    from zero), as a float32 tensor: the kernels' ``tf32_rna``, bit for bit."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split_tf32(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 v -> (hi, lo): hi = round_tf32(v) and lo = v - hi, exact, so
-    hi + lo == v.  The kernels multiply hi and round_tf32(lo) (3xTF32)."""
-    hi = round_tf32(v)
-    return hi, v - hi
 
 
 def light53_chain_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
@@ -70,40 +54,10 @@ def light_chain_plain(x, wa1, ba1, wa2, ba2, res_scale: float = 0.1):
     return x
 
 
-def _packed(w: torch.Tensor) -> torch.Tensor:
-    """Stacked HWIO (K, k, k, C, C) float32 -> the kernels' B operand,
-    [K][k*k][C/8][hi/lo][2][C][4] float32.
-
-    Each (block, tap, 8-input-channel step) is one contiguous 8 KB tile: the
-    hi tile, then the lo tile (``round_tf32`` of :func:`split_tf32`'s lo),
-    each K-major, the two 4-channel halves of the step C*16 bytes apart and
-    output channel ``co`` holding its 4 input channels at ``co*16``.  Cached
-    on the weight tensor itself, so a loaded tree splits and repacks once
-    (inference tensors carry no version counter: they are not repacked
-    after an in-place change).
-    """
-    version = None if w.is_inference() else w._version
-    cached = getattr(w, "_iek_packed", None)
-    if cached is not None and cached[0] == version:
-        return cached[1]
-    k_blocks, k, _, cin, cout = (int(s) for s in w.shape)
-    hi, lo = split_tf32(w.detach())
-    both = torch.stack([hi, round_tf32(lo)], dim=0)  # (2, K, k, k, cin, cout)
-    packed = (both.reshape(2, k_blocks, k * k, cin // 8, 2, 4, cout)
-              .permute(1, 2, 3, 0, 4, 6, 5).contiguous())
-    w._iek_packed = (version, packed)
-    return packed
-
-
 def _k_blocks(w: torch.Tensor) -> int:
     if w.dim() != 5:
         raise ValueError(f"chain weights are stacked (K, kh, kw, C, C), got shape {tuple(w.shape)}")
     return int(w.shape[0])
-
-
-def _check_channels(x: torch.Tensor) -> None:
-    if int(x.shape[-1]) != CUDA_CHANNELS:
-        raise ValueError(f"the CUDA chain kernels take C == {CUDA_CHANNELS}, got C={int(x.shape[-1])}")
 
 
 def fused_light53_chain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
@@ -113,15 +67,14 @@ def fused_light53_chain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
     check_args(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)], [ba1, ba2, bb1, bb2], lead=(k,))
     if x.device.type == "cpu" or k == 0:
         return light53_chain_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2, res_scale, identity_scale)
-    _check_channels(x)
     lib = _build.library("tower")
     n, h, w, c = (int(s) for s in x.shape)
     act, ta, tb, out = (torch.empty_like(x) for _ in range(4))
     with torch.cuda.device(x.device):
         code = lib.iek_light53_chain(
             x.data_ptr(),
-            _packed(wa1).data_ptr(), ba1.data_ptr(), _packed(wa2).data_ptr(), ba2.data_ptr(),
-            _packed(wb1).data_ptr(), bb1.data_ptr(), _packed(wb2).data_ptr(), bb2.data_ptr(),
+            packed(wa1).data_ptr(), ba1.data_ptr(), packed(wa2).data_ptr(), ba2.data_ptr(),
+            packed(wb1).data_ptr(), bb1.data_ptr(), packed(wb2).data_ptr(), bb2.data_ptr(),
             act.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
             k, n, h, w, c, float(res_scale), float(identity_scale), stream_of(x),
         )
@@ -136,13 +89,12 @@ def fused_light_chain(x, wa1, ba1, wa2, ba2, res_scale: float = 0.1):
     check_args(x, [(wa1, 3), (wa2, 3)], [ba1, ba2], lead=(k,))
     if x.device.type == "cpu" or k == 0:
         return light_chain_plain(x, wa1, ba1, wa2, ba2, res_scale)
-    _check_channels(x)
     lib = _build.library("tower")
     n, h, w, c = (int(s) for s in x.shape)
     act, t, out = (torch.empty_like(x) for _ in range(3))
     with torch.cuda.device(x.device):
         code = lib.iek_light_chain(
-            x.data_ptr(), _packed(wa1).data_ptr(), ba1.data_ptr(), _packed(wa2).data_ptr(), ba2.data_ptr(),
+            x.data_ptr(), packed(wa1).data_ptr(), ba1.data_ptr(), packed(wa2).data_ptr(), ba2.data_ptr(),
             act.data_ptr(), t.data_ptr(), out.data_ptr(), k, n, h, w, c, float(res_scale), stream_of(x),
         )
     _build.check(lib, code, "fused_light_chain")

@@ -83,7 +83,7 @@ int run(const float* x, const float* w, float* out, int n, int h, int wd, void* 
 
 extern "C" {
 
-// out = SAME conv of x (N, H, W, 128) with w packed by ops/cuda/tower.py _packed
+// out = SAME conv of x (N, H, W, 128) with w packed by ops/cuda/tf32x3.py packed
 int probe_conv(const float* x, const float* w, float* out, int n, int h, int wd, int k, int promoted,
                void* stream) {
   if (k == 3) return promoted ? run<3, true>(x, w, out, n, h, wd, stream) : run<3, false>(x, w, out, n, h, wd, stream);

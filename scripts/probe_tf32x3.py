@@ -32,7 +32,7 @@ import torch.nn.functional as F
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-from image_enhance_keras_tpu_torch.ops.cuda import _build, tower  # noqa: E402
+from image_enhance_keras_tpu_torch.ops.cuda import _build, tf32x3  # noqa: E402
 
 PEAK_TF32_FLOPS = 495e12
 
@@ -91,11 +91,11 @@ def main() -> int:
                     x = np.maximum(x, 0.0) * 2.0
                 w = (rng.normal(size=(k, k, 128, 128)) * (2.0 / (k * k * 128)) ** 0.5).astype(np.float32)
                 xt, wt = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
-                packed = tower._packed(wt[None])
+                packed = tf32x3.packed(wt)
                 ref = _conv(xt.double(), wt.double())
-                xh, xl = tower.split_tf32(xt)
-                wh, wl = tower.split_tf32(wt)
-                xl, wl = tower.round_tf32(xl), tower.round_tf32(wl)
+                xh, xl = tf32x3.split_tf32(xt)
+                wh, wl = tf32x3.split_tf32(wt)
+                xl, wl = tf32x3.round_tf32(xl), tf32x3.round_tf32(wl)
                 split = (_conv(xl.double(), wh.double()) + _conv(xh.double(), wl.double())
                          + _conv(xh.double(), wh.double()))
                 row = {"input": kind, "shape": list(shape), "k": k,

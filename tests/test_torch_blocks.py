@@ -83,6 +83,24 @@ def test_cpu_wrapper_takes_plain_version(which):
     assert wrapper.launches == before  # the count is of kernel launches only
 
 
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_cpu_wrappers_take_any_channel_count(which):
+    """The C = 128 limit is the CUDA kernels' (their wgmma tile's N): on CPU
+    tensors the wrappers run the plain versions at any width."""
+    c = 16
+    rng = np.random.default_rng(11)
+    wrapper, plain, sizes = {
+        "light53": (kb.fused_light53_block, kb.light53_block_plain, (3, 5, 5, 3)),
+        "light": (kb.fused_light_block, kb.light_block_plain, (3, 3)),
+    }[which]
+    x = torch.from_numpy(rng.normal(size=(1, 6, 9, c)).astype(np.float32))
+    args = []
+    for ks in sizes:
+        args += [torch.from_numpy((rng.normal(size=(ks, ks, c, c)) * 0.1).astype(np.float32)),
+                 torch.from_numpy((rng.normal(size=c) * 0.05).astype(np.float32))]
+    assert torch.equal(wrapper(x, *args), plain(x, *args))
+
+
 def test_wrapper_rejects_other_devices_and_bad_args():
     _, pn, _ = _setup(FlaxLight, 6)
     args = _args(params_from_numpy(pn), L_CONVS)

@@ -11,11 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks, tower
+from image_enhance_keras_tpu_torch.ops.cuda import blocks, int8_blocks, tower
 
 C = 128
 #: K float32 blocks summed in another order (tests/test_pallas_tower.py)
 ATOL = 5e-5
+#: one float32 block: sums over 68*128 terms in another order (tests/test_pallas_blocks.py)
+BLOCK_ATOL = 2e-5
+#: which block: wrapper, plain version, kernel sizes
+BLOCKS = {
+    "light53": (blocks.fused_light53_block, blocks.light53_block_plain, (3, 5, 5, 3)),
+    "light": (blocks.fused_light_block, blocks.light_block_plain, (3, 3)),
+}
 #: which chain: wrapper, plain version, kernel sizes, K (the didbl tower's 16 / 6)
 CHAINS = {
     "light53": (tower.fused_light53_chain, tower.light53_chain_plain, (3, 5, 5, 3), 16),
@@ -47,6 +54,47 @@ def test_chain_kernels_match_plain(which, shape, monkeypatch):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), plain(x, *args).cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAIN_SHAPES)
+@pytest.mark.parametrize("which", sorted(BLOCKS))
+def test_block_kernels_match_plain(which, shape, monkeypatch):
+    """One counted call (two launches, 3xTF32 wgmma) per block, equal to the
+    plain version within 2e-5, on full 96x96 tiles, small images and ragged crops."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the block kernels are CUDA C++ with no CPU mode")
+    wrapper, plain, sizes = BLOCKS[which]
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(np.float32)).cuda()
+    args = []
+    for ks in sizes:
+        args.append(torch.from_numpy((rng.normal(size=(ks, ks, C, C)) * (2.0 / (ks * ks * C)) ** 0.5)
+                                     .astype(np.float32)).cuda())
+        args.append(torch.from_numpy((rng.normal(size=C) * 0.05).astype(np.float32)).cuda())
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # full float32 plain convs
+    before = wrapper.launches
+    got = wrapper(x, *args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), plain(x, *args).cpu().numpy(), atol=BLOCK_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(BLOCKS))
+def test_block_wrappers_reject_other_channels(which):
+    """K1/K2 take C = 128 only on CUDA tensors: C = 64 raises, and nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the check applies to CUDA tensors")
+    wrapper, _, sizes = BLOCKS[which]
+    c = 64
+    args = []
+    for ks in sizes:
+        args += [torch.zeros(ks, ks, c, c, device="cuda"), torch.zeros(c, device="cuda")]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="C == 128"):
+        wrapper(torch.zeros(1, 8, 8, c, device="cuda"), *args)
+    assert wrapper.launches == before
 
 
 @pytest.mark.cuda

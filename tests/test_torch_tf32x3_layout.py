@@ -1,9 +1,9 @@
-"""The chain kernels' 3xTF32 weight layout and implicit GEMM, modelled in torch on the CPU.
+"""The float32 kernels' 3xTF32 weight layout and implicit GEMM, modelled in torch on the CPU.
 
-``csrc/conv_tf32x3.cuh`` runs each float32 conv of K6/K7 as an implicit GEMM
-on ``wgmma.m64n128k8.f32.tf32.tf32``: B is the weight tile of one (tap,
-8-input-channel step), hi then lo, read from ``tower._packed`` at the offsets
-of its descriptor; A is an M tile of 8 rows x 8 columns of the input window,
+``csrc/conv_tf32x3.cuh`` runs each float32 conv of K1/K2 and K6/K7 as an
+implicit GEMM on ``wgmma.m64n128k8.f32.tf32.tf32``: B is the weight tile of
+one (tap, 8-input-channel step), hi then lo, read from ``tf32x3.packed`` at
+the offsets of its descriptor; A is an M tile of 8 rows x 8 columns of the input window,
 which the kernel stages one 32-channel slice at a time as hi and lo planes of
 4 channels ``[row][col][16 bytes]`` and walks per tap by moving the
 descriptor's start.  These tests replay that address arithmetic in torch
@@ -17,7 +17,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from image_enhance_keras_tpu_torch.ops.cuda import tower
+from image_enhance_keras_tpu_torch.ops.cuda import tf32x3, tower
 
 # the kernel's tile (conv_tf32x3.cuh): 8 rows, two warpgroups of one 8x8 M tile each
 C, TILE_H, MT, WGS, KMAX = 128, 8, 1, 2, 5
@@ -52,15 +52,23 @@ def test_round_tf32_keeps_ten_mantissa_bits_and_rounds_to_nearest():
     assert torch.equal(tower.round_tf32(v), want)
 
 
-@pytest.mark.parametrize("k", [3, 5])
-def test_packed_tile_read_at_kernel_offsets(k):
+@pytest.mark.parametrize("k,stacked", [(3, True), (5, True), (3, False), (5, False)],
+                         ids=["3", "5", "block-3", "block-5"])
+def test_packed_tile_read_at_kernel_offsets(k, stacked):
     """Every float of the packed weights at the byte offset load_b and the B
     descriptor give it: block kb, tap, 8-channel step ci // 8, hi or lo, the
-    K half (ci % 8) // 4 at lbo = C*16, output channel co at co*16."""
-    w = _weights(k, k, n_blocks=2)
-    flat = tower._packed(w).reshape(-1)
+    K half (ci % 8) // 4 at lbo = C*16, output channel co at co*16.  One
+    block's (k, k, C, C) weights (K1/K2) pack as the K = 1 slice of the
+    stacked chain layout (K6/K7)."""
+    w = _weights(k, k, n_blocks=2) if stacked else _weights(k, k)[0]
+    p = tf32x3.packed(w)
+    flat = p.reshape(-1)
     hi, lo = tower.split_tf32(w)
-    kb, ky, kx, ci, co = torch.meshgrid(*(torch.arange(s) for s in w.shape), indexing="ij")
+    if not stacked:
+        assert p.shape == (k * k, C // 8, 2, 2, C, 4)
+        assert torch.equal(p, tf32x3.packed(w[None])[0])
+        hi, lo = hi[None], lo[None]
+    kb, ky, kx, ci, co = torch.meshgrid(*(torch.arange(s) for s in hi.shape), indexing="ij")
     tile = ((kb * k * k + ky * k + kx) * (C // 8) + ci // 8)
     off = (tile * B_TILE + (ci % 8) // 4 * C * 16 + co * 16 + ci % 4 * 4) // 4
     assert torch.equal(flat[off], hi)
@@ -99,7 +107,7 @@ def _implicit_gemm(x, w):
     between the K halves, stride byte offset between 8-row groups)."""
     n_img, h, wd, _ = x.shape
     k = int(w.shape[0])
-    bflat = tower._packed(w[None]).reshape(-1).double()
+    bflat = tf32x3.packed(w).reshape(-1).double()
     m, kq, nn = torch.arange(64), torch.arange(8), torch.arange(C)
     out = torch.zeros(n_img, h, wd, C, dtype=torch.float64)
     for n in range(n_img):
@@ -165,9 +173,21 @@ def test_fragment_lands_on_its_pixel():
 
 def test_packed_is_cached_until_the_weights_change():
     w = _weights(3, 1)
-    first = tower._packed(w)
-    assert tower._packed(w) is first
+    first = tf32x3.packed(w)
+    assert tf32x3.packed(w) is first
     w.mul_(2.0)  # an in-place change bumps the version: repacked
-    again = tower._packed(w)
+    again = tf32x3.packed(w)
     assert again is not first
-    assert torch.equal(again, tower._packed(w.clone()))
+    assert torch.equal(again, tf32x3.packed(w.clone()))
+
+
+def test_packed_block_weights_are_cached_on_the_tensor_until_they_change():
+    """One block's (k, k, C, C) weights (K1/K2) are packed once and cached on
+    the weight tensor itself, as the stacked chain weights are."""
+    w = _weights(5, 2)[0].clone()
+    first = tf32x3.packed(w)
+    assert tf32x3.packed(w) is first and w._iek_packed[1] is first
+    w.add_(1.0)  # an in-place change bumps the version: repacked
+    again = tf32x3.packed(w)
+    assert again is not first
+    assert torch.equal(again, tf32x3.packed(w.clone()))

@@ -7,7 +7,9 @@ tests/test_pallas_tower.py: K float32 blocks summed in another order.
 
 The kernels multiply in split precision (3xTF32): ``split_tf32`` is tested
 here, and a plain emulation of the scheme (TF32 hi and lo operands, the
-lo*lo term dropped) is held to the same 5e-5 against the JAX chains.
+lo*lo term dropped) is held to the same 5e-5 against the JAX chains, and in
+the block kernels' (K1/K2, ``csrc/blocks.cu``) combine order to 2e-5
+against JAX's single-block kernels.
 """
 
 import jax
@@ -19,6 +21,8 @@ import torch
 
 from image_enhance_keras_tpu.models.didbl import DifvdsrDouble as FlaxDidbl
 from image_enhance_keras_tpu.models.didbl_pallas import apply_didbl_pallas as jax_apply_pallas
+from image_enhance_keras_tpu.ops.pallas.blocks import fused_light53_block as pallas_light53_block
+from image_enhance_keras_tpu.ops.pallas.blocks import fused_light_block as pallas_light_block
 from image_enhance_keras_tpu.ops.pallas.tower import fused_light53_chain as pallas_light53_chain
 from image_enhance_keras_tpu.ops.pallas.tower import fused_light_chain as pallas_light_chain
 from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_pallas
@@ -28,6 +32,8 @@ from image_enhance_keras_tpu_torch.ops.cuda import tower
 
 C = 128
 ATOL = 5e-5
+#: one float32 block (K1/K2), as in tests/test_pallas_blocks.py
+BLOCK_ATOL = 2e-5
 #: which chain: (JAX kernel, port wrapper, port plain, block plain, kernel sizes, K, x shape, seed)
 CHAINS = {
     "light53": (pallas_light53_chain, tower.fused_light53_chain, tower.light53_chain_plain,
@@ -133,10 +139,10 @@ def test_split_tf32_is_exact_with_ten_bit_hi(kind):
     assert bool((lo.double().abs() <= spacing / 2).all())
 
 
-def _conv_3xtf32(x, w, b):
-    """SAME conv as the chain kernels multiply: round_tf32 hi and lo of both
+def _conv_3xtf32(x, w, b=None):
+    """SAME conv as the float32 kernels multiply: round_tf32 hi and lo of both
     operands, lo*Whi + hi*Wlo + hi*Whi summed exactly, lo*Wlo dropped; the sum
-    rounded once to float32, then the bias added."""
+    rounded once to float32, then the bias (if any) added."""
     xh, xl = tower.split_tf32(x)
     wh, wl = tower.split_tf32(w)
     xh, xl, wh, wl = (t.double() for t in (xh, tower.round_tf32(xl), wh, tower.round_tf32(wl)))
@@ -144,7 +150,8 @@ def _conv_3xtf32(x, w, b):
     def conv(a, k):
         return F.conv2d(a.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=k.shape[0] // 2).permute(0, 2, 3, 1)
 
-    return (conv(xl, wh) + conv(xh, wl) + conv(xh, wh)).to(torch.float32) + b
+    y = (conv(xl, wh) + conv(xh, wl) + conv(xh, wh)).to(torch.float32)
+    return y if b is None else y + b
 
 
 def _light53_chain_3xtf32(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2):
@@ -184,17 +191,60 @@ def test_3xtf32_emulation_matches_pallas_chain(which):
     assert np.abs(got - one).max() < np.abs(tower.round_tf32(torch.from_numpy(x)).numpy() - x).max()
 
 
-@pytest.mark.parametrize("which", sorted(CHAINS))
+def _light53_block_3xtf32(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2):
+    """K1's two launches: the first convs with bias and relu, then
+    res * ((id/res)*x + (ba2 + bb2) + conv5(ta) + conv3(tb)), summed in that order."""
+    ta = torch.relu(_conv_3xtf32(x, wa1, ba1))
+    tb = torch.relu(_conv_3xtf32(x, wb1, bb1))
+    acc = (0.9 / 0.1) * x + (ba2 + bb2)
+    acc = acc + _conv_3xtf32(ta, wa2)
+    acc = acc + _conv_3xtf32(tb, wb2)
+    return 0.1 * acc
+
+
+def _light_block_3xtf32(x, w1, b1, w2, b2):
+    """K2's two launches: x + res * (conv3(relu(conv3(x) + b1)) + b2)."""
+    return x + 0.1 * _conv_3xtf32(torch.relu(_conv_3xtf32(x, w1, b1)), w2, b2)
+
+
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_3xtf32_emulation_matches_pallas_block(which):
+    """One Light53 and one Light block at C = 16 on an 8x8 image with the
+    block kernels' 3xTF32 products and combine order, against JAX's block
+    kernels in interpret mode."""
+    pallas, emulated, sizes = {
+        "light53": (pallas_light53_block, _light53_block_3xtf32, (3, 5, 5, 3)),
+        "light": (pallas_light_block, _light_block_3xtf32, (3, 3)),
+    }[which]
+    c = 16
+    rng = np.random.default_rng(9)
+    x = np.maximum(rng.normal(size=(2, 8, 8, c)), 0.0).astype(np.float32) * 2.0
+    args = []
+    for ks in sizes:
+        args.append((rng.normal(size=(ks, ks, c, c)) * (2.0 / (ks * ks * c)) ** 0.5).astype(np.float32))
+        args.append((rng.normal(size=c) * 0.05).astype(np.float32))
+    want = np.asarray(pallas(jnp.asarray(x), *(jnp.asarray(a) for a in args), interpret=True))
+    got = emulated(torch.from_numpy(x), *(torch.from_numpy(a) for a in args)).numpy()
+    np.testing.assert_allclose(got, want, atol=BLOCK_ATOL)
+
+
+@pytest.mark.parametrize("which", ["light53", "light", "light53_block", "light_block"])
 def test_cuda_wrapper_rejects_other_channels(which):
-    """The chain kernels take C = 128 only: a CUDA tensor with C = 64 raises."""
+    """The chain (K6/K7) and block (K1/K2) kernels take C = 128 only: a CUDA
+    tensor with C = 64 raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the check applies to CUDA tensors")
-    _, wrapper, _, _, sizes, k, _, _ = CHAINS[which]
+    wrapper, sizes, lead = {
+        "light53": (tower.fused_light53_chain, (3, 5, 5, 3), (16,)),
+        "light": (tower.fused_light_chain, (3, 3), (6,)),
+        "light53_block": (kb.fused_light53_block, (3, 5, 5, 3), ()),
+        "light_block": (kb.fused_light_block, (3, 3), ()),
+    }[which]
     c = 64
     x = torch.zeros(1, 8, 8, c, device="cuda")
     args = []
     for ks in sizes:
-        args += [torch.zeros(k, ks, ks, c, c, device="cuda"), torch.zeros(k, c, device="cuda")]
+        args += [torch.zeros(*lead, ks, ks, c, c, device="cuda"), torch.zeros(*lead, c, device="cuda")]
     with pytest.raises(ValueError, match="C == 128"):
         wrapper(x, *args)
 
