@@ -8,7 +8,8 @@ Phases (each prints its elapsed seconds):
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
      must hold wgmma (GMMA) and no dp4a (IDP), the block and chain kernels'
-     SASS wgmma (their 3xTF32 products);
+     SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
+     forms' included;
   2. each kernel at the main paths' shapes against its plain PyTorch
      version, with its time, the plain version's, a library call's where
      one computes the same function, and the card's bound:
@@ -19,6 +20,13 @@ Phases (each prints its elapsed seconds):
        their inputs (1x57x86, 1x86x57, 1x57x57, 1x5x70, 1x8x64); every
        float32 row with two bounds, the CUDA cores' float32 FMA and the
        TF32 tensor cores' 3xTF32, and the lesser as its bound;
+       bf16 (``--dtype bfloat16``, inputs from the bf16 path itself): K1
+       and K2 at (9,96,96,128) and on the ragged crops, and K6 and K7 with
+       one block there, each against its plain bf16 version (the share of
+       elements that differ and the largest gap in bf16 ulps); the full 16-
+       and 6-block chains against a yardstick, the gap between the plain
+       chain summed in float64 and in float32; the library is cuDNN's bf16
+       ``F.conv2d`` of the same convs, which rounds at other points;
        int8 path (the demo weights quantized by the port's calibration,
        bf16 inputs from the int8 path itself): the int8 Light53 block at
        (9,96,96,128) and at the tail's (9,384,384,128) (K4), the int8 Light
@@ -30,16 +38,21 @@ Phases (each prints its elapsed seconds):
   3. the main paths through ``cli.main_dirpath`` on a seeded 128x128 BMP
      (9 tiles at 96/64/8, 512x512 out), each with its kernel launches
      counted: ``--forward pallas`` (K1, K2), ``--forward xla`` as its
-     reference, ``--forward pallas_chain`` (K6, K7), ``--forward
-     pallas_int8`` (K3, K4, K5; calibration included), and the int8 run
-     again with the plain x4 in place of K3 and with the plain int8 blocks
-     in place of K4 and K5 (each byte-equal); then the engines
-     timed in turns and CPU references on a crop;
+     reference, ``--forward pallas_chain`` (K6, K7), the same two with
+     ``--dtype bfloat16`` (bf16 K1, K2; bf16 K6, K7; K3 never), each also
+     with the plain bf16 versions in place of the kernels as its reference,
+     ``--forward pallas_int8`` (K3, K4, K5; calibration included), and the
+     int8 run again with the plain x4 in place of K3 and with the plain
+     int8 blocks in place of K4 and K5 (each byte-equal); then the engines
+     (the bf16 ones too) timed in turns, the bf16 forwards profiled (device
+     time by kernel, idle share), and CPU references on a crop;
   4. Set5 x4 (``data_set5``, read by the numpy PNG decoder where PIL is
      missing): ``scorpath --generate`` with ``--forward xla`` and
      ``pallas_chain`` (launches counted), the bicubic baseline on the card
      and the CPU, and ``evaluate_model`` on fast-mode ``xla`` and
-     ``pallas_int8`` resolvers, against each other and the recorded rows.
+     ``pallas_int8`` resolvers, and on fast-mode bf16 ``xla``, ``pallas``
+     and ``pallas_chain`` resolvers (bf16 launches counted), against each
+     other and the recorded rows.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -86,6 +99,7 @@ F32_RAGGED = ((0, 57, 86), (1, 86, 57), (2, 57, 57), (3, 5, 70), (4, 8, 64))
 #: TFLOP/s reported count the useful FLOP only.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 MIN_TIMED = 12
@@ -100,6 +114,32 @@ BICUBIC_DB = 1e-3
 #: carries copies), against the recorded pallas_int8 row calibrated on the
 #: same photos, and against the --forward int8 row (SSIM-Y only)
 INT8_SSIM = 1e-3
+#: bf16 kernels (K1, K2; K6, K7 with K = 1) against their plain bf16 versions,
+#: both summing in float32 in other orders: at most BF16_FRAC of the elements
+#: differ, each by as many bf16 ulps of its magnitude as the output has
+#: roundings a flipped intermediate can move (a block's float32 combine
+#: rounds once; a chain's bf16(res*y) and final sum twice), the magnitude
+#: counted as at least BF16_NEAR_ZERO * max|plain| for a block (outputs near
+#: zero are sums that cancelled) and res * max|plain| for a chain (its branch
+#: sums round at their own magnitude and enter scaled by res)
+#: (bf16.ulp_gaps; tests/test_torch_bf16.py)
+BF16_FRAC, BF16_NEAR_ZERO, BF16_CHAIN_NEAR_ZERO = 1e-3, 2.0 ** -6, 0.1
+BF16_BLOCK_ULPS, BF16_CHAIN_ULPS = 1.0, 2.0
+#: the full bf16 chains, and the bf16 CLI outputs: the kernels' gap to the
+#: plain versions (mean and max |d|; uint8: share and max) within this many
+#: times the yardstick, the gap between the plain versions summed in float64
+#: and in float32 (the same rounding points).  22 bf16 blocks amplify any
+#: difference in summation order: the uint8 outputs of the two plain
+#: versions differ on a sixth of the values, by up to 2 levels
+BF16_YARDSTICK_TIMES = 2.0
+#: Set5 fast bf16, held against JAX's own bf16 forwards on the CPU
+#: (EVAL_BF16_CPU.json, scripts/eval_bf16_set5_cpu.py) at SET5_DB / SET5_SSIM;
+#: against the TPU's recorded bf16_fast_5img row, SSIM-Y within SET5_SSIM for
+#: xla and BF16_KERNEL_SSIM for pallas and pallas_chain (whose x4 is the dense
+#: contraction, not the phase upsample).  The row's PSNR-Y is not held: the
+#: TPU's bf16 arithmetic differs from JAX's on the CPU, whose xla bf16 scores
+#: 35.08 dB against the row's 35.23
+BF16_KERNEL_SSIM = 1e-3
 
 
 def _phase(name: str, t0: float) -> None:
@@ -116,8 +156,9 @@ def _gpu_name_power() -> str:
 
 def _sass_counts(so_path: str) -> dict:
     """Lines of the library's SASS with a GMMA (wgmma) and an IDP (dp4a)
-    instruction, by ``cuobjdump`` beside nvcc or on PATH; raises where it
-    cannot be found, so that the check never passes unrun."""
+    instruction, by ``cuobjdump`` beside nvcc or on PATH, in all and per
+    kernel function (``functions``: mangled name -> GMMA lines); raises where
+    it cannot be found, so that the check never passes unrun."""
     from image_enhance_keras_tpu_torch.ops.cuda import _build
 
     beside = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -126,7 +167,17 @@ def _sass_counts(so_path: str) -> dict:
         raise RuntimeError(f"cuobjdump is neither at {beside} nor on PATH")
     sass = subprocess.run([tool, "--dump-sass", so_path], check=True, capture_output=True,
                           text=True, timeout=120).stdout.splitlines()
-    return {op: sum(op in line for line in sass) for op in ("GMMA", "IDP")}
+    counts = {op: sum(op in line for line in sass) for op in ("GMMA", "IDP")}
+    functions: dict = {}
+    name = None
+    for line in sass:
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            functions[name] = 0
+        elif name is not None and "GMMA" in line:
+            functions[name] += 1
+    counts["functions"] = functions
+    return counts
 
 
 def _time_ms(fn, iters: int = MIN_TIMED, warmup: int = 3) -> float:
@@ -370,6 +421,281 @@ def _set5_scores(failures: list) -> dict:
     if abs(tpu["ssim_y"] - ref_x["ssim_y"]) > INT8_SSIM:
         failures.append(f"Set5 fast pallas_int8 SSIM-Y {tpu['ssim_y']:.5f} vs int8_fast_excal_5img "
                         f"{ref_x['ssim_y']:.5f} (bound {INT8_SSIM})")
+
+    # the bf16 profile in fast mode, held against JAX's bf16 forwards on the
+    # CPU (EVAL_BF16_CPU.json) and, on SSIM-Y, against the TPU's
+    # bf16_fast_5img; one bf16 K1 per Light53 block and image, one K6 per image
+    ref_b = profiles["bf16_fast_5img"]
+    with open(os.path.join(HERE, "EVAL_BF16_CPU.json")) as f:
+        jax_cpu = json.load(f)
+    n_img = len(lr_shapes)
+    counted = (kb.fused_light53_block, kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain)
+    want = {"xla": [0, 0, 0, 0], "pallas": [16 * n_img, 6 * n_img, 0, 0], "pallas_chain": [0, 0, n_img, n_img]}
+    for fwd in ("xla", "pallas", "pallas_chain"):
+        for fn in counted:
+            fn.bf16_launches = 0
+        (_, exact), tpu = _scored(lambda: evaluate_model(
+            SuperResolver(weights=weights, forward=fwd, mode="fast", dtype=torch.bfloat16), set5, verbose=False))
+        launches = [fn.bf16_launches for fn in counted]
+        ref_j = jax_cpu[f"jax_{fwd}"]["tpu_default_y"]
+        report(f"fast {fwd} --dtype bfloat16", exact, tpu, ref_j)
+        print(f"[chip_smoke] Set5 fast {fwd} bf16 against the TPU's bf16_fast_5img {ref_b['psnr_y']:.4f} / "
+              f"{ref_b['ssim_y']:.5f}: {tpu['psnr_y'] - ref_b['psnr_y']:+.4f} dB, "
+              f"{tpu['ssim_y'] - ref_b['ssim_y']:+.2e} SSIM-Y; launches (K1, K2, K6, K7): {launches}, "
+              f"expected {want[fwd]}", flush=True)
+        out[f"fast {fwd} --dtype bfloat16"]["tpu_row"] = ref_b
+        if launches != want[fwd]:
+            failures.append(f"Set5 fast {fwd} bf16 launches {launches} != {want[fwd]}")
+        check_row(f"fast {fwd} bf16 against JAX on the CPU", tpu, ref_j, SET5_DB, SET5_SSIM)
+        ssim_tol = SET5_SSIM if fwd == "xla" else BF16_KERNEL_SSIM
+        if abs(tpu["ssim_y"] - ref_b["ssim_y"]) > ssim_tol:
+            failures.append(f"Set5 fast {fwd} bf16 SSIM-Y {tpu['ssim_y']:.5f} vs bf16_fast_5img "
+                            f"{ref_b['ssim_y']:.5f} (bound {ssim_tol})")
+    return out
+
+
+def _bf16_kernels(params, tiles, failures: list, oihw, lib53, libl) -> list:
+    """Phase 2 for the bf16 forms of K1, K2, K6 and K7 (``--dtype bfloat16``):
+    each on the bf16 path's own inputs (the tiles cast to bf16, level1 in
+    bf16, then 16 plain bf16 Light53 blocks for K2; K6's output for K7)
+    against its plain bf16 version, also on the ragged crops; the full chains
+    against the yardstick of summation order.  Returns the kernels' rows."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.models.didbl_pallas import _conv, _stacked
+    from image_enhance_keras_tpu_torch.ops.cuda import bf16
+    from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
+    from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
+
+    l53c, lc = ("conv_a1", "conv_a2", "conv_b1", "conv_b2"), ("conv_a", "conv_b")
+    with torch.inference_mode():
+        x53 = torch.relu(_conv(tiles.to(torch.bfloat16), params["level1"])).contiguous()
+        h = x53
+        for i in range(16):
+            p = params[f"body53_{i}"]
+            h = kb.light53_block_plain(h, *(p[c][k] for c in l53c for k in ("kernel", "bias")))
+        xl = h.contiguous()
+    n, hh, ww, c = (int(v) for v in x53.shape)
+    print(f"[chip_smoke] bf16 block inputs {tuple(x53.shape)}: light53 max|x|={x53.float().abs().max().item():.4g}, "
+          f"light max|x|={xl.float().abs().max().item():.4g}", flush=True)
+
+    def bound(flops, x, args):
+        nbytes = 2.0 * 2 * x.numel() + sum(2.0 * a.numel() if a.dim() >= 4 else 4.0 * a.numel() for a in args)
+        return _bound(flops, PEAK_BF16_FLOPS, nbytes)
+
+    def gaps(got, want, near_zero, max_ulps, what):
+        frac, ulps = bf16.ulp_gaps(got, want, near_zero)
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[chip_smoke] {what}: {frac:.3g} of elements differ, largest gap {ulps:.3g} bf16 ulp, "
+              f"max |d| {err:.3g} (bounds {BF16_FRAC}, {max_ulps:g} ulp)", flush=True)
+        if not (frac <= BF16_FRAC and ulps <= max_ulps):
+            failures.append(f"{what}: {frac:.3g} of elements differ, largest gap {ulps:.3g} bf16 ulp "
+                            f"(bounds {BF16_FRAC}, {max_ulps:g} ulp)")
+        return frac, ulps, err
+
+    rows = []
+    p53, pl = params["body53_0"], params["light_0"]
+    a53 = [p53[cv][k] for cv in l53c for k in ("kernel", "bias")]
+    al = [pl[cv][k] for cv in lc for k in ("kernel", "bias")]
+    specs = [
+        ("light53_block_bf16", kb.fused_light53_block, kb.light53_block_plain, lib53, x53, a53, 68,
+         "image_enhance_keras_tpu/ops/pallas/blocks.py:181", "blocks.cu"),
+        ("light_block_bf16", kb.fused_light_block, kb.light_block_plain, libl, xl, al, 18,
+         "image_enhance_keras_tpu/ops/pallas/blocks.py:154", "blocks.cu"),
+    ]
+    with torch.inference_mode():
+        for name, kern, plain, lib, x, args, taps, replaces, src in specs:
+            got, want = kern(x, *args), plain(x, *args)
+            torch.cuda.synchronize()
+            frac, ulps, err = gaps(got, want, BF16_NEAR_ZERO, BF16_BLOCK_ULPS, f"{name} {tuple(x.shape)}")
+            ragged = {}
+            for n_i, rh, rw in F32_RAGGED:
+                xr = x[n_i:n_i + 1, :rh, :rw].contiguous()
+                ragged[f"{rh}x{rw}"] = gaps(kern(xr, *args), plain(xr, *args), BF16_NEAR_ZERO, BF16_BLOCK_ULPS,
+                                            f"{name} ragged {tuple(xr.shape)}")[:2]
+            ms = _time_ms(lambda: kern(x, *args))
+            plain_ms = _time_ms(lambda: plain(x, *args))
+            # the library: cuDNN's bf16 convolutions (float32 sums, one rounding
+            # per conv), bf16 biases and combine
+            xc = x.permute(0, 3, 1, 2)
+            largs = [(oihw(a) if a.dim() == 4 else a).to(torch.bfloat16) for a in args]
+            library_ms = _time_ms(lambda: lib(xc, *largs))
+            flops = 2.0 * taps * c * c * n * hh * ww
+            bound_ms, bound_by = bound(flops, x, args)
+            rows.append({
+                "name": name, "route": "cuda", "source": f"image_enhance_keras_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": None, "max_abs_err": err, "differing_share": frac,
+                "max_gap_ulp": ulps, "tolerance": f"{BF16_FRAC} of elements, 1 bf16 ulp", "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "library": "cuDNN bf16 F.conv2d of the same convs (rounds at other points)",
+                "ragged": ragged, "dtype": "bfloat16", "tflops": flops / (ms * 1e-3) / 1e12,
+            })
+            print(f"[chip_smoke] {name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms "
+                  f"cuDNN bf16 F.conv2d, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
+
+    # the chains: K = 1 under the single-block bound (the chain's near-zero
+    # scale), then the path's 16 / 6 blocks against the yardstick
+    s53 = _stacked([params[f"body53_{i}"] for i in range(16)], l53c)
+    sl = _stacked([params[f"light_{i}"] for i in range(6)], lc)
+    s53_1 = _stacked([params["body53_0"]], l53c)
+    sl_1 = _stacked([params["light_0"]], lc)
+    with torch.inference_mode():
+        xc7 = kt.fused_light53_chain(x53, *s53).contiguous()
+
+    def chained_lib(lib, k_blocks):
+        def run(xc, *largs):
+            for i in range(k_blocks):
+                xc = lib(xc, *(a[i] for a in largs))
+            return xc
+        return run
+
+    chain_specs = [
+        ("light53_chain_bf16", kt.fused_light53_chain, kt.light53_chain_plain, kt.light53_chain_bf16,
+         chained_lib(lib53, 16), x53, s53, s53_1, 16 * 68,
+         "image_enhance_keras_tpu/ops/pallas/tower.py:166"),
+        ("light_chain_bf16", kt.fused_light_chain, kt.light_chain_plain, kt.light_chain_bf16,
+         chained_lib(libl, 6), xc7, sl, sl_1, 6 * 18,
+         "image_enhance_keras_tpu/ops/pallas/tower.py:191"),
+    ]
+    with torch.inference_mode():
+        for name, kern, plain, bf16_plain, lib, x, args, args1, taps, replaces in chain_specs:
+            frac1, ulps1, _ = gaps(kern(x, *args1), plain(x, *args1), BF16_CHAIN_NEAR_ZERO, BF16_CHAIN_ULPS,
+                                   f"{name} K=1")
+            ragged = {}
+            for n_i, rh, rw in F32_RAGGED:
+                xr = x[n_i:n_i + 1, :rh, :rw].contiguous()
+                ragged[f"{rh}x{rw}"] = gaps(kern(xr, *args1), plain(xr, *args1), BF16_CHAIN_NEAR_ZERO,
+                                            BF16_CHAIN_ULPS, f"{name} K=1 ragged {tuple(xr.shape)}")[:2]
+            got = kern(x, *args).float()
+            p32 = plain(x, *args).float()
+            p64 = bf16_plain(x, *args, sum_dtype=torch.float64).float()
+            torch.cuda.synchronize()
+            k_d, y_d = (got - p32).abs(), (p64 - p32).abs()
+            stats = {"kernel_mean": k_d.mean().item(), "kernel_max": k_d.max().item(),
+                     "yardstick_mean": y_d.mean().item(), "yardstick_max": y_d.max().item(),
+                     "kernel_share": (k_d > 0).float().mean().item(),
+                     "yardstick_share": (y_d > 0).float().mean().item(),
+                     "kernel_vs_float64_mean": (got - p64).abs().mean().item()}
+            print(f"[chip_smoke] {name} {tuple(x.shape)}: |kernel - plain| mean {stats['kernel_mean']:.3g} max "
+                  f"{stats['kernel_max']:.3g} ({stats['kernel_share']:.3g} differ); yardstick |plain64 - plain| "
+                  f"mean {stats['yardstick_mean']:.3g} max {stats['yardstick_max']:.3g} "
+                  f"({stats['yardstick_share']:.3g} differ); |kernel - plain64| mean "
+                  f"{stats['kernel_vs_float64_mean']:.3g} (bound {BF16_YARDSTICK_TIMES}x the yardstick)",
+                  flush=True)
+            if not (stats["kernel_mean"] <= BF16_YARDSTICK_TIMES * stats["yardstick_mean"]
+                    and stats["kernel_max"] <= BF16_YARDSTICK_TIMES * stats["yardstick_max"]):
+                failures.append(f"{name}: |kernel - plain| mean {stats['kernel_mean']:.3g} max "
+                                f"{stats['kernel_max']:.3g} beyond {BF16_YARDSTICK_TIMES}x the yardstick "
+                                f"(mean {stats['yardstick_mean']:.3g}, max {stats['yardstick_max']:.3g})")
+            ms = _time_ms(lambda: kern(x, *args))
+            plain_ms = _time_ms(lambda: plain(x, *args), iters=3, warmup=1)
+            xc = x.permute(0, 3, 1, 2)
+            largs = [(a.permute(0, 4, 3, 1, 2).contiguous() if a.dim() == 5 else a).to(torch.bfloat16)
+                     for a in args]
+            library_ms = _time_ms(lambda: lib(xc, *largs), iters=3, warmup=1)
+            flops = 2.0 * taps * c * c * n * hh * ww
+            bound_ms, bound_by = bound(flops, x, args)
+            rows.append({
+                "name": name, "route": "cuda", "source": "image_enhance_keras_tpu_torch/csrc/tower.cu",
+                "replaces": replaces, "launches": None, "max_abs_err": stats["kernel_max"],
+                "yardstick": stats, "k1_differing_share": frac1, "k1_max_gap_ulp": ulps1, "k1_ragged": ragged,
+                "tolerance": f"{BF16_YARDSTICK_TIMES}x the float64-vs-float32 plain gap; K=1: "
+                             f"{BF16_FRAC} of elements, {BF16_CHAIN_ULPS:g} bf16 ulp",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,
+                "library": "cuDNN bf16 F.conv2d of the same convs, looped over the blocks (rounds at other points)",
+                "dtype": "bfloat16", "tflops": flops / (ms * 1e-3) / 1e12,
+            })
+            print(f"[chip_smoke] {name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms "
+                  f"cuDNN bf16 F.conv2d, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
+    return rows
+
+
+def _bf16_cli(tmp: str, img, out_f32, failures: list, rows: list) -> dict:
+    """Phase 3a for ``--dtype bfloat16``: ``main_dirpath`` with ``--forward
+    pallas`` (16 bf16 K1 and 6 bf16 K2 launches) and ``pallas_chain`` (one
+    bf16 K6 and one bf16 K7 per chunk), K3 never (those paths' x4 is the
+    dense contraction), each held against the same run with the plain bf16
+    versions in place of the kernels, within BF16_YARDSTICK_TIMES the gap
+    between the plain versions summed in float64 and in float32.  Sets the
+    bf16 rows' launches."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread, imwrite
+    from image_enhance_keras_tpu_torch.models import didbl_pallas
+    from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
+    from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+
+    counted = {"light53_block_bf16": kb.fused_light53_block, "light_block_bf16": kb.fused_light_block,
+               "light53_chain_bf16": kt.fused_light53_chain, "light_chain_bf16": kt.fused_light_chain}
+    bf16_plain = {"fused_light53_block": kb.light53_block_bf16, "fused_light_block": kb.light_block_bf16,
+                  "fused_light53_chain": kt.light53_chain_bf16, "fused_light_chain": kt.light_chain_bf16}
+    want = {"pallas": {"light53_block_bf16": 16, "light_block_bf16": 6, "light53_chain_bf16": 0,
+                       "light_chain_bf16": 0, "upsample_phase_tf1": 0},
+            "pallas_chain": {"light53_block_bf16": 0, "light_block_bf16": 0, "light53_chain_bf16": 1,
+                             "light_chain_bf16": 1, "upsample_phase_tf1": 0}}
+    out = {}
+    for fwd in ("pallas", "pallas_chain"):
+        outs = {}
+        for variant in ("kernels", "plain", "plain64"):
+            d = os.path.join(tmp, f"bf16_{fwd}_{variant}")
+            os.makedirs(d)
+            imwrite(os.path.join(d, "img.bmp"), img)
+            for fn in (*counted.values(), kup.upsample_phase_tf1_kernel):
+                fn.launches = 0
+            for fn in counted.values():
+                fn.bf16_launches = 0
+            if variant != "kernels":
+                sums = torch.float64 if variant == "plain64" else torch.float32
+                for name, fn in bf16_plain.items():
+                    setattr(didbl_pallas, name, functools.partial(fn, sum_dtype=sums))
+            try:
+                torch.cuda.synchronize()
+                t1 = time.time()
+                rc = main_dirpath.main([d, "--forward", fwd, "--dtype", "bfloat16"])
+                torch.cuda.synchronize()
+                cli_s = time.time() - t1
+            finally:
+                for name in bf16_plain:
+                    setattr(didbl_pallas, name, getattr(kb if "block" in name else kt, name))
+            launches = {k: fn.bf16_launches for k, fn in counted.items()}
+            launches["upsample_phase_tf1"] = kup.upsample_phase_tf1_kernel.launches
+            total = {k: fn.launches for k, fn in counted.items()}
+            print(f"[chip_smoke] main_dirpath --dtype bfloat16 --forward {fwd} ({variant}): rc {rc}, "
+                  f"{cli_s:.2f} s, bf16 launches {launches}", flush=True)
+            expect = want[fwd] if variant == "kernels" else dict.fromkeys(want[fwd], 0)
+            if rc != 0:
+                failures.append(f"main_dirpath --dtype bfloat16 --forward {fwd} ({variant}) returned {rc}")
+            if launches != expect or total != {k: launches[k] for k in counted}:
+                failures.append(f"bf16 {fwd} ({variant}) launches {launches} (all dtypes {total}) != {expect}")
+            if variant == "kernels":
+                for row in rows:
+                    if row["name"] in counted and want[fwd][row["name"]]:
+                        row["launches"] = launches[row["name"]]
+            outs[variant] = imread(os.path.join(d, "img_scaled(1x).bmp"))
+        got = outs["kernels"]
+        if got.shape != (512, 512, 3) or float(got.astype(np.float64).std()) < 1.0:
+            failures.append(f"bf16 {fwd} output shape {got.shape} or flat")
+            continue
+        dmax, frac = _u8_agreement(got, outs["plain"])
+        ymax, yfrac = _u8_agreement(outs["plain64"], outs["plain"])
+        psnr = _psnr(got, out_f32)
+        print(f"[chip_smoke] bf16 {fwd} uint8, kernels vs plain versions: max diff {dmax}, differing fraction "
+              f"{frac:.3g}; yardstick, plain summed in float64 vs float32: max diff {ymax}, differing "
+              f"fraction {yfrac:.3g} (bound {BF16_YARDSTICK_TIMES}x each); PSNR against the float32 pallas "
+              f"output {psnr:.2f} dB", flush=True)
+        if dmax > BF16_YARDSTICK_TIMES * ymax or frac > BF16_YARDSTICK_TIMES * yfrac:
+            failures.append(f"bf16 {fwd} kernels vs plain outputs differ: max {dmax}, fraction {frac:.3g}, "
+                            f"beyond {BF16_YARDSTICK_TIMES}x the yardstick (max {ymax}, fraction {yfrac:.3g})")
+        out[fwd] = {"u8_max_diff_vs_plain": dmax, "u8_differing_vs_plain": frac,
+                    "yardstick_u8_max_diff": ymax, "yardstick_u8_differing": yfrac, "psnr_vs_f32": psnr}
     return out
 
 
@@ -429,12 +755,24 @@ def main() -> int:
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
             sass[stem] = None
             failures.append(f"csrc/{stem}.cu: the SASS could not be read ({e})")
-        print(f"[chip_smoke] SASS of csrc/{stem}.cu: {sass[stem]}", flush=True)
+        print(f"[chip_smoke] SASS of csrc/{stem}.cu: "
+              f"{ {k: v for k, v in (sass[stem] or {}).items() if k != 'functions'} }", flush=True)
     if sass["int8_blocks"] is not None and (sass["int8_blocks"]["GMMA"] == 0 or sass["int8_blocks"]["IDP"] > 0):
         failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass['int8_blocks']}")
-    for stem, what in (("tower", "chain"), ("blocks", "block")):
-        if sass[stem] is not None and sass[stem]["GMMA"] == 0:
-            failures.append(f"{what} kernels: expected wgmma (GMMA) in the SASS, got {sass[stem]}")
+    # every kernel function of the block and chain libraries, the bf16 forms'
+    # (two launches of two block kinds, one chain kernel of two kinds) included
+    for stem, what, n_bf16 in (("tower", "chain", 2), ("blocks", "block", 4)):
+        if sass[stem] is None:
+            continue
+        fns = sass[stem]["functions"]
+        without = [k for k, v in fns.items() if v == 0]
+        bf16_fns = [k for k in fns if "bfloat16" in k]  # instantiated for bf16 activations
+        print(f"[chip_smoke] {what} kernels' GMMA lines by function (bf16 forms {len(bf16_fns)}): "
+              f"{sorted(fns.values())}", flush=True)
+        if sass[stem]["GMMA"] == 0 or without or len(bf16_fns) != n_bf16:
+            failures.append(f"{what} kernels: expected wgmma (GMMA) in the SASS of every kernel and {n_bf16} "
+                            f"bf16 kernels, got {sass[stem]['GMMA']} GMMA lines, none in {without}, bf16 "
+                            f"kernels {sorted(bf16_fns)}")
     _phase(f"1 build ({build_s:.2f} s)", t0)
 
     # -- 2. kernels against their plain versions ------------------------------
@@ -611,6 +949,7 @@ def main() -> int:
                   f"F.conv2d, bound {bounds['bound_ms']:.3f} ms (CUDA cores {bounds['bound_f32_cores_ms']:.3f}, "
                   f"3xTF32 {bounds['bound_tf32x3_ms']:.3f}), {rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
     del x53, xl, h, xc6, xc7, s53, sl
+    rows += _bf16_kernels(params, tiles, failures, oihw, lib53, libl)
 
     # int8 path: the demo weights quantized by the port's own calibration on
     # the card, the kernels' inputs taken from the int8 path itself
@@ -821,6 +1160,11 @@ def main() -> int:
                 failures.append(f"pallas_chain vs {ref_name} outputs differ: max {dmax}, fraction {frac:.3g}")
         _phase("3a pallas, pallas_chain and xla paths (CLI)", t0)
 
+        # the bf16 profile through the CLI, with the plain bf16 versions swapped in as its reference
+        t0 = time.time()
+        bf16_cli = _bf16_cli(tmp, img, out_p, failures, rows)
+        _phase("3a bf16 pallas and pallas_chain paths (CLI)", t0)
+
         # the int8 path: calibration, quantization and the forward, all in the
         # CLI run; K3 takes the x4 (one launch in calibration, one per chunk of
         # tiles).  Then the same run with the plain x4 in place of K3, and
@@ -899,8 +1243,11 @@ def main() -> int:
     t0 = time.time()
     res = {f: SuperResolver(weights=weights, forward=f, device="cuda") for f in ("pallas", "pallas_chain", "xla")}
     res["pallas_int8"] = res8  # weights quantized in phase 2
+    for f in ("pallas", "pallas_chain", "xla"):
+        res[f"{f} --dtype bfloat16"] = SuperResolver(weights=weights, forward=f, dtype=torch.bfloat16,
+                                                     device="cuda")
     secs = {f: [] for f in res}
-    order = ("pallas_int8", "pallas", "pallas_chain", "xla")
+    order = tuple(res)
     for f in order + order[::-1]:
         torch.cuda.synchronize()
         t1 = time.time()
@@ -911,6 +1258,20 @@ def main() -> int:
     for f, s in secs.items():
         print(f"[chip_smoke] engine --forward {f}, 128x128 -> 512x512 patch mode: "
               f"{min(s):.3f} s, {mpix / min(s):.3f} out-Mpix/s on {gpu}", flush=True)
+    # the bf16 forwards' device time by kernel and idle share, under torch.profiler
+    from image_enhance_keras_tpu_torch.utils.profiling import profile_upscale
+
+    bf16_profile = {}
+    for f in ("pallas", "pallas_chain", "xla"):
+        wall, prof_rows = profile_upscale(res[f"{f} --dtype bfloat16"], img, 3)
+        busy = sum(ms for _, ms, _ in prof_rows) / 3
+        idle = max(0.0, 1.0 - busy / (wall * 1e3))
+        bf16_profile[f] = {"wall_ms": wall * 1e3, "device_ms": busy, "idle_share": idle,
+                           "kernels": [(name[:90], ms / 3, calls // 3) for name, ms, calls in prof_rows[:10]]}
+        print(f"[chip_smoke] profile --forward {f} --dtype bfloat16, 128x128 patch mode: {wall * 1e3:.3f} ms "
+              f"wall, {busy:.3f} ms device, idle share {idle:.3f} on {gpu}", flush=True)
+        for name, ms, calls in bf16_profile[f]["kernels"]:
+            print(f"[chip_smoke]   {ms:9.3f} ms {100 * ms / busy:5.1f}% {calls:4d} calls  {name}", flush=True)
     crop = np.ascontiguousarray(img[:20, :24])
     ref = SuperResolver(weights=weights, forward="xla", mode="fast", device="cpu").upscale(crop)
     for f in ("pallas", "pallas_chain"):
@@ -947,7 +1308,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu, "int8_yardstick": yardstick,
                       "sass": sass,
                       "int8_calib_source": res8.int8_calib_source, "int8_psnr_vs_f32": psnr8,
-                      "engine_s_per_image": {f: min(v) for f, v in secs.items()}, "set5": set5}),
+                      "engine_s_per_image": {f: min(v) for f, v in secs.items()},
+                      "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "set5": set5}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

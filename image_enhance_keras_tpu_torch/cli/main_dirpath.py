@@ -23,7 +23,7 @@ _PORTED_VALUES = {
     "model": ("didbl",),
     "mode": ("patch", "fast"),
     "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
-    "dtype": ("float32",),
+    "dtype": ("float32", "bfloat16"),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
@@ -61,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weights", default=None,
                    help="params .npz; omitted = the model's committed demo checkpoint; "
                         "'none' = explicit random-init smoke run")
-    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed", "mixed-tail"])
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed", "mixed-tail"],
+                   help="serving precision: bfloat16 runs xla, pallas and pallas_chain in bf16")
     p.add_argument("--tile_chunk", default=16, type=int)
     p.add_argument("--round-mode", default="round", choices=["round", "trunc"],
                    help="final uint8 cast: round (half to even) or trunc (the reference's cast)")
@@ -94,6 +95,8 @@ def main(argv=None) -> int:
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) != default:
             parser.error(f"{flag} is {_NOT_PORTED}")
+    if args.dtype == "bfloat16" and args.forward == "pallas_int8":
+        parser.error(f"--dtype bfloat16 with --forward pallas_int8 is {_NOT_PORTED}")
 
     from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
     from image_enhance_keras_tpu_torch.engine import SuperResolver
@@ -102,6 +105,7 @@ def main(argv=None) -> int:
     resolver = SuperResolver(
         model=args.model,
         weights=weights,
+        dtype=args.dtype,
         patch=args.patch_size,
         step=args.step,
         geometry=args.geometry,

@@ -23,7 +23,7 @@ _JAX_MODELS = ("didbl", "didbl_subpixel", "difv4", "difv4_x2", "difvdsr")
 _PORTED_VALUES = {
     "model": ("didbl",),
     "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
-    "dtype": ("float32",),
+    "dtype": ("float32", "bfloat16"),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
@@ -56,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --generate: forward implementation (xla: the plain torch module; "
                         "pallas / pallas_chain / pallas_int8: the CUDA kernels)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed"],
-                   help="with --generate: serving precision")
+                   help="with --generate: serving precision (bfloat16: xla, pallas and pallas_chain)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (cuda must be present unless cpu is asked for)")
     # JAX flags that parse but are rejected below
@@ -75,13 +75,15 @@ def main(argv=None) -> int:
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) != default:
             parser.error(f"{flag} is {_NOT_PORTED}")
+    if args.dtype == "bfloat16" and args.forward == "pallas_int8":
+        parser.error(f"--dtype bfloat16 with --forward pallas_int8 is {_NOT_PORTED}")
     if args.generate:
         from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
         from image_enhance_keras_tpu_torch.engine import SuperResolver
         from image_enhance_keras_tpu_torch.eval import evaluate_model
 
         resolver = SuperResolver(model=args.model, weights=resolve_cli_weights(args.model, args.weights),
-                                 forward=args.forward, device=args.device)
+                                 forward=args.forward, dtype=args.dtype, device=args.device)
         scores, means = evaluate_model(resolver, args.path_dir, scale=args.scale_factor,
                                        crop_border=args.crop, with_gmsd=args.gmsd)
     else:

@@ -1,5 +1,6 @@
-// Fused residual blocks of the didbl generator, float32, for sm_90a, on the
-// TF32 tensor cores in split precision (3xTF32, conv_tf32x3.cuh).
+// Fused residual blocks of the didbl generator, float32 and bf16, for
+// sm_90a: float32 on the TF32 tensor cores in split precision (3xTF32), bf16
+// on the bf16 tensor cores, both on the tile of conv_tf32x3.cuh.
 //
 // Replaces the Pallas TPU kernels in image_enhance_keras_tpu/ops/pallas/blocks.py:
 //   * iek_light53_block <- fused_light53_block (_light53_kernel):
@@ -35,28 +36,41 @@
 // The epilogues keep the plain version's explicitly rounded order
 // (__fadd_rn/__fmul_rn, no FMA contraction), so only the products' order and
 // split differ from it.
+//
+// bf16 (iek_light53_block_bf16, iek_light_block_bf16): x, ta, tb and out
+// are bf16, the weights cast to bf16 by the wrapper (ops/cuda/bf16.py
+// packed), the biases float32, as the TPU kernels take them
+// (fused_light53_block casts the weights to x's dtype).  ta and tb are
+// bf16(relu(conv + bias)); the combine runs in float32 in the same order as
+// the float32 kernels', and only the final store rounds (to nearest even):
+// out = bf16(res * (((id/res)*x + (ba2 + bb2) + conv5(ta)) + conv3(tb))).
+// The float32 partial sum is parked in a float32 scratch `park` (the
+// float32 kernels park it in out itself).  Bounded by operations as well:
+// 2*68*C^2 FLOP per pixel at 989 TFLOP/s dense bf16.
 
 #include "conv_tf32x3.cuh"
 
 namespace {
 
+template <typename T>
 struct BlockArgs {
-  const float* x;  // (N, H, W, C) input
-  float* ta;       // first-conv scratch: Light53 branch a, or Light
-  float* tb;       // Light53 branch b
-  float* out;
-  const float* wa1; const float* ba1;  // Light53 conv_a1 (3x3); Light conv_a (3x3)
-  const float* wa2; const float* ba2;  // Light53 conv_a2 (5x5); Light conv_b (3x3)
-  const float* wb1; const float* bb1;  // Light53 conv_b1 (5x5)
-  const float* wb2; const float* bb2;  // Light53 conv_b2 (3x3)
+  const T* x;      // (N, H, W, C) input
+  T* ta;           // first-conv scratch: Light53 branch a, or Light
+  T* tb;           // Light53 branch b
+  float* park;     // Light53's float32 partial sum: out itself for float32
+  T* out;
+  const T* wa1; const float* ba1;  // Light53 conv_a1 (3x3); Light conv_a (3x3)
+  const T* wa2; const float* ba2;  // Light53 conv_a2 (5x5); Light conv_b (3x3)
+  const T* wb1; const float* bb1;  // Light53 conv_b1 (5x5)
+  const T* wb2; const float* bb2;  // Light53 conv_b2 (3x3)
   int n, h, w;
   float res_scale, ident_over_res;
 };
 
 // Launch 1: tb = relu(conv5(x) + bb1) (Light53, items [0, tiles)), then
 // ta = relu(conv3(x) + ba1).
-template <bool kLight53>
-__global__ void __launch_bounds__(THREADS, 1) first_kernel(BlockArgs a) {
+template <bool kLight53, typename T>
+__global__ void __launch_bounds__(THREADS, 1) first_kernel(BlockArgs<T> a) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* st = reinterpret_cast<float*>(smem);
   const int H = a.h, W = a.w;
@@ -78,8 +92,8 @@ __global__ void __launch_bounds__(THREADS, 1) first_kernel(BlockArgs a) {
 }
 
 // Launch 2: the second convs and the residual combine.
-template <bool kLight53>
-__global__ void __launch_bounds__(THREADS, 1) second_kernel(BlockArgs a) {
+template <bool kLight53, typename T>
+__global__ void __launch_bounds__(THREADS, 1) second_kernel(BlockArgs<T> a) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* st = reinterpret_cast<float*>(smem);
   const int H = a.h, W = a.w;
@@ -92,16 +106,16 @@ __global__ void __launch_bounds__(THREADS, 1) second_kernel(BlockArgs a) {
     conv<kLight53 ? 5 : 3>(acc, smem, ring, a.ta, a.wa2, t, H, W);
     stage_acc(acc, st);
     if constexpr (kLight53) {
-      // (id/res)*x + (ba2 + bb2) + conv5(ta), parked in out
+      // (id/res)*x + (ba2 + bb2) + conv5(ta), parked
       const float ior = a.ident_over_res;
       for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
         const float4 acc0 = add4(scale4(ior, ld4(a.x + g)), add4(ldg4(a.ba2 + ch), ldg4(a.bb2 + ch)));
-        st4(a.out + g, add4(acc0, staged4(st, s)));
+        st4(a.park + g, add4(acc0, staged4(st, s)));
       });
       conv<3>(acc, smem, ring, a.tb, a.wb2, t, H, W);
       stage_acc(acc, st);
       for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
-        st4(a.out + g, scale4(res, add4(ld4(a.out + g), staged4(st, s))));
+        st4(a.out + g, scale4(res, add4(ld4(a.park + g), staged4(st, s))));
       });
     } else {
       for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
@@ -111,19 +125,19 @@ __global__ void __launch_bounds__(THREADS, 1) second_kernel(BlockArgs a) {
   }
 }
 
-template <bool kLight53>
-int launch_block(const BlockArgs& a, void* stream) {
+template <bool kLight53, typename T>
+int launch_block(const BlockArgs<T>& a, void* stream) {
   const int tiles = tiles_per_image(a.h, a.w) * a.n;
   if (tiles == 0) return (int)cudaSuccess;
   int grid1 = 0, grid2 = 0;
-  cudaError_t err = persistent_grid(first_kernel<kLight53>, tiles * (kLight53 ? 2 : 1), &grid1);
-  if (err == cudaSuccess) err = persistent_grid(second_kernel<kLight53>, tiles, &grid2);
+  cudaError_t err = persistent_grid(first_kernel<kLight53, T>, tiles * (kLight53 ? 2 : 1), &grid1);
+  if (err == cudaSuccess) err = persistent_grid(second_kernel<kLight53, T>, tiles, &grid2);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  first_kernel<kLight53><<<grid1, THREADS, SMEM_BYTES, st>>>(a);
+  first_kernel<kLight53, T><<<grid1, THREADS, SMEM_BYTES, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  second_kernel<kLight53><<<grid2, THREADS, SMEM_BYTES, st>>>(a);
+  second_kernel<kLight53, T><<<grid2, THREADS, SMEM_BYTES, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -142,7 +156,8 @@ int iek_light53_block(const float* x,
                       int n, int h, int w, int c, float res_scale, float ident_over_res,
                       void* stream) {
   if (c != C) return (int)cudaErrorInvalidValue;
-  const BlockArgs a{x, ta, tb, out, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2, n, h, w, res_scale, ident_over_res};
+  const BlockArgs<float> a{x, ta, tb, out, out, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
+                           n, h, w, res_scale, ident_over_res};
   return launch_block<true>(a, stream);
 }
 
@@ -150,8 +165,31 @@ int iek_light_block(const float* x, const float* w1, const float* b1,
                     const float* w2, const float* b2, float* t, float* out,
                     int n, int h, int w, int c, float res_scale, void* stream) {
   if (c != C) return (int)cudaErrorInvalidValue;
-  const BlockArgs a{x, t, nullptr, out, w1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr, n, h, w,
-                    res_scale, 1.0f};
+  const BlockArgs<float> a{x, t, nullptr, out, out, w1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr,
+                           n, h, w, res_scale, 1.0f};
+  return launch_block<false>(a, stream);
+}
+
+// The bf16 forms: x, ta, tb and out bf16 (N*H*W*C), weights packed to bf16
+// by the wrapper, biases float32; park an N*H*W*C float32 scratch.
+int iek_light53_block_bf16(const bf16* x,
+                           const bf16* wa1, const float* ba1, const bf16* wa2, const float* ba2,
+                           const bf16* wb1, const float* bb1, const bf16* wb2, const float* bb2,
+                           bf16* ta, bf16* tb, float* park, bf16* out,
+                           int n, int h, int w, int c, float res_scale, float ident_over_res,
+                           void* stream) {
+  if (c != C) return (int)cudaErrorInvalidValue;
+  const BlockArgs<bf16> a{x, ta, tb, park, out, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
+                          n, h, w, res_scale, ident_over_res};
+  return launch_block<true>(a, stream);
+}
+
+int iek_light_block_bf16(const bf16* x, const bf16* w1, const float* b1,
+                         const bf16* w2, const float* b2, bf16* t, bf16* out,
+                         int n, int h, int w, int c, float res_scale, void* stream) {
+  if (c != C) return (int)cudaErrorInvalidValue;
+  const BlockArgs<bf16> a{x, t, nullptr, nullptr, out, w1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr,
+                          n, h, w, res_scale, 1.0f};
   return launch_block<false>(a, stream);
 }
 

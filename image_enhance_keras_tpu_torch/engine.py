@@ -14,6 +14,10 @@ the same with the 16 Light53 and the 6 Light blocks as one chain kernel
 each; ``forward='pallas_int8'`` runs
 ``apply_didbl_int8`` on a one-time quantized tree (``_fwd_params``), every
 residual block on the int8 kernels.  Float32 weights; TF32 is switched off.
+``dtype=torch.bfloat16`` (or ``"bfloat16"``) runs ``xla``, ``pallas`` and
+``pallas_chain`` in bf16, as the JAX engine's serving profile does: the
+module's convs and combines, or the kernels' bf16 forms, with float32
+outputs; with ``pallas_int8`` it is not yet ported.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from image_enhance_keras_tpu_torch.data.io import imread, imwrite, list_images
+from image_enhance_keras_tpu_torch.models.blocks import profile_dtype
 from image_enhance_keras_tpu_torch.models.weights import load_params, params_of_module
 from image_enhance_keras_tpu_torch.models.zoo import get_model, init_params
 from image_enhance_keras_tpu_torch.tiling.tiles import (
@@ -67,9 +72,11 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def disable_tf32() -> None:
-    """Full float32 convs and matmuls on the card: the parity bounds assume it."""
+    """Full float32 convs and matmuls on the card, and bf16 matmuls that sum in
+    float32 throughout: the parity bounds assume it."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class SuperResolver:
@@ -102,6 +109,9 @@ class SuperResolver:
             raise NotImplementedError(f"mode={mode!r} {_NOT_PORTED}")
         if round_mode not in ("round", "trunc"):
             raise ValueError(f"round_mode must be 'round' or 'trunc', got {round_mode!r}")
+        self._dtype = profile_dtype(dtype)
+        if self._dtype != torch.float32 and forward == "pallas_int8":
+            raise NotImplementedError(f"dtype={dtype!r} with forward='pallas_int8' {_NOT_PORTED}")
         self.model_name = model
         if module_and_spec is not None:
             self.module, self.spec = module_and_spec
@@ -109,7 +119,6 @@ class SuperResolver:
             self.module, self.spec = get_model(model, dtype=dtype)
         if forward.startswith("pallas") and not model.startswith("didbl"):
             raise ValueError("pallas forwards are implemented for the didbl family")
-        self._dtype = dtype
         self.forward_mode = forward
         if geometry is not None:
             patch, step, crop = TILE_GEOMETRIES[geometry]

@@ -1,8 +1,14 @@
-"""Residual blocks of the didbl generator (mirror of ``models/blocks.py``), float32.
+"""Residual blocks of the didbl generator (mirror of ``models/blocks.py``).
 
 Submodule and parameter names follow the flax tree (``conv_a1/kernel``), so
 ``models.weights.load_params`` maps the npz checkpoints one to one.
 Activations are NHWC and kernels HWIO, as in the JAX package.
+
+Precision profiles: float32, and bf16 (``dtype=torch.bfloat16`` or
+``"bfloat16"``), which runs as flax ``nn.Conv(dtype=bf16)`` does: x, kernel
+and bias cast to bf16, the conv emitting bf16, the bias added in bf16, and
+the blocks' scale-and-add combines in bf16 with the scales' bf16 values
+(0.9 -> 0.8984375, 0.1 -> 0.10009765625).  Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -14,37 +20,54 @@ from torch import nn
 
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
 
-__all__ = ["Conv", "LightBlock", "Light53Block", "make_conv", "check_profile"]
+__all__ = ["Conv", "LightBlock", "Light53Block", "make_conv", "profile_dtype", "scale"]
+
+#: the precision profiles this port runs, by the names the JAX package takes
+_PROFILES = {None: torch.float32, torch.float32: torch.float32, "float32": torch.float32,
+             torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
-def check_profile(dtype: Any, mixed: bool) -> None:
-    """Raise for precision profiles this slice does not run (float32 only)."""
+def profile_dtype(dtype: Any, mixed: bool = False) -> torch.dtype:
+    """The activation dtype of a profile (None -> float32); raises for the
+    profiles the port does not run."""
     if mixed:
         raise NotImplementedError("the mixed profile is not yet ported in image_enhance_keras_tpu_torch")
-    if dtype not in (None, torch.float32, "float32"):
+    try:
+        return _PROFILES[dtype]
+    except (KeyError, TypeError):
         raise NotImplementedError(
-            f"dtype {dtype!r} is not yet ported in image_enhance_keras_tpu_torch (float32 only)"
-        )
+            f"dtype {dtype!r} is not yet ported in image_enhance_keras_tpu_torch (float32 and bfloat16 only)"
+        ) from None
+
+
+def scale(v: float, like: torch.Tensor) -> float | torch.Tensor:
+    """A residual scale for an activation like ``like``: the Python float for
+    float32, its bf16 value as a 0-d tensor for bf16 (``jnp.asarray(v, h.dtype)``)."""
+    return v if like.dtype == torch.float32 else torch.tensor(v, dtype=like.dtype)
 
 
 class Conv(nn.Module):
     """SAME conv with an HWIO ``kernel`` and a ``bias``, like flax ``nn.Conv``."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: tuple[int, int]):
+    def __init__(self, in_features: int, features: int, kernel_size: tuple[int, int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         kh, kw = kernel_size
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(kh, kw, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x, self.kernel, self.bias)
+        if self.dtype == torch.float32:
+            return conv2d_nhwc(x, self.kernel, self.bias)
+        dt = self.dtype
+        return conv2d_nhwc(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
 
 
 def make_conv(features: int, kernel_size, *, in_features: int, dtype: Any = None,
               mixed: bool = False) -> Conv:
-    """The family's conv; ``mixed`` and non-float32 profiles are not ported yet."""
-    check_profile(dtype, mixed)
-    return Conv(in_features, features, tuple(kernel_size))
+    """The family's conv in the profile's dtype; ``mixed`` is not ported yet."""
+    return Conv(in_features, features, tuple(kernel_size), profile_dtype(dtype, mixed))
 
 
 class LightBlock(nn.Module):
@@ -57,7 +80,8 @@ class LightBlock(nn.Module):
         self.conv_b = make_conv(features, (3, 3), in_features=features, dtype=dtype, mixed=mixed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.res_scale * self.conv_b(torch.relu(self.conv_a(x)))
+        h = self.conv_b(torch.relu(self.conv_a(x)))
+        return x + scale(self.res_scale, h) * h
 
 
 class Light53Block(nn.Module):
@@ -77,4 +101,5 @@ class Light53Block(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.conv_a2(torch.relu(self.conv_a1(x)))
         b = self.conv_b2(torch.relu(self.conv_b1(x)))
-        return self.identity_scale * x + self.res_scale * (a + b)
+        h = a + b
+        return scale(self.identity_scale, h) * x + scale(self.res_scale, h) * h

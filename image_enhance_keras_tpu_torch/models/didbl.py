@@ -8,8 +8,10 @@
   -> 2x Light53Block                  (tail53_i)
   -> 3x3 conv -> 3 feats, relu        (out)
 
-Float32 with the ``tf1_bilinear`` head only in this slice.  Submodule names
-are the flax param scopes, so the npz checkpoints load one to one.
+The ``tf1_bilinear`` head, in float32 or bf16 (``dtype``: the body and the
+tail cast their input to it, every conv runs in it, parameters stay
+float32, the output is float32).  Submodule names are the flax param
+scopes, so the npz checkpoints load one to one.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from image_enhance_keras_tpu_torch.models.blocks import Light53Block, LightBlock, check_profile, make_conv
+from image_enhance_keras_tpu_torch.models.blocks import Light53Block, LightBlock, make_conv, profile_dtype
 from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
 
 __all__ = ["DifvdsrDouble"]
@@ -36,21 +38,22 @@ class DifvdsrDouble(nn.Module):
             raise NotImplementedError("upsampler='subpixel' is not yet ported in image_enhance_keras_tpu_torch")
         if upsampler != "tf1_bilinear":
             raise ValueError(f"unknown upsampler {upsampler!r}")
-        check_profile(dtype, mixed or mixed_tail)
+        self.dtype = profile_dtype(dtype, mixed or mixed_tail)
         self.features = features
         self.n_body53 = n_body53
         self.n_light = n_light
         self.n_tail53 = n_tail53
         self.scale = scale
         self.upsampler = upsampler
-        self.level1 = make_conv(features, (1, 1), in_features=3)
+        dt = self.dtype
+        self.level1 = make_conv(features, (1, 1), in_features=3, dtype=dt)
         for i in range(n_body53):
-            self.add_module(f"body53_{i}", Light53Block(features))
+            self.add_module(f"body53_{i}", Light53Block(features, dtype=dt))
         for i in range(n_light):
-            self.add_module(f"light_{i}", LightBlock(features))
+            self.add_module(f"light_{i}", LightBlock(features, dtype=dt))
         for i in range(n_tail53):
-            self.add_module(f"tail53_{i}", Light53Block(features))
-        self.out = make_conv(3, (3, 3), in_features=features)
+            self.add_module(f"tail53_{i}", Light53Block(features, dtype=dt))
+        self.out = make_conv(3, (3, 3), in_features=features, dtype=dt)
 
     @property
     def split_halo(self) -> int:
@@ -60,7 +63,7 @@ class DifvdsrDouble(nn.Module):
 
     def body(self, x: torch.Tensor) -> torch.Tensor:
         """Pre-upsample tower at LR: level1 + Light53 blocks + Light blocks."""
-        h = torch.relu(self.level1(x))
+        h = torch.relu(self.level1(x.to(self.dtype)))
         for i in range(self.n_body53):
             h = getattr(self, f"body53_{i}")(h)
         for i in range(self.n_light):
@@ -68,11 +71,11 @@ class DifvdsrDouble(nn.Module):
         return h
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:
-        """x4 upsample + post-upsample Light53 blocks + out conv."""
-        h = upsample_phase_tf1(h, self.scale)
+        """x4 upsample + post-upsample Light53 blocks + out conv -> float32."""
+        h = upsample_phase_tf1(h.to(self.dtype), self.scale)
         for i in range(self.n_tail53):
             h = getattr(self, f"tail53_{i}")(h)
-        return torch.relu(self.out(h))
+        return torch.relu(self.out(h)).to(torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tail(self.body(x))

@@ -6,6 +6,9 @@ tree with the 16 Light53 and 6 Light LR blocks on the CUDA kernels of
 on the two chain kernels of ``ops/cuda/tower.py``.  The 1x1 ``level1``
 conv, the TF1 x4 (as two dense contractions), the two HR Light53 blocks and
 the 3x3 ``out`` conv are plain torch, as the JAX version leaves them to XLA.
+``dtype=torch.bfloat16`` runs it all in bf16 as JAX does: the input cast,
+the kernels' bf16 forms, the plain convs in bf16 with the weights cast at
+use, and a float32 output.
 
 The int8 serving path (``--forward pallas_int8``): ``quantize_didbl_params``
 turns the tree into int8 weights with per-channel scales and, given a
@@ -24,7 +27,7 @@ from typing import Any
 
 import torch
 
-from image_enhance_keras_tpu_torch.models.blocks import check_profile
+from image_enhance_keras_tpu_torch.models.blocks import profile_dtype, scale as _scale
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
 from image_enhance_keras_tpu_torch.ops.cuda.blocks import fused_light53_block, fused_light_block
 from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import (
@@ -65,10 +68,10 @@ def _light53(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def _light53_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Plain light53 for the post-upsample blocks."""
+    """Plain light53 for the post-upsample blocks, in x's dtype (bf16 scales for bf16)."""
     a = _conv(torch.relu(_conv(x, p["conv_a1"])), p["conv_a2"])
     b = _conv(torch.relu(_conv(x, p["conv_b1"])), p["conv_b2"])
-    return 0.9 * x + 0.1 * (a + b)
+    return _scale(0.9, x) * x + _scale(0.1, x) * (a + b)
 
 
 def _stacked(blocks: list, convs: tuple) -> list:
@@ -76,7 +79,9 @@ def _stacked(blocks: list, convs: tuple) -> list:
 
     Cached on the first block's first kernel, keyed by the identity and
     version of every tensor stacked, so that a loaded tree is stacked (and
-    its chain weights split and repacked by the kernels' wrappers) once.
+    its chain weights packed by the kernels' wrappers) once.  The stacks stay
+    float32 for both profiles; each carries its float32 (3xTF32) and bf16
+    packs apart, under one attribute per policy (``tf32x3.cached_pack``).
     """
     parts = [[b[c][k] for b in blocks] for c in convs for k in ("kernel", "bias")]
     flat = [t for ts in parts for t in ts]
@@ -96,12 +101,14 @@ def _stacked(blocks: list, convs: tuple) -> list:
 def apply_didbl_pallas(params: Any, x: torch.Tensor, dtype: Any = None, n_body53: int = 16,
                        n_light: int = 6, n_tail53: int = 2, scale: int = 4,
                        chain: bool = False) -> torch.Tensor:
-    """(N, H, W, 3) [0,1] -> (N, 4H, 4W, 3); same math as DifvdsrDouble.
+    """(N, H, W, 3) [0,1] -> (N, 4H, 4W, 3) float32; same math as DifvdsrDouble.
 
     ``chain=True`` runs the 16 Light53 and the 6 Light blocks as one chain
-    kernel each (``ops/cuda/tower.py``), over weights stacked on a K axis."""
-    check_profile(dtype, False)
-    h = torch.relu(_conv(x.to(torch.float32), params["level1"]))
+    kernel each (``ops/cuda/tower.py``), over weights stacked on a K axis.
+    ``dtype`` (None / float32, or bfloat16) is the activations' dtype; the
+    x4 is the two dense contractions in it, as in JAX, not the phase
+    upsample of the module forward."""
+    h = torch.relu(_conv(x.to(profile_dtype(dtype)), params["level1"]))
     if chain:
         b53 = [params[f"body53_{i}"] for i in range(n_body53)]
         h = fused_light53_chain(h, *_stacked(b53, ("conv_a1", "conv_a2", "conv_b1", "conv_b2")),
@@ -122,7 +129,7 @@ def apply_didbl_pallas(params: Any, x: torch.Tensor, dtype: Any = None, n_body53
     h = resize_bilinear_tf1(h, (scale * h.shape[-3], scale * h.shape[-2]))
     for i in range(n_tail53):
         h = _light53_xla(h, params[f"tail53_{i}"])
-    return torch.relu(_conv(h, params["out"]))
+    return torch.relu(_conv(h, params["out"])).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,8 @@ SIGNATURES = {
     "blocks": {
         "iek_light53_block": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
         "iek_light_block": [_P] * 7 + [_I] * 4 + [_F, _P],
+        "iek_light53_block_bf16": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+        "iek_light_block_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     },
     "int8_blocks": {
         "iek_light53_int8": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
@@ -45,6 +47,8 @@ SIGNATURES = {
     "tower": {
         "iek_light53_chain": [_P] * 13 + [_I] * 5 + [_F, _F, _P],
         "iek_light_chain": [_P] * 8 + [_I] * 5 + [_F, _P],
+        "iek_light53_chain_bf16": [_P] * 13 + [_I] * 5 + [_F, _F, _P],
+        "iek_light_chain_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
     },
 }
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CUDA_CHANNELS", "packed", "round_tf32", "split_tf32"]
+__all__ = ["CUDA_CHANNELS", "cached_pack", "packed", "round_tf32", "split_tf32"]
 
 #: channels the CUDA kernels take: the N of their wgmma tile
 CUDA_CHANNELS = 128
@@ -33,6 +33,30 @@ def split_tf32(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, v - hi
 
 
+def cached_pack(w: torch.Tensor, attr: str, build) -> torch.Tensor:
+    """``build(w)``, cached on the weight tensor itself under ``attr``, one
+    attribute per product policy (3xTF32 ``_iek_packed``, bf16
+    ``_iek_packed_bf16``), so that one policy's pack never serves the other.
+
+    Repacked after an in-place change (the tensor's version counter);
+    inference tensors carry no version counter and are not repacked after
+    one."""
+    version = None if w.is_inference() else w._version
+    cached = getattr(w, attr, None)
+    if cached is not None and cached[0] == version:
+        return cached[1]
+    out = build(w.detach())
+    setattr(w, attr, (version, out))
+    return out
+
+
+def _pack(w: torch.Tensor) -> torch.Tensor:
+    *lead, k, _, cin, cout = (int(s) for s in w.shape)
+    hi, lo = split_tf32(w)
+    both = torch.stack([hi, round_tf32(lo)], dim=0).reshape(2, -1, k * k, cin // 8, 2, 4, cout)
+    return both.permute(1, 2, 3, 0, 4, 6, 5).reshape(*lead, k * k, cin // 8, 2, 2, cout, 4).contiguous()
+
+
 def packed(w: torch.Tensor) -> torch.Tensor:
     """HWIO weights -> the kernels' B operand: one block's (k, k, C, C) to
     [k*k][C/8][hi/lo][2][C][4] float32, stacked (K, k, k, C, C) to the same
@@ -42,17 +66,7 @@ def packed(w: torch.Tensor) -> torch.Tensor:
     hi tile, then the lo tile (``round_tf32`` of :func:`split_tf32`'s lo),
     each K-major, the two 4-channel halves of the step C*16 bytes apart and
     output channel ``co`` holding its 4 input channels at ``co*16``.  Cached
-    on the weight tensor itself, so a loaded tree splits and repacks once
-    (inference tensors carry no version counter: they are not repacked
-    after an in-place change).
+    on the weight tensor itself (:func:`cached_pack`), so a loaded tree
+    splits and repacks once.
     """
-    version = None if w.is_inference() else w._version
-    cached = getattr(w, "_iek_packed", None)
-    if cached is not None and cached[0] == version:
-        return cached[1]
-    *lead, k, _, cin, cout = (int(s) for s in w.shape)
-    hi, lo = split_tf32(w.detach())
-    both = torch.stack([hi, round_tf32(lo)], dim=0).reshape(2, -1, k * k, cin // 8, 2, 4, cout)
-    out = both.permute(1, 2, 3, 0, 4, 6, 5).reshape(*lead, k * k, cin // 8, 2, 2, cout, 4).contiguous()
-    w._iek_packed = (version, out)
-    return out
+    return cached_pack(w, "_iek_packed", _pack)

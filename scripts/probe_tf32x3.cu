@@ -1,18 +1,21 @@
-// One SAME 3x3 or 5x5 conv (C = 128, NHWC, float32) on the chain kernels'
-// 3xTF32 tile (image_enhance_keras_tpu_torch/csrc/conv_tf32x3.cuh), once with
-// the tile's own conv (each step's wgmma sum added to the float32 sums with
-// rounded adds) and once with every product summed by the tensor cores
-// alone.  Built and driven by scripts/probe_tf32x3.py.
+// One SAME 3x3 or 5x5 conv (C = 128, NHWC, float32 or bf16 activations) on
+// the block and chain kernels' tile
+// (image_enhance_keras_tpu_torch/csrc/conv_tf32x3.cuh) under either product
+// policy (3xTF32 for float32, bf16 for bf16), once with the tile's own conv
+// (each step's wgmma sum added to the float32 sums with rounded adds) and
+// once with every product summed by the tensor cores alone; the float32
+// sums are written out.  Built and driven by scripts/probe_tf32x3.py.
 #include "../image_enhance_keras_tpu_torch/csrc/conv_tf32x3.cuh"
 
 namespace {
 
-// conv<K> with the same window, ring and products, but the 3xTF32 products
-// of all taps and channels accumulated in the wgmma sums themselves.
-template <int K>
-__device__ void conv_unpromoted(float (&acc)[MT][ACC], uint8_t* smem, Ring& ring, const float* src,
-                                const float* __restrict__ wgt, const Tile& t, int H, int W) {
-  constexpr int STEPS = SLICES * K * K;
+// conv<K> with the same window, ring and products, but the products of all
+// taps and channels accumulated in the wgmma sums themselves.
+template <int K, typename T>
+__device__ void conv_unpromoted(float (&acc)[MT][ACC], uint8_t* smem, Ring& ring, const T* src,
+                                const T* __restrict__ wgt, const Tile& t, int H, int W) {
+  using P = Policy<T>;
+  constexpr int STEPS = P::SLICES * K * K;
   const uint32_t g0 = ring.seq;
   __syncthreads();
   if (threadIdx.x == 0)
@@ -39,9 +42,9 @@ __device__ void conv_unpromoted(float (&acc)[MT][ACC], uint8_t* smem, Ring& ring
     fence_acc(acc[0]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      mma_step(acc[0], win_a + 2 * kk * PLANE + (ky * WIN_W + kx) * 16,
-               ring_a + (g % STAGES) * B_STEP + kk * B_TILE, 1);
+    for (int kk = 0; kk < P::KSTEPS; ++kk)
+      mma_step<T>(acc[0], win_a + 2 * kk * PLANE + (ky * WIN_W + kx) * 16,
+                  ring_a + (g % STAGES) * B_STEP + kk * P::B_TILE, 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc[0]);
@@ -51,8 +54,8 @@ __device__ void conv_unpromoted(float (&acc)[MT][ACC], uint8_t* smem, Ring& ring
   __syncthreads();
 }
 
-template <int K, bool kPromoted>
-__global__ void __launch_bounds__(THREADS, 1) probe_kernel(const float* x, const float* w, float* out,
+template <int K, bool kPromoted, typename T>
+__global__ void __launch_bounds__(THREADS, 1) probe_kernel(const T* x, const T* w, float* out,
                                                            int H, int W) {
   extern __shared__ __align__(128) uint8_t smem[];
   const Tile t = make_tile(blockIdx.x, H, W);
@@ -69,14 +72,21 @@ __global__ void __launch_bounds__(THREADS, 1) probe_kernel(const float* x, const
   });
 }
 
-template <int K, bool P>
-int run(const float* x, const float* w, float* out, int n, int h, int wd, void* stream) {
+template <int K, bool P, typename T>
+int run(const T* x, const T* w, float* out, int n, int h, int wd, void* stream) {
   cudaError_t err =
-      cudaFuncSetAttribute(probe_kernel<K, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      cudaFuncSetAttribute(probe_kernel<K, P, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int tiles = tiles_per_image(h, wd) * n;
-  probe_kernel<K, P><<<tiles, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(x, w, out, h, wd);
+  probe_kernel<K, P, T><<<tiles, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(x, w, out, h, wd);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_any(const T* x, const T* w, float* out, int n, int h, int wd, int k, int promoted, void* stream) {
+  if (k == 3)
+    return promoted ? run<3, true>(x, w, out, n, h, wd, stream) : run<3, false>(x, w, out, n, h, wd, stream);
+  return promoted ? run<5, true>(x, w, out, n, h, wd, stream) : run<5, false>(x, w, out, n, h, wd, stream);
 }
 
 }  // namespace
@@ -86,8 +96,13 @@ extern "C" {
 // out = SAME conv of x (N, H, W, 128) with w packed by ops/cuda/tf32x3.py packed
 int probe_conv(const float* x, const float* w, float* out, int n, int h, int wd, int k, int promoted,
                void* stream) {
-  if (k == 3) return promoted ? run<3, true>(x, w, out, n, h, wd, stream) : run<3, false>(x, w, out, n, h, wd, stream);
-  return promoted ? run<5, true>(x, w, out, n, h, wd, stream) : run<5, false>(x, w, out, n, h, wd, stream);
+  return run_any(x, w, out, n, h, wd, k, promoted, stream);
+}
+
+// the same for bf16 x (N, H, W, 128) and w packed by ops/cuda/bf16.py packed
+int probe_conv_bf16(const bf16* x, const bf16* w, float* out, int n, int h, int wd, int k, int promoted,
+                    void* stream) {
+  return run_any(x, w, out, n, h, wd, k, promoted, stream);
 }
 
 const char* probe_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -121,3 +121,85 @@ def test_int8_kernels_bit_equal_plain_on_ragged_shapes(which, hw):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert torch.equal(got, plain(x, *args, act))
+
+
+# -- the bf16 forms of K1/K2 and K6/K7 ------------------------------------------
+#: one bf16 block, or a chain of one, against its plain version (both sum in
+#: float32, in other orders within a tap): at most 1e-3 of the elements
+#: differ, and no fewer than BF16_MIN_COUNT may (one intermediate that rounds
+#: the other way moves a few dozen outputs, over 1e-3 of a 10x6 image), each
+#: by one bf16 ulp of its magnitude for a block and two for a chain, the
+#: magnitude counted as at least 2^-6 max|ref| for a block and res * max|ref|
+#: for a chain (bf16.ulp_gaps, tests/test_torch_bf16.py); a chain of three:
+#: max |d| <= 2^-6 max|ref|, mean |d| <= 1e-4 max|ref|
+BF16_FRAC, BF16_MIN_COUNT = 1e-3, 64
+BF16_NEAR_ZERO, BF16_CHAIN_NEAR_ZERO = 2.0 ** -6, 0.1
+BF16_BLOCK_ULPS, BF16_CHAIN_ULPS = 1.0, 2.0
+BF16_CHAIN_MAX, BF16_CHAIN_MEAN = 2.0 ** -6, 1e-4
+
+
+def _bf16_share_ok(frac, got):
+    return frac <= max(BF16_FRAC, BF16_MIN_COUNT / got.numel())
+
+
+def _bf16_inputs(shape, sizes, lead, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(np.float32)).cuda().to(torch.bfloat16)
+    args = []
+    for ks in sizes:
+        args.append(torch.from_numpy((rng.normal(size=(*lead, ks, ks, C, C)) / np.sqrt(ks * ks * C))
+                                     .astype(np.float32)).cuda())
+        args.append(torch.from_numpy((rng.normal(size=(*lead, C)) * 0.05).astype(np.float32)).cuda())
+    return x, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAIN_SHAPES)
+@pytest.mark.parametrize("which", sorted(BLOCKS))
+def test_bf16_block_kernels_match_plain(which, shape, monkeypatch):
+    """One counted bf16 call (two launches, bf16 wgmma) per block against the
+    plain bf16 version, on full 96x96 tiles, small images and ragged crops."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the block kernels are CUDA C++ with no CPU mode")
+    from image_enhance_keras_tpu_torch.ops.cuda import bf16
+
+    wrapper, plain, sizes = BLOCKS[which]
+    x, args = _bf16_inputs(shape, sizes, (), sum(shape) + 2)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # full float32 plain sums
+    before, before_bf16 = wrapper.launches, wrapper.bf16_launches
+    got = wrapper(x, *args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and wrapper.bf16_launches == before_bf16 + 1
+    assert got.dtype == torch.bfloat16
+    frac, ulps = bf16.ulp_gaps(got, plain(x, *args), BF16_NEAR_ZERO)
+    print(f"bf16 {which} block {shape}: {frac:.3g} of elements differ, largest gap {ulps:.3g} ulp")
+    assert _bf16_share_ok(frac, got) and ulps <= BF16_BLOCK_ULPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_blocks", [1, 3])
+@pytest.mark.parametrize("shape", CHAIN_SHAPES)
+@pytest.mark.parametrize("which", sorted(CHAINS))
+def test_bf16_chain_kernels_match_plain(which, shape, k_blocks, monkeypatch):
+    """One bf16 launch per chain against the plain bf16 chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the chain kernels are CUDA C++ with no CPU mode")
+    from image_enhance_keras_tpu_torch.ops.cuda import bf16
+
+    wrapper, plain, sizes, _ = CHAINS[which]
+    x, args = _bf16_inputs(shape, sizes, (k_blocks,), sum(shape) + k_blocks)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    before = wrapper.bf16_launches
+    got = wrapper(x, *args)
+    torch.cuda.synchronize()
+    assert wrapper.bf16_launches == before + 1 and got.dtype == torch.bfloat16
+    want = plain(x, *args)
+    if k_blocks == 1:
+        frac, ulps = bf16.ulp_gaps(got, want, BF16_CHAIN_NEAR_ZERO)
+        print(f"bf16 {which} chain K=1 {shape}: {frac:.3g} of elements differ, largest gap {ulps:.3g} ulp")
+        assert _bf16_share_ok(frac, got) and ulps <= BF16_CHAIN_ULPS
+        return
+    d, ref = (got.float() - want.float()).abs(), want.float().abs().max().item()
+    print(f"bf16 {which} chain K=3 {shape}: max |d| {d.max().item():.3g}, mean {d.mean().item():.3g}, "
+          f"max|ref| {ref:.3g}")
+    assert d.max().item() <= BF16_CHAIN_MAX * ref and d.mean().item() <= BF16_CHAIN_MEAN * ref

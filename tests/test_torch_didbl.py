@@ -105,4 +105,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DifvdsrDouble(mixed=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        apply_didbl_pallas({}, torch.zeros(1, 4, 4, 3), dtype=torch.bfloat16, chain=True)
+        apply_didbl_pallas({}, torch.zeros(1, 4, 4, 3), dtype=torch.float16, chain=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        DifvdsrDouble(dtype=torch.bfloat16, mixed_tail=True)
