@@ -7,7 +7,8 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), the block and chain kernels'
+     must hold wgmma (GMMA) and no dp4a (IDP), in all 16 kernel functions
+     but the dynamic form's two abs-max passes, the block and chain kernels'
      SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
      forms' included;
   2. each kernel at the main paths' shapes against its plain PyTorch
@@ -35,6 +36,11 @@ Phases (each prints its elapsed seconds):
        the path's input (1x57x86, 1x70x70, 1x86x57, 1x5x70, 1x8x64: widths
        above and below one 64-column tile); one yardstick line, cuDNN's
        bf16 ``F.conv2d`` of the four Light53 convs at the tail's shape;
+       K4/K5's dynamic forms (``act_scales=None``, per-window scales) on
+       the uncalibrated path's own inputs, K4 at LR and HR, K5 at LR, and
+       on the ragged crops, and K4/K5 on float32 x, static and dynamic,
+       each bit-equal to its plain version, with the SASS GMMA lines of
+       its kernel functions and the device ms of each of its launches;
   3. the main paths through ``cli.main_dirpath`` on a seeded 128x128 BMP
      (9 tiles at 96/64/8, 512x512 out), each with its kernel launches
      counted: ``--forward pallas`` (K1, K2), ``--forward xla`` as its
@@ -43,15 +49,21 @@ Phases (each prints its elapsed seconds):
      with the plain bf16 versions in place of the kernels as its reference,
      ``--forward pallas_int8`` (K3, K4, K5; calibration included), and the
      int8 run again with the plain x4 in place of K3 and with the plain
-     int8 blocks in place of K4 and K5 (each byte-equal); then the engines
+     int8 blocks in place of K4 and K5 (each byte-equal); 3a'': the
+     uncalibrated ``apply_didbl_int8`` (a tree quantized without
+     ``calib_x``) at full width on the 9 patches: K4 18, K5 6, K3 1,
+     bit-equal to the plain dynamic blocks, PSNR against float32, its time
+     beside the calibrated tree's, a profile, and bit-equality on a whole
+     86x57 Set5 frame; then the engines
      (the bf16 ones too) timed in turns, the bf16 forwards profiled (device
      time by kernel, idle share), and CPU references on a crop;
   4. Set5 x4 (``data_set5``, read by the numpy PNG decoder where PIL is
      missing): ``scorpath --generate`` with ``--forward xla`` and
      ``pallas_chain`` (launches counted), the bicubic baseline on the card
      and the CPU, and ``evaluate_model`` on fast-mode ``xla`` and
-     ``pallas_int8`` resolvers, and on fast-mode bf16 ``xla``, ``pallas``
-     and ``pallas_chain`` resolvers (bf16 launches counted), against each
+     ``pallas_int8`` resolvers (and a reading of the uncalibrated int8
+     tree, not held), and on fast-mode bf16 ``xla``, ``pallas`` and
+     ``pallas_chain`` resolvers (bf16 launches counted), against each
      other and the recorded rows.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
@@ -178,6 +190,42 @@ def _sass_counts(so_path: str) -> dict:
             functions[name] += 1
     counts["functions"] = functions
     return counts
+
+
+def _gmma_lines(functions: dict, row: str) -> int:
+    """GMMA lines in the SASS of the int8 kernel functions that a phase-2 row
+    (``light53_int8``, ``light_int8_dynamic_f32``, ...) launches, matched on
+    their mangled names: the kernel, then its activation type and, for the
+    dynamic kernels, the Light53 flag."""
+    t = "If" if row.endswith("_f32") else "I13__nv_bfloat16"
+    if "dynamic" in row:
+        flag = "Lb1" if row.startswith("light53") else "Lb0"
+        parts = [f"dyn_first_kernel{t}{flag}", f"dyn_second_kernel{t}{flag}"]
+    else:
+        second = "light53_i8_second_kernel" if row.startswith("light53") else "light_i8_second_kernel"
+        parts = [f"i8_first_kernel{t}", f"{second}{t}"]
+    return sum(v for k, v in functions.items() for p in parts if p in k)
+
+
+def _launch_breakdown(fn, iters: int = 3) -> dict:
+    """Device ms per call of each kernel (and memset) that ``fn`` launches,
+    under ``torch.profiler``, after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_enhance_keras_tpu_torch.utils.profiling import device_kernel_times
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, ms, _ in device_kernel_times(prof):
+        short = name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+        out[short] = out.get(short, 0.0) + ms / iters
+    return out
 
 
 def _time_ms(fn, iters: int = MIN_TIMED, warmup: int = 3) -> float:
@@ -421,6 +469,23 @@ def _set5_scores(failures: list) -> dict:
     if abs(tpu["ssim_y"] - ref_x["ssim_y"]) > INT8_SSIM:
         failures.append(f"Set5 fast pallas_int8 SSIM-Y {tpu['ssim_y']:.5f} vs int8_fast_excal_5img "
                         f"{ref_x['ssim_y']:.5f} (bound {INT8_SSIM})")
+    # the uncalibrated int8 forward (no activation scales: K4/K5 quantize every
+    # window dynamically) over whole frames, beside the calibrated one: a
+    # reading, not held (no recorded row exists for it)
+    from image_enhance_keras_tpu_torch.models.didbl_pallas import quantize_didbl_params
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+
+    ru = SuperResolver(weights=weights, forward="pallas_int8", mode="fast")
+    ru._qparams = quantize_didbl_params(ru.params)
+    ki8.light53_int8.launches = ki8.light_int8.launches = 0
+    (_, exact_u), tpu_u = _scored(lambda: evaluate_model(ru, set5, verbose=False))
+    launches_u = [ki8.light53_int8.launches, ki8.light_int8.launches]
+    report("fast pallas_int8 uncalibrated (dynamic scales)", exact_u, tpu_u)
+    print(f"[chip_smoke] Set5 fast pallas_int8 uncalibrated against calibrated: "
+          f"{tpu_u['psnr_y'] - tpu['psnr_y']:+.4f} dB, {tpu_u['ssim_y'] - tpu['ssim_y']:+.2e} SSIM-Y "
+          f"(TPU Y); launches (K4, K5) {launches_u}", flush=True)
+    if launches_u != [18 * len(lr_shapes), 6 * len(lr_shapes)]:
+        failures.append(f"Set5 fast uncalibrated pallas_int8 launches (K4, K5) {launches_u}")
 
     # the bf16 profile in fast mode, held against JAX's bf16 forwards on the
     # CPU (EVAL_BF16_CPU.json) and, on SSIM-Y, against the TPU's
@@ -451,6 +516,118 @@ def _set5_scores(failures: list) -> dict:
         if abs(tpu["ssim_y"] - ref_b["ssim_y"]) > ssim_tol:
             failures.append(f"Set5 fast {fwd} bf16 SSIM-Y {tpu['ssim_y']:.5f} vs bf16_fast_5img "
                             f"{ref_b['ssim_y']:.5f} (bound {ssim_tol})")
+    return out
+
+
+def _uncalibrated_phase(params, qp_static, img, plan, failures: list, rows: list, gpu: str) -> dict:
+    """Phase 3a'': ``quantize_didbl_params`` without ``calib_x`` and
+    ``apply_didbl_int8`` at full width on the 9 patches of the seeded image:
+    K4 and K5 in their dynamic form (per-window scales), K3 for the x4.
+    Launch counts (K4 18, K5 6, K3 1), the output bit-equal with the same
+    forward on the plain dynamic blocks, PSNR of its uint8 output against
+    the float32 forward's (``apply_didbl_pallas``, 30 dB or more, as 3a'),
+    the time per forward beside the calibrated tree's, and bit-equality on
+    one whole Set5 LR frame whose sides are not multiples of 8 (86x57: the
+    8-pad and windows cut by the image's edge)."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.eval.evaluate import degrade
+    from image_enhance_keras_tpu_torch.data.io import imread
+    from image_enhance_keras_tpu_torch.models import didbl_pallas
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+    from image_enhance_keras_tpu_torch.tiling.tiles import extract_tiles, pad_to_plan
+
+    def plain53(x, *a, res_scale=0.1, identity_scale=0.9, tile=(64, 128), act_scales=None):
+        assert act_scales is None
+        return ki8.light53_int8_dynamic_plain(x, *a, tile, res_scale, identity_scale)
+
+    def plain_light(x, *a, res_scale=0.1, tile=(64, 128), act_scales=None):
+        assert act_scales is None
+        return ki8.light_int8_dynamic_plain(x, *a, tile, res_scale)
+
+    def forward(qp, x, plain=False):
+        if plain:
+            didbl_pallas.light53_int8, didbl_pallas.light_int8 = plain53, plain_light
+        try:
+            return didbl_pallas.apply_didbl_int8(qp, x)
+        finally:
+            didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
+
+    def u8(t):
+        return np.round(t.clamp(0.0, 1.0).float().cpu().numpy() * 255.0).astype(np.uint8)
+
+    out: dict = {}
+    with torch.inference_mode():
+        dev = torch.device("cuda")
+        tiles = extract_tiles(pad_to_plan(torch.from_numpy(img).to(dev).float(), plan), plan) / 255.0
+        qd = didbl_pallas.quantize_didbl_params(params)
+        with_act = [k for k, v in qd.items() if isinstance(v, dict) and "act" in v]
+        if with_act:
+            failures.append(f"uncalibrated tree has activation scales in {with_act}")
+        ki8.light53_int8.launches = 0
+        ki8.light_int8.launches = 0
+        kup.upsample_phase_tf1_kernel.launches = 0
+        torch.cuda.synchronize()
+        got = forward(qd, tiles)
+        torch.cuda.synchronize()
+        launches = {"light53_int8": ki8.light53_int8.launches, "light_int8": ki8.light_int8.launches,
+                    "upsample_phase_tf1": kup.upsample_phase_tf1_kernel.launches}
+        want_l = {"light53_int8": 18, "light_int8": 6, "upsample_phase_tf1": 1}
+        for row in rows:
+            if row["name"] in ("light53_int8_dynamic", "light_int8_dynamic"):
+                row["launches"] = launches[row["name"].replace("_dynamic", "")]
+        if launches != want_l:
+            failures.append(f"uncalibrated int8 forward launches {launches} != {want_l}")
+        ref = forward(qd, tiles, plain=True)
+        same = bool(torch.equal(got, ref))
+        if not same:
+            failures.append(f"uncalibrated int8 forward: kernels not bit-equal to the plain blocks (max |diff| "
+                            f"{(got - ref).abs().max().item():.3g})")
+        if tuple(got.shape) != (9, 384, 384, 3) or not bool(torch.isfinite(got).all()):
+            failures.append(f"uncalibrated int8 forward: shape {tuple(got.shape)} or non-finite values")
+        f32 = didbl_pallas.apply_didbl_pallas(params, tiles)
+        psnr = _psnr(u8(got), u8(f32))
+        psnr_static = _psnr(u8(forward(qp_static, tiles)), u8(f32))
+        if psnr < 30.0:
+            failures.append(f"uncalibrated int8 output is far from the float32 output: PSNR {psnr:.2f} dB")
+        ms = _time_ms(lambda: forward(qd, tiles), iters=5, warmup=1)
+        ms_static = _time_ms(lambda: forward(qp_static, tiles), iters=5, warmup=1)
+        # device time by kernel and idle share of the uncalibrated forward
+        from torch.profiler import ProfilerActivity, profile
+
+        from image_enhance_keras_tpu_torch.utils.profiling import device_kernel_times
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            for _ in range(3):
+                forward(qd, tiles)
+            torch.cuda.synchronize()
+            wall = (time.time() - t1) / 3
+        prof_rows = device_kernel_times(prof)
+        busy = sum(r[1] for r in prof_rows) / 3
+        out["profile"] = {"wall_ms": wall * 1e3, "device_ms": busy,
+                          "idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+                          "kernels": [(n[:90], ms_ / 3, calls // 3) for n, ms_, calls in prof_rows[:8]]}
+        gt = imread(os.path.join(HERE, "data_set5", "woman_GT.png"))
+        lr = torch.from_numpy(degrade(gt, 4, dev)).to(dev).float()[None] / 255.0
+        frame_same = bool(torch.equal(forward(qd, lr), forward(qd, lr, plain=True)))
+        if not frame_same:
+            failures.append(f"uncalibrated int8 forward on the {tuple(lr.shape[1:3])} frame: kernels not "
+                            f"bit-equal to the plain blocks")
+    print(f"[chip_smoke] uncalibrated int8 forward (9 patches of 96x96): launches {launches}, bit-equal to "
+          f"the plain dynamic blocks {same}, PSNR against float32 {psnr:.2f} dB (calibrated tree "
+          f"{psnr_static:.2f} dB), {ms:.3f} ms a forward (calibrated tree {ms_static:.3f} ms) on {gpu}; "
+          f"whole {tuple(lr.shape[1:3])} frame bit-equal {frame_same}", flush=True)
+    pr = out["profile"]
+    print(f"[chip_smoke] profile of the uncalibrated int8 forward: {pr['wall_ms']:.3f} ms wall, "
+          f"{pr['device_ms']:.3f} ms device, idle share {pr['idle_share']:.3f} on {gpu}", flush=True)
+    for name, ms_, calls in pr["kernels"]:
+        print(f"[chip_smoke]   {ms_:9.3f} ms {calls:4d} calls  {name}", flush=True)
+    out.update(launches=launches, bit_equal=same, psnr_vs_f32=psnr, psnr_static_vs_f32=psnr_static,
+               ms_per_forward=ms, ms_per_forward_static=ms_static, frame=list(lr.shape[1:3]),
+               frame_bit_equal=frame_same)
     return out
 
 
@@ -759,6 +936,15 @@ def main() -> int:
               f"{ {k: v for k, v in (sass[stem] or {}).items() if k != 'functions'} }", flush=True)
     if sass["int8_blocks"] is not None and (sass["int8_blocks"]["GMMA"] == 0 or sass["int8_blocks"]["IDP"] > 0):
         failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass['int8_blocks']}")
+    if sass["int8_blocks"] is not None:
+        # every int8 kernel function but the dynamic form's abs-max pass runs its convs on wgmma
+        fns8 = sass["int8_blocks"]["functions"]
+        for k, v in sorted(fns8.items()):
+            print(f"[chip_smoke] int8 kernel function {k[:110]}: {v} GMMA lines", flush=True)
+        without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k]
+        if without or len(fns8) != 16:
+            failures.append(f"int8 kernels: expected 16 kernel functions, wgmma in all but the 2 abs-max "
+                            f"passes; got {len(fns8)}, none in {without}")
     # every kernel function of the block and chain libraries, the bf16 forms'
     # (two launches of two block kinds, one chain kernel of two kinds) included
     for stem, what, n_bf16 in (("tower", "chain", 2), ("blocks", "block", 4)):
@@ -974,8 +1160,22 @@ def main() -> int:
             h = ki8.light_int8_plain(h, *i8_args(p, ("conv_a", "conv_b")), p["act"])
         xu8 = h
         xh8 = upsample_phase_plain(xu8, 4).contiguous()
+        # the uncalibrated tree (no "act": K4/K5 quantize every window
+        # dynamically) and its own activations, by the plain dynamic blocks
+        qd = didbl_pallas.quantize_didbl_params(params)
+        xd = torch.relu(_conv(tiles.to(torch.bfloat16), qd["level1"])).contiguous()
+        h = xd
+        for i in range(16):
+            h = ki8.light53_int8_dynamic_plain(h, *i8_args(qd[f"body53_{i}"], l53_names))
+        xld = h
+        for i in range(6):
+            h = ki8.light_int8_dynamic_plain(h, *i8_args(qd[f"light_{i}"], ("conv_a", "conv_b")))
+        xhd = upsample_phase_plain(h, 4).contiguous()
     del tiles, h
     p53, pl8, pt8 = qp["body53_0"], qp["light_0"], qp["tail53_0"]
+    d53, dl8, dt8 = qd["body53_0"], qd["light_0"], qd["tail53_0"]
+    x8f, xl8f = x8.float().contiguous(), xl8.float().contiguous()
+    xdf, xldf = xd.float().contiguous(), xld.float().contiguous()
     i8_specs = [
         # name, kernel call, plain call, input, ops, peak, bytes, iters of the plain timing
         ("light53_int8",
@@ -996,6 +1196,51 @@ def main() -> int:
          xh8, 2.0 * 68 * c * c * xh8[..., 0].numel(), PEAK_INT8_OPS,
          4.0 * xh8.numel() + 68 * c * c, 3,
          "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:263"),
+        # the dynamic forms (act_scales=None, per-window scales over the
+        # TPU's 48x96 windows at LR and 64x128 at HR) on the uncalibrated
+        # path's inputs, and the float32-activation forms, static and dynamic
+        ("light53_int8_dynamic",
+         lambda x: ki8.light53_int8(x, *i8_args(d53, l53_names)),
+         lambda x: ki8.light53_int8_dynamic_plain(x, *i8_args(d53, l53_names)),
+         xd, 2.0 * 68 * c * c * xd[..., 0].numel(), PEAK_INT8_OPS,
+         4.0 * xd.numel() + 68 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:263"),
+        ("light53_int8_dynamic_hr",
+         lambda x: ki8.light53_int8(x, *i8_args(dt8, l53_names)),
+         lambda x: ki8.light53_int8_dynamic_plain(x, *i8_args(dt8, l53_names)),
+         xhd, 2.0 * 68 * c * c * xhd[..., 0].numel(), PEAK_INT8_OPS,
+         4.0 * xhd.numel() + 68 * c * c, 3,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:263"),
+        ("light_int8_dynamic",
+         lambda x: ki8.light_int8(x, *i8_args(dl8, ("conv_a", "conv_b"))),
+         lambda x: ki8.light_int8_dynamic_plain(x, *i8_args(dl8, ("conv_a", "conv_b"))),
+         xld, 2.0 * 18 * c * c * xld[..., 0].numel(), PEAK_INT8_OPS,
+         4.0 * xld.numel() + 18 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:335"),
+        ("light53_int8_f32",
+         lambda x: ki8.light53_int8(x, *i8_args(p53, l53_names), act_scales=p53["act"]),
+         lambda x: ki8.light53_int8_plain(x, *i8_args(p53, l53_names), p53["act"]),
+         x8f, 2.0 * 68 * c * c * x8f[..., 0].numel(), PEAK_INT8_OPS,
+         8.0 * x8f.numel() + 68 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:263"),
+        ("light_int8_f32",
+         lambda x: ki8.light_int8(x, *i8_args(pl8, ("conv_a", "conv_b")), act_scales=pl8["act"]),
+         lambda x: ki8.light_int8_plain(x, *i8_args(pl8, ("conv_a", "conv_b")), pl8["act"]),
+         xl8f, 2.0 * 18 * c * c * xl8f[..., 0].numel(), PEAK_INT8_OPS,
+         8.0 * xl8f.numel() + 18 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:335"),
+        ("light53_int8_dynamic_f32",
+         lambda x: ki8.light53_int8(x, *i8_args(d53, l53_names)),
+         lambda x: ki8.light53_int8_dynamic_plain(x, *i8_args(d53, l53_names)),
+         xdf, 2.0 * 68 * c * c * xdf[..., 0].numel(), PEAK_INT8_OPS,
+         8.0 * xdf.numel() + 68 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:263"),
+        ("light_int8_dynamic_f32",
+         lambda x: ki8.light_int8(x, *i8_args(dl8, ("conv_a", "conv_b"))),
+         lambda x: ki8.light_int8_dynamic_plain(x, *i8_args(dl8, ("conv_a", "conv_b"))),
+         xldf, 2.0 * 18 * c * c * xldf[..., 0].numel(), PEAK_INT8_OPS,
+         8.0 * xldf.numel() + 18 * c * c, MIN_TIMED,
+         "image_enhance_keras_tpu/ops/pallas/int8_blocks.py:335"),
         ("upsample_phase_tf1",
          lambda x: kup.upsample_phase_tf1_kernel(x, 4),
          lambda x: upsample_phase_plain(x, 4),
@@ -1033,11 +1278,18 @@ def main() -> int:
             print(f"[chip_smoke] {name} {tuple(x.shape)} {x.dtype}: bit-equal {exact}, max |diff| "
                   f"{err:.3g}, {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, {bound_ms:.4f} ms bound "
                   f"({bound_by}), {ops / (ms * 1e-3) / 1e12:.2f} T(FL)OP/s", flush=True)
+            if "int8" in name and not name.endswith("_f32"):
+                # where a block's time goes, launch by launch (dynamic: abs-max, ring, second)
+                i8_rows[name]["launch_ms"] = _launch_breakdown(lambda: kern(x))
+                print(f"[chip_smoke]   {name} device ms per call by launch: "
+                      f"{ {k: round(v, 4) for k, v in i8_rows[name]['launch_ms'].items()} }", flush=True)
         # K4 and K5 on ragged crops of the path's LR input (tiles of 64
         # columns and 4 rows cut by the image's edge)
+        ragged_specs = [sp for sp in i8_specs if sp[0] in ("light53_int8", "light_int8", "light53_int8_dynamic",
+                                                          "light_int8_dynamic")]
         for n_i, rh, rw in INT8_RAGGED:
-            xr = x8[n_i:n_i + 1, :rh, :rw].contiguous()
-            for name, kern, plain, *_ in i8_specs[:2]:
+            for name, kern, plain, *_ in ragged_specs:
+                xr = (xd if "dynamic" in name else x8)[n_i:n_i + 1, :rh, :rw].contiguous()
                 same = bool(torch.equal(kern(xr), plain(xr)))
                 print(f"[chip_smoke] {name} ragged {tuple(xr.shape)}: bit-equal {same}", flush=True)
                 if not same:
@@ -1061,13 +1313,32 @@ def main() -> int:
               f"{tuple(xh8.shape)}: {yard_ms:.4f} ms, {yardstick['tflops']:.1f} TFLOP/s "
               f"(K4 at this shape {i8_rows['light53_int8_hr']['ms']:.4f} ms) on {gpu}", flush=True)
         del xc, w4
-    del x8, xl8, xu8, xh8
-    up32, hr = i8_rows.pop("upsample_phase_tf1_f32"), i8_rows.pop("light53_int8_hr")
+    del x8, xl8, xu8, xh8, xd, xld, xhd, x8f, xl8f, xdf, xldf
+    up32 = i8_rows.pop("upsample_phase_tf1_f32")
+    hrs = {"light53_int8": i8_rows.pop("light53_int8_hr"),
+           "light53_int8_dynamic": i8_rows.pop("light53_int8_dynamic_hr")}
+    fns8 = (sass["int8_blocks"] or {}).get("functions", {})
+    for name, row in i8_rows.items():
+        if "int8" in name:
+            row["sass_gmma"] = _gmma_lines(fns8, name)
+            print(f"[chip_smoke] {name}: {row['sass_gmma']} GMMA lines in its kernel functions", flush=True)
+            if row["sass_gmma"] == 0:
+                failures.append(f"{name}: no GMMA (wgmma) line in the SASS of its kernel functions")
+    # the float32-activation forms of K4/K5 go on the rows of their bf16
+    # forms (f32_* keys), as K3's float32 form does: no path launches them
+    f32s = {name[:-4]: i8_rows.pop(name) for name in [n for n in i8_rows if n.endswith("_f32")]}
     for name, row in i8_rows.items():
         extra = {}
-        if name == "light53_int8":
-            extra = {f"hr_{k}": hr[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shape",
-                                                 "bit_equal", "tops")}
+        if name in hrs:
+            extra = {f"hr_{k}": hrs[name][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shape",
+                                                        "bit_equal", "tops", "launch_ms")}
+        for k in ("launch_ms", "sass_gmma"):
+            if k in row:
+                extra[k] = row[k]
+        if name in f32s:
+            extra.update({f"f32_{k}": f32s[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                              "max_abs_err", "bit_equal", "tops", "sass_gmma")})
+            extra["f32_name"] = f"{name}_f32"
         if name == "upsample_phase_tf1":
             extra = {f"f32_{k}": up32[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
         rows.append({
@@ -1238,6 +1509,12 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     _phase("3a' pallas_int8 path (CLI)", t0)
 
+    # the uncalibrated int8 forward through the library API (no engine path
+    # reaches it: the engine always calibrates)
+    t0 = time.time()
+    uncal = _uncalibrated_phase(params, qp, img, plan, failures, rows, gpu)
+    _phase("3a'' uncalibrated int8 forward (apply_didbl_int8, dynamic scales)", t0)
+
     # timing of the engine alone (weights loaded once), in turns, and a CPU
     # reference on a crop (plain torch on the CPU, no CUDA kernel involved)
     t0 = time.time()
@@ -1308,6 +1585,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "build_s": build_s, "card": gpu, "int8_yardstick": yardstick,
                       "sass": sass,
                       "int8_calib_source": res8.int8_calib_source, "int8_psnr_vs_f32": psnr8,
+                      "int8_uncalibrated": uncal,
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()},
                       "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "set5": set5}),
           flush=True)

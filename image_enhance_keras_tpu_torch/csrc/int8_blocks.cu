@@ -1,37 +1,65 @@
-// int8 residual blocks of the didbl int8 serving path (static activation
-// scales), for sm_90a, on the s8 tensor cores (wgmma).
+// int8 residual blocks of the didbl int8 path, for sm_90a, on the s8 tensor
+// cores (wgmma), with static (calibrated) or dynamic (per-window) activation
+// scales, bf16 or float32 activations.
 //
 // Replaces the Pallas TPU kernels in image_enhance_keras_tpu/ops/pallas/int8_blocks.py:
-//   * iek_light53_int8 <- light53_int8 (_light53_int8_kernel):
+//   * iek_light53_int8[_dynamic] <- light53_int8 (_light53_int8_kernel):
 //       xq = q(x, s0)
 //       ta = q(relu(dq(conv3(xq, wa1), s0, sa1) + ba1), s1)
 //       tb = q(relu(dq(conv5(xq, wb1), s0, sb1) + bb1), s2)
 //       out = 0.9*x + 0.1*((dq(conv5(ta, wa2), s1, sa2) + ba2) + (dq(conv3(tb, wb2), s2, sb2) + bb2))
-//   * iek_light_int8   <- light_int8 (_light_int8_kernel):
+//   * iek_light_int8[_dynamic]   <- light_int8 (_light_int8_kernel):
 //       t = q(relu(dq(conv3(q(x, s0), w1), s0, s1w) + b1), s1)
 //       out = x + 0.1*(dq(conv3(t, w2), s1, s2w) + b2)
-// with q(v, s) = clamp(rint(v * (1/s)), -127, 127) (round half to even) and
-// dq(acc, s, sw) = float(acc) * (s * sw[cout]).  s0..s2 are the calibrated
-// per-tensor activation scales (act_scales), sw the per-output-channel
-// weight scales; the convs are s8 x s8 -> s32, SAME, NHWC, C = 128.  x and
-// out are bf16.
+// with dq(acc, s, sw) + b = fma(float(acc), s * sw[cout], b), sw the
+// per-output-channel weight scales; the convs are s8 x s8 -> s32, NHWC,
+// C = 128.  x and out are bf16 or float32 (the template's T); the identity and
+// the epilogue run in float32, rounded once to T (to nearest even).
 //
-// Semantics.  The TPU kernel runs halo'd spatial tiles: the first conv is
-// VALID over the extended window and the intermediate is masked to zero
-// outside the image.  With static scales that is exactly a whole-image SAME
-// chain on the quantized codes, so the result does not depend on the tile
-// split, and here each block is two launches over the whole image:
+// Rounding points.  Each float step is one rounded operation, written out
+// (__fmul_rn, __fadd_rn, __fdiv_rn, __fmaf_rn), where XLA evaluates the TPU
+// kernel's jaxpr on the CPU (interpret mode, the reference the tests hold
+// to): it fuses dq(acc) + b and the epilogue's first product with its add
+// into FMAs, out = fma(0.9, x, 0.1*(a+b)) and fma(0.1, u, x).  Build without
+// --use_fast_math.  The plain PyTorch versions round at the same points, so
+// kernels and plain versions agree bit for bit.
+//
+// Static scales (act_scales, the serving path): q(v, s) = clamp(rint(v *
+// (1/s)), -127, 127), rint to even.  The TPU kernel's halo'd windows then give
+// exactly a whole-image SAME chain on the codes, so the window partition does
+// not matter, and a block is two launches over the whole image:
 //   A. quantize x while staging it, the first conv(s) (Light53: conv3, then
 //      conv5 over the same staged window), dequant + bias + relu,
 //      requantize, int8 scratch (N,H,W,C);
 //   B. second convs over the scratch maps (out-of-image reads are 0, which
 //      is the TPU kernel's border mask followed by quantization), dequant
-//      and the float32 residual epilogue, bf16 output.
-// The s32 sums are exact in any order (at most 25*128*127^2 ~ 5.2e7).  Every
-// float step is written with __fmul_rn/__fadd_rn in the TPU kernel's order
-// (s_x*s_w first, then acc*that, then + b), so there is no FMA contraction
-// and the plain PyTorch version agrees bit for bit; build without
-// --use_fast_math.
+//      and the residual epilogue.
+//
+// Dynamic scales (act_scales=None): every TPU window quantizes with its own
+// abs-max, s = max(amax, 1e-12) * float(1/127) (XLA folds the division by
+// the constant into that product) and q(v, s) = clamp(rint(v / s), -127,
+// 127), an IEEE division.  The windows are th x tw tiles of the image padded
+// to multiples of 8 (th, tw passed in); the input abs-max spans the window
+// the TPU DMAs, rows [r0-halo, r0+th+halo) and columns [c0-halo,
+// c0+tw+win_pad-halo) with win_pad = 2*halo rounded up to 8, more columns
+// than the convs read; each branch's intermediate is computed VALID over the
+// window's extended ring (e = 2 for Light53, whose branch b uses the inner
+// ring of 1; e = 1 for Light), masked to zero outside the image, and
+// requantized with its own abs-max.  One intermediate pixel near a window
+// edge so has different codes in the two windows that hold it.  Three
+// launches per block:
+//   1. each window's input abs-max, as float bits by atomicMax (non-negative
+//      floats order as their bits do, so any order gives the same max);
+//   2. per window, the first conv(s) over the extended ring (th+2e) x
+//      (tw+2e), from x quantized with the window's scale, into a window-major
+//      float32 scratch [window][th+2e][tw+2e][C] (each window holds its own
+//      copy of the ring), with the window's intermediate abs-max by atomicMax;
+//   3. per window, the scratch requantized with that abs-max while it is
+//      staged, the second conv(s) VALID down to th x tw, and the epilogue.
+// The intermediate is stored, not recomputed in launch 3: the first convs
+// run once, for 2 x 4 bytes of traffic per ring value (at the HR tail's
+// (9,384,384,128) the two rings are 2 x 0.74 GB), where recomputing them
+// would double their products.
 //
 // What bounds it on an H100: operations.  A Light53 block does 68 taps of a
 // C x C product per pixel (2*68*C^2 int8 ops), a Light block 18; against the
@@ -44,28 +72,34 @@
 // of one row, N = the 128 output channels, K = taps x C in steps of 32 input
 // channels.  A thread block (two warpgroups, each holding 2 M tiles = 128 s32
 // sums a thread) computes 4 rows x 64 columns x 128 channels, one block per
-// SM (154-159 registers a thread, no spills):
+// SM:
 //   * A: the quantized input window with its halo, staged once for all taps
-//     (int8 codes by cp.async, bf16 x by batched loads quantized on the way),
-//     as 8 planes of 16 channels, each plane [row][col][16 bytes].  A tap
-//     (ky, kx) moves the descriptor's start by ky window rows and kx * 16
-//     bytes; the two 16-byte halves of a 32-channel step are two planes
-//     apart (the descriptor's leading byte offset).
+//     (int8 codes by cp.async; bf16 or float32 values, x or a dynamic
+//     scratch, by batched loads quantized on the way), as 8 planes of 16
+//     channels, each plane [row][col][16 bytes].  A tap (ky, kx) moves the
+//     descriptor's start by ky window rows and kx * 16 bytes; the two 16-byte
+//     halves of a 32-channel step are two planes apart (the descriptor's
+//     leading byte offset).
 //   * B: the weights, repacked once to [tap][cin/32][2][cout][16] so that each
 //     (tap, 32-channel step) is one contiguous 4 KB tile, streamed through a
 //     ring of 6 tiles with cp.async, 4 tiles ahead of the products; one
 //     wgmma group stays in flight while the next is issued.
 //   * Epilogues go through shared memory: the sums' fragments are written
-//     there and leave (or, for x, arrive) as coalesced 16-byte pieces.
-//   * Quantization uses no conversion instruction (code8): those run at a
-//     quarter of the float rate.
+//     there and leave (or, for x, arrive) as coalesced 16-byte pieces, in
+//     passes of 256 bytes of channels a pixel (bf16: one pass, float32: two).
+//     The dynamic rings leave straight from the fragments (32 contiguous
+//     bytes a quad of lanes).
+//   * Static quantization uses no conversion instruction (code8): those run
+//     at a quarter of the float rate.
 //   * Ragged edges: out-of-image window positions are zero codes and the
-//     epilogue masks pixels outside the image (96 = 64 + 32 columns).
+//     epilogue masks pixels outside the image (96 = 64 + 32 columns); a
+//     dynamic window's tiles stop at its th x tw, its ring's at the ring.
 // Launch B of Light53 parks the dequantized branch-a sums in shared memory
 // (128 KB) while the branch-b conv runs, so 128 sums a thread stay live.
 // What is left on the table (PERF.md): the staging and the epilogues do not
-// overlap the products (one block per SM), and the weight stream shares the
-// shared-memory bandwidth with the operand reads.
+// overlap the products (one block per SM), the weight stream shares the
+// shared-memory bandwidth with the operand reads, and the dynamic form's
+// 64-column tiles overhang its rings (tw + 4 = 100 or 132 columns).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,25 +129,37 @@ constexpr int B_TILE = C * 32;              // one (tap, 32-channel step) weight
 constexpr int STAGES = 6;                   // weight ring; STAGES - 2 tiles ahead
 constexpr int ACC = 64;                     // s32 sums a thread holds per M tile
 constexpr int TILE_PIX = TILE_H * TILE_W;
+// bytes of channels a pixel that one epilogue pass stages (bf16: all 128
+// channels; float32: 64)
+constexpr int PASS = 256;
 // staged output tiles (in the window's space once the conv is done), bytes
 // per pixel: +16 keeps the 8 pixels a warp writes in different banks
 constexpr int PITCH8 = C + 16;
-constexpr int PITCH16 = 2 * C + 16;
+constexpr int PITCH16 = PASS + 16;
 // shared memory: [window][weight ring][scales, biases][extra]; extra is the
-// staged codes (launch A), the parked branch-a sums (launch B of Light53)
-// or x (launch B of Light)
+// staged codes (launch A), the parked branch-a sums (the second launch of
+// Light53) or x (the second launch of Light)
 constexpr int VEC_OFF = WIN_BYTES + STAGES * B_TILE;
 constexpr int EXTRA_OFF = VEC_OFF + 4 * C * 4;
 constexpr int SMEM_FIRST = EXTRA_OFF + TILE_PIX * PITCH8;
+constexpr int SMEM_DYN_FIRST = EXTRA_OFF;
 constexpr int SMEM_LIGHT_B = EXTRA_OFF + TILE_PIX * PITCH16;
 constexpr int SMEM_LIGHT53_B = EXTRA_OFF + MT * ACC * THREADS * 4;
 
 static_assert(THREADS * 16 == B_TILE, "one 16-byte copy per thread fills a weight tile");
-static_assert(TILE_PIX * PITCH16 <= WIN_BYTES, "a staged bf16 tile fits the window's space");
+static_assert(TILE_PIX * PITCH16 <= WIN_BYTES, "a staged epilogue pass fits the window's space");
 static_assert(SMEM_LIGHT53_B <= 232448 && SMEM_LIGHT_B <= 232448, "fits one block's shared memory");
 
+// A thread block's 4 x 64 tile: image n, first pixel (y0, x0) in the
+// coordinates of the source it stages from.
 struct Tile {
   int n, y0, x0;
+};
+
+// Where a tile's outputs go: image n, first pixel (y0, x0); pixels at
+// y < ylim, x < xlim are stored.
+struct OutTile {
+  int n, y0, x0, ylim, xlim;
 };
 
 __device__ __forceinline__ Tile tile_of_block(int W) {
@@ -125,6 +171,18 @@ __device__ __forceinline__ Tile tile_of_block(int W) {
   return t;
 }
 
+// The TPU kernel's windows (dynamic scales): th x tw tiles of the image padded
+// to multiples of 8, wy x wx of them per image; blockIdx.z is the window.
+struct Windows {
+  int th, tw, wy, wx;
+  __device__ __forceinline__ int n() const { return blockIdx.z / (wy * wx); }
+  __device__ __forceinline__ int r0() const { return (blockIdx.z / wx) % wy * th; }
+  __device__ __forceinline__ int c0() const { return blockIdx.z % wx * tw; }
+};
+
+// Columns the TPU DMAs beyond tw: 2*halo rounded up to 8.
+__host__ __device__ constexpr int win_pad(int halo) { return (2 * halo + 7) / 8 * 8; }
+
 // The int8 code q(v) = clamp(rint(v * inv), -127, 127) (rint rounds half to
 // even), in the low byte of the result.  Clamping to the integer bounds
 // first gives the same code; then adding 1.5 * 2^23, where the float spacing
@@ -133,6 +191,17 @@ __device__ __forceinline__ Tile tile_of_block(int W) {
 __device__ __forceinline__ unsigned code8(float v, float inv) {
   const float c = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
   return __float_as_uint(__fadd_rn(c, 12582912.f));
+}
+
+// The dynamic code clamp(rint(v / s), -127, 127), the same way.
+__device__ __forceinline__ unsigned code8_div(float v, float s) {
+  const float c = fminf(fmaxf(__fdiv_rn(v, s), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(c, 12582912.f));
+}
+
+// A dynamic scale from an abs-max: max(amax, 1e-12) * float(1/127).
+__device__ __forceinline__ float dyn_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, 1e-12f), 1.f / 127.f);
 }
 
 // low bytes of a, b -> bytes 0, 1
@@ -144,37 +213,85 @@ __device__ __forceinline__ int pack4(unsigned a, unsigned b, unsigned c, unsigne
   return (int)__byte_perm(pack2(a, b), pack2(c, d), 0x5410);
 }
 
-// float(acc) * ssw + b with ssw = s * sw (rounded once, per channel), rounded
-// after every step.
+// fma(float(acc), ssw, b) with ssw = s * sw (rounded once, per channel).
 __device__ __forceinline__ float dequant(int acc, float ssw, float b) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), ssw), b);
+  return __fmaf_rn(__int2float_rn(acc), ssw, b);
 }
 
-__device__ __forceinline__ void to_floats(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// Activations of type T: 16 channels as 16-byte loads, pairs in shared memory.
+template <typename T>
+struct Act;
+
+template <>
+struct Act<bf16> {
+  static constexpr int LOADS = 2;  // 16-byte loads per 16 channels
+  __device__ static __forceinline__ void to_floats(const uint4 (&r)[LOADS], float (&f)[16]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    for (int l = 0; l < LOADS; ++l) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r[l]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 t = __bfloat1622float2(h[i]);
+        f[8 * l + 2 * i] = t.x;
+        f[8 * l + 2 * i + 1] = t.y;
+      }
+    }
   }
-}
+  __device__ static __forceinline__ float absmax16B(const uint4& r) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+    float m = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      m = fmaxf(m, fmaxf(fabsf(t.x), fabsf(t.y)));
+    }
+    return m;
+  }
+  __device__ static __forceinline__ float2 load2(const uint8_t* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ static __forceinline__ void store2(uint8_t* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+template <>
+struct Act<float> {
+  static constexpr int LOADS = 4;
+  __device__ static __forceinline__ void to_floats(const uint4 (&r)[LOADS], float (&f)[16]) {
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+      f[4 * l] = __uint_as_float(r[l].x);
+      f[4 * l + 1] = __uint_as_float(r[l].y);
+      f[4 * l + 2] = __uint_as_float(r[l].z);
+      f[4 * l + 3] = __uint_as_float(r[l].w);
+    }
+  }
+  __device__ static __forceinline__ float absmax16B(const uint4& r) {
+    return fmaxf(fmaxf(fabsf(__uint_as_float(r.x)), fabsf(__uint_as_float(r.y))),
+                 fmaxf(fabsf(__uint_as_float(r.z)), fabsf(__uint_as_float(r.w))));
+  }
+  __device__ static __forceinline__ float2 load2(const uint8_t* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  __device__ static __forceinline__ void store2(uint8_t* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
 
 // Sources of the staged input window: 16 channels of one pixel as 16 bytes.
-struct QuantSrc {  // bf16 x, quantized with the static scale on the fly
-  const bf16* x;
-  float inv;
-  // 16 bf16 values (two 16-byte loads) -> 16 codes
-  __device__ __forceinline__ int4 quant16(const uint4& a, const uint4& b) const {
-    float lo[8], hi[8];
-    to_floats(a, lo);
-    to_floats(b, hi);
+// Values of type T quantized on the fly: static (s = 1 / scale, multiplied)
+// or dynamic (s = the scale, divided).
+template <typename T, bool DYN>
+struct QuantSrc {
+  const T* x;
+  float s;
+  __device__ __forceinline__ int4 quant16(const uint4 (&r)[Act<T>::LOADS]) const {
+    float f[16];
+    Act<T>::to_floats(r, f);
     unsigned q[16];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      q[i] = code8(lo[i], inv);
-      q[i + 8] = code8(hi[i], inv);
-    }
+    for (int i = 0; i < 16; ++i) q[i] = DYN ? code8_div(f[i], s) : code8(f[i], s);
     return make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
                      pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
   }
@@ -271,8 +388,10 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[ACC], uint64_t da, uint64_t db
 
 // ---- the convolution --------------------------------------------------------
 
+// ---- the convolution --------------------------------------------------------
+
 // Input window of the tile with its halo, 16 channels per item, zeros outside
-// the image.  int8 codes: cp.async (zero-filled outside), one commit group.
+// the source's H x W.  int8 codes: cp.async (zero-filled outside), one commit group.
 template <int K>
 __device__ __forceinline__ void stage_window(uint8_t* win, const I8Src& src, const Tile& t, int H,
                                              int W) {
@@ -293,22 +412,25 @@ __device__ __forceinline__ void stage_window(uint8_t* win, const I8Src& src, con
   cp_async_commit();
 }
 
-// bf16 x, quantized on the way: the loads of WB items are in flight together.
-template <int K>
-__device__ __forceinline__ void stage_window(uint8_t* win, const QuantSrc& src, const Tile& t,
-                                             int H, int W) {
+// bf16 or float32 values, quantized on the way: the loads of WB items are in
+// flight together.
+template <int K, typename T, bool DYN>
+__device__ __forceinline__ void stage_window(uint8_t* win, const QuantSrc<T, DYN>& src,
+                                             const Tile& t, int H, int W) {
   constexpr int P = K / 2;
   constexpr int RH = TILE_H + K - 1;
   constexpr int RW = TILE_W + K - 1;
   constexpr int ITEMS = RH * RW * PLANES;
   constexpr int PER = (ITEMS + THREADS - 1) / THREADS;
-  constexpr int WB = 9;
+  constexpr int L = Act<T>::LOADS;
+  constexpr int WB = 18 / L;
 #pragma unroll
   for (int b0 = 0; b0 < PER; b0 += WB) {
-    uint4 raw[WB][2];
+    uint4 raw[WB][L];
 #pragma unroll
     for (int u = 0; u < WB; ++u) {
-      raw[u][0] = raw[u][1] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int l = 0; l < L; ++l) raw[u][l] = make_uint4(0, 0, 0, 0);
       const int i = threadIdx.x + (b0 + u) * THREADS;
       if (b0 + u >= PER || i >= ITEMS) continue;
       const int g = i % PLANES;
@@ -317,9 +439,10 @@ __device__ __forceinline__ void stage_window(uint8_t* win, const QuantSrc& src, 
       const int gy = t.y0 - P + r;
       const int gx = t.x0 - P + pix - r * RW;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const bf16* p = src.x + (((size_t)t.n * H + gy) * W + gx) * C + g * 16;
-        raw[u][0] = __ldg(reinterpret_cast<const uint4*>(p));
-        raw[u][1] = __ldg(reinterpret_cast<const uint4*>(p + 8));
+        const uint4* p = reinterpret_cast<const uint4*>(
+            src.x + (((size_t)t.n * H + gy) * W + gx) * C + g * 16);
+#pragma unroll
+        for (int l = 0; l < L; ++l) raw[u][l] = __ldg(p + l);
       }
     }
 #pragma unroll
@@ -330,8 +453,7 @@ __device__ __forceinline__ void stage_window(uint8_t* win, const QuantSrc& src, 
       const int pix = i / PLANES;
       const int r = pix / RW;
       const int c = pix - r * RW;
-      *reinterpret_cast<int4*>(win + g * PLANE + (r * WIN_W + c) * 16) =
-          src.quant16(raw[u][0], raw[u][1]);
+      *reinterpret_cast<int4*>(win + g * PLANE + (r * WIN_W + c) * 16) = src.quant16(raw[u]);
     }
   }
 }
@@ -405,7 +527,8 @@ __device__ __forceinline__ void conv_s8(int (&acc)[MT][ACC], uint8_t* smem, cons
   __syncthreads();  // every warpgroup is done with the window: the epilogue may reuse it
 }
 
-// ---- epilogues, through shared memory ----------------------------------------
+
+// ---- epilogues ----------------------------------------------------------------
 
 // Where a thread's sums land: M tile j, half h (rows +8) -> tile pixel
 // p0 + 64 j + 8 h (row-major over the 4 x 64 tile); n8 -> channels
@@ -419,38 +542,32 @@ struct Frag {
   }
 };
 
-// 16-byte pieces of the tile's pixels that lie inside the image, with their
-// global byte offset and their place in a staged tile of PITCH bytes per
-// pixel (BYTES per pixel in global memory).
+// 16-byte pieces of BYTES a pixel of the tile's stored pixels: f(byte offset
+// in global memory, where gstride bytes make a pixel and the pieces start at
+// goff within it; offset in a staged tile of PITCH bytes a pixel).
 template <int BYTES, int PITCH, typename F>
-__device__ __forceinline__ void for_tile_pieces(const Tile& t, int H, int W, F&& f) {
+__device__ __forceinline__ void for_tile_pieces(const OutTile& o, int H, int W, int gstride,
+                                                int goff, F&& f) {
   constexpr int PIECES = BYTES / 16;
   for (int i = threadIdx.x; i < TILE_PIX * PIECES; i += THREADS) {
     const int p = i / PIECES;
     const int piece = i - p * PIECES;
-    const int y = t.y0 + p / TILE_W;
-    const int x = t.x0 + p % TILE_W;
-    if (y < H && x < W)
-      f((((size_t)t.n * H + y) * W + x) * BYTES + piece * 16, p * PITCH + piece * 16);
+    const int y = o.y0 + p / TILE_W;
+    const int x = o.x0 + p % TILE_W;
+    if (y < o.ylim && x < o.xlim)
+      f((((size_t)o.n * H + y) * W + x) * gstride + goff + piece * 16, p * PITCH + piece * 16);
   }
 }
 
-// cp.async of the tile's bf16 x (inside the image) into xs, one commit group.
-__device__ __forceinline__ void prefetch_x(uint8_t* xs, const bf16* x, const Tile& t, int H,
-                                           int W) {
+// cp.async of epilogue pass `pass` of the tile's x (its stored pixels) into
+// st, one commit group.
+template <typename T>
+__device__ __forceinline__ void prefetch_x(uint8_t* st, const T* x, const OutTile& o, int H, int W,
+                                           int pass) {
   const uint8_t* xb = reinterpret_cast<const uint8_t*>(x);
-  for_tile_pieces<2 * C, PITCH16>(t, H, W, [&](size_t g, int s) { cp_async16(xs + s, xb + g); });
+  for_tile_pieces<PASS, PITCH16>(o, H, W, C * sizeof(T), pass * PASS,
+                                 [&](size_t g, int s) { cp_async16(st + s, xb + g); });
   cp_async_commit();
-}
-
-// the staged tile (PITCH bytes per pixel) to global memory, 16 bytes a thread
-template <int BYTES, int PITCH>
-__device__ __forceinline__ void store_tile(void* dst, const uint8_t* st, const Tile& t, int H,
-                                           int W) {
-  uint8_t* db = reinterpret_cast<uint8_t*>(dst);
-  for_tile_pieces<BYTES, PITCH>(t, H, W, [&](size_t g, int s) {
-    *reinterpret_cast<int4*>(db + g) = *reinterpret_cast<const int4*>(st + s);
-  });
 }
 
 // Dequant vectors of one or two convs into shared memory: s * sw[c] (the
@@ -468,7 +585,7 @@ __device__ __forceinline__ void stage_vecs(float* v, float s1, const float* sw1,
   }
 }
 
-// Launch A epilogue: the codes of relu(dq(acc) + b) at the next scale
+// Static launch A epilogue: the codes of relu(dq(acc) + b) at the next scale
 // (inv_next = 1 / s_next) into the staging area, then out to dst.  vec holds
 // s * sw and b of the conv.
 __device__ __forceinline__ void emit_codes(const int (&acc)[MT][ACC], const float* vec,
@@ -491,55 +608,60 @@ __device__ __forceinline__ void emit_codes(const int (&acc)[MT][ACC], const floa
       }
   }
   __syncthreads();
-  store_tile<C, PITCH8>(dst, stage, t, H, W);
+  int8_t* db = dst;
+  for_tile_pieces<C, PITCH8>(OutTile{t.n, t.y0, t.x0, H, W}, H, W, C, 0, [&](size_t g, int s) {
+    *reinterpret_cast<int4*>(db + g) = *reinterpret_cast<const int4*>(stage + s);
+  });
 }
 
-// Launch A: t = q(relu(dq(conv(q(x, act[0])), act[0], sw) + b), s_next).
-// With w5 set, the Light53 pair over one staged window (conv3 -> t3 at
-// act[1], then conv5 -> t5 at act[2]); with w5 null, the Light block's
-// conv3 (-> t3 at act[1]).
-__global__ void __launch_bounds__(THREADS, 1)
-i8_first_kernel(const bf16* __restrict__ x, const float* __restrict__ act,
-                const int8_t* __restrict__ w3, const float* __restrict__ s3,
-                const float* __restrict__ b3, int8_t* __restrict__ t3,
-                const int8_t* __restrict__ w5, const float* __restrict__ s5,
-                const float* __restrict__ b5, int8_t* __restrict__ t5, int H, int W) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
-  uint8_t* stage = smem + EXTRA_OFF;
-  const Tile t = tile_of_block(W);
-  const float sx = __ldg(act);
-  stage_vecs(vec, sx, s3, b3, sx, s5, b5);
-  const QuantSrc src{x, __frcp_rn(sx)};
-  int acc[MT][ACC];
-  if (w5 == nullptr) {
-    conv_s8<3, 3, true>(acc, smem, src, w3, t, H, W);
-    emit_codes(acc, vec, __frcp_rn(__ldg(act + 1)), stage, t3, t, H, W);
-  } else {
-    conv_s8<3, 5, true>(acc, smem, src, w3, t, H, W);
-    emit_codes(acc, vec, __frcp_rn(__ldg(act + 1)), stage, t3, t, H, W);
-    conv_s8<5, 5, false>(acc, smem, src, w5, t, H, W);
-    emit_codes(acc, vec + 2 * C, __frcp_rn(__ldg(act + 2)), stage, t5, t, H, W);
-  }
+// max over the block's threads, into *amax as float bits by atomicMax (m >= 0)
+__device__ __forceinline__ void atomic_max_block(float m, float* amax) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0 && m > 0.f)
+    atomicMax(reinterpret_cast<unsigned*>(amax), __float_as_uint(m));
 }
 
-// Launch B of Light53: out = id*x + res*((dq(conv5(ta)) + ba2) + (dq(conv3(tb)) + bb2)).
-__global__ void __launch_bounds__(THREADS, 1)
-light53_i8_second_kernel(const bf16* __restrict__ x, const float* __restrict__ act,
-                         const int8_t* __restrict__ ta, const int8_t* __restrict__ wa2,
-                         const float* __restrict__ sa2, const float* __restrict__ ba2,
-                         const int8_t* __restrict__ tb, const int8_t* __restrict__ wb2,
-                         const float* __restrict__ sb2, const float* __restrict__ bb2,
-                         bf16* __restrict__ out, int H, int W,
-                         float res_scale, float identity_scale) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
-  float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);  // [MT*ACC][THREADS], this thread's
-  const Tile t = tile_of_block(W);
+// Dynamic launch 2 epilogue: v = relu(dq(acc) + b), zero outside the image
+// and outside [ring, eh - ring) x [ring, ew - ring) of the window's
+// extended ring, as float32 to the window's scratch dst[eh][ew][C] at the
+// tile's ring coordinates (ey0, ex0) (those inside eh x ew), and the
+// window's abs-max of v into *amax.  t is the tile in image coordinates.
+__device__ __forceinline__ void emit_ring(const int (&acc)[MT][ACC], const float* vec, float* dst,
+                                          int ey0, int ex0, int eh, int ew, int ring,
+                                          const Tile& t, int H, int W, float* amax) {
   const Frag f;
-  stage_vecs(vec, __ldg(act + 1), sa2, ba2, __ldg(act + 2), sb2, bb2);
-  int acc[MT][ACC];
-  conv_s8<5, 5, true>(acc, smem, I8Src{ta}, wa2, t, H, W);
+  float m = 0.f;
+#pragma unroll
+  for (int n8 = 0; n8 < C / 8; ++n8) {
+    const int co = n8 * 8 + f.cq;
+    const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = f.p0 + j * TILE_W + 8 * h;
+        const int py = p / TILE_W, px = p % TILE_W;
+        const int ey = ey0 + py, ex = ex0 + px;
+        if (ey >= eh || ex >= ew) continue;
+        const int gy = t.y0 + py, gx = t.x0 + px;
+        const bool keep = ey >= ring && ey < eh - ring && ex >= ring && ex < ew - ring &&
+                          gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const int i = n8 * 4 + h * 2;
+        const float v0 = keep ? fmaxf(dequant(acc[j][i], sw0, b0), 0.f) : 0.f;
+        const float v1 = keep ? fmaxf(dequant(acc[j][i + 1], sw1, b1), 0.f) : 0.f;
+        *reinterpret_cast<float2*>(dst + ((size_t)ey * ew + ex) * C + co) = make_float2(v0, v1);
+        m = fmaxf(m, fmaxf(v0, v1));
+      }
+  }
+  atomic_max_block(m, amax);
+}
+
+// The dequantized sums of a Light53 branch a parked in shared memory
+// ([MT*ACC][THREADS], this thread's column) while branch b's conv runs.
+__device__ __forceinline__ void park_sums(const int (&acc)[MT][ACC], const float* vec,
+                                          float* park) {
+  const Frag f;
 #pragma unroll
   for (int n8 = 0; n8 < C / 8; ++n8) {
     const int co = n8 * 8 + f.cq;
@@ -553,138 +675,411 @@ light53_i8_second_kernel(const bf16* __restrict__ x, const float* __restrict__ a
         park[(j * ACC + i + 1) * THREADS + threadIdx.x] = dequant(acc[j][i + 1], sw1, b1);
       }
   }
-  conv_s8<3, 3, true>(acc, smem, I8Src{tb}, wb2, t, H, W);
-  // x into the window's space; outputs written over it, then out
-  prefetch_x(smem, x, t, H, W);
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int n8 = 0; n8 < C / 8; ++n8) {
-    const int co = n8 * 8 + f.cq;
-    const float sw0 = vec[2 * C + co], sw1 = vec[2 * C + co + 1];
-    const float b0 = vec[3 * C + co], b1 = vec[3 * C + co + 1];
-#pragma unroll
-    for (int j = 0; j < MT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = n8 * 4 + h * 2;
-        __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(
-            smem + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + co * 2);
-        const float2 xv = __bfloat1622float2(*px);
-        const float a0 = park[(j * ACC + i) * THREADS + threadIdx.x];
-        const float a1 = park[(j * ACC + i + 1) * THREADS + threadIdx.x];
-        const float o0 = __fadd_rn(__fmul_rn(identity_scale, xv.x),
-                                   __fmul_rn(res_scale, __fadd_rn(a0, dequant(acc[j][i], sw0, b0))));
-        const float o1 = __fadd_rn(__fmul_rn(identity_scale, xv.y),
-                                   __fmul_rn(res_scale, __fadd_rn(a1, dequant(acc[j][i + 1], sw1, b1))));
-        *px = __floats2bfloat162_rn(o0, o1);
-      }
-  }
-  __syncthreads();
-  store_tile<2 * C, PITCH16>(out, smem, t, H, W);
 }
 
-// Launch B of Light: out = x + res*(dq(conv3(t)) + b2).  x is fetched
-// before the conv, into its own space.
+// The residual epilogue: out = fma(id, x, res * (a + dq(acc) + b)) with a
+// the parked branch-a sums (L53), or fma(res, dq(acc) + b, x) (Light); vec
+// holds s * sw and b of acc's conv.  x and then out pass through st
+// (TILE_PIX x PITCH16 bytes) in passes of PASS bytes of channels a pixel;
+// pass 0 of x is already in flight when PREFETCHED.
+template <typename T, bool L53, bool PREFETCHED>
+__device__ __forceinline__ void residual_epilogue(const int (&acc)[MT][ACC], const float* vec,
+                                                  const float* park, uint8_t* st, const T* x,
+                                                  T* out, const OutTile& o, int H, int W,
+                                                  float res_scale, float identity_scale) {
+  constexpr int CP = PASS / sizeof(T);  // channels a pass
+  constexpr int PASSES = C / CP;
+  const Frag f;
+  uint8_t* ob = reinterpret_cast<uint8_t*>(out);
+#pragma unroll
+  for (int pass = 0; pass < PASSES; ++pass) {
+    if (pass > 0 || !PREFETCHED) prefetch_x(st, x, o, H, W, pass);
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int n8 = pass * CP / 8; n8 < (pass + 1) * CP / 8; ++n8) {
+      const int co = n8 * 8 + f.cq;
+      const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = n8 * 4 + h * 2;
+          uint8_t* px = st + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + (co - pass * CP) * sizeof(T);
+          const float2 xv = Act<T>::load2(px);
+          const float u0 = dequant(acc[j][i], sw0, b0);
+          const float u1 = dequant(acc[j][i + 1], sw1, b1);
+          float o0, o1;
+          if constexpr (L53) {
+            const float a0 = park[(j * ACC + i) * THREADS + threadIdx.x];
+            const float a1 = park[(j * ACC + i + 1) * THREADS + threadIdx.x];
+            o0 = __fmaf_rn(identity_scale, xv.x, __fmul_rn(res_scale, __fadd_rn(a0, u0)));
+            o1 = __fmaf_rn(identity_scale, xv.y, __fmul_rn(res_scale, __fadd_rn(a1, u1)));
+          } else {
+            o0 = __fmaf_rn(res_scale, u0, xv.x);
+            o1 = __fmaf_rn(res_scale, u1, xv.y);
+          }
+          Act<T>::store2(px, o0, o1);
+        }
+    }
+    __syncthreads();
+    for_tile_pieces<PASS, PITCH16>(o, H, W, C * sizeof(T), pass * PASS, [&](size_t g, int s) {
+      *reinterpret_cast<int4*>(ob + g) = *reinterpret_cast<const int4*>(st + s);
+    });
+    if (pass + 1 < PASSES) __syncthreads();  // st is read out before the next pass lands
+  }
+}
+
+// ---- static scales: two launches over the whole image ---------------------------
+
+// Launch A: t = q(relu(dq(conv(q(x, act[0])), act[0], sw) + b), s_next).
+// With w5 set, the Light53 pair over one staged window (conv3 -> t3 at
+// act[1], then conv5 -> t5 at act[2]); with w5 null, the Light block's
+// conv3 (-> t3 at act[1]).
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-light_i8_second_kernel(const bf16* __restrict__ x, const float* __restrict__ act,
+i8_first_kernel(const T* __restrict__ x, const float* __restrict__ act,
+                const int8_t* __restrict__ w3, const float* __restrict__ s3,
+                const float* __restrict__ b3, int8_t* __restrict__ t3,
+                const int8_t* __restrict__ w5, const float* __restrict__ s5,
+                const float* __restrict__ b5, int8_t* __restrict__ t5, int H, int W) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  uint8_t* stage = smem + EXTRA_OFF;
+  const Tile t = tile_of_block(W);
+  const float sx = __ldg(act);
+  stage_vecs(vec, sx, s3, b3, sx, s5, b5);
+  const QuantSrc<T, false> src{x, __frcp_rn(sx)};
+  int acc[MT][ACC];
+  if (w5 == nullptr) {
+    conv_s8<3, 3, true>(acc, smem, src, w3, t, H, W);
+    emit_codes(acc, vec, __frcp_rn(__ldg(act + 1)), stage, t3, t, H, W);
+  } else {
+    conv_s8<3, 5, true>(acc, smem, src, w3, t, H, W);
+    emit_codes(acc, vec, __frcp_rn(__ldg(act + 1)), stage, t3, t, H, W);
+    conv_s8<5, 5, false>(acc, smem, src, w5, t, H, W);
+    emit_codes(acc, vec + 2 * C, __frcp_rn(__ldg(act + 2)), stage, t5, t, H, W);
+  }
+}
+
+// Launch B of Light53: out = fma(id, x, res*((dq(conv5(ta)) + ba2) + (dq(conv3(tb)) + bb2))).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+light53_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
+                         const int8_t* __restrict__ ta, const int8_t* __restrict__ wa2,
+                         const float* __restrict__ sa2, const float* __restrict__ ba2,
+                         const int8_t* __restrict__ tb, const int8_t* __restrict__ wb2,
+                         const float* __restrict__ sb2, const float* __restrict__ bb2,
+                         T* __restrict__ out, int H, int W, float res_scale, float identity_scale) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);
+  const Tile t = tile_of_block(W);
+  stage_vecs(vec, __ldg(act + 1), sa2, ba2, __ldg(act + 2), sb2, bb2);
+  int acc[MT][ACC];
+  conv_s8<5, 5, true>(acc, smem, I8Src{ta}, wa2, t, H, W);
+  park_sums(acc, vec, park);
+  conv_s8<3, 3, true>(acc, smem, I8Src{tb}, wb2, t, H, W);
+  // x into the window's space; outputs written over it, then out
+  residual_epilogue<T, true, false>(acc, vec + 2 * C, park, smem, x, out,
+                                    OutTile{t.n, t.y0, t.x0, H, W}, H, W, res_scale,
+                                    identity_scale);
+}
+
+// Launch B of Light: out = fma(res, dq(conv3(t)) + b2, x).  x (its first
+// pass) is fetched before the conv, into its own space.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+light_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
                        const int8_t* __restrict__ tin, const int8_t* __restrict__ w2,
                        const float* __restrict__ s2, const float* __restrict__ b2,
-                       bf16* __restrict__ out, int H, int W, float res_scale) {
+                       T* __restrict__ out, int H, int W, float res_scale) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
   uint8_t* xs = smem + EXTRA_OFF;
   const Tile t = tile_of_block(W);
-  const Frag f;
+  const OutTile o{t.n, t.y0, t.x0, H, W};
   stage_vecs(vec, __ldg(act + 1), s2, b2);
-  prefetch_x(xs, x, t, H, W);  // the oldest cp.async group: complete once the conv starts
+  prefetch_x(xs, x, o, H, W, 0);  // the oldest cp.async group: complete once the conv starts
   int acc[MT][ACC];
   conv_s8<3, 3, true>(acc, smem, I8Src{tin}, w2, t, H, W);
-#pragma unroll
-  for (int n8 = 0; n8 < C / 8; ++n8) {
-    const int co = n8 * 8 + f.cq;
-    const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
-#pragma unroll
-    for (int j = 0; j < MT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = n8 * 4 + h * 2;
-        __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(
-            xs + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + co * 2);
-        const float2 xv = __bfloat1622float2(*px);
-        const float o0 = __fadd_rn(xv.x, __fmul_rn(res_scale, dequant(acc[j][i], sw0, b0)));
-        const float o1 = __fadd_rn(xv.y, __fmul_rn(res_scale, dequant(acc[j][i + 1], sw1, b1)));
-        *px = __floats2bfloat162_rn(o0, o1);
-      }
-  }
-  __syncthreads();
-  store_tile<2 * C, PITCH16>(out, xs, t, H, W);
+  residual_epilogue<T, false, true>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
 }
 
-dim3 grid_for(int n, int h, int w) {
-  const unsigned tiles = (unsigned)(((h + TILE_H - 1) / TILE_H) * ((w + TILE_W - 1) / TILE_W));
-  return dim3(tiles, 1, (unsigned)n);
+// ---- dynamic scales: three launches over the TPU's windows ------------------------
+
+// Launch 1: each window's input abs-max over the rows and columns the TPU
+// kernel DMAs (zeros outside the image add nothing) into amax[window].  One
+// thread block per window row (blockIdx.x), window blockIdx.z.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+window_absmax_kernel(const T* __restrict__ x, float* __restrict__ amax, int H, int W, Windows g,
+                     int halo) {
+  const int row = g.r0() - halo + (int)blockIdx.x;
+  float m = 0.f;
+  if (row >= 0 && row < H) {
+    const int cb = max(0, g.c0() - halo);
+    const int ce = min(W, g.c0() + g.tw + win_pad(halo) - halo);
+    const uint4* p = reinterpret_cast<const uint4*>(x + (((size_t)g.n() * H + row) * W + cb) * C);
+    const int vecs = (ce - cb) * C * (int)sizeof(T) / 16;
+    for (int i = threadIdx.x; i < vecs; i += THREADS) m = fmaxf(m, Act<T>::absmax16B(__ldg(p + i)));
+  }
+  atomic_max_block(m, amax + blockIdx.z);
+}
+
+// Launch 2: the first conv(s) of window blockIdx.z over its extended ring, E
+// = (th + 2e) x (tw + 2e) from image (r0 - e, c0 - e), e = 2 for Light53 and
+// 1 for Light, from x quantized with the window's scale amax[0][window]:
+// Light53's conv3 (branch a, the whole ring) and conv5 (branch b, the inner
+// ring of 1) over one staged window, Light's conv3.  Each into its scratch
+// (t3, t5: [window][th + 2e][tw + 2e][C]) with its abs-max in
+// amax[1 or 2][window].  blockIdx.x: the 4 x 64 tiles of E.
+template <typename T, bool L53>
+__global__ void __launch_bounds__(THREADS, 1)
+dyn_first_kernel(const T* __restrict__ x, float* __restrict__ amax,
+                 const int8_t* __restrict__ w3, const float* __restrict__ s3,
+                 const float* __restrict__ b3, float* __restrict__ t3,
+                 const int8_t* __restrict__ w5, const float* __restrict__ s5,
+                 const float* __restrict__ b5, float* __restrict__ t5, int H, int W, Windows g) {
+  constexpr int E = L53 ? 2 : 1;
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  const int eh = g.th + 2 * E, ew = g.tw + 2 * E;
+  const int tiles_w = (ew + TILE_W - 1) / TILE_W;
+  const int ey0 = (blockIdx.x / tiles_w) * TILE_H, ex0 = (blockIdx.x % tiles_w) * TILE_W;
+  const int windows = gridDim.z, win = blockIdx.z;
+  const float sx = dyn_scale(amax[win]);
+  stage_vecs(vec, sx, s3, b3, sx, s5, b5);
+  const QuantSrc<T, true> src{x, sx};
+  const Tile t{g.n(), g.r0() - E + ey0, g.c0() - E + ex0};
+  const size_t wofs = (size_t)win * eh * ew * C;
+  int acc[MT][ACC];
+  conv_s8<3, 2 * E + 1, true>(acc, smem, src, w3, t, H, W);
+  emit_ring(acc, vec, t3 + wofs, ey0, ex0, eh, ew, 0, t, H, W, amax + windows + win);
+  if constexpr (L53) {
+    conv_s8<5, 5, false>(acc, smem, src, w5, t, H, W);
+    emit_ring(acc, vec + 2 * C, t5 + wofs, ey0, ex0, eh, ew, 1, t, H, W, amax + 2 * windows + win);
+  }
+}
+
+// Launch 3: window blockIdx.z's second conv(s) VALID over its scratch,
+// requantized with the window's intermediate scales while staged (Light53:
+// conv5 over ta, conv3 over tb's inner ring; Light: conv3 over ta), then
+// the residual epilogue on the window's th x tw outputs inside the image.
+// blockIdx.x: the 4 x 64 tiles of th x tw.
+template <typename T, bool L53>
+__global__ void __launch_bounds__(THREADS, 1)
+dyn_second_kernel(const T* __restrict__ x, const float* __restrict__ amax,
+                  const float* __restrict__ ta, const int8_t* __restrict__ wa2,
+                  const float* __restrict__ sa2, const float* __restrict__ ba2,
+                  const float* __restrict__ tb, const int8_t* __restrict__ wb2,
+                  const float* __restrict__ sb2, const float* __restrict__ bb2,
+                  T* __restrict__ out, int H, int W, Windows g, float res_scale,
+                  float identity_scale) {
+  constexpr int E = L53 ? 2 : 1;
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  const int eh = g.th + 2 * E, ew = g.tw + 2 * E;
+  const int tiles_w = (g.tw + TILE_W - 1) / TILE_W;
+  const int y0 = (blockIdx.x / tiles_w) * TILE_H, x0 = (blockIdx.x % tiles_w) * TILE_W;
+  const int windows = gridDim.z, win = blockIdx.z;
+  const size_t wofs = (size_t)win * eh * ew * C;
+  const OutTile o{g.n(), g.r0() + y0, g.c0() + x0, min(H, g.r0() + g.th), min(W, g.c0() + g.tw)};
+  const Tile e{0, y0 + E, x0 + E};  // the tile in the ring's coordinates
+  int acc[MT][ACC];
+  if constexpr (L53) {
+    float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);
+    const float s_a = dyn_scale(amax[windows + win]), s_b = dyn_scale(amax[2 * windows + win]);
+    stage_vecs(vec, s_a, sa2, ba2, s_b, sb2, bb2);
+    conv_s8<5, 5, true>(acc, smem, QuantSrc<float, true>{ta + wofs, s_a}, wa2, e, eh, ew);
+    park_sums(acc, vec, park);
+    conv_s8<3, 3, true>(acc, smem, QuantSrc<float, true>{tb + wofs, s_b}, wb2, e, eh, ew);
+    residual_epilogue<T, true, false>(acc, vec + 2 * C, park, smem, x, out, o, H, W, res_scale,
+                                      identity_scale);
+  } else {
+    uint8_t* xs = smem + EXTRA_OFF;
+    const float s_t = dyn_scale(amax[windows + win]);
+    stage_vecs(vec, s_t, sa2, ba2);
+    prefetch_x(xs, x, o, H, W, 0);
+    conv_s8<3, 3, true>(acc, smem, QuantSrc<float, true>{ta + wofs, s_t}, wa2, e, eh, ew);
+    residual_epilogue<T, false, true>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
+  }
+}
+
+// ---- launches ------------------------------------------------------------------
+
+unsigned tiles_of(int h, int w) {
+  return (unsigned)(((h + TILE_H - 1) / TILE_H) * ((w + TILE_W - 1) / TILE_W));
 }
 
 // Dynamic shared memory above 48 KB has to be asked for, per kernel.
-cudaError_t allow_smem() {
-  cudaError_t err = cudaFuncSetAttribute(i8_first_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_FIRST);
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T>
+int light53_static(const T* x, const float* act, const int8_t* wa1, const float* sa1,
+                   const float* ba1, const int8_t* wa2, const float* sa2, const float* ba2,
+                   const int8_t* wb1, const float* sb1, const float* bb1, const int8_t* wb2,
+                   const float* sb2, const float* bb2, int8_t* ta, int8_t* tb, T* out, int n,
+                   int h, int w, float res_scale, float identity_scale, cudaStream_t st) {
+  cudaError_t err = allow_smem(i8_first_kernel<T>, SMEM_FIRST);
+  if (err == cudaSuccess) err = allow_smem(light53_i8_second_kernel<T>, SMEM_LIGHT53_B);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
+  i8_first_kernel<T><<<grid, THREADS, SMEM_FIRST, st>>>(x, act, wa1, sa1, ba1, ta, wb1, sb1, bb1,
+                                                        tb, h, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  light53_i8_second_kernel<T><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(
+      x, act, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int light_static(const T* x, const float* act, const int8_t* w1, const float* s1, const float* b1,
+                 const int8_t* w2, const float* s2, const float* b2, int8_t* t, T* out, int n,
+                 int h, int w, float res_scale, cudaStream_t st) {
+  cudaError_t err = allow_smem(i8_first_kernel<T>, SMEM_FIRST);
+  if (err == cudaSuccess) err = allow_smem(light_i8_second_kernel<T>, SMEM_LIGHT_B);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
+  i8_first_kernel<T><<<grid, THREADS, SMEM_FIRST, st>>>(x, act, w1, s1, b1, t, nullptr, nullptr,
+                                                        nullptr, nullptr, h, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  light_i8_second_kernel<T><<<grid, THREADS, SMEM_LIGHT_B, st>>>(x, act, t, w2, s2, b2, out, h, w,
+                                                                 res_scale);
+  return (int)cudaGetLastError();
+}
+
+// The window grid of a dynamic launch, or false where th, tw, h8 and w8 do
+// not describe one (multiples of 8, th | h8, tw | w8, at most 65535 windows).
+bool windows_of(int n, int h, int w, int th, int tw, int h8, int w8, Windows* g) {
+  if (th <= 0 || tw <= 0 || th % 8 || tw % 8 || h8 != (h + 7) / 8 * 8 || w8 != (w + 7) / 8 * 8 ||
+      h8 % th || w8 % tw)
+    return false;
+  *g = Windows{th, tw, h8 / th, w8 / tw};
+  return (long long)n * g->wy * g->wx <= 65535;
+}
+
+// x's abs-max per window, the first conv(s) into the rings, the second conv(s)
+// and the epilogue; amax is [1 + branches][windows], zeroed here.
+template <typename T, bool L53>
+int dynamic_block(const T* x, const int8_t* w1, const float* s1, const float* b1,
+                  const int8_t* w2, const float* s2, const float* b2, const int8_t* w3,
+                  const float* s3, const float* b3, const int8_t* w4, const float* s4,
+                  const float* b4, float* amax, float* ta, float* tb, T* out, int n, int h,
+                  int w, const Windows& g, float res_scale, float identity_scale,
+                  cudaStream_t st) {
+  constexpr int E = L53 ? 2 : 1;
+  const unsigned windows = (unsigned)(n * g.wy * g.wx);
+  cudaError_t err = allow_smem(dyn_first_kernel<T, L53>, SMEM_DYN_FIRST);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(light_i8_second_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIGHT_B);
+    err = allow_smem(dyn_second_kernel<T, L53>, L53 ? SMEM_LIGHT53_B : SMEM_LIGHT_B);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(light53_i8_second_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIGHT53_B);
-  return err;
+    err = cudaMemsetAsync(amax, 0, (L53 ? 3 : 2) * windows * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  window_absmax_kernel<T><<<dim3(g.th + 2 * (E + 1), 1, windows), THREADS, 0, st>>>(x, amax, h, w,
+                                                                                  g, E + 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // Light53: w1 = wa1 (3x3), w3 = wb1 (5x5); Light: w1 = its first conv
+  dyn_first_kernel<T, L53><<<dim3(tiles_of(g.th + 2 * E, g.tw + 2 * E), 1, windows), THREADS,
+                             SMEM_DYN_FIRST, st>>>(x, amax, w1, s1, b1, ta, w3, s3, b3, tb, h, w,
+                                                   g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dyn_second_kernel<T, L53><<<dim3(tiles_of(g.th, g.tw), 1, windows), THREADS,
+                              L53 ? SMEM_LIGHT53_B : SMEM_LIGHT_B, st>>>(
+      x, amax, ta, w2, s2, b2, tb, w4, s4, b4, out, h, w, g, res_scale, identity_scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shapes the launches accept: C == 128, bf16 activations, weights repacked
-// to [ky*kx][cin/32][2][cout][16] int8, every pointer 16-byte aligned, all
-// tensors contiguous (the Python wrapper checks).  act holds the float32
-// activation scales on the device.  Returns the CUDA error code of the
-// launches (0 = success).
-int iek_light53_int8(const bf16* x, const float* act,
+// Shapes the launches accept: C == 128, x and out bf16 (f32 == 0) or float32
+// (f32 == 1), weights repacked to [ky*kx][cin/32][2][cout][16] int8, every
+// pointer 16-byte aligned, all tensors contiguous (the Python wrapper
+// checks).  act holds the float32 activation scales on the device.  Returns
+// the CUDA error code of the launches (0 = success).
+int iek_light53_int8(const void* x, const float* act,
                      const int8_t* wa1, const float* sa1, const float* ba1,
                      const int8_t* wa2, const float* sa2, const float* ba2,
                      const int8_t* wb1, const float* sb1, const float* bb1,
                      const int8_t* wb2, const float* sb2, const float* bb2,
-                     int8_t* ta, int8_t* tb, bf16* out,
-                     int n, int h, int w, int c,
+                     int8_t* ta, int8_t* tb, void* out,
+                     int n, int h, int w, int c, int f32,
                      float res_scale, float identity_scale, void* stream) {
   if (c != C) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem();
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  i8_first_kernel<<<grid_for(n, h, w), THREADS, SMEM_FIRST, st>>>(
-      x, act, wa1, sa1, ba1, ta, wb1, sb1, bb1, tb, h, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  light53_i8_second_kernel<<<grid_for(n, h, w), THREADS, SMEM_LIGHT53_B, st>>>(
-      x, act, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
-  return (int)cudaGetLastError();
+  if (f32)
+    return light53_static(static_cast<const float*>(x), act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1,
+                          bb1, wb2, sb2, bb2, ta, tb, static_cast<float*>(out), n, h, w,
+                          res_scale, identity_scale, st);
+  return light53_static(static_cast<const bf16*>(x), act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1,
+                        bb1, wb2, sb2, bb2, ta, tb, static_cast<bf16*>(out), n, h, w, res_scale,
+                        identity_scale, st);
 }
 
-int iek_light_int8(const bf16* x, const float* act,
+int iek_light_int8(const void* x, const float* act,
                    const int8_t* w1, const float* s1, const float* b1,
                    const int8_t* w2, const float* s2, const float* b2,
-                   int8_t* t, bf16* out, int n, int h, int w, int c,
+                   int8_t* t, void* out, int n, int h, int w, int c, int f32,
                    float res_scale, void* stream) {
   if (c != C) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem();
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  i8_first_kernel<<<grid_for(n, h, w), THREADS, SMEM_FIRST, st>>>(
-      x, act, w1, s1, b1, t, nullptr, nullptr, nullptr, nullptr, h, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  light_i8_second_kernel<<<grid_for(n, h, w), THREADS, SMEM_LIGHT_B, st>>>(
-      x, act, t, w2, s2, b2, out, h, w, res_scale);
-  return (int)cudaGetLastError();
+  if (f32)
+    return light_static(static_cast<const float*>(x), act, w1, s1, b1, w2, s2, b2, t,
+                        static_cast<float*>(out), n, h, w, res_scale, st);
+  return light_static(static_cast<const bf16*>(x), act, w1, s1, b1, w2, s2, b2, t,
+                      static_cast<bf16*>(out), n, h, w, res_scale, st);
+}
+
+// Dynamic scales over the TPU's th x tw windows of the image padded to h8 x
+// w8.  amax: float32 [3][windows]; ta, tb: float32 [windows][th+4][tw+4][C].
+int iek_light53_int8_dynamic(const void* x,
+                             const int8_t* wa1, const float* sa1, const float* ba1,
+                             const int8_t* wa2, const float* sa2, const float* ba2,
+                             const int8_t* wb1, const float* sb1, const float* bb1,
+                             const int8_t* wb2, const float* sb2, const float* bb2,
+                             float* amax, float* ta, float* tb, void* out,
+                             int n, int h, int w, int c, int th, int tw, int h8, int w8, int f32,
+                             float res_scale, float identity_scale, void* stream) {
+  Windows g;
+  if (c != C || !windows_of(n, h, w, th, tw, h8, w8, &g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return dynamic_block<float, true>(static_cast<const float*>(x), wa1, sa1, ba1, wa2, sa2, ba2,
+                                      wb1, sb1, bb1, wb2, sb2, bb2, amax, ta, tb,
+                                      static_cast<float*>(out), n, h, w, g, res_scale,
+                                      identity_scale, st);
+  return dynamic_block<bf16, true>(static_cast<const bf16*>(x), wa1, sa1, ba1, wa2, sa2, ba2, wb1,
+                                   sb1, bb1, wb2, sb2, bb2, amax, ta, tb, static_cast<bf16*>(out),
+                                   n, h, w, g, res_scale, identity_scale, st);
+}
+
+// amax: float32 [2][windows]; t: float32 [windows][th+2][tw+2][C].
+int iek_light_int8_dynamic(const void* x,
+                           const int8_t* w1, const float* s1, const float* b1,
+                           const int8_t* w2, const float* s2, const float* b2,
+                           float* amax, float* t, void* out,
+                           int n, int h, int w, int c, int th, int tw, int h8, int w8, int f32,
+                           float res_scale, void* stream) {
+  Windows g;
+  if (c != C || !windows_of(n, h, w, th, tw, h8, w8, &g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return dynamic_block<float, false>(static_cast<const float*>(x), w1, s1, b1, w2, s2, b2,
+                                       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, amax,
+                                       t, nullptr, static_cast<float*>(out), n, h, w, g, res_scale,
+                                       1.f, st);
+  return dynamic_block<bf16, false>(static_cast<const bf16*>(x), w1, s1, b1, w2, s2, b2, nullptr,
+                                    nullptr, nullptr, nullptr, nullptr, nullptr, amax, t, nullptr,
+                                    static_cast<bf16*>(out), n, h, w, g, res_scale, 1.f, st);
 }
 
 const char* iek_error_string(int code) {

@@ -10,13 +10,16 @@ the 3x3 ``out`` conv are plain torch, as the JAX version leaves them to XLA.
 the kernels' bf16 forms, the plain convs in bf16 with the weights cast at
 use, and a float32 output.
 
-The int8 serving path (``--forward pallas_int8``): ``quantize_didbl_params``
-turns the tree into int8 weights with per-channel scales and, given a
-calibration input, static activation scales from
-``calibrate_didbl_act_scales``; ``apply_didbl_int8`` then runs every
-residual block, the two HR tail blocks included, on the int8 kernels of
-``ops/cuda/int8_blocks.py``, with bf16 activations between blocks and the
-x4 through ``ops.resize.upsample_phase_tf1``.
+The int8 path: ``quantize_didbl_params`` turns the tree into int8 weights
+with per-channel scales and, given a calibration input, static activation
+scales from ``calibrate_didbl_act_scales`` (the serving path, ``--forward
+pallas_int8``, which always calibrates); ``apply_didbl_int8`` then runs
+every residual block, the two HR tail blocks included, on the int8 kernels
+of ``ops/cuda/int8_blocks.py``, with bf16 activations between blocks and
+the x4 through ``ops.resize.upsample_phase_tf1``.  A tree quantized without
+``calib_x`` has no "act" entries, and the blocks then quantize every window
+of ``tile`` with its own dynamic abs-max scales, as in JAX (the library's
+uncalibrated path; no CLI flag reaches it).
 
 On CPU tensors the kernel wrappers run their plain versions.
 """
@@ -182,7 +185,9 @@ def quantize_didbl_params(params: Any, n_body53: int = 16, n_light: int = 6, n_t
     """One-time weight quantization: every residual-block conv becomes
     {"q": int8 HWIO, "s": (Cout,) scale, "bias"}; level1/out stay float.
 
-    With ``calib_x`` ((N, H, W, 3) in [0, 1]) each block also gets "act"
+    Without ``calib_x`` no block has activation scales, and
+    ``apply_didbl_int8`` quantizes each window dynamically.  With
+    ``calib_x`` ((N, H, W, 3) in [0, 1]) each block also gets "act"
     (stacked per-tensor scales, what the kernels take), "actc" (per-channel
     scale vectors) and, per conv, "qf"/"sf": the weights with the input
     channel scales folded in (conv(x, w) = conv(x / s_c, w * s_c)), which the
@@ -273,6 +278,8 @@ def apply_didbl_int8(qparams: Any, x: torch.Tensor, n_body53: int = 16, n_light:
                      tile: tuple[int, int] = (64, 128)) -> torch.Tensor:
     """(N, H, W, 3) [0,1] -> (N, 4H, 4W, 3): the didbl graph with every
     residual block on the int8 kernels; identity paths carry no quantization
-    error, activations are bf16 between blocks."""
+    error, activations are bf16 between blocks.  Blocks with "act" use those
+    static scales; blocks without (``quantize_didbl_params`` without
+    ``calib_x``) quantize each ``tile`` window dynamically."""
     h = apply_didbl_int8_body(qparams, x, n_body53=n_body53, n_light=n_light, tile=tile)
     return apply_didbl_int8_tail(qparams, h, n_tail53=n_tail53, scale=scale, tile=tile)

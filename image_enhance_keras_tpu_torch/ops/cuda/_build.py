@@ -38,8 +38,10 @@ SIGNATURES = {
         "iek_light_block_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     },
     "int8_blocks": {
-        "iek_light53_int8": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
-        "iek_light_int8": [_P] * 10 + [_I] * 4 + [_F, _P],
+        "iek_light53_int8": [_P] * 17 + [_I] * 5 + [_F, _F, _P],
+        "iek_light_int8": [_P] * 10 + [_I] * 5 + [_F, _P],
+        "iek_light53_int8_dynamic": [_P] * 17 + [_I] * 9 + [_F, _F, _P],
+        "iek_light_int8_dynamic": [_P] * 10 + [_I] * 9 + [_F, _P],
     },
     "upsample": {
         "iek_upsample_phase_tf1": [_P, _P] + [_I] * 6 + [_P],

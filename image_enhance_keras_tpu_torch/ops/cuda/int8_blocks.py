@@ -1,26 +1,35 @@
 """int8 Light53 and Light residual blocks: CUDA kernels and their plain versions.
 
 Counterpart of ``ops/pallas/int8_blocks.py``.  ``light53_int8`` and
-``light_int8`` keep the JAX signatures (x NHWC bf16, as the int8 forward
-keeps its activations, weights HWIO int8 from
-:func:`quantize_weights_per_channel`, per-output-channel float32
-scales, float32 biases, ``act_scales``, ``tile``).  On a CUDA tensor they
-launch the kernels of ``csrc/int8_blocks.cu`` (two launches per block, see
-the notes there) or raise; on a CPU tensor they run the plain PyTorch
-versions below.  Each wrapper counts in ``.launches`` the blocks it ran on
-the kernels.  The kernels run the s8 x s8 -> s32 products on the tensor
-cores (wgmma) and take exactly C = 128 channels (:data:`CUDA_CHANNELS`).
+``light_int8`` keep the JAX signatures (x NHWC bf16 or float32, weights
+HWIO int8 from :func:`quantize_weights_per_channel`, per-output-channel
+float32 scales, float32 biases, ``act_scales``, ``tile``); the output has
+x's dtype.  On a CUDA tensor they launch the kernels of
+``csrc/int8_blocks.cu`` or raise; on a CPU tensor they run the plain
+PyTorch versions below.  Each wrapper counts in ``.launches`` the blocks it
+ran on the kernels.  The kernels run the s8 x s8 -> s32 products on the
+tensor cores (wgmma) and take exactly C = 128 channels (:data:`CUDA_CHANNELS`).
 
-Only the static-scale serving mode is ported: with calibrated
-``act_scales`` the TPU kernel's halo'd tiles give exactly the whole-image
-SAME chain on the quantized codes, so ``tile`` has no effect on the result.
-``act_scales=None`` (per-window dynamic abs-max scales, which do depend on
-the TPU's window partition) raises ``NotImplementedError``.
+Two scale modes, as in JAX:
+
+* static (calibrated ``act_scales``, the serving path): the TPU kernel's
+  halo'd windows give exactly the whole-image SAME chain on the quantized
+  codes, so ``tile`` has no effect on the result;
+* dynamic (``act_scales=None``, the uncalibrated path of
+  ``quantize_didbl_params`` without ``calib_x``): every TPU window
+  quantizes its input window, and each branch's intermediate over the
+  window's extended ring, with its own abs-max scale (dividing, not
+  multiplying by the reciprocal), so the result depends on the window
+  partition: H and W padded up to multiples of 8, windows of
+  ``_pick_tile(h8, tile[0]) x _pick_tile(w8, tile[1])``.  The input abs-max
+  spans the DMA'd window, ``_win_pad(halo) - 2 * halo`` columns right of
+  the columns the convs read.
 
 The plain versions compute the s8 x s8 -> s32 convolutions exactly, as
 float64 convolutions of the integer codes (sums below 25*128*127^2 ~ 5.2e7,
 exact in float64 and rounded back to integers), and every float step in the
-kernels' order, so the kernels agree with them bit for bit.
+kernels' order, so the kernels agree with them bit for bit.  The dynamic
+ones unfold the windows into a batch and convolve it VALID.
 """
 
 from __future__ import annotations
@@ -36,11 +45,17 @@ __all__ = [
     "light_int8",
     "light53_int8_plain",
     "light_int8_plain",
+    "light53_int8_dynamic_plain",
+    "light_int8_dynamic_plain",
 ]
 
 #: channels the CUDA kernels take: the N of their wgmma tile, and the input
 #: window they hold in shared memory for all 25 (or 9) taps
 CUDA_CHANNELS = 128
+#: activation dtypes the blocks take (the output has x's dtype)
+ACT_DTYPES = (torch.bfloat16, torch.float32)
+#: float32(1/127): dynamic scales multiply by it (see :func:`_scale_dyn`)
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
 
 
 def quantize_weights_per_channel(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,8 +82,34 @@ def _conv_s32(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch.round(y).permute(0, 2, 3, 1).to(torch.float32)
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add: the product is
+    exact in float64, the sum is rounded to odd there (TwoSum), and rounding
+    that to float32 is then the correctly rounded result."""
+    p = torch.as_tensor(a, dtype=torch.float32).double() * torch.as_tensor(b, dtype=torch.float32).double()
+    c = torch.as_tensor(c, dtype=torch.float32).double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(e > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((e != 0) & even & torch.isfinite(e), torch.nextafter(s, away), s)
+    return s.to(torch.float32)
+
+
 def _dequant(acc: torch.Tensor, s: torch.Tensor, sw: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return acc * (s * sw) + b
+    """acc * (s * sw) + b with the product and the add fused (one rounding)."""
+    return _fma(acc, s * sw, b)
+
+
+def _light53_out(xf, a, b, res_scale, identity_scale):
+    """identity * x + res * (a + b), the first product fused with the add (contiguous NHWC)."""
+    return _fma(identity_scale, xf, res_scale * (a + b)).contiguous()
+
+
+def _light_out(xf, u, res_scale):
+    """x + res * u, fused (contiguous NHWC)."""
+    return _fma(res_scale, u, xf).contiguous()
 
 
 def light53_int8_plain(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2,
@@ -81,7 +122,7 @@ def light53_int8_plain(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, 
     tb = _quant(torch.relu(_dequant(_conv_s32(xq, wb1q), s0, sb1, bb1)), s2)
     a = _dequant(_conv_s32(ta, wa2q), s1, sa2, ba2)
     b = _dequant(_conv_s32(tb, wb2q), s2, sb2, bb2)
-    return (identity_scale * xf + res_scale * (a + b)).to(x.dtype)
+    return _light53_out(xf, a, b, res_scale, identity_scale).to(x.dtype)
 
 
 def light_int8_plain(x, w1q, s1, b1, w2q, s2, b2, act_scales, res_scale: float = 0.1):
@@ -90,7 +131,123 @@ def light_int8_plain(x, w1q, s1, b1, w2q, s2, b2, act_scales, res_scale: float =
     sx, st = act_scales[0], act_scales[1]
     t = _quant(torch.relu(_dequant(_conv_s32(_quant(xf, sx), w1q), sx, s1, b1)), st)
     u = _dequant(_conv_s32(t, w2q), st, s2, b2)
-    return (xf + res_scale * u).to(x.dtype)
+    return _light_out(xf, u, res_scale).to(x.dtype)
+
+
+# -- the TPU kernel's window grid (ops/pallas/int8_blocks.py:105-109, 221-245) --
+
+def _round8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def _win_pad(halo: int) -> int:
+    """Columns a window holds beyond its tw: 2*halo rounded up to 8."""
+    return -(-(2 * halo) // 8) * 8
+
+
+def _pick_tile(dim: int, target: int) -> int:
+    """Largest multiple of 8 that divides the 8-aligned ``dim`` and is at most ``target``."""
+    for t in range(min(target, dim) // 8 * 8, 0, -8):
+        if dim % t == 0:
+            return t
+    return dim
+
+
+def _pad_for_grid(x: torch.Tensor, halo: int) -> tuple[torch.Tensor, int, int]:
+    """Zero-pad (N, H, W, C): top/left ``halo``, bottom to h8 plus ``halo``,
+    right to w8 plus the window's remainder; returns (padded, h8, w8)."""
+    _, h, w, _ = x.shape
+    h8, w8 = _round8(h), _round8(w)
+    return F.pad(x, (0, 0, halo, (w8 - w) + _win_pad(halo) - halo, halo, (h8 - h) + halo)), h8, w8
+
+
+def window_grid(h: int, w: int, tile: tuple[int, int]) -> tuple[int, int, int, int]:
+    """(th, tw, h8, w8): the windows of an (h, w) image under ``tile``."""
+    h8, w8 = _round8(h), _round8(w)
+    return _pick_tile(h8, tile[0]), _pick_tile(w8, tile[1]), h8, w8
+
+
+def _scale_dyn(t: torch.Tensor) -> torch.Tensor:
+    """Per-window scale max(abs-max, 1e-12) / 127 of a (B, h, w, C) batch, as (B, 1, 1, 1).
+
+    As JAX computes it: XLA folds the division by the constant into a product
+    with its float32 reciprocal (the codes then divide by the scale)."""
+    return torch.clamp_min(t.abs().amax(dim=(1, 2, 3), keepdim=True), 1e-12) * _INV127
+
+
+def _quant_dyn(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Dynamic symmetric int8 codes (as float32): clamp(round(t / s), +-127)."""
+    return torch.clamp(torch.round(t / s), -127.0, 127.0)
+
+
+def _conv_valid_s32(q: torch.Tensor, wq: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """Exact VALID conv of a (B, h, w, Cin) batch of codes down to (B, oh, ow, Cout), float32."""
+    k = int(wq.shape[0])
+    q = q[:, :oh + k - 1, :ow + k - 1]
+    y = F.conv2d(q.permute(0, 3, 1, 2).to(torch.float64), wq.permute(3, 2, 0, 1).to(torch.float64))
+    return torch.round(y).permute(0, 2, 3, 1).to(torch.float32)
+
+
+class _Windows:
+    """The window batch of one block: (N*wy*wx, th + 2*halo, tw + _win_pad(halo), C)."""
+
+    def __init__(self, xf: torch.Tensor, halo: int, tile: tuple[int, int]):
+        n, self.h, self.w, c = xf.shape
+        xp, h8, w8 = _pad_for_grid(xf, halo)
+        self.th, self.tw, _, _ = window_grid(self.h, self.w, tile)
+        self.n, self.wy, self.wx = n, h8 // self.th, w8 // self.tw
+        u = xp.unfold(1, self.th + 2 * halo, self.th).unfold(2, self.tw + _win_pad(halo), self.tw)
+        self.batch = u.permute(0, 1, 2, 4, 5, 3).reshape(n * self.wy * self.wx, *u.shape[-2:], c)
+
+    def mask(self, d: int) -> torch.Tensor:
+        """1.0 where a window's (th + 2d, tw + 2d) ring, from (r0 - d, c0 - d), lies in the image."""
+        dev = self.batch.device
+        rows = (torch.arange(self.wy, device=dev)[:, None] * self.th - d
+                + torch.arange(self.th + 2 * d, device=dev)[None, :])
+        cols = (torch.arange(self.wx, device=dev)[:, None] * self.tw - d
+                + torch.arange(self.tw + 2 * d, device=dev)[None, :])
+        inside = (((rows >= 0) & (rows < self.h))[:, None, :, None]
+                  & ((cols >= 0) & (cols < self.w))[None, :, None, :])
+        m = inside.to(torch.float32).reshape(1, self.wy * self.wx, *inside.shape[-2:], 1)
+        return m.expand(self.n, -1, -1, -1, -1).reshape(-1, *inside.shape[-2:], 1)
+
+    def stitch(self, t: torch.Tensor) -> torch.Tensor:
+        """(N*wy*wx, th, tw, C) -> (N, H, W, C)."""
+        c = t.shape[-1]
+        t = t.reshape(self.n, self.wy, self.wx, self.th, self.tw, c).permute(0, 1, 3, 2, 4, 5)
+        return t.reshape(self.n, self.wy * self.th, self.wx * self.tw, c)[:, :self.h, :self.w]
+
+    def branch(self, xq, sx, w1, s1, b1, w2, s2, b2, d: int) -> torch.Tensor:
+        """conv(k1) VALID to the (th + 2d, tw + 2d) ring, dequant, relu, border
+        mask, its own abs-max scale, conv(k2) VALID to (th, tw), dequant."""
+        th, tw = self.th, self.tw
+        t = torch.relu(_dequant(_conv_valid_s32(xq, w1, th + 2 * d, tw + 2 * d), sx, s1, b1))
+        t = t * self.mask(d)
+        st = _scale_dyn(t)
+        return _dequant(_conv_valid_s32(_quant_dyn(t, st), w2, th, tw), st, s2, b2)
+
+
+def light53_int8_dynamic_plain(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2,
+                               tile: tuple[int, int] = (64, 128), res_scale: float = 0.1,
+                               identity_scale: float = 0.9):
+    """The int8 Light53 block with per-window dynamic scales over the TPU's windows."""
+    xf = x.to(torch.float32)
+    win = _Windows(xf, 3, tile)
+    sx = _scale_dyn(win.batch)
+    xq = _quant_dyn(win.batch, sx)
+    a = win.stitch(win.branch(xq, sx, wa1q, sa1, ba1, wa2q, sa2, ba2, 2))
+    b = win.stitch(win.branch(xq, sx, wb1q, sb1, bb1, wb2q, sb2, bb2, 1))
+    return _light53_out(xf, a, b, res_scale, identity_scale).to(x.dtype)
+
+
+def light_int8_dynamic_plain(x, w1q, s1, b1, w2q, s2, b2, tile: tuple[int, int] = (64, 128),
+                             res_scale: float = 0.1):
+    """The int8 Light block with per-window dynamic scales over the TPU's windows."""
+    xf = x.to(torch.float32)
+    win = _Windows(xf, 2, tile)
+    sx = _scale_dyn(win.batch)
+    u = win.stitch(win.branch(_quant_dyn(win.batch, sx), sx, w1q, s1, b1, w2q, s2, b2, 1))
+    return _light_out(xf, u, res_scale).to(x.dtype)
 
 
 def _packed(wq: torch.Tensor) -> torch.Tensor:
@@ -115,15 +272,10 @@ def _packed(wq: torch.Tensor) -> torch.Tensor:
 
 def _check(x, convs, vectors, act_scales, n_act: int) -> None:
     """Validate what both paths take; on CUDA also what the kernels take."""
-    if act_scales is None:
-        raise NotImplementedError(
-            "act_scales=None (dynamic per-window int8 scales) is not yet ported in "
-            "image_enhance_keras_tpu_torch; pass calibrated act_scales"
-        )
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got shape {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int8 blocks take bfloat16 activations, got {x.dtype}")
+    if x.dtype not in ACT_DTYPES:
+        raise TypeError(f"int8 blocks take bfloat16 or float32 activations, got {x.dtype}")
     c = int(x.shape[-1])
     for w, k in convs:
         if tuple(w.shape) != (k, k, c, c) or w.dtype != torch.int8:
@@ -131,10 +283,11 @@ def _check(x, convs, vectors, act_scales, n_act: int) -> None:
     for v in vectors:
         if tuple(v.shape) != (c,) or v.dtype != torch.float32:
             raise ValueError(f"scales and biases must be float32 ({c},), got {v.dtype} {tuple(v.shape)}")
-    if tuple(act_scales.shape) != (n_act,) or act_scales.dtype != torch.float32:
-        raise ValueError(f"act_scales must be float32 ({n_act},), got {act_scales.dtype} "
+    if act_scales is not None and (tuple(act_scales.shape) != (n_act,)
+                                   or act_scales.dtype != torch.float32):
+        raise ValueError(f"act_scales must be None or float32 ({n_act},), got {act_scales.dtype} "
                          f"{tuple(act_scales.shape)}")
-    tensors = [x, *(w for w, _ in convs), *vectors, act_scales]
+    tensors = [x, *(w for w, _ in convs), *vectors] + ([] if act_scales is None else [act_scales])
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"all tensors must be on {x.device}, got one on {t.device}")
@@ -155,36 +308,54 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _dyn_buffers(x: torch.Tensor, tile, n_branch: int, ring: int):
+    """Window grid and scratch of a dynamic launch: (th, tw, h8, w8), the
+    per-window abs-maxes [1 + n_branch][windows] and one float32 intermediate
+    (windows, th + 2*ring, tw + 2*ring, C) per branch."""
+    n, h, w, c = (int(s) for s in x.shape)
+    th, tw, h8, w8 = window_grid(h, w, tile)
+    windows = n * (h8 // th) * (w8 // tw)
+    amax = torch.empty((1 + n_branch, windows), dtype=torch.float32, device=x.device)
+    scratch = [torch.empty((windows, th + 2 * ring, tw + 2 * ring, c), dtype=torch.float32,
+                           device=x.device) for _ in range(n_branch)]
+    return (th, tw, h8, w8), amax, scratch
+
+
 def light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2,
                  res_scale: float = 0.1, identity_scale: float = 0.9,
                  tile: tuple[int, int] = (64, 128), act_scales=None):
-    """int8 Light53 block, (N, H, W, C) bf16, SAME semantics.
+    """int8 Light53 block, (N, H, W, C) bf16 or float32, SAME semantics.
 
     ``act_scales``: (3,) float32 calibrated scales (input, branch-a
-    intermediate, branch-b intermediate).  ``tile`` is accepted for the JAX
-    signature; with static scales it does not change the result.
+    intermediate, branch-b intermediate), with which ``tile`` does not
+    change the result; None quantizes every ``tile`` window dynamically.
     """
-    del tile
     _check(x, [(wa1q, 3), (wa2q, 5), (wb1q, 5), (wb2q, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, 3)
+    convs = (wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2)
     if x.device.type == "cpu":
-        return light53_int8_plain(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1,
-                                  wb2q, sb2, bb2, act_scales, res_scale, identity_scale)
+        if act_scales is None:
+            return light53_int8_dynamic_plain(x, *convs, tile, res_scale, identity_scale)
+        return light53_int8_plain(x, *convs, act_scales, res_scale, identity_scale)
     lib = _build.library("int8_blocks")
     n, h, w, c = (int(s) for s in x.shape)
-    ta = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    tb = torch.empty_like(ta)
+    f32 = int(x.dtype == torch.float32)
+    weights = [(_packed(q).data_ptr(), s.data_ptr(), b.data_ptr())
+               for q, s, b in (convs[0:3], convs[3:6], convs[6:9], convs[9:12])]
+    wptrs = [p for triple in weights for p in triple]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        code = lib.iek_light53_int8(
-            x.data_ptr(), act_scales.data_ptr(),
-            _packed(wa1q).data_ptr(), sa1.data_ptr(), ba1.data_ptr(),
-            _packed(wa2q).data_ptr(), sa2.data_ptr(), ba2.data_ptr(),
-            _packed(wb1q).data_ptr(), sb1.data_ptr(), bb1.data_ptr(),
-            _packed(wb2q).data_ptr(), sb2.data_ptr(), bb2.data_ptr(),
-            ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
-            n, h, w, c, float(res_scale), float(identity_scale), _stream(x),
-        )
+        if act_scales is None:
+            grid, amax, (ta, tb) = _dyn_buffers(x, tile, 2, 2)
+            code = lib.iek_light53_int8_dynamic(
+                x.data_ptr(), *wptrs, amax.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+                n, h, w, c, *grid, f32, float(res_scale), float(identity_scale), _stream(x))
+        else:
+            ta = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+            tb = torch.empty_like(ta)
+            code = lib.iek_light53_int8(
+                x.data_ptr(), act_scales.data_ptr(), *wptrs, ta.data_ptr(), tb.data_ptr(),
+                out.data_ptr(), n, h, w, c, f32, float(res_scale), float(identity_scale), _stream(x))
     _build.check(lib, code, "light53_int8")
     light53_int8.launches += 1
     return out
@@ -192,25 +363,33 @@ def light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, b
 
 def light_int8(x, w1q, s1, b1, w2q, s2, b2, res_scale: float = 0.1,
                tile: tuple[int, int] = (64, 128), act_scales=None):
-    """int8 Light block (conv3-relu-conv3 residual), (N, H, W, C) bf16, SAME.
+    """int8 Light block (conv3-relu-conv3 residual), (N, H, W, C) bf16 or float32, SAME.
 
-    ``act_scales``: (2,) float32 calibrated scales (input, intermediate).
+    ``act_scales``: (2,) float32 calibrated scales (input, intermediate);
+    None quantizes every ``tile`` window dynamically.
     """
-    del tile
     _check(x, [(w1q, 3), (w2q, 3)], [s1, b1, s2, b2], act_scales, 2)
     if x.device.type == "cpu":
+        if act_scales is None:
+            return light_int8_dynamic_plain(x, w1q, s1, b1, w2q, s2, b2, tile, res_scale)
         return light_int8_plain(x, w1q, s1, b1, w2q, s2, b2, act_scales, res_scale)
     lib = _build.library("int8_blocks")
     n, h, w, c = (int(s) for s in x.shape)
-    t = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    f32 = int(x.dtype == torch.float32)
+    wptrs = [_packed(w1q).data_ptr(), s1.data_ptr(), b1.data_ptr(),
+             _packed(w2q).data_ptr(), s2.data_ptr(), b2.data_ptr()]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        code = lib.iek_light_int8(
-            x.data_ptr(), act_scales.data_ptr(),
-            _packed(w1q).data_ptr(), s1.data_ptr(), b1.data_ptr(),
-            _packed(w2q).data_ptr(), s2.data_ptr(), b2.data_ptr(),
-            t.data_ptr(), out.data_ptr(), n, h, w, c, float(res_scale), _stream(x),
-        )
+        if act_scales is None:
+            grid, amax, (t,) = _dyn_buffers(x, tile, 1, 1)
+            code = lib.iek_light_int8_dynamic(
+                x.data_ptr(), *wptrs, amax.data_ptr(), t.data_ptr(), out.data_ptr(),
+                n, h, w, c, *grid, f32, float(res_scale), _stream(x))
+        else:
+            t = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+            code = lib.iek_light_int8(
+                x.data_ptr(), act_scales.data_ptr(), *wptrs, t.data_ptr(), out.data_ptr(),
+                n, h, w, c, f32, float(res_scale), _stream(x))
     _build.check(lib, code, "light_int8")
     light_int8.launches += 1
     return out

@@ -123,6 +123,92 @@ def test_int8_kernels_bit_equal_plain_on_ragged_shapes(which, hw):
     assert torch.equal(got, plain(x, *args, act))
 
 
+#: (H, W), tile of the int8 kernels' dynamic form: one 96x96 patch (two 48x96
+#: windows), ragged crops, tiles of 8 (many windows, rings wider than a
+#: window), and a window narrower than one 64-column conv tile
+INT8_DYNAMIC_CASES = [((96, 96), (64, 128)), ((57, 86), (64, 128)), ((13, 21), (8, 8)),
+                      ((40, 24), (8, 16)), ((5, 70), (64, 128)), ((86, 57), (16, 24))]
+
+
+def _int8_inputs(which, hw, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(2, *hw, C)) * 0.5).astype(np.float32)).cuda().to(dtype)
+    args = []
+    for k in (3, 5, 5, 3) if which == "light53" else (3, 3):
+        q, s = int8_blocks.quantize_weights_per_channel(
+            torch.from_numpy((rng.normal(size=(k, k, C, C)) * 0.05).astype(np.float32)).cuda())
+        args += [q, s, torch.from_numpy((rng.normal(size=C) * 0.01).astype(np.float32)).cuda()]
+    return x, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", INT8_DYNAMIC_CASES)
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_int8_dynamic_kernels_bit_equal_plain(which, case, dtype):
+    """K4/K5 with per-window dynamic scales (three launches over the TPU's
+    windows), bf16 and float32 x, bit-equal to the plain versions, which
+    quantize over the same windows; a spike in the columns only the input
+    abs-max spans (right of what the convs read) must move the result as it
+    moves the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    hw, tile = case
+    x, args = _int8_inputs(which, hw, dtype, hw[0] + hw[1])
+    wrapper, plain = {"light53": (int8_blocks.light53_int8, int8_blocks.light53_int8_dynamic_plain),
+                      "light": (int8_blocks.light_int8, int8_blocks.light_int8_dynamic_plain)}[which]
+    th, tw, _, _ = int8_blocks.window_grid(*hw, tile)
+    col = tw + (4 if which == "light53" else 5)  # read by window 0's abs-max, not by its convs
+    if col < hw[1]:
+        x[0, 0, col] = 40.0
+    before = wrapper.launches
+    got = wrapper(x, *args, tile=tile)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.dtype == dtype
+    want = plain(x, *args, tile)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_int8_dynamic_kernels_divide_at_ties(which):
+    """One window whose input values sit on exact ties of its dynamic scale
+    ((k + 1/2) * s): the kernels' codes divide (round half to even), as the
+    plain versions' do, where a product with 1/s lands off some ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    rng = np.random.default_rng(11)
+    amax = np.float32(1.2345678)
+    s = np.float32(amax * np.float32(1.0 / 127.0))
+    k = rng.integers(-126, 126, 8 * 8 * C).astype(np.float32)
+    xn = ((k + np.float32(0.5)) * s).astype(np.float32)
+    xn[0] = amax
+    assert (np.round(xn / s) != np.round(xn * (np.float32(1) / s))).any()
+    x = torch.from_numpy(xn.reshape(1, 8, 8, C)).cuda()
+    _, args = _int8_inputs(which, (8, 8), torch.float32, 12)
+    wrapper, plain = {"light53": (int8_blocks.light53_int8, int8_blocks.light53_int8_dynamic_plain),
+                      "light": (int8_blocks.light_int8, int8_blocks.light_int8_dynamic_plain)}[which]
+    assert torch.equal(wrapper(x, *args, tile=(8, 8)), plain(x, *args, (8, 8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(57, 86), (70, 70), (5, 70), (8, 64)])
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_int8_static_kernels_float32_bit_equal_plain(which, hw):
+    """K4/K5 with calibrated scales on float32 x (two epilogue passes of 64
+    channels), bit-equal to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    x, args = _int8_inputs(which, hw, torch.float32, hw[0])
+    act = torch.tensor([x.abs().max().item() / 127, 0.03, 0.05], device="cuda")
+    wrapper, plain = {"light53": (int8_blocks.light53_int8, int8_blocks.light53_int8_plain),
+                      "light": (int8_blocks.light_int8, int8_blocks.light_int8_plain)}[which]
+    act = act if which == "light53" else act[:2].contiguous()
+    got = wrapper(x, *args, act_scales=act)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, plain(x, *args, act))
+
+
 # -- the bf16 forms of K1/K2 and K6/K7 ------------------------------------------
 #: one bf16 block, or a chain of one, against its plain version (both sum in
 #: float32, in other orders within a tap): at most 1e-3 of the elements
