@@ -7,8 +7,9 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), in all 16 kernel functions
-     but the dynamic form's two abs-max passes, the block and chain kernels'
+     must hold wgmma (GMMA) and no dp4a (IDP), in all 17 kernel functions
+     but the dynamic form's two abs-max passes and its requantization pass,
+     the block and chain kernels'
      SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
      forms' included;
   2. each kernel at the main paths' shapes against its plain PyTorch
@@ -32,7 +33,9 @@ Phases (each prints its elapsed seconds):
        bf16 inputs from the int8 path itself): the int8 Light53 block at
        (9,96,96,128) and at the tail's (9,384,384,128) (K4), the int8 Light
        block (K5), and the TF1 x4 upsample in bf16 and float32 (K3), each
-       bit-equal to its plain version; K4 and K5 also on ragged crops of
+       bit-equal to its plain version (K3 with its bytes/s and share of
+       the byte bound per call and in device time);
+       K4 and K5 also on ragged crops of
        the path's input (1x57x86, 1x70x70, 1x86x57, 1x5x70, 1x8x64: widths
        above and below one 64-column tile); one yardstick line, cuDNN's
        bf16 ``F.conv2d`` of the four Light53 convs at the tail's shape;
@@ -937,14 +940,15 @@ def main() -> int:
     if sass["int8_blocks"] is not None and (sass["int8_blocks"]["GMMA"] == 0 or sass["int8_blocks"]["IDP"] > 0):
         failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass['int8_blocks']}")
     if sass["int8_blocks"] is not None:
-        # every int8 kernel function but the dynamic form's abs-max pass runs its convs on wgmma
+        # every int8 kernel function but the dynamic form's abs-max passes and
+        # its requantization pass runs its convs on wgmma
         fns8 = sass["int8_blocks"]["functions"]
         for k, v in sorted(fns8.items()):
             print(f"[chip_smoke] int8 kernel function {k[:110]}: {v} GMMA lines", flush=True)
-        without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k]
-        if without or len(fns8) != 16:
-            failures.append(f"int8 kernels: expected 16 kernel functions, wgmma in all but the 2 abs-max "
-                            f"passes; got {len(fns8)}, none in {without}")
+        without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k and "requant" not in k]
+        if without or len(fns8) != 17:
+            failures.append(f"int8 kernels: expected 17 kernel functions, wgmma in all but the 2 abs-max "
+                            f"passes and the requantization pass; got {len(fns8)}, none in {without}")
     # every kernel function of the block and chain libraries, the bf16 forms'
     # (two launches of two block kinds, one chain kernel of two kinds) included
     for stem, what, n_bf16 in (("tower", "chain", 2), ("blocks", "block", 4)):
@@ -1294,6 +1298,19 @@ def main() -> int:
                 print(f"[chip_smoke] {name} ragged {tuple(xr.shape)}: bit-equal {same}", flush=True)
                 if not same:
                     failures.append(f"{name} on a ragged {tuple(xr.shape)} input: not bit-equal to plain")
+        # K3 (held bit-equal above): its bytes/s and share of the byte bound per
+        # call and in device time; its first version's times are in PERF.md §6
+        for name, xk in (("upsample_phase_tf1", xu8), ("upsample_phase_tf1_f32", xu8.float().contiguous())):
+            row = i8_rows[name]
+            nbytes = 17.0 * xk.numel() * xk.element_size()
+            # the kernel's own device time (the per-call time holds the wrapper's host time)
+            row["device_ms"] = sum(_launch_breakdown(lambda: kup.upsample_phase_tf1_kernel(xk, 4)).values())
+            row["gbps"] = nbytes / (row["ms"] * 1e-3) / 1e9
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(f"[chip_smoke] {name} {tuple(xk.shape)}: {row['ms']:.4f} ms per call, {row['gbps']:.1f} GB/s, "
+                  f"{row['bound_share']:.1%} of the byte bound {row['bound_ms']:.4f} ms; device time "
+                  f"{row['device_ms']:.4f} ms, {nbytes / (row['device_ms'] * 1e-3) / 1e9:.1f} GB/s, "
+                  f"{row['bound_ms'] / row['device_ms']:.1%} of the bound, on {gpu}", flush=True)
         # a yardstick, not the same function: cuDNN's bf16 convolutions of
         # the four Light53 convs (float weights) at the tail's shape
         xc = xh8.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
@@ -1340,7 +1357,9 @@ def main() -> int:
                                                               "max_abs_err", "bit_equal", "tops", "sass_gmma")})
             extra["f32_name"] = f"{name}_f32"
         if name == "upsample_phase_tf1":
-            extra = {f"f32_{k}": up32[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+            keys = ("device_ms", "gbps", "bound_share")
+            extra = {f"f32_{k}": up32[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err") + keys}
+            extra.update({k: row[k] for k in keys})
         rows.append({
             "name": name, "route": "cuda",
             "source": "image_enhance_keras_tpu_torch/csrc/"

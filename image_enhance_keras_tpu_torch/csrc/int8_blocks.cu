@@ -17,7 +17,7 @@
 // the epilogue run in float32, rounded once to T (to nearest even).
 //
 // Rounding points.  Each float step is one rounded operation, written out
-// (__fmul_rn, __fadd_rn, __fdiv_rn, __fmaf_rn), where XLA evaluates the TPU
+// (__fmul_rn, __fadd_rn, __fmaf_rn), where XLA evaluates the TPU
 // kernel's jaxpr on the CPU (interpret mode, the reference the tests hold
 // to): it fuses dq(acc) + b and the epilogue's first product with its add
 // into FMAs, out = fma(0.9, x, 0.1*(a+b)) and fma(0.1, u, x).  Build without
@@ -38,7 +38,8 @@
 // Dynamic scales (act_scales=None): every TPU window quantizes with its own
 // abs-max, s = max(amax, 1e-12) * float(1/127) (XLA folds the division by
 // the constant into that product) and q(v, s) = clamp(rint(v / s), -127,
-// 127), an IEEE division.  The windows are th x tw tiles of the image padded
+// 127) of the rounded IEEE quotient (codes8_div rounds it without a
+// division).  The windows are th x tw tiles of the image padded
 // to multiples of 8 (th, tw passed in); the input abs-max spans the window
 // the TPU DMAs, rows [r0-halo, r0+th+halo) and columns [c0-halo,
 // c0+tw+win_pad-halo) with win_pad = 2*halo rounded up to 8, more columns
@@ -46,21 +47,34 @@
 // window's extended ring (e = 2 for Light53, whose branch b uses the inner
 // ring of 1; e = 1 for Light), masked to zero outside the image, and
 // requantized with its own abs-max.  One intermediate pixel near a window
-// edge so has different codes in the two windows that hold it.  Three
+// edge so has different codes in the two windows that hold it.  Four
 // launches per block:
 //   1. each window's input abs-max, as float bits by atomicMax (non-negative
 //      floats order as their bits do, so any order gives the same max);
-//   2. per window, the first conv(s) over the extended ring (th+2e) x
-//      (tw+2e), from x quantized with the window's scale, into a window-major
-//      float32 scratch [window][th+2e][tw+2e][C] (each window holds its own
-//      copy of the ring), with the window's intermediate abs-max by atomicMax;
-//   3. per window, the scratch requantized with that abs-max while it is
-//      staged, the second conv(s) VALID down to th x tw, and the epilogue.
-// The intermediate is stored, not recomputed in launch 3: the first convs
-// run once, for 2 x 4 bytes of traffic per ring value (at the HR tail's
-// (9,384,384,128) the two rings are 2 x 0.74 GB), where recomputing them
-// would double their products.
-//
+//   2. the ring launch: per window, the first conv(s) over the extended ring
+//      (th+2e) x (tw+2e), from x quantized with the window's scale, into a
+//      window-major float32 ring [window][th+2e][tw+2e][C] (each window holds
+//      its own copy of the ring), with the window's intermediate abs-max by
+//      atomicMax.  Its M tiles are 64 consecutive raster positions of the
+//      ring, staged at a pitch of (ring width + KW - 1) columns, so that a
+//      tap moves the descriptor's start by ky * pitch + kx pixels and the
+//      tiles overhang the ring by about 1.05x (4 x 64 tiles: 1.28x at the
+//      LR windows' 100-column rings, 1.45x at the HR windows' 132); the
+//      positions in the pitch's KW - 1 extra columns are computed but neither
+//      stored nor counted.  Rings wider than PITCH_MAX - KW + 1 columns are
+//      cut into column segments.  The rings leave through shared memory as
+//      16-byte stores, 256 contiguous bytes a position;
+//   3. the requantization pass: every ring value quantized once with its
+//      window's scale, into int8 code rings of the same shape (stream order
+//      gives it every window's finished abs-max);
+//   4. per window, the second conv(s) VALID over the code rings, staged by
+//      cp.async exactly as the static launch B stages its scratch, dequantized
+//      with the window's intermediate scales, and the epilogue.
+// The intermediate is stored, not recomputed: the first convs run once, for
+// 2 x 4 bytes of traffic per ring value and 1 + 1 more for its code (at the
+// HR tail's (9,384,384,128) the two float32 rings are 2 x 0.74 GB), where
+// recomputing them would double their products.
+
 // What bounds it on an H100: operations.  A Light53 block does 68 taps of a
 // C x C product per pixel (2*68*C^2 int8 ops), a Light block 18; against the
 // 1,979 TOPS dense int8 tensor-core peak and 3.35 TB/s that is far above the
@@ -86,20 +100,21 @@
 //     wgmma group stays in flight while the next is issued.
 //   * Epilogues go through shared memory: the sums' fragments are written
 //     there and leave (or, for x, arrive) as coalesced 16-byte pieces, in
-//     passes of 256 bytes of channels a pixel (bf16: one pass, float32: two).
-//     The dynamic rings leave straight from the fragments (32 contiguous
-//     bytes a quad of lanes).
+//     passes of 256 bytes of channels a pixel (bf16: one pass, float32 and
+//     the dynamic float32 rings: two).
 //   * Static quantization uses no conversion instruction (code8): those run
 //     at a quarter of the float rate.
 //   * Ragged edges: out-of-image window positions are zero codes and the
 //     epilogue masks pixels outside the image (96 = 64 + 32 columns); a
-//     dynamic window's tiles stop at its th x tw, its ring's at the ring.
+//     dynamic window's tiles stop at its th x tw, its ring's raster
+//     positions at the ring.
 // Launch B of Light53 parks the dequantized branch-a sums in shared memory
 // (128 KB) while the branch-b conv runs, so 128 sums a thread stay live.
 // What is left on the table (PERF.md): the staging and the epilogues do not
 // overlap the products (one block per SM), the weight stream shares the
-// shared-memory bandwidth with the operand reads, and the dynamic form's
-// 64-column tiles overhang its rings (tw + 4 = 100 or 132 columns).
+// shared-memory bandwidth with the operand reads, and the dynamic ring
+// launch stages and quantizes about 3 input pixels a position (halo rows of
+// the raster band).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,11 +157,22 @@ constexpr int PITCH16 = PASS + 16;
 constexpr int VEC_OFF = WIN_BYTES + STAGES * B_TILE;
 constexpr int EXTRA_OFF = VEC_OFF + 4 * C * 4;
 constexpr int SMEM_FIRST = EXTRA_OFF + TILE_PIX * PITCH8;
-constexpr int SMEM_DYN_FIRST = EXTRA_OFF;
 constexpr int SMEM_LIGHT_B = EXTRA_OFF + TILE_PIX * PITCH16;
 constexpr int SMEM_LIGHT53_B = EXTRA_OFF + MT * ACC * THREADS * 4;
 
+// The dynamic ring launch's window: its M tiles are 256 consecutive raster
+// positions of a ring segment staged at a pitch of at most PITCH_MAX pixels
+// (segment width + KW - 1), so the block reads TILE_PIX + (KW-1) * (pitch+1)
+// staged pixels; [window][weight ring][scales, biases][epilogue staging]
+constexpr int PITCH_MAX = 136;
+constexpr int SP_MAX = TILE_PIX + (KMAX - 1) * (PITCH_MAX + 1);
+constexpr int PLANE_R = SP_MAX * 16 + 16;
+constexpr int R_VEC_OFF = PLANES * PLANE_R + STAGES * B_TILE;
+constexpr int R_STAGE_OFF = R_VEC_OFF + 4 * C * 4;
+constexpr int SMEM_RING = R_STAGE_OFF + TILE_PIX * PITCH16;
+
 static_assert(THREADS * 16 == B_TILE, "one 16-byte copy per thread fills a weight tile");
+static_assert(SMEM_RING <= 232448, "the ring launch fits one block's shared memory");
 static_assert(TILE_PIX * PITCH16 <= WIN_BYTES, "a staged epilogue pass fits the window's space");
 static_assert(SMEM_LIGHT53_B <= 232448 && SMEM_LIGHT_B <= 232448, "fits one block's shared memory");
 
@@ -180,6 +206,23 @@ struct Windows {
   __device__ __forceinline__ int c0() const { return blockIdx.z % wx * tw; }
 };
 
+// A window's extended ring (eh x ew) cut into nseg column segments of sw
+// columns (the last may hold fewer), each walked in raster order at a pitch
+// of sw + KW - 1 staged columns by nb thread blocks of TILE_PIX positions.
+struct RingGrid {
+  int sw, pitch, nb, nseg;
+};
+
+inline RingGrid ring_grid(int eh, int ew, int kw) {
+  const int maxw = PITCH_MAX - (kw - 1);
+  RingGrid r;
+  r.nseg = (ew + maxw - 1) / maxw;
+  r.sw = (ew + r.nseg - 1) / r.nseg;
+  r.pitch = r.sw + kw - 1;
+  r.nb = ((eh - 1) * r.pitch + r.sw + TILE_PIX - 1) / TILE_PIX;  // the last row's junk columns need no block
+  return r;
+}
+
 // Columns the TPU DMAs beyond tw: 2*halo rounded up to 8.
 __host__ __device__ constexpr int win_pad(int halo) { return (2 * halo + 7) / 8 * 8; }
 
@@ -193,10 +236,39 @@ __device__ __forceinline__ unsigned code8(float v, float inv) {
   return __float_as_uint(__fadd_rn(c, 12582912.f));
 }
 
-// The dynamic code clamp(rint(v / s), -127, 127), the same way.
-__device__ __forceinline__ unsigned code8_div(float v, float s) {
-  const float c = fminf(fmaxf(__fdiv_rn(v, s), -127.f), 127.f);
-  return __float_as_uint(__fadd_rn(c, 12582912.f));
+// The dynamic codes clamp(rint(v / s), -127, 127) of the rounded quotients
+// v / s of N values, the same way, without a division.  With rs = 1 / s
+// rounded, q0 = v * rs rounded lies within |v / s| * 2^-23 of v / s, and the
+// rounded quotient within |v / s| * 2^-24; wherever |q0| <= 127 the two so
+// differ by under 2^-16 + 2^-17, and no half-integer (where the code steps)
+// lies between them unless q0 lies within 2^-15 of one: then q0's code is
+// the quotient's.  |q0| > 127 (infinities included) clamps as the quotient
+// does, and NaN gives -127 both ways.  Near a step (values at half of the
+// abs-max, for one, land there) the quotient is rounded exactly by two
+// corrections: q1 = q0 + (v - q0 s) rs is within one ulp of v / s, so v - q1
+// s is exact in an FMA and q1 + (v - q1 s) rs rounds to the rounded quotient
+// (Markstein); no intermediate underflows, since |v / s| >= 1/2 there.
+template <int N>
+__device__ __forceinline__ void codes8_div(const float (&v)[N], float s, float rs,
+                                           unsigned (&q)[N]) {
+  unsigned near = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float c = fminf(fmaxf(__fmul_rn(v[i], rs), -127.f), 127.f);
+    const float r = __fadd_rn(c, 12582912.f);
+    near |= (unsigned)(fabsf(__fsub_rn(c, __fsub_rn(r, 12582912.f))) >= 0.5f - 0x1p-15f) << i;
+    q[i] = __float_as_uint(r);
+  }
+  if (near) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (!((near >> i) & 1u)) continue;
+      const float q0 = __fmul_rn(v[i], rs);
+      const float q1 = __fmaf_rn(__fmaf_rn(-q0, s, v[i]), rs, q0);
+      const float q2 = __fmaf_rn(__fmaf_rn(-q1, s, v[i]), rs, q1);
+      q[i] = __float_as_uint(__fadd_rn(fminf(fmaxf(q2, -127.f), 127.f), 12582912.f));
+    }
+  }
 }
 
 // A dynamic scale from an abs-max: max(amax, 1e-12) * float(1/127).
@@ -281,17 +353,21 @@ struct Act<float> {
 
 // Sources of the staged input window: 16 channels of one pixel as 16 bytes.
 // Values of type T quantized on the fly: static (s = 1 / scale, multiplied)
-// or dynamic (s = the scale, divided).
+// or dynamic (s = the scale, divided; rs = 1 / s rounded, see codes8_div).
 template <typename T, bool DYN>
 struct QuantSrc {
   const T* x;
-  float s;
+  float s, rs;
   __device__ __forceinline__ int4 quant16(const uint4 (&r)[Act<T>::LOADS]) const {
     float f[16];
     Act<T>::to_floats(r, f);
     unsigned q[16];
+    if constexpr (DYN) {
+      codes8_div(f, s, rs, q);
+    } else {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) q[i] = DYN ? code8_div(f[i], s) : code8(f[i], s);
+      for (int i = 0; i < 16; ++i) q[i] = code8(f[i], s);
+    }
     return make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
                      pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
   }
@@ -458,6 +534,69 @@ __device__ __forceinline__ void stage_window(uint8_t* win, const QuantSrc<T, DYN
   }
 }
 
+// Where a conv's A operand lies in shared memory.  TileGeo: a 4 x 64 tile of
+// an H x W source (an image, or the window-major rings with n the window),
+// staged as TILE_H + KW - 1 rows of WIN_W pixels a plane; M tile mt is output
+// row mt.  RasterGeo: TILE_PIX consecutive raster positions p0.. of a ring
+// segment whose rows are `pitch` pixels apart; staged pixel q is input
+// raster position p0 + q, image pixel (y0 + (p0+q) / pitch, x0 + (p0+q) %
+// pitch) of image n; M tile mt is positions 64 mt .. 64 mt + 63, and a tap
+// (ky, kx) moves the start by ky * pitch + kx pixels.
+struct TileGeo {
+  static constexpr int PLANE_B = PLANE;
+  Tile t;
+  int H, W;
+  __device__ __forceinline__ int a_pix(int mt, int ky, int kx) const {
+    return (mt + ky) * WIN_W + kx;
+  }
+  template <int KW, typename Src>
+  __device__ __forceinline__ void stage(uint8_t* win, const Src& src) const {
+    stage_window<KW>(win, src, t, H, W);
+  }
+};
+
+struct RasterGeo {
+  static constexpr int PLANE_B = PLANE_R;
+  int n, p0, pitch, y0, x0, H, W;
+  __device__ __forceinline__ int a_pix(int mt, int ky, int kx) const {
+    return mt * TILE_W + ky * pitch + kx;
+  }
+  // x quantized with the window's dynamic scale on the way (TILE_PIX + (KW-1)
+  // * (pitch+1) pixels, zeros outside the image); loads of WB items in flight
+  template <int KW, typename T>
+  __device__ __forceinline__ void stage(uint8_t* win, const QuantSrc<T, true>& src) const {
+    constexpr int L = Act<T>::LOADS;
+    constexpr int WB = 18 / L;
+    const int items = (TILE_PIX + (KW - 1) * (pitch + 1)) * PLANES;
+    for (int b0 = threadIdx.x; b0 < items; b0 += WB * THREADS) {
+      uint4 raw[WB][L];
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+#pragma unroll
+        for (int l = 0; l < L; ++l) raw[u][l] = make_uint4(0, 0, 0, 0);
+        const int i = b0 + u * THREADS;
+        if (i >= items) continue;
+        const int pos = p0 + i / PLANES;
+        const int iy = pos / pitch;
+        const int gy = y0 + iy, gx = x0 + pos - iy * pitch;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          const uint4* p = reinterpret_cast<const uint4*>(
+              src.x + (((size_t)n * H + gy) * W + gx) * C + (i % PLANES) * 16);
+#pragma unroll
+          for (int l = 0; l < L; ++l) raw[u][l] = __ldg(p + l);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+        const int i = b0 + u * THREADS;
+        if (i >= items) continue;
+        *reinterpret_cast<int4*>(win + (i % PLANES) * PLANE_R + (i / PLANES) * 16) =
+            src.quant16(raw[u]);
+      }
+    }
+  }
+};
+
 // Weight tile s (of the (tap, 32-channel step) sequence) into its ring slot.
 __device__ __forceinline__ void load_b(uint8_t* ring, const int8_t* wgt, int s) {
   cp_async16(ring + (s % STAGES) * B_TILE + threadIdx.x * 16,
@@ -471,24 +610,23 @@ __device__ __forceinline__ void load_b(uint8_t* ring, const int8_t* wgt, int s) 
 // cp.async groups: the int8 window (if any), then one per weight tile, so
 // that at step s every group up to tile s has landed when at most
 // STAGES - 3 are pending.
-template <int K, int KW, bool STAGE, typename Src>
+template <int K, int KW, bool STAGE, typename Geo, typename Src>
 __device__ __forceinline__ void conv_s8(int (&acc)[MT][ACC], uint8_t* smem, const Src& src,
-                                        const int8_t* __restrict__ wgt, const Tile& t, int H,
-                                        int W) {
+                                        const int8_t* __restrict__ wgt, const Geo& geo) {
   constexpr int STEPS = K * K * CHUNKS;
   constexpr int D = (KW - K) / 2;  // the window's halo beyond this conv's
   constexpr bool kAsyncWindow = std::is_same<Src, I8Src>::value;
   static_assert(STEPS >= STAGES - 2, "the prologue fits the sequence");
   uint8_t* win = smem;
-  uint8_t* ring = smem + WIN_BYTES;
+  uint8_t* ring = smem + PLANES * Geo::PLANE_B;
   __syncthreads();  // a previous conv or epilogue has finished with shared memory
-  if constexpr (STAGE && kAsyncWindow) stage_window<KW>(win, src, t, H, W);
+  if constexpr (STAGE && kAsyncWindow) geo.template stage<KW>(win, src);
 #pragma unroll
   for (int s = 0; s < STAGES - 2; ++s) {
     load_b(ring, wgt, s);
     cp_async_commit();
   }
-  if constexpr (STAGE && !kAsyncWindow) stage_window<KW>(win, src, t, H, W);
+  if constexpr (STAGE && !kAsyncWindow) geo.template stage<KW>(win, src);
 #pragma unroll
   for (int j = 0; j < MT; ++j)
 #pragma unroll
@@ -514,8 +652,8 @@ __device__ __forceinline__ void conv_s8(int (&acc)[MT][ACC], uint8_t* smem, cons
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
-      const uint64_t da =
-          desc(win_a + 2 * chunk * PLANE + ((row0 + j + ky + D) * WIN_W + kx + D) * 16, PLANE, 128);
+      const uint64_t da = desc(win_a + 2 * chunk * Geo::PLANE_B + geo.a_pix(row0 + j, ky + D, kx + D) * 16,
+                               Geo::PLANE_B, 128);
       wgmma_s8(acc[j], da, db);
     }
     wgmma_commit();
@@ -622,37 +760,63 @@ __device__ __forceinline__ void atomic_max_block(float m, float* amax) {
     atomicMax(reinterpret_cast<unsigned*>(amax), __float_as_uint(m));
 }
 
-// Dynamic launch 2 epilogue: v = relu(dq(acc) + b), zero outside the image
-// and outside [ring, eh - ring) x [ring, ew - ring) of the window's
-// extended ring, as float32 to the window's scratch dst[eh][ew][C] at the
-// tile's ring coordinates (ey0, ex0) (those inside eh x ew), and the
-// window's abs-max of v into *amax.  t is the tile in image coordinates.
+// Ring launch epilogue: v = relu(dq(acc) + b), zero outside the image and
+// outside [ring, eh - ring) x [ring, ew - ring) of the window's extended
+// ring (e = its width beyond the window), as float32 to the window's ring
+// dst[eh][ew][C]; the block's positions are raster positions geo.p0 + pos of
+// the segment from ring column cs, sw columns wide (positions in the pitch's
+// other columns are neither stored nor counted).  The sums pass through st
+// in two passes of 64 channels (TILE_PIX x PITCH16 bytes) and leave as
+// 16-byte pieces, 256 contiguous bytes a position; the abs-max of v goes
+// into *amax.
 __device__ __forceinline__ void emit_ring(const int (&acc)[MT][ACC], const float* vec, float* dst,
-                                          int ey0, int ex0, int eh, int ew, int ring,
-                                          const Tile& t, int H, int W, float* amax) {
+                                          const RasterGeo& geo, int e, int cs, int sw, int eh,
+                                          int ew, int ring, uint8_t* st, float* amax) {
+  constexpr int CP = PASS / 4;  // float channels a pass
   const Frag f;
+  bool keep[MT][2];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = geo.p0 + f.p0 + j * TILE_W + 8 * h;
+      const int ey = p / geo.pitch, lx = p - ey * geo.pitch, ex = cs + lx;
+      // ring pixel (ey, ex) is staged pixel (ey + e, lx + e)
+      const int gy = geo.y0 + e + ey, gx = geo.x0 + e + lx;
+      keep[j][h] = lx < sw && ey >= ring && ey < eh - ring && ex >= ring && ex < ew - ring &&
+                   gy >= 0 && gy < geo.H && gx >= 0 && gx < geo.W;
+    }
   float m = 0.f;
+  uint8_t* db = reinterpret_cast<uint8_t*>(dst);
 #pragma unroll
-  for (int n8 = 0; n8 < C / 8; ++n8) {
-    const int co = n8 * 8 + f.cq;
-    const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
+  for (int pass = 0; pass < C / CP; ++pass) {
 #pragma unroll
-    for (int j = 0; j < MT; ++j)
+    for (int n8 = pass * CP / 8; n8 < (pass + 1) * CP / 8; ++n8) {
+      const int co = n8 * 8 + f.cq;
+      const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = f.p0 + j * TILE_W + 8 * h;
-        const int py = p / TILE_W, px = p % TILE_W;
-        const int ey = ey0 + py, ex = ex0 + px;
-        if (ey >= eh || ex >= ew) continue;
-        const int gy = t.y0 + py, gx = t.x0 + px;
-        const bool keep = ey >= ring && ey < eh - ring && ex >= ring && ex < ew - ring &&
-                          gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const int i = n8 * 4 + h * 2;
-        const float v0 = keep ? fmaxf(dequant(acc[j][i], sw0, b0), 0.f) : 0.f;
-        const float v1 = keep ? fmaxf(dequant(acc[j][i + 1], sw1, b1), 0.f) : 0.f;
-        *reinterpret_cast<float2*>(dst + ((size_t)ey * ew + ex) * C + co) = make_float2(v0, v1);
-        m = fmaxf(m, fmaxf(v0, v1));
-      }
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = n8 * 4 + h * 2;
+          const float v0 = keep[j][h] ? fmaxf(dequant(acc[j][i], sw0, b0), 0.f) : 0.f;
+          const float v1 = keep[j][h] ? fmaxf(dequant(acc[j][i + 1], sw1, b1), 0.f) : 0.f;
+          *reinterpret_cast<float2*>(st + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + (co - pass * CP) * 4) =
+              make_float2(v0, v1);
+          m = fmaxf(m, fmaxf(v0, v1));
+        }
+    }
+    __syncthreads();
+    constexpr int PIECES = PASS / 16;
+    for (int i = threadIdx.x; i < TILE_PIX * PIECES; i += THREADS) {
+      const int pos = i / PIECES, piece = i - pos * PIECES;
+      const int p = geo.p0 + pos;
+      const int ey = p / geo.pitch, lx = p - ey * geo.pitch;
+      if (lx < sw && ey < eh && cs + lx < ew)
+        *reinterpret_cast<int4*>(db + (((size_t)ey * ew + cs + lx) * C + pass * CP) * 4 + piece * 16) =
+            *reinterpret_cast<const int4*>(st + pos * PITCH16 + piece * 16);
+    }
+    __syncthreads();  // st is read out before it is written again
   }
   atomic_max_block(m, amax);
 }
@@ -749,15 +913,15 @@ i8_first_kernel(const T* __restrict__ x, const float* __restrict__ act,
   const Tile t = tile_of_block(W);
   const float sx = __ldg(act);
   stage_vecs(vec, sx, s3, b3, sx, s5, b5);
-  const QuantSrc<T, false> src{x, __frcp_rn(sx)};
+  const QuantSrc<T, false> src{x, __frcp_rn(sx), 0.f};
   int acc[MT][ACC];
   if (w5 == nullptr) {
-    conv_s8<3, 3, true>(acc, smem, src, w3, t, H, W);
+    conv_s8<3, 3, true>(acc, smem, src, w3, TileGeo{t, H, W});
     emit_codes(acc, vec, __frcp_rn(__ldg(act + 1)), stage, t3, t, H, W);
   } else {
-    conv_s8<3, 5, true>(acc, smem, src, w3, t, H, W);
+    conv_s8<3, 5, true>(acc, smem, src, w3, TileGeo{t, H, W});
     emit_codes(acc, vec, __frcp_rn(__ldg(act + 1)), stage, t3, t, H, W);
-    conv_s8<5, 5, false>(acc, smem, src, w5, t, H, W);
+    conv_s8<5, 5, false>(acc, smem, src, w5, TileGeo{t, H, W});
     emit_codes(acc, vec + 2 * C, __frcp_rn(__ldg(act + 2)), stage, t5, t, H, W);
   }
 }
@@ -777,9 +941,9 @@ light53_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
   const Tile t = tile_of_block(W);
   stage_vecs(vec, __ldg(act + 1), sa2, ba2, __ldg(act + 2), sb2, bb2);
   int acc[MT][ACC];
-  conv_s8<5, 5, true>(acc, smem, I8Src{ta}, wa2, t, H, W);
+  conv_s8<5, 5, true>(acc, smem, I8Src{ta}, wa2, TileGeo{t, H, W});
   park_sums(acc, vec, park);
-  conv_s8<3, 3, true>(acc, smem, I8Src{tb}, wb2, t, H, W);
+  conv_s8<3, 3, true>(acc, smem, I8Src{tb}, wb2, TileGeo{t, H, W});
   // x into the window's space; outputs written over it, then out
   residual_epilogue<T, true, false>(acc, vec + 2 * C, park, smem, x, out,
                                     OutTile{t.n, t.y0, t.x0, H, W}, H, W, res_scale,
@@ -802,11 +966,11 @@ light_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
   stage_vecs(vec, __ldg(act + 1), s2, b2);
   prefetch_x(xs, x, o, H, W, 0);  // the oldest cp.async group: complete once the conv starts
   int acc[MT][ACC];
-  conv_s8<3, 3, true>(acc, smem, I8Src{tin}, w2, t, H, W);
+  conv_s8<3, 3, true>(acc, smem, I8Src{tin}, w2, TileGeo{t, H, W});
   residual_epilogue<T, false, true>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
 }
 
-// ---- dynamic scales: three launches over the TPU's windows ------------------------
+// ---- dynamic scales: four launches over the TPU's windows -------------------------
 
 // Launch 1: each window's input abs-max over the rows and columns the TPU
 // kernel DMAs (zeros outside the image add nothing) into amax[window].  One
@@ -831,48 +995,84 @@ window_absmax_kernel(const T* __restrict__ x, float* __restrict__ amax, int H, i
 // = (th + 2e) x (tw + 2e) from image (r0 - e, c0 - e), e = 2 for Light53 and
 // 1 for Light, from x quantized with the window's scale amax[0][window]:
 // Light53's conv3 (branch a, the whole ring) and conv5 (branch b, the inner
-// ring of 1) over one staged window, Light's conv3.  Each into its scratch
-// (t3, t5: [window][th + 2e][tw + 2e][C]) with its abs-max in
-// amax[1 or 2][window].  blockIdx.x: the 4 x 64 tiles of E.
+// ring of 1) over one staged window, Light's conv3.  Each into its ring
+// (t3, t5: float32 [window][th + 2e][tw + 2e][C]) with its abs-max in
+// amax[1 or 2][window].  blockIdx.x: segment blockIdx.x / rg.nb of the
+// ring's columns, raster positions TILE_PIX * (blockIdx.x % rg.nb) on.
 template <typename T, bool L53>
 __global__ void __launch_bounds__(THREADS, 1)
 dyn_first_kernel(const T* __restrict__ x, float* __restrict__ amax,
                  const int8_t* __restrict__ w3, const float* __restrict__ s3,
                  const float* __restrict__ b3, float* __restrict__ t3,
                  const int8_t* __restrict__ w5, const float* __restrict__ s5,
-                 const float* __restrict__ b5, float* __restrict__ t5, int H, int W, Windows g) {
+                 const float* __restrict__ b5, float* __restrict__ t5, int H, int W, Windows g,
+                 RingGrid rg) {
   constexpr int E = L53 ? 2 : 1;
+  constexpr int KW = 2 * E + 1;
   extern __shared__ __align__(128) uint8_t smem[];
-  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  float* vec = reinterpret_cast<float*>(smem + R_VEC_OFF);
+  uint8_t* st = smem + R_STAGE_OFF;
   const int eh = g.th + 2 * E, ew = g.tw + 2 * E;
-  const int tiles_w = (ew + TILE_W - 1) / TILE_W;
-  const int ey0 = (blockIdx.x / tiles_w) * TILE_H, ex0 = (blockIdx.x % tiles_w) * TILE_W;
+  const int cs = (blockIdx.x / rg.nb) * rg.sw;
   const int windows = gridDim.z, win = blockIdx.z;
   const float sx = dyn_scale(amax[win]);
   stage_vecs(vec, sx, s3, b3, sx, s5, b5);
-  const QuantSrc<T, true> src{x, sx};
-  const Tile t{g.n(), g.r0() - E + ey0, g.c0() - E + ex0};
+  const QuantSrc<T, true> src{x, sx, __frcp_rn(sx)};
+  const RasterGeo geo{g.n(), (int)(blockIdx.x % rg.nb) * TILE_PIX, rg.pitch,
+                      g.r0() - 2 * E, g.c0() - 2 * E + cs, H, W};
   const size_t wofs = (size_t)win * eh * ew * C;
   int acc[MT][ACC];
-  conv_s8<3, 2 * E + 1, true>(acc, smem, src, w3, t, H, W);
-  emit_ring(acc, vec, t3 + wofs, ey0, ex0, eh, ew, 0, t, H, W, amax + windows + win);
+  conv_s8<3, KW, true>(acc, smem, src, w3, geo);
+  emit_ring(acc, vec, t3 + wofs, geo, E, cs, rg.sw, eh, ew, 0, st, amax + windows + win);
   if constexpr (L53) {
-    conv_s8<5, 5, false>(acc, smem, src, w5, t, H, W);
-    emit_ring(acc, vec + 2 * C, t5 + wofs, ey0, ex0, eh, ew, 1, t, H, W, amax + 2 * windows + win);
+    conv_s8<5, 5, false>(acc, smem, src, w5, geo);
+    emit_ring(acc, vec + 2 * C, t5 + wofs, geo, E, cs, rg.sw, eh, ew, 1, st,
+              amax + 2 * windows + win);
   }
 }
 
-// Launch 3: window blockIdx.z's second conv(s) VALID over its scratch,
-// requantized with the window's intermediate scales while staged (Light53:
-// conv5 over ta, conv3 over tb's inner ring; Light: conv3 over ta), then
-// the residual epilogue on the window's th x tw outputs inside the image.
-// blockIdx.x: the 4 x 64 tiles of th x tw.
+// Requantization: each window's float32 ring(s) -> int8 codes q = clamp(rint(v
+// / s), -127, 127) with s = dyn_scale(amax[1 + branch][window]), once per
+// value, into [window][eh][ew][C] int8.  blockIdx.y: the branch (t0 -> q0,
+// t1 -> q1), blockIdx.z: the window; each thread four float4 vectors of it,
+// lanes on consecutive vectors.
+constexpr int RQ_VECS = 4;
+
+__global__ void __launch_bounds__(THREADS)
+ring_requant_kernel(const float* __restrict__ t0, const float* __restrict__ t1,
+                    const float* __restrict__ amax, int8_t* __restrict__ q0,
+                    int8_t* __restrict__ q1, int vecs) {
+  const int windows = gridDim.z, win = blockIdx.z;
+  const float s = dyn_scale(amax[(1 + blockIdx.y) * windows + win]), rs = __frcp_rn(s);
+  const float4* src = reinterpret_cast<const float4*>(blockIdx.y ? t1 : t0) + (size_t)win * vecs;
+  unsigned* dst = reinterpret_cast<unsigned*>(blockIdx.y ? q1 : q0) + (size_t)win * vecs;
+  const int i0 = blockIdx.x * THREADS * RQ_VECS + threadIdx.x;
+  float4 v[RQ_VECS];
+#pragma unroll
+  for (int u = 0; u < RQ_VECS; ++u)
+    if (i0 + u * THREADS < vecs) v[u] = __ldcs(src + i0 + u * THREADS);
+#pragma unroll
+  for (int u = 0; u < RQ_VECS; ++u) {
+    if (i0 + u * THREADS >= vecs) continue;
+    const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+    unsigned q[4];
+    codes8_div(f, s, rs, q);
+    dst[i0 + u * THREADS] = (unsigned)pack4(q[0], q[1], q[2], q[3]);
+  }
+}
+
+// Launch 3: window blockIdx.z's second conv(s) VALID over its code rings
+// (int8 [window][th + 2e][tw + 2e][C], staged by cp.async as the static
+// second launch stages its scratch; Light53: conv5 over branch a's codes,
+// conv3 over branch b's inner ring; Light: conv3), dequantized with the
+// window's intermediate scales, then the residual epilogue on the window's
+// th x tw outputs inside the image.  blockIdx.x: the 4 x 64 tiles of th x tw.
 template <typename T, bool L53>
 __global__ void __launch_bounds__(THREADS, 1)
 dyn_second_kernel(const T* __restrict__ x, const float* __restrict__ amax,
-                  const float* __restrict__ ta, const int8_t* __restrict__ wa2,
+                  const int8_t* __restrict__ qa, const int8_t* __restrict__ wa2,
                   const float* __restrict__ sa2, const float* __restrict__ ba2,
-                  const float* __restrict__ tb, const int8_t* __restrict__ wb2,
+                  const int8_t* __restrict__ qb, const int8_t* __restrict__ wb2,
                   const float* __restrict__ sb2, const float* __restrict__ bb2,
                   T* __restrict__ out, int H, int W, Windows g, float res_scale,
                   float identity_scale) {
@@ -883,25 +1083,23 @@ dyn_second_kernel(const T* __restrict__ x, const float* __restrict__ amax,
   const int tiles_w = (g.tw + TILE_W - 1) / TILE_W;
   const int y0 = (blockIdx.x / tiles_w) * TILE_H, x0 = (blockIdx.x % tiles_w) * TILE_W;
   const int windows = gridDim.z, win = blockIdx.z;
-  const size_t wofs = (size_t)win * eh * ew * C;
   const OutTile o{g.n(), g.r0() + y0, g.c0() + x0, min(H, g.r0() + g.th), min(W, g.c0() + g.tw)};
-  const Tile e{0, y0 + E, x0 + E};  // the tile in the ring's coordinates
+  const TileGeo e{Tile{win, y0 + E, x0 + E}, eh, ew};  // the tile in the rings' coordinates
   int acc[MT][ACC];
   if constexpr (L53) {
     float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);
-    const float s_a = dyn_scale(amax[windows + win]), s_b = dyn_scale(amax[2 * windows + win]);
-    stage_vecs(vec, s_a, sa2, ba2, s_b, sb2, bb2);
-    conv_s8<5, 5, true>(acc, smem, QuantSrc<float, true>{ta + wofs, s_a}, wa2, e, eh, ew);
+    stage_vecs(vec, dyn_scale(amax[windows + win]), sa2, ba2, dyn_scale(amax[2 * windows + win]),
+               sb2, bb2);
+    conv_s8<5, 5, true>(acc, smem, I8Src{qa}, wa2, e);
     park_sums(acc, vec, park);
-    conv_s8<3, 3, true>(acc, smem, QuantSrc<float, true>{tb + wofs, s_b}, wb2, e, eh, ew);
+    conv_s8<3, 3, true>(acc, smem, I8Src{qb}, wb2, e);
     residual_epilogue<T, true, false>(acc, vec + 2 * C, park, smem, x, out, o, H, W, res_scale,
                                       identity_scale);
   } else {
     uint8_t* xs = smem + EXTRA_OFF;
-    const float s_t = dyn_scale(amax[windows + win]);
-    stage_vecs(vec, s_t, sa2, ba2);
-    prefetch_x(xs, x, o, H, W, 0);
-    conv_s8<3, 3, true>(acc, smem, QuantSrc<float, true>{ta + wofs, s_t}, wa2, e, eh, ew);
+    stage_vecs(vec, dyn_scale(amax[windows + win]), sa2, ba2);
+    prefetch_x(xs, x, o, H, W, 0);  // the oldest cp.async group: complete once the conv starts
+    conv_s8<3, 3, true>(acc, smem, I8Src{qa}, wa2, e);
     residual_epilogue<T, false, true>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
   }
 }
@@ -964,18 +1162,23 @@ bool windows_of(int n, int h, int w, int th, int tw, int h8, int w8, Windows* g)
   return (long long)n * g->wy * g->wx <= 65535;
 }
 
-// x's abs-max per window, the first conv(s) into the rings, the second conv(s)
-// and the epilogue; amax is [1 + branches][windows], zeroed here.
+// x's abs-max per window, the first conv(s) into the float32 rings, their
+// codes, the second conv(s) and the epilogue; amax is [1 + branches][windows],
+// zeroed here; qa, qb: the int8 code rings, the shape of ta, tb.
 template <typename T, bool L53>
 int dynamic_block(const T* x, const int8_t* w1, const float* s1, const float* b1,
                   const int8_t* w2, const float* s2, const float* b2, const int8_t* w3,
                   const float* s3, const float* b3, const int8_t* w4, const float* s4,
-                  const float* b4, float* amax, float* ta, float* tb, T* out, int n, int h,
-                  int w, const Windows& g, float res_scale, float identity_scale,
-                  cudaStream_t st) {
+                  const float* b4, float* amax, float* ta, float* tb, int8_t* qa, int8_t* qb,
+                  T* out, int n, int h, int w, const Windows& g, float res_scale,
+                  float identity_scale, cudaStream_t st) {
   constexpr int E = L53 ? 2 : 1;
   const unsigned windows = (unsigned)(n * g.wy * g.wx);
-  cudaError_t err = allow_smem(dyn_first_kernel<T, L53>, SMEM_DYN_FIRST);
+  const int eh = g.th + 2 * E, ew = g.tw + 2 * E;
+  const RingGrid rg = ring_grid(eh, ew, 2 * E + 1);
+  const long long vecs = (long long)eh * ew * C / 4;  // float4 vectors of one window's ring
+  if (vecs > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(dyn_first_kernel<T, L53>, SMEM_RING);
   if (err == cudaSuccess)
     err = allow_smem(dyn_second_kernel<T, L53>, L53 ? SMEM_LIGHT53_B : SMEM_LIGHT_B);
   if (err == cudaSuccess)
@@ -986,14 +1189,18 @@ int dynamic_block(const T* x, const int8_t* w1, const float* s1, const float* b1
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // Light53: w1 = wa1 (3x3), w3 = wb1 (5x5); Light: w1 = its first conv
-  dyn_first_kernel<T, L53><<<dim3(tiles_of(g.th + 2 * E, g.tw + 2 * E), 1, windows), THREADS,
-                             SMEM_DYN_FIRST, st>>>(x, amax, w1, s1, b1, ta, w3, s3, b3, tb, h, w,
-                                                   g);
+  dyn_first_kernel<T, L53><<<dim3(rg.nseg * rg.nb, 1, windows), THREADS, SMEM_RING, st>>>(
+      x, amax, w1, s1, b1, ta, w3, s3, b3, tb, h, w, g, rg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned rq_blocks = (unsigned)((vecs + THREADS * RQ_VECS - 1) / (THREADS * RQ_VECS));
+  ring_requant_kernel<<<dim3(rq_blocks, L53 ? 2 : 1, windows), THREADS, 0, st>>>(ta, tb, amax, qa, qb,
+                                                                               (int)vecs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dyn_second_kernel<T, L53><<<dim3(tiles_of(g.th, g.tw), 1, windows), THREADS,
                               L53 ? SMEM_LIGHT53_B : SMEM_LIGHT_B, st>>>(
-      x, amax, ta, w2, s2, b2, tb, w4, s4, b4, out, h, w, g, res_scale, identity_scale);
+      x, amax, qa, w2, s2, b2, qb, w4, s4, b4, out, h, w, g, res_scale, identity_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1040,13 +1247,14 @@ int iek_light_int8(const void* x, const float* act,
 }
 
 // Dynamic scales over the TPU's th x tw windows of the image padded to h8 x
-// w8.  amax: float32 [3][windows]; ta, tb: float32 [windows][th+4][tw+4][C].
+// w8.  amax: float32 [3][windows]; ta, tb: float32 [windows][th+4][tw+4][C];
+// qa, qb: int8 of the same shape.
 int iek_light53_int8_dynamic(const void* x,
                              const int8_t* wa1, const float* sa1, const float* ba1,
                              const int8_t* wa2, const float* sa2, const float* ba2,
                              const int8_t* wb1, const float* sb1, const float* bb1,
                              const int8_t* wb2, const float* sb2, const float* bb2,
-                             float* amax, float* ta, float* tb, void* out,
+                             float* amax, float* ta, float* tb, int8_t* qa, int8_t* qb, void* out,
                              int n, int h, int w, int c, int th, int tw, int h8, int w8, int f32,
                              float res_scale, float identity_scale, void* stream) {
   Windows g;
@@ -1054,19 +1262,21 @@ int iek_light53_int8_dynamic(const void* x,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f32)
     return dynamic_block<float, true>(static_cast<const float*>(x), wa1, sa1, ba1, wa2, sa2, ba2,
-                                      wb1, sb1, bb1, wb2, sb2, bb2, amax, ta, tb,
+                                      wb1, sb1, bb1, wb2, sb2, bb2, amax, ta, tb, qa, qb,
                                       static_cast<float*>(out), n, h, w, g, res_scale,
                                       identity_scale, st);
   return dynamic_block<bf16, true>(static_cast<const bf16*>(x), wa1, sa1, ba1, wa2, sa2, ba2, wb1,
-                                   sb1, bb1, wb2, sb2, bb2, amax, ta, tb, static_cast<bf16*>(out),
+                                   sb1, bb1, wb2, sb2, bb2, amax, ta, tb, qa, qb,
+                                   static_cast<bf16*>(out),
                                    n, h, w, g, res_scale, identity_scale, st);
 }
 
-// amax: float32 [2][windows]; t: float32 [windows][th+2][tw+2][C].
+// amax: float32 [2][windows]; t: float32 [windows][th+2][tw+2][C]; q: int8
+// of the same shape.
 int iek_light_int8_dynamic(const void* x,
                            const int8_t* w1, const float* s1, const float* b1,
                            const int8_t* w2, const float* s2, const float* b2,
-                           float* amax, float* t, void* out,
+                           float* amax, float* t, int8_t* q, void* out,
                            int n, int h, int w, int c, int th, int tw, int h8, int w8, int f32,
                            float res_scale, void* stream) {
   Windows g;
@@ -1075,11 +1285,13 @@ int iek_light_int8_dynamic(const void* x,
   if (f32)
     return dynamic_block<float, false>(static_cast<const float*>(x), w1, s1, b1, w2, s2, b2,
                                        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, amax,
-                                       t, nullptr, static_cast<float*>(out), n, h, w, g, res_scale,
+                                       t, nullptr, q, nullptr, static_cast<float*>(out), n, h, w, g,
+                                       res_scale,
                                        1.f, st);
   return dynamic_block<bf16, false>(static_cast<const bf16*>(x), w1, s1, b1, w2, s2, b2, nullptr,
                                     nullptr, nullptr, nullptr, nullptr, nullptr, amax, t, nullptr,
-                                    static_cast<bf16*>(out), n, h, w, g, res_scale, 1.f, st);
+                                    q, nullptr, static_cast<bf16*>(out), n, h, w, g, res_scale, 1.f,
+                                    st);
 }
 
 const char* iek_error_string(int code) {

@@ -5,124 +5,141 @@
 //   per axis out[f*k + r] = (1 - r/f)*in[k] + (r/f)*in[min(k+1, n-1)],
 //   H pass first, then the W pass over its result; (N,H,W,C) -> (N,fH,fW,C).
 // Bit-identical to the plain phase construction (ops/resize.py
-// upsample_phase_tf1 and JAX's _upsample_phase_xla): the H pass is fully
+// upsample_phase_plain and JAX's _upsample_phase_xla): the H pass is fully
 // rounded to the dtype before the W pass reads it, and every product and
-// sum is rounded on its own (__fmul_rn/__fadd_rn; in bf16 each result is
-// rounded to bf16, torch's per-op bf16 semantics).  The weights are the
+// sum is rounded on its own (__fmul_rn/__fadd_rn; in bf16 mul.rn/add.rn on
+// bf16 pairs, each result rounded to bf16, torch's per-op bf16 semantics).  The weights are the
 // dtype's rounding of the double 1 - r/f and r/f, as torch.tensor() makes
-// them.  Build without --use_fast_math.
+// them: the Python wrapper computes that table for every factor and passes
+// it as a small device array.  Build without --use_fast_math.
 //
 // What bounds it on an H100: bytes.  It reads the input once and writes f^2
-// times as much (x4: 16x), a few operations per element.  One thread makes
-// 16 bytes of channels of one output pixel from four input pixels (read
-// through L1/L2, where neighbouring threads share them) and writes them
-// with one 16-byte store, consecutive threads on consecutive addresses.
+// times as much (x4: 16x), a few operations per element.  Design: one
+// thread per 16-byte vector of one INPUT pixel (grid: x over the N*H input
+// rows, y over the vectors of a row).  It loads its four neighbours
+// in[k][m], in[k1][m], in[k][m1], in[k1][m1] once, forms the f H-pass values
+// of columns m and m1 for each output row f*k + r, and writes all f x f
+// output vectors: no division, no conversion (bf16 stays in bf16 pairs; as
+// float32 each rounded step was a conversion at a quarter of the float
+// rate, which bound the first bf16 version), no 64-bit index arithmetic per
+// vector (a 64-bit base per output row, 32-bit offsets within it).  For each (r, s)
+// the lanes of a warp store consecutive 16-byte vectors of one or two
+// output pixels, by streaming stores (st.global.cs, evict-first: the output
+// is not read back by this kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 
+// Arithmetic on 32-bit words of a 16-byte vector: one float32, or two bf16
+// (bf16x2: Hopper's mul.rn / add.rn on bf16 pairs round each product and sum
+// to bf16 once, as a float32 product or sum rounded to bf16 does, since the
+// float32 product of two bf16 values is exact and so is their sum where a
+// tie could arise; no conversion instruction and no FMA contraction in the
+// asm).
 template <typename T>
 struct Arith;
 
 template <>
 struct Arith<float> {
   static constexpr int VEC = 4;  // channels per 16-byte vector
-  __device__ static float round(float v) { return v; }
+  __device__ static uint32_t weight(float w) { return __float_as_uint(w); }
+  // a*w0 + b*w1, each product and the sum rounded on its own
+  __device__ static uint32_t lerp(uint32_t a, uint32_t w0, uint32_t b, uint32_t w1) {
+    return __float_as_uint(__fadd_rn(__fmul_rn(__uint_as_float(a), __uint_as_float(w0)),
+                                     __fmul_rn(__uint_as_float(b), __uint_as_float(w1))));
+  }
 };
 
 template <>
 struct Arith<__nv_bfloat16> {
   static constexpr int VEC = 8;
-  __device__ static float round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+  // w (a bf16 value) in both halves
+  __device__ static uint32_t weight(float w) { return (__float_as_uint(w) >> 16) * 0x10001u; }
+  __device__ static uint32_t lerp(uint32_t a, uint32_t w0, uint32_t b, uint32_t w1) {
+    uint32_t p, q, s;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(p) : "r"(a), "r"(w0));
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(q) : "r"(b), "r"(w1));
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(s) : "r"(p), "r"(q));
+    return s;
+  }
 };
 
-__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
+__device__ __forceinline__ void load16(const void* p, uint32_t (&w)[4]) {
   const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
 }
 
-__device__ __forceinline__ void store16(float* p, const float (&f)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&f)[8]) {
-  uint4 v;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = v;
-}
-
-// a*w0 + b*w1 with each product and the sum rounded to T.
-template <typename T>
-__device__ __forceinline__ float lerp(float a, float w0, float b, float w1) {
-  return Arith<T>::round(__fadd_rn(Arith<T>::round(__fmul_rn(a, w0)),
-                                   Arith<T>::round(__fmul_rn(b, w1))));
-}
-
-template <typename T>
+// F > 0: the factor, unrolled; F == 0: any factor f (the loop form).
+// wt: the host weight table, w0[r] at wt[r], w1[r] at wt[f + r].
+template <typename T, int F>
 __global__ void __launch_bounds__(THREADS)
-upsample_phase_tf1_kernel(const T* __restrict__ in, T* __restrict__ out,
-                          int N, int H, int W, int C, int f) {
+upsample_phase_tf1_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W, int C,
+                          int f_rt, const float* __restrict__ wt) {
   constexpr int VEC = Arith<T>::VEC;
+  const int f = F > 0 ? F : f_rt;
   const int groups = C / VEC;
-  const int OH = H * f, OW = W * f;
-  const long long total = (long long)N * OH * OW * groups;
-  for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * THREADS) {
-    const int g = (int)(idx % groups);
-    long long p = idx / groups;
-    const int X = (int)(p % OW);
-    p /= OW;
-    const int Y = (int)(p % OH);
-    const int n = (int)(p / OH);
-    const int k = Y / f, r = Y - k * f, k1 = min(k + 1, H - 1);
-    const int m = X / f, s = X - m * f, m1 = min(m + 1, W - 1);
-    const float wr0 = Arith<T>::round((float)(1.0 - (double)r / f));
-    const float wr1 = Arith<T>::round((float)((double)r / f));
-    const float ws0 = Arith<T>::round((float)(1.0 - (double)s / f));
-    const float ws1 = Arith<T>::round((float)((double)s / f));
-    const T* base = in + (size_t)n * H * W * C + (size_t)g * VEC;
-    float a[VEC], b[VEC], c[VEC], d[VEC];  // in[k][m], in[k1][m], in[k][m1], in[k1][m1]
-    load16(base + ((size_t)k * W + m) * C, a);
-    load16(base + ((size_t)k1 * W + m) * C, b);
-    load16(base + ((size_t)k * W + m1) * C, c);
-    load16(base + ((size_t)k1 * W + m1) * C, d);
-    float o[VEC];
+  const int row = blockIdx.x;  // n * H + k
+  const int n = row / H, k = row - n * H, k1 = min(k + 1, H - 1);
+  const int item = blockIdx.y * blockDim.x + threadIdx.x;
+  if (item >= W * groups) return;
+  const int m = item / groups, g = item - m * groups, m1 = min(m + 1, W - 1);
+  uint32_t a[4], b[4], c[4], d[4];  // in[k][m], in[k1][m], in[k][m1], in[k1][m1]
+  const T* base = in + (size_t)n * H * W * C + g * VEC;
+  load16(base + ((size_t)k * W + m) * C, a);
+  load16(base + ((size_t)k1 * W + m) * C, b);
+  load16(base + ((size_t)k * W + m1) * C, c);
+  load16(base + ((size_t)k1 * W + m1) * C, d);
+  const int OW = W * f;
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const float hm = lerp<T>(a[v], wr0, b[v], wr1);   // H pass at column m
-      const float hm1 = lerp<T>(c[v], wr0, d[v], wr1);  // H pass at column m1
-      o[v] = lerp<T>(hm, ws0, hm1, ws1);                 // W pass
+  for (int r = 0; r < f; ++r) {
+    const uint32_t wr0 = Arith<T>::weight(__ldg(wt + r)), wr1 = Arith<T>::weight(__ldg(wt + f + r));
+    uint32_t hm[4], hm1[4];  // H pass at columns m and m1, output row f*k + r
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      hm[v] = Arith<T>::lerp(a[v], wr0, b[v], wr1);
+      hm1[v] = Arith<T>::lerp(c[v], wr0, d[v], wr1);
     }
-    store16(out + (((size_t)n * OH + Y) * OW + X) * C + (size_t)g * VEC, o);
+    T* orow = out + ((size_t)row * f + r) * OW * C;  // n*fH + f*k + r
+#pragma unroll
+    for (int s = 0; s < f; ++s) {
+      const uint32_t ws0 = Arith<T>::weight(__ldg(wt + s)), ws1 = Arith<T>::weight(__ldg(wt + f + s));
+      uint4 o;  // W pass
+      o.x = Arith<T>::lerp(hm[0], ws0, hm1[0], ws1);
+      o.y = Arith<T>::lerp(hm[1], ws0, hm1[1], ws1);
+      o.z = Arith<T>::lerp(hm[2], ws0, hm1[2], ws1);
+      o.w = Arith<T>::lerp(hm[3], ws0, hm1[3], ws1);
+      __stcs(reinterpret_cast<uint4*>(orow + (f * m + s) * C + g * VEC), o);
+    }
   }
 }
 
+template <typename T, int F>
+cudaError_t launch_f(const T* x, T* out, int n, int h, int w, int c, int f, const float* wt,
+                     cudaStream_t st) {
+  const int groups = c / Arith<T>::VEC;
+  const long long blocks_y = ((long long)w * groups + THREADS - 1) / THREADS;
+  if (blocks_y > 65535) return cudaErrorInvalidValue;
+  upsample_phase_tf1_kernel<T, F><<<dim3((unsigned)(n * h), (unsigned)blocks_y), THREADS, 0, st>>>(
+      x, out, h, w, c, f, wt);
+  return cudaGetLastError();
+}
+
 template <typename T>
-int launch(const void* x, void* out, int n, int h, int w, int c, int f, cudaStream_t st) {
-  const long long total = (long long)n * h * f * w * f * (c / Arith<T>::VEC);
-  long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond 32 blocks per SM
-  if (blocks < 1) blocks = 1;
-  upsample_phase_tf1_kernel<T><<<(unsigned)blocks, THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, h, w, c, f);
-  return (int)cudaGetLastError();
+cudaError_t launch(const void* x, void* out, int n, int h, int w, int c, int f, const float* wt,
+                   cudaStream_t st) {
+  const T* xi = static_cast<const T*>(x);
+  T* o = static_cast<T*>(out);
+  switch (f) {
+    case 2: return launch_f<T, 2>(xi, o, n, h, w, c, f, wt, st);
+    case 3: return launch_f<T, 3>(xi, o, n, h, w, c, f, wt, st);
+    case 4: return launch_f<T, 4>(xi, o, n, h, w, c, f, wt, st);
+    default: return launch_f<T, 0>(xi, o, n, h, w, c, f, wt, st);
+  }
 }
 
 }  // namespace
@@ -130,13 +147,18 @@ int launch(const void* x, void* out, int n, int h, int w, int c, int f, cudaStre
 extern "C" {
 
 // x (n,h,w,c) and out (n,f*h,f*w,c), contiguous, 16-byte aligned; bf16
-// when is_bf16 (c % 8 == 0), else float32 (c % 4 == 0); the Python wrapper
-// checks.  Returns the CUDA error code of the launch (0 = success).
+// when is_bf16 (c % 8 == 0), else float32 (c % 4 == 0); f >= 2.  wt: 2f
+// floats on the device, the host weight table (the dtype's rounding of
+// 1 - r/f at wt[r], of r/f at wt[f + r]).  The Python wrapper checks.
+// Returns the CUDA error code of the launch (0 = success).
 int iek_upsample_phase_tf1(const void* x, void* out, int n, int h, int w, int c, int f,
-                           int is_bf16, void* stream) {
+                           int is_bf16, const float* wt, void* stream) {
+  if (f < 2 || (long long)w * f * c >= (1LL << 31) || (long long)n * h >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(x, out, n, h, w, c, f, st);
-  return launch<float>(x, out, n, h, w, c, f, st);
+  const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(x, out, n, h, w, c, f, wt, st)
+                                  : launch<float>(x, out, n, h, w, c, f, wt, st);
+  return (int)err;
 }
 
 const char* iek_error_string(int code) {

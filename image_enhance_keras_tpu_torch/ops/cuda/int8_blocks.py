@@ -217,14 +217,18 @@ class _Windows:
         t = t.reshape(self.n, self.wy, self.wx, self.th, self.tw, c).permute(0, 1, 3, 2, 4, 5)
         return t.reshape(self.n, self.wy * self.th, self.wx * self.tw, c)[:, :self.h, :self.w]
 
-    def branch(self, xq, sx, w1, s1, b1, w2, s2, b2, d: int) -> torch.Tensor:
+    def ring(self, xq, sx, w1, s1, b1, d: int) -> torch.Tensor:
         """conv(k1) VALID to the (th + 2d, tw + 2d) ring, dequant, relu, border
-        mask, its own abs-max scale, conv(k2) VALID to (th, tw), dequant."""
+        mask: each window's float32 intermediate ring."""
         th, tw = self.th, self.tw
         t = torch.relu(_dequant(_conv_valid_s32(xq, w1, th + 2 * d, tw + 2 * d), sx, s1, b1))
-        t = t * self.mask(d)
+        return t * self.mask(d)
+
+    def branch(self, xq, sx, w1, s1, b1, w2, s2, b2, d: int) -> torch.Tensor:
+        """The ring, its own abs-max scale, conv(k2) VALID to (th, tw), dequant."""
+        t = self.ring(xq, sx, w1, s1, b1, d)
         st = _scale_dyn(t)
-        return _dequant(_conv_valid_s32(_quant_dyn(t, st), w2, th, tw), st, s2, b2)
+        return _dequant(_conv_valid_s32(_quant_dyn(t, st), w2, self.th, self.tw), st, s2, b2)
 
 
 def light53_int8_dynamic_plain(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2,
@@ -310,15 +314,23 @@ def _stream(x: torch.Tensor) -> int:
 
 def _dyn_buffers(x: torch.Tensor, tile, n_branch: int, ring: int):
     """Window grid and scratch of a dynamic launch: (th, tw, h8, w8), the
-    per-window abs-maxes [1 + n_branch][windows] and one float32 intermediate
-    (windows, th + 2*ring, tw + 2*ring, C) per branch."""
+    per-window abs-maxes [1 + n_branch][windows], one float32 intermediate
+    ring (windows, th + 2*ring, tw + 2*ring, C) per branch, and its int8
+    codes (the same shape) per branch."""
     n, h, w, c = (int(s) for s in x.shape)
     th, tw, h8, w8 = window_grid(h, w, tile)
     windows = n * (h8 // th) * (w8 // tw)
-    amax = torch.empty((1 + n_branch, windows), dtype=torch.float32, device=x.device)
-    scratch = [torch.empty((windows, th + 2 * ring, tw + 2 * ring, c), dtype=torch.float32,
-                           device=x.device) for _ in range(n_branch)]
-    return (th, tw, h8, w8), amax, scratch
+    shape = (windows, th + 2 * ring, tw + 2 * ring, c)
+    numel = windows * shape[1] * shape[2] * c
+    # one allocation, cut into 256-byte aligned views: abs-maxes, rings, codes
+    n_amax = (1 + n_branch) * windows
+    sizes = [-(-(4 * n_amax) // 256) * 256] + [4 * numel] * n_branch + [numel] * n_branch
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=x.device)
+    views = list(torch.split(buf, sizes))
+    amax = views[0].view(torch.float32)[:n_amax].view(1 + n_branch, windows)
+    rings = [v.view(torch.float32).view(shape) for v in views[1:1 + n_branch]]
+    codes = [v.view(torch.int8).view(shape) for v in views[1 + n_branch:]]
+    return (th, tw, h8, w8), amax, rings, codes
 
 
 def light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2,
@@ -346,9 +358,10 @@ def light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, b
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         if act_scales is None:
-            grid, amax, (ta, tb) = _dyn_buffers(x, tile, 2, 2)
+            grid, amax, (ta, tb), (qa, qb) = _dyn_buffers(x, tile, 2, 2)
             code = lib.iek_light53_int8_dynamic(
-                x.data_ptr(), *wptrs, amax.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+                x.data_ptr(), *wptrs, amax.data_ptr(), ta.data_ptr(), tb.data_ptr(), qa.data_ptr(),
+                qb.data_ptr(), out.data_ptr(),
                 n, h, w, c, *grid, f32, float(res_scale), float(identity_scale), _stream(x))
         else:
             ta = torch.empty(x.shape, dtype=torch.int8, device=x.device)
@@ -381,9 +394,9 @@ def light_int8(x, w1q, s1, b1, w2q, s2, b2, res_scale: float = 0.1,
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         if act_scales is None:
-            grid, amax, (t,) = _dyn_buffers(x, tile, 1, 1)
+            grid, amax, (t,), (q,) = _dyn_buffers(x, tile, 1, 1)
             code = lib.iek_light_int8_dynamic(
-                x.data_ptr(), *wptrs, amax.data_ptr(), t.data_ptr(), out.data_ptr(),
+                x.data_ptr(), *wptrs, amax.data_ptr(), t.data_ptr(), q.data_ptr(), out.data_ptr(),
                 n, h, w, c, *grid, f32, float(res_scale), _stream(x))
         else:
             t = torch.empty(x.shape, dtype=torch.int8, device=x.device)

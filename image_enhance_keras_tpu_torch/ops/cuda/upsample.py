@@ -5,7 +5,9 @@ takes (N, H, W, C) float32 or bfloat16 on a CUDA device, any factor and any
 H and W, and launches ``csrc/upsample.cu``, bit-identical to the plain phase
 construction ``ops.resize.upsample_phase_plain``; it counts its launches in
 ``.launches``.  It has no CPU path: ``ops.resize.upsample_phase_tf1``
-dispatches here only for CUDA tensors.
+dispatches here only for CUDA tensors.  The kernel's interpolation weights
+come from :func:`weight_table` (computed here for every factor, passed to
+the launch as a small device tensor), so the kernel divides nothing.
 
 The op is linear and JAX has no backward kernel for it (``_upsample_pallas_ad``
 differentiates the XLA construction); likewise the backward here is the
@@ -14,11 +16,31 @@ transpose of the plain construction, taken by autograd.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from image_enhance_keras_tpu_torch.ops.cuda import _build
 
-__all__ = ["upsample_phase_tf1_kernel"]
+__all__ = ["upsample_phase_tf1_kernel", "weight_table", "weight_tensor"]
+
+
+@functools.lru_cache(maxsize=None)
+def weight_table(factor: int, dtype: torch.dtype) -> tuple[tuple[float, ...], tuple[float, ...]]:
+    """(w0, w1): ``dtype``'s rounding of ``1 - r/f`` and ``r/f`` for r < f, as
+    float32 values, exactly the weights ``upsample_phase_plain`` multiplies by."""
+    f = int(factor)
+    w0 = tuple(torch.tensor(1.0 - r / f, dtype=dtype).item() for r in range(f))
+    w1 = tuple(torch.tensor(r / f, dtype=dtype).item() for r in range(f))
+    return w0, w1
+
+
+@functools.lru_cache(maxsize=None)
+def weight_tensor(factor: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The table the kernel reads: float32 ``w0 + w1`` of :func:`weight_table`
+    (2f values) on ``device``, made once per factor, dtype and device."""
+    w0, w1 = weight_table(factor, dtype)
+    return torch.tensor(w0 + w1, dtype=torch.float32, device=device)
 
 
 def _launch(x: torch.Tensor, f: int) -> torch.Tensor:
@@ -35,10 +57,11 @@ def _launch(x: torch.Tensor, f: int) -> torch.Tensor:
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("the upsample kernel takes contiguous, 16-byte aligned tensors")
     lib = _build.library("upsample")
+    wt = weight_tensor(f, x.dtype, x.device)
     out = torch.empty((n, f * h, f * w, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         code = lib.iek_upsample_phase_tf1(
-            x.data_ptr(), out.data_ptr(), n, h, w, c, f, int(x.dtype == torch.bfloat16),
+            x.data_ptr(), out.data_ptr(), n, h, w, c, f, int(x.dtype == torch.bfloat16), wt.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, "upsample_phase_tf1")

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from image_enhance_keras_tpu_torch.ops.cuda import blocks, int8_blocks, tower
+from image_enhance_keras_tpu_torch.ops.cuda import blocks, int8_blocks, tower, upsample
+from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
 
 C = 128
 #: K float32 blocks summed in another order (tests/test_pallas_tower.py)
@@ -191,6 +192,34 @@ def test_int8_dynamic_kernels_divide_at_ties(which):
     assert torch.equal(wrapper(x, *args, tile=(8, 8)), plain(x, *args, (8, 8)))
 
 
+#: (H, W), tile whose windows' rings are not multiples of 64 columns: 128
+#: columns (rings of 132 / 130: one raster segment at the widest pitch), 200
+#: (rings of 204 / 202: two segments), 56 with 8-row windows (rings of 60 / 58)
+INT8_DYNAMIC_RING_CASES = [((24, 128), (24, 128)), ((30, 200), (32, 200)), ((17, 52), (8, 56))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", INT8_DYNAMIC_RING_CASES)
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_int8_dynamic_kernels_bit_equal_plain_on_ring_widths(which, case, dtype):
+    """The dynamic ring launch (M tiles in raster order over ring segments,
+    rings stored through shared memory, then requantized to codes) at rings
+    that no 64-column tile fits, bit-equal to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    hw, tile = case
+    x, args = _int8_inputs(which, hw, dtype, hw[0] * 7 + hw[1])
+    wrapper, plain = {"light53": (int8_blocks.light53_int8, int8_blocks.light53_int8_dynamic_plain),
+                      "light": (int8_blocks.light_int8, int8_blocks.light_int8_dynamic_plain)}[which]
+    before = wrapper.launches
+    got = wrapper(x, *args, tile=tile)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(x, *args, tile)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hw", [(57, 86), (70, 70), (5, 70), (8, 64)])
 @pytest.mark.parametrize("which", ["light53", "light"])
@@ -207,6 +236,32 @@ def test_int8_static_kernels_float32_bit_equal_plain(which, hw):
     got = wrapper(x, *args, act_scales=act)
     assert got.dtype == torch.float32
     assert torch.equal(got, plain(x, *args, act))
+
+
+# -- K3, the TF1 phase upsample ----------------------------------------------------
+#: (N, H, W): ragged shapes (odd sides, a width that no block of pixels divides)
+UPSAMPLE_SHAPES = [(1, 5, 7), (2, 13, 21), (1, 57, 86)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 128])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("factor", [2, 3, 4, 5])
+def test_upsample_kernel_bit_equal_plain(factor, dtype, shape, c):
+    """K3 (the unrolled forms f = 2, 3, 4, the loop form at 5) bit-equal to
+    upsample_phase_plain; one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the upsample kernel is CUDA C++ with no CPU mode")
+    rng = np.random.default_rng(sum(shape) + factor + c)
+    x = torch.from_numpy((rng.normal(size=(*shape, c)) * 3).astype(np.float32)).cuda().to(dtype)
+    before = upsample.upsample_phase_tf1_kernel.launches
+    got = upsample.upsample_phase_tf1_kernel(x, factor)
+    torch.cuda.synchronize()
+    assert upsample.upsample_phase_tf1_kernel.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (shape[0], factor * shape[1], factor * shape[2], c)
+    want = upsample_phase_plain(x, factor)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
 # -- the bf16 forms of K1/K2 and K6/K7 ------------------------------------------

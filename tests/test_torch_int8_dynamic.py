@@ -238,3 +238,45 @@ def test_cpu_wrappers_take_plain_dynamic_versions_and_count_no_launch():
         assert torch.equal(i8.light_int8(xd, *light, tile=(8, 8)),
                            i8.light_int8_dynamic_plain(xd, *light, (8, 8)))
     assert (i8.light53_int8.launches, i8.light_int8.launches) == before
+
+
+def _requant_np(ring: np.ndarray) -> np.ndarray:
+    """The requantization launch on one window's float32 ring, in numpy:
+    s = max(abs-max, 1e-12) * float32(1/127), q = clip(rint(v / s), +-127)."""
+    s = np.maximum(np.abs(ring).max(), np.float32(1e-12)) * np.float32(1.0 / 127.0)
+    assert s.dtype == np.float32
+    return np.clip(np.rint(ring / s), -127, 127).astype(np.int8)
+
+
+@pytest.mark.parametrize("hw,tile", [((13, 21), (8, 8)), ((16, 40), (16, 24)), ((16, 16), (64, 128))])
+@pytest.mark.parametrize("which", ["light53", "light"])
+def test_requantized_rings_are_the_plain_codes(which, hw, tile):
+    """Each window's float32 ring (what the ring launch stores), requantized
+    on its own (what the requantization launch computes), gives the codes the
+    plain dynamic version convolves, window by window; the block rebuilt from
+    those codes is the plain version's output bit for bit."""
+    rng = np.random.default_rng(hw[1] + tile[0])
+    xf = torch.from_numpy(_x((2, *hw, C), jnp.float32, rng))
+    convs = [tuple(torch.from_numpy(np.array(a)) for a in cv) for cv in _weights(which, rng)]
+    halo, rings = (3, (2, 1)) if which == "light53" else (2, (1,))
+    win = i8._Windows(xf, halo, tile)
+    sx = i8._scale_dyn(win.batch)
+    xq = i8._quant_dyn(win.batch, sx)
+    parts = []
+    for (w1, s1, b1), (w2, s2, b2), d in zip(convs[0::2], convs[1::2], rings):
+        t = win.ring(xq, sx, w1, s1, b1, d)
+        assert tuple(t.shape[1:3]) == (win.th + 2 * d, win.tw + 2 * d)
+        want = i8._quant_dyn(t, i8._scale_dyn(t)).to(torch.int8).numpy()
+        codes = np.stack([_requant_np(t[i].numpy()) for i in range(t.shape[0])])
+        np.testing.assert_array_equal(codes, want)
+        st = i8._scale_dyn(t)
+        parts.append(win.stitch(i8._dequant(
+            i8._conv_valid_s32(torch.from_numpy(codes).to(torch.float32), w2, win.th, win.tw), st, s2, b2)))
+    if which == "light53":
+        # the plain version's argument order: branch a (3, 5) then branch b (5, 3)
+        got = i8._light53_out(xf, parts[0], parts[1], 0.1, 0.9)
+        ref = i8.light53_int8_dynamic_plain(xf, *convs[0], *convs[1], *convs[2], *convs[3], tile)
+    else:
+        got = i8._light_out(xf, parts[0], 0.1)
+        ref = i8.light_int8_dynamic_plain(xf, *convs[0], *convs[1], tile)
+    assert torch.equal(got, ref)

@@ -73,3 +73,59 @@ def test_kernel_autograd_is_transpose_of_plain(monkeypatch):
     (grad,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
     _, vjp = jax.vjp(lambda t: jax_resize._upsample_phase_xla(t, 4), xj)
     np.testing.assert_allclose(grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("factor", range(2, 9))
+def test_weight_table_is_the_plain_weights(dtype, factor):
+    """The table the kernel receives is the dtype's rounding of 1 - r/f and
+    r/f exactly as upsample_phase_plain makes its weights."""
+    tdt = DTYPES[dtype][1]
+    w0, w1 = ku.weight_table(factor, tdt)
+    assert len(w0) == len(w1) == factor
+    for r in range(factor):
+        assert w0[r] == torch.tensor(1.0 - r / factor, dtype=tdt).item()
+        assert w1[r] == torch.tensor(r / factor, dtype=tdt).item()
+        assert torch.tensor(w0[r], dtype=tdt).item() == w0[r]  # representable in the dtype
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("factor", [2, 4, 5])
+def test_weight_tensor_is_the_table(dtype, factor):
+    """The array the kernel reads: w0 at [0, f), w1 at [f, 2f), float32."""
+    tdt = DTYPES[dtype][1]
+    wt = ku.weight_tensor(factor, tdt, torch.device("cpu"))
+    w0, w1 = ku.weight_table(factor, tdt)
+    assert wt.dtype == torch.float32 and wt.is_contiguous()
+    assert wt.tolist() == list(w0 + w1)
+
+
+def _per_input_pixel(x: torch.Tensor, f: int) -> torch.Tensor:
+    """The kernel's formulation: per input pixel (k, m), the four neighbours
+    once, the f H-pass values of columns m and m1 (rounded to the dtype), then
+    the f x f outputs, weights from the table, every step rounded."""
+    n, h, w, c = x.shape
+    w0, w1 = ku.weight_table(f, x.dtype)
+    t = lambda v: torch.tensor(v, dtype=x.dtype)  # noqa: E731
+    out = torch.empty((n, f * h, f * w, c), dtype=x.dtype)
+    for k in range(h):
+        k1 = min(k + 1, h - 1)
+        for m in range(w):
+            m1 = min(m + 1, w - 1)
+            a, b, cc, d = x[:, k, m], x[:, k1, m], x[:, k, m1], x[:, k1, m1]
+            for r in range(f):
+                hm = a * t(w0[r]) + b * t(w1[r])
+                hm1 = cc * t(w0[r]) + d * t(w1[r])
+                for s in range(f):
+                    out[:, f * k + r, f * m + s] = hm * t(w0[s]) + hm1 * t(w1[s])
+    return out
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("factor", [2, 3, 4, 5])
+def test_per_input_pixel_formulation_bit_equal_to_plain(dtype, factor):
+    tdt = DTYPES[dtype][1]
+    _, xt = _x((2, 5, 7, 8), DTYPES[dtype][0], factor + 10)
+    xt = xt.to(tdt)
+    got = _per_input_pixel(xt, factor)
+    assert torch.equal(got, resize.upsample_phase_plain(xt, factor))
