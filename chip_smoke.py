@@ -57,7 +57,19 @@ Phases (each prints its elapsed seconds):
      ``calib_x``) at full width on the 9 patches: K4 18, K5 6, K3 1,
      bit-equal to the plain dynamic blocks, PSNR against float32, its time
      beside the calibrated tree's, a profile, and bit-equality on a whole
-     86x57 Set5 frame; then the engines
+     86x57 Set5 frame; 3a''': ``--dtype mixed`` and ``mixed-tail`` on
+     ``xla`` (one float32 / one bf16 K3, each byte-equal with the plain x4),
+     ``--forward pallas`` and ``pallas_chain`` with ``--dtype mixed``
+     (byte-equal with their bf16 runs, bf16 K1/K2 and K6/K7 counted),
+     ``--forward pallas_int8 --dtype bfloat16`` (byte-equal with float32),
+     and both mixed profiles on a crop against the CPU; 3c: a seeded
+     512x512 image in fast mode, split mode (stripes of 64 body rows) and
+     split mode on 2-D tiles (128/128: 16 tiles, two chunks of 8) on
+     ``xla`` float32, ``xla`` bf16 and ``pallas_int8``, each split run
+     against fast and byte-equal with the plain x4 (and the plain int8
+     blocks), K3 / K4 / K5 counted per stripe and chunk, out-Mpix/s and
+     peak device memory per run; 3d: the x8 self-ensemble with 2
+     back-projection steps on a 48x48 crop against the CPU; then the engines
      (the bf16 ones too) timed in turns, the bf16 forwards profiled (device
      time by kernel, idle share), and CPU references on a crop;
   4. Set5 x4 (``data_set5``, read by the numpy PNG decoder where PIL is
@@ -65,9 +77,12 @@ Phases (each prints its elapsed seconds):
      ``pallas_chain`` (launches counted), the bicubic baseline on the card
      and the CPU, and ``evaluate_model`` on fast-mode ``xla`` and
      ``pallas_int8`` resolvers (and a reading of the uncalibrated int8
-     tree, not held), and on fast-mode bf16 ``xla``, ``pallas`` and
-     ``pallas_chain`` resolvers (bf16 launches counted), against each
-     other and the recorded rows.
+     tree, not held), on fast-mode bf16 ``xla``, ``pallas`` and
+     ``pallas_chain`` resolvers (bf16 launches counted), on fast-mode
+     ``xla`` resolvers in the mixed profiles (against JAX's own rows on the
+     CPU, ``EVAL_BF16_CPU.json``; K3 counted) and on a split-mode bf16
+     ``xla`` resolver (against the fast-mode bf16 row), against each other
+     and the recorded rows.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -155,6 +170,11 @@ BF16_YARDSTICK_TIMES = 2.0
 #: TPU's bf16 arithmetic differs from JAX's on the CPU, whose xla bf16 scores
 #: 35.08 dB against the row's 35.23
 BF16_KERNEL_SSIM = 1e-3
+#: split mode (phase 3c): a SPLIT_HW square image, stripes of SPLIT_TILE body
+#: rows, 2-D tiles of SPLIT2D_TILE (16 tiles: two chunks of the engine's 8)
+SPLIT_HW, SPLIT_TILE, SPLIT2D_TILE = 512, 64, 128
+#: Set5 split-mode bf16 xla against the fast-mode bf16 xla row of the same run
+SPLIT_SET5_DB = 0.01
 
 
 def _phase(name: str, t0: float) -> None:
@@ -519,6 +539,53 @@ def _set5_scores(failures: list) -> dict:
         if abs(tpu["ssim_y"] - ref_b["ssim_y"]) > ssim_tol:
             failures.append(f"Set5 fast {fwd} bf16 SSIM-Y {tpu['ssim_y']:.5f} vs bf16_fast_5img "
                             f"{ref_b['ssim_y']:.5f} (bound {ssim_tol})")
+        if fwd == "xla":
+            fast_bf16 = (exact, tpu)
+
+    # the mixed profiles in fast mode on xla, held against JAX's own mixed
+    # forwards on the CPU (EVAL_BF16_CPU.json) under both Ys, and on SSIM-Y
+    # against the TPU's mixed_fast_5img / mixedtail_fast_5img; one K3 per
+    # image, the float32 form under mixed, the bf16 form under mixed-tail
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+
+    k3 = kup.upsample_phase_tf1_kernel
+    for label, mixed, key, tpu_key in (("mixed", True, "xla_mixed", "mixed_fast_5img"),
+                                       ("mixed-tail", "tail", "xla_mixedtail", "mixedtail_fast_5img")):
+        k3.launches = k3.bf16_launches = 0
+        (_, exact), tpu = _scored(lambda: evaluate_model(
+            SuperResolver(weights=weights, forward="xla", mode="fast", mixed=mixed), set5, verbose=False))
+        launches = [k3.launches, k3.bf16_launches]
+        want_k3 = [n_img, n_img if mixed == "tail" else 0]
+        ref_j, ref_t = jax_cpu[f"jax_{key}"], profiles[tpu_key]
+        report(f"fast xla --dtype {label}", exact, tpu, ref_j["tpu_default_y"])
+        print(f"[chip_smoke] Set5 fast xla {label}: exact Y {exact['psnr_y'] - ref_j['exact']['psnr_y']:+.4f} dB, "
+              f"{exact['ssim_y'] - ref_j['exact']['ssim_y']:+.2e} SSIM-Y from JAX on the CPU; against the TPU's "
+              f"{tpu_key} {ref_t['psnr_y']:.4f} / {ref_t['ssim_y']:.5f}: {tpu['psnr_y'] - ref_t['psnr_y']:+.4f} dB, "
+              f"{tpu['ssim_y'] - ref_t['ssim_y']:+.2e} SSIM-Y; K3 launches (all, bf16) {launches}, expected "
+              f"{want_k3}", flush=True)
+        out[f"fast xla --dtype {label}"]["tpu_row"] = ref_t
+        out[f"fast xla --dtype {label}"]["jax_cpu_exact"] = ref_j["exact"]
+        if launches != want_k3:
+            failures.append(f"Set5 fast xla {label} K3 launches {launches} != {want_k3}")
+        check_row(f"fast xla {label} against JAX on the CPU", tpu, ref_j["tpu_default_y"], SET5_DB, SET5_SSIM)
+        check_row(f"fast xla {label} against JAX on the CPU (exact Y)", exact, ref_j["exact"], SET5_DB, SET5_SSIM)
+        if abs(tpu["ssim_y"] - ref_t["ssim_y"]) > SET5_SSIM:
+            failures.append(f"Set5 fast xla {label} SSIM-Y {tpu['ssim_y']:.5f} vs {tpu_key} "
+                            f"{ref_t['ssim_y']:.5f} (bound {SET5_SSIM})")
+
+    # the bf16 serving default, split mode on xla: within SPLIT_SET5_DB of the
+    # fast-mode bf16 xla row of this run; one K3 per stripe
+    k3.launches = k3.bf16_launches = 0
+    (_, exact), tpu = _scored(lambda: evaluate_model(
+        SuperResolver(weights=weights, forward="xla", mode="split", dtype=torch.bfloat16), set5, verbose=False))
+    stripes = sum(-(-h // 64) for h, _ in lr_shapes)
+    report("split xla --dtype bfloat16", exact, tpu)
+    dp = max(abs(exact["psnr_y"] - fast_bf16[0]["psnr_y"]), abs(tpu["psnr_y"] - fast_bf16[1]["psnr_y"]))
+    print(f"[chip_smoke] Set5 split xla bf16 against fast xla bf16: {dp:.3g} dB PSNR-Y (bound {SPLIT_SET5_DB}); "
+          f"K3 launches {k3.bf16_launches}, expected {stripes}", flush=True)
+    if dp > SPLIT_SET5_DB or k3.bf16_launches != stripes or k3.launches != stripes:
+        failures.append(f"Set5 split xla bf16: {dp:.3g} dB from fast, K3 launches {k3.launches} "
+                        f"(bf16 {k3.bf16_launches}) != {stripes}")
     return out
 
 
@@ -793,14 +860,14 @@ def _bf16_kernels(params, tiles, failures: list, oihw, lib53, libl) -> list:
     return rows
 
 
-def _bf16_cli(tmp: str, img, out_f32, failures: list, rows: list) -> dict:
+def _bf16_cli(tmp: str, img, out_f32, failures: list, rows: list, outputs: dict) -> dict:
     """Phase 3a for ``--dtype bfloat16``: ``main_dirpath`` with ``--forward
     pallas`` (16 bf16 K1 and 6 bf16 K2 launches) and ``pallas_chain`` (one
     bf16 K6 and one bf16 K7 per chunk), K3 never (those paths' x4 is the
     dense contraction), each held against the same run with the plain bf16
     versions in place of the kernels, within BF16_YARDSTICK_TIMES the gap
     between the plain versions summed in float64 and in float32.  Sets the
-    bf16 rows' launches."""
+    bf16 rows' launches; the kernels' outputs go into ``outputs`` by forward."""
     import functools
 
     import numpy as np
@@ -860,7 +927,7 @@ def _bf16_cli(tmp: str, img, out_f32, failures: list, rows: list) -> dict:
                     if row["name"] in counted and want[fwd][row["name"]]:
                         row["launches"] = launches[row["name"]]
             outs[variant] = imread(os.path.join(d, "img_scaled(1x).bmp"))
-        got = outs["kernels"]
+        got = outputs[fwd] = outs["kernels"]
         if got.shape != (512, 512, 3) or float(got.astype(np.float64).std()) < 1.0:
             failures.append(f"bf16 {fwd} output shape {got.shape} or flat")
             continue
@@ -877,6 +944,278 @@ def _bf16_cli(tmp: str, img, out_f32, failures: list, rows: list) -> dict:
         out[fwd] = {"u8_max_diff_vs_plain": dmax, "u8_differing_vs_plain": frac,
                     "yardstick_u8_max_diff": ymax, "yardstick_u8_differing": yfrac, "psnr_vs_f32": psnr}
     return out
+
+
+def _plain_int8_blocks():
+    """The plain int8 blocks with the kernels' signatures, to swap in for K4 and K5."""
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+
+    def plain53(x, *a, res_scale=0.1, identity_scale=0.9, tile=None, act_scales=None):
+        return ki8.light53_int8_plain(x, *a, act_scales, res_scale, identity_scale)
+
+    def plain_light(x, *a, res_scale=0.1, tile=None, act_scales=None):
+        return ki8.light_int8_plain(x, *a, act_scales, res_scale)
+
+    return plain53, plain_light
+
+
+class _Swapped:
+    """Within the block: the x4 of the module and int8 forwards ("plain_x4"),
+    or the int8 forward's blocks ("plain_blocks"), replaced by their plain
+    versions; "kernels" swaps nothing."""
+
+    def __init__(self, variant: str):
+        self.variant = variant
+
+    def __enter__(self):
+        from image_enhance_keras_tpu_torch.models import didbl, didbl_pallas
+        from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
+
+        if self.variant == "plain_x4":
+            didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_plain
+        elif self.variant == "plain_blocks":
+            didbl_pallas.light53_int8, didbl_pallas.light_int8 = _plain_int8_blocks()
+        return self
+
+    def __exit__(self, *exc):
+        from image_enhance_keras_tpu_torch.models import didbl, didbl_pallas
+        from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+        from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
+
+        didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_tf1
+        didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
+        return False
+
+
+def _counted():
+    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7."""
+    from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+    from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+
+    return (kup.upsample_phase_tf1_kernel, ki8.light53_int8, ki8.light_int8, kb.fused_light53_block,
+            kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain)
+
+
+def _counts() -> dict:
+    """The nonzero launch counts of K3 (all and bf16), K4, K5, and of K1/K2
+    and K6/K7 on bf16 tensors."""
+    k3, k4, k5, k1, k2, k6, k7 = _counted()
+    counts = {"upsample_phase_tf1": k3.launches, "upsample_phase_tf1_bf16": k3.bf16_launches,
+              "light53_int8": k4.launches, "light_int8": k5.launches,
+              "light53_block_bf16": k1.bf16_launches, "light_block_bf16": k2.bf16_launches,
+              "light53_chain_bf16": k6.bf16_launches, "light_chain_bf16": k7.bf16_launches}
+    return {k: v for k, v in counts.items() if v}
+
+
+def _zero_counts() -> None:
+    for fn in _counted():
+        fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
+
+
+def _mixed_cli(tmp: str, img, weights: str, out_bf16: dict, out8, failures: list) -> dict:
+    """The mixed profiles through ``main_dirpath``.  On ``xla`` (patch mode,
+    one forward for the 9 tiles): ``--dtype mixed`` launches the float32 K3
+    once, ``mixed-tail`` the bf16 K3 once, each byte-equal to the same run
+    with the plain x4.  ``--forward pallas`` / ``pallas_chain`` with
+    ``--dtype mixed`` run the bf16 K1/K2 and K6/K7, byte-equal to the bf16
+    runs; ``--forward pallas_int8 --dtype bfloat16`` is byte-equal to the
+    float32 int8 run.  Then both mixed profiles in fast mode on a 20x24 crop,
+    the card against the port on the CPU, within BF16_YARDSTICK_TIMES the
+    gap between the CPU run summed in float64 and in float32."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread, imwrite
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models import blocks as mblocks
+
+    def run(name, argv, variant="kernels"):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        imwrite(os.path.join(d, "img.bmp"), img)
+        _zero_counts()
+        with _Swapped(variant):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            rc = main_dirpath.main([d, *argv])
+            torch.cuda.synchronize()
+        counts = _counts()
+        print(f"[chip_smoke] main_dirpath {' '.join(argv)} ({variant}): rc {rc}, {time.time() - t1:.2f} s, "
+              f"launches {counts}", flush=True)
+        if rc != 0:
+            failures.append(f"main_dirpath {' '.join(argv)} ({variant}) returned {rc}")
+        return imread(os.path.join(d, "img_scaled(1x).bmp")), counts
+
+    out: dict = {}
+    k3 = {"mixed": {"upsample_phase_tf1": 1}, "mixed-tail": {"upsample_phase_tf1": 1, "upsample_phase_tf1_bf16": 1}}
+    for profile in ("mixed", "mixed-tail"):
+        argv = ["--forward", "xla", "--dtype", profile]
+        got, counts = run(f"xla_{profile}", argv)
+        plain, plain_counts = run(f"xla_{profile}_plain", argv, "plain_x4")
+        same = bool(np.array_equal(got, plain))
+        print(f"[chip_smoke] --dtype {profile} xla: byte-equal with the plain x4 {same}", flush=True)
+        if counts != k3[profile] or plain_counts:
+            failures.append(f"--dtype {profile} xla launches {counts} (plain x4 run {plain_counts}) "
+                            f"!= {k3[profile]}")
+        if not same or got.shape != (512, 512, 3) or float(got.astype(np.float64).std()) < 1.0:
+            failures.append(f"--dtype {profile} xla: output {got.shape}, byte-equal with the plain x4 {same}")
+        out[f"xla {profile}"] = {"launches": counts, "equal_plain_x4": same}
+    want = {"pallas": {"light53_block_bf16": 16, "light_block_bf16": 6},
+            "pallas_chain": {"light53_chain_bf16": 1, "light_chain_bf16": 1}}
+    for fwd in ("pallas", "pallas_chain"):
+        got, counts = run(f"{fwd}_mixed", ["--forward", fwd, "--dtype", "mixed"])
+        same = fwd in out_bf16 and bool(np.array_equal(got, out_bf16[fwd]))
+        print(f"[chip_smoke] --forward {fwd} --dtype mixed: byte-equal with --dtype bfloat16 {same}", flush=True)
+        if counts != want[fwd] or not same:
+            failures.append(f"--forward {fwd} --dtype mixed: launches {counts} (want {want[fwd]}), "
+                            f"byte-equal with bf16 {same}")
+        out[f"{fwd} mixed"] = {"launches": counts, "equal_bf16": same}
+    got, counts = run("pallas_int8_bf16", ["--forward", "pallas_int8", "--dtype", "bfloat16"])
+    same = bool(np.array_equal(got, out8))
+    # K3 twice: calibration's x4 runs on float32 activations, the forward's on bf16
+    want8 = {"upsample_phase_tf1": 2, "upsample_phase_tf1_bf16": 1, "light53_int8": 18, "light_int8": 6}
+    print(f"[chip_smoke] --forward pallas_int8 --dtype bfloat16: byte-equal with float32 {same}", flush=True)
+    if counts != want8 or not same:
+        failures.append(f"--forward pallas_int8 --dtype bfloat16: launches {counts} (want {want8}), "
+                        f"byte-equal with float32 {same}")
+    out["pallas_int8 bfloat16"] = {"launches": counts, "equal_float32": same}
+
+    crop = np.ascontiguousarray(img[:20, :24])
+    conv = mblocks.conv2d_nhwc
+    for profile, mixed in (("mixed", True), ("mixed-tail", "tail")):
+        card = SuperResolver(weights=weights, mixed=mixed, mode="fast", device="cuda").upscale(crop)
+        cpu_r = SuperResolver(weights=weights, mixed=mixed, mode="fast", device="cpu")
+        cpu = cpu_r.upscale(crop)
+        mblocks.conv2d_nhwc = lambda x, k, b=None: conv(x.double(), k.double(),
+                                                        None if b is None else b.double()).to(x.dtype)
+        try:
+            cpu64 = cpu_r.upscale(crop)
+        finally:
+            mblocks.conv2d_nhwc = conv
+        dmax, frac = _u8_agreement(card, cpu)
+        ymax, yfrac = _u8_agreement(cpu64, cpu)
+        print(f"[chip_smoke] --dtype {profile} fast 20x24 crop, card vs cpu: max diff {dmax}, differing "
+              f"fraction {frac:.3g}; yardstick, cpu summed in float64 vs float32: max diff {ymax}, differing "
+              f"fraction {yfrac:.3g} (bound {BF16_YARDSTICK_TIMES}x each)", flush=True)
+        if dmax > BF16_YARDSTICK_TIMES * ymax or frac > BF16_YARDSTICK_TIMES * yfrac:
+            failures.append(f"--dtype {profile} card vs CPU: max {dmax}, fraction {frac:.3g}, beyond "
+                            f"{BF16_YARDSTICK_TIMES}x the yardstick (max {ymax}, fraction {yfrac:.3g})")
+        out[f"cpu crop {profile}"] = {"u8_max_diff": dmax, "u8_differing": frac,
+                                      "yardstick_u8_max_diff": ymax, "yardstick_u8_differing": yfrac}
+    return out
+
+
+def _split_phase(weights: str, qp, failures: list, gpu: str) -> dict:
+    """A seeded SPLIT_HW square image in fast mode, split mode with stripes of
+    SPLIT_TILE body rows, and split mode on 2-D tiles of SPLIT2D_TILE (16
+    tiles, two chunks of 8), on ``xla`` float32, ``xla`` bf16 (the bf16
+    serving default) and ``pallas_int8`` (phase 2's quantized tree).  Each
+    split run against fast on the same forward, each with the launches of K3
+    (one per forward, stripe and chunk), K4 (16 on the body, 2 per stripe or
+    chunk) and K5, and again with the plain x4 (and for int8 the plain
+    blocks) in place of the kernels: byte-equal.  out-Mpix/s (best of two
+    runs after a warm-up) and ``torch.cuda.max_memory_allocated`` per run."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+
+    img = _seeded_image(SPLIT_HW, SPLIT_HW, SEED + 1)
+    n_stripes = -(-SPLIT_HW // SPLIT_TILE)
+    n_chunks = -(-(-(-SPLIT_HW // SPLIT2D_TILE)) ** 2 // 8)
+    modes = {"fast": dict(mode="fast"), "split": dict(mode="split", split_tile=SPLIT_TILE),
+             "split2d": dict(mode="split", split_tile=SPLIT2D_TILE, split_tile_w=SPLIT2D_TILE)}
+    tails = {"fast": 1, "split": n_stripes, "split2d": n_chunks}
+    forwards = {"xla": dict(forward="xla"), "xla bf16": dict(forward="xla", dtype=torch.bfloat16),
+                "pallas_int8": dict(forward="pallas_int8")}
+    mpix = (4 * SPLIT_HW) ** 2 / 1e6
+    out: dict = {}
+    for fname, fkw in forwards.items():
+        int8 = fname == "pallas_int8"
+        fast = None
+        for mname, mkw in modes.items():
+            r = SuperResolver(weights=weights, device="cuda", **fkw, **mkw)
+            if int8:
+                r._qparams = qp
+            r.upscale(img)  # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            secs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t1 = time.time()
+                y = r.upscale(img)
+                torch.cuda.synchronize()
+                secs.append(time.time() - t1)
+            peak = torch.cuda.max_memory_allocated()
+            counts = {k: v // 2 for k, v in _counts().items()}
+            want = {"upsample_phase_tf1": tails[mname]}
+            if fname != "xla":
+                want["upsample_phase_tf1_bf16"] = tails[mname]
+            if int8:
+                want.update(light53_int8=16 + 2 * tails[mname], light_int8=6)
+            row = {"s": min(secs), "out_mpix_s": mpix / min(secs), "peak_mib": peak / 2**20,
+                   "resident_mib": base / 2**20, "launches": counts}
+            print(f"[chip_smoke] {fname} {mname} {SPLIT_HW}x{SPLIT_HW}: {min(secs):.4f} s, "
+                  f"{row['out_mpix_s']:.3f} out-Mpix/s, peak {row['peak_mib']:.1f} MiB "
+                  f"(resident before the run {row['resident_mib']:.1f}), launches {counts} on {gpu}", flush=True)
+            if counts != want:
+                failures.append(f"{fname} {mname} launches {counts} != {want}")
+            if fast is None:
+                fast = y
+                if y.shape != (4 * SPLIT_HW, 4 * SPLIT_HW, 3) or float(y.std()) < 1.0:
+                    failures.append(f"{fname} fast output {y.shape} or flat")
+            else:
+                dmax, frac = _u8_agreement(y, fast)
+                bmax, bfrac = (INT8_U8_MAX_DIFF, INT8_U8_MAX_FRAC) if int8 else (U8_MAX_DIFF, U8_MAX_FRAC)
+                print(f"[chip_smoke] {fname} {mname} vs fast: max diff {dmax}, differing fraction {frac:.3g} "
+                      f"({int(round(frac * y.size))} values; bound {bmax} on {bfrac})", flush=True)
+                row.update(u8_max_diff_vs_fast=dmax, u8_differing_vs_fast=frac)
+                if dmax > bmax or frac > bfrac:
+                    failures.append(f"{fname} {mname} vs fast: max {dmax}, fraction {frac:.3g}")
+                for variant in ("plain_x4", "plain_blocks") if int8 else ("plain_x4",):
+                    _zero_counts()
+                    with _Swapped(variant):
+                        yp = r.upscale(img)
+                    same = bool((yp == y).all())
+                    print(f"[chip_smoke] {fname} {mname} byte-equal with the {variant} run: {same}; "
+                          f"its launches {_counts()}", flush=True)
+                    row[f"equal_{variant}"] = same
+                    if not same:
+                        failures.append(f"{fname} {mname} differs from its {variant} run")
+            out[f"{fname} {mname}"] = row
+            del r
+            torch.cuda.empty_cache()
+    return out
+
+
+def _extras_phase(weights: str, img, failures: list) -> dict:
+    """The x8 self-ensemble with 2 back-projection steps on a 48x48 crop at
+    full width, fast mode, the card against the port on the CPU."""
+    import numpy as np
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+
+    crop = np.ascontiguousarray(img[:48, 40:88])
+    kw = dict(weights=weights, mode="fast", self_ensemble=True, back_projection=2)
+    card = SuperResolver(device="cuda", **kw).upscale(crop)
+    cpu = SuperResolver(device="cpu", **kw).upscale(crop)
+    plain = SuperResolver(weights=weights, mode="fast", device="cuda").upscale(crop)
+    dmax, frac = _u8_agreement(card, cpu)
+    _, pfrac = _u8_agreement(card, plain)
+    print(f"[chip_smoke] self-ensemble + back-projection 2, 48x48 crop: card vs cpu max diff {dmax}, "
+          f"differing fraction {frac:.3g} (bound {U8_MAX_DIFF} on {U8_MAX_FRAC}); {pfrac:.3g} of the values "
+          f"differ from the plain forward's", flush=True)
+    if card.shape != (192, 192, 3) or dmax > U8_MAX_DIFF or frac > U8_MAX_FRAC or pfrac == 0.0:
+        failures.append(f"self-ensemble + back-projection: shape {card.shape}, card vs CPU max {dmax}, "
+                        f"fraction {frac:.3g}; against the plain forward {pfrac:.3g}")
+    return {"u8_max_diff_vs_cpu": dmax, "u8_differing_vs_cpu": frac, "u8_differing_vs_plain_forward": pfrac}
 
 
 def main() -> int:
@@ -902,7 +1241,7 @@ def main() -> int:
     from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
     from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
     from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
-    from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain, upsample_phase_tf1
+    from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
     from image_enhance_keras_tpu_torch.tiling.tiles import extract_tiles, pad_to_plan, plan_tiles
     from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
 
@@ -1452,7 +1791,8 @@ def main() -> int:
 
         # the bf16 profile through the CLI, with the plain bf16 versions swapped in as its reference
         t0 = time.time()
-        bf16_cli = _bf16_cli(tmp, img, out_p, failures, rows)
+        out_bf16: dict = {}
+        bf16_cli = _bf16_cli(tmp, img, out_p, failures, rows, out_bf16)
         _phase("3a bf16 pallas and pallas_chain paths (CLI)", t0)
 
         # the int8 path: calibration, quantization and the forward, all in the
@@ -1462,33 +1802,18 @@ def main() -> int:
         # same bytes (their launches are not the main path's).
         t0 = time.time()
 
-        def plain53(x, *a, res_scale=0.1, identity_scale=0.9, tile=None, act_scales=None):
-            return ki8.light53_int8_plain(x, *a, act_scales, res_scale, identity_scale)
-
-        def plain_light(x, *a, res_scale=0.1, tile=None, act_scales=None):
-            return ki8.light_int8_plain(x, *a, act_scales, res_scale)
-
         outs8 = {}
         for up in ("kernel", "plain_x4", "plain_blocks"):
             d = os.path.join(tmp, f"int8_{up}")
             os.makedirs(d)
             imwrite(os.path.join(d, "img.bmp"), img)
-            ki8.light53_int8.launches = 0
-            ki8.light_int8.launches = 0
-            kup.upsample_phase_tf1_kernel.launches = 0
-            if up == "plain_x4":
-                didbl_pallas.upsample_phase_tf1 = upsample_phase_plain
-            if up == "plain_blocks":
-                didbl_pallas.light53_int8, didbl_pallas.light_int8 = plain53, plain_light
-            try:
+            _zero_counts()
+            with _Swapped(up):
                 torch.cuda.synchronize()
                 t1 = time.time()
                 rc = main_dirpath.main([d, "--forward", "pallas_int8"])
                 torch.cuda.synchronize()
                 cli_s = time.time() - t1
-            finally:
-                didbl_pallas.upsample_phase_tf1 = upsample_phase_tf1
-                didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
             launches8 = {"light53_int8": ki8.light53_int8.launches,
                          "light_int8": ki8.light_int8.launches,
                          "upsample_phase_tf1": kup.upsample_phase_tf1_kernel.launches}
@@ -1527,6 +1852,23 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _phase("3a' pallas_int8 path (CLI)", t0)
+
+    # the mixed profiles through the CLI
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_mixed_")
+    try:
+        mixed_cli = _mixed_cli(tmp, img, weights, out_bf16, out_8, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _phase("3a''' mixed profiles (CLI) and CPU references", t0)
+
+    # split mode: stripes and 2-D tiles against fast, on xla float32 / bf16 and pallas_int8
+    t0 = time.time()
+    split = _split_phase(weights, qp, failures, gpu)
+    _phase(f"3c split and split2d at {SPLIT_HW}x{SPLIT_HW}", t0)
+    t0 = time.time()
+    extras = _extras_phase(weights, img, failures)
+    _phase("3d self-ensemble and back-projection", t0)
 
     # the uncalibrated int8 forward through the library API (no engine path
     # reaches it: the engine always calibrates)
@@ -1606,7 +1948,8 @@ def main() -> int:
                       "int8_calib_source": res8.int8_calib_source, "int8_psnr_vs_f32": psnr8,
                       "int8_uncalibrated": uncal,
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()},
-                      "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "set5": set5}),
+                      "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "mixed_cli": mixed_cli,
+                      "split": split, "extras": extras, "set5": set5}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,18 +21,12 @@ _NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
 #: values this slice runs, for flags whose other JAX values are not ported
 _PORTED_VALUES = {
     "model": ("didbl",),
-    "mode": ("patch", "fast"),
     "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
-    "dtype": ("float32", "bfloat16"),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
     "save_intermediate": ("--save_intermediate", False),
     "devices": ("--devices", 1),
-    "split_tile": ("--split-tile", None),
-    "split_tile_w": ("--split-tile-w", None),
-    "self_ensemble": ("--self-ensemble", False),
-    "back_projection": ("--back-projection", 0),
     "internal_learn": ("--internal-learn", 0),
     "internal_learn_lr": ("--internal-learn-lr", None),
     "pipeline": ("--pipeline", False),
@@ -47,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="didbl")
     p.add_argument("--scale", default=1, type=int, help="scale label used in output names")
     p.add_argument("--mode", default="patch", choices=["fast", "patch", "split"],
-                   help="patch: reference-exact overlapped tiling; fast: whole-frame forward")
+                   help="patch: reference-exact overlapped tiling; fast: whole-frame forward; "
+                        "split: whole-frame body + halo-striped tail (fast's output, bounded memory)")
     p.add_argument("--forward", default="xla",
                    choices=["xla", "int8", "pallas", "pallas_chain", "pallas_int8"],
                    help="xla: the plain torch module; pallas: LR blocks on the CUDA kernels; "
@@ -62,7 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="params .npz; omitted = the model's committed demo checkpoint; "
                         "'none' = explicit random-init smoke run")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed", "mixed-tail"],
-                   help="serving precision: bfloat16 runs xla, pallas and pallas_chain in bf16")
+                   help="serving precision: float32; bfloat16; mixed (bf16 conv operands, float32 "
+                        "emission); mixed-tail (pure-bf16 body, mixed tail); the pallas forwards run "
+                        "the mixed profiles in bf16, pallas_int8 ignores the dtype")
     p.add_argument("--tile_chunk", default=16, type=int)
     p.add_argument("--round-mode", default="round", choices=["round", "trunc"],
                    help="final uint8 cast: round (half to even) or trunc (the reference's cast)")
@@ -71,13 +68,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8-calib-dir", default=None,
                    help="int8 forwards: calibrate activation scales on these images "
                         "(default: the package-bundled photos, else procedural images)")
+    p.add_argument("--split-tile", type=int, default=None,
+                   help="split-mode row stripe / tile height in body-map px (default 64)")
+    p.add_argument("--split-tile-w", type=int, default=None,
+                   help="2-D tiled tail: also tile split-mode columns (body-map px)")
+    p.add_argument("--self-ensemble", action="store_true",
+                   help="x8 geometric self-ensemble (flips and rot90 averaged)")
+    p.add_argument("--back-projection", type=int, default=0, metavar="N",
+                   help="N iterative back-projection steps against the LR input")
     # JAX flags that parse but are rejected below
     p.add_argument("--save_intermediate", default=False, action="store_true")
     p.add_argument("--devices", default=1, type=int)
-    p.add_argument("--split-tile", type=int, default=None)
-    p.add_argument("--split-tile-w", type=int, default=None)
-    p.add_argument("--self-ensemble", action="store_true")
-    p.add_argument("--back-projection", type=int, default=0)
     p.add_argument("--internal-learn", type=int, default=0)
     p.add_argument("--internal-learn-lr", type=float, default=None)
     p.add_argument("--pipeline", action="store_true")
@@ -95,8 +96,6 @@ def main(argv=None) -> int:
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) != default:
             parser.error(f"{flag} is {_NOT_PORTED}")
-    if args.dtype == "bfloat16" and args.forward == "pallas_int8":
-        parser.error(f"--dtype bfloat16 with --forward pallas_int8 is {_NOT_PORTED}")
 
     from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
     from image_enhance_keras_tpu_torch.engine import SuperResolver
@@ -105,14 +104,19 @@ def main(argv=None) -> int:
     resolver = SuperResolver(
         model=args.model,
         weights=weights,
-        dtype=args.dtype,
+        dtype="bfloat16" if args.dtype == "bfloat16" else None,
         patch=args.patch_size,
         step=args.step,
         geometry=args.geometry,
         tile_chunk=args.tile_chunk,
         mode=args.mode,
         forward=args.forward,
+        split_tile_w=args.split_tile_w,
+        **({"split_tile": args.split_tile} if args.split_tile else {}),
+        self_ensemble=args.self_ensemble,
+        back_projection=args.back_projection,
         round_mode=args.round_mode,
+        mixed="tail" if args.dtype == "mixed-tail" else args.dtype == "mixed",
         device=args.device,
     )
     if args.int8_calib_dir:

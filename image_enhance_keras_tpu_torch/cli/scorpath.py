@@ -23,12 +23,9 @@ _JAX_MODELS = ("didbl", "didbl_subpixel", "difv4", "difv4_x2", "difvdsr")
 _PORTED_VALUES = {
     "model": ("didbl",),
     "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
-    "dtype": ("float32", "bfloat16"),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
-    "self_ensemble": ("--self-ensemble", False),
-    "back_projection": ("--back-projection", 0),
     "internal_learn": ("--internal-learn", 0),
 }
 
@@ -56,12 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --generate: forward implementation (xla: the plain torch module; "
                         "pallas / pallas_chain / pallas_int8: the CUDA kernels)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed"],
-                   help="with --generate: serving precision (bfloat16: xla, pallas and pallas_chain)")
+                   help="with --generate: serving precision (mixed: bf16 conv operands, float32 "
+                        "emission)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (cuda must be present unless cpu is asked for)")
+    p.add_argument("--self-ensemble", action="store_true",
+                   help="with --generate: x8 geometric self-ensemble forwards")
+    p.add_argument("--back-projection", type=int, default=0, metavar="N",
+                   help="with --generate: N iterative back-projection steps")
     # JAX flags that parse but are rejected below
-    p.add_argument("--self-ensemble", action="store_true")
-    p.add_argument("--back-projection", type=int, default=0, metavar="N")
     p.add_argument("--internal-learn", type=int, default=0, metavar="N")
     return p
 
@@ -75,15 +75,15 @@ def main(argv=None) -> int:
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) != default:
             parser.error(f"{flag} is {_NOT_PORTED}")
-    if args.dtype == "bfloat16" and args.forward == "pallas_int8":
-        parser.error(f"--dtype bfloat16 with --forward pallas_int8 is {_NOT_PORTED}")
     if args.generate:
         from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
         from image_enhance_keras_tpu_torch.engine import SuperResolver
         from image_enhance_keras_tpu_torch.eval import evaluate_model
 
         resolver = SuperResolver(model=args.model, weights=resolve_cli_weights(args.model, args.weights),
-                                 forward=args.forward, dtype=args.dtype, device=args.device)
+                                 self_ensemble=args.self_ensemble, back_projection=args.back_projection,
+                                 forward=args.forward, dtype=None if args.dtype == "float32" else "bfloat16",
+                                 mixed=args.dtype == "mixed", device=args.device)
         scores, means = evaluate_model(resolver, args.path_dir, scale=args.scale_factor,
                                        crop_border=args.crop, with_gmsd=args.gmsd)
     else:

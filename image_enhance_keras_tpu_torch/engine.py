@@ -6,18 +6,28 @@ Per image, on the resolver's device:
     batch in chunks of ``tile_chunk`` -> *255 -> stitch -> crop ->
     round/clip -> uint8
 
-(``mode='patch'``, the reference's overlapped tiling), or the generator
-over the whole frame (``mode='fast'``).  ``forward='xla'`` runs the
-``nn.Module``; ``forward='pallas'`` runs ``apply_didbl_pallas``, whose LR
-blocks are the CUDA kernels, one launch per block; ``forward='pallas_chain'``
-the same with the 16 Light53 and the 6 Light blocks as one chain kernel
-each; ``forward='pallas_int8'`` runs
+(``mode='patch'``, the reference's overlapped tiling), the generator over
+the whole frame (``mode='fast'``), or the body over the whole frame and the
+x4 tail over halo'd row stripes of the body map (``mode='split'``), or
+over a batch of shifted 2-D tiles with ``split_tile_w``, in chunks of
+``split2d_chunk``: the same output as fast mode at bounded tail memory.
+``forward='xla'`` runs the ``nn.Module``; ``forward='pallas'`` runs
+``apply_didbl_pallas``, whose LR blocks are the CUDA kernels, one launch
+per block; ``forward='pallas_chain'`` the same with the 16 Light53 and the
+6 Light blocks as one chain kernel each; ``forward='pallas_int8'`` runs
 ``apply_didbl_int8`` on a one-time quantized tree (``_fwd_params``), every
 residual block on the int8 kernels.  Float32 weights; TF32 is switched off.
 ``dtype=torch.bfloat16`` (or ``"bfloat16"``) runs ``xla``, ``pallas`` and
 ``pallas_chain`` in bf16, as the JAX engine's serving profile does: the
 module's convs and combines, or the kernels' bf16 forms, with float32
-outputs; with ``pallas_int8`` it is not yet ported.
+outputs.  ``mixed=True`` (bf16 unless ``dtype`` says otherwise) gives the
+module bf16-rounded conv operands with float32 emission everywhere,
+``mixed="tail"`` only in the x4 tail; the ``pallas*`` forwards take only
+the dtype, as in JAX, so there they run pure bf16, and ``pallas_int8``
+takes no dtype at all.  ``self_ensemble`` averages the x8 dihedral
+transforms, ``back_projection=N`` refines the result against the LR input
+(``ops/backproject.py``); ``upscale_patch_average``, ``upscale_frame`` and
+``upscale_video`` are the reference's other entry points.
 """
 
 from __future__ import annotations
@@ -97,7 +107,13 @@ class SuperResolver:
         forward: str = "xla",
         mode: str = "patch",
         fast_max_pixels: int = 1 << 20,
+        split_tile: int = 64,
+        split_tile_w: int | None = None,
+        self_ensemble: bool = False,
+        back_projection: int = 0,
         round_mode: str = "round",
+        mixed: bool | str = False,
+        internal_learn: int = 0,
         module_and_spec: tuple | None = None,
         device: str | torch.device = "cuda",
     ):
@@ -105,18 +121,22 @@ class SuperResolver:
         disable_tf32()
         if forward not in ("xla", "pallas", "pallas_chain", "pallas_int8"):
             raise NotImplementedError(f"forward={forward!r} {_NOT_PORTED}")
-        if mode not in ("patch", "fast"):
-            raise NotImplementedError(f"mode={mode!r} {_NOT_PORTED}")
+        if mode not in ("patch", "fast", "split"):
+            raise ValueError(f"mode must be 'patch', 'fast' or 'split', got {mode!r}")
         if round_mode not in ("round", "trunc"):
             raise ValueError(f"round_mode must be 'round' or 'trunc', got {round_mode!r}")
+        if internal_learn:
+            raise NotImplementedError(f"internal_learn {_NOT_PORTED}")
+        if mixed and dtype is None:
+            dtype = torch.bfloat16  # the mixed profiles' dots default to the serving bf16
+        #: the dtype the pallas* forwards run in (bf16 under both mixed profiles)
         self._dtype = profile_dtype(dtype)
-        if self._dtype != torch.float32 and forward == "pallas_int8":
-            raise NotImplementedError(f"dtype={dtype!r} with forward='pallas_int8' {_NOT_PORTED}")
         self.model_name = model
         if module_and_spec is not None:
             self.module, self.spec = module_and_spec
         else:
-            self.module, self.spec = get_model(model, dtype=dtype)
+            kw = {"mixed_tail" if mixed == "tail" else "mixed": True} if mixed else {}
+            self.module, self.spec = get_model(model, dtype=dtype, **kw)
         if forward.startswith("pallas") and not model.startswith("didbl"):
             raise ValueError("pallas forwards are implemented for the didbl family")
         self.forward_mode = forward
@@ -129,6 +149,10 @@ class SuperResolver:
         self.tile_chunk = max(1, tile_chunk * (96 * 96) // (patch * patch))
         self.mode = mode
         self.fast_max_pixels = fast_max_pixels
+        self.split_tile = split_tile
+        self.split_tile_w = split_tile_w
+        self.self_ensemble = self_ensemble
+        self.back_projection = int(back_projection)
         self.round_mode = round_mode
 
         self.module = self.module.to(self.device).eval().requires_grad_(False)
@@ -210,6 +234,12 @@ class SuperResolver:
             return torch.clamp(torch.floor(y), 0.0, 255.0).to(torch.uint8)
         return torch.clamp(torch.round(y), 0.0, 255.0).to(torch.uint8)
 
+    def _finalize_u8_np(self, y: np.ndarray) -> np.ndarray:
+        """Host twin of :meth:`_finalize_u8` (the x8 ensemble average); np.round is half to even."""
+        if self.round_mode == "trunc":
+            return np.clip(np.floor(y), 0.0, 255.0).astype(np.uint8)
+        return np.clip(np.round(y), 0.0, 255.0).astype(np.uint8)
+
     def _fast_fn(self) -> Callable:
         """Whole-frame forward with no tiling."""
         forward = self._forward_fn()
@@ -218,6 +248,127 @@ class SuperResolver:
             x = img_u8.to(torch.float32)[None] / 255.0
             y = forward(params, x)[0] * 255.0
             return self._finalize_u8(y)
+
+        return run
+
+    # ------------------------------------------------------------------
+    # split mode: whole-frame body, tail over stripes or 2-D tiles
+    # ------------------------------------------------------------------
+    #: tail tiles per call of split mode's 2-D tiled tail
+    split2d_chunk: int = 8
+
+    def _supports_split(self) -> bool:
+        m = self.module
+        return callable(getattr(m, "body", None)) and callable(getattr(m, "tail", None))
+
+    def _split_body_tail_fns(self) -> tuple[Callable, Callable]:
+        """(body_fn, tail_fn) of the forward: the module's body and tail for
+        ``xla``, the int8 body and tail for ``pallas_int8`` (the same receptive
+        field, so the module's ``split_halo`` holds)."""
+        module = self.module
+        fm = self.forward_mode
+        if fm == "xla":
+            return (lambda p, x: module.body(x)), (lambda p, h: module.tail(h))
+        if fm == "pallas_int8":
+            from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_int8_body, apply_didbl_int8_tail
+
+            m = module
+            if getattr(m, "upsampler", "tf1_bilinear") != "tf1_bilinear":
+                raise ValueError("pallas_int8 supports the tf1_bilinear head")
+            return (lambda qp, x: apply_didbl_int8_body(qp, x, n_body53=m.n_body53, n_light=m.n_light),
+                    lambda qp, h: apply_didbl_int8_tail(qp, h, n_tail53=m.n_tail53, scale=m.scale))
+        raise ValueError(f"mode='split' supports the xla/int8/pallas_int8 forwards, not {fm!r}")
+
+    def _split_fn(self, hw) -> Callable:
+        """Whole-frame body + halo-striped tail: the stripe of tail rows
+        [ts*k, ts*(k+t)) runs on body-map rows [k - halo, k + t + halo),
+        clamped at the edges, where clamped sampling and zero conv padding
+        coincide with the whole frame's; tail memory is bounded by
+        ``split_tile`` body-map rows.  ``split_tile_w`` switches to the 2-D
+        tiled tail."""
+        if self.split_tile_w:
+            return self._split_fn_2d(hw)
+        body_fn, tail_fn = self._split_body_tail_fns()
+        ts, halo, h_total = self.module.scale, self.module.split_halo, int(hw[0])
+        t = max(1, self.split_tile)
+
+        def run(params, img_u8: torch.Tensor) -> torch.Tensor:
+            x = img_u8.to(torch.float32)[None] / 255.0
+            feats = body_fn(params, x)
+            outs = []
+            for k in range(0, h_total, t):
+                tt = min(t, h_total - k)
+                s0, e0 = max(k - halo, 0), min(k + tt + halo, h_total)
+                y = tail_fn(params, feats[:, s0:e0].contiguous())
+                outs.append(y[:, (k - s0) * ts : (k - s0 + tt) * ts])
+            return self._finalize_u8(torch.cat(outs, dim=1)[0] * 255.0)
+
+        return run
+
+    def _split2d_geometry(self, hw) -> dict:
+        """Tile counts and sizes of the shifted 2-D grid, and its extract and
+        stitch index vectors on the device."""
+        from image_enhance_keras_tpu_torch.tiling.tiles import (
+            shift_grid_axis,
+            shifted_extract_indices,
+            shifted_stitch_indices,
+        )
+
+        ts, halo, (hb, wb) = self.module.scale, self.module.split_halo, (int(hw[0]), int(hw[1]))
+        t_r, t_c = max(1, self.split_tile), max(1, int(self.split_tile_w))
+        T_r, starts_r, _ = shift_grid_axis(hb, t_r, halo)
+        T_c, starts_c, _ = shift_grid_axis(wb, t_c, halo)
+
+        def dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(self.device)
+
+        return dict(
+            ts=ts, n_r=len(starts_r), n_c=len(starts_c), T_r=T_r, T_c=T_c,
+            ex_r=dev(shifted_extract_indices(hb, t_r, halo)), ex_c=dev(shifted_extract_indices(wb, t_c, halo)),
+            st_r=dev(shifted_stitch_indices(hb, t_r, halo, ts)), st_c=dev(shifted_stitch_indices(wb, t_c, halo, ts)),
+        )
+
+    @staticmethod
+    def _split2d_extract(feats: torch.Tensor, g: dict) -> torch.Tensor:
+        """(hb, wb, C) body map -> (n_r*n_c, T_r, T_c, C) shifted tiles."""
+        from image_enhance_keras_tpu_torch.tiling.tiles import gather_tiles_2d
+
+        return gather_tiles_2d(feats, g["ex_r"], g["ex_c"], g["n_r"], g["n_c"], g["T_r"], g["T_c"])
+
+    @staticmethod
+    def _split2d_stitch(y: torch.Tensor, g: dict) -> torch.Tensor:
+        """(n_r*n_c, T_r*ts, T_c*ts, C) tail tiles -> (hb*ts, wb*ts, C), the owned crops."""
+        from image_enhance_keras_tpu_torch.tiling.tiles import scatter_tiles_2d
+
+        return scatter_tiles_2d(y, g["st_r"], g["st_c"], g["n_r"], g["n_c"], g["T_r"], g["T_c"], scale=g["ts"])
+
+    def _split_fn_2d(self, hw) -> Callable:
+        """split with a 2-D tiled tail: the body map cut into uniform (t +
+        2*halo)-sized shifted tiles on both axes, the tail over the tile batch
+        in chunks of ``split2d_chunk``, the owned crops stitched back."""
+        body_fn, tail_fn = self._split_body_tail_fns()
+        g = self._split2d_geometry(hw)
+        n_tiles = g["n_r"] * g["n_c"]
+        chunk = min(max(1, self.split2d_chunk), n_tiles)
+        rem = n_tiles % chunk
+        n_full = n_tiles - rem
+        if rem and n_full:
+            log.warning(
+                "split2d: chunk %d does not divide the %dx%d=%d-tile batch "
+                "(remainder %d) — the remainder batch is a second tail "
+                "program, measured ~2.4x slower end-to-end; pick "
+                "--split-tile/--split-tile-w so the tile count is a chunk "
+                "multiple (e.g. 128/128 with chunk 8 at 512^2)",
+                chunk, g["n_r"], g["n_c"], n_tiles, rem,
+            )
+
+        def run(params, img_u8: torch.Tensor) -> torch.Tensor:
+            x = img_u8.to(torch.float32)[None] / 255.0
+            tiles = self._split2d_extract(body_fn(params, x)[0], g)
+            parts = [tail_fn(params, tiles[i : i + chunk]) for i in range(0, n_full, chunk)]
+            if rem:
+                parts.append(tail_fn(params, tiles[n_full:]))
+            return self._finalize_u8(self._split2d_stitch(torch.cat(parts), g) * 255.0)
 
         return run
 
@@ -362,20 +513,116 @@ class SuperResolver:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def upscale(self, img: np.ndarray) -> np.ndarray:
-        """uint8 RGB (H, W, 3) -> uint8 RGB x4 (``mode`` 'patch' or 'fast')."""
+        """uint8 RGB (H, W, 3) -> uint8 RGB x4 in ``mode`` 'patch', 'fast' or
+        'split', under the x8 self-ensemble if ``self_ensemble``, then
+        ``back_projection`` steps against the input."""
+        img = np.asarray(img)
+        out = self._upscale_ensemble(img) if self.self_ensemble else self._upscale_single(img)
+        if self.back_projection > 0:
+            out = self._back_project(out, img, self.back_projection)
+        return out
+
+    def _back_project(self, sr_u8: np.ndarray, lr_u8: np.ndarray, iters: int) -> np.ndarray:
+        """Back-projection of a frame (H, W, C) or a batch (T, H, W, C) on the device."""
+        if sr_u8.shape[-3] % lr_u8.shape[-3] or sr_u8.shape[-2] % lr_u8.shape[-2]:
+            log.warning("back_projection skipped: SR %s is not an integer multiple of LR %s",
+                        sr_u8.shape[-3:-1], lr_u8.shape[-3:-1])
+            return sr_u8
+        from image_enhance_keras_tpu_torch.ops.backproject import back_project
+
+        sr = torch.from_numpy(np.ascontiguousarray(sr_u8)).to(self.device)
+        lr = torch.from_numpy(np.ascontiguousarray(lr_u8)).to(self.device)
+        return back_project(sr, lr, iters=iters).cpu().numpy()
+
+    def _upscale_ensemble(self, img: np.ndarray) -> np.ndarray:
+        """x8 geometric self-ensemble: upscale every rot90/flip of the input,
+        undo the transform on each output, average the eight in float32 on
+        the host, round once."""
+        acc = None
+        for k in range(4):
+            for flip in (False, True):
+                t = np.rot90(img, k)
+                if flip:
+                    t = t[:, ::-1]
+                y = self._upscale_single(np.ascontiguousarray(t)).astype(np.float32)
+                if flip:
+                    y = y[:, ::-1]
+                y = np.rot90(y, -k)
+                acc = y if acc is None else acc + y
+        return self._finalize_u8_np(acc / 8.0)
+
+    def _upscale_single(self, img: np.ndarray) -> np.ndarray:
         img = np.ascontiguousarray(img)
         self._maybe_calibrate_int8(img)
         x = torch.tensor(img, device=self.device)
+        if self.mode == "split":
+            if self._supports_split():
+                return self._split_fn(img.shape[:2])(self._fwd_params(), x).cpu().numpy()
+            log.warning(
+                "mode='split' unavailable for %r (no body/tail decomposition); falling back to "
+                "the tiled patch pipeline (different border semantics)", self.model_name,
+            )
         if self.mode == "fast":
             if img.shape[0] * img.shape[1] <= self.fast_max_pixels:
                 return self._fast_fn()(self._fwd_params(), x).cpu().numpy()
             log.warning(
                 "mode='fast' frame %dx%d exceeds fast_max_pixels=%d; falling back to the "
                 "tiled patch pipeline (interior-identical, borders differ within the conv "
-                "receptive field)", img.shape[1], img.shape[0], self.fast_max_pixels,
+                "receptive field) — use mode='split' for whole-frame semantics at bounded "
+                "memory", img.shape[1], img.shape[0], self.fast_max_pixels,
             )
         plan = self.plan_for(img.shape[0], img.shape[1])
         return self._pipeline_for(plan)(self._fwd_params(), x).cpu().numpy()
+
+    @torch.inference_mode()
+    def upscale_patch_average(self, img: np.ndarray, patch: int = 32, step: int = 16) -> np.ndarray:
+        """The reference ``upscalePatch``: dense patches at ``step``, each
+        PIL-bicubic downscaled by the net scale, reconstructed by the network
+        and overlap-averaged back (4-px interior trim): a same-size pass."""
+        import torch.nn.functional as F
+
+        from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
+        from image_enhance_keras_tpu_torch.tiling.dense import extract_dense_patches, reconstruct_average
+
+        img = np.asarray(img)
+        h, w = img.shape[:2]
+        s = step
+        h2 = patch + -(-(max(h - patch, 0)) // s) * s
+        w2 = patch + -(-(max(w - patch, 0)) // s) * s
+        scale = self.spec.net_scale
+        x = torch.tensor(np.ascontiguousarray(img), device=self.device).to(torch.float32)
+        tiles = extract_dense_patches(F.pad(x, (0, 0, 0, w2 - w, 0, h2 - h)), patch, s)
+        lr = resize_pil_uint8(tiles, (patch // scale, patch // scale))
+        y = self._forward_fn()(self._fwd_params(), lr / 255.0) * 255.0
+        recon = reconstruct_average(y, (h2, w2), step=s, pad=4)
+        return self._finalize_u8(recon[:h, :w]).cpu().numpy()
+
+    @torch.inference_mode()
+    def upscale_frame(self, frame: np.ndarray) -> np.ndarray:
+        """One frame x4, whole-frame, never tiled (the reference's ``upVideo``
+        contract); honours ``back_projection``."""
+        frame = np.asarray(frame)
+        x = torch.tensor(np.ascontiguousarray(frame), device=self.device).to(torch.float32)[None] / 255.0
+        y = self._forward_fn()(self._fwd_params(), x)
+        out = self._finalize_u8(y[0] * 255.0).cpu().numpy()
+        if self.back_projection > 0:
+            out = self._back_project(out, frame, self.back_projection)
+        return out
+
+    @torch.inference_mode()
+    def upscale_video(self, frames: np.ndarray, frame_chunk: int = 1) -> np.ndarray:
+        """(T, H, W, 3) uint8 -> (T, 4H, 4W, 3) uint8: the whole-frame forward
+        over chunks of ``frame_chunk`` frames; honours ``back_projection``."""
+        frames = np.asarray(frames)
+        forward, params = self._forward_fn(), self._fwd_params()
+        v = torch.tensor(np.ascontiguousarray(frames), device=self.device)
+        tc = max(1, frame_chunk)
+        outs = [self._finalize_u8(forward(params, v[i : i + tc].to(torch.float32) / 255.0) * 255.0)
+                for i in range(0, v.shape[0], tc)]
+        out = torch.cat(outs).cpu().numpy()
+        if self.back_projection > 0:
+            out = self._back_project(out, frames, self.back_projection)
+        return out
 
     def upscale_file(self, img_path: str, suffix: str = "scaled", scale_label: int = 1) -> str:
         t0 = time.time()

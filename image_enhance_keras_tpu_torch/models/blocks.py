@@ -8,7 +8,11 @@ Precision profiles: float32, and bf16 (``dtype=torch.bfloat16`` or
 ``"bfloat16"``), which runs as flax ``nn.Conv(dtype=bf16)`` does: x, kernel
 and bias cast to bf16, the conv emitting bf16, the bias added in bf16, and
 the blocks' scale-and-add combines in bf16 with the scales' bf16 values
-(0.9 -> 0.8984375, 0.1 -> 0.10009765625).  Parameters stay float32.
+(0.9 -> 0.8984375, 0.1 -> 0.10009765625).  ``mixed=True`` with bf16 is the
+JAX package's ``_CONV_F32ACC`` conv: x, kernel and bias rounded to bf16,
+the conv of those values in float32 emitting float32, the rounded bias
+added in float32; the combines then run in float32 with float32 scales.
+Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -27,11 +31,9 @@ _PROFILES = {None: torch.float32, torch.float32: torch.float32, "float32": torch
              torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
-def profile_dtype(dtype: Any, mixed: bool = False) -> torch.dtype:
-    """The activation dtype of a profile (None -> float32); raises for the
-    profiles the port does not run."""
-    if mixed:
-        raise NotImplementedError("the mixed profile is not yet ported in image_enhance_keras_tpu_torch")
+def profile_dtype(dtype: Any) -> torch.dtype:
+    """The conv dtype of a profile (None -> float32); raises for the dtypes
+    the port does not run."""
     try:
         return _PROFILES[dtype]
     except (KeyError, TypeError):
@@ -46,14 +48,23 @@ def scale(v: float, like: torch.Tensor) -> float | torch.Tensor:
     return v if like.dtype == torch.float32 else torch.tensor(v, dtype=like.dtype)
 
 
+def _promoted(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """x in the dtype JAX gives ``asarray(v, h.dtype) * x`` (a bf16 x beside a
+    float32 h, as in the first mixed-tail block, is promoted; torch would not
+    promote it for a 0-d scale)."""
+    return x.to(torch.promote_types(x.dtype, h.dtype))
+
+
 class Conv(nn.Module):
     """SAME conv with an HWIO ``kernel`` and a ``bias``, like flax ``nn.Conv``."""
 
     def __init__(self, in_features: int, features: int, kernel_size: tuple[int, int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mixed: bool = False):
         super().__init__()
         kh, kw = kernel_size
         self.dtype = dtype
+        #: bf16-rounded operands, float32 conv and emission (no-op for float32)
+        self.mixed = mixed and dtype != torch.float32
         self.kernel = nn.Parameter(torch.empty(kh, kw, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -61,13 +72,17 @@ class Conv(nn.Module):
         if self.dtype == torch.float32:
             return conv2d_nhwc(x, self.kernel, self.bias)
         dt = self.dtype
+        if self.mixed:
+            f32 = torch.float32
+            return conv2d_nhwc(x.to(dt).to(f32), self.kernel.to(dt).to(f32)) + self.bias.to(dt).to(f32)
         return conv2d_nhwc(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
 
 
 def make_conv(features: int, kernel_size, *, in_features: int, dtype: Any = None,
               mixed: bool = False) -> Conv:
-    """The family's conv in the profile's dtype; ``mixed`` is not ported yet."""
-    return Conv(in_features, features, tuple(kernel_size), profile_dtype(dtype, mixed))
+    """The family's conv in the profile's dtype; ``mixed``: its dots on that
+    dtype's values, emitting float32."""
+    return Conv(in_features, features, tuple(kernel_size), profile_dtype(dtype), mixed)
 
 
 class LightBlock(nn.Module):
@@ -81,7 +96,7 @@ class LightBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv_b(torch.relu(self.conv_a(x)))
-        return x + scale(self.res_scale, h) * h
+        return _promoted(x, h) + scale(self.res_scale, h) * h
 
 
 class Light53Block(nn.Module):
@@ -102,4 +117,4 @@ class Light53Block(nn.Module):
         a = self.conv_a2(torch.relu(self.conv_a1(x)))
         b = self.conv_b2(torch.relu(self.conv_b1(x)))
         h = a + b
-        return scale(self.identity_scale, h) * x + scale(self.res_scale, h) * h
+        return scale(self.identity_scale, h) * _promoted(x, h) + scale(self.res_scale, h) * h

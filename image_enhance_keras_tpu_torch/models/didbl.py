@@ -10,7 +10,11 @@
 
 The ``tf1_bilinear`` head, in float32 or bf16 (``dtype``: the body and the
 tail cast their input to it, every conv runs in it, parameters stay
-float32, the output is float32).  Submodule names are the flax param
+float32, the output is float32).  ``mixed`` (with bf16) makes every conv
+the mixed conv of ``models/blocks.py``: no cast of the input, float32
+activations throughout.  ``mixed_tail`` keeps the body pure bf16 and makes
+only the tail's convs mixed: the x4 runs on bf16, the first tail block
+promotes its bf16 input to float32.  Submodule names are the flax param
 scopes, so the npz checkpoints load one to one.
 """
 
@@ -38,22 +42,25 @@ class DifvdsrDouble(nn.Module):
             raise NotImplementedError("upsampler='subpixel' is not yet ported in image_enhance_keras_tpu_torch")
         if upsampler != "tf1_bilinear":
             raise ValueError(f"unknown upsampler {upsampler!r}")
-        self.dtype = profile_dtype(dtype, mixed or mixed_tail)
+        self.dtype = profile_dtype(dtype)
+        self.mixed = mixed
         self.features = features
         self.n_body53 = n_body53
         self.n_light = n_light
         self.n_tail53 = n_tail53
         self.scale = scale
         self.upsampler = upsampler
-        dt = self.dtype
-        self.level1 = make_conv(features, (1, 1), in_features=3, dtype=dt)
+        pk = dict(dtype=self.dtype, mixed=mixed)
+        # tail convs are mixed under either profile, body convs only under mixed
+        pk_tail = dict(dtype=self.dtype, mixed=mixed or mixed_tail)
+        self.level1 = make_conv(features, (1, 1), in_features=3, **pk)
         for i in range(n_body53):
-            self.add_module(f"body53_{i}", Light53Block(features, dtype=dt))
+            self.add_module(f"body53_{i}", Light53Block(features, **pk))
         for i in range(n_light):
-            self.add_module(f"light_{i}", LightBlock(features, dtype=dt))
+            self.add_module(f"light_{i}", LightBlock(features, **pk))
         for i in range(n_tail53):
-            self.add_module(f"tail53_{i}", Light53Block(features, dtype=dt))
-        self.out = make_conv(3, (3, 3), in_features=features, dtype=dt)
+            self.add_module(f"tail53_{i}", Light53Block(features, **pk_tail))
+        self.out = make_conv(3, (3, 3), in_features=features, **pk_tail)
 
     @property
     def split_halo(self) -> int:
@@ -63,7 +70,9 @@ class DifvdsrDouble(nn.Module):
 
     def body(self, x: torch.Tensor) -> torch.Tensor:
         """Pre-upsample tower at LR: level1 + Light53 blocks + Light blocks."""
-        h = torch.relu(self.level1(x.to(self.dtype)))
+        if not self.mixed:  # mixed keeps activations float32; its convs round their inputs
+            x = x.to(self.dtype)
+        h = torch.relu(self.level1(x))
         for i in range(self.n_body53):
             h = getattr(self, f"body53_{i}")(h)
         for i in range(self.n_light):
@@ -72,7 +81,9 @@ class DifvdsrDouble(nn.Module):
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:
         """x4 upsample + post-upsample Light53 blocks + out conv -> float32."""
-        h = upsample_phase_tf1(h.to(self.dtype), self.scale)
+        if not self.mixed:  # an identity under mixed_tail: the body handed over bf16
+            h = h.to(self.dtype)
+        h = upsample_phase_tf1(h, self.scale)
         for i in range(self.n_tail53):
             h = getattr(self, f"tail53_{i}")(h)
         return torch.relu(self.out(h)).to(torch.float32)

@@ -4,7 +4,7 @@ Counterpart of ``ops/pallas/upsample.py``.  ``upsample_phase_tf1_kernel``
 takes (N, H, W, C) float32 or bfloat16 on a CUDA device, any factor and any
 H and W, and launches ``csrc/upsample.cu``, bit-identical to the plain phase
 construction ``ops.resize.upsample_phase_plain``; it counts its launches in
-``.launches``.  It has no CPU path: ``ops.resize.upsample_phase_tf1``
+``.launches``, those on bf16 tensors also in ``.bf16_launches``.  It has no CPU path: ``ops.resize.upsample_phase_tf1``
 dispatches here only for CUDA tensors.  The kernel's interpolation weights
 come from :func:`weight_table` (computed here for every factor, passed to
 the launch as a small device tensor), so the kernel divides nothing.
@@ -66,6 +66,7 @@ def _launch(x: torch.Tensor, f: int) -> torch.Tensor:
         )
     _build.check(lib, code, "upsample_phase_tf1")
     upsample_phase_tf1_kernel.launches += 1
+    upsample_phase_tf1_kernel.bf16_launches += int(x.dtype == torch.bfloat16)
     return out
 
 
@@ -95,3 +96,4 @@ def upsample_phase_tf1_kernel(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 upsample_phase_tf1_kernel.launches = 0
+upsample_phase_tf1_kernel.bf16_launches = 0

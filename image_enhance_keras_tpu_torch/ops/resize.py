@@ -2,6 +2,7 @@
 
 ``resize_bilinear_tf1`` is the in-network x4 of the ``pallas`` forward: two
 float32 contractions with dense (out, in) weight matrices built in numpy.
+``resize_bicubic_pil`` is the float PIL-bicubic resize of back-projection.
 ``upsample_phase_tf1`` is the closed form the module and int8 forwards use:
 per axis ``out[f*k + r] = (1 - r/f)*in[k] + (r/f)*in[k+1]``, last row
 clamped; on a CUDA tensor it runs on the CUDA kernel
@@ -21,6 +22,7 @@ __all__ = [
     "resize_weight_matrix",
     "resize2d",
     "resize_bilinear_tf1",
+    "resize_bicubic_pil",
     "resize_pil_uint8",
     "upsample_phase_plain",
     "upsample_phase_tf1",
@@ -101,6 +103,11 @@ def resize2d(x: torch.Tensor, out_hw: tuple[int, int], method: str = "tf1_biline
 def resize_bilinear_tf1(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """TF1 ``tf.image.resize_bilinear`` (align_corners=False) parity resize."""
     return resize2d(x, out_hw, "tf1_bilinear")
+
+
+def resize_bicubic_pil(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """PIL / ``scipy.misc.imresize`` BICUBIC resize in float (antialiased downscale)."""
+    return resize2d(x, out_hw, "pil_bicubic")
 
 
 def resize_pil_uint8(x: torch.Tensor, out_hw: tuple[int, int], method: str = "pil_bicubic") -> torch.Tensor:

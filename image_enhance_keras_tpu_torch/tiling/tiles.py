@@ -5,6 +5,12 @@ The reference zero-pads the image, extracts overlapping tiles (96 at step
 tiles overwriting earlier ones in column-major order.  Both directions are
 separable gathers: the index vectors are built in numpy, the gathers run in
 torch on the image's device.
+
+The shifted grid of split mode's 2-D tiled tail (``shift_grid_axis`` and
+the helpers after it) covers [0, total) with uniform tiles of T = t +
+2*halo whose owned rows [k, k+len) partition it at stride t; owned rows
+sit at least ``halo`` from a tile border that is not the image's, so each
+tile's SAME convs and clamped x4 see what the whole frame would.
 """
 
 from __future__ import annotations
@@ -23,6 +29,11 @@ __all__ = [
     "extract_tiles",
     "stitch_tiles",
     "crop_output",
+    "shift_grid_axis",
+    "shifted_extract_indices",
+    "shifted_stitch_indices",
+    "gather_tiles_2d",
+    "scatter_tiles_2d",
 ]
 
 
@@ -140,3 +151,60 @@ def stitch_tiles(tiles: torch.Tensor, plan: TilePlan) -> torch.Tensor:
 def crop_output(canvas: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Final crop to (orig_h*scale, orig_w*scale)."""
     return canvas[: plan.out_h, : plan.out_w]
+
+
+@functools.lru_cache(maxsize=None)
+def shift_grid_axis(total: int, t: int, halo: int) -> tuple[int, tuple[int, ...], tuple[tuple[int, int], ...]]:
+    """Uniform shifted-tile cover of [0, total): (T, starts, keeps), tiles
+    [start, start+T), keeps[k] = (offset inside the tile, length) of the rows
+    tile k owns."""
+    T = min(t + 2 * halo, total)
+    starts, keeps = [], []
+    for k in range(0, total, t):
+        length = min(t, total - k)
+        start = min(max(k - halo, 0), total - T)
+        starts.append(start)
+        keeps.append((k - start, length))
+    return T, tuple(starts), tuple(keeps)
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_extract_indices(total: int, t: int, halo: int) -> np.ndarray:
+    """(n*T,) gather index vector: row j*T+i reads source row starts[j]+i."""
+    T, starts, _ = shift_grid_axis(total, t, halo)
+    idx = (np.asarray(starts)[:, None] + np.arange(T)[None, :]).reshape(-1)
+    return idx.astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_stitch_indices(total: int, t: int, halo: int, scale: int) -> np.ndarray:
+    """(total*scale,) gather index into the (n*T*scale,) tile-major layout:
+    output row y is owned by tile i = y // (t*scale), at keeps[i].offset*scale
+    + (y - i*t*scale) inside it."""
+    T, starts, keeps = shift_grid_axis(total, t, halo)
+    y = np.arange(total * scale)
+    i = np.minimum(y // (t * scale), len(starts) - 1)
+    offs = np.asarray([k[0] for k in keeps])
+    idx = i * (T * scale) + offs[i] * scale + (y - i * t * scale)
+    return idx.astype(np.int64)
+
+
+def gather_tiles_2d(x: torch.Tensor, ex_r: torch.Tensor, ex_c: torch.Tensor, n_r: int, n_c: int,
+                    T_r: int, T_c: int) -> torch.Tensor:
+    """(H, W, C) -> (n_r*n_c, T_r, T_c, C) shifted tiles, row-major tile order,
+    as two separable gathers (contiguous)."""
+    c = x.shape[-1]
+    y = x.index_select(0, ex_r).index_select(1, ex_c)
+    y = y.reshape(n_r, T_r, n_c, T_c, c)
+    return y.permute(0, 2, 1, 3, 4).reshape(n_r * n_c, T_r, T_c, c)
+
+
+def scatter_tiles_2d(y: torch.Tensor, st_r: torch.Tensor, st_c: torch.Tensor, n_r: int, n_c: int,
+                     T_r: int, T_c: int, scale: int = 1) -> torch.Tensor:
+    """(n_r*n_c, T_r*scale, T_c*scale, C) -> (H*scale, W*scale, C): the
+    owned-crop stitch, inverse of :func:`gather_tiles_2d` over the owned
+    cores (``st_*`` from :func:`shifted_stitch_indices`)."""
+    c = y.shape[-1]
+    yy = y.reshape(n_r, n_c, T_r * scale, T_c * scale, c)
+    yy = yy.permute(0, 2, 1, 3, 4).reshape(n_r * T_r * scale, n_c * T_c * scale, c)
+    return yy.index_select(0, st_r).index_select(1, st_c)

@@ -1,4 +1,4 @@
-"""Set5 x4 in the bf16 profile, scored from JAX's own forwards on the CPU.
+"""Set5 x4 in the bf16 and mixed profiles, scored from JAX's own forwards on the CPU.
 
     python3 scripts/eval_bf16_set5_cpu.py [--out EVAL_BF16_CPU.json]
 
@@ -6,15 +6,18 @@ Runs the JAX package's ``SuperResolver(mode="fast", dtype=bfloat16)`` with
 the demo weights (``weights_Double/didbl_set5demo.npz``) over ``data_set5``
 (ground truths cropped to a multiple of 4, PIL-bicubic degraded by 4, as
 ``eval.evaluate`` does) for ``--forward xla``, ``pallas`` and
-``pallas_chain`` (the Pallas kernels in interpret mode), and scores each
+``pallas_chain`` (the Pallas kernels in interpret mode), and the ``xla``
+forward under the mixed profiles (``mixed=True``, the CLI's ``--dtype
+mixed``; ``mixed="tail"``, ``--dtype mixed-tail``), and scores each
 reconstruction under the NTIRE protocol (crop 10) with the exact float32 Y
 and with the Y a TPU's default-precision einsum gives: x/255 and the BT.601
 row rounded to bf16, summed in float32 (as ``chip_smoke._y_tpu_default``,
 which reproduces the recorded rows of ``EVAL_PROFILES.json``).  Writes the
 means per forward as JSON: the rows ``chip_smoke.py`` holds the port's bf16
-forwards on the card against.  The recorded ``bf16_fast_5img`` row came from
-a TPU, whose bf16 arithmetic is not JAX's on the CPU.  A few minutes on 8
-cores; imports JAX only.
+and mixed forwards on the card against.  The recorded ``bf16_fast_5img``,
+``mixed_fast_5img`` and ``mixedtail_fast_5img`` rows came from a TPU, whose
+bf16 arithmetic is not JAX's on the CPU.  A few minutes on 8 cores;
+imports JAX only.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
+
+#: row name -> (forward, the engine's ``mixed``): bf16, then the mixed profiles
+ROWS = {"xla": ("xla", False), "pallas": ("pallas", False), "pallas_chain": ("pallas_chain", False),
+        "xla_mixed": ("xla", True), "xla_mixedtail": ("xla", "tail")}
 
 
 def main(argv=None) -> int:
@@ -65,21 +72,22 @@ def main(argv=None) -> int:
         gt = gt[: gt.shape[0] // 4 * 4, : gt.shape[1] // 4 * 4]
         pairs.append((os.path.basename(path), gt, np.asarray(degrade(gt, 4))))
 
-    out = {"what": "Set5 x4, fast mode, bf16, demo weights, JAX on the CPU: per forward the mean "
-                   "PSNR-Y / SSIM-Y with the exact float32 Y and with the TPU's default-precision Y",
+    out = {"what": "Set5 x4, fast mode, bf16 and mixed profiles, demo weights, JAX on the CPU: per forward "
+                   "and profile the mean PSNR-Y / SSIM-Y with the exact float32 Y and with the TPU's "
+                   "default-precision Y",
            "script": "scripts/eval_bf16_set5_cpu.py"}
-    for forward in ("xla", "pallas", "pallas_chain"):
-        r = SuperResolver(weights=weights, forward=forward, mode="fast", dtype=jnp.bfloat16)
+    for key, (forward, mixed) in ROWS.items():
+        r = SuperResolver(weights=weights, forward=forward, mode="fast", dtype=jnp.bfloat16, mixed=mixed)
         exact, tpu = [], []
         for name, gt, lr in pairs:
             sr = np.asarray(r.upscale(lr))
             exact.append(scores(gt, sr, y_exact))
             tpu.append(scores(gt, sr, y_tpu_default))
-            print(f"jax {forward} {name}: {exact[-1]} exact Y, {tpu[-1]} TPU Y", flush=True)
+            print(f"jax {key} {name}: {exact[-1]} exact Y, {tpu[-1]} TPU Y", flush=True)
         row = {name: {"psnr_y": float(np.mean([p for p, _ in v])), "ssim_y": float(np.mean([s for _, s in v]))}
                for name, v in (("exact", exact), ("tpu_default_y", tpu))}
-        out[f"jax_{forward}"] = row
-        print(f"jax {forward}: {row}", flush=True)
+        out[f"jax_{key}"] = row
+        print(f"jax {key}: {row}", flush=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     return 0

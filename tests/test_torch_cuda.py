@@ -256,9 +256,11 @@ def test_upsample_kernel_bit_equal_plain(factor, dtype, shape, c):
     rng = np.random.default_rng(sum(shape) + factor + c)
     x = torch.from_numpy((rng.normal(size=(*shape, c)) * 3).astype(np.float32)).cuda().to(dtype)
     before = upsample.upsample_phase_tf1_kernel.launches
+    before_bf16 = upsample.upsample_phase_tf1_kernel.bf16_launches
     got = upsample.upsample_phase_tf1_kernel(x, factor)
     torch.cuda.synchronize()
     assert upsample.upsample_phase_tf1_kernel.launches == before + 1
+    assert upsample.upsample_phase_tf1_kernel.bf16_launches == before_bf16 + int(dtype == torch.bfloat16)
     assert got.dtype == dtype and tuple(got.shape) == (shape[0], factor * shape[1], factor * shape[2], c)
     want = upsample_phase_plain(x, factor)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
@@ -344,3 +346,56 @@ def test_bf16_chain_kernels_match_plain(which, shape, k_blocks, monkeypatch):
     print(f"bf16 {which} chain K=3 {shape}: max |d| {d.max().item():.3g}, mean {d.mean().item():.3g}, "
           f"max|ref| {ref:.3g}")
     assert d.max().item() <= BF16_CHAIN_MAX * ref and d.mean().item() <= BF16_CHAIN_MEAN * ref
+
+
+#: split mode's stripes and 2-D tiles on a 40x56 image (halo 3 at n_tail53 = 2)
+SPLIT_LAYOUTS = {"stripes": dict(split_tile=16), "tiles": dict(split_tile=16, split_tile_w=24)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(SPLIT_LAYOUTS))
+@pytest.mark.parametrize("forward", ["xla", "pallas_int8"])
+def test_split_mode_on_card(forward, layout):
+    """Split mode at C = 128 (2 + 1 + 2 blocks, seeded weights): K3 once per stripe or
+    tile chunk, K4 twice; byte-equal with the plain x4 (and the plain int8 blocks)
+    swapped in; against fast mode within the float32 uint8 bound, int8 within
+    JAX's own (3 levels on under 5% of values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the split tails run the CUDA kernels")
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models import didbl, didbl_pallas, zoo
+    from image_enhance_keras_tpu_torch.models.didbl import DifvdsrDouble
+
+    small = dict(n_body53=2, n_light=1, n_tail53=2)
+    spec = zoo.MODEL_REGISTRY["didbl"]
+    img = np.random.default_rng(5).integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    fast = SuperResolver(module_and_spec=(DifvdsrDouble(**small), spec), forward=forward, mode="fast")
+    split = SuperResolver(module_and_spec=(DifvdsrDouble(**small), spec), forward=forward, mode="split",
+                          **SPLIT_LAYOUTS[layout])
+    if forward == "pallas_int8":
+        split._qparams = fast._fwd_params()
+    want = fast.upscale(img)
+    tails = {"stripes": 3, "tiles": 2}[layout]  # 40 rows / 16; 3 x 3 tiles: a chunk of 8, then 1
+    k3, k4 = upsample.upsample_phase_tf1_kernel, int8_blocks.light53_int8
+    before = (k3.launches, k4.launches)
+    got = split.upscale(img)
+    assert k3.launches - before[0] == tails
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    if forward == "pallas_int8":
+        assert k4.launches - before[1] == 2 + 2 * tails
+        assert d.max() <= 3 and (d > 0).mean() < 0.05
+    else:
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+    def plain53(x, *a, res_scale=0.1, identity_scale=0.9, tile=None, act_scales=None):
+        return int8_blocks.light53_int8_plain(x, *a, act_scales, res_scale, identity_scale)
+
+    def plain_light(x, *a, res_scale=0.1, tile=None, act_scales=None):
+        return int8_blocks.light_int8_plain(x, *a, act_scales, res_scale)
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(didbl, "upsample_phase_tf1", upsample_phase_plain)
+        m.setattr(didbl_pallas, "upsample_phase_tf1", upsample_phase_plain)
+        m.setattr(didbl_pallas, "light53_int8", plain53)
+        m.setattr(didbl_pallas, "light_int8", plain_light)
+        assert np.array_equal(split.upscale(img), got)

@@ -103,8 +103,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DifvdsrDouble(upsampler="subpixel")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        DifvdsrDouble(mixed=True)
+        DifvdsrDouble(dtype=torch.float16, mixed=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         apply_didbl_pallas({}, torch.zeros(1, 4, 4, 3), dtype=torch.float16, chain=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        DifvdsrDouble(dtype=torch.bfloat16, mixed_tail=True)
+        DifvdsrDouble(dtype=torch.float16, mixed_tail=True)

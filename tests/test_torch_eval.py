@@ -238,8 +238,8 @@ def test_scorpath_generate_matches_jax_cli(tiny_npz, tmp_path, monkeypatch, forw
 
 
 @pytest.mark.parametrize("argv", [
-    ["--self-ensemble"], ["--back-projection", "2"], ["--internal-learn", "3"], ["--forward", "int8"],
-    ["--forward", "pallas_int8", "--dtype", "bfloat16"], ["--dtype", "mixed"], ["--model", "difv4"],
+    ["--model", "didbl_subpixel"], ["--forward", "int8", "--dtype", "mixed"], ["--internal-learn", "3"],
+    ["--forward", "int8"], ["--model", "difvdsr"], ["--forward", "int8", "--self-ensemble"], ["--model", "difv4"],
 ])
 def test_scorpath_rejects_unported_flags(tmp_path, capsys, argv):
     with pytest.raises(SystemExit):
