@@ -7,8 +7,9 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), in all 17 kernel functions
-     but the dynamic form's two abs-max passes and its requantization pass,
+     must hold wgmma (GMMA) and no dp4a (IDP), in all 28 kernel functions
+     (K4/K5's 17, X1-X3's 11) but the three abs-max passes and the
+     dynamic form's requantization pass,
      the block and chain kernels'
      SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
      forms' included;
@@ -44,6 +45,12 @@ Phases (each prints its elapsed seconds):
        on the ragged crops, and K4/K5 on float32 x, static and dynamic,
        each bit-equal to its plain version, with the SASS GMMA lines of
        its kernel functions and the device ms of each of its launches;
+       the ``--forward int8`` forms (the int8 forward's own activations: the
+       level1 output, the 16 plain X1 blocks' output, their x4 at
+       (9,384,384,128)): X1 at LR and HR, X2 at LR, X3 at HR, bit-equal to
+       their plain versions under the bf16 and s32 accumulators and on the
+       ragged crops, with times, device ms per launch, GMMA lines, the bound
+       and ``torch._int_mm`` over an int8 im2col of the same convs;
   3. the main paths through ``cli.main_dirpath`` on a seeded 128x128 BMP
      (9 tiles at 96/64/8, 512x512 out), each with its kernel launches
      counted: ``--forward pallas`` (K1, K2), ``--forward xla`` as its
@@ -52,7 +59,10 @@ Phases (each prints its elapsed seconds):
      with the plain bf16 versions in place of the kernels as its reference,
      ``--forward pallas_int8`` (K3, K4, K5; calibration included), and the
      int8 run again with the plain x4 in place of K3 and with the plain
-     int8 blocks in place of K4 and K5 (each byte-equal); 3a'': the
+     int8 blocks in place of K4 and K5 (each byte-equal); 3e: ``--forward
+     int8`` (X1 18, X2 6, K3 twice), byte-equal with the plain x4 and the
+     plain X blocks, ``--int8-emit s8`` byte-equal with wide, ``--int8-acc
+     s32`` with its plain blocks; 3a'': the
      uncalibrated ``apply_didbl_int8`` (a tree quantized without
      ``calib_x``) at full width on the 9 patches: K4 18, K5 6, K3 1,
      bit-equal to the plain dynamic blocks, PSNR against float32, its time
@@ -65,13 +75,18 @@ Phases (each prints its elapsed seconds):
      and both mixed profiles on a crop against the CPU; 3c: a seeded
      512x512 image in fast mode, split mode (stripes of 64 body rows) and
      split mode on 2-D tiles (128/128: 16 tiles, two chunks of 8) on
-     ``xla`` float32, ``xla`` bf16 and ``pallas_int8``, each split run
-     against fast and byte-equal with the plain x4 (and the plain int8
-     blocks), K3 / K4 / K5 counted per stripe and chunk, out-Mpix/s and
-     peak device memory per run; 3d: the x8 self-ensemble with 2
+     ``xla`` float32, ``xla`` bf16, ``pallas_int8`` and ``--forward int8
+     --dtype bfloat16`` (the serving profile), each split run against fast
+     (int8: byte-equal) and byte-equal with the plain x4 (and the plain int8
+     blocks), K3 / K4 / K5 / X1 / X2 counted per stripe and chunk,
+     out-Mpix/s and peak device memory per run; then the int8 forward with
+     ``int8_dynamic_tail`` (X3 twice) and ``int8_body_tile=256``, each
+     byte-equal with its plain blocks, the tiled body with the untiled
+     forward; 3d: the x8 self-ensemble with 2
      back-projection steps on a 48x48 crop against the CPU; then the engines
-     (the bf16 ones too) timed in turns, the bf16 forwards profiled (device
-     time by kernel, idle share), and CPU references on a crop;
+     (the bf16 and int8 ones too) timed in turns, the bf16 and int8 forwards
+     profiled (device time by kernel, idle share), and CPU references on a
+     crop;
   4. Set5 x4 (``data_set5``, read by the numpy PNG decoder where PIL is
      missing): ``scorpath --generate`` with ``--forward xla`` and
      ``pallas_chain`` (launches counted), the bicubic baseline on the card
@@ -80,9 +95,13 @@ Phases (each prints its elapsed seconds):
      tree, not held), on fast-mode bf16 ``xla``, ``pallas`` and
      ``pallas_chain`` resolvers (bf16 launches counted), on fast-mode
      ``xla`` resolvers in the mixed profiles (against JAX's own rows on the
-     CPU, ``EVAL_BF16_CPU.json``; K3 counted) and on a split-mode bf16
-     ``xla`` resolver (against the fast-mode bf16 row), against each other
-     and the recorded rows.
+     CPU, ``EVAL_BF16_CPU.json``; K3 counted), on a split-mode bf16
+     ``xla`` resolver (against the fast-mode bf16 row), and on fast-mode
+     ``--forward int8`` resolvers (default, ``int8_dynamic_tail``,
+     ``IEK_INT8_ACC=s32``; X1-X3 counted) against JAX's op-by-op rows on the
+     CPU (``EVAL_INT8_CPU.json``), the TPU's rows on SSIM-Y and, for the
+     default, the fast bf16 ``xla`` row; against each other and the
+     recorded rows.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -220,13 +239,20 @@ def _gmma_lines(functions: dict, row: str) -> int:
     (``light53_int8``, ``light_int8_dynamic_f32``, ...) launches, matched on
     their mangled names: the kernel, then its activation type and, for the
     dynamic kernels, the Light53 flag."""
+    if "_xla" in row:  # the XLA int8 forms: bf16 only, the accumulator mode as Li1 / Li2
+        if row.startswith("light53_int8_xla_dyn"):
+            parts = ["xdyn_first_kernel", "xdyn_second_kernel"]
+        else:
+            second = "light53_i8_second_kernel" if row.startswith("light53") else "light_i8_second_kernel"
+            parts = ["x8_first_kernel", f"{second}I13__nv_bfloat16Li1E", f"{second}I13__nv_bfloat16Li2E"]
+        return sum(v for k, v in functions.items() for p in parts if p in k)
     t = "If" if row.endswith("_f32") else "I13__nv_bfloat16"
     if "dynamic" in row:
         flag = "Lb1" if row.startswith("light53") else "Lb0"
         parts = [f"dyn_first_kernel{t}{flag}", f"dyn_second_kernel{t}{flag}"]
     else:
         second = "light53_i8_second_kernel" if row.startswith("light53") else "light_i8_second_kernel"
-        parts = [f"i8_first_kernel{t}", f"{second}{t}"]
+        parts = [f"i8_first_kernel{t}", f"{second}{t}Li0E"]
     return sum(v for k, v in functions.items() for p in parts if p in k)
 
 
@@ -586,7 +612,229 @@ def _set5_scores(failures: list) -> dict:
     if dp > SPLIT_SET5_DB or k3.bf16_launches != stripes or k3.launches != stripes:
         failures.append(f"Set5 split xla bf16: {dp:.3g} dB from fast, K3 launches {k3.launches} "
                         f"(bf16 {k3.bf16_launches}) != {stripes}")
+
+    # --forward int8 (the XLA int8 serving profile) in fast mode, calibrated on
+    # the bundled photos: against JAX's own forward run op by op on the CPU
+    # (EVAL_INT8_CPU.json, scripts/eval_int8_set5_cpu.py) at SET5_DB /
+    # SET5_SSIM under both Ys, against the TPU's rows on SSIM-Y (INT8_SSIM),
+    # and the default against this run's fast bf16 xla row on SSIM-Y (INT8_SSIM,
+    # the README's quality bar for int8 against bf16)
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
+
+    with open(os.path.join(HERE, "EVAL_INT8_CPU.json")) as f:
+        jax8 = json.load(f)
+    xk = (kx.light53_int8_xla, kx.light_int8_xla, kx.light53_int8_xla_dyn)
+    qp8 = None
+    for key, tpu_key, acc, dyn in (("default", "int8_fast_5img", "bf16", False),
+                                   ("dyntail", "int8_fast_dyntail_5img", "bf16", True),
+                                   ("s32acc", "int8_fast_s32acc_5img", "s32", False)):
+        r = SuperResolver(weights=weights, forward="int8", mode="fast")
+        r.int8_dynamic_tail = dyn
+        if qp8 is not None:
+            r._qparams = qp8
+        saved = os.environ.get("IEK_INT8_ACC")
+        os.environ["IEK_INT8_ACC"] = acc
+        for fn in xk:
+            fn.launches = 0
+        try:
+            (_, exact), tpu = _scored(lambda: evaluate_model(r, set5, verbose=False))
+        finally:
+            if saved is None:
+                os.environ.pop("IEK_INT8_ACC")
+            else:
+                os.environ["IEK_INT8_ACC"] = saved
+        if qp8 is None:
+            qp8 = r._qparams
+            out["int8_xla_calib_source"] = r.int8_calib_source
+            if r.int8_calib_source != "package-bundled real photos":
+                failures.append(f"Set5 fast int8 calibrated on {r.int8_calib_source}, not the bundled photos")
+        launches = [fn.launches for fn in xk]
+        want = [(16 if dyn else 18) * n_img, 6 * n_img, 2 * n_img if dyn else 0]
+        ref_j, ref_t = jax8[f"jax_int8_{key}"], profiles[tpu_key]
+        label = f"fast int8 {key}"
+        report(label, exact, tpu, ref_j["op_by_op"]["tpu_default_y"])
+        jit_t = ref_j["jitted"]["tpu_default_y"]
+        print(f"[chip_smoke] Set5 {label}: against JAX op by op on the CPU "
+              f"{tpu['psnr_y'] - ref_j['op_by_op']['tpu_default_y']['psnr_y']:+.4f} dB, "
+              f"{tpu['ssim_y'] - ref_j['op_by_op']['tpu_default_y']['ssim_y']:+.2e} SSIM-Y; JAX jitted "
+              f"{jit_t['psnr_y']:.4f} / {jit_t['ssim_y']:.5f}; the TPU's {tpu_key} {ref_t['psnr_y']:.4f} / "
+              f"{ref_t['ssim_y']:.5f}: {tpu['ssim_y'] - ref_t['ssim_y']:+.2e} SSIM-Y; launches (X1, X2, X3) "
+              f"{launches}, expected {want}", flush=True)
+        out[label].update(tpu_row=ref_t, jax_cpu_exact=ref_j["op_by_op"]["exact"], jax_cpu_jitted=jit_t,
+                          launches=launches)
+        if launches != want:
+            failures.append(f"Set5 {label} launches (X1, X2, X3) {launches} != {want}")
+        check_row(f"{label} against JAX op by op on the CPU", tpu, ref_j["op_by_op"]["tpu_default_y"],
+                  SET5_DB, SET5_SSIM)
+        check_row(f"{label} against JAX op by op on the CPU (exact Y)", exact, ref_j["op_by_op"]["exact"],
+                  SET5_DB, SET5_SSIM)
+        if abs(tpu["ssim_y"] - ref_t["ssim_y"]) > INT8_SSIM:
+            failures.append(f"Set5 {label} SSIM-Y {tpu['ssim_y']:.5f} vs {tpu_key} {ref_t['ssim_y']:.5f} "
+                            f"(bound {INT8_SSIM})")
+        if key == "default":
+            ds = abs(tpu["ssim_y"] - fast_bf16[1]["ssim_y"])
+            print(f"[chip_smoke] Set5 fast int8 against fast xla bf16 of this run: {ds:.3g} SSIM-Y "
+                  f"(bound {INT8_SSIM})", flush=True)
+            out[label]["ssim_y_vs_bf16_xla"] = ds
+            if ds > INT8_SSIM:
+                failures.append(f"Set5 fast int8 SSIM-Y {tpu['ssim_y']:.5f} vs bf16 xla "
+                                f"{fast_bf16[1]['ssim_y']:.5f} (bound {INT8_SSIM})")
     return out
+
+
+#: the XLA int8 forms (X1-X3) replace no TPU kernel: JAX runs them as XLA
+#: convolutions; "replaces" names the JAX function
+X_REPLACES = {"light53_int8_xla": "image_enhance_keras_tpu/models/didbl_pallas.py:415",
+              "light_int8_xla": "image_enhance_keras_tpu/models/didbl_pallas.py:447",
+              "light53_int8_xla_dyn": "image_enhance_keras_tpu/models/didbl_pallas.py:500"}
+
+
+def _int_mm_convs(pairs):
+    """One call of the library route for a block's convs: each (codes, int8
+    HWIO weights) as ``torch._int_mm`` over an int8 im2col (N*H*W x k*k*C),
+    the s32 sums of the same convs (no dequant, no epilogue)."""
+    import torch
+    import torch.nn.functional as F
+
+    def conv(q, w):
+        k, c = int(w.shape[0]), int(q.shape[-1])
+        cols = F.pad(q, (0, 0, k // 2, k // 2, k // 2, k // 2)).unfold(1, k, 1).unfold(2, k, 1)
+        a = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * c)
+        return torch._int_mm(a, w.reshape(k * k * c, -1)).view(*q.shape[:3], -1)
+
+    def run():
+        return [conv(q, w) for q, w in pairs]
+
+    return run
+
+
+def _int8_xla_kernels(qp, x8, sass8, failures: list, gpu: str) -> list:
+    """Phase 2 of the XLA int8 forms on the int8 forward's own activations:
+    the level1 output x8 (9,96,96,128) bf16 for X1, the 16 plain X1 blocks'
+    output for X2, and the x4 of the 6 plain X2 blocks' output, (9,384,384,128),
+    for X1 and X3 at HR.  Each bit-equal to its plain version under the bf16
+    and s32 accumulators (and on the ragged crops of x8), its time per call
+    (both accumulators), device ms per launch, GMMA lines, the bound (K4/K5's
+    int8 operations over the int8 peak, x read and written once) and the
+    library time: ``torch._int_mm`` over an int8 im2col of the block's convs."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.models.didbl_pallas import _stacked_actc
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
+    from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
+
+    l53, lt = ("conv_a1", "conv_a2", "conv_b1", "conv_b2"), ("conv_a", "conv_b")
+
+    def wts(p, convs, w="qf", s="sf"):
+        return [p[c][k] for c in convs for k in (w, s, "bias")]
+
+    p53, pl, pt = qp["body53_0"], qp["light_0"], qp["tail53_0"]
+    a53, al, at = _stacked_actc(p53, ("x", "a", "b")), _stacked_actc(pl, ("x", "t")), _stacked_actc(pt, ("x", "a", "b"))
+    with torch.inference_mode():
+        h = x8
+        for i in range(16):
+            p = qp[f"body53_{i}"]
+            h = kx.light53_int8_xla_plain(h, *wts(p, l53), _stacked_actc(p, ("x", "a", "b")))
+        xl = h
+        for i in range(6):
+            p = qp[f"light_{i}"]
+            h = kx.light_int8_xla_plain(h, *wts(p, lt), _stacked_actc(p, ("x", "t")))
+        xh = upsample_phase_plain(h, 4).contiguous()
+        del h
+
+        def codes(x, p, act, convs):
+            """(codes, weights) of the block's convs: x's, then each branch intermediate's."""
+            xq = kx._quant_c(x, act[0])
+            out = []
+            for j in range(0, len(convs), 2):
+                w1, s1, b1, w2 = p[convs[j]]["qf"], p[convs[j]]["sf"], p[convs[j]]["bias"], p[convs[j + 1]]["qf"]
+                tq = kx._first(xq, w1, s1, b1, act[1 + j // 2], "bf16", False)
+                out += [(xq.to(torch.int8), w1), (tq.to(torch.int8), w2)]
+            return out
+
+        libs = {"lr53": codes(x8, p53, a53, l53), "lr": codes(xl, pl, al, lt), "hr53": codes(xh, pt, at, l53)}
+        # the library route's sums against the exact ones (the first conv of each)
+        for key, pairs in libs.items():
+            q, w = pairs[0]
+            same = bool(torch.equal(_int_mm_convs(pairs[:1])()[0].float(), ki8._conv_s32(q.float(), w)))
+            print(f"[chip_smoke] torch._int_mm over im2col, {key} {tuple(q.shape)} k={w.shape[0]}: equal to the "
+                  f"exact sums {same}", flush=True)
+            if not same:
+                failures.append(f"the _int_mm library route ({key}) differs from the exact conv sums")
+    c = int(x8.shape[-1])
+    specs = [
+        # name, kernel(x, acc), plain(x, acc), input, taps, plain timing iters, library pairs
+        ("light53_int8_xla", lambda x, a: kx.light53_int8_xla(x, *wts(p53, l53), a53, acc=a),
+         lambda x, a: kx.light53_int8_xla_plain(x, *wts(p53, l53), a53, acc=a), x8, 68, MIN_TIMED, "lr53"),
+        ("light_int8_xla", lambda x, a: kx.light_int8_xla(x, *wts(pl, lt), al, acc=a),
+         lambda x, a: kx.light_int8_xla_plain(x, *wts(pl, lt), al, acc=a), xl, 18, MIN_TIMED, "lr"),
+        ("light53_int8_xla_hr", lambda x, a: kx.light53_int8_xla(x, *wts(pt, l53), at, acc=a),
+         lambda x, a: kx.light53_int8_xla_plain(x, *wts(pt, l53), at, acc=a), xh, 68, 3, "hr53"),
+        ("light53_int8_xla_dyn", lambda x, a: kx.light53_int8_xla_dyn(x, *wts(pt, l53, "q", "s"), acc=a),
+         lambda x, a: kx.light53_int8_xla_dyn_plain(x, *wts(pt, l53, "q", "s"), acc=a), xh, 68, 3, "hr53"),
+    ]
+    res = {}
+    with torch.inference_mode():
+        for name, kern, plain, x, taps, plain_iters, lib in specs:
+            row = {"shape": list(x.shape), "dtype": "bfloat16"}
+            for acc in ("bf16", "s32"):
+                got, want = kern(x, acc), plain(x, acc)
+                torch.cuda.synchronize()
+                d = (got.float() - want.float()).abs()
+                exact = bool(torch.equal(got, want))
+                row[f"bit_equal_{acc}"], row[f"max_abs_err_{acc}"] = exact, d.max().item()
+                if not exact:
+                    failures.append(f"{name} (acc {acc}): kernel not bit-equal to plain (differ on "
+                                    f"{(d > 0).float().mean().item():.3g} of values, max |diff| {d.max().item():.3g})")
+                row[f"ms_{acc}"] = _time_ms(lambda: kern(x, acc))
+                del got, want, d
+            row["plain_ms"] = _time_ms(lambda: plain(x, "bf16"), iters=plain_iters, warmup=1)
+            ops = 2.0 * taps * c * c * x[..., 0].numel()
+            row["bound_ms"], row["bound_by"] = _bound(ops, PEAK_INT8_OPS, 4.0 * x.numel() + taps * c * c)
+            row["library_ms"] = _time_ms(_int_mm_convs(libs[lib]), iters=3, warmup=1)
+            row["launch_ms"] = _launch_breakdown(lambda: kern(x, "bf16"))
+            row["tops"] = ops / (row["ms_bf16"] * 1e-3) / 1e12
+            row["sass_gmma"] = _gmma_lines((sass8 or {}).get("functions", {}), name)
+            if row["sass_gmma"] == 0:
+                failures.append(f"{name}: no GMMA (wgmma) line in the SASS of its kernel functions")
+            print(f"[chip_smoke] {name} {tuple(x.shape)}: bit-equal bf16 {row['bit_equal_bf16']} s32 "
+                  f"{row['bit_equal_s32']}; {row['ms_bf16']:.4f} ms (acc bf16), {row['ms_s32']:.4f} ms (s32), "
+                  f"{row['plain_ms']:.3f} ms plain, {row['library_ms']:.4f} ms _int_mm over im2col, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tops']:.1f} TOPS, {row['sass_gmma']} "
+                  f"GMMA lines; device ms by launch "
+                  f"{ {k: round(v, 4) for k, v in row['launch_ms'].items()} } on {gpu}", flush=True)
+            res[name] = row
+        # ragged crops of the forward's LR input: tiles cut by the image's edge
+        ragged = {}
+        for n_i, rh, rw in INT8_RAGGED:
+            xr = x8[n_i:n_i + 1, :rh, :rw].contiguous()
+            for name, kern, plain, *_ in (specs[0], specs[1], specs[3]):
+                for acc in ("bf16", "s32"):
+                    same = bool(torch.equal(kern(xr, acc), plain(xr, acc)))
+                    ragged[f"{name} {rh}x{rw} {acc}"] = same
+                    if not same:
+                        failures.append(f"{name} (acc {acc}) on a ragged {tuple(xr.shape)} input: not bit-equal")
+        print(f"[chip_smoke] X1-X3 on the ragged crops {[f'{h}x{w}' for _, h, w in INT8_RAGGED]}, both "
+              f"accumulators: bit-equal {all(ragged.values())} ({len(ragged)} cases)", flush=True)
+    rows = []
+    for name in ("light53_int8_xla", "light_int8_xla", "light53_int8_xla_dyn"):
+        row = res[name]
+        extra = {}
+        if name == "light53_int8_xla":
+            hr = res["light53_int8_xla_hr"]
+            extra = {f"hr_{k}": v for k, v in hr.items()}
+        rows.append({
+            "name": name, "route": "cuda", "source": "image_enhance_keras_tpu_torch/csrc/int8_blocks.cu",
+            "replaces": X_REPLACES[name], "launches": None, "max_abs_err": max(row["max_abs_err_bf16"],
+                                                                               row["max_abs_err_s32"]),
+            "tolerance": 0.0, "ms": row["ms_bf16"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": "torch._int_mm over an int8 im2col of the block's convs (s32 sums only)",
+            **{k: v for k, v in row.items() if k not in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "ragged_bit_equal": all(v for k, v in ragged.items() if k.startswith(name + " ")), **extra,
+        })
+    return rows
 
 
 def _uncalibrated_phase(params, qp_static, img, plan, failures: list, rows: list, gpu: str) -> dict:
@@ -959,6 +1207,11 @@ def _plain_int8_blocks():
     return plain53, plain_light
 
 
+#: the XLA int8 forms' wrappers in models/didbl_pallas.py and their plain versions (X1, X2, X3)
+_XLA_FORMS = (("light53_int8_xla", "light53_int8_xla_plain"), ("light_int8_xla", "light_int8_xla_plain"),
+              ("light53_int8_xla_dyn", "light53_int8_xla_dyn_plain"))
+
+
 class _Swapped:
     """Within the block: the x4 of the module and int8 forwards ("plain_x4"),
     or the int8 forward's blocks ("plain_blocks"), replaced by their plain
@@ -971,10 +1224,14 @@ class _Swapped:
         from image_enhance_keras_tpu_torch.models import didbl, didbl_pallas
         from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
 
+        from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
+
         if self.variant == "plain_x4":
             didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_plain
         elif self.variant == "plain_blocks":
             didbl_pallas.light53_int8, didbl_pallas.light_int8 = _plain_int8_blocks()
+            for wrapper, plain in _XLA_FORMS:
+                setattr(didbl_pallas, wrapper, getattr(kx, plain))
         return self
 
     def __exit__(self, *exc):
@@ -982,30 +1239,38 @@ class _Swapped:
         from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
         from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
 
+        from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
+
         didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_tf1
         didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
+        for wrapper, _ in _XLA_FORMS:
+            setattr(didbl_pallas, wrapper, getattr(kx, wrapper))
         return False
 
 
 def _counted():
-    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7."""
+    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7, X1, X2, X3."""
     from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
     from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
     from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
     from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
 
     return (kup.upsample_phase_tf1_kernel, ki8.light53_int8, ki8.light_int8, kb.fused_light53_block,
-            kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain)
+            kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain, kx.light53_int8_xla,
+            kx.light_int8_xla, kx.light53_int8_xla_dyn)
 
 
 def _counts() -> dict:
-    """The nonzero launch counts of K3 (all and bf16), K4, K5, and of K1/K2
-    and K6/K7 on bf16 tensors."""
-    k3, k4, k5, k1, k2, k6, k7 = _counted()
+    """The nonzero launch counts of K3 (all and bf16), K4, K5, X1-X3, and of
+    K1/K2 and K6/K7 on bf16 tensors."""
+    k3, k4, k5, k1, k2, k6, k7, x1, x2, x3 = _counted()
     counts = {"upsample_phase_tf1": k3.launches, "upsample_phase_tf1_bf16": k3.bf16_launches,
               "light53_int8": k4.launches, "light_int8": k5.launches,
               "light53_block_bf16": k1.bf16_launches, "light_block_bf16": k2.bf16_launches,
-              "light53_chain_bf16": k6.bf16_launches, "light_chain_bf16": k7.bf16_launches}
+              "light53_chain_bf16": k6.bf16_launches, "light_chain_bf16": k7.bf16_launches,
+              "light53_int8_xla": x1.launches, "light_int8_xla": x2.launches,
+              "light53_int8_xla_dyn": x3.launches}
     return {k: v for k, v in counts.items() if v}
 
 
@@ -1110,6 +1375,72 @@ def _mixed_cli(tmp: str, img, weights: str, out_bf16: dict, out8, failures: list
     return out
 
 
+def _int8_xla_cli(tmp: str, img, out_p, out_8, failures: list, rows: list) -> dict:
+    """``main_dirpath --forward int8`` on the seeded 128x128 BMP (the engine's
+    default calibration, the bundled photos): X1 18, X2 6, K3 twice (the
+    calibration's float32 x4 and the forward's bf16 one), byte-equal with the
+    plain x4 and with the plain X blocks in place of the kernels;
+    ``--int8-emit s8`` byte-equal with wide; ``--int8-acc s32`` (the other
+    accumulator form of the kernels) byte-equal with its plain blocks; PSNR
+    against the float32 ``pallas`` output and the ``pallas_int8`` one."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread, imwrite
+
+    runs = {"kernels": ([], "kernels"), "plain_x4": ([], "plain_x4"), "plain_blocks": ([], "plain_blocks"),
+            "emit_s8": (["--int8-emit", "s8"], "kernels"), "s32": (["--int8-acc", "s32"], "kernels"),
+            "s32_plain_blocks": (["--int8-acc", "s32"], "plain_blocks")}
+    x4 = {"upsample_phase_tf1": 2, "upsample_phase_tf1_bf16": 1}
+    blocks = {"light53_int8_xla": 18, "light_int8_xla": 6}
+    want = {"kernels": {**x4, **blocks}, "plain_x4": blocks, "plain_blocks": x4}
+    outs, out = {}, {}
+    for name, (extra, variant) in runs.items():
+        d = os.path.join(tmp, f"int8_xla_{name}")
+        os.makedirs(d)
+        imwrite(os.path.join(d, "img.bmp"), img)
+        _zero_counts()
+        with _Swapped(variant):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            rc = main_dirpath.main([d, "--forward", "int8", *extra])
+            torch.cuda.synchronize()
+            secs = time.time() - t1
+        counts = _counts()
+        print(f"[chip_smoke] main_dirpath --forward int8 {' '.join(extra)} ({variant}): rc {rc}, {secs:.2f} s "
+              f"(calibration included), launches {counts}", flush=True)
+        if rc != 0:
+            failures.append(f"main_dirpath --forward int8 {' '.join(extra)} ({variant}) returned {rc}")
+        if counts != want[variant]:
+            failures.append(f"--forward int8 {' '.join(extra)} ({variant}) launches {counts} != {want[variant]}")
+        if name == "kernels":
+            for row in rows:
+                if row["name"] in counts:
+                    row["launches"] = counts[row["name"]]
+        outs[name] = imread(os.path.join(d, "img_scaled(1x).bmp"))
+        out[name] = {"launches": counts, "s": secs}
+    y = outs["kernels"]
+    if y.shape != (512, 512, 3) or float(y.astype(np.float64).std()) < 1.0:
+        failures.append(f"--forward int8 output {y.shape} or flat")
+    for a, b in (("kernels", "plain_x4"), ("kernels", "plain_blocks"), ("kernels", "emit_s8"),
+                 ("s32", "s32_plain_blocks")):
+        same = bool(np.array_equal(outs[a], outs[b]))
+        out[f"{b}_equal_{a}"] = same
+        print(f"[chip_smoke] --forward int8: the {b} run byte-equal with the {a} run: {same}", flush=True)
+        if not same:
+            failures.append(f"--forward int8: {b} differs from {a}: {_u8_agreement(outs[a], outs[b])}")
+    smax, sfrac = _u8_agreement(outs["s32"], y)
+    out.update(psnr_vs_f32=_psnr(y, out_p), psnr_vs_pallas_int8=_psnr(y, out_8), s32_vs_bf16_max=smax,
+               s32_vs_bf16_differing=sfrac)
+    print(f"[chip_smoke] --forward int8 output: PSNR {out['psnr_vs_f32']:.2f} dB against the float32 pallas "
+          f"output, {out['psnr_vs_pallas_int8']:.2f} dB against pallas_int8; --int8-acc s32 against bf16: max "
+          f"{smax}, {sfrac:.3g} of the values differ", flush=True)
+    if out["psnr_vs_f32"] < 30.0:
+        failures.append(f"--forward int8 output is far from the float32 output: PSNR {out['psnr_vs_f32']:.2f} dB")
+    return out
+
+
 def _split_phase(weights: str, qp, failures: list, gpu: str) -> dict:
     """A seeded SPLIT_HW square image in fast mode, split mode with stripes of
     SPLIT_TILE body rows, and split mode on 2-D tiles of SPLIT2D_TILE (16
@@ -1130,12 +1461,14 @@ def _split_phase(weights: str, qp, failures: list, gpu: str) -> dict:
     modes = {"fast": dict(mode="fast"), "split": dict(mode="split", split_tile=SPLIT_TILE),
              "split2d": dict(mode="split", split_tile=SPLIT2D_TILE, split_tile_w=SPLIT2D_TILE)}
     tails = {"fast": 1, "split": n_stripes, "split2d": n_chunks}
+    # int8: the serving profile of the JAX CLI's epilog (--dtype bfloat16
+    # --forward int8; the int8 forward ignores the dtype)
     forwards = {"xla": dict(forward="xla"), "xla bf16": dict(forward="xla", dtype=torch.bfloat16),
-                "pallas_int8": dict(forward="pallas_int8")}
+                "pallas_int8": dict(forward="pallas_int8"), "int8": dict(forward="int8", dtype=torch.bfloat16)}
     mpix = (4 * SPLIT_HW) ** 2 / 1e6
     out: dict = {}
     for fname, fkw in forwards.items():
-        int8 = fname == "pallas_int8"
+        int8 = fname in ("pallas_int8", "int8")
         fast = None
         for mname, mkw in modes.items():
             r = SuperResolver(weights=weights, device="cuda", **fkw, **mkw)
@@ -1158,8 +1491,10 @@ def _split_phase(weights: str, qp, failures: list, gpu: str) -> dict:
             want = {"upsample_phase_tf1": tails[mname]}
             if fname != "xla":
                 want["upsample_phase_tf1_bf16"] = tails[mname]
-            if int8:
+            if fname == "pallas_int8":
                 want.update(light53_int8=16 + 2 * tails[mname], light_int8=6)
+            elif fname == "int8":
+                want.update(light53_int8_xla=16 + 2 * tails[mname], light_int8_xla=6)
             row = {"s": min(secs), "out_mpix_s": mpix / min(secs), "peak_mib": peak / 2**20,
                    "resident_mib": base / 2**20, "launches": counts}
             print(f"[chip_smoke] {fname} {mname} {SPLIT_HW}x{SPLIT_HW}: {min(secs):.4f} s, "
@@ -1173,7 +1508,9 @@ def _split_phase(weights: str, qp, failures: list, gpu: str) -> dict:
                     failures.append(f"{fname} fast output {y.shape} or flat")
             else:
                 dmax, frac = _u8_agreement(y, fast)
-                bmax, bfrac = (INT8_U8_MAX_DIFF, INT8_U8_MAX_FRAC) if int8 else (U8_MAX_DIFF, U8_MAX_FRAC)
+                # the int8 forward's split: the same exact sums and per-element float steps as fast
+                bmax, bfrac = {"pallas_int8": (INT8_U8_MAX_DIFF, INT8_U8_MAX_FRAC), "int8": (0, 0.0)}.get(
+                    fname, (U8_MAX_DIFF, U8_MAX_FRAC))
                 print(f"[chip_smoke] {fname} {mname} vs fast: max diff {dmax}, differing fraction {frac:.3g} "
                       f"({int(round(frac * y.size))} values; bound {bmax} on {bfrac})", flush=True)
                 row.update(u8_max_diff_vs_fast=dmax, u8_differing_vs_fast=frac)
@@ -1192,6 +1529,63 @@ def _split_phase(weights: str, qp, failures: list, gpu: str) -> dict:
             out[f"{fname} {mname}"] = row
             del r
             torch.cuda.empty_cache()
+        if fname == "int8":
+            out.update(_int8_options(weights, qp, img, fast, failures, gpu))
+    return out
+
+
+def _int8_options(weights: str, qp, img, fast, failures: list, gpu: str) -> dict:
+    """The int8 forward's engine options on the split phase's image, fast mode:
+    ``int8_dynamic_tail`` (X3 twice, X1 16, X2 6) and ``int8_body_tile=256``
+    (the body over 4 shifted tiles in segments of 4 blocks: X1 18, X2 6),
+    each against its run with the plain X blocks (byte-equal); the tiled body
+    also byte-equal with the untiled fast output ``fast``."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+
+    out: dict = {}
+    mpix = (4 * SPLIT_HW) ** 2 / 1e6
+    cases = {"int8_dynamic_tail": ({"int8_dynamic_tail": True},
+                                   {"light53_int8_xla": 16, "light_int8_xla": 6, "light53_int8_xla_dyn": 2}),
+             "int8_body_tile=256": ({"int8_body_tile": 256},
+                                    {"light53_int8_xla": 18, "light_int8_xla": 6})}
+    for name, (attrs, want) in cases.items():
+        r = SuperResolver(weights=weights, device="cuda", forward="int8", mode="fast")
+        r._qparams = qp
+        for k, v in attrs.items():
+            setattr(r, k, v)
+        r.upscale(img)  # warm-up
+        _zero_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        y = r.upscale(img)
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        counts = {k: v for k, v in _counts().items() if not k.startswith("upsample")}
+        _zero_counts()
+        with _Swapped("plain_blocks"):
+            yp = r.upscale(img)
+        same_plain = bool((yp == y).all())
+        row = {"s": secs, "out_mpix_s": mpix / secs, "launches": counts, "equal_plain_blocks": same_plain}
+        print(f"[chip_smoke] int8 fast {SPLIT_HW}x{SPLIT_HW} {name}: {secs:.4f} s, {mpix / secs:.3f} out-Mpix/s, "
+              f"launches {counts}; byte-equal with its plain-block run {same_plain} on {gpu}", flush=True)
+        if counts != want or not same_plain:
+            failures.append(f"int8 {name}: launches {counts} (want {want}), byte-equal with plain {same_plain}")
+        if name.startswith("int8_body_tile"):
+            row["equal_untiled"] = bool((y == fast).all())
+            print(f"[chip_smoke] int8 {name} byte-equal with the untiled fast forward: {row['equal_untiled']}",
+                  flush=True)
+            if not row["equal_untiled"]:
+                failures.append(f"int8 {name} differs from the untiled forward: {_u8_agreement(y, fast)}")
+        else:
+            dmax, frac = _u8_agreement(y, fast)
+            row.update(u8_max_diff_vs_static=dmax, u8_differing_vs_static=frac)
+            print(f"[chip_smoke] int8 {name} against the static tail: max {dmax}, {frac:.3g} of the values "
+                  f"differ", flush=True)
+        out[f"int8 {name}"] = row
+        del r
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1285,9 +1679,10 @@ def main() -> int:
         for k, v in sorted(fns8.items()):
             print(f"[chip_smoke] int8 kernel function {k[:110]}: {v} GMMA lines", flush=True)
         without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k and "requant" not in k]
-        if without or len(fns8) != 17:
-            failures.append(f"int8 kernels: expected 17 kernel functions, wgmma in all but the 2 abs-max "
-                            f"passes and the requantization pass; got {len(fns8)}, none in {without}")
+        if without or len(fns8) != 28:
+            failures.append(f"int8 kernels: expected 28 kernel functions (17 of K4/K5, 11 of X1-X3), wgmma "
+                            f"in all but the 3 abs-max passes and the requantization pass; got {len(fns8)}, "
+                            f"none in {without}")
     # every kernel function of the block and chain libraries, the bf16 forms'
     # (two launches of two block kinds, one chain kernel of two kinds) included
     for stem, what, n_bf16 in (("tower", "chain", 2), ("blocks", "block", 4)):
@@ -1669,6 +2064,8 @@ def main() -> int:
               f"{tuple(xh8.shape)}: {yard_ms:.4f} ms, {yardstick['tflops']:.1f} TFLOP/s "
               f"(K4 at this shape {i8_rows['light53_int8_hr']['ms']:.4f} ms) on {gpu}", flush=True)
         del xc, w4
+    # the XLA int8 forms (X1-X3) on the int8 forward's own activations
+    rows += _int8_xla_kernels(qp, x8, sass["int8_blocks"], failures, gpu)
     del x8, xl8, xu8, xh8, xd, xld, xhd, x8f, xl8f, xdf, xldf
     up32 = i8_rows.pop("upsample_phase_tf1_f32")
     hrs = {"light53_int8": i8_rows.pop("light53_int8_hr"),
@@ -1849,9 +2246,14 @@ def main() -> int:
               f"output {psnr8:.2f} dB (max diff {dmax}, differing fraction {frac:.3g})", flush=True)
         if psnr8 < 30.0:
             failures.append(f"int8 output is far from the float32 output: PSNR {psnr8:.2f} dB")
+        _phase("3a' pallas_int8 path (CLI)", t0)
+
+        # --forward int8, the XLA int8 serving profile, on X1/X2 and K3
+        t0 = time.time()
+        int8_cli = _int8_xla_cli(tmp, img, out_p, out_8, failures, rows)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    _phase("3a' pallas_int8 path (CLI)", t0)
+    _phase("3e --forward int8 path (CLI)", t0)
 
     # the mixed profiles through the CLI
     t0 = time.time()
@@ -1865,6 +2267,9 @@ def main() -> int:
     # split mode: stripes and 2-D tiles against fast, on xla float32 / bf16 and pallas_int8
     t0 = time.time()
     split = _split_phase(weights, qp, failures, gpu)
+    for row in rows:  # X3 runs on the int8 forward's dynamic tail (3c's int8_dynamic_tail run)
+        if row["name"] == "light53_int8_xla_dyn":
+            row["launches"] = split["int8 int8_dynamic_tail"]["launches"].get("light53_int8_xla_dyn", 0)
     _phase(f"3c split and split2d at {SPLIT_HW}x{SPLIT_HW}", t0)
     t0 = time.time()
     extras = _extras_phase(weights, img, failures)
@@ -1881,6 +2286,8 @@ def main() -> int:
     t0 = time.time()
     res = {f: SuperResolver(weights=weights, forward=f, device="cuda") for f in ("pallas", "pallas_chain", "xla")}
     res["pallas_int8"] = res8  # weights quantized in phase 2
+    res["int8"] = SuperResolver(weights=weights, forward="int8", device="cuda")
+    res["int8"]._qparams = qp  # the same calibration and quantization as --forward int8's
     for f in ("pallas", "pallas_chain", "xla"):
         res[f"{f} --dtype bfloat16"] = SuperResolver(weights=weights, forward=f, dtype=torch.bfloat16,
                                                      device="cuda")
@@ -1910,6 +2317,18 @@ def main() -> int:
               f"wall, {busy:.3f} ms device, idle share {idle:.3f} on {gpu}", flush=True)
         for name, ms, calls in bf16_profile[f]["kernels"]:
             print(f"[chip_smoke]   {ms:9.3f} ms {100 * ms / busy:5.1f}% {calls:4d} calls  {name}", flush=True)
+    # the int8 forwards' device time by kernel and idle share, in the same call
+    int8_profile = {}
+    for f in ("int8", "pallas_int8"):
+        wall, prof_rows = profile_upscale(res[f], img, 3)
+        busy = sum(ms for _, ms, _ in prof_rows) / 3
+        idle = max(0.0, 1.0 - busy / (wall * 1e3))
+        int8_profile[f] = {"wall_ms": wall * 1e3, "device_ms": busy, "idle_share": idle,
+                           "kernels": [(name[:90], ms / 3, calls // 3) for name, ms, calls in prof_rows[:12]]}
+        print(f"[chip_smoke] profile --forward {f}, 128x128 patch mode: {wall * 1e3:.3f} ms wall, {busy:.3f} ms "
+              f"device, idle share {idle:.3f} on {gpu}", flush=True)
+        for name, ms, calls in int8_profile[f]["kernels"]:
+            print(f"[chip_smoke]   {ms:9.3f} ms {100 * ms / busy:5.1f}% {calls:4d} calls  {name}", flush=True)
     crop = np.ascontiguousarray(img[:20, :24])
     ref = SuperResolver(weights=weights, forward="xla", mode="fast", device="cpu").upscale(crop)
     for f in ("pallas", "pallas_chain"):
@@ -1931,6 +2350,18 @@ def main() -> int:
           f"{INT8_U8_MAX_FRAC})", flush=True)
     if dmax > INT8_U8_MAX_DIFF or frac >= INT8_U8_MAX_FRAC:
         failures.append(f"int8 card vs CPU reference differ: max {dmax}, fraction {frac:.3g}")
+    # the int8 forward on the CPU (the plain X blocks) with the card's quantized tree
+    cpux = SuperResolver(weights=weights, forward="int8", mode="fast", device="cpu")
+    cpux._qparams = _tree_to(qp, "cpu")
+    cardx = SuperResolver(weights=weights, forward="int8", mode="fast", device="cuda")
+    cardx._qparams = qp
+    # (the bf16 level1 / out convs are cuDNN's on the card and float32 sums rounded once on the CPU)
+    dmax, frac = _u8_agreement(cardx.upscale(crop), cpux.upscale(crop))
+    print(f"[chip_smoke] fast mode 20x24 crop, card int8 vs cpu int8 (card's quantized tree): max diff "
+          f"{dmax}, differing fraction {frac:.3g} (bound {INT8_U8_MAX_DIFF} on under {INT8_U8_MAX_FRAC})",
+          flush=True)
+    if dmax > INT8_U8_MAX_DIFF or frac >= INT8_U8_MAX_FRAC:
+        failures.append(f"int8 (XLA form) card vs CPU reference differ: max {dmax}, fraction {frac:.3g}")
     _phase("3b engine timing and CPU references", t0)
 
     # -- 4. Set5 scoring ------------------------------------------------------
@@ -1949,7 +2380,8 @@ def main() -> int:
                       "int8_uncalibrated": uncal,
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()},
                       "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "mixed_cli": mixed_cli,
-                      "split": split, "extras": extras, "set5": set5}),
+                      "split": split, "extras": extras, "int8_cli": int8_cli, "int8_profile": int8_profile,
+                      "set5": set5}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,6 +10,7 @@ Usage:  python -m image_enhance_keras_tpu_torch.cli.main_dirpath <imgdir> [optio
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from image_enhance_keras_tpu_torch.utils.logging import get_logger
@@ -21,7 +22,7 @@ _NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
 #: values this slice runs, for flags whose other JAX values are not ported
 _PORTED_VALUES = {
     "model": ("didbl",),
-    "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
+    "forward": ("xla", "int8", "pallas", "pallas_chain", "pallas_int8"),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
@@ -30,8 +31,6 @@ _UNPORTED_FLAGS = {
     "internal_learn": ("--internal-learn", 0),
     "internal_learn_lr": ("--internal-learn-lr", None),
     "pipeline": ("--pipeline", False),
-    "int8_acc": ("--int8-acc", None),
-    "int8_emit": ("--int8-emit", None),
 }
 
 
@@ -45,9 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "split: whole-frame body + halo-striped tail (fast's output, bounded memory)")
     p.add_argument("--forward", default="xla",
                    choices=["xla", "int8", "pallas", "pallas_chain", "pallas_int8"],
-                   help="xla: the plain torch module; pallas: LR blocks on the CUDA kernels; "
+                   help="xla: the plain torch module; int8: every residual block on the "
+                        "per-channel int8 CUDA kernels, the production serving profile; "
+                        "pallas: LR blocks on the CUDA kernels; "
                         "pallas_chain: the LR blocks as two chain kernels; "
-                        "pallas_int8: every residual block on the int8 CUDA kernels")
+                        "pallas_int8: every residual block on the per-tensor int8 CUDA kernels")
     p.add_argument("--suffix", default="scaled", help="suffix of output images")
     p.add_argument("--patch_size", default=96, type=int, help="tile size (reference: 96)")
     p.add_argument("--step", default=64, type=int, help="tile step (reference: 64)")
@@ -59,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed", "mixed-tail"],
                    help="serving precision: float32; bfloat16; mixed (bf16 conv operands, float32 "
                         "emission); mixed-tail (pure-bf16 body, mixed tail); the pallas forwards run "
-                        "the mixed profiles in bf16, pallas_int8 ignores the dtype")
+                        "the mixed profiles in bf16, the int8 forwards ignore the dtype")
     p.add_argument("--tile_chunk", default=16, type=int)
     p.add_argument("--round-mode", default="round", choices=["round", "trunc"],
                    help="final uint8 cast: round (half to even) or trunc (the reference's cast)")
@@ -72,6 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split-mode row stripe / tile height in body-map px (default 64)")
     p.add_argument("--split-tile-w", type=int, default=None,
                    help="2-D tiled tail: also tile split-mode columns (body-map px)")
+    p.add_argument("--int8-acc", default=None, choices=["bf16", "s32", "f32"],
+                   help="--forward int8: the conv accumulator's type before the dequant "
+                        "(default bf16; s32 and f32 keep the exact sum)")
+    p.add_argument("--int8-emit", default=None, choices=["wide", "s8"],
+                   help="--forward int8: branch-intermediate emission (s8: the fused "
+                        "requantization; bit-equal to wide)")
     p.add_argument("--self-ensemble", action="store_true",
                    help="x8 geometric self-ensemble (flips and rot90 averaged)")
     p.add_argument("--back-projection", type=int, default=0, metavar="N",
@@ -82,8 +89,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--internal-learn", type=int, default=0)
     p.add_argument("--internal-learn-lr", type=float, default=None)
     p.add_argument("--pipeline", action="store_true")
-    p.add_argument("--int8-acc", default=None, choices=["bf16", "s32", "f32"])
-    p.add_argument("--int8-emit", default=None, choices=["wide", "s8"])
     return p
 
 
@@ -96,7 +101,24 @@ def main(argv=None) -> int:
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) != default:
             parser.error(f"{flag} is {_NOT_PORTED}")
+    # the int8 knobs are read from the environment at call time: scope them to
+    # this run, so that an in-process caller's next main() sees the defaults
+    saved = {k: os.environ.get(k) for k in ("IEK_INT8_ACC", "IEK_INT8_EMIT")}
+    if args.int8_acc:
+        os.environ["IEK_INT8_ACC"] = args.int8_acc
+    if args.int8_emit:
+        os.environ["IEK_INT8_EMIT"] = args.int8_emit
+    try:
+        return _run(args)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
+
+def _run(args) -> int:
     from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
     from image_enhance_keras_tpu_torch.engine import SuperResolver
 

@@ -22,7 +22,7 @@ _JAX_MODELS = ("didbl", "didbl_subpixel", "difv4", "difv4_x2", "difvdsr")
 #: values this slice runs, for flags whose other JAX values are not ported
 _PORTED_VALUES = {
     "model": ("didbl",),
-    "forward": ("xla", "pallas", "pallas_chain", "pallas_int8"),
+    "forward": ("xla", "int8", "pallas", "pallas_chain", "pallas_int8"),
 }
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
@@ -51,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--forward", default="xla",
                    choices=["xla", "int8", "pallas", "pallas_chain", "pallas_int8"],
                    help="with --generate: forward implementation (xla: the plain torch module; "
-                        "pallas / pallas_chain / pallas_int8: the CUDA kernels)")
+                        "int8 / pallas / pallas_chain / pallas_int8: the CUDA kernels)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "mixed"],
                    help="with --generate: serving precision (mixed: bf16 conv operands, float32 "
                         "emission)")

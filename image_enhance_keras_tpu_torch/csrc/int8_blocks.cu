@@ -11,7 +11,21 @@
 //   * iek_light_int8[_dynamic]   <- light_int8 (_light_int8_kernel):
 //       t = q(relu(dq(conv3(q(x, s0), w1), s0, s1w) + b1), s1)
 //       out = x + 0.1*(dq(conv3(t, w2), s1, s2w) + b2)
-// with dq(acc, s, sw) + b = fma(float(acc), s * sw[cout], b), sw the
+// and, for the XLA int8 forward of the JAX package (models/didbl_pallas.py
+// _light53_i8_xla, _light_i8_xla, _light53_i8_xla_dyn: XLA convolutions there,
+// no Pallas kernel; ops/cuda/int8_xla.py wraps these):
+//   * iek_light53_int8_xla / iek_light_int8_xla (X1, X2): the same blocks with
+//     per-channel static scales: q(v, s_c) = clamp(rint(v * (1/s_c)), +-127)
+//     per input channel, the weights with those scales folded in ("qf") and
+//     a per-output-channel dequant scale ("sf");
+//   * iek_light53_int8_xla_dyn (X3): per-sample dynamic scales s = max(amax,
+//     1e-6) / 127.0 of x and of each branch intermediate over the whole
+//     sample, dequant scale s_w[cout] * s.
+// There the accumulator is float(acc) or bf16(float(acc)) (IEK_INT8_ACC), and
+// every product and add of the dequant and the combine is rounded on its own
+// (no FMA), as JAX computes these ops one at a time:
+//   out = bf16(0.9*x + 0.1*(a + b)), bf16(x + 0.1*u).
+// K4/K5 compute dq(acc, s, sw) + b = fma(float(acc), s * sw[cout], b), sw the
 // per-output-channel weight scales; the convs are s8 x s8 -> s32, NHWC,
 // C = 128.  x and out are bf16 or float32 (the template's T); the identity and
 // the epilogue run in float32, rounded once to T (to nearest even).
@@ -70,6 +84,14 @@
 //   4. per window, the second conv(s) VALID over the code rings, staged by
 //      cp.async exactly as the static launch B stages its scratch, dequantized
 //      with the window's intermediate scales, and the epilogue.
+// The XLA forms reuse the static template: X1/X2 are launches A and B with
+// a per-channel quantizing source and the DQ epilogues; X3 is three
+// launches: each sample's abs-max of x; both first convs from x quantized with
+// its sample's scale into float32 intermediates (N,H,W,C) with their
+// per-sample abs-maxes (atomicMax); both second convs with the intermediates
+// quantized while staging (a global reduction sits between the two convs,
+// so the intermediate cannot stay on chip), and the combine.
+//
 // The intermediate is stored, not recomputed: the first convs run once, for
 // 2 x 4 bytes of traffic per ring value and 1 + 1 more for its code (at the
 // HR tail's (9,384,384,128) the two float32 rings are 2 x 0.74 GB), where
@@ -159,6 +181,12 @@ constexpr int EXTRA_OFF = VEC_OFF + 4 * C * 4;
 constexpr int SMEM_FIRST = EXTRA_OFF + TILE_PIX * PITCH8;
 constexpr int SMEM_LIGHT_B = EXTRA_OFF + TILE_PIX * PITCH16;
 constexpr int SMEM_LIGHT53_B = EXTRA_OFF + MT * ACC * THREADS * 4;
+// The XLA forms' launch A: three (C,) reciprocal vectors after the dequant
+// vectors, then the staged codes; X3's launch 2 stages float32 passes there.
+constexpr int X_INV_OFF = EXTRA_OFF;
+constexpr int X_EXTRA_OFF = X_INV_OFF + 3 * C * 4;
+constexpr int SMEM_FIRST_X = X_EXTRA_OFF + TILE_PIX * PITCH8;
+constexpr int SMEM_XDYN_FIRST = EXTRA_OFF + TILE_PIX * PITCH16;
 
 // The dynamic ring launch's window: its M tiles are 256 consecutive raster
 // positions of a ring segment staged at a pitch of at most PITCH_MAX pixels
@@ -175,6 +203,7 @@ static_assert(THREADS * 16 == B_TILE, "one 16-byte copy per thread fills a weigh
 static_assert(SMEM_RING <= 232448, "the ring launch fits one block's shared memory");
 static_assert(TILE_PIX * PITCH16 <= WIN_BYTES, "a staged epilogue pass fits the window's space");
 static_assert(SMEM_LIGHT53_B <= 232448 && SMEM_LIGHT_B <= 232448, "fits one block's shared memory");
+static_assert(SMEM_FIRST_X <= 232448 && SMEM_XDYN_FIRST <= 232448, "fits one block's shared memory");
 
 // A thread block's 4 x 64 tile: image n, first pixel (y0, x0) in the
 // coordinates of the source it stages from.
@@ -290,6 +319,24 @@ __device__ __forceinline__ float dequant(int acc, float ssw, float b) {
   return __fmaf_rn(__int2float_rn(acc), ssw, b);
 }
 
+// How a conv's sums become floats, by form: the Pallas kernels' fused
+// dequant (DQ_FMA, K4/K5), or the XLA int8 forms' float(acc) (DQ_F32, the
+// s32 and f32 accumulators) or bf16(float(acc)) (DQ_BF16: XLA converts the
+// s32 sum to float32, then to bf16, so sums above 2^24 round twice), then
+// the product with ssw and the add of b, each rounded.
+constexpr int DQ_FMA = 0, DQ_F32 = 1, DQ_BF16 = 2;
+
+template <int DQ>
+__device__ __forceinline__ float deq(int acc, float ssw, float b) {
+  if constexpr (DQ == DQ_FMA) {
+    return dequant(acc, ssw, b);
+  } else {
+    float v = __int2float_rn(acc);
+    if constexpr (DQ == DQ_BF16) v = __bfloat162float(__float2bfloat16_rn(v));
+    return __fadd_rn(__fmul_rn(v, ssw), b);
+  }
+}
+
 // Activations of type T: 16 channels as 16-byte loads, pairs in shared memory.
 template <typename T>
 struct Act;
@@ -356,9 +403,11 @@ struct Act<float> {
 // or dynamic (s = the scale, divided; rs = 1 / s rounded, see codes8_div).
 template <typename T, bool DYN>
 struct QuantSrc {
+  using Elem = T;
   const T* x;
   float s, rs;
-  __device__ __forceinline__ int4 quant16(const uint4 (&r)[Act<T>::LOADS]) const {
+  // r: channels 16 g .. 16 g + 15 of one pixel
+  __device__ __forceinline__ int4 quant16(const uint4 (&r)[Act<T>::LOADS], int /*g*/) const {
     float f[16];
     Act<T>::to_floats(r, f);
     unsigned q[16];
@@ -368,6 +417,24 @@ struct QuantSrc {
 #pragma unroll
       for (int i = 0; i < 16; ++i) q[i] = code8(f[i], s);
     }
+    return make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                     pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+  }
+};
+
+// Static per-channel scales (the XLA int8 forms): codes clamp(rint(v *
+// inv[c]), -127, 127) with inv the C reciprocals of the scales, in shared memory.
+template <typename T>
+struct QuantSrcC {
+  using Elem = T;
+  const T* x;
+  const float* inv;
+  __device__ __forceinline__ int4 quant16(const uint4 (&r)[Act<T>::LOADS], int g) const {
+    float f[16];
+    Act<T>::to_floats(r, f);
+    unsigned q[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[i] = code8(f[i], inv[16 * g + i]);
     return make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
                      pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
   }
@@ -488,11 +555,12 @@ __device__ __forceinline__ void stage_window(uint8_t* win, const I8Src& src, con
   cp_async_commit();
 }
 
-// bf16 or float32 values, quantized on the way: the loads of WB items are in
-// flight together.
-template <int K, typename T, bool DYN>
-__device__ __forceinline__ void stage_window(uint8_t* win, const QuantSrc<T, DYN>& src,
-                                             const Tile& t, int H, int W) {
+// bf16 or float32 values, quantized on the way (a QuantSrc or QuantSrcC):
+// the loads of WB items are in flight together.
+template <int K, typename Src>
+__device__ __forceinline__ void stage_window_q(uint8_t* win, const Src& src, const Tile& t, int H,
+                                               int W) {
+  using T = typename Src::Elem;
   constexpr int P = K / 2;
   constexpr int RH = TILE_H + K - 1;
   constexpr int RW = TILE_W + K - 1;
@@ -529,7 +597,7 @@ __device__ __forceinline__ void stage_window(uint8_t* win, const QuantSrc<T, DYN
       const int pix = i / PLANES;
       const int r = pix / RW;
       const int c = pix - r * RW;
-      *reinterpret_cast<int4*>(win + g * PLANE + (r * WIN_W + c) * 16) = src.quant16(raw[u]);
+      *reinterpret_cast<int4*>(win + g * PLANE + (r * WIN_W + c) * 16) = src.quant16(raw[u], g);
     }
   }
 }
@@ -551,7 +619,10 @@ struct TileGeo {
   }
   template <int KW, typename Src>
   __device__ __forceinline__ void stage(uint8_t* win, const Src& src) const {
-    stage_window<KW>(win, src, t, H, W);
+    if constexpr (std::is_same<Src, I8Src>::value)
+      stage_window<KW>(win, src, t, H, W);
+    else
+      stage_window_q<KW>(win, src, t, H, W);
   }
 };
 
@@ -591,7 +662,7 @@ struct RasterGeo {
         const int i = b0 + u * THREADS;
         if (i >= items) continue;
         *reinterpret_cast<int4*>(win + (i % PLANES) * PLANE_R + (i / PLANES) * 16) =
-            src.quant16(raw[u]);
+            src.quant16(raw[u], i % PLANES);
       }
     }
   }
@@ -724,23 +795,27 @@ __device__ __forceinline__ void stage_vecs(float* v, float s1, const float* sw1,
 }
 
 // Static launch A epilogue: the codes of relu(dq(acc) + b) at the next scale
-// (inv_next = 1 / s_next) into the staging area, then out to dst.  vec holds
-// s * sw and b of the conv.
+// (inv_next = 1 / s_next; the XLA forms: inv_vec[c], per channel) into the
+// staging area, then out to dst.  vec holds s * sw and b of the conv.
+template <int DQ = DQ_FMA>
 __device__ __forceinline__ void emit_codes(const int (&acc)[MT][ACC], const float* vec,
                                            float inv_next, uint8_t* stage, int8_t* dst,
-                                           const Tile& t, int H, int W) {
+                                           const Tile& t, int H, int W,
+                                           const float* inv_vec = nullptr) {
   const Frag f;
 #pragma unroll
   for (int n8 = 0; n8 < C / 8; ++n8) {
     const int co = n8 * 8 + f.cq;
     const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
+    const float i0 = DQ == DQ_FMA ? inv_next : inv_vec[co];
+    const float i1 = DQ == DQ_FMA ? inv_next : inv_vec[co + 1];
 #pragma unroll
     for (int j = 0; j < MT; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = n8 * 4 + h * 2;
-        const unsigned q0 = code8(fmaxf(dequant(acc[j][i], sw0, b0), 0.f), inv_next);
-        const unsigned q1 = code8(fmaxf(dequant(acc[j][i + 1], sw1, b1), 0.f), inv_next);
+        const unsigned q0 = code8(fmaxf(deq<DQ>(acc[j][i], sw0, b0), 0.f), i0);
+        const unsigned q1 = code8(fmaxf(deq<DQ>(acc[j][i + 1], sw1, b1), 0.f), i1);
         *reinterpret_cast<uint16_t*>(stage + (f.p0 + j * TILE_W + 8 * h) * PITCH8 + co) =
             (uint16_t)pack2(q0, q1);
       }
@@ -823,6 +898,7 @@ __device__ __forceinline__ void emit_ring(const int (&acc)[MT][ACC], const float
 
 // The dequantized sums of a Light53 branch a parked in shared memory
 // ([MT*ACC][THREADS], this thread's column) while branch b's conv runs.
+template <int DQ = DQ_FMA>
 __device__ __forceinline__ void park_sums(const int (&acc)[MT][ACC], const float* vec,
                                           float* park) {
   const Frag f;
@@ -835,18 +911,19 @@ __device__ __forceinline__ void park_sums(const int (&acc)[MT][ACC], const float
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = n8 * 4 + h * 2;
-        park[(j * ACC + i) * THREADS + threadIdx.x] = dequant(acc[j][i], sw0, b0);
-        park[(j * ACC + i + 1) * THREADS + threadIdx.x] = dequant(acc[j][i + 1], sw1, b1);
+        park[(j * ACC + i) * THREADS + threadIdx.x] = deq<DQ>(acc[j][i], sw0, b0);
+        park[(j * ACC + i + 1) * THREADS + threadIdx.x] = deq<DQ>(acc[j][i + 1], sw1, b1);
       }
   }
 }
 
 // The residual epilogue: out = fma(id, x, res * (a + dq(acc) + b)) with a
-// the parked branch-a sums (L53), or fma(res, dq(acc) + b, x) (Light); vec
-// holds s * sw and b of acc's conv.  x and then out pass through st
-// (TILE_PIX x PITCH16 bytes) in passes of PASS bytes of channels a pixel;
-// pass 0 of x is already in flight when PREFETCHED.
-template <typename T, bool L53, bool PREFETCHED>
+// the parked branch-a sums (L53), or fma(res, dq(acc) + b, x) (Light); the
+// XLA forms (DQ != DQ_FMA) round every product and add: id * x + res * (a +
+// u), x + res * u.  vec holds s * sw and b of acc's conv.  x and then out
+// pass through st (TILE_PIX x PITCH16 bytes) in passes of PASS bytes of
+// channels a pixel; pass 0 of x is already in flight when PREFETCHED.
+template <typename T, bool L53, bool PREFETCHED, int DQ = DQ_FMA>
 __device__ __forceinline__ void residual_epilogue(const int (&acc)[MT][ACC], const float* vec,
                                                   const float* park, uint8_t* st, const T* x,
                                                   T* out, const OutTile& o, int H, int W,
@@ -871,17 +948,25 @@ __device__ __forceinline__ void residual_epilogue(const int (&acc)[MT][ACC], con
           const int i = n8 * 4 + h * 2;
           uint8_t* px = st + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + (co - pass * CP) * sizeof(T);
           const float2 xv = Act<T>::load2(px);
-          const float u0 = dequant(acc[j][i], sw0, b0);
-          const float u1 = dequant(acc[j][i + 1], sw1, b1);
+          const float u0 = deq<DQ>(acc[j][i], sw0, b0);
+          const float u1 = deq<DQ>(acc[j][i + 1], sw1, b1);
           float o0, o1;
           if constexpr (L53) {
             const float a0 = park[(j * ACC + i) * THREADS + threadIdx.x];
             const float a1 = park[(j * ACC + i + 1) * THREADS + threadIdx.x];
-            o0 = __fmaf_rn(identity_scale, xv.x, __fmul_rn(res_scale, __fadd_rn(a0, u0)));
-            o1 = __fmaf_rn(identity_scale, xv.y, __fmul_rn(res_scale, __fadd_rn(a1, u1)));
-          } else {
+            if constexpr (DQ == DQ_FMA) {
+              o0 = __fmaf_rn(identity_scale, xv.x, __fmul_rn(res_scale, __fadd_rn(a0, u0)));
+              o1 = __fmaf_rn(identity_scale, xv.y, __fmul_rn(res_scale, __fadd_rn(a1, u1)));
+            } else {
+              o0 = __fadd_rn(__fmul_rn(identity_scale, xv.x), __fmul_rn(res_scale, __fadd_rn(a0, u0)));
+              o1 = __fadd_rn(__fmul_rn(identity_scale, xv.y), __fmul_rn(res_scale, __fadd_rn(a1, u1)));
+            }
+          } else if constexpr (DQ == DQ_FMA) {
             o0 = __fmaf_rn(res_scale, u0, xv.x);
             o1 = __fmaf_rn(res_scale, u1, xv.y);
+          } else {
+            o0 = __fadd_rn(xv.x, __fmul_rn(res_scale, u0));
+            o1 = __fadd_rn(xv.y, __fmul_rn(res_scale, u1));
           }
           Act<T>::store2(px, o0, o1);
         }
@@ -927,7 +1012,9 @@ i8_first_kernel(const T* __restrict__ x, const float* __restrict__ act,
 }
 
 // Launch B of Light53: out = fma(id, x, res*((dq(conv5(ta)) + ba2) + (dq(conv3(tb)) + bb2))).
-template <typename T>
+// The XLA forms (DQ != DQ_FMA): sa2, sb2 are the per-channel "sf" (act is
+// not read) and the combine rounds every step (residual_epilogue).
+template <typename T, int DQ = DQ_FMA>
 __global__ void __launch_bounds__(THREADS, 1)
 light53_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
                          const int8_t* __restrict__ ta, const int8_t* __restrict__ wa2,
@@ -939,20 +1026,23 @@ light53_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
   float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
   float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);
   const Tile t = tile_of_block(W);
-  stage_vecs(vec, __ldg(act + 1), sa2, ba2, __ldg(act + 2), sb2, bb2);
+  if constexpr (DQ == DQ_FMA)
+    stage_vecs(vec, __ldg(act + 1), sa2, ba2, __ldg(act + 2), sb2, bb2);
+  else
+    stage_vecs(vec, 1.f, sa2, ba2, 1.f, sb2, bb2);
   int acc[MT][ACC];
   conv_s8<5, 5, true>(acc, smem, I8Src{ta}, wa2, TileGeo{t, H, W});
-  park_sums(acc, vec, park);
+  park_sums<DQ>(acc, vec, park);
   conv_s8<3, 3, true>(acc, smem, I8Src{tb}, wb2, TileGeo{t, H, W});
   // x into the window's space; outputs written over it, then out
-  residual_epilogue<T, true, false>(acc, vec + 2 * C, park, smem, x, out,
+  residual_epilogue<T, true, false, DQ>(acc, vec + 2 * C, park, smem, x, out,
                                     OutTile{t.n, t.y0, t.x0, H, W}, H, W, res_scale,
                                     identity_scale);
 }
 
 // Launch B of Light: out = fma(res, dq(conv3(t)) + b2, x).  x (its first
-// pass) is fetched before the conv, into its own space.
-template <typename T>
+// pass) is fetched before the conv, into its own space.  DQ as for Light53.
+template <typename T, int DQ = DQ_FMA>
 __global__ void __launch_bounds__(THREADS, 1)
 light_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
                        const int8_t* __restrict__ tin, const int8_t* __restrict__ w2,
@@ -963,11 +1053,167 @@ light_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
   uint8_t* xs = smem + EXTRA_OFF;
   const Tile t = tile_of_block(W);
   const OutTile o{t.n, t.y0, t.x0, H, W};
-  stage_vecs(vec, __ldg(act + 1), s2, b2);
+  stage_vecs(vec, DQ == DQ_FMA ? __ldg(act + 1) : 1.f, s2, b2);
   prefetch_x(xs, x, o, H, W, 0);  // the oldest cp.async group: complete once the conv starts
   int acc[MT][ACC];
   conv_s8<3, 3, true>(acc, smem, I8Src{tin}, w2, TileGeo{t, H, W});
-  residual_epilogue<T, false, true>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
+  residual_epilogue<T, false, true, DQ>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
+}
+
+// ---- the XLA int8 forms: per-channel static scales, per-sample dynamic --------
+
+// Launch A of the static per-channel forms (X1, X2): x quantized with the
+// (C,) reciprocals of act[0] while staging, then as i8_first_kernel with the
+// folded weights' "sf" as the dequant scales, the accumulator rounded by DQ,
+// no FMA, and the codes at act[1] (conv3) and act[2] (conv5, Light53) per
+// channel.  act: [2 or 3][C] float32 scales.
+template <int DQ>
+__global__ void __launch_bounds__(THREADS, 1)
+x8_first_kernel(const bf16* __restrict__ x, const float* __restrict__ act,
+                const int8_t* __restrict__ w3, const float* __restrict__ s3,
+                const float* __restrict__ b3, int8_t* __restrict__ t3,
+                const int8_t* __restrict__ w5, const float* __restrict__ s5,
+                const float* __restrict__ b5, int8_t* __restrict__ t5, int H, int W) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  float* inv = reinterpret_cast<float*>(smem + X_INV_OFF);
+  uint8_t* stage = smem + X_EXTRA_OFF;
+  const Tile t = tile_of_block(W);
+  stage_vecs(vec, 1.f, s3, b3, 1.f, s5, b5);
+  // the reciprocals, as JAX's 1.0 / s_c (conv_s8 synchronizes before staging)
+  for (int i = threadIdx.x; i < (w5 == nullptr ? 2 : 3) * C; i += THREADS)
+    inv[i] = __frcp_rn(__ldg(act + i));
+  const QuantSrcC<bf16> src{x, inv};
+  int acc[MT][ACC];
+  if (w5 == nullptr) {
+    conv_s8<3, 3, true>(acc, smem, src, w3, TileGeo{t, H, W});
+    emit_codes<DQ>(acc, vec, 0.f, stage, t3, t, H, W, inv + C);
+  } else {
+    conv_s8<3, 5, true>(acc, smem, src, w3, TileGeo{t, H, W});
+    emit_codes<DQ>(acc, vec, 0.f, stage, t3, t, H, W, inv + C);
+    conv_s8<5, 5, false>(acc, smem, src, w5, TileGeo{t, H, W});
+    emit_codes<DQ>(acc, vec + 2 * C, 0.f, stage, t5, t, H, W, inv + 2 * C);
+  }
+}
+
+// The per-sample dynamic form (X3) quantizes with s = max(abs-max, 1e-6) /
+// 127.0 (a division, as JAX writes it) and codes clamp(rint(v / s), -127,
+// 127) of the rounded quotient (codes8_div).
+__device__ __forceinline__ float sample_scale(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-6f), 127.f);
+}
+
+// Launch 1 of X3: each sample's abs-max of x into amax[sample] (blockIdx.z),
+// as float bits by atomicMax; vecs: 16-byte vectors a sample.
+__global__ void __launch_bounds__(THREADS)
+sample_absmax_kernel(const bf16* __restrict__ x, float* __restrict__ amax, long long vecs) {
+  const uint4* p = reinterpret_cast<const uint4*>(x) + (size_t)blockIdx.z * vecs;
+  float m = 0.f;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < vecs;
+       i += (long long)gridDim.x * THREADS)
+    m = fmaxf(m, Act<bf16>::absmax16B(__ldg(p + i)));
+  atomic_max_block(m, amax + blockIdx.z);
+}
+
+// X3 launch 2 epilogue: v = relu(dq(acc) + b) of the tile's pixels inside
+// the image, as float32 into dst (N, H, W, C), in two passes of 64 channels
+// through st (TILE_PIX x PITCH16 bytes); the abs-max of v into *amax.
+template <int DQ>
+__device__ __forceinline__ void emit_floats(const int (&acc)[MT][ACC], const float* vec, float* dst,
+                                            const Tile& t, int H, int W, uint8_t* st, float* amax) {
+  constexpr int CP = PASS / 4;  // float channels a pass
+  const Frag f;
+  bool keep[MT][2];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = f.p0 + j * TILE_W + 8 * h;
+      keep[j][h] = t.y0 + p / TILE_W < H && t.x0 + p % TILE_W < W;
+    }
+  float m = 0.f;
+  uint8_t* db = reinterpret_cast<uint8_t*>(dst);
+#pragma unroll
+  for (int pass = 0; pass < C / CP; ++pass) {
+#pragma unroll
+    for (int n8 = pass * CP / 8; n8 < (pass + 1) * CP / 8; ++n8) {
+      const int co = n8 * 8 + f.cq;
+      const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = n8 * 4 + h * 2;
+          const float v0 = keep[j][h] ? fmaxf(deq<DQ>(acc[j][i], sw0, b0), 0.f) : 0.f;
+          const float v1 = keep[j][h] ? fmaxf(deq<DQ>(acc[j][i + 1], sw1, b1), 0.f) : 0.f;
+          *reinterpret_cast<float2*>(st + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + (co - pass * CP) * 4) =
+              make_float2(v0, v1);
+          m = fmaxf(m, fmaxf(v0, v1));
+        }
+    }
+    __syncthreads();
+    for_tile_pieces<PASS, PITCH16>(OutTile{t.n, t.y0, t.x0, H, W}, H, W, C * 4, pass * PASS,
+                                   [&](size_t g, int s) {
+                                     *reinterpret_cast<int4*>(db + g) =
+                                         *reinterpret_cast<const int4*>(st + s);
+                                   });
+    __syncthreads();  // st is read out before it is written again
+  }
+  atomic_max_block(m, amax);
+}
+
+// X3 launch 2: both first convs over one staged window of x quantized with
+// its sample's scale (amax[0][n]): conv3 -> ta with its abs-max in
+// amax[1][n], conv5 -> tb, amax[2][n]; dequant scales s_w[c] * s_x.
+template <int DQ>
+__global__ void __launch_bounds__(THREADS, 1)
+xdyn_first_kernel(const bf16* __restrict__ x, float* __restrict__ amax,
+                  const int8_t* __restrict__ w3, const float* __restrict__ s3,
+                  const float* __restrict__ b3, float* __restrict__ t3,
+                  const int8_t* __restrict__ w5, const float* __restrict__ s5,
+                  const float* __restrict__ b5, float* __restrict__ t5, int H, int W) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  uint8_t* st = smem + EXTRA_OFF;
+  const Tile t = tile_of_block(W);
+  const int samples = gridDim.z;
+  const float sx = sample_scale(amax[t.n]);
+  stage_vecs(vec, sx, s3, b3, sx, s5, b5);
+  const QuantSrc<bf16, true> src{x, sx, __frcp_rn(sx)};
+  int acc[MT][ACC];
+  conv_s8<3, 5, true>(acc, smem, src, w3, TileGeo{t, H, W});
+  emit_floats<DQ>(acc, vec, t3, t, H, W, st, amax + samples + t.n);
+  conv_s8<5, 5, false>(acc, smem, src, w5, TileGeo{t, H, W});
+  emit_floats<DQ>(acc, vec + 2 * C, t5, t, H, W, st, amax + 2 * samples + t.n);
+}
+
+// X3 launch 3: conv5 over ta and conv3 over tb, each quantized on the way
+// with its sample's scale (amax[1][n], amax[2][n]), dequant scales s_w[c] *
+// s_branch, and the residual combine.
+template <int DQ>
+__global__ void __launch_bounds__(THREADS, 1)
+xdyn_second_kernel(const bf16* __restrict__ x, const float* __restrict__ amax,
+                   const float* __restrict__ ta, const int8_t* __restrict__ wa2,
+                   const float* __restrict__ sa2, const float* __restrict__ ba2,
+                   const float* __restrict__ tb, const int8_t* __restrict__ wb2,
+                   const float* __restrict__ sb2, const float* __restrict__ bb2,
+                   bf16* __restrict__ out, int H, int W, float res_scale, float identity_scale) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
+  float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);
+  const Tile t = tile_of_block(W);
+  const int samples = gridDim.z;
+  const float sa = sample_scale(amax[samples + t.n]), sb = sample_scale(amax[2 * samples + t.n]);
+  stage_vecs(vec, sa, sa2, ba2, sb, sb2, bb2);
+  int acc[MT][ACC];
+  conv_s8<5, 5, true>(acc, smem, QuantSrc<float, true>{ta, sa, __frcp_rn(sa)}, wa2,
+                      TileGeo{t, H, W});
+  park_sums<DQ>(acc, vec, park);
+  conv_s8<3, 3, true>(acc, smem, QuantSrc<float, true>{tb, sb, __frcp_rn(sb)}, wb2,
+                      TileGeo{t, H, W});
+  residual_epilogue<bf16, true, false, DQ>(acc, vec + 2 * C, park, smem, x, out,
+                                           OutTile{t.n, t.y0, t.x0, H, W}, H, W, res_scale,
+                                           identity_scale);
 }
 
 // ---- dynamic scales: four launches over the TPU's windows -------------------------
@@ -1152,6 +1398,71 @@ int light_static(const T* x, const float* act, const int8_t* w1, const float* s1
   return (int)cudaGetLastError();
 }
 
+// The XLA int8 forms: two launches per static block (X1, X2), three per
+// dynamic one (X3); DQ says how the accumulator is rounded.
+template <int DQ>
+int light53_xla(const bf16* x, const float* act, const int8_t* wa1, const float* sa1,
+                const float* ba1, const int8_t* wa2, const float* sa2, const float* ba2,
+                const int8_t* wb1, const float* sb1, const float* bb1, const int8_t* wb2,
+                const float* sb2, const float* bb2, int8_t* ta, int8_t* tb, bf16* out, int n, int h,
+                int w, float res_scale, float identity_scale, cudaStream_t st) {
+  cudaError_t err = allow_smem(x8_first_kernel<DQ>, SMEM_FIRST_X);
+  if (err == cudaSuccess) err = allow_smem(light53_i8_second_kernel<bf16, DQ>, SMEM_LIGHT53_B);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
+  x8_first_kernel<DQ><<<grid, THREADS, SMEM_FIRST_X, st>>>(x, act, wa1, sa1, ba1, ta, wb1, sb1, bb1,
+                                                           tb, h, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  light53_i8_second_kernel<bf16, DQ><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(
+      x, nullptr, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DQ>
+int light_xla(const bf16* x, const float* act, const int8_t* w1, const float* s1, const float* b1,
+              const int8_t* w2, const float* s2, const float* b2, int8_t* t, bf16* out, int n, int h,
+              int w, float res_scale, cudaStream_t st) {
+  cudaError_t err = allow_smem(x8_first_kernel<DQ>, SMEM_FIRST_X);
+  if (err == cudaSuccess) err = allow_smem(light_i8_second_kernel<bf16, DQ>, SMEM_LIGHT_B);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
+  x8_first_kernel<DQ><<<grid, THREADS, SMEM_FIRST_X, st>>>(x, act, w1, s1, b1, t, nullptr, nullptr,
+                                                           nullptr, nullptr, h, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  light_i8_second_kernel<bf16, DQ><<<grid, THREADS, SMEM_LIGHT_B, st>>>(x, nullptr, t, w2, s2, b2,
+                                                                         out, h, w, res_scale);
+  return (int)cudaGetLastError();
+}
+
+// amax: float32 [3][n], zeroed here; ta, tb: float32 (n, h, w, C).
+template <int DQ>
+int light53_xla_dyn(const bf16* x, const int8_t* wa1, const float* sa1, const float* ba1,
+                    const int8_t* wa2, const float* sa2, const float* ba2, const int8_t* wb1,
+                    const float* sb1, const float* bb1, const int8_t* wb2, const float* sb2,
+                    const float* bb2, float* amax, float* ta, float* tb, bf16* out, int n, int h,
+                    int w, float res_scale, float identity_scale, cudaStream_t st) {
+  cudaError_t err = allow_smem(xdyn_first_kernel<DQ>, SMEM_XDYN_FIRST);
+  if (err == cudaSuccess) err = allow_smem(xdyn_second_kernel<DQ>, SMEM_LIGHT53_B);
+  if (err == cudaSuccess) err = cudaMemsetAsync(amax, 0, 3 * (size_t)n * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  const long long vecs = (long long)h * w * C * (long long)sizeof(bf16) / 16;  // 16-byte vectors a sample
+  const long long per = (long long)THREADS * 8;
+  const unsigned bx = (unsigned)(vecs / per + 1 < 1024 ? vecs / per + 1 : 1024);
+  sample_absmax_kernel<<<dim3(bx, 1, (unsigned)n), THREADS, 0, st>>>(x, amax, vecs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
+  xdyn_first_kernel<DQ><<<grid, THREADS, SMEM_XDYN_FIRST, st>>>(x, amax, wa1, sa1, ba1, ta, wb1, sb1,
+                                                                bb1, tb, h, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  xdyn_second_kernel<DQ><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(
+      x, amax, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
+  return (int)cudaGetLastError();
+}
+
 // The window grid of a dynamic launch, or false where th, tw, h8 and w8 do
 // not describe one (multiples of 8, th | h8, tw | w8, at most 65535 windows).
 bool windows_of(int n, int h, int w, int th, int tw, int h8, int w8, Windows* g) {
@@ -1292,6 +1603,62 @@ int iek_light_int8_dynamic(const void* x,
                                     nullptr, nullptr, nullptr, nullptr, nullptr, amax, t, nullptr,
                                     q, nullptr, static_cast<bf16*>(out), n, h, w, g, res_scale, 1.f,
                                     st);
+}
+
+// The XLA int8 forms, bf16 x and out, C == 128: acc_bf16 = 1 rounds the
+// accumulator to bf16 (IEK_INT8_ACC=bf16), 0 keeps float32 (s32, f32).
+// act: float32 [3][C] (Light53) or [2][C] (Light) calibrated scales; the
+// weights "qf" repacked, their "sf" and biases; ta, tb, t: int8 (n, h, w, C).
+int iek_light53_int8_xla(const void* x, const float* act,
+                         const int8_t* wa1, const float* sa1, const float* ba1,
+                         const int8_t* wa2, const float* sa2, const float* ba2,
+                         const int8_t* wb1, const float* sb1, const float* bb1,
+                         const int8_t* wb2, const float* sb2, const float* bb2,
+                         int8_t* ta, int8_t* tb, void* out, int n, int h, int w, int c,
+                         int acc_bf16, float res_scale, float identity_scale, void* stream) {
+  if (c != C) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* ob = static_cast<bf16*>(out);
+  if (acc_bf16)
+    return light53_xla<DQ_BF16>(xb, act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                ta, tb, ob, n, h, w, res_scale, identity_scale, st);
+  return light53_xla<DQ_F32>(xb, act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, ta,
+                             tb, ob, n, h, w, res_scale, identity_scale, st);
+}
+
+int iek_light_int8_xla(const void* x, const float* act,
+                       const int8_t* w1, const float* s1, const float* b1,
+                       const int8_t* w2, const float* s2, const float* b2,
+                       int8_t* t, void* out, int n, int h, int w, int c, int acc_bf16,
+                       float res_scale, void* stream) {
+  if (c != C) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* ob = static_cast<bf16*>(out);
+  if (acc_bf16)
+    return light_xla<DQ_BF16>(xb, act, w1, s1, b1, w2, s2, b2, t, ob, n, h, w, res_scale, st);
+  return light_xla<DQ_F32>(xb, act, w1, s1, b1, w2, s2, b2, t, ob, n, h, w, res_scale, st);
+}
+
+// Per-sample dynamic scales over the unfolded weights "q" / "s".  amax:
+// float32 [3][n]; ta, tb: float32 (n, h, w, C).
+int iek_light53_int8_xla_dyn(const void* x,
+                             const int8_t* wa1, const float* sa1, const float* ba1,
+                             const int8_t* wa2, const float* sa2, const float* ba2,
+                             const int8_t* wb1, const float* sb1, const float* bb1,
+                             const int8_t* wb2, const float* sb2, const float* bb2,
+                             float* amax, float* ta, float* tb, void* out, int n, int h, int w, int c,
+                             int acc_bf16, float res_scale, float identity_scale, void* stream) {
+  if (c != C || n > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* ob = static_cast<bf16*>(out);
+  if (acc_bf16)
+    return light53_xla_dyn<DQ_BF16>(xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                    amax, ta, tb, ob, n, h, w, res_scale, identity_scale, st);
+  return light53_xla_dyn<DQ_F32>(xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, amax,
+                                 ta, tb, ob, n, h, w, res_scale, identity_scale, st);
 }
 
 const char* iek_error_string(int code) {

@@ -16,15 +16,19 @@ over a batch of shifted 2-D tiles with ``split_tile_w``, in chunks of
 per block; ``forward='pallas_chain'`` the same with the 16 Light53 and the
 6 Light blocks as one chain kernel each; ``forward='pallas_int8'`` runs
 ``apply_didbl_int8`` on a one-time quantized tree (``_fwd_params``), every
-residual block on the int8 kernels.  Float32 weights; TF32 is switched off.
+residual block on the int8 kernels; ``forward='int8'`` (the production
+serving profile) runs ``apply_didbl_int8_xla`` on the same calibrated tree,
+every residual block on the per-channel int8 kernels (``int8_dynamic_tail``:
+per-sample dynamic scales in the HR tail; ``int8_body_tile``: the body over
+shifted spatial tiles, the same output).  Float32 weights; TF32 is switched off.
 ``dtype=torch.bfloat16`` (or ``"bfloat16"``) runs ``xla``, ``pallas`` and
 ``pallas_chain`` in bf16, as the JAX engine's serving profile does: the
 module's convs and combines, or the kernels' bf16 forms, with float32
 outputs.  ``mixed=True`` (bf16 unless ``dtype`` says otherwise) gives the
 module bf16-rounded conv operands with float32 emission everywhere,
 ``mixed="tail"`` only in the x4 tail; the ``pallas*`` forwards take only
-the dtype, as in JAX, so there they run pure bf16, and ``pallas_int8``
-takes no dtype at all.  ``self_ensemble`` averages the x8 dihedral
+the dtype, as in JAX, so there they run pure bf16, and the int8 forwards
+take no dtype at all.  ``self_ensemble`` averages the x8 dihedral
 transforms, ``back_projection=N`` refines the result against the LR input
 (``ops/backproject.py``); ``upscale_patch_average``, ``upscale_frame`` and
 ``upscale_video`` are the reference's other entry points.
@@ -43,6 +47,7 @@ from image_enhance_keras_tpu_torch.data.io import imread, imwrite, list_images
 from image_enhance_keras_tpu_torch.models.blocks import profile_dtype
 from image_enhance_keras_tpu_torch.models.weights import load_params, params_of_module
 from image_enhance_keras_tpu_torch.models.zoo import get_model, init_params
+from image_enhance_keras_tpu_torch.models.zoo_int8 import int8_support
 from image_enhance_keras_tpu_torch.tiling.tiles import (
     TilePlan,
     crop_output,
@@ -119,7 +124,7 @@ class SuperResolver:
     ):
         self.device = resolve_device(device)
         disable_tf32()
-        if forward not in ("xla", "pallas", "pallas_chain", "pallas_int8"):
+        if forward not in ("xla", "int8", "pallas", "pallas_chain", "pallas_int8"):
             raise NotImplementedError(f"forward={forward!r} {_NOT_PORTED}")
         if mode not in ("patch", "fast", "split"):
             raise ValueError(f"mode must be 'patch', 'fast' or 'split', got {mode!r}")
@@ -139,6 +144,8 @@ class SuperResolver:
             self.module, self.spec = get_model(model, dtype=dtype, **kw)
         if forward.startswith("pallas") and not model.startswith("didbl"):
             raise ValueError("pallas forwards are implemented for the didbl family")
+        if forward == "int8" and int8_support(self.module) is None:
+            raise ValueError(f"forward='int8' is not available for {model!r}")
         self.forward_mode = forward
         if geometry is not None:
             patch, step, crop = TILE_GEOMETRIES[geometry]
@@ -207,6 +214,11 @@ class SuperResolver:
 
     def _forward_fn(self) -> Callable:
         """params, (N,h,w,3) [0,1] -> (N,sh,sw,3): the module or a kernel forward."""
+        if self.forward_mode == "int8":
+            if self.int8_dynamic_tail or self.int8_body_tile:
+                body_fn, tail_fn = self._split_body_tail_fns()
+                return lambda qp, x: tail_fn(qp, body_fn(qp, x))
+            return int8_support(self.module)[1]
         if self.forward_mode == "pallas_int8":
             from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_int8
 
@@ -263,12 +275,26 @@ class SuperResolver:
 
     def _split_body_tail_fns(self) -> tuple[Callable, Callable]:
         """(body_fn, tail_fn) of the forward: the module's body and tail for
-        ``xla``, the int8 body and tail for ``pallas_int8`` (the same receptive
-        field, so the module's ``split_halo`` holds)."""
+        ``xla``, the int8 bodies and tails for ``int8`` and ``pallas_int8``
+        (the same receptive field, so the module's ``split_halo`` holds);
+        ``int8`` honours ``int8_dynamic_tail`` and ``int8_body_tile``."""
         module = self.module
         fm = self.forward_mode
         if fm == "xla":
             return (lambda p, x: module.body(x)), (lambda p, h: module.tail(h))
+        if fm == "int8":
+            from image_enhance_keras_tpu_torch.models import didbl_pallas as dp
+
+            _, _, body_fn, tail_fn = int8_support(module)
+            m = module
+            if self.int8_dynamic_tail:
+                tail_fn = lambda qp, h: dp.apply_didbl_int8_xla_tail(
+                    qp, h, n_tail53=m.n_tail53, scale=m.scale, dynamic=True)
+            if self.int8_body_tile:
+                tile, seg = int(self.int8_body_tile), int(self.int8_body_seg)
+                body_fn = lambda qp, x: dp.apply_didbl_int8_xla_body_tiled(
+                    qp, x, n_body53=m.n_body53, n_light=m.n_light, tile=tile, seg=seg)
+            return body_fn, tail_fn
         if fm == "pallas_int8":
             from image_enhance_keras_tpu_torch.models.didbl_pallas import apply_didbl_int8_body, apply_didbl_int8_tail
 
@@ -385,6 +411,13 @@ class SuperResolver:
     int8_calib: str = "images"
     #: image directory for int8_calib="images" (None: the bundled photos)
     int8_calib_dir: str | None = None
+    #: ``forward='int8'``: quantize the HR tail with per-sample dynamic
+    #: scales (per tile in split2d) instead of the calibrated ones
+    int8_dynamic_tail: bool = False
+    #: ``forward='int8'``: spatial tile of the body (0: the whole frame),
+    #: run in segments of ``int8_body_seg`` blocks over shifted tiles
+    int8_body_tile: int = 0
+    int8_body_seg: int = 4
 
     def _calib_from_images(self) -> torch.Tensor | None:
         """(N, s, s, 3) [0,1] calibration inputs from ``int8_calib_dir``, or None."""
@@ -445,7 +478,7 @@ class SuperResolver:
 
     def _maybe_calibrate_int8(self, img_u8: np.ndarray) -> None:
         """First-frame int8 calibration (``int8_calib="first_frame"``)."""
-        if self.int8_calib != "first_frame" or self.forward_mode != "pallas_int8":
+        if self.int8_calib != "first_frame" or self.forward_mode not in ("int8", "pallas_int8"):
             return
         if self._qparams is not None:
             return
@@ -490,18 +523,22 @@ class SuperResolver:
         return calib
 
     def _fwd_params(self) -> Any:
-        """Tree fed to the forward: the float params, or for ``pallas_int8``
+        """Tree fed to the forward: the float params, or for the int8 forwards
         the one-time quantized tree with calibrated activation scales."""
-        if self.forward_mode != "pallas_int8":
+        if self.forward_mode not in ("int8", "pallas_int8"):
             return self.params
         if self._qparams is None:
-            from image_enhance_keras_tpu_torch.models.didbl_pallas import quantize_didbl_params
+            calib = self._calibration_input().to(self.device)
+            if self.forward_mode == "int8":
+                self._qparams = int8_support(self.module)[0](self.params, calib)
+            else:
+                from image_enhance_keras_tpu_torch.models.didbl_pallas import quantize_didbl_params
 
-            m = self.module
-            self._qparams = quantize_didbl_params(
-                self.params, n_body53=m.n_body53, n_light=m.n_light, n_tail53=m.n_tail53,
-                calib_x=self._calibration_input().to(self.device), scale=m.scale,
-            )
+                m = self.module
+                self._qparams = quantize_didbl_params(
+                    self.params, n_body53=m.n_body53, n_light=m.n_light, n_tail53=m.n_tail53,
+                    calib_x=calib, scale=m.scale,
+                )
         return self._qparams
 
     def plan_for(self, height: int, width: int) -> TilePlan:

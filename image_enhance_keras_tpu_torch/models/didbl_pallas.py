@@ -21,11 +21,22 @@ the x4 through ``ops.resize.upsample_phase_tf1``.  A tree quantized without
 of ``tile`` with its own dynamic abs-max scales, as in JAX (the library's
 uncalibrated path; no CLI flag reaches it).
 
+The XLA int8 path (``--forward int8``, the production serving profile of the
+JAX package): ``apply_didbl_int8_xla`` runs every residual block on the
+per-channel int8 kernels of ``ops/cuda/int8_xla.py`` over the folded
+"qf"/"sf" copies (the HR tail, with ``dynamic=True``, on per-sample
+dynamic scales over "q"/"s"), bf16 activations between blocks.  The env
+knobs are read at call time, as JAX reads them at trace time:
+``IEK_INT8_ACC`` (bf16 | s32 | f32, the conv accumulator) and
+``IEK_INT8_EMIT`` (wide | s8, bit-equal); ``IEK_INT8_MERGE55``,
+``IEK_INT8_UPQ`` and ``IEK_INT8_UPMM`` set to 1 raise.
+
 On CPU tensors the kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import torch
@@ -38,8 +49,16 @@ from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import (
     light_int8,
     quantize_weights_per_channel,
 )
+from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import (
+    light53_int8_xla,
+    light53_int8_xla_dyn,
+    light_int8_xla,
+)
 from image_enhance_keras_tpu_torch.ops.cuda.tower import fused_light53_chain, fused_light_chain
 from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1, upsample_phase_tf1
+from image_enhance_keras_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 __all__ = [
     "apply_didbl_pallas",
@@ -48,6 +67,10 @@ __all__ = [
     "apply_didbl_int8",
     "apply_didbl_int8_body",
     "apply_didbl_int8_tail",
+    "apply_didbl_int8_xla",
+    "apply_didbl_int8_xla_body",
+    "apply_didbl_int8_xla_body_tiled",
+    "apply_didbl_int8_xla_tail",
 ]
 
 _SUBPIXEL_NOT_PORTED = "upsampler='subpixel' is not yet ported in image_enhance_keras_tpu_torch"
@@ -283,3 +306,182 @@ def apply_didbl_int8(qparams: Any, x: torch.Tensor, n_body53: int = 16, n_light:
     ``calib_x``) quantize each ``tile`` window dynamically."""
     h = apply_didbl_int8_body(qparams, x, n_body53=n_body53, n_light=n_light, tile=tile)
     return apply_didbl_int8_tail(qparams, h, n_tail53=n_tail53, scale=scale, tile=tile)
+
+
+# ---------------------------------------------------------------------------
+# XLA int8 serving path (--forward int8; ops/cuda/int8_xla.py)
+# ---------------------------------------------------------------------------
+
+def _int8_acc() -> str:
+    """The conv accumulator, ``IEK_INT8_ACC`` (bf16 | s32 | f32), read at call time."""
+    return os.environ.get("IEK_INT8_ACC", "bf16")
+
+
+def _emit_s8() -> bool:
+    """``IEK_INT8_EMIT=s8``: the fused requantization of the branch intermediates."""
+    return os.environ.get("IEK_INT8_EMIT", "wide") == "s8"
+
+
+def _refuse_env(name: str) -> None:
+    """JAX's research knobs the port does not run: raise rather than ignore them."""
+    if os.environ.get(name, "0") == "1":
+        raise NotImplementedError(f"{name}=1 is not yet ported in image_enhance_keras_tpu_torch")
+
+
+def _light53_i8_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
+    _refuse_env("IEK_INT8_MERGE55")
+    sc = p["actc"]
+    return light53_int8_xla(
+        x,
+        p["conv_a1"]["qf"], p["conv_a1"]["sf"], p["conv_a1"]["bias"],
+        p["conv_a2"]["qf"], p["conv_a2"]["sf"], p["conv_a2"]["bias"],
+        p["conv_b1"]["qf"], p["conv_b1"]["sf"], p["conv_b1"]["bias"],
+        p["conv_b2"]["qf"], p["conv_b2"]["sf"], p["conv_b2"]["bias"],
+        _stacked_actc(p, ("x", "a", "b")), acc=_int8_acc(), emit_s8=_emit_s8(),
+    )
+
+
+def _light_i8_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return light_int8_xla(
+        x,
+        p["conv_a"]["qf"], p["conv_a"]["sf"], p["conv_a"]["bias"],
+        p["conv_b"]["qf"], p["conv_b"]["sf"], p["conv_b"]["bias"],
+        _stacked_actc(p, ("x", "t")), acc=_int8_acc(), emit_s8=_emit_s8(),
+    )
+
+
+def _light53_i8_xla_dyn(x: torch.Tensor, p: dict) -> torch.Tensor:
+    _refuse_env("IEK_INT8_MERGE55")
+    return light53_int8_xla_dyn(
+        x,
+        p["conv_a1"]["q"], p["conv_a1"]["s"], p["conv_a1"]["bias"],
+        p["conv_a2"]["q"], p["conv_a2"]["s"], p["conv_a2"]["bias"],
+        p["conv_b1"]["q"], p["conv_b1"]["s"], p["conv_b1"]["bias"],
+        p["conv_b2"]["q"], p["conv_b2"]["s"], p["conv_b2"]["bias"],
+        acc=_int8_acc(),
+    )
+
+
+def _stacked_actc(p: dict, keys: tuple) -> torch.Tensor:
+    """The block's per-channel scale vectors as one (k, C) tensor, what the
+    kernels take; cached on the first vector, keyed by the identity of all."""
+    vecs = [p["actc"][k] for k in keys]
+    cached = getattr(vecs[0], "_iek_actc", None)
+    if cached is None or len(cached[0]) != len(vecs) or any(a is not b for a, b in zip(cached[0], vecs)):
+        cached = (vecs, torch.stack(vecs).contiguous())
+        vecs[0]._iek_actc = cached
+    return cached[1]
+
+
+def _require_act(qparams: Any) -> None:
+    if "actc" not in qparams.get("body53_0", {}):
+        raise ValueError(
+            "forward='int8' needs calibrated activation scales: quantize with "
+            "quantize_didbl_params(..., calib_x=...)"
+        )
+
+
+def apply_didbl_int8_xla_body(qparams: Any, x: torch.Tensor, n_body53: int = 16,
+                              n_light: int = 6) -> torch.Tensor:
+    """XLA-int8 pre-upsample tower at LR: bf16 level1 + relu, then the per-channel int8 blocks."""
+    _require_act(qparams)
+    h = torch.relu(_conv(x.to(torch.bfloat16), qparams["level1"]))
+    for i in range(n_body53):
+        h = _light53_i8_xla(h, qparams[f"body53_{i}"])
+    for i in range(n_light):
+        h = _light_i8_xla(h, qparams[f"light_{i}"])
+    return h
+
+
+def _tiled_chain(h: torch.Tensor, fns: list, radius_per_fn: list, tile: int) -> torch.Tensor:
+    """Run a chain of spatially local block functions over shifted spatial tiles.
+
+    ``h`` is (1, H, W, C); the chain's zero-pad pollution reaches
+    ``sum(radius_per_fn)`` pixels in, so the tiles carry that halo and only
+    their owned cores are stitched back: the same result as the whole-frame
+    chain.  Batched or too small inputs run the untiled chain, with a warning.
+    """
+    from image_enhance_keras_tpu_torch.tiling.tiles import (
+        gather_tiles_2d,
+        scatter_tiles_2d,
+        shift_grid_axis,
+        shifted_extract_indices,
+        shifted_stitch_indices,
+    )
+
+    halo = int(sum(radius_per_fn))
+    H, W = int(h.shape[1]), int(h.shape[2])
+    if min(H, W) <= tile + 2 * halo or h.shape[0] != 1:
+        log.warning(
+            "int8 body tiling requested (tile=%d) but input %s is %s; running the untiled chain",
+            tile, tuple(h.shape), "batched" if h.shape[0] != 1 else "too small to tile",
+        )
+        for f in fns:
+            h = f(h)
+        return h
+    T_r, starts_r, _ = shift_grid_axis(H, tile, halo)
+    T_c, starts_c, _ = shift_grid_axis(W, tile, halo)
+    n_r, n_c = len(starts_r), len(starts_c)
+
+    def dev(a):
+        return torch.from_numpy(a).to(h.device)
+
+    t = gather_tiles_2d(h[0], dev(shifted_extract_indices(H, tile, halo)),
+                        dev(shifted_extract_indices(W, tile, halo)), n_r, n_c, T_r, T_c)
+    for f in fns:
+        t = f(t)
+    return scatter_tiles_2d(t, dev(shifted_stitch_indices(H, tile, halo, 1)),
+                            dev(shifted_stitch_indices(W, tile, halo, 1)), n_r, n_c, T_r, T_c,
+                            scale=1)[None].contiguous()
+
+
+#: receptive-field radii of the blocks: Light53 = max(3x3 then 5x5) = 3; Light = two 3x3 = 2
+_LIGHT53_RADIUS = 3
+_LIGHT_RADIUS = 2
+
+
+def apply_didbl_int8_xla_body_tiled(qparams: Any, x: torch.Tensor, n_body53: int = 16,
+                                    n_light: int = 6, tile: int = 256, seg: int = 4) -> torch.Tensor:
+    """XLA-int8 body with per-segment spatial tiling: the blocks in segments of
+    ``seg``, each over shifted (tile + 2*halo)^2 tiles (halo: the segment's
+    summed radius), stitched between segments; the same output as
+    :func:`apply_didbl_int8_xla_body`."""
+    _require_act(qparams)
+    h = torch.relu(_conv(x.to(torch.bfloat16), qparams["level1"]))
+    chain = [
+        (lambda b, i=i: _light53_i8_xla(b, qparams[f"body53_{i}"]), _LIGHT53_RADIUS)
+        for i in range(n_body53)
+    ] + [
+        (lambda b, i=i: _light_i8_xla(b, qparams[f"light_{i}"]), _LIGHT_RADIUS)
+        for i in range(n_light)
+    ]
+    for k in range(0, len(chain), max(1, seg)):
+        part = chain[k : k + max(1, seg)]
+        h = _tiled_chain(h, [f for f, _ in part], [r for _, r in part], tile)
+    return h
+
+
+def apply_didbl_int8_xla_tail(qparams: Any, h: torch.Tensor, n_tail53: int = 2, scale: int = 4,
+                              dynamic: bool = False, upsampler: str = "tf1_bilinear") -> torch.Tensor:
+    """bf16 x4 upsample, the int8 HR Light53 blocks (static per-channel, or
+    per-sample dynamic with ``dynamic``), bf16 out conv + relu -> float32."""
+    if upsampler != "tf1_bilinear":
+        raise NotImplementedError(_SUBPIXEL_NOT_PORTED)
+    if not dynamic and n_tail53 >= 1:
+        _refuse_env("IEK_INT8_UPQ")
+    _refuse_env("IEK_INT8_UPMM")
+    h = upsample_phase_tf1(h.to(torch.bfloat16), scale)
+    for i in range(n_tail53):
+        p = qparams[f"tail53_{i}"]
+        h = _light53_i8_xla_dyn(h, p) if dynamic else _light53_i8_xla(h, p)
+    return torch.relu(_conv(h, qparams["out"])).to(torch.float32)
+
+
+def apply_didbl_int8_xla(qparams: Any, x: torch.Tensor, n_body53: int = 16, n_light: int = 6,
+                         n_tail53: int = 2, scale: int = 4,
+                         upsampler: str = "tf1_bilinear") -> torch.Tensor:
+    """(N, H, W, 3) [0,1] -> (N, 4H, 4W, 3): the didbl graph with every
+    residual-block conv in int8 (per-channel static scales folded into the
+    weights); identity paths unquantized, bf16 activations between blocks."""
+    h = apply_didbl_int8_xla_body(qparams, x, n_body53=n_body53, n_light=n_light)
+    return apply_didbl_int8_xla_tail(qparams, h, n_tail53=n_tail53, scale=scale, upsampler=upsampler)

@@ -59,9 +59,13 @@ _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
 
 
 def quantize_weights_per_channel(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(k, k, Cin, Cout) float -> (int8 weights, (Cout,) float32 scales)."""
+    """(k, k, Cin, Cout) float -> (int8 weights, (Cout,) float32 scales).
+
+    The scales divide by a tensor: torch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which is not JAX's (or the CPU's) quotient."""
     w = w.to(torch.float32)
-    scale = torch.clamp_min(w.abs().amax(dim=(0, 1, 2)), 1e-12) / 127.0
+    amax = torch.clamp_min(w.abs().amax(dim=(0, 1, 2)), 1e-12)
+    scale = amax / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -274,8 +278,11 @@ def _packed(wq: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-def _check(x, convs, vectors, act_scales, n_act: int) -> None:
-    """Validate what both paths take; on CUDA also what the kernels take."""
+def _check(x, convs, vectors, act_scales, act_shape: tuple, cuda_dtypes=ACT_DTYPES) -> None:
+    """Validate what both paths take; on CUDA also what the kernels take.
+
+    ``act_shape``: the shape of ``act_scales`` when given (C stands for the
+    channels); ``cuda_dtypes``: the activation dtypes the kernels take."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got shape {tuple(x.shape)}")
     if x.dtype not in ACT_DTYPES:
@@ -287,9 +294,10 @@ def _check(x, convs, vectors, act_scales, n_act: int) -> None:
     for v in vectors:
         if tuple(v.shape) != (c,) or v.dtype != torch.float32:
             raise ValueError(f"scales and biases must be float32 ({c},), got {v.dtype} {tuple(v.shape)}")
-    if act_scales is not None and (tuple(act_scales.shape) != (n_act,)
+    act_shape = tuple(c if d == "C" else d for d in act_shape)
+    if act_scales is not None and (tuple(act_scales.shape) != act_shape
                                    or act_scales.dtype != torch.float32):
-        raise ValueError(f"act_scales must be None or float32 ({n_act},), got {act_scales.dtype} "
+        raise ValueError(f"act_scales must be None or float32 {act_shape}, got {act_scales.dtype} "
                          f"{tuple(act_scales.shape)}")
     tensors = [x, *(w for w, _ in convs), *vectors] + ([] if act_scales is None else [act_scales])
     for t in tensors:
@@ -299,6 +307,9 @@ def _check(x, convs, vectors, act_scales, n_act: int) -> None:
         return
     if x.device.type != "cuda":
         raise ValueError(f"int8 blocks run on cpu or cuda tensors, not {x.device}")
+    if x.dtype not in cuda_dtypes:
+        raise TypeError(f"these CUDA kernels take {' or '.join(str(d)[6:] for d in cuda_dtypes)} x, "
+                        f"got {x.dtype}")
     if c != CUDA_CHANNELS:
         raise ValueError(f"the CUDA kernels take C == {CUDA_CHANNELS}, got C={c}")
     for t in tensors:
@@ -343,7 +354,7 @@ def light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, b
     change the result; None quantizes every ``tile`` window dynamically.
     """
     _check(x, [(wa1q, 3), (wa2q, 5), (wb1q, 5), (wb2q, 3)],
-           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, 3)
+           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (3,))
     convs = (wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2)
     if x.device.type == "cpu":
         if act_scales is None:
@@ -381,7 +392,7 @@ def light_int8(x, w1q, s1, b1, w2q, s2, b2, res_scale: float = 0.1,
     ``act_scales``: (2,) float32 calibrated scales (input, intermediate);
     None quantizes every ``tile`` window dynamically.
     """
-    _check(x, [(w1q, 3), (w2q, 3)], [s1, b1, s2, b2], act_scales, 2)
+    _check(x, [(w1q, 3), (w2q, 3)], [s1, b1, s2, b2], act_scales, (2,))
     if x.device.type == "cpu":
         if act_scales is None:
             return light_int8_dynamic_plain(x, w1q, s1, b1, w2q, s2, b2, tile, res_scale)

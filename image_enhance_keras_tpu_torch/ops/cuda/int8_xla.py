@@ -1,0 +1,235 @@
+"""int8 residual blocks of the ``--forward int8`` serving path: CUDA kernels and plain versions.
+
+The JAX package runs these blocks as XLA convolutions over quantized
+tensors (``models/didbl_pallas.py``, ``_light53_i8_xla``, ``_light_i8_xla``,
+``_light53_i8_xla_dyn``), not as Pallas kernels.  Torch has no int8
+convolution on CUDA, so the port runs them on forms of the s8 ``wgmma``
+implicit GEMM of ``csrc/int8_blocks.cu``:
+
+* :func:`light53_int8_xla`, :func:`light_int8_xla` (static per-channel
+  scales): x (N, H, W, C) bf16 quantized as ``clamp(rint(x * (1/s_c)),
+  +-127)`` with the (C,) calibrated vectors of ``act_scales`` (rows: input,
+  then the branch intermediates), weights with those scales folded into them
+  ("qf") and a per-output-channel dequant scale ("sf");
+* :func:`light53_int8_xla_dyn` (the HR tail under ``int8_dynamic_tail``):
+  every sample quantized with its own scale ``max(abs-max, 1e-6) / 127.0``
+  (divided, not multiplied), the unfolded weights ("q", "s"), dequant
+  ``acc * (s_w * s_in) + bias``; each branch intermediate requantized with
+  its own per-sample abs-max over the whole sample.
+
+Every float step rounds where JAX rounds when it runs these ops one at a
+time (``jax.disable_jit()``): the accumulator becomes float32 (``acc="s32"``
+or ``"f32"``) or float32 and then bf16 (``"bf16"``, the default: XLA
+converts the s32 sum to float32 before bf16), each product and each add of
+the dequant and of the residual combine is rounded on its own (no fused
+multiply-add), and the output is rounded once to x's dtype.  The
+convolutions themselves are exact; XLA on the CPU sums the ``f32`` and
+``bf16`` modes in float32, which is exact only below 2^24.  The jitted JAX
+forward differs again: XLA folds the accumulator's conversion into the
+conv and contracts the dequant into FMAs (ROADMAP.md §3).
+
+On a CUDA tensor the wrappers launch the kernels (bf16 x, C = 128) or
+raise; on a CPU tensor they run the plain versions, which compute the
+convolutions exactly in float64 and every float step in the order above,
+so that kernels and plain versions agree bit for bit.  Each wrapper counts
+in ``.launches`` the blocks it ran on the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from image_enhance_keras_tpu_torch.ops.cuda import _build
+from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import _check, _conv_s32, _packed, _stream
+
+__all__ = [
+    "ACC_MODES",
+    "light53_int8_xla",
+    "light_int8_xla",
+    "light53_int8_xla_dyn",
+    "light53_int8_xla_plain",
+    "light_int8_xla_plain",
+    "light53_int8_xla_dyn_plain",
+]
+
+#: accumulator modes (``IEK_INT8_ACC``): the conv output's type before the dequant
+ACC_MODES = ("bf16", "s32", "f32")
+_F32 = torch.float32
+#: the activation dtype the kernels of the int8 forward take (its blocks run on bf16)
+_BF16 = (torch.bfloat16,)
+
+
+def _c(v: float) -> torch.Tensor:
+    """A float32 scalar, as JAX's weakly typed Python constants become."""
+    return torch.tensor(v, dtype=_F32)
+
+
+def _acc(q: torch.Tensor, wq: torch.Tensor, acc: str) -> torch.Tensor:
+    """The conv's accumulator as float32: the exact s32 sum rounded to
+    float32, then to bf16 under ``acc="bf16"`` (the s32 -> bf16 conversion
+    goes through float32, so sums above 2^24 round twice)."""
+    y = _conv_s32(q, wq)
+    return y.to(torch.bfloat16).to(_F32) if acc == "bf16" else y
+
+
+def _quant_c(x: torch.Tensor, s_c: torch.Tensor) -> torch.Tensor:
+    """Per-channel symmetric codes (as float32): clamp(round(x * (1/s_c)), +-127)."""
+    return torch.clamp(torch.round(x.to(_F32) * (1.0 / s_c)), -127.0, 127.0)
+
+
+def _requant_c(y: torch.Tensor, s_out: torch.Tensor) -> torch.Tensor:
+    """The fused requantization (``IEK_INT8_EMIT=s8``): clamp(round(y *
+    (1/s)), 0, 127) of the dequantized sums, which subsumes the relu."""
+    return torch.clamp(torch.round(y * (1.0 / s_out)), 0.0, 127.0)
+
+
+def _first(xq, w, sf, b, s_next, acc: str, emit_s8: bool) -> torch.Tensor:
+    """Codes of relu(dequant(conv(xq, w))) at the next conv's scales."""
+    y = _acc(xq, w, acc) * sf + b
+    return _requant_c(y, s_next) if emit_s8 else _quant_c(torch.relu(y), s_next)
+
+
+def _check_acc(acc: str) -> None:
+    if acc not in ACC_MODES:
+        raise ValueError(f"int8 accumulator must be one of {ACC_MODES}, got {acc!r}")
+
+
+def light53_int8_xla_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                           act_scales, acc: str = "bf16", emit_s8: bool = False,
+                           res_scale: float = 0.1, identity_scale: float = 0.9):
+    """The static Light53 block: ``act_scales`` (3, C) holds s_x, s_a, s_b;
+    the weights are the folded "qf" codes and the scales their "sf"."""
+    _check_acc(acc)
+    xf = x.to(_F32)
+    xq = _quant_c(xf, act_scales[0])
+    aq = _first(xq, wa1, sa1, ba1, act_scales[1], acc, emit_s8)
+    bq = _first(xq, wb1, sb1, bb1, act_scales[2], acc, emit_s8)
+    a = _acc(aq, wa2, acc) * sa2 + ba2
+    b = _acc(bq, wb2, acc) * sb2 + bb2
+    return (_c(identity_scale) * xf + _c(res_scale) * (a + b)).to(x.dtype)
+
+
+def light_int8_xla_plain(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16",
+                         emit_s8: bool = False, res_scale: float = 0.1):
+    """The static Light block: ``act_scales`` (2, C) holds s_x, s_t."""
+    _check_acc(acc)
+    xf = x.to(_F32)
+    tq = _first(_quant_c(xf, act_scales[0]), w1, s1, b1, act_scales[1], acc, emit_s8)
+    u = _acc(tq, w2, acc) * s2 + b2
+    return (xf + _c(res_scale) * u).to(x.dtype)
+
+
+def _quant_dyn_sample(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample codes and scale: s = max(abs-max over (H, W, C), 1e-6) / 127.0
+    (a division), codes clamp(round(t / s), +-127), both float32."""
+    m = torch.clamp_min(t.abs().amax(dim=(1, 2, 3), keepdim=True), 1e-6)
+    s = m / torch.full_like(m, 127.0)  # see int8_blocks.quantize_weights_per_channel
+    return torch.clamp(torch.round(t / s), -127.0, 127.0), s
+
+
+def light53_int8_xla_dyn_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                               acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9):
+    """The per-sample dynamic Light53 block over the unfolded weights "q" / "s".
+
+    ``IEK_INT8_EMIT=s8`` (``_requant_dyn``) runs the same float ops in JAX,
+    so one version serves both emissions."""
+    _check_acc(acc)
+    xf = x.to(_F32)
+    xq, sx = _quant_dyn_sample(xf)
+
+    def branch(w1, s1, b1, w2, s2, b2):
+        t = torch.relu(_acc(xq, w1, acc) * (s1 * sx) + b1)
+        tq, st = _quant_dyn_sample(t)
+        return _acc(tq, w2, acc) * (s2 * st) + b2
+
+    a = branch(wa1, sa1, ba1, wa2, sa2, ba2)
+    b = branch(wb1, sb1, bb1, wb2, sb2, bb2)
+    return (_c(identity_scale) * xf + _c(res_scale) * (a + b)).to(x.dtype)
+
+
+def light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
+                     acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1,
+                     identity_scale: float = 0.9):
+    """int8 Light53 block with static per-channel scales (X1), SAME, output in x's dtype.
+
+    ``act_scales``: (3, C) float32, the calibrated s_x, s_a, s_b.  The kernel
+    always hands the branch codes from its first launch to its second, which
+    is the fused ``emit_s8`` emission; ``emit_s8`` only selects the plain
+    version's form (bit-equal either way)."""
+    _check_acc(acc)
+    _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
+           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (3, "C"), _BF16)
+    convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
+    if x.device.type == "cpu":
+        return light53_int8_xla_plain(x, *convs, act_scales, acc, emit_s8, res_scale, identity_scale)
+    lib = _build.library("int8_blocks")
+    n, h, w, c = (int(s) for s in x.shape)
+    wptrs = [p for q, s, b in (convs[0:3], convs[3:6], convs[6:9], convs[9:12])
+             for p in (_packed(q).data_ptr(), s.data_ptr(), b.data_ptr())]
+    ta = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    tb = torch.empty_like(ta)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = lib.iek_light53_int8_xla(
+            x.data_ptr(), act_scales.data_ptr(), *wptrs, ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+            n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
+    _build.check(lib, code, "light53_int8_xla")
+    light53_int8_xla.launches += 1
+    return out
+
+
+def light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16", emit_s8: bool = False,
+                   res_scale: float = 0.1):
+    """int8 Light block with static per-channel scales (X2); ``act_scales``: (2, C) s_x, s_t."""
+    _check_acc(acc)
+    _check(x, [(w1, 3), (w2, 3)], [s1, b1, s2, b2], act_scales, (2, "C"), _BF16)
+    if x.device.type == "cpu":
+        return light_int8_xla_plain(x, w1, s1, b1, w2, s2, b2, act_scales, acc, emit_s8, res_scale)
+    lib = _build.library("int8_blocks")
+    n, h, w, c = (int(s) for s in x.shape)
+    t = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = lib.iek_light_int8_xla(
+            x.data_ptr(), act_scales.data_ptr(), _packed(w1).data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            _packed(w2).data_ptr(), s2.data_ptr(), b2.data_ptr(), t.data_ptr(), out.data_ptr(),
+            n, h, w, c, int(acc == "bf16"), float(res_scale), _stream(x))
+    _build.check(lib, code, "light_int8_xla")
+    light_int8_xla.launches += 1
+    return out
+
+
+def light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                         acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9):
+    """int8 Light53 block with per-sample dynamic scales (X3), over the unfolded "q" / "s".
+
+    Three launches: each sample's abs-max of x; the first convs from x
+    quantized with its sample's scale into float32 intermediates with their
+    per-sample abs-maxes; the second convs from the intermediates quantized
+    on the way, and the residual combine."""
+    _check_acc(acc)
+    _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
+           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], None, (), _BF16)
+    convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
+    if x.device.type == "cpu":
+        return light53_int8_xla_dyn_plain(x, *convs, acc, res_scale, identity_scale)
+    lib = _build.library("int8_blocks")
+    n, h, w, c = (int(s) for s in x.shape)
+    wptrs = [p for q, s, b in (convs[0:3], convs[3:6], convs[6:9], convs[9:12])
+             for p in (_packed(q).data_ptr(), s.data_ptr(), b.data_ptr())]
+    amax = torch.empty((3, n), dtype=_F32, device=x.device)
+    ta = torch.empty(x.shape, dtype=_F32, device=x.device)
+    tb = torch.empty_like(ta)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = lib.iek_light53_int8_xla_dyn(
+            x.data_ptr(), *wptrs, amax.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+            n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
+    _build.check(lib, code, "light53_int8_xla_dyn")
+    light53_int8_xla_dyn.launches += 1
+    return out
+
+
+light53_int8_xla.launches = 0
+light_int8_xla.launches = 0
+light53_int8_xla_dyn.launches = 0

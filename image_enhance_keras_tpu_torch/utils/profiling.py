@@ -1,11 +1,11 @@
 """Where the device time of the main path goes: kernels by name, and the idle share.
 
     python -m image_enhance_keras_tpu_torch.utils.profiling [--size 128] [--iters 3]
-        [--forwards pallas_int8 pallas pallas_chain xla]
+        [--forwards int8 pallas_int8 pallas pallas_chain xla]
 
 Upscales one seeded ``size`` x ``size`` image in patch mode (96/64/8, the
 demo weights) with each of ``--forwards`` under ``torch.profiler``, after a
-warm-up (which also builds the kernels and, for ``pallas_int8``, calibrates
+warm-up (which also builds the kernels and, for the int8 forwards, calibrates
 and quantizes the weights), and prints for each forward the wall time per
 image, the device time of every kernel (summed over the timed images), and
 the share of the wall time in which no kernel ran.  Needs a CUDA card.
@@ -57,8 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--forwards", nargs="+", default=["pallas_int8", "pallas", "pallas_chain", "xla"],
-                    choices=["pallas_int8", "pallas", "pallas_chain", "xla"])
+    ap.add_argument("--forwards", nargs="+", default=["int8", "pallas_int8", "pallas", "pallas_chain", "xla"],
+                    choices=["int8", "pallas_int8", "pallas", "pallas_chain", "xla"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling needs a CUDA card", file=sys.stderr)

@@ -231,7 +231,7 @@ def test_profiles():
         with pytest.raises(NotImplementedError, match="not yet ported"):
             profile_dtype(dtype)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_engine.SuperResolver(dtype=torch.bfloat16, forward="int8", device="cpu", weights=None)
+        port_engine.SuperResolver(dtype=torch.bfloat16, forward="int8", device="cpu", weights=None, internal_learn=1)
 
 
 # -- the CLIs, at a narrow width (features 16) -----------------------------------

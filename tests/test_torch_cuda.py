@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from image_enhance_keras_tpu_torch.ops.cuda import blocks, int8_blocks, tower, upsample
+from image_enhance_keras_tpu_torch.ops.cuda import blocks, int8_blocks, int8_xla, tower, upsample
 from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
 
 C = 128
@@ -236,6 +236,99 @@ def test_int8_static_kernels_float32_bit_equal_plain(which, hw):
     got = wrapper(x, *args, act_scales=act)
     assert got.dtype == torch.float32
     assert torch.equal(got, plain(x, *args, act))
+
+
+# -- X1-X3, the XLA int8 forward's blocks (per-channel static, per-sample dynamic) --
+#: (N, H, W): a batch of 96x96 patches, ragged crops that cut the 4 x 64 tiles,
+#: an image narrower than one tile, and "big": codes and weights near 127,
+#: whose sums pass 2^24 (the bf16 accumulator then rounds twice)
+INT8_XLA_SHAPES = [(2, 96, 96), (1, 57, 86), (1, 86, 57), (1, 5, 70), (2, 8, 64), "big"]
+INT8_XLA = {"light53": (int8_xla.light53_int8_xla, int8_xla.light53_int8_xla_plain, (3, 5, 5, 3), 3),
+            "light": (int8_xla.light_int8_xla, int8_xla.light_int8_xla_plain, (3, 3), 2),
+            "light53_dyn": (int8_xla.light53_int8_xla_dyn, int8_xla.light53_int8_xla_dyn_plain, (3, 5, 5, 3), 0)}
+
+
+def _int8_xla_inputs(which, shape, seed):
+    """bf16 x, per conv (int8 weights, float32 scales, biases), and (k, C) scale vectors."""
+    rng = np.random.default_rng(seed)
+    big = shape == "big"
+    shape = (1, 24, 70) if big else shape
+    if big:  # every channel at its scale's 127 code, positive weights near 127
+        x = np.full((*shape, C), 1.0, np.float32) + rng.random((*shape, C)).astype(np.float32) * 0.05
+    else:  # channels of different ranges, as per-channel calibration sees them
+        x = rng.normal(size=(*shape, C)).astype(np.float32) * np.exp(rng.normal(size=C)).astype(np.float32) * 0.3
+    x = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    args = []
+    for k in INT8_XLA[which][2]:
+        if big:
+            q = torch.from_numpy(rng.integers(100, 128, (k, k, C, C)).astype(np.int8)).cuda()
+            s = torch.from_numpy((rng.random(C) * 1e-7 + 1e-8).astype(np.float32)).cuda()
+        else:
+            q, s = int8_blocks.quantize_weights_per_channel(
+                torch.from_numpy((rng.normal(size=(k, k, C, C)) * 0.05).astype(np.float32)).cuda())
+        args += [q, s, torch.from_numpy((rng.normal(size=C) * 0.01).astype(np.float32)).cuda()]
+    amax = x.float().abs().amax(dim=(0, 1, 2))
+    rows = [amax / (127.0 if big else 100.0)]  # the input's scales clip a few codes unless "big"
+    rows += [torch.from_numpy((0.02 + 0.03 * rng.random(C)).astype(np.float32)).cuda()
+             for _ in range(INT8_XLA[which][3] - 1)]
+    return x, args, torch.stack(rows).contiguous() if INT8_XLA[which][3] else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", ["bf16", "s32"])
+@pytest.mark.parametrize("shape", INT8_XLA_SHAPES)
+@pytest.mark.parametrize("which", sorted(INT8_XLA))
+def test_int8_xla_kernels_bit_equal_plain(which, shape, acc):
+    """X1/X2 (two launches) and X3 (three) on s8 wgmma, one counted call each,
+    bit-equal to their plain versions in both accumulator modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    wrapper, plain, _, n_act = INT8_XLA[which]
+    x, args, act = _int8_xla_inputs(which, shape, len(str(shape)) + len(which))
+    extra = (act,) if n_act else ()
+    before = wrapper.launches
+    got = wrapper(x, *args, *extra, acc=acc)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.dtype == torch.bfloat16
+    want = plain(x, *args, *extra, acc=acc)
+    assert torch.equal(got, want), ((got.float() - want.float()).abs().max().item(),
+                                    (got != want).float().mean().item())
+
+
+@pytest.mark.cuda
+def test_int8_scales_divide_on_the_card_as_on_the_cpu():
+    """The plain versions' divisions by 127 (per-channel weight scales,
+    per-sample dynamic scales) give the CPU's quotients on CUDA tensors too
+    (torch's CUDA division by a Python scalar multiplies by its reciprocal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(23)
+    w = torch.from_numpy((rng.normal(size=(3, 3, 4, 4096)) * np.exp(rng.normal(size=4096))).astype(np.float32))
+    for got, want in zip(int8_blocks.quantize_weights_per_channel(w.cuda()),
+                         int8_blocks.quantize_weights_per_channel(w)):
+        assert torch.equal(got.cpu(), want)
+    t = torch.from_numpy((rng.random((4096, 2, 2, 1)) * np.exp(rng.normal(size=(4096, 1, 1, 1)))).astype(np.float32))
+    for got, want in zip(int8_xla._quant_dyn_sample(t.cuda()), int8_xla._quant_dyn_sample(t)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(INT8_XLA))
+def test_int8_xla_wrappers_reject_what_the_kernels_do_not_take(which):
+    """float32 x, and C other than 128, raise on CUDA tensors, with no launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    wrapper, _, _, n_act = INT8_XLA[which]
+    x, args, act = _int8_xla_inputs(which, (1, 8, 8), 3)
+    extra = (act,) if n_act else ()
+    before = wrapper.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        wrapper(x.float(), *args, *extra)
+    with pytest.raises(ValueError, match="C == 128"):
+        c = 16
+        sub = [a[..., :c, :c].contiguous() if a.dim() == 4 else a[:c].contiguous() for a in args]
+        wrapper(x[..., :c].contiguous(), *sub, *((act[:, :c].contiguous(),) if n_act else ()))
+    assert wrapper.launches == before
 
 
 # -- K3, the TF1 phase upsample ----------------------------------------------------

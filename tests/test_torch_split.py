@@ -185,9 +185,15 @@ def test_split_rejects_pallas_forwards_as_jax_does(narrow, patched, forward):
     assert str(got.value) == f"mode='split' supports the xla/int8/pallas_int8 forwards, not {forward!r}"
 
 
-def test_split_int8_forward_not_ported(narrow, patched):
+def test_split_int8_forward_not_ported(narrow, patched, monkeypatch):
+    """Split mode on ``--forward int8`` runs (tests/test_torch_int8_xla.py);
+    its tail under ``IEK_INT8_UPMM=1`` (the x4 as two dense matmuls) does not."""
+    pn, img = narrow
+    r = port_engine.SuperResolver(params=pn, mode="split", forward="int8", device="cpu")
+    r.int8_calib = "synthetic"
+    monkeypatch.setenv("IEK_INT8_UPMM", "1")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_engine.SuperResolver(params=narrow[0], mode="split", forward="int8", device="cpu")
+        r.upscale(img)
 
 
 def test_fast_falls_back_to_patch_above_fast_max_pixels(narrow, patched, caplog):
