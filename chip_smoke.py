@@ -101,7 +101,27 @@ Phases (each prints its elapsed seconds):
      ``IEK_INT8_ACC=s32``; X1-X3 counted) against JAX's op-by-op rows on the
      CPU (``EVAL_INT8_CPU.json``), the TPU's rows on SSIM-Y and, for the
      default, the fast bf16 ``xla`` row; against each other and the
-     recorded rows.
+     recorded rows;
+  5. the rest of the zoo (didbl_subpixel, difv4, difvdsr) with their
+     committed demo checkpoints: X4 (``csrc/int8_conv.cu``, its SASS 8
+     conv functions on wgmma) at every shape of the zoo's int8 forwards
+     (difv4 256->256 at LR, 2x and 4x, bf16 and float32 x; difvdsr
+     192->192 at HR; the subpixel head 128->2048, static and dynamic),
+     bit-equal to its plain version under the bf16 and s32 accumulators,
+     with times, device ms, ``torch._int_mm`` over im2col and the bound;
+     K3 at factor 2, C = 256, bf16 and float32, bit-equal; ``main_dirpath
+     --model M`` on the seeded 128x128 BMP, ``--forward xla`` and
+     ``--forward int8 --dtype bfloat16``, launches checked (X4 1 / 64 /
+     768, K3 2 and 4, X1 18, X2 6), the int8 runs byte-equal with the
+     plain X4 (X1/X2) and difv4's plain x2 swapped in; the subpixel head's
+     dynamic form (``int8_dynamic_tail``: X4 dynamic 1, X3 2), byte-equal
+     with its plain blocks; each model on a 16x16 crop against the CPU
+     (int8: byte-equal with the pre-upscale and the bf16 convs taken from
+     the CPU); profiles of both forwards per model; Set5 fast float32
+     against ``EVAL_ZOO.json`` (under the Y of each row's provenance) and
+     JAX on the CPU, int8 on the first two images against JAX op by op
+     (``EVAL_ZOO_INT8_CPU.json``), the TPU's subpixel row and the card's
+     float32 row on SSIM-Y.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -275,6 +295,32 @@ def _launch_breakdown(fn, iters: int = 3) -> dict:
         short = name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
         out[short] = out.get(short, 0.0) + ms / iters
     return out
+
+
+def _queued_ms(fn, n: int = 20) -> float:
+    """Device ms per call of ``fn`` without the host: ``n`` calls queued behind
+    a spin kernel (``torch.cuda._sleep``), so that the card runs them back to
+    back, between two CUDA events.  The fallback of :func:`_device_ms`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # tens of ms: longer than the host takes to queue the calls
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _device_ms(fn) -> tuple[float, str]:
+    """Device ms per call of ``fn``: the sum of its launches under
+    ``torch.profiler``, or, where the profiler hands back no device event,
+    the queued CUDA-event time (:func:`_queued_ms`); and which of the two."""
+    prof = sum(_launch_breakdown(fn).values())
+    return (prof, "torch.profiler") if prof > 0 else (_queued_ms(fn), "queued CUDA events")
 
 
 def _time_ms(fn, iters: int = MIN_TIMED, warmup: int = 3) -> float:
@@ -1213,9 +1259,9 @@ _XLA_FORMS = (("light53_int8_xla", "light53_int8_xla_plain"), ("light_int8_xla",
 
 
 class _Swapped:
-    """Within the block: the x4 of the module and int8 forwards ("plain_x4"),
-    or the int8 forward's blocks ("plain_blocks"), replaced by their plain
-    versions; "kernels" swaps nothing."""
+    """Within the block: the x4 of the module and int8 forwards, and difv4's
+    x2s ("plain_x4"), or the int8 forwards' blocks and X4 ("plain_blocks"),
+    replaced by their plain versions; "kernels" swaps nothing."""
 
     def __init__(self, variant: str):
         self.variant = variant
@@ -1226,12 +1272,18 @@ class _Swapped:
 
         from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
 
+        from image_enhance_keras_tpu_torch.models import difv4, zoo_int8
+        from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
+
         if self.variant == "plain_x4":
             didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_plain
+            difv4.upsample_phase_tf1 = zoo_int8.upsample_phase_tf1 = upsample_phase_plain
         elif self.variant == "plain_blocks":
             didbl_pallas.light53_int8, didbl_pallas.light_int8 = _plain_int8_blocks()
             for wrapper, plain in _XLA_FORMS:
                 setattr(didbl_pallas, wrapper, getattr(kx, plain))
+            zoo_int8.int8_conv3 = didbl_pallas.int8_conv3 = kc.int8_conv3_plain
+            didbl_pallas.int8_conv3_dyn = kc.int8_conv3_dyn_plain
         return self
 
     def __exit__(self, *exc):
@@ -1241,36 +1293,43 @@ class _Swapped:
 
         from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
 
+        from image_enhance_keras_tpu_torch.models import difv4, zoo_int8
+        from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
+
         didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_tf1
+        difv4.upsample_phase_tf1 = zoo_int8.upsample_phase_tf1 = upsample_phase_tf1
         didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
         for wrapper, _ in _XLA_FORMS:
             setattr(didbl_pallas, wrapper, getattr(kx, wrapper))
+        zoo_int8.int8_conv3 = didbl_pallas.int8_conv3 = kc.int8_conv3
+        didbl_pallas.int8_conv3_dyn = kc.int8_conv3_dyn
         return False
 
 
 def _counted():
-    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7, X1, X2, X3."""
+    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7, X1, X2, X3, X4 (static, dynamic)."""
     from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
     from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
     from image_enhance_keras_tpu_torch.ops.cuda import tower as kt
     from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
 
     return (kup.upsample_phase_tf1_kernel, ki8.light53_int8, ki8.light_int8, kb.fused_light53_block,
             kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain, kx.light53_int8_xla,
-            kx.light_int8_xla, kx.light53_int8_xla_dyn)
+            kx.light_int8_xla, kx.light53_int8_xla_dyn, kc.int8_conv3, kc.int8_conv3_dyn)
 
 
 def _counts() -> dict:
-    """The nonzero launch counts of K3 (all and bf16), K4, K5, X1-X3, and of
+    """The nonzero launch counts of K3 (all and bf16), K4, K5, X1-X4, and of
     K1/K2 and K6/K7 on bf16 tensors."""
-    k3, k4, k5, k1, k2, k6, k7, x1, x2, x3 = _counted()
+    k3, k4, k5, k1, k2, k6, k7, x1, x2, x3, x4, x4d = _counted()
     counts = {"upsample_phase_tf1": k3.launches, "upsample_phase_tf1_bf16": k3.bf16_launches,
               "light53_int8": k4.launches, "light_int8": k5.launches,
               "light53_block_bf16": k1.bf16_launches, "light_block_bf16": k2.bf16_launches,
               "light53_chain_bf16": k6.bf16_launches, "light_chain_bf16": k7.bf16_launches,
               "light53_int8_xla": x1.launches, "light_int8_xla": x2.launches,
-              "light53_int8_xla_dyn": x3.launches}
+              "light53_int8_xla_dyn": x3.launches, "int8_conv3": x4.launches, "int8_conv3_dyn": x4d.launches}
     return {k: v for k, v in counts.items() if v}
 
 
@@ -1612,6 +1671,477 @@ def _extras_phase(weights: str, img, failures: list) -> dict:
     return {"u8_max_diff_vs_cpu": dmax, "u8_differing_vs_cpu": frac, "u8_differing_vs_plain_forward": pfrac}
 
 
+# -- the rest of the zoo (phase 5) --------------------------------------------
+
+#: the zoo's models with committed demo checkpoints, through the main path
+ZOO_MODELS = ("didbl_subpixel", "difv4", "difvdsr")
+#: X4 replaces no TPU kernel: JAX runs these convs as XLA ops; "replaces"
+#: names the JAX functions (_quant_c, _qconv_xla, _deqf; the dynamic form's
+#: _quant_dyn_sample, _deq_dyn)
+X4_REPLACES = "image_enhance_keras_tpu/models/didbl_pallas.py:321"
+X4_DYN_REPLACES = "image_enhance_keras_tpu/models/didbl_pallas.py:466"
+#: the Set5 images the int8 zoo rows are scored on (EVAL_ZOO_INT8_CPU.json,
+#: the TPU's didbl_subpixel_int8_fast_2img): the first two
+ZOO_INT8_IMAGES = 2
+
+
+def _x4_rows(qps: dict, img, failures: list, sass_x4, gpu: str) -> tuple[list, dict]:
+    """X4 at every shape of the zoo's int8 forwards on their own activations
+    (patch mode's 9 tiles of the seeded 128x128 image; difvdsr's first chunk
+    of 16 tiles of its x4 input), static under the bf16 and s32 accumulators
+    and, for the subpixel head, dynamic; each bit-equal to its plain version,
+    with its time, device ms, plain time, ``torch._int_mm`` over an int8
+    im2col of the same conv, bound and GMMA lines.  And K3 at factor 2, C =
+    256, bf16 and float32, bit-equal, with its share of the byte bound."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.models import didbl_pallas as dp
+    from image_enhance_keras_tpu_torch.models import zoo_int8 as zi
+    from image_enhance_keras_tpu_torch.ops.color import im2double
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+    from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8, upsample_phase_plain
+    from image_enhance_keras_tpu_torch.tiling.tiles import extract_tiles, pad_to_plan, plan_tiles
+
+    dev = torch.device("cuda")
+    plan = plan_tiles(128, 128, patch=96, step=64, scale=4, crop=8)
+    with torch.inference_mode():
+        tiles = im2double(extract_tiles(pad_to_plan(torch.from_numpy(img).to(dev).float(), plan), plan))
+        up = resize_pil_uint8(torch.from_numpy(img).to(dev), (512, 512))
+        plan1 = plan_tiles(512, 512, patch=96, step=64, scale=1, crop=8)
+        tiles1 = im2double(extract_tiles(pad_to_plan(up, plan1), plan1))[:16]
+        q4, qd, qs = qps["difv4"], qps["difvdsr"], qps["didbl_subpixel"]
+        h = torch.relu(dp._conv(tiles.to(torch.bfloat16), q4["level1"]))
+        x_head = h
+        for i in range(6):
+            h = zi._light_i8(h, q4[f"head_{i}"], zi._DIFV4_LEAKY_HEAD)
+        head_out = h
+        h = x_mid = kup.upsample_phase_tf1_kernel(h, 2)
+        for i in range(20):
+            h = zi._light_i8(h, q4[f"mid_{i}"], None)
+        x_tail = kup.upsample_phase_tf1_kernel(h + x_mid, 2)
+        del h
+        t_tail = zi._x4(x_tail, q4["tail_0"]["conv_a"], q4["tail_0"]["actc"]["x"], "relu")
+        x_dsr = torch.relu(dp._conv(tiles1.to(torch.bfloat16), qd["level1"]))
+        t_dsr = zi._x4(zi._x4(x_dsr, qd["diff_0"]["conv_a"], qd["diff_0"]["actc"]["x"], "relu"),
+                       qd["diff_0"]["conv_b"], qd["diff_0"]["actc"]["t1"])
+        d_dsr = t_dsr - x_dsr.float()
+        x_sub = dp.apply_didbl_int8_xla_body(qs, tiles)
+
+    def static(x, p, s_in, act):
+        return ((lambda acc: kc.int8_conv3(x, p["qf"], p["sf"], p["bias"], s_in, acc=acc, act=act)),
+                (lambda acc: kc.int8_conv3_plain(x, p["qf"], p["sf"], p["bias"], s_in, acc=acc, act=act)),
+                x, p["qf"], lambda: torch.clamp(torch.round(x.float() * (1.0 / s_in)), -127.0, 127.0), False)
+
+    def dynamic(x, p):
+        return ((lambda acc: kc.int8_conv3_dyn(x, p["q"], p["s"], p["bias"], acc=acc)),
+                (lambda acc: kc.int8_conv3_dyn_plain(x, p["q"], p["s"], p["bias"], acc=acc)), x, p["q"],
+                lambda: kc._quant_dyn_sample(x.float())[0], True)
+
+    sub = qs["subpixel_conv"]
+    specs = [  # name, (kernel(acc), plain(acc), x, weights, x's codes, dynamic?)
+        ("difv4 head 256->256 LR, leaky", static(x_head, q4["head_0"]["conv_a"], q4["head_0"]["actc"]["x"],
+                                                   zi._DIFV4_LEAKY_HEAD)),
+        ("difv4 mid 256->256 2x", static(x_mid, q4["mid_0"]["conv_a"], q4["mid_0"]["actc"]["x"], "relu")),
+        ("difv4 tail 256->256 4x", static(x_tail, q4["tail_0"]["conv_a"], q4["tail_0"]["actc"]["x"], "relu")),
+        ("difv4 tail 256->256 4x, float32 x", static(t_tail, q4["tail_0"]["conv_b"], q4["tail_0"]["actc"]["t"],
+                                                      None)),
+        ("difvdsr 192->192 HR", static(x_dsr, qd["diff_0"]["conv_a"], qd["diff_0"]["actc"]["x"], "relu")),
+        ("difvdsr 192->192 HR, float32 x, leaky", static(d_dsr, qd["diff_0"]["conv_c"], qd["diff_0"]["actc"]["d"],
+                                                          zi._DSR_LEAKY)),
+        ("didbl_subpixel head 128->2048 LR", static(x_sub, sub, sub["actc"]["x"], None)),
+        ("didbl_subpixel head 128->2048 LR, dynamic", dynamic(x_sub, sub)),
+    ]
+    fns = (sass_x4 or {}).get("functions", {})
+    out = {}
+    with torch.inference_mode():
+        for name, (kern, plain, x, w, codes, dyn) in specs:
+            row = {"shape": list(x.shape), "dtype": str(x.dtype)[6:], "c_out": int(w.shape[-1])}
+            for acc in ("bf16", "s32"):
+                got, want = kern(acc), plain(acc)
+                torch.cuda.synchronize()
+                d = (got - want).abs()
+                same = bool(torch.equal(got, want))
+                row[f"bit_equal_{acc}"], row[f"max_abs_err_{acc}"] = same, d.max().item()
+                if not same:
+                    failures.append(f"X4 {name} (acc {acc}): not bit-equal to its plain version (differ on "
+                                    f"{(d > 0).float().mean().item():.3g} of values, max |diff| {d.max().item():.3g})")
+                del got, want, d
+            row["ms"] = _time_ms(lambda: kern("bf16"))
+            row["ms_s32"] = _time_ms(lambda: kern("s32"))
+            row["plain_ms"] = _time_ms(lambda: plain("bf16"), iters=1, warmup=1)
+            row["device_ms"], row["device_ms_by"] = _device_ms(lambda: kern("bf16"))
+            pix, cin, cout = x[..., 0].numel(), int(x.shape[-1]), int(w.shape[-1])
+            ops = 2.0 * 9 * cin * cout * pix
+            nbytes = x.numel() * x.element_size() + 4.0 * cout * pix + w.numel()
+            row["bound_ms"], row["bound_by"] = _bound(ops, PEAK_INT8_OPS, nbytes)
+            row["library_ms"] = _time_ms(_int_mm_convs([(codes().to(torch.int8), w)]), iters=3, warmup=1)
+            row["tops"] = ops / (row["ms"] * 1e-3) / 1e12
+            mangled = (f"conv3_kernelI{'f' if x.dtype == torch.float32 else '13__nv_bfloat16'}"
+                       f"Li{128 if cout % 128 == 0 else 64}ELb{int(dyn)}E")
+            row["sass_gmma"] = sum(v for k, v in fns.items() if mangled in k)
+            if row["sass_gmma"] == 0:
+                failures.append(f"X4 {name}: no GMMA (wgmma) line in the SASS of its kernel function")
+            print(f"[chip_smoke] X4 {name} {tuple(x.shape)} -> {cout}: bit-equal bf16 {row['bit_equal_bf16']} s32 "
+                  f"{row['bit_equal_s32']}; {row['ms']:.4f} ms (acc bf16), {row['ms_s32']:.4f} ms (s32), "
+                  f"{row['device_ms']:.4f} ms device ({row['device_ms_by']}), {row['plain_ms']:.3f} ms plain, {row['library_ms']:.4f} ms "
+                  f"_int_mm over im2col, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tops']:.1f} TOPS, "
+                  f"{row['sass_gmma']} GMMA lines on {gpu}", flush=True)
+            out[name] = row
+        # K3 at factor 2, C = 256: the head tower's output, bf16 (the int8 forward) and float32 (xla)
+        k3 = {}
+        for dt in (torch.bfloat16, torch.float32):
+            x = head_out.to(dt).contiguous()
+            got, want = kup.upsample_phase_tf1_kernel(x, 2), upsample_phase_plain(x, 2)
+            same = bool(torch.equal(got, want))
+            if not same:
+                failures.append(f"K3 factor 2 C=256 {dt}: not bit-equal to its plain version")
+            ms = _time_ms(lambda: kup.upsample_phase_tf1_kernel(x, 2))
+            dms, dby = _device_ms(lambda: kup.upsample_phase_tf1_kernel(x, 2))
+            nbytes = 5.0 * x.numel() * x.element_size()  # read once, write 4x
+            bound = 1e3 * nbytes / PEAK_BYTES_S
+            k3[str(dt)[6:]] = {"shape": list(x.shape), "bit_equal": same, "ms": ms, "device_ms": dms,
+                               "device_ms_by": dby, "bound_ms": bound, "share_of_byte_bound": bound / dms,
+                               "plain_ms": _time_ms(lambda: upsample_phase_plain(x, 2), iters=3, warmup=1)}
+            print(f"[chip_smoke] K3 factor 2 {tuple(x.shape)} {str(dt)[6:]}: bit-equal {same}; {ms:.4f} ms, "
+                  f"{dms:.4f} ms device ({dby}), byte bound {bound:.4f} ms ({100 * bound / dms:.1f}% of it) on {gpu}",
+                  flush=True)
+    static_rows = [v for k, v in out.items() if "dynamic" not in k]
+    main_row = out["difv4 mid 256->256 2x"]
+    dyn_row = out["didbl_subpixel head 128->2048 LR, dynamic"]
+    rows = []
+    for name, row, src in (("int8_conv3", main_row, X4_REPLACES), ("int8_conv3_dyn", dyn_row, X4_DYN_REPLACES)):
+        rows.append({
+            "name": name, "route": "cuda", "source": "image_enhance_keras_tpu_torch/csrc/int8_conv.cu",
+            "replaces": src, "launches": None,
+            "max_abs_err": max(max(r["max_abs_err_bf16"], r["max_abs_err_s32"])
+                               for r in (static_rows if name == "int8_conv3" else [dyn_row])),
+            "tolerance": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": "torch._int_mm over an int8 im2col of the same conv (s32 sums only)",
+            "shape": row["shape"], "device_ms": row["device_ms"],
+        })
+    return rows, {"x4": out, "k3_factor2": k3}
+
+
+def _zoo_want(n_dsr_calls: int) -> dict:
+    """Launches a forward of each zoo CLI run makes on patch mode's 128x128
+    (one chunk of 9 tiles; difvdsr: its x4, 512x512, in n_dsr_calls chunks of
+    16 tiles): K3 twice in difv4 (the float32 module, or the int8 forward's
+    bf16 and, in calibration, float32 x2s), X4 on every int8 residual conv."""
+    return {
+        ("didbl_subpixel", "xla"): {},
+        ("difv4", "xla"): {"upsample_phase_tf1": 2},
+        ("difvdsr", "xla"): {},
+        ("didbl_subpixel", "int8"): {"light53_int8_xla": 18, "light_int8_xla": 6, "int8_conv3": 1},
+        ("difv4", "int8"): {"upsample_phase_tf1": 4, "upsample_phase_tf1_bf16": 2, "int8_conv3": 64},
+        ("difvdsr", "int8"): {"int8_conv3": 128 * n_dsr_calls},
+    }
+
+
+def _without(counts: dict, variant: str) -> dict:
+    """The launches left when ``variant``'s kernels are swapped for their plain versions."""
+    gone = {"plain_x4": ("upsample_phase_tf1", "upsample_phase_tf1_bf16"),
+            "plain_blocks": ("int8_conv3", "int8_conv3_dyn", "light53_int8_xla", "light_int8_xla",
+                             "light53_int8_xla_dyn", "light53_int8", "light_int8")}.get(variant, ())
+    return {k: v for k, v in counts.items() if k not in gone}
+
+
+def _zoo_cli(tmp: str, img, failures: list, gpu: str) -> dict:
+    """``main_dirpath --model M`` on the seeded 128x128 BMP with each model's
+    committed demo checkpoint (patch mode, the CLI default): ``--forward xla``
+    (float32) and ``--forward int8 --dtype bfloat16`` (the JAX CLI's serving
+    profile), the counts zeroed just before each run and checked just after;
+    the int8 runs again with the plain X4 (and X1/X2) and, for difv4, the
+    plain x4 in place of the kernels, byte-equal; then the subpixel head's
+    dynamic form (``int8_dynamic_tail``, fast mode), byte-equal with its plain
+    blocks; the int8 output's PSNR against the float32 one."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread, imwrite
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+    from image_enhance_keras_tpu_torch.tiling.tiles import plan_tiles
+
+    n_dsr = plan_tiles(512, 512, patch=96, step=64, scale=1, crop=8).n_tiles
+    want = _zoo_want(-(-n_dsr // 16))
+    out, outs = {}, {}
+    for model in ZOO_MODELS:
+        runs = [("xla", [], "kernels"), ("int8", ["--dtype", "bfloat16"], "kernels"),
+                ("int8", ["--dtype", "bfloat16"], "plain_blocks")]
+        if model == "difv4":
+            runs.append(("int8", ["--dtype", "bfloat16"], "plain_x4"))
+        for forward, extra, variant in runs:
+            d = os.path.join(tmp, f"zoo_{model}_{forward}_{variant}")
+            os.makedirs(d)
+            imwrite(os.path.join(d, "img.bmp"), img)
+            _zero_counts()
+            with _Swapped(variant):
+                torch.cuda.synchronize()
+                t1 = time.time()
+                rc = main_dirpath.main([d, "--model", model, "--forward", forward, *extra])
+                torch.cuda.synchronize()
+                secs = time.time() - t1
+            counts = _counts()
+            label = f"{model} --forward {forward} {' '.join(extra)} ({variant})"
+            expect = _without(want[(model, forward)], variant)
+            print(f"[chip_smoke] main_dirpath --model {label}: rc {rc}, {secs:.2f} s (calibration included), "
+                  f"launches {counts} (want {expect}) on {gpu}", flush=True)
+            if rc != 0:
+                failures.append(f"main_dirpath --model {label} returned {rc}")
+            if counts != expect:
+                failures.append(f"main_dirpath --model {label}: launches {counts} != {expect}")
+            outs[(model, forward, variant)] = imread(os.path.join(d, "img_scaled(1x).bmp"))
+            out[label] = {"launches": counts, "s": secs}
+        y, y8 = outs[(model, "xla", "kernels")], outs[(model, "int8", "kernels")]
+        if y.shape != (512, 512, 3) or float(y.astype(np.float64).std()) < 1.0:
+            failures.append(f"--model {model} output {y.shape} or flat")
+        for variant in ("plain_blocks", "plain_x4"):
+            if (model, "int8", variant) in outs:
+                same = bool(np.array_equal(y8, outs[(model, "int8", variant)]))
+                out[f"{model} int8 {variant} byte-equal"] = same
+                print(f"[chip_smoke] --model {model} --forward int8: the {variant} run byte-equal: {same}",
+                      flush=True)
+                if not same:
+                    failures.append(f"--model {model} --forward int8 with {variant} differs: "
+                                    f"{_u8_agreement(y8, outs[(model, 'int8', variant)])}")
+        psnr = _psnr(y8, y)
+        out[f"{model} int8 psnr_vs_f32"] = psnr
+        print(f"[chip_smoke] --model {model}: int8 output PSNR {psnr:.2f} dB against the float32 output", flush=True)
+        if psnr < 30.0:
+            failures.append(f"--model {model} --forward int8 output is far from float32: PSNR {psnr:.2f} dB")
+    # the pallas forwards run the TF1 head only: refused on the subpixel head
+    for forward in ("pallas", "pallas_chain", "pallas_int8"):
+        try:
+            SuperResolver(model="didbl_subpixel", forward=forward, device="cuda")
+            failures.append(f"SuperResolver('didbl_subpixel', forward={forward!r}) did not raise")
+        except ValueError as e:
+            out[f"didbl_subpixel {forward} refused"] = str(e)
+    # the subpixel head's dynamic form: int8_dynamic_tail (engine attribute; no CLI flag, as in JAX)
+    weights = resolve_default_weights(MODEL_REGISTRY["didbl_subpixel"])
+    dyn = {}
+    for variant in ("kernels", "plain_blocks"):
+        r = SuperResolver(model="didbl_subpixel", weights=weights, forward="int8", mode="fast", device="cuda")
+        r.int8_dynamic_tail = True
+        r._fwd_params()
+        _zero_counts()
+        with _Swapped(variant):
+            dyn[variant] = r.upscale(img)
+            torch.cuda.synchronize()
+        counts = _counts()
+        expect = _without({"light53_int8_xla": 16, "light_int8_xla": 6, "int8_conv3_dyn": 1,
+                           "light53_int8_xla_dyn": 2}, variant)
+        out[f"didbl_subpixel int8_dynamic_tail ({variant})"] = {"launches": counts}
+        print(f"[chip_smoke] didbl_subpixel --forward int8 int8_dynamic_tail, fast ({variant}): launches {counts} "
+              f"(want {expect})", flush=True)
+        if counts != expect:
+            failures.append(f"didbl_subpixel int8_dynamic_tail ({variant}): launches {counts} != {expect}")
+    same = bool(np.array_equal(dyn["kernels"], dyn["plain_blocks"]))
+    out["didbl_subpixel int8_dynamic_tail plain_blocks byte-equal"] = same
+    if not same:
+        failures.append(f"didbl_subpixel int8_dynamic_tail: plain blocks differ {_u8_agreement(*dyn.values())}")
+    return out
+
+
+class _CpuTorchOps:
+    """Within the block: the pre-upscale's PIL resize and the bf16 convs of the
+    int8 forwards (level1, out) computed on the CPU, as a CPU run computes
+    them, for the forward on the card; everything else stays on the card."""
+
+    def __enter__(self):
+        import image_enhance_keras_tpu_torch.engine as eng
+        from image_enhance_keras_tpu_torch.models import didbl_pallas
+        from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
+        from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
+
+        def conv(x, k, b=None):
+            return conv2d_nhwc(x.cpu(), k.cpu(), None if b is None else b.cpu()).to(x.device)
+
+        eng.resize_pil_uint8 = lambda x, hw, *a: resize_pil_uint8(x.cpu(), hw, *a).to(x.device)
+        didbl_pallas.conv2d_nhwc = conv
+        return self
+
+    def __exit__(self, *exc):
+        import image_enhance_keras_tpu_torch.engine as eng
+        from image_enhance_keras_tpu_torch.models import didbl_pallas
+        from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
+        from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
+
+        eng.resize_pil_uint8, didbl_pallas.conv2d_nhwc = resize_pil_uint8, conv2d_nhwc
+        return False
+
+
+def _zoo_references(img, qps: dict, failures: list) -> dict:
+    """Each model in fast mode on a 16x16 crop, on the card and on the CPU:
+    float32 xla within 1 level on 0.1% of the values; int8 (the card's
+    quantized tree on both) byte-equal when the card's run takes the
+    pre-upscale and its bf16 level1 / out convs from the CPU (all else,
+    X1-X4 and K3 included, must then give the CPU's bytes), and within
+    INT8_U8_MAX_DIFF levels end to end, where cuDNN's bf16 convs round
+    otherwise than the CPU's and the int8 codes carry a flip on through the
+    blocks (a reading: difvdsr's 32 blocks at HR spread them widest)."""
+    import numpy as np
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+
+    crop = np.ascontiguousarray(img[:16, :16])
+    out = {}
+    for model in ZOO_MODELS:
+        weights = resolve_default_weights(MODEL_REGISTRY[model])
+        got = SuperResolver(model=model, weights=weights, mode="fast", device="cuda").upscale(crop)
+        ref = SuperResolver(model=model, weights=weights, mode="fast", device="cpu").upscale(crop)
+        dmax, frac = _u8_agreement(got, ref)
+        r8 = {d: SuperResolver(model=model, weights=weights, mode="fast", forward="int8", device=d)
+              for d in ("cuda", "cpu")}
+        r8["cuda"]._qparams, r8["cpu"]._qparams = qps[model], _tree_to(qps[model], "cpu")
+        cpu8 = r8["cpu"].upscale(crop)
+        dmax8, frac8 = _u8_agreement(r8["cuda"].upscale(crop), cpu8)
+        with _CpuTorchOps():
+            hybrid = r8["cuda"].upscale(crop)
+        same = bool(np.array_equal(hybrid, cpu8))
+        out[model] = {"f32": (dmax, frac), "int8": (dmax8, frac8), "int8_cpu_torch_ops_byte_equal": same}
+        print(f"[chip_smoke] --model {model} fast 16x16 crop, card vs cpu: float32 max diff {dmax} on {frac:.3g} "
+              f"of the values; int8 (card's quantized tree) max diff {dmax8} on {frac8:.3g}, byte-equal with the "
+              f"pre-upscale and bf16 convs from the CPU: {same}", flush=True)
+        if dmax > U8_MAX_DIFF or frac > U8_MAX_FRAC:
+            failures.append(f"--model {model} float32 card vs CPU differ: max {dmax}, fraction {frac:.3g}")
+        if dmax8 > INT8_U8_MAX_DIFF or not same:
+            failures.append(f"--model {model} int8 card vs CPU: max {dmax8} levels (bound {INT8_U8_MAX_DIFF}), "
+                            f"byte-equal with the CPU's torch ops {same}")
+    return out
+
+
+def _zoo_set5(res8: dict, failures: list) -> dict:
+    """Set5 x4 in fast mode through ``evaluate_model``: each model in float32
+    against ``EVAL_ZOO.json`` (didbl_subpixel's row was scored on the CPU:
+    float32 Y; difv4's and difvdsr's on the TPU they were trained on: the
+    TPU's default-precision Y), and on the first two images against JAX's
+    float32 rows on the CPU (``EVAL_ZOO_INT8_CPU.json``, float32 Y); the int8
+    forwards (calibrated on the bundled photos) on the first two images
+    against JAX's op-by-op int8 rows there, didbl_subpixel against the TPU's
+    ``didbl_subpixel_int8_fast_2img`` on SSIM-Y, and each against the card's
+    own float32 row of those images on SSIM-Y."""
+    import glob
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.eval import evaluate_model
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+
+    set5 = os.path.join(HERE, "data_set5")
+    with open(os.path.join(HERE, "EVAL_ZOO.json")) as f:
+        zoo_rows = json.load(f)
+    with open(os.path.join(HERE, "EVAL_PROFILES.json")) as f:
+        profiles = json.load(f)
+    cpu_path = os.path.join(HERE, "EVAL_ZOO_INT8_CPU.json")
+    cpu_rows = json.load(open(cpu_path)) if os.path.exists(cpu_path) else {}
+    two = tempfile.mkdtemp(prefix="iek_chip_smoke_set5_2_")
+    for p in sorted(glob.glob(os.path.join(set5, "*.png")))[:ZOO_INT8_IMAGES]:
+        shutil.copy(p, two)
+    out = {}
+
+    def held(label, got, ref, db, ssim_tol, ssim_only=False):
+        dp, ds = abs(got["psnr_y"] - ref["psnr_y"]), abs(got["ssim_y"] - ref["ssim_y"])
+        ok = ds <= ssim_tol and (ssim_only or dp <= db)
+        print(f"[chip_smoke] Set5 zoo {label}: {got['psnr_y']:.4f} / {got['ssim_y']:.5f} against "
+              f"{ref['psnr_y']:.4f} / {ref['ssim_y']:.5f}: {'held' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            failures.append(f"Set5 zoo {label}: {got['psnr_y']:.4f} / {got['ssim_y']:.5f} vs "
+                            f"{ref['psnr_y']:.4f} / {ref['ssim_y']:.5f} (bounds {db} dB, {ssim_tol})")
+
+    try:
+        for model in ZOO_MODELS:
+            weights = resolve_default_weights(MODEL_REGISTRY[model])
+            r = SuperResolver(model=model, weights=weights, mode="fast", device="cuda")
+            (_, exact), tpu = _scored(lambda: evaluate_model(r, set5, verbose=False))
+            (_, exact2), _ = _scored(lambda: evaluate_model(r, two, verbose=False))
+            (_, exact8), tpu8 = _scored(lambda: evaluate_model(res8[model], two, verbose=False))
+            out[model] = {"f32": {"exact": exact, "tpu_default_y": tpu}, "f32_2img": exact2,
+                          "int8_2img": {"exact": exact8, "tpu_default_y": tpu8}}
+            ref = zoo_rows[model]
+            cpu_scored = "CPU backend" in ref.get("provenance", "")
+            held(f"{model} float32 (EVAL_ZOO.json, {'float32' if cpu_scored else 'TPU default-precision'} Y)",
+                 exact if cpu_scored else tpu, ref, SET5_DB, SET5_SSIM)
+            if model in cpu_rows:
+                first = cpu_rows["images"][:ZOO_INT8_IMAGES]
+                for label, got, row in (("float32", exact2, cpu_rows[model]["xla"]),
+                                        ("int8", exact8, cpu_rows[model]["int8"])):
+                    per = [row["per_image"][n]["exact"] for n in first]
+                    ref2 = {"psnr_y": sum(p for p, _ in per) / len(per), "ssim_y": sum(q for _, q in per) / len(per)}
+                    held(f"{model} {label}, {len(first)} images (JAX on the CPU{', op by op' if label == 'int8' else ''})",
+                         got, ref2, SET5_DB, SET5_SSIM)
+                if len(cpu_rows["images"]) == 5:
+                    held(f"{model} float32, Set5 (JAX on the CPU)", exact, cpu_rows[model]["xla"]["exact"],
+                         SET5_DB, SET5_SSIM)
+            held(f"{model} int8, 2 images, SSIM-Y against the card's float32", exact8, exact2, 0.0, INT8_SSIM,
+                 ssim_only=True)
+            if model == "didbl_subpixel":
+                held("didbl_subpixel int8, 2 images, SSIM-Y against the TPU's didbl_subpixel_int8_fast_2img", tpu8,
+                     profiles["didbl_subpixel_int8_fast_2img"], 0.0, INT8_SSIM, ssim_only=True)
+    finally:
+        shutil.rmtree(two, ignore_errors=True)
+    return out
+
+
+def _zoo_phase(tmp: str, img, failures: list, rows: list, sass_x4, gpu: str) -> dict:
+    """Phase 5: the rest of the zoo (didbl_subpixel, difv4, difvdsr) at full
+    width with the committed demo checkpoints."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+    from image_enhance_keras_tpu_torch.utils.profiling import profile_upscale
+
+    t0 = time.time()
+    res8 = {}
+    for model in ZOO_MODELS:  # the engine's calibration on the card (the bundled photos)
+        res8[model] = SuperResolver(model=model, weights=resolve_default_weights(MODEL_REGISTRY[model]),
+                                    forward="int8", mode="fast", device="cuda")
+        res8[model]._fwd_params()
+    qps = {m: r._qparams for m, r in res8.items()}
+    x4_rows, kernels = _x4_rows(qps, img, failures, sass_x4, gpu)
+    _phase("5a X4 and K3 at the zoo's shapes", t0)
+    t0 = time.time()
+    cli = _zoo_cli(tmp, img, failures, gpu)
+    x4_rows[0]["launches"] = sum(v["launches"].get("int8_conv3", 0) for k, v in cli.items()
+                                 if isinstance(v, dict) and "(kernels)" in k)
+    x4_rows[1]["launches"] = cli["didbl_subpixel int8_dynamic_tail (kernels)"]["launches"].get("int8_conv3_dyn", 0)
+    for row in x4_rows:
+        if not row["launches"]:
+            failures.append(f"{row['name']}: no launch on the zoo's main paths")
+    rows.extend(x4_rows)
+    _phase("5b the zoo's main paths (CLI)", t0)
+    t0 = time.time()
+    refs = _zoo_references(img, qps, failures)
+    profiles = {}
+    for model in ZOO_MODELS:
+        weights = resolve_default_weights(MODEL_REGISTRY[model])
+        for forward in ("xla", "int8"):
+            r = SuperResolver(model=model, weights=weights, forward=forward, device="cuda")
+            if forward == "int8":
+                r._qparams = qps[model]
+            iters = 3 if forward == "int8" else 1  # the float32 forwards take up to seconds an image
+            wall, prof_rows = profile_upscale(r, img, iters)
+            busy = sum(ms for _, ms, _ in prof_rows) / iters
+            idle = max(0.0, 1.0 - busy / (wall * 1e3))
+            profiles[f"{model} {forward}"] = {"wall_ms": wall * 1e3, "device_ms": busy, "idle_share": idle,
+                                              "kernels": [(n[:90], ms / iters, c // iters)
+                                                          for n, ms, c in prof_rows[:8]]}
+            print(f"[chip_smoke] profile --model {model} --forward {forward}, 128x128 patch mode: {wall * 1e3:.3f} ms "
+                  f"wall, {busy:.3f} ms device, idle share {idle:.3f} on {gpu}", flush=True)
+            for name, ms, calls in profiles[f"{model} {forward}"]["kernels"]:
+                print(f"[chip_smoke]   {ms:9.3f} ms {100 * ms / busy:5.1f}% {calls:4d} calls  {name}", flush=True)
+            del r
+            torch.cuda.empty_cache()
+    _phase("5c the zoo on the card against the CPU, and profiles", t0)
+    t0 = time.time()
+    set5 = _zoo_set5(res8, failures)
+    _phase("5d the zoo's Set5 rows", t0)
+    return {"kernels": kernels, "cli": cli, "cpu_references": refs, "profiles": profiles, "set5": set5}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1662,7 +2192,7 @@ def main() -> int:
     # the int8 kernels' products are tensor-core wgmma (SASS *GMMA), no
     # __dp4a; the block and chain kernels' 3xTF32 products are wgmma too
     sass = {}
-    for stem in ("int8_blocks", "tower", "blocks"):
+    for stem in ("int8_blocks", "tower", "blocks", "int8_conv"):
         try:
             sass[stem] = _sass_counts(_build.build_all()[stem])
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
@@ -1683,6 +2213,16 @@ def main() -> int:
             failures.append(f"int8 kernels: expected 28 kernel functions (17 of K4/K5, 11 of X1-X3), wgmma "
                             f"in all but the 3 abs-max passes and the requantization pass; got {len(fns8)}, "
                             f"none in {without}")
+    # X4: its 8 conv functions (bf16 and float32 x, 64 and 128 output channels a
+    # block, static and dynamic) on wgmma, no dp4a; the 2 abs-max passes without
+    if sass["int8_conv"] is not None:
+        fns4 = sass["int8_conv"]["functions"]
+        convs4 = {k: v for k, v in fns4.items() if "conv3_kernel" in k}
+        print(f"[chip_smoke] X4 kernel functions' GMMA lines: {sorted(convs4.values())}", flush=True)
+        if sass["int8_conv"]["IDP"] > 0 or len(convs4) != 8 or min(convs4.values()) == 0 or len(fns4) != 10:
+            failures.append(f"X4: expected 10 kernel functions, the 8 conv functions each with wgmma (GMMA), "
+                            f"no dp4a (IDP); got {len(fns4)}, GMMA lines {sorted(convs4.values())}, "
+                            f"IDP {sass['int8_conv']['IDP']}")
     # every kernel function of the block and chain libraries, the bf16 forms'
     # (two launches of two block kinds, one chain kernel of two kinds) included
     for stem, what, n_bf16 in (("tower", "chain", 2), ("blocks", "block", 4)):
@@ -2368,6 +2908,13 @@ def main() -> int:
     t0 = time.time()
     set5 = _set5_phase(failures)
     _phase("4 Set5 scoring", t0)
+
+    # -- 5. the rest of the zoo --------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_zoo_")
+    try:
+        zoo = _zoo_phase(tmp, img, failures, rows, sass.get("int8_conv"), gpu)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     _phase("total", t_all)
 
     if failures:
@@ -2381,7 +2928,7 @@ def main() -> int:
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()},
                       "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "mixed_cli": mixed_cli,
                       "split": split, "extras": extras, "int8_cli": int8_cli, "int8_profile": int8_profile,
-                      "set5": set5}),
+                      "set5": set5, "zoo": zoo}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,17 +13,13 @@ import argparse
 import os
 import sys
 
+from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY
 from image_enhance_keras_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
 _NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
 
-#: values this slice runs, for flags whose other JAX values are not ported
-_PORTED_VALUES = {
-    "model": ("didbl",),
-    "forward": ("xla", "int8", "pallas", "pallas_chain", "pallas_int8"),
-}
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
     "save_intermediate": ("--save_intermediate", False),
@@ -37,7 +33,7 @@ _UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="x4 super-resolve every image in a directory (PyTorch/CUDA)")
     p.add_argument("imgpath", help="directory of images to upscale")
-    p.add_argument("--model", default="didbl")
+    p.add_argument("--model", default="didbl", choices=sorted(MODEL_REGISTRY))
     p.add_argument("--scale", default=1, type=int, help="scale label used in output names")
     p.add_argument("--mode", default="patch", choices=["fast", "patch", "split"],
                    help="patch: reference-exact overlapped tiling; fast: whole-frame forward; "
@@ -95,9 +91,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, ported in _PORTED_VALUES.items():
-        if getattr(args, dest) not in ported:
-            parser.error(f"--{dest} {getattr(args, dest)} is {_NOT_PORTED}")
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) != default:
             parser.error(f"{flag} is {_NOT_PORTED}")

@@ -17,13 +17,8 @@ import sys
 
 _NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
 
-#: the JAX package's model registry
-_JAX_MODELS = ("didbl", "didbl_subpixel", "difv4", "difv4_x2", "difvdsr")
-#: values this slice runs, for flags whose other JAX values are not ported
-_PORTED_VALUES = {
-    "model": ("didbl",),
-    "forward": ("xla", "int8", "pallas", "pallas_chain", "pallas_int8"),
-}
+#: the model registry (``models/zoo.py``)
+_MODELS = ("didbl", "didbl_subpixel", "difv4", "difv4_x2", "difvdsr")
 #: JAX flags this slice does not run at all: dest -> (flag, default)
 _UNPORTED_FLAGS = {
     "internal_learn": ("--internal-learn", 0),
@@ -43,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score the top-left common region of mismatched pairs instead of erroring")
     p.add_argument("--generate", action="store_true",
                    help="degrade+reconstruct with --model instead of reading saved outputs")
-    p.add_argument("--model", default="didbl", choices=_JAX_MODELS)
+    p.add_argument("--model", default="didbl", choices=_MODELS)
     p.add_argument("--weights", default=None,
                    help="params .npz; omitted = the model's committed demo checkpoint; "
                         "'none' = explicit random-init smoke run")
@@ -69,9 +64,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, ported in _PORTED_VALUES.items():
-        if getattr(args, dest) not in ported:
-            parser.error(f"--{dest.replace('_', '-')} {getattr(args, dest)} is {_NOT_PORTED}")
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) != default:
             parser.error(f"{flag} is {_NOT_PORTED}")

@@ -48,6 +48,8 @@ from image_enhance_keras_tpu_torch.models.blocks import profile_dtype
 from image_enhance_keras_tpu_torch.models.weights import load_params, params_of_module
 from image_enhance_keras_tpu_torch.models.zoo import get_model, init_params
 from image_enhance_keras_tpu_torch.models.zoo_int8 import int8_support
+from image_enhance_keras_tpu_torch.ops.color import im2double
+from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
 from image_enhance_keras_tpu_torch.tiling.tiles import (
     TilePlan,
     crop_output,
@@ -106,6 +108,7 @@ class SuperResolver:
         step: int = 64,
         crop: int = 8,
         geometry: str | None = None,
+        scalemulti: int = 4,
         tile_chunk: int = 16,
         params: Any = None,
         seed: int = 0,
@@ -144,6 +147,12 @@ class SuperResolver:
             self.module, self.spec = get_model(model, dtype=dtype, **kw)
         if forward.startswith("pallas") and not model.startswith("didbl"):
             raise ValueError("pallas forwards are implemented for the didbl family")
+        if forward.startswith("pallas") and getattr(self.module, "upsampler", "tf1_bilinear") != "tf1_bilinear":
+            # JAX lets pallas / pallas_chain through here and computes the TF1
+            # x4 in place of the subpixel head (its apply_didbl_pallas has no
+            # upsampler): a different function; the port refuses it
+            raise ValueError(f"forward={forward!r}: the pallas forwards implement the TF1 head only, "
+                             f"not upsampler={self.module.upsampler!r}")
         if forward == "int8" and int8_support(self.module) is None:
             raise ValueError(f"forward='int8' is not available for {model!r}")
         self.forward_mode = forward
@@ -152,6 +161,8 @@ class SuperResolver:
         self.patch = patch
         self.step = step
         self.crop = crop
+        #: pre-upscaled-input models (difvdsr) refine a PIL-bicubic x``scalemulti`` of the input
+        self.scalemulti = scalemulti
         # tile_chunk is calibrated for 96px tiles; scale it with tile area
         self.tile_chunk = max(1, tile_chunk * (96 * 96) // (patch * patch))
         self.mode = mode
@@ -168,6 +179,7 @@ class SuperResolver:
         else:
             init_params(self.module, seed)
             if weights is not None:
+                self.params = params_of_module(self.module)
                 self.load_weights(weights)
         self.params = params_of_module(self.module)
         self._qparams = None
@@ -178,12 +190,17 @@ class SuperResolver:
     # weights
     # ------------------------------------------------------------------
     def load_weights(self, path: str) -> None:
-        """Load a params .npz export (Keras .h5 and orbax come in later slices)."""
-        if not path.endswith(".npz"):
-            raise NotImplementedError(f"loading {path!r}: only .npz params {_NOT_PORTED} so far")
-        from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
+        """Load a params .npz export or a Keras .h5 checkpoint (orbax comes in a later slice)."""
+        if path.endswith(".h5"):
+            from image_enhance_keras_tpu_torch.models.keras_import import import_keras_weights
 
-        load_params(self.module, load_params_npz(path))
+            load_params(self.module, import_keras_weights(path, self.model_name, self.params))
+        elif path.endswith(".npz"):
+            from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
+
+            load_params(self.module, load_params_npz(path))
+        else:
+            raise NotImplementedError(f"loading {path!r}: orbax checkpoints are {_NOT_PORTED}")
         self.params = params_of_module(self.module)
         self._qparams = None  # re-quantize int8 weights on next use
 
@@ -202,7 +219,7 @@ class SuperResolver:
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
             img = img_u8.to(torch.float32)
             padded = pad_to_plan(img, plan)
-            tiles = extract_tiles(padded, plan) / 255.0
+            tiles = im2double(extract_tiles(padded, plan))
             outs = [forward(params, tiles[i : i + chunk]) for i in range(0, n_full, chunk)]
             if rem:
                 outs.append(forward(params, tiles[n_full:]))
@@ -257,7 +274,7 @@ class SuperResolver:
         forward = self._forward_fn()
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
-            x = img_u8.to(torch.float32)[None] / 255.0
+            x = im2double(img_u8)[None]
             y = forward(params, x)[0] * 255.0
             return self._finalize_u8(y)
 
@@ -271,7 +288,16 @@ class SuperResolver:
 
     def _supports_split(self) -> bool:
         m = self.module
-        return callable(getattr(m, "body", None)) and callable(getattr(m, "tail", None))
+        return callable(getattr(m, "body", None)) and callable(
+            getattr(m, getattr(m, "split_tail_method", "tail"), None))
+
+    def _split_geometry(self) -> tuple[int, int, int]:
+        """(body_up, ts, halo): the body map's scale over the input, the
+        tail's over the body map, and the body-map halo a tail stripe needs,
+        as the module declares them."""
+        m = self.module
+        return (int(getattr(m, "body_upscale", 1)), int(getattr(m, "tail_upscale", m.scale)),
+                int(getattr(m, "split_halo", 3)))
 
     def _split_body_tail_fns(self) -> tuple[Callable, Callable]:
         """(body_fn, tail_fn) of the forward: the module's body and tail for
@@ -281,15 +307,21 @@ class SuperResolver:
         module = self.module
         fm = self.forward_mode
         if fm == "xla":
-            return (lambda p, x: module.body(x)), (lambda p, h: module.tail(h))
+            tail = getattr(module, getattr(module, "split_tail_method", "tail"))
+            return (lambda p, x: module.body(x)), (lambda p, h: tail(h))
         if fm == "int8":
             from image_enhance_keras_tpu_torch.models import didbl_pallas as dp
 
-            _, _, body_fn, tail_fn = int8_support(module)
+            sup = int8_support(module)
+            if sup is None or sup[2] is None:
+                raise ValueError(f"mode='split' with forward='int8' is not available for {self.model_name!r}")
+            body_fn, tail_fn = sup[2], sup[3]
             m = module
+            if (self.int8_dynamic_tail or self.int8_body_tile) and type(m).__name__ != "DifvdsrDouble":
+                raise ValueError("int8_dynamic_tail / int8_body_tile are implemented for the didbl family")
             if self.int8_dynamic_tail:
                 tail_fn = lambda qp, h: dp.apply_didbl_int8_xla_tail(
-                    qp, h, n_tail53=m.n_tail53, scale=m.scale, dynamic=True)
+                    qp, h, n_tail53=m.n_tail53, scale=m.scale, dynamic=True, upsampler=m.upsampler)
             if self.int8_body_tile:
                 tile, seg = int(self.int8_body_tile), int(self.int8_body_seg)
                 body_fn = lambda qp, x: dp.apply_didbl_int8_xla_body_tiled(
@@ -315,11 +347,12 @@ class SuperResolver:
         if self.split_tile_w:
             return self._split_fn_2d(hw)
         body_fn, tail_fn = self._split_body_tail_fns()
-        ts, halo, h_total = self.module.scale, self.module.split_halo, int(hw[0])
+        body_up, ts, halo = self._split_geometry()
+        h_total = int(hw[0]) * body_up  # body-map rows
         t = max(1, self.split_tile)
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
-            x = img_u8.to(torch.float32)[None] / 255.0
+            x = im2double(img_u8)[None]
             feats = body_fn(params, x)
             outs = []
             for k in range(0, h_total, t):
@@ -340,7 +373,8 @@ class SuperResolver:
             shifted_stitch_indices,
         )
 
-        ts, halo, (hb, wb) = self.module.scale, self.module.split_halo, (int(hw[0]), int(hw[1]))
+        body_up, ts, halo = self._split_geometry()
+        hb, wb = int(hw[0]) * body_up, int(hw[1]) * body_up
         t_r, t_c = max(1, self.split_tile), max(1, int(self.split_tile_w))
         T_r, starts_r, _ = shift_grid_axis(hb, t_r, halo)
         T_c, starts_c, _ = shift_grid_axis(wb, t_c, halo)
@@ -389,7 +423,7 @@ class SuperResolver:
             )
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
-            x = img_u8.to(torch.float32)[None] / 255.0
+            x = im2double(img_u8)[None]
             tiles = self._split2d_extract(body_fn(params, x)[0], g)
             parts = [tail_fn(params, tiles[i : i + chunk]) for i in range(0, n_full, chunk)]
             if rem:
@@ -448,16 +482,17 @@ class SuperResolver:
         return self._calib_from_arrays(imgs, s)
 
     def _calib_scale(self) -> int:
-        """Degradation factor of the serving distribution: the net's own scale."""
+        """Degradation factor of the serving distribution: ``scalemulti`` for
+        pre-upscaled-input models (their crops round-trip by it), else the
+        net's own scale."""
         if self.spec.pre_upscaled_input:
-            raise NotImplementedError(f"int8 calibration of pre-upscaled-input models {_NOT_PORTED}")
+            return max(1, int(self.scalemulti))
         return max(1, int(self.spec.net_scale))
 
     def _calib_from_arrays(self, imgs, s: int) -> torch.Tensor | None:
         """HR uint8 arrays -> (N, cs, cs, 3) [0,1] LR crops: central crop to a
-        multiple of ``s``, PIL-bicubic /s, common central square of at most 128."""
-        from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
-
+        multiple of ``s``, PIL-bicubic /s, common central square of at most
+        128; pre-upscaled-input models get those crops PIL-bicubic x``s``."""
         crops = []
         for img in imgs:
             h, w = img.shape[:2]
@@ -474,7 +509,10 @@ class SuperResolver:
               (c.shape[1] - cs) // 2 : (c.shape[1] - cs) // 2 + cs]
             for c in crops
         ]
-        return torch.from_numpy(np.stack(crops).astype(np.float32)) / 255.0
+        calib = torch.from_numpy(np.stack(crops).astype(np.float32))
+        if self.spec.pre_upscaled_input:
+            calib = resize_pil_uint8(calib, (cs * s, cs * s))
+        return im2double(calib)
 
     def _maybe_calibrate_int8(self, img_u8: np.ndarray) -> None:
         """First-frame int8 calibration (``int8_calib="first_frame"``)."""
@@ -486,7 +524,7 @@ class SuperResolver:
         ch, cw = min(h, 128), min(w, 128)
         y0, x0 = (h - ch) // 2, (w - cw) // 2
         crop = np.asarray(img_u8[y0 : y0 + ch, x0 : x0 + cw], np.float32)
-        self._calib_x = torch.from_numpy(crop)[None] / 255.0
+        self._calib_x = im2double(torch.from_numpy(crop))[None]
 
     def _calibration_input(self) -> torch.Tensor:
         """The calibration batch, by ``int8_calib``, with its fallbacks.
@@ -517,7 +555,12 @@ class SuperResolver:
                                                     self._calib_scale())
         if calib is None:
             src = "synthetic 128x128 tiles"
-            calib = torch.from_numpy(np.stack(synthetic_images(4, 128)).astype(np.float32)) / 255.0
+            calib = im2double(torch.from_numpy(np.stack(synthetic_images(4, 128))))
+            if self.spec.pre_upscaled_input:
+                # a bicubic down / up round trip of the first tile (a
+                # first-frame crop is already pre-upscaled serving input)
+                lr = resize_pil_uint8(calib[0] * 255.0, (32, 32))
+                calib = im2double(resize_pil_uint8(lr, (128, 128)))[None]
         self.int8_calib_source = src
         log.info("int8 calibration: %s, %d x %dx%d", src, *calib.shape[:3])
         return calib
@@ -588,8 +631,20 @@ class SuperResolver:
                 acc = y if acc is None else acc + y
         return self._finalize_u8_np(acc / 8.0)
 
+    def _pre_upscale(self, x: torch.Tensor) -> torch.Tensor:
+        """Pre-upscaled-input models refine a PIL-bicubic x``scalemulti`` of the
+        input, so every x4 entry point upscales first; the identity for the
+        others.  x: (..., H, W, C) in [0, 255], float32 out."""
+        if not self.spec.pre_upscaled_input:
+            return x.to(torch.float32)
+        s = self.scalemulti
+        return resize_pil_uint8(x, (x.shape[-3] * s, x.shape[-2] * s))
+
     def _upscale_single(self, img: np.ndarray) -> np.ndarray:
         img = np.ascontiguousarray(img)
+        if self.spec.pre_upscaled_input:
+            up = self._pre_upscale(torch.tensor(img, device=self.device))
+            img = up.to(torch.uint8).cpu().numpy()
         self._maybe_calibrate_int8(img)
         x = torch.tensor(img, device=self.device)
         if self.mode == "split":
@@ -618,7 +673,6 @@ class SuperResolver:
         and overlap-averaged back (4-px interior trim): a same-size pass."""
         import torch.nn.functional as F
 
-        from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
         from image_enhance_keras_tpu_torch.tiling.dense import extract_dense_patches, reconstruct_average
 
         img = np.asarray(img)
@@ -630,7 +684,7 @@ class SuperResolver:
         x = torch.tensor(np.ascontiguousarray(img), device=self.device).to(torch.float32)
         tiles = extract_dense_patches(F.pad(x, (0, 0, 0, w2 - w, 0, h2 - h)), patch, s)
         lr = resize_pil_uint8(tiles, (patch // scale, patch // scale))
-        y = self._forward_fn()(self._fwd_params(), lr / 255.0) * 255.0
+        y = self._forward_fn()(self._fwd_params(), im2double(lr)) * 255.0
         recon = reconstruct_average(y, (h2, w2), step=s, pad=4)
         return self._finalize_u8(recon[:h, :w]).cpu().numpy()
 
@@ -639,7 +693,7 @@ class SuperResolver:
         """One frame x4, whole-frame, never tiled (the reference's ``upVideo``
         contract); honours ``back_projection``."""
         frame = np.asarray(frame)
-        x = torch.tensor(np.ascontiguousarray(frame), device=self.device).to(torch.float32)[None] / 255.0
+        x = im2double(self._pre_upscale(torch.tensor(np.ascontiguousarray(frame), device=self.device)))[None]
         y = self._forward_fn()(self._fwd_params(), x)
         out = self._finalize_u8(y[0] * 255.0).cpu().numpy()
         if self.back_projection > 0:
@@ -654,7 +708,7 @@ class SuperResolver:
         forward, params = self._forward_fn(), self._fwd_params()
         v = torch.tensor(np.ascontiguousarray(frames), device=self.device)
         tc = max(1, frame_chunk)
-        outs = [self._finalize_u8(forward(params, v[i : i + tc].to(torch.float32) / 255.0) * 255.0)
+        outs = [self._finalize_u8(forward(params, im2double(self._pre_upscale(v[i : i + tc]))) * 255.0)
                 for i in range(0, v.shape[0], tc)]
         out = torch.cat(outs).cpu().numpy()
         if self.back_projection > 0:

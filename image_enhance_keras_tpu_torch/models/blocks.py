@@ -24,7 +24,7 @@ from torch import nn
 
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
 
-__all__ = ["Conv", "LightBlock", "Light53Block", "make_conv", "profile_dtype", "scale"]
+__all__ = ["Conv", "LightBlock", "Light53Block", "DiffBlock", "act", "make_conv", "profile_dtype", "scale"]
 
 #: the precision profiles this port runs, by the names the JAX package takes
 _PROFILES = {None: torch.float32, torch.float32: torch.float32, "float32": torch.float32,
@@ -85,17 +85,27 @@ def make_conv(features: int, kernel_size, *, in_features: int, dtype: Any = None
     return Conv(in_features, features, tuple(kernel_size), profile_dtype(dtype), mixed)
 
 
-class LightBlock(nn.Module):
-    """x + res_scale * conv3(relu(conv3(x)))."""
+def act(t: torch.Tensor, leaky_slope: float | None) -> torch.Tensor:
+    """relu, or flax's leaky relu ``where(t >= 0, t, slope * t)`` in t's dtype
+    (the slope rounded to it, as JAX's weakly typed constant is)."""
+    if leaky_slope is None:
+        return torch.relu(t)
+    return torch.where(t >= 0, t, scale(leaky_slope, t) * t)
 
-    def __init__(self, features: int, res_scale: float = 0.1, dtype: Any = None, mixed: bool = False):
+
+class LightBlock(nn.Module):
+    """x + res_scale * conv3(act(conv3(x))); act is relu, or leaky relu with ``leaky_slope``."""
+
+    def __init__(self, features: int, res_scale: float = 0.1, leaky_slope: float | None = None,
+                 dtype: Any = None, mixed: bool = False):
         super().__init__()
         self.res_scale = res_scale
+        self.leaky_slope = leaky_slope
         self.conv_a = make_conv(features, (3, 3), in_features=features, dtype=dtype, mixed=mixed)
         self.conv_b = make_conv(features, (3, 3), in_features=features, dtype=dtype, mixed=mixed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv_b(torch.relu(self.conv_a(x)))
+        h = self.conv_b(act(self.conv_a(x), self.leaky_slope))
         return _promoted(x, h) + scale(self.res_scale, h) * h
 
 
@@ -118,3 +128,30 @@ class Light53Block(nn.Module):
         b = self.conv_b2(torch.relu(self.conv_b1(x)))
         h = a + b
         return scale(self.identity_scale, h) * _promoted(x, h) + scale(self.res_scale, h) * h
+
+
+class DiffBlock(nn.Module):
+    """The "difference" block of difvdsr:
+
+    t = conv_b(relu(conv_a(x))); d = t - x; u = conv_d(act(conv_c(d)));
+    out = x + res_scale * (d + u + t), or x + res_scale * (u + t) without ``three_way``.
+    """
+
+    def __init__(self, features: int, res_scale: float = 0.1, leaky_slope: float | None = 0.2,
+                 three_way: bool = True, dtype: Any = None, mixed: bool = False):
+        super().__init__()
+        self.res_scale = res_scale
+        self.leaky_slope = leaky_slope
+        self.three_way = three_way
+        kw = dict(in_features=features, dtype=dtype, mixed=mixed)
+        self.conv_a = make_conv(features, (3, 3), **kw)
+        self.conv_b = make_conv(features, (3, 3), **kw)
+        self.conv_c = make_conv(features, (3, 3), **kw)
+        self.conv_d = make_conv(features, (3, 3), **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = self.conv_b(torch.relu(self.conv_a(x)))
+        d = t - _promoted(x, t)
+        u = self.conv_d(act(self.conv_c(d), self.leaky_slope))
+        s = d + u + t if self.three_way else u + t
+        return _promoted(x, s) + scale(self.res_scale, s) * s

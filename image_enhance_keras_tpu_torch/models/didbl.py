@@ -8,7 +8,9 @@
   -> 2x Light53Block                  (tail53_i)
   -> 3x3 conv -> 3 feats, relu        (out)
 
-The ``tf1_bilinear`` head, in float32 or bf16 (``dtype``: the body and the
+``upsampler="subpixel"`` replaces the x4 by ``subpixel_conv`` (3x3,
+features -> features * 16, under the tail's profile) and
+``depth_to_space(.., 4, "dcr")``.  Either head runs in float32 or bf16 (``dtype``: the body and the
 tail cast their input to it, every conv runs in it, parameters stay
 float32, the output is float32).  ``mixed`` (with bf16) makes every conv
 the mixed conv of ``models/blocks.py``: no cast of the input, float32
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from image_enhance_keras_tpu_torch.models.blocks import Light53Block, LightBlock, make_conv, profile_dtype
+from image_enhance_keras_tpu_torch.ops.pixel_shuffle import depth_to_space
 from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
 
 __all__ = ["DifvdsrDouble"]
@@ -38,9 +41,7 @@ class DifvdsrDouble(nn.Module):
                  scale: int = 4, upsampler: str = "tf1_bilinear", dtype: Any = None,
                  mixed: bool = False, mixed_tail: bool = False):
         super().__init__()
-        if upsampler == "subpixel":
-            raise NotImplementedError("upsampler='subpixel' is not yet ported in image_enhance_keras_tpu_torch")
-        if upsampler != "tf1_bilinear":
+        if upsampler not in ("tf1_bilinear", "subpixel"):
             raise ValueError(f"unknown upsampler {upsampler!r}")
         self.dtype = profile_dtype(dtype)
         self.mixed = mixed
@@ -58,6 +59,8 @@ class DifvdsrDouble(nn.Module):
             self.add_module(f"body53_{i}", Light53Block(features, **pk))
         for i in range(n_light):
             self.add_module(f"light_{i}", LightBlock(features, **pk))
+        if upsampler == "subpixel":
+            self.subpixel_conv = make_conv(features * scale * scale, (3, 3), in_features=features, **pk_tail)
         for i in range(n_tail53):
             self.add_module(f"tail53_{i}", Light53Block(features, **pk_tail))
         self.out = make_conv(3, (3, 3), in_features=features, **pk_tail)
@@ -80,10 +83,13 @@ class DifvdsrDouble(nn.Module):
         return h
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:
-        """x4 upsample + post-upsample Light53 blocks + out conv -> float32."""
+        """x4 upsample (or the subpixel head) + post-upsample Light53 blocks + out conv -> float32."""
         if not self.mixed:  # an identity under mixed_tail: the body handed over bf16
             h = h.to(self.dtype)
-        h = upsample_phase_tf1(h, self.scale)
+        if self.upsampler == "tf1_bilinear":
+            h = upsample_phase_tf1(h, self.scale)
+        else:
+            h = depth_to_space(self.subpixel_conv(h), self.scale, order="dcr")
         for i in range(self.n_tail53):
             h = getattr(self, f"tail53_{i}")(h)
         return torch.relu(self.out(h)).to(torch.float32)

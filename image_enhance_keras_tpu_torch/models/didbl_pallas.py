@@ -49,12 +49,14 @@ from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import (
     light_int8,
     quantize_weights_per_channel,
 )
+from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import int8_conv3, int8_conv3_dyn
 from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import (
     light53_int8_xla,
     light53_int8_xla_dyn,
     light_int8_xla,
 )
 from image_enhance_keras_tpu_torch.ops.cuda.tower import fused_light53_chain, fused_light_chain
+from image_enhance_keras_tpu_torch.ops.pixel_shuffle import depth_to_space
 from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1, upsample_phase_tf1
 from image_enhance_keras_tpu_torch.utils.logging import get_logger
 
@@ -72,8 +74,6 @@ __all__ = [
     "apply_didbl_int8_xla_body_tiled",
     "apply_didbl_int8_xla_tail",
 ]
-
-_SUBPIXEL_NOT_PORTED = "upsampler='subpixel' is not yet ported in image_enhance_keras_tpu_torch"
 
 
 def _conv(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -169,9 +169,8 @@ def calibrate_didbl_act_scales(params: Any, x: torch.Tensor, n_body53: int = 16,
     quantization point (each block's input and each branch's post-relu
     intermediate) of the didbl graph run on ``x``.  Returns
     {block_name: {"x": s, "a": s, "b": s}} for Light53 blocks and
-    {"x": s, "t": s} for Light blocks; ``per_channel`` gives (C,) vectors."""
-    if upsampler != "tf1_bilinear":
-        raise NotImplementedError(_SUBPIXEL_NOT_PORTED)
+    {"x": s, "t": s} for Light blocks (and {"x": s} for the subpixel head's
+    conv, ``upsampler="subpixel"``); ``per_channel`` gives (C,) vectors."""
     scales: dict = {}
 
     def amax(t):
@@ -196,7 +195,11 @@ def calibrate_didbl_act_scales(params: Any, x: torch.Tensor, n_body53: int = 16,
         h = l53(h, params[f"body53_{i}"], f"body53_{i}")
     for i in range(n_light):
         h = light(h, params[f"light_{i}"], f"light_{i}")
-    h = upsample_phase_tf1(h, scale)
+    if upsampler == "subpixel":
+        scales["subpixel_conv"] = {"x": amax(h)}
+        h = depth_to_space(_conv(h, params["subpixel_conv"]), scale, order="dcr")
+    else:
+        h = upsample_phase_tf1(h, scale)
     for i in range(n_tail53):
         h = l53(h, params[f"tail53_{i}"], f"tail53_{i}")
     return scales
@@ -214,9 +217,8 @@ def quantize_didbl_params(params: Any, n_body53: int = 16, n_light: int = 6, n_t
     (stacked per-tensor scales, what the kernels take), "actc" (per-channel
     scale vectors) and, per conv, "qf"/"sf": the weights with the input
     channel scales folded in (conv(x, w) = conv(x / s_c, w * s_c)), which the
-    XLA-style int8 path of the JAX package consumes."""
-    if upsampler != "tf1_bilinear":
-        raise NotImplementedError(_SUBPIXEL_NOT_PORTED)
+    XLA-style int8 path of the JAX package consumes.  ``upsampler="subpixel"``
+    quantizes the head's ``subpixel_conv`` the same way."""
 
     def qconv(p):
         q, s = quantize_weights_per_channel(p["kernel"])
@@ -228,11 +230,18 @@ def quantize_didbl_params(params: Any, n_body53: int = 16, n_light: int = 6, n_t
 
     actc = (
         calibrate_didbl_act_scales(params, calib_x, n_body53=n_body53, n_light=n_light,
-                                   n_tail53=n_tail53, scale=scale, per_channel=True)
+                                   n_tail53=n_tail53, scale=scale, per_channel=True,
+                                   upsampler=upsampler)
         if calib_x is not None
         else {}
     )
     out = {"level1": params["level1"], "out": params["out"]}
+    if upsampler == "subpixel":
+        blk = params["subpixel_conv"]
+        out["subpixel_conv"] = qconv(blk)
+        if "subpixel_conv" in actc:
+            out["subpixel_conv"]["actc"] = actc["subpixel_conv"]
+            fold(out["subpixel_conv"], blk, actc["subpixel_conv"]["x"])
     for prefix, n in (("body53", n_body53), ("tail53", n_tail53)):
         for i in range(n):
             name = f"{prefix}_{i}"
@@ -463,14 +472,23 @@ def apply_didbl_int8_xla_body_tiled(qparams: Any, x: torch.Tensor, n_body53: int
 
 def apply_didbl_int8_xla_tail(qparams: Any, h: torch.Tensor, n_tail53: int = 2, scale: int = 4,
                               dynamic: bool = False, upsampler: str = "tf1_bilinear") -> torch.Tensor:
-    """bf16 x4 upsample, the int8 HR Light53 blocks (static per-channel, or
-    per-sample dynamic with ``dynamic``), bf16 out conv + relu -> float32."""
-    if upsampler != "tf1_bilinear":
-        raise NotImplementedError(_SUBPIXEL_NOT_PORTED)
-    if not dynamic and n_tail53 >= 1:
-        _refuse_env("IEK_INT8_UPQ")
-    _refuse_env("IEK_INT8_UPMM")
-    h = upsample_phase_tf1(h.to(torch.bfloat16), scale)
+    """bf16 x4 upsample (or the subpixel head: its conv on X4, static or, with
+    ``dynamic``, per-sample, rounded to bf16, then depth_to_space), the int8
+    HR Light53 blocks (static per-channel, or per-sample dynamic with
+    ``dynamic``), bf16 out conv + relu -> float32."""
+    h = h.to(torch.bfloat16)
+    if upsampler == "subpixel":
+        p = qparams["subpixel_conv"]
+        if dynamic:
+            t = int8_conv3_dyn(h, p["q"], p["s"], p["bias"], acc=_int8_acc())
+        else:
+            t = int8_conv3(h, p["qf"], p["sf"], p["bias"], p["actc"]["x"], acc=_int8_acc())
+        h = depth_to_space(t.to(torch.bfloat16), scale, order="dcr")
+    else:
+        if not dynamic and n_tail53 >= 1:
+            _refuse_env("IEK_INT8_UPQ")
+        _refuse_env("IEK_INT8_UPMM")
+        h = upsample_phase_tf1(h, scale)
     for i in range(n_tail53):
         p = qparams[f"tail53_{i}"]
         h = _light53_i8_xla_dyn(h, p) if dynamic else _light53_i8_xla(h, p)

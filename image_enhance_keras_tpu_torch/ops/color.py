@@ -35,8 +35,13 @@ def _mix(x: torch.Tensor, m: np.ndarray, offset: np.ndarray | None) -> torch.Ten
 
 
 def im2double(x: torch.Tensor) -> torch.Tensor:
-    """Reference ``im2double``: scale 0..255 data to 0..1 floats."""
-    return x.to(torch.float32) / 255.0
+    """Reference ``im2double``: scale 0..255 data to 0..1 floats.
+
+    Divides by a tensor, as JAX divides: torch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which differs from the quotient by
+    one ulp for 126 of the 256 uint8 values."""
+    xf = x.to(torch.float32)
+    return xf / torch.full((), 255.0, dtype=torch.float32, device=xf.device)
 
 
 def im2double_minmax(x: torch.Tensor) -> torch.Tensor:
@@ -48,12 +53,12 @@ def im2double_minmax(x: torch.Tensor) -> torch.Tensor:
 
 def rgb2ycbcr(rgb: torch.Tensor) -> torch.Tensor:
     """RGB (uint8 or float 0..255) -> YCbCr floats, Y in [16, 235] (skimage on uint8)."""
-    return _mix(rgb.to(torch.float32) / 255.0, _RGB2YCBCR, _YCBCR_OFFSET)
+    return _mix(im2double(rgb), _RGB2YCBCR, _YCBCR_OFFSET)
 
 
 def rgb2y(rgb: torch.Tensor) -> torch.Tensor:
     """Just the luma channel (the NTIRE scoring channel)."""
-    return _mix(rgb.to(torch.float32) / 255.0, _RGB2YCBCR[:1], _YCBCR_OFFSET[:1])[..., 0]
+    return _mix(im2double(rgb), _RGB2YCBCR[:1], _YCBCR_OFFSET[:1])[..., 0]
 
 
 def ycbcr2rgb(ycbcr: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from image_enhance_keras_tpu_torch.ops.color import im2double
 from image_enhance_keras_tpu_torch.ops.filters import _gaussian_kernel1d, separable_filter2d
 
 __all__ = ["psnr_nitre", "psnr_vdsr", "psnr_shave", "psnr_peak1", "ssim", "mse", "gmsd"]
@@ -42,8 +43,8 @@ def psnr_nitre(pred: torch.Tensor, target: torch.Tensor, shave_border: int = 0) 
     """NTIRE-2017 PSNR; data whose max is > 1 is treated as 0..255 and rescaled (per input)."""
     p = _shave(pred.to(torch.float32), shave_border)
     t = _shave(target.to(torch.float32), shave_border)
-    p = torch.where(p.max() > 1.0, p / 255.0, p)
-    t = torch.where(t.max() > 1.0, t / 255.0, t)
+    p = torch.where(p.max() > 1.0, im2double(p), p)
+    t = torch.where(t.max() > 1.0, im2double(t), t)
     d = (p - t).reshape(-1)
     return 10.0 * torch.log10(d.numel() / torch.sum(d * d))
 
@@ -61,7 +62,7 @@ def psnr_shave(pred: torch.Tensor, target: torch.Tensor, shave_border: int = 0) 
 
 def psnr_peak1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """im2double + -10*log10(mse)."""
-    return -10.0 * torch.log10(mse(pred.to(torch.float32) / 255.0, target.to(torch.float32) / 255.0))
+    return -10.0 * torch.log10(mse(im2double(pred), im2double(target)))
 
 
 def _ssim_single(x: torch.Tensor, y: torch.Tensor, data_range: float, win_size: int, k1: float,

@@ -1,10 +1,11 @@
 """Where the device time of the main path goes: kernels by name, and the idle share.
 
-    python -m image_enhance_keras_tpu_torch.utils.profiling [--size 128] [--iters 3]
+    python -m image_enhance_keras_tpu_torch.utils.profiling [--size 128] [--iters 3] [--model didbl]
         [--forwards int8 pallas_int8 pallas pallas_chain xla]
 
 Upscales one seeded ``size`` x ``size`` image in patch mode (96/64/8, the
-demo weights) with each of ``--forwards`` under ``torch.profiler``, after a
+model's committed demo weights) with each of ``--forwards`` (the pallas
+forwards are the TF1-head didbl's only) under ``torch.profiler``, after a
 warm-up (which also builds the kernels and, for the int8 forwards, calibrates
 and quantizes the weights), and prints for each forward the wall time per
 image, the device time of every kernel (summed over the timed images), and
@@ -57,17 +58,18 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--model", default="didbl", choices=sorted(MODEL_REGISTRY))
     ap.add_argument("--forwards", nargs="+", default=["int8", "pallas_int8", "pallas", "pallas_chain", "xla"],
                     choices=["int8", "pallas_int8", "pallas", "pallas_chain", "xla"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling needs a CUDA card", file=sys.stderr)
         return 1
-    weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
+    weights = resolve_default_weights(MODEL_REGISTRY[args.model])
     img = np.random.default_rng(0).integers(0, 256, (args.size, args.size, 3), dtype=np.uint8)
     print(f"card: {torch.cuda.get_device_name(0)}; image {args.size}x{args.size}, patch mode 96/64/8")
     for forward in args.forwards:
-        res = SuperResolver(weights=weights, forward=forward, device="cuda")
+        res = SuperResolver(model=args.model, weights=weights, forward=forward, device="cuda")
         wall, rows = profile_upscale(res, img, args.iters)
         busy = sum(ms for _, ms, _ in rows) / args.iters
         print(f"--forward {forward}: {wall * 1e3:.3f} ms per image wall, {busy:.3f} ms device busy, "

@@ -492,3 +492,60 @@ def test_split_mode_on_card(forward, layout):
         m.setattr(didbl_pallas, "light53_int8", plain53)
         m.setattr(didbl_pallas, "light_int8", plain_light)
         assert np.array_equal(split.upscale(img), got)
+
+
+#: X4's (C_in, C_out) on the zoo's int8 forwards: difv4, difvdsr, the subpixel head
+X4_CONVS = [(256, 256), (192, 192), (128, 2048)]
+#: small and ragged (N, H, W), one map wider than a 64-column M tile
+X4_SHAPES = [(2, 12, 12), (1, 7, 70), (1, 5, 3)]
+
+
+def _x4_inputs(cin, cout, shape, dtype, seed):
+    """x of channels at different ranges, HWIO int8 weights with their scales, biases, s_in."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(*shape, cin)).astype(np.float32) * np.exp(rng.normal(size=cin)).astype(np.float32)
+    x = torch.from_numpy(x).cuda().to(dtype)
+    q, s = int8_blocks.quantize_weights_per_channel(
+        torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * 0.05).astype(np.float32)).cuda())
+    b = torch.from_numpy((rng.normal(size=cout) * 0.01).astype(np.float32)).cuda()
+    s_in = x.float().abs().amax(dim=(0, 1, 2)) / 100.0  # clips a few codes
+    return x, q, s, b, s_in.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", 0.2])
+@pytest.mark.parametrize("acc", ["bf16", "s32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", X4_SHAPES)
+@pytest.mark.parametrize("conv", X4_CONVS)
+def test_int8_conv_kernel_bit_equal_plain(conv, shape, dtype, acc, act):
+    """X4 static and dynamic, one counted launch each, bit-equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 conv kernel is CUDA C++ with no CPU mode")
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv
+
+    cin, cout = conv
+    x, q, s, b, s_in = _x4_inputs(cin, cout, shape, dtype, cin + cout + sum(shape))
+    for wrapper, plain, args in ((int8_conv.int8_conv3, int8_conv.int8_conv3_plain, (q, s, b, s_in)),
+                                 (int8_conv.int8_conv3_dyn, int8_conv.int8_conv3_dyn_plain, (q, s, b))):
+        before = wrapper.launches
+        got = wrapper(x, *args, acc=acc, act=act)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1 and got.dtype == torch.float32
+        want = plain(x, *args, acc=acc, act=act)
+        assert torch.equal(got, want), (wrapper.__name__, (got - want).abs().max().item(),
+                                        (got != want).float().mean().item())
+
+
+@pytest.mark.cuda
+def test_input_scaling_divides_on_the_card_as_on_the_cpu():
+    """The engines' /255 of every uint8 value gives the CPU's quotient on the
+    card (a CUDA division by a Python scalar would differ for 126 of them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from image_enhance_keras_tpu_torch.ops.color import im2double
+
+    v = torch.arange(256, dtype=torch.uint8)
+    want = im2double(v)
+    assert torch.equal(im2double(v.cuda()).cpu(), want)
+    assert torch.equal(want, torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0)))

@@ -101,7 +101,7 @@ def test_demo_blocks_match_flax(demo, name):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        DifvdsrDouble(upsampler="subpixel")
+        DifvdsrDouble(upsampler="subpixel", dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DifvdsrDouble(dtype=torch.float16, mixed=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -147,8 +147,8 @@ def test_cli_defaults_to_cuda(cli_setup, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--internal-learn", "2"], ["--forward", "int8", "--model", "difvdsr"], ["--model", "didbl_subpixel"],
-    ["--model", "difv4"],
+    ["--internal-learn", "2"], ["--forward", "int8", "--model", "difvdsr", "--save_intermediate"],
+    ["--model", "didbl_subpixel", "--pipeline"], ["--model", "difv4", "--devices", "2"],
     ["--internal-learn-lr", "1e-4"], ["--devices", "2"], ["--save_intermediate"], ["--pipeline"],
 ])
 def test_cli_rejects_unported_flags(tmp_path, capsys, argv):
@@ -261,7 +261,8 @@ def test_cli_pallas_int8_matches_jax_cli_and_honours_calib_dir(cli_setup, tmp_pa
 
 @pytest.mark.parametrize("argv", [
     ["--forward", "int8", "--devices", "2"], ["--forward", "int8", "--internal-learn", "1"],
-    ["--forward", "int8", "--model", "didbl_subpixel"], ["--forward", "int8", "--int8-acc", "s32", "--model", "difv4"],
+    ["--forward", "int8", "--model", "didbl_subpixel", "--internal-learn", "1"],
+    ["--forward", "int8", "--int8-acc", "s32", "--model", "difv4", "--pipeline"],
 ])
 def test_cli_rejects_other_int8_options(tmp_path, capsys, argv):
     with pytest.raises(SystemExit):

@@ -238,9 +238,10 @@ def test_scorpath_generate_matches_jax_cli(tiny_npz, tmp_path, monkeypatch, forw
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "didbl_subpixel"], ["--forward", "int8", "--model", "didbl_subpixel"], ["--internal-learn", "3"],
-    ["--forward", "int8", "--internal-learn", "1"], ["--model", "difvdsr"], ["--forward", "int8", "--model", "difv4_x2"],
-    ["--model", "difv4"],
+    ["--model", "didbl_subpixel", "--internal-learn", "1"],
+    ["--forward", "int8", "--model", "didbl_subpixel", "--internal-learn", "2"], ["--internal-learn", "3"],
+    ["--forward", "int8", "--internal-learn", "1"], ["--model", "difvdsr", "--internal-learn", "1"],
+    ["--forward", "int8", "--model", "difv4_x2", "--internal-learn", "1"], ["--model", "difv4", "--internal-learn", "4"],
 ])
 def test_scorpath_rejects_unported_flags(tmp_path, capsys, argv):
     with pytest.raises(SystemExit):

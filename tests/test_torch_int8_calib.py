@@ -110,7 +110,14 @@ def test_apply_didbl_int8_on_jax_qparams(narrow, quantized):
 
 
 def test_subpixel_head_not_ported(narrow):
-    pn, calib, _ = narrow
-    with pytest.raises(NotImplementedError, match="subpixel"):
-        dp.quantize_didbl_params(params_from_numpy(pn), calib_x=torch.from_numpy(calib),
-                                 upsampler="subpixel", **BLOCKS)
+    """The subpixel head's int8 is ``--forward int8`` (tests/test_torch_zoo_int8.py);
+    the per-tensor int8 kernels of ``pallas_int8`` run the TF1 head only, and
+    the engine refuses them on a subpixel model."""
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models.didbl import DifvdsrDouble
+    from image_enhance_keras_tpu_torch.models.zoo import ModelSpec
+
+    mod = DifvdsrDouble(features=16, upsampler="subpixel", **BLOCKS)
+    spec = ModelSpec("didbl_subpixel", None, 4, False, "narrow", None)
+    with pytest.raises(ValueError, match="subpixel"):
+        SuperResolver(model="didbl_subpixel", module_and_spec=(mod, spec), forward="pallas_int8", device="cpu")
