@@ -122,6 +122,25 @@ Phases (each prints its elapsed seconds):
      JAX on the CPU, int8 on the first two images against JAX op by op
      (``EVAL_ZOO_INT8_CPU.json``), the TPU's subpixel row and the card's
      float32 row on SSIM-Y.
+  6. training: ``cli.learn`` fine-tunes the full-width didbl from the demo
+     checkpoint (seeded as the state at step 0 of a checkpoint directory,
+     so that ``--resume`` starts from it) at the CLI's defaults (batch 10,
+     HR 96, float32, ``--monitor val_ssim_y``) on the bundled photos, with
+     Set5 as validation: 2 epochs of 3 steps, then ``--resume --epochs 3``,
+     K3 counted exactly (one launch per train step, per validation batch and
+     per image-metric forward), the epoch and step numbering checked; the
+     checkpoint's npz export and its ``latest/`` served by ``main_dirpath``,
+     byte-equal; one full-width train step on K3 and one on the plain x4
+     (cuDNN deterministic), loss and every gradient leaf bit-equal; K3's
+     gradient (``_Upsample``) against the plain autograd, bit for bit, at x4
+     C = 128 and x2 C = 256 in float32 and bf16, with the plain backward's
+     time; a narrow step on the card against the CPU within the CPU tests'
+     bounds; ``learn --dtype bfloat16`` (K3's bf16 form counted); the median
+     train step and a profile of 3 (device ms by kernel, idle share, peak
+     memory) in float32 and bf16; ``main_dirpath --internal-learn 4`` under
+     ``xla`` and ``int8``, launches against the same run without it, and on
+     an engine the base module, params and int8 scales restored and the next
+     image equal to a fresh engine's.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -2142,6 +2161,379 @@ def _zoo_phase(tmp: str, img, failures: list, rows: list, sass_x4, gpu: str) -> 
     return {"kernels": kernels, "cli": cli, "cpu_references": refs, "profiles": profiles, "set5": set5}
 
 
+# -- training (phase 6) ----------------------------------------------------------
+
+#: phase 6's fine-tune: steps per epoch of the full-width didbl (the CLI's
+#: defaults: batch 10, --lr-patch 24, HR 96, float32, --monitor val_ssim_y)
+TRAIN_STEPS = 3
+#: the trainer's validation batches per epoch (Trainer.fit's val_steps)
+TRAIN_VAL_STEPS = 4
+#: internal-learning steps of phase 6 (main_dirpath --internal-learn)
+IL_STEPS = 4
+#: card against CPU, one narrow train step: the CPU tests' bounds
+#: (tests/test_torch_train_step.py): loss rtol, gradient leaf gap over the
+#: leaf's largest magnitude, params atol at lr 1e-4 where some step's
+#: gradient is above G_FLOOR (below it Adam's eps dominates the update)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_PARAM_ATOL, TRAIN_G_FLOOR = 1e-5, 1e-4, 1e-6, 1e-6
+TRAIN_NARROW = dict(features=16, n_body53=2, n_light=1, n_tail53=1)
+
+
+def _k3_grad_rows(failures: list, gpu: str) -> list:
+    """K3's gradient: the autograd of the kernel's wrapper (``_Upsample``,
+    whose backward is the autograd of the plain construction) against the
+    plain construction's own autograd, bit for bit, at the training shapes
+    (x4 at C = 128: the didbl train step's LR map; x2 at C = 256: difv4's),
+    float32 and bf16, with the backward's time."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+    from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for f, shape in ((4, (10, 24, 24, 128)), (2, (10, 24, 24, 256))):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt).requires_grad_(True)
+            n, h, w, c = shape
+            g = torch.randn((n, f * h, f * w, c), generator=gen, device="cuda").to(dt)
+            (gk,) = torch.autograd.grad(kup.upsample_phase_tf1_kernel(x, f), x, g)
+            (gp,) = torch.autograd.grad(upsample_phase_plain(x, f), x, g)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(gk, gp))
+            z = torch.zeros(shape, dtype=dt, device="cuda", requires_grad=True)
+            bwd = lambda: torch.autograd.grad(upsample_phase_plain(z, f), z, g)  # what _Upsample.backward runs
+            row = {"factor": f, "shape": list(shape), "dtype": str(dt).replace("torch.", ""), "bit_equal": equal,
+                   "max_abs_err": float((gk.float() - gp.float()).abs().max()),
+                   "backward_ms": _time_ms(bwd, iters=6, warmup=2), "backward_device_ms": _device_ms(bwd)[0],
+                   "forward_ms": _time_ms(lambda: kup.upsample_phase_tf1_kernel(x.detach(), f), iters=6, warmup=2)}
+            nbytes = x.numel() * x.element_size() * (1 + f * f)
+            row["backward_bound_ms"] = nbytes / PEAK_BYTES_S * 1e3  # read g, write the gradient
+            print(f"[chip_smoke] K3 gradient x{f} {row['dtype']} {tuple(shape)}: bit-equal to the plain "
+                  f"autograd {equal}; plain backward {row['backward_ms']:.4f} ms per call "
+                  f"({row['backward_device_ms']:.4f} device, byte bound {row['backward_bound_ms']:.4f}), "
+                  f"K3 forward {row['forward_ms']:.4f} ms on {gpu}", flush=True)
+            if not equal:
+                failures.append(f"K3 gradient x{f} {row['dtype']}: _Upsample's gradient differs from the plain "
+                                f"autograd by {row['max_abs_err']}")
+            out.append(row)
+            del x, g, z, gk, gp
+    return out
+
+
+def _train_step_vs_plain_x4(params, batch, failures: list) -> dict:
+    """One full-width train step on K3 and one with the plain x4 swapped in,
+    from the same params and batch, cuDNN deterministic: the loss and every
+    gradient leaf bit-equal."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.models.didbl import DifvdsrDouble
+    from image_enhance_keras_tpu_torch.models.weights import load_params
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+    from image_enhance_keras_tpu_torch.train.trainer import Adam, TrainState, make_train_step, mask_frozen
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        res = {}
+        for variant in ("kernels", "plain_x4"):
+            module = DifvdsrDouble().to("cuda")
+            load_params(module, params)
+            state = TrainState(module, Adam(mask_frozen(module), 1e-4))
+            before = kup.upsample_phase_tf1_kernel.launches
+            with _Swapped(variant):
+                state, m = make_train_step(4, 0.5)(state, batch)
+            torch.cuda.synchronize()
+            res[variant] = (m["loss"], {k: p.grad for k, p in state.opt.params.items()},
+                            kup.upsample_phase_tf1_kernel.launches - before)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    (lk, gk, nk), (lp, gp, npl) = res["kernels"], res["plain_x4"]
+    unequal = [k for k in gk if not torch.equal(gk[k], gp[k])]
+    out = {"loss": float(lk), "loss_plain_x4": float(lp), "loss_bit_equal": bool(torch.equal(lk, lp)),
+           "grad_leaves": len(gk), "grad_leaves_unequal": unequal, "k3_launches": [nk, npl]}
+    print(f"[chip_smoke] train step on K3 vs the plain x4 (cuDNN deterministic): loss {float(lk)!r} vs "
+          f"{float(lp)!r}, bit-equal {out['loss_bit_equal']}; {len(gk) - len(unequal)} of {len(gk)} gradient "
+          f"leaves bit-equal; K3 launches {nk} / {npl}", flush=True)
+    if not out["loss_bit_equal"] or unequal or (nk, npl) != (1, 0):
+        failures.append(f"train step on K3 vs the plain x4: loss bit-equal {out['loss_bit_equal']}, unequal "
+                        f"gradient leaves {unequal[:4]}, K3 launches {nk} / {npl} (want 1 / 0)")
+    return out
+
+
+def _train_card_vs_cpu(failures: list) -> dict:
+    """The same narrow train step (seeded init and batch) on the card and on
+    the CPU, within the CPU tests' bounds."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.models.didbl import DifvdsrDouble
+    from image_enhance_keras_tpu_torch.models.zoo import init_params
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+    from image_enhance_keras_tpu_torch.train.trainer import Adam, TrainState, make_train_step, mask_frozen
+
+    batch = np.random.default_rng(SEED + 7).integers(0, 256, (2, 24, 24, 3), dtype=np.uint8)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        module = init_params(DifvdsrDouble(**TRAIN_NARROW), SEED + 7).to(dev)
+        state = TrainState(module, Adam(mask_frozen(module), 1e-4))
+        before = kup.upsample_phase_tf1_kernel.launches
+        state, m = make_train_step(4, 0.5)(state, torch.from_numpy(batch).to(dev))
+        res[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in state.opt.params.items()},
+                    {k: v.cpu() for k, v in state.params().items()}, kup.upsample_phase_tf1_kernel.launches - before)
+    (lc, gc, pc, _), (lg, gg, pg, n3) = res["cpu"], res["cuda"]
+    grad_rel = max(float((gg[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30) for k, g in gc.items())
+    param_gap = max(float(torch.where(gc[k].abs() >= TRAIN_G_FLOOR, (pg[k] - v).abs(), 0.0).max())
+                    for k, v in pc.items())
+    out = {"loss_cpu": lc, "loss_card": lg, "loss_rel": abs(lg - lc) / abs(lc), "grad_rel": grad_rel,
+           "param_gap": param_gap, "k3_launches": n3}
+    print(f"[chip_smoke] narrow train step, card vs CPU: loss {lg!r} vs {lc!r} (rel {out['loss_rel']:.3g}, bound "
+          f"{TRAIN_LOSS_RTOL}), gradient gap {grad_rel:.3g} of the leaf's largest (bound {TRAIN_GRAD_REL}), params "
+          f"{param_gap:.3g} (bound {TRAIN_PARAM_ATOL}); K3 launches {n3}", flush=True)
+    if out["loss_rel"] > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_REL or param_gap > TRAIN_PARAM_ATOL or n3 != 1:
+        failures.append(f"narrow train step, card vs CPU out of bounds: {out}")
+    return out
+
+
+def _train_timing(params, photos, val, gpu: str, dtype: str = "float32") -> dict:
+    """Median ms per full-width train step (batch 10, HR 96, ``dtype``), HR
+    patches/s, and a profile of 3 steps: device ms by kernel, idle share,
+    peak device memory (and what was resident before the steps); then the
+    optimizer's update alone, per call and in device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_enhance_keras_tpu_torch.train.trainer import Trainer
+    from image_enhance_keras_tpu_torch.utils.config import Config
+    from image_enhance_keras_tpu_torch.utils.profiling import device_kernel_times
+
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_time_")
+    try:
+        t = Trainer(Config(model="didbl", dtype=dtype, checkpoint_dir=tmp, monitor="val_psnr"), photos, val,
+                    params=params, device="cuda")
+        batches = [t._batch(t.sampler.sample()) for _ in range(10)]
+        for b in batches[:2]:
+            t.train_step(t.state, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 20
+        times = []
+        for b in batches[2:7]:
+            t0 = time.time()
+            t.train_step(t.state, b)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for b in batches[7:10]:
+                t.train_step(t.state, b)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3 / 3
+        opt_ms = _time_ms(t.state.opt.step, iters=6, warmup=1)
+        opt_device_ms = _device_ms(t.state.opt.step)[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = device_kernel_times(prof)
+    busy = sum(ms for _, ms, _ in kernels) / 3
+    groups = {"k3_forward": 0.0, "convs": 0.0, "other": 0.0}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        if "upsample_phase" in low:
+            groups["k3_forward"] += ms / 3
+        elif any(w in low for w in ("conv", "cudnn", "xmma", "gemm", "implicit", "wgrad", "dgrad", "fft", "winograd")):
+            groups["convs"] += ms / 3
+        else:
+            groups["other"] += ms / 3
+    ms = statistics.median(times)
+    out = {"step_ms": ms, "step_ms_all": times, "hr_patches_per_s": 10 / (ms / 1e3), "profile_wall_ms": wall,
+           "device_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall), "peak_mib": peak,
+           "resident_mib": resident, "optimizer_ms": opt_ms, "optimizer_device_ms": opt_device_ms,
+           "device_ms_by_group": groups,
+           "kernels": [(n[:90], k_ms / 3, c // 3) for n, k_ms, c in kernels[:12]]}
+    print(f"[chip_smoke] train step, didbl full width, batch 10, HR 96, {dtype}: median {ms:.3f} ms "
+          f"({out['hr_patches_per_s']:.1f} HR patches/s), profiled {wall:.3f} ms wall, {busy:.3f} ms device, idle "
+          f"share {out['idle_share']:.3f}, peak {peak:.0f} MiB ({resident:.0f} resident before the steps); the "
+          f"optimizer's update alone {opt_ms:.3f} ms per call, {opt_device_ms:.3f} ms device, on {gpu}", flush=True)
+    print(f"[chip_smoke]   device ms per step by group: "
+          f"{ {k: round(v, 3) for k, v in groups.items()} }", flush=True)
+    for name, k_ms, calls in out["kernels"]:
+        print(f"[chip_smoke]   {k_ms:9.3f} ms {100 * k_ms / busy:5.1f}% {calls:4d} calls  {name}", flush=True)
+    return out
+
+
+def _internal_learning(tmp: str, img, weights: str, failures: list, gpu: str) -> dict:
+    """``main_dirpath --internal-learn`` under ``xla`` and ``int8`` on the
+    128x128 image, launches counted against the same run without it; then,
+    on an engine, the base module, params and int8 scales after the call, and
+    the next image without adaptation against a fresh engine's bytes."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread, imwrite
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+
+    out = {}
+    for forward in ("xla", "int8"):
+        runs = {}
+        for il in (0, IL_STEPS):
+            d = os.path.join(tmp, f"il_{forward}_{il}")
+            os.makedirs(d)
+            imwrite(os.path.join(d, "img.bmp"), img)
+            _zero_counts()
+            t0 = time.time()
+            main_dirpath.main([d, "--forward", forward, "--internal-learn", str(il)])
+            torch.cuda.synchronize()
+            runs[il] = (time.time() - t0, _counts(), imread(os.path.join(d, "img_scaled(1x).bmp")))
+        want = dict(runs[0][1])
+        want["upsample_phase_tf1"] = want.get("upsample_phase_tf1", 0) + IL_STEPS
+        r = SuperResolver(weights=weights, forward=forward, device="cuda")
+        fresh = SuperResolver(weights=weights, forward=forward, device="cuda").upscale(img)
+        r.upscale(img)  # the int8 scales of the base params
+        m0, p0, q0 = r.module, r.params, r._qparams
+        snap = {k: v.clone() for k, v in r.module.state_dict().items()}
+        r.internal_learn = IL_STEPS
+        adapted = r.upscale(img)
+        restored = (r.module is m0 and r.params is p0 and r._qparams is q0
+                    and all(torch.equal(v, snap[k]) for k, v in r.module.state_dict().items()))
+        r.internal_learn = 0
+        after = r.upscale(img)
+        moved = _u8_agreement(adapted, fresh)
+        out[forward] = {"cli_s": runs[IL_STEPS][0], "cli_s_without": runs[0][0], "launches": runs[IL_STEPS][1],
+                        "launches_without": runs[0][1], "restored": restored,
+                        "next_equals_fresh": bool(np.array_equal(after, fresh)),
+                        "cli_shape": list(runs[IL_STEPS][2].shape), "adapted_vs_base": list(moved)}
+        print(f"[chip_smoke] main_dirpath --forward {forward} --internal-learn {IL_STEPS}: {runs[IL_STEPS][0]:.2f} s "
+              f"(without: {runs[0][0]:.2f} s), launches {runs[IL_STEPS][1]} (without {runs[0][1]}); base weights "
+              f"and scales restored {restored}, next image equal to a fresh engine's "
+              f"{out[forward]['next_equals_fresh']}; adapted vs base output: max {moved[0]} levels on "
+              f"{moved[1]:.3g} of the values, on {gpu}", flush=True)
+        if runs[IL_STEPS][1] != want or not restored or not out[forward]["next_equals_fresh"] \
+                or runs[IL_STEPS][2].shape != (512, 512, 3):
+            failures.append(f"--internal-learn under {forward}: launches {runs[IL_STEPS][1]} (want {want}), "
+                            f"restored {restored}, next equal {out[forward]['next_equals_fresh']}")
+        del r
+    return out
+
+
+def _train_phase(tmp: str, img, failures: list, rows: list, gpu: str) -> dict:
+    """Phase 6: training.  A fine-tune of the full-width didbl from the demo
+    checkpoint through ``cli.learn`` (2 epochs, then ``--resume`` for a
+    third), K3 counted per step, the checkpoint served through
+    ``main_dirpath``; the train step on K3 against the plain x4 and on the
+    card against the CPU; K3's gradient against the plain autograd; a bf16
+    train step; timing and a profile of the float32 step; internal learning."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import learn, main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread, imwrite
+    from image_enhance_keras_tpu_torch.data.pipeline import PatchSampler, builtin_photos, load_image_dir
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+    from image_enhance_keras_tpu_torch.train.checkpoints import export_params_npz, load_params_npz, restore_params, \
+        save_params
+    from image_enhance_keras_tpu_torch.train.trainer import Trainer
+    from image_enhance_keras_tpu_torch.utils.config import Config
+
+    out = {}
+    t0 = time.time()
+    weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
+    demo = load_params_npz(weights)
+    set5 = os.path.join(HERE, "data_set5")
+    photos, val = builtin_photos(), load_image_dir(set5)
+    n_metric = sum(1 for im in val if (im.shape[0] // 4) * 4 >= 44 and (im.shape[1] // 4) * 4 >= 44)
+    ck = os.path.join(tmp, "ck")
+    # the demo weights as the state at step 0, so that learn --resume fine-tunes them
+    seed = Trainer(Config(model="didbl", checkpoint_dir=ck), photos, val, params=demo, device="cuda")
+    save_params(os.path.join(ck, "latest"), seed.state.state_dict())
+    del seed
+    common = ["--model", "didbl", "--builtin-photos", "--val-dir", set5, "--steps-per-epoch", str(TRAIN_STEPS),
+              "--checkpoint-dir", ck, "--resume"]
+    per_epoch = TRAIN_STEPS + TRAIN_VAL_STEPS + n_metric  # train, val and image-metric forwards
+    fit = {}
+    for epochs, n_ep in ((2, 2), (3, 1)):
+        _zero_counts()
+        t1 = time.time()
+        learn.main([*common, "--epochs", str(epochs)])
+        torch.cuda.synchronize()
+        counts = _counts()
+        index = json.load(open(os.path.join(ck, "index.json")))
+        step = int(restore_params(os.path.join(ck, "latest"))["step"])
+        fit[epochs] = {"s": time.time() - t1, "launches": counts, "epochs": [e["epoch"] for e in index["epochs"]],
+                       "step": step}
+        want = {"upsample_phase_tf1": n_ep * per_epoch}
+        print(f"[chip_smoke] learn --epochs {epochs} --resume: {fit[epochs]['s']:.2f} s, K3 launches {counts} (want "
+              f"{want}: {TRAIN_STEPS} train + {TRAIN_VAL_STEPS} val + {n_metric} image-metric forwards an epoch), "
+              f"epochs {fit[epochs]['epochs']}, step {step}", flush=True)
+        if counts != want or fit[epochs]["epochs"] != list(range(1, epochs + 1)) or step != epochs * TRAIN_STEPS:
+            failures.append(f"learn --epochs {epochs}: launches {counts} (want {want}), epochs "
+                            f"{fit[epochs]['epochs']}, step {step}")
+    hist = json.load(open(os.path.join(ck, "history.json")))
+    for i, e in enumerate(hist["epoch"]):
+        print(f"[chip_smoke]   epoch {e}: loss {hist['loss'][i]:.6f} psnr {hist['psnr'][i]:.3f} val_psnr "
+              f"{hist['val_psnr'][i]:.3f} val_psnr_y {hist['val_psnr_y'][i]:.3f} val_ssim_y "
+              f"{hist['val_ssim_y'][i]:.5f} ({hist['sec'][i]:.2f} s)", flush=True)
+    if not all(np.isfinite(hist[k]).all() for k in ("loss", "val_psnr", "val_psnr_y", "val_ssim_y")) \
+            or min(hist["val_psnr_y"]) < 25.0:
+        failures.append(f"fine-tune history not finite or val_psnr_y under 25 dB: {hist}")
+    out["fit"], out["history"] = fit, hist
+    # serve the fine-tuned checkpoint: its npz export and its latest/ directory, byte-equal
+    state = restore_params(os.path.join(ck, "latest"))
+    npz = os.path.join(tmp, "finetuned.npz")
+    export_params_npz(npz, state["params"])
+    served = {}
+    for name, w in (("npz", npz), ("latest", os.path.join(ck, "latest")), ("demo", weights)):
+        d = os.path.join(tmp, f"serve_{name}")
+        os.makedirs(d)
+        imwrite(os.path.join(d, "img.bmp"), img)
+        main_dirpath.main([d, "--weights", w])
+        served[name] = imread(os.path.join(d, "img_scaled(1x).bmp"))
+    out["serve"] = {"npz_equals_latest": bool(np.array_equal(served["npz"], served["latest"])),
+                    "psnr_vs_demo": _psnr(served["npz"], served["demo"]), "shape": list(served["npz"].shape)}
+    print(f"[chip_smoke] main_dirpath on the fine-tuned npz: {out['serve']['shape']}, equal to serving latest/ "
+          f"{out['serve']['npz_equals_latest']}, PSNR against the demo weights' output "
+          f"{out['serve']['psnr_vs_demo']:.2f} dB", flush=True)
+    if not out["serve"]["npz_equals_latest"] or served["npz"].shape != (512, 512, 3):
+        failures.append(f"serving the fine-tuned checkpoint: {out['serve']}")
+    _phase("6a fine-tune through learn, resume, serve", t0)
+
+    t0 = time.time()
+    batch = torch.from_numpy(PatchSampler(photos, hr_patch=96, batch_size=10, seed=SEED).sample()).to("cuda")
+    out["k3_vs_plain_step"] = _train_step_vs_plain_x4(demo, batch, failures)
+    out["k3_grad"] = _k3_grad_rows(failures, gpu)
+    out["card_vs_cpu"] = _train_card_vs_cpu(failures)
+    _phase("6b K3 against its plain version in the train step; card against CPU", t0)
+
+    t0 = time.time()
+    ck16 = os.path.join(tmp, "ck_bf16")
+    _zero_counts()
+    learn.main(["--model", "didbl", "--dtype", "bfloat16", "--builtin-photos", "--val-dir", set5, "--epochs", "1",
+                "--steps-per-epoch", "2", "--monitor", "val_psnr", "--checkpoint-dir", ck16])
+    torch.cuda.synchronize()
+    counts16 = _counts()
+    hist16 = json.load(open(os.path.join(ck16, "history.json")))
+    want16 = {"upsample_phase_tf1": 2 + TRAIN_VAL_STEPS, "upsample_phase_tf1_bf16": 2 + TRAIN_VAL_STEPS}
+    out["bf16"] = {"launches": counts16, "loss": hist16["loss"], "val_psnr": hist16["val_psnr"]}
+    print(f"[chip_smoke] learn --dtype bfloat16 (1 epoch of 2 steps): loss {hist16['loss'][0]:.6f}, val_psnr "
+          f"{hist16['val_psnr'][0]:.3f}, launches {counts16} (want {want16})", flush=True)
+    if counts16 != want16 or not np.isfinite(hist16["loss"][0]):
+        failures.append(f"bf16 train step: launches {counts16} (want {want16}), loss {hist16['loss']}")
+    out["timing"] = _train_timing(demo, photos, val, gpu)
+    out["timing_bf16"] = _train_timing(demo, photos, val, gpu, dtype="bfloat16")
+    _phase("6c bf16 train step; timing and profile", t0)
+
+    t0 = time.time()
+    out["internal_learn"] = _internal_learning(tmp, img, weights, failures, gpu)
+    _phase("6d internal learning (CLI)", t0)
+    k3 = next(r for r in rows if r["name"] == "upsample_phase_tf1")
+    k3["train_launches"] = {"per_train_step": 1, "fine_tune": fit[2]["launches"].get("upsample_phase_tf1", 0)
+                            + fit[3]["launches"].get("upsample_phase_tf1", 0),
+                            "bf16_step": counts16.get("upsample_phase_tf1_bf16", 0)}
+    k3["train_backward"] = [{k: g[k] for k in ("factor", "dtype", "backward_ms", "backward_device_ms",
+                                               "backward_bound_ms", "forward_ms")} for g in out["k3_grad"]]
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2915,6 +3307,13 @@ def main() -> int:
         zoo = _zoo_phase(tmp, img, failures, rows, sass.get("int8_conv"), gpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 6. training ----------------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_train_")
+    try:
+        train = _train_phase(tmp, img, failures, rows, gpu)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     _phase("total", t_all)
 
     if failures:
@@ -2928,7 +3327,7 @@ def main() -> int:
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()},
                       "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "mixed_cli": mixed_cli,
                       "split": split, "extras": extras, "int8_cli": int8_cli, "int8_profile": int8_profile,
-                      "set5": set5, "zoo": zoo}),
+                      "set5": set5, "zoo": zoo, "train": train}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

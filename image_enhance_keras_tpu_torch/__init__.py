@@ -7,7 +7,8 @@ float32 Light53 and Light blocks on hand-written CUDA kernels,
 ``csrc/blocks.cu``), ``pallas_chain`` (the same blocks as two chain
 kernels, ``csrc/tower.cu``) and ``pallas_int8`` (every residual block on
 int8 CUDA kernels, ``csrc/int8_blocks.cu``, the x4 on ``csrc/upsample.cu``),
-and scores outputs with ``cli.scorpath`` (PSNR-Y / SSIM-Y, NTIRE protocol).
+scores outputs with ``cli.scorpath`` (PSNR-Y / SSIM-Y, NTIRE protocol),
+and trains every zoo model with ``cli.learn`` (``train/trainer.py``).
 Nothing here imports JAX.
 """
 

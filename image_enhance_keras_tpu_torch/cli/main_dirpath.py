@@ -24,8 +24,6 @@ _NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
 _UNPORTED_FLAGS = {
     "save_intermediate": ("--save_intermediate", False),
     "devices": ("--devices", 1),
-    "internal_learn": ("--internal-learn", 0),
-    "internal_learn_lr": ("--internal-learn-lr", None),
     "pipeline": ("--pipeline", False),
 }
 
@@ -79,11 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="x8 geometric self-ensemble (flips and rot90 averaged)")
     p.add_argument("--back-projection", type=int, default=0, metavar="N",
                    help="N iterative back-projection steps against the LR input")
+    p.add_argument("--internal-learn", type=int, default=0, metavar="N",
+                   help="per-image test-time adaptation: fine-tune a copy of the weights for N steps "
+                        "on pairs built from the input itself before upscaling it")
+    p.add_argument("--internal-learn-lr", type=float, default=None,
+                   help="adaptation learning rate (default 2e-5)")
     # JAX flags that parse but are rejected below
     p.add_argument("--save_intermediate", default=False, action="store_true")
     p.add_argument("--devices", default=1, type=int)
-    p.add_argument("--internal-learn", type=int, default=0)
-    p.add_argument("--internal-learn-lr", type=float, default=None)
     p.add_argument("--pipeline", action="store_true")
     return p
 
@@ -132,10 +133,13 @@ def _run(args) -> int:
         back_projection=args.back_projection,
         round_mode=args.round_mode,
         mixed="tail" if args.dtype == "mixed-tail" else args.dtype == "mixed",
+        internal_learn=args.internal_learn,
         device=args.device,
     )
     if args.int8_calib_dir:
         resolver.int8_calib_dir = args.int8_calib_dir
+    if args.internal_learn_lr is not None:
+        resolver.internal_learn_lr = args.internal_learn_lr
     outs = resolver.upscale_dir(args.imgpath, suffix=args.suffix, scale_label=args.scale)
     log.info("wrote %d images", len(outs))
     return 0

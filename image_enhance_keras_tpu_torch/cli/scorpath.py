@@ -3,8 +3,7 @@ ground truth with its ``<stem>_<suffix>(<k>x)<ext>`` sibling, print per-image
 and mean PSNR-Y / SSIM-Y / SSIM-RGB under the NTIRE protocol.
 
 ``--generate`` degrades each ground truth by ``--scale-factor``, runs the
-model and scores the reconstruction.  The JAX CLI's flags all parse; those
-this slice does not run are rejected with "not yet ported", never ignored.
+model and scores the reconstruction.  It takes every flag of the JAX CLI.
 
 Usage:  python -m image_enhance_keras_tpu_torch.cli.scorpath <dir> [options]
 """
@@ -15,14 +14,8 @@ import argparse
 import json
 import sys
 
-_NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
-
 #: the model registry (``models/zoo.py``)
 _MODELS = ("didbl", "didbl_subpixel", "difv4", "difv4_x2", "difvdsr")
-#: JAX flags this slice does not run at all: dest -> (flag, default)
-_UNPORTED_FLAGS = {
-    "internal_learn": ("--internal-learn", 0),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,17 +49,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --generate: x8 geometric self-ensemble forwards")
     p.add_argument("--back-projection", type=int, default=0, metavar="N",
                    help="with --generate: N iterative back-projection steps")
-    # JAX flags that parse but are rejected below
-    p.add_argument("--internal-learn", type=int, default=0, metavar="N")
+    p.add_argument("--internal-learn", type=int, default=0, metavar="N",
+                   help="with --generate: per-image test-time adaptation, N steps on the input itself")
     return p
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (flag, default) in _UNPORTED_FLAGS.items():
-        if getattr(args, dest) != default:
-            parser.error(f"{flag} is {_NOT_PORTED}")
     if args.generate:
         from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
         from image_enhance_keras_tpu_torch.engine import SuperResolver
@@ -75,7 +65,8 @@ def main(argv=None) -> int:
         resolver = SuperResolver(model=args.model, weights=resolve_cli_weights(args.model, args.weights),
                                  self_ensemble=args.self_ensemble, back_projection=args.back_projection,
                                  forward=args.forward, dtype=None if args.dtype == "float32" else "bfloat16",
-                                 mixed=args.dtype == "mixed", device=args.device)
+                                 mixed=args.dtype == "mixed", internal_learn=args.internal_learn,
+                                 device=args.device)
         scores, means = evaluate_model(resolver, args.path_dir, scale=args.scale_factor,
                                        crop_border=args.crop, with_gmsd=args.gmsd)
     else:

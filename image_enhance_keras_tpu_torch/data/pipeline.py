@@ -1,20 +1,29 @@
-"""Procedural and bundled images for int8 calibration (mirror of ``data/pipeline.py``).
+"""The training data plane and the bundled and procedural images (mirror of ``data/pipeline.py``).
 
-Only what calibration needs is ported: ``builtin_photos`` (copies of the
-real photographs that ship inside installed packages), ``synthetic_images``
-and the procedural corpus of ``rich_synthetic_images`` (dead leaves, pink
-noise, fibers).  All numpy, deterministic per (n, size, seed); the training
-data plane comes with the training slice.
+The host slices uint8 HR patches out of decoded images (``PatchSampler``,
+numpy: the same seed gives the JAX package's bytes); the degradation (blur
+sigma=0.5, then PIL-bicubic /scale with uint8 rounding per pass, then /255)
+runs on the device inside the train step (``degrade_batch_on_device``), so
+LR/HR pairs are always consistent.  ``builtin_photos`` reads the port's
+copies of the real photographs that ship inside installed packages;
+``synthetic_images`` and ``rich_synthetic_images`` (dead leaves, pink noise,
+fibers) are numpy, deterministic per (n, size, seed).  Int8 calibration
+uses them too.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from image_enhance_keras_tpu_torch.data.io import imread
+from image_enhance_keras_tpu_torch.data.io import imread, list_images
 
 __all__ = [
+    "PatchSampler",
     "builtin_photos",
+    "degrade_batch_on_device",
+    "load_image_dir",
+    "pinned_mass_weights",
     "synthetic_images",
     "pink_noise_images",
     "dead_leaves_images",
@@ -50,6 +59,13 @@ _BUILTIN_PHOTO_SOURCES: tuple[tuple[str, str, str, str], ...] = (
     ("grass.png", "dm_control",
      "locomotion/arenas/assets/outdoor_natural/OutdoorGrassFloorD.png", "Apache-2.0"),
 )
+
+
+def load_image_dir(path: str, limit: int | None = None) -> list[np.ndarray]:
+    files = list_images(path)
+    if limit:
+        files = files[:limit]
+    return [imread(f) for f in files]
 
 
 def builtin_photos(min_side: int = 96) -> list[np.ndarray]:
@@ -315,3 +331,105 @@ def rich_synthetic_images(
         + synthetic_images(n_legacy, size, seed + 3)
     )
     return imgs
+
+
+def pinned_mass_weights(n_real: int, n_synth: int, real_mass: float) -> list[float] | None:
+    """PatchSampler weights pinning the real corpus to ``real_mass`` of the
+    sampling probability, the synthetic images sharing the rest, so that a
+    large synthetic corpus does not dilute a small real one.  Order: real
+    images first, synthetic after.  None (uniform) when either side is
+    empty; ``real_mass`` is clamped to [0, 1]."""
+    if n_real <= 0 or n_synth <= 0:
+        return None
+    g = min(max(float(real_mass), 0.0), 1.0)
+    return [g / n_real] * n_real + [(1.0 - g) / n_synth] * n_synth
+
+
+class PatchSampler:
+    """Random HR patch batches from a list of uint8 images (host side)."""
+
+    def __init__(
+        self,
+        images: list[np.ndarray],
+        hr_patch: int = 96,
+        batch_size: int = 10,
+        seed: int = 0,
+        augment: bool = False,
+        weights: list[float] | None = None,
+        moa: float = 0.0,
+        moa_ops: tuple[str, ...] | None = None,
+    ):
+        if not images:
+            raise ValueError("no training images")
+        if weights is not None and len(weights) != len(images):
+            raise ValueError(f"weights ({len(weights)}) must match images ({len(images)})")
+        keep = [i for i, im in enumerate(images) if im.shape[0] >= hr_patch and im.shape[1] >= hr_patch]
+        self.images = [images[i] for i in keep]
+        if not self.images:
+            raise ValueError(f"no image is at least {hr_patch}px on both sides")
+        #: optional per-image sampling mass, renormalised over the images
+        #: that survive the size filter
+        self.p = None
+        if weights is not None:
+            w = np.asarray([weights[i] for i in keep], np.float64)
+            if w.sum() <= 0:
+                raise ValueError("weights sum to zero over usable images")
+            self.p = w / w.sum()
+        self.hr_patch = hr_patch
+        self.batch_size = batch_size
+        self.augment = augment
+        #: mixture-of-augmentations probability (data/augment.py), applied
+        #: after the geometric flips, on the assembled batch
+        self.moa = float(moa)
+        self.moa_ops = moa_ops
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self) -> np.ndarray:
+        """-> uint8 (B, hr_patch, hr_patch, 3)."""
+        p = self.hr_patch
+        out = np.empty((self.batch_size, p, p, 3), np.uint8)
+        if self.p is not None:
+            idx = self.rng.choice(len(self.images), self.batch_size, p=self.p)
+        else:
+            idx = self.rng.integers(0, len(self.images), self.batch_size)
+        for i, k in enumerate(idx):
+            im = self.images[k]
+            y = self.rng.integers(0, im.shape[0] - p + 1)
+            x = self.rng.integers(0, im.shape[1] - p + 1)
+            patch = im[y : y + p, x : x + p]
+            if self.augment:
+                if self.rng.random() < 0.5:
+                    patch = patch[:, ::-1]
+                if self.rng.random() < 0.5:
+                    patch = patch[::-1]
+                if self.rng.random() < 0.5:
+                    patch = patch.transpose(1, 0, 2)
+            out[i] = patch
+        if self.moa > 0.0:
+            from image_enhance_keras_tpu_torch.data.augment import MOA_OPS, moa_augment
+
+            out = moa_augment(out, self.rng, prob=self.moa, ops=self.moa_ops or MOA_OPS)
+        return out
+
+    def __iter__(self):
+        while True:
+            yield self.sample()
+
+
+def degrade_batch_on_device(hr_u8: torch.Tensor, scale: int = 4, blur_sigma: float = 0.5) -> torch.Tensor:
+    """HR uint8 batch -> LR float32 in [0,1] on the batch's device.
+
+    The reference degradation: gaussian blur (``blur_sigma``; 0 skips it)
+    on the uint8 image, rounded and clipped, then PIL-bicubic /``scale``
+    with uint8 rounding per pass, then /255 (divided by a tensor, as
+    ``ops.color.im2double`` does, not multiplied by a reciprocal).
+    """
+    from image_enhance_keras_tpu_torch.ops.color import im2double
+    from image_enhance_keras_tpu_torch.ops.filters import gaussian_blur
+    from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
+
+    x = hr_u8.to(torch.float32)
+    if blur_sigma > 0:
+        x = torch.clamp(torch.round(gaussian_blur(x, blur_sigma)), 0.0, 255.0)
+    h, w = int(x.shape[-3]), int(x.shape[-2])
+    return im2double(resize_pil_uint8(x, (h // scale, w // scale)))

@@ -32,6 +32,10 @@ take no dtype at all.  ``self_ensemble`` averages the x8 dihedral
 transforms, ``back_projection=N`` refines the result against the LR input
 (``ops/backproject.py``); ``upscale_patch_average``, ``upscale_frame`` and
 ``upscale_video`` are the reference's other entry points.
+``internal_learn=N`` adapts a copy of the weights to each image for N train
+steps before ``upscale`` serves it (``_internal_adapt``), and restores the
+base weights afterwards; ``model_kwargs`` builds the model at non-default
+widths, as the trainer's ``Config.model_kwargs`` does.
 """
 
 from __future__ import annotations
@@ -123,6 +127,7 @@ class SuperResolver:
         mixed: bool | str = False,
         internal_learn: int = 0,
         module_and_spec: tuple | None = None,
+        model_kwargs: dict | None = None,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -133,8 +138,6 @@ class SuperResolver:
             raise ValueError(f"mode must be 'patch', 'fast' or 'split', got {mode!r}")
         if round_mode not in ("round", "trunc"):
             raise ValueError(f"round_mode must be 'round' or 'trunc', got {round_mode!r}")
-        if internal_learn:
-            raise NotImplementedError(f"internal_learn {_NOT_PORTED}")
         if mixed and dtype is None:
             dtype = torch.bfloat16  # the mixed profiles' dots default to the serving bf16
         #: the dtype the pallas* forwards run in (bf16 under both mixed profiles)
@@ -143,7 +146,12 @@ class SuperResolver:
         if module_and_spec is not None:
             self.module, self.spec = module_and_spec
         else:
-            kw = {"mixed_tail" if mixed == "tail" else "mixed": True} if mixed else {}
+            # non-default graph configs (narrow test widths, the LOO scripts'
+            # capacity probes) flow through as the Trainer's model_kwargs do;
+            # the weights must match the config
+            kw = dict(model_kwargs or {})
+            if mixed:
+                kw["mixed_tail" if mixed == "tail" else "mixed"] = True
             self.module, self.spec = get_model(model, dtype=dtype, **kw)
         if forward.startswith("pallas") and not model.startswith("didbl"):
             raise ValueError("pallas forwards are implemented for the didbl family")
@@ -172,6 +180,7 @@ class SuperResolver:
         self.self_ensemble = self_ensemble
         self.back_projection = int(back_projection)
         self.round_mode = round_mode
+        self.internal_learn = int(internal_learn)
 
         self.module = self.module.to(self.device).eval().requires_grad_(False)
         if params is not None:
@@ -190,7 +199,9 @@ class SuperResolver:
     # weights
     # ------------------------------------------------------------------
     def load_weights(self, path: str) -> None:
-        """Load a params .npz export or a Keras .h5 checkpoint (orbax comes in a later slice)."""
+        """Load a params .npz export, a Keras .h5 checkpoint, or the params of
+        a full train-state directory of the port's trainer (``latest/`` or
+        ``best/``); orbax directories are not read."""
         if path.endswith(".h5"):
             from image_enhance_keras_tpu_torch.models.keras_import import import_keras_weights
 
@@ -199,8 +210,12 @@ class SuperResolver:
             from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
 
             load_params(self.module, load_params_npz(path))
+        elif os.path.isdir(path):
+            from image_enhance_keras_tpu_torch.train.checkpoints import restore_params
+
+            load_params(self.module, restore_params(path)["params"])  # flax path -> tensor
         else:
-            raise NotImplementedError(f"loading {path!r}: orbax checkpoints are {_NOT_PORTED}")
+            raise NotImplementedError(f"loading {path!r}: not an .h5, an .npz or a checkpoint directory")
         self.params = params_of_module(self.module)
         self._qparams = None  # re-quantize int8 weights on next use
 
@@ -591,12 +606,76 @@ class SuperResolver:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+    #: ZSSR-style per-image test-time adaptation ("Zero-Shot
+    #: Super-Resolution", Shocher et al. 2018): before upscaling an image,
+    #: fine-tune a copy of the weights for N steps on (input degraded by the
+    #: net scale, input) pairs built from the input itself, with the
+    #: degradation serving assumes.  0 = off.
+    internal_learn: int = 0
+    #: adaptation settings: a small learning rate (the net is pre-trained,
+    #: the pseudo-corpus is one image), charbonnier, a batch of augmented crops
+    internal_learn_lr: float = 2e-5
+    internal_learn_batch: int = 8
+    internal_learn_loss: str = "charbonnier"
+
+    def _internal_adapt(self, img_u8: np.ndarray, steps: int):
+        """A fine-tuned copy of the module for this image, with the module
+        and ``self.params`` untouched; None (serve the base weights) when the
+        input is too small for adaptation patches.
+
+        Patches of the serving input are the "HR" targets; the train step
+        degrades them by the net scale (blur 0, the serving distribution)
+        and learns to reconstruct them, under the x8 dihedral augmentation,
+        with the frozen groups of ``mask_frozen`` left as they are.  Runs
+        outside inference mode: the copy's parameters are ordinary tensors."""
+        import copy
+
+        from image_enhance_keras_tpu_torch.data.pipeline import PatchSampler
+        from image_enhance_keras_tpu_torch.train.trainer import Adam, TrainState, make_train_step, mask_frozen
+
+        scale = self._calib_scale()
+        h, w = img_u8.shape[:2]
+        hr_patch = min(64, (min(h, w) // scale) * scale)
+        if hr_patch < scale * 6:
+            log.warning("internal_learn: input %dx%d too small for x%d adaptation patches; serving the base "
+                        "weights", w, h, scale)
+            return None
+        sampler = PatchSampler([np.asarray(img_u8)], hr_patch=hr_patch, batch_size=int(self.internal_learn_batch),
+                               seed=0, augment=True)
+        t0 = time.time()
+        with torch.inference_mode(False):
+            module = copy.deepcopy(self.module)
+            state = TrainState(module, Adam(mask_frozen(module), float(self.internal_learn_lr), b1=0.9))
+            step = make_train_step(scale, blur_sigma=0.0, pre_upscale=self.spec.pre_upscaled_input,
+                                   loss=str(self.internal_learn_loss))
+            for _ in range(int(steps)):
+                state, metrics = step(state, torch.from_numpy(sampler.sample()).to(self.device))
+            loss = float(metrics["loss"])
+        log.info("internal_learn: %d steps on %dx%d input (%.1fs, final loss %.5f)",
+                 steps, w, h, time.time() - t0, loss)
+        return module.eval().requires_grad_(False)
+
     @torch.inference_mode()
     def upscale(self, img: np.ndarray) -> np.ndarray:
         """uint8 RGB (H, W, 3) -> uint8 RGB x4 in ``mode`` 'patch', 'fast' or
         'split', under the x8 self-ensemble if ``self_ensemble``, then
-        ``back_projection`` steps against the input."""
+        ``back_projection`` steps against the input.  With ``internal_learn``
+        the image is served by a copy of the weights adapted to it, once
+        before any ensemble transform; the base module, params and int8
+        scales (recalibrated on the adapted params) are restored afterwards."""
         img = np.asarray(img)
+        if self.internal_learn > 0:
+            adapted = self._internal_adapt(img, self.internal_learn)
+            if adapted is not None:
+                saved = (self.module, self.params, self._qparams)
+                self.module, self.params, self._qparams = adapted, params_of_module(adapted), None
+                try:
+                    return self._upscale_post(img)
+                finally:
+                    self.module, self.params, self._qparams = saved
+        return self._upscale_post(img)
+
+    def _upscale_post(self, img: np.ndarray) -> np.ndarray:
         out = self._upscale_ensemble(img) if self.self_ensemble else self._upscale_single(img)
         if self.back_projection > 0:
             out = self._back_project(out, img, self.back_projection)

@@ -48,7 +48,8 @@ def flatten_params(tree: Any, prefix: str = "") -> dict[str, Any]:
 
 
 def load_params(module: nn.Module, tree: Any) -> None:
-    """Copy a parameter tree into ``module``; every leaf must match by name and shape."""
+    """Copy a parameter tree (nested, or flat by slash-joined path) into
+    ``module``; every leaf must match by name and shape."""
     device = next(module.parameters()).device
     flat = flatten_params(params_from_numpy(tree, device))
     state = {k.replace("/", "."): v for k, v in flat.items()}

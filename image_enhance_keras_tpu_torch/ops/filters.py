@@ -1,9 +1,10 @@
-"""Separable filters for the metrics (the subset of ``ops/filters.py`` that SSIM needs).
+"""Separable and small filters (mirror of ``ops/filters.py``, ``uniform_filter`` not yet ported).
 
 ``separable_filter2d`` filters each channel with k_h along H and k_w along W
-after symmetric edge padding (scipy.ndimage's mode='reflect').  Each pass is
-a weighted sum of shifted slices in float32: no convolution library, and so
-no TF32, on the card.
+after symmetric edge padding (scipy.ndimage's mode='reflect'); SSIM's window
+and the training degradation's ``gaussian_blur`` run on it.  ``sharpen_pil``
+is PIL's ImageFilter.SHARPEN.  Each pass is a weighted sum of shifted slices
+in float32: no convolution library, and so no TF32, on the card.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["separable_filter2d"]
+__all__ = ["gaussian_blur", "separable_filter2d", "sharpen_pil"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,3 +69,36 @@ def separable_filter2d(x: torch.Tensor, k_h: np.ndarray, k_w: np.ndarray | None 
     y = _filter_axis(y, k_h, ax_h)
     y = _pad_symmetric(y, ax_w, len(k_w) // 2, (len(k_w) - 1) // 2)
     return _filter_axis(y, k_w, ax_w)
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float, truncate: float = 4.0) -> torch.Tensor:
+    """scipy.ndimage.gaussian_filter parity over the spatial axes (per channel)."""
+    if sigma <= 0:
+        return x
+    k = _gaussian_kernel1d(float(sigma), float(truncate))
+    return separable_filter2d(x, k, k, pad_mode="symmetric")
+
+
+# PIL ImageFilter.SHARPEN: 3x3 kernel, scale 16, offset 0
+_SHARPEN_KERNEL = np.array([[-2, -2, -2], [-2, 32, -2], [-2, -2, -2]], dtype=np.float32) / 16.0
+
+
+def sharpen_pil(x: torch.Tensor) -> torch.Tensor:
+    """PIL ImageFilter.SHARPEN parity: the 3x3 kernel on the interior, the
+    1-px border copied from the source; float 0..255 in, the interior
+    rounded and clipped to [0, 255] as PIL's uint8 store does.  The kernel's
+    weights are dyadic, so on integer inputs every sum is exact."""
+    if x.dim() not in (2, 3, 4):
+        raise ValueError(f"expected 2D/3D/4D array, got {x.dim()}D")
+    ax_h, ax_w = (0, 1) if x.dim() == 2 else (x.dim() - 3, x.dim() - 2)
+    xf = x.to(torch.float32)
+    hh, ww = x.shape[ax_h] - 2, x.shape[ax_w] - 2
+    acc = None
+    for i in range(3):
+        for j in range(3):
+            t = xf.narrow(ax_h, i, hh).narrow(ax_w, j, ww) * float(_SHARPEN_KERNEL[i, j])
+            acc = t if acc is None else acc + t
+    interior = torch.clamp(torch.round(acc), 0.0, 255.0).to(x.dtype)
+    y = x.clone()
+    y.narrow(ax_h, 1, hh).narrow(ax_w, 1, ww).copy_(interior)
+    return y

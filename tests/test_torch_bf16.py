@@ -230,8 +230,9 @@ def test_profiles():
     for dtype in (torch.float16, "mixed", "mixed-tail", []):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             profile_dtype(dtype)
+    # internal learning is ported: an unported profile under it still raises
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_engine.SuperResolver(dtype=torch.bfloat16, forward="int8", device="cpu", weights=None, internal_learn=1)
+        port_engine.SuperResolver(dtype=torch.float16, forward="int8", device="cpu", weights=None, internal_learn=1)
 
 
 # -- the CLIs, at a narrow width (features 16) -----------------------------------

@@ -549,3 +549,55 @@ def test_input_scaling_divides_on_the_card_as_on_the_cpu():
     want = im2double(v)
     assert torch.equal(im2double(v.cuda()).cpu(), want)
     assert torch.equal(want, torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("factor,shape", [(4, (2, 9, 7, 128)), (2, (2, 9, 7, 256)), (4, (1, 5, 3, 16))])
+def test_upsample_gradient_equals_plain_autograd(factor, shape, dtype):
+    """K3's autograd wrapper (the training path): its gradient is the plain
+    construction's autograd, bit for bit, and the forward launches once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the upsample kernel is CUDA C++ with no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_(True)
+    n, h, w, c = shape
+    g = torch.randn((n, factor * h, factor * w, c), generator=gen, device="cuda").to(dtype)
+    before = upsample.upsample_phase_tf1_kernel.launches
+    (got,) = torch.autograd.grad(upsample.upsample_phase_tf1_kernel(x, factor), x, g)
+    (want,) = torch.autograd.grad(upsample_phase_plain(x, factor), x, g)
+    torch.cuda.synchronize()
+    assert upsample.upsample_phase_tf1_kernel.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_cpu():
+    """One narrow didbl train step on the card (K3 forward, plain backward)
+    against the same step on the CPU: the loss within rtol 1e-5, each
+    gradient leaf within 1e-4 of its largest magnitude, the params within
+    1e-6 where the gradient is above Adam's eps region
+    (tests/test_torch_train_step.py's bounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the train step's x4 runs on the upsample kernel")
+    from image_enhance_keras_tpu_torch.engine import disable_tf32
+    from image_enhance_keras_tpu_torch.models.didbl import DifvdsrDouble
+    from image_enhance_keras_tpu_torch.models.zoo import init_params
+    from image_enhance_keras_tpu_torch.train.trainer import Adam, TrainState, make_train_step, mask_frozen
+
+    disable_tf32()
+    batch = np.random.default_rng(3).integers(0, 256, (2, 24, 24, 3), dtype=np.uint8)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        module = init_params(DifvdsrDouble(features=16, n_body53=2, n_light=1, n_tail53=1), 3).to(dev)
+        state = TrainState(module, Adam(mask_frozen(module), 1e-4))
+        before = upsample.upsample_phase_tf1_kernel.launches
+        state, m = make_train_step(4, 0.5)(state, torch.from_numpy(batch).to(dev))
+        res[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in state.opt.params.items()},
+                    {k: v.cpu() for k, v in state.params().items()}, upsample.upsample_phase_tf1_kernel.launches - before)
+    (lc, gc, pc, _), (lg, gg, pg, n3) = res["cpu"], res["cuda"]
+    assert n3 == 1
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k, g in gc.items():
+        assert float((gg[k] - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
+        assert float(torch.where(g.abs() >= 1e-6, (pg[k] - pc[k]).abs(), 0.0).max()) <= 1e-6, k
