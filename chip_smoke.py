@@ -132,7 +132,7 @@ Phases (each prints its elapsed seconds):
      checkpoint's npz export and its ``latest/`` served by ``main_dirpath``,
      byte-equal; one full-width train step on K3 and one on the plain x4
      (cuDNN deterministic), loss and every gradient leaf bit-equal; K3's
-     gradient (``_Upsample``) against the plain autograd, bit for bit, at x4
+     gradient (the registered backward of ``iek::upsample_phase_tf1``) against the plain autograd, bit for bit, at x4
      C = 128 and x2 C = 256 in float32 and bf16, with the plain backward's
      time; a narrow step on the card against the CPU within the CPU tests'
      bounds; ``learn --dtype bfloat16`` (K3's bf16 form counted); the median
@@ -141,6 +141,24 @@ Phases (each prints its elapsed seconds):
      ``xla`` and ``int8``, launches against the same run without it, and on
      an engine the base module, params and int8 scales restored and the next
      image equal to a fresh engine's.
+  7. the serving runtime: 7a the native codec's build (or why it is not
+     available: the compiler's or the loader's message) and its Set5 decode
+     ms beside PIL's and the numpy decoder's, all decodes equal; 7b
+     ``main_dirpath`` serial and ``--pipeline`` over 8 seeded 512x512 images
+     and the Set5 LR images under ``--forward int8 --dtype bfloat16 --mode
+     fast`` (X1 18, X2 6, K3 1 an image), and over the LR images under
+     float32 ``xla`` patch mode, each pair byte-equal with the same
+     launches, out-Mpix/s including IO and the device idle share of each
+     loop, ``PipelineStats``; 7c ``--save_intermediate``: the intermediate
+     equal to ``resize_pil_uint8`` of the input, skipped by a second run;
+     7d ``export_model`` of the int8 fast program at 512x512 and the float32
+     xla patch program at 128x128, both loaded by ``load_forward`` in one
+     fresh subprocess that imports no model and no engine and makes every
+     plain version the ops could reach raise: byte-equal to
+     ``resolver.upscale``, X1 18 / X2 6 / K3 1 and K3 1 launched from as
+     many ``iek::`` nodes, with the artifact's MB, load ms and ms an image
+     beside ``resolver.upscale``'s; 7e ``python -m
+     image_enhance_keras_tpu_torch upscale <dir> --forward int8`` exits 0.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -469,11 +487,12 @@ def _set5_phase(failures: list) -> dict:
             print(f"[chip_smoke] numpy PNG decoder vs PIL on {os.path.basename(p)}: bit-equal {same}", flush=True)
             if not same:
                 failures.append(f"numpy PNG decoder differs from PIL on {os.path.basename(p)}")
-    pio._pil = lambda: None
+    native = pio._native
+    pio._pil = pio._native = lambda: None
     try:
         return _set5_scores(failures)
     finally:
-        pio._pil = pil
+        pio._pil, pio._native = pil, native
 
 
 def _set5_scores(failures: list) -> dict:
@@ -2179,7 +2198,7 @@ TRAIN_NARROW = dict(features=16, n_body53=2, n_light=1, n_tail53=1)
 
 
 def _k3_grad_rows(failures: list, gpu: str) -> list:
-    """K3's gradient: the autograd of the kernel's wrapper (``_Upsample``,
+    """K3's gradient: the autograd of the kernel's op (``iek::upsample_phase_tf1``,
     whose backward is the autograd of the plain construction) against the
     plain construction's own autograd, bit for bit, at the training shapes
     (x4 at C = 128: the didbl train step's LR map; x2 at C = 256: difv4's),
@@ -2201,7 +2220,7 @@ def _k3_grad_rows(failures: list, gpu: str) -> list:
             torch.cuda.synchronize()
             equal = bool(torch.equal(gk, gp))
             z = torch.zeros(shape, dtype=dt, device="cuda", requires_grad=True)
-            bwd = lambda: torch.autograd.grad(upsample_phase_plain(z, f), z, g)  # what _Upsample.backward runs
+            bwd = lambda: torch.autograd.grad(upsample_phase_plain(z, f), z, g)  # what the op's backward runs
             row = {"factor": f, "shape": list(shape), "dtype": str(dt).replace("torch.", ""), "bit_equal": equal,
                    "max_abs_err": float((gk.float() - gp.float()).abs().max()),
                    "backward_ms": _time_ms(bwd, iters=6, warmup=2), "backward_device_ms": _device_ms(bwd)[0],
@@ -2213,7 +2232,7 @@ def _k3_grad_rows(failures: list, gpu: str) -> list:
                   f"({row['backward_device_ms']:.4f} device, byte bound {row['backward_bound_ms']:.4f}), "
                   f"K3 forward {row['forward_ms']:.4f} ms on {gpu}", flush=True)
             if not equal:
-                failures.append(f"K3 gradient x{f} {row['dtype']}: _Upsample's gradient differs from the plain "
+                failures.append(f"K3 gradient x{f} {row['dtype']}: the op's gradient differs from the plain "
                                 f"autograd by {row['max_abs_err']}")
             out.append(row)
             del x, g, z, gk, gp
@@ -2531,6 +2550,353 @@ def _train_phase(tmp: str, img, failures: list, rows: list, gpu: str) -> dict:
                             "bf16_step": counts16.get("upsample_phase_tf1_bf16", 0)}
     k3["train_backward"] = [{k: g[k] for k in ("factor", "dtype", "backward_ms", "backward_device_ms",
                                                "backward_bound_ms", "forward_ms")} for g in out["k3_grad"]]
+    return out
+
+
+# -- the serving runtime (phase 7) --------------------------------------------------
+
+#: phase 7's directory: SERVE_N seeded SERVE_HW x SERVE_HW images and the Set5 LR images
+SERVE_N, SERVE_HW = 8, 512
+#: main_dirpath flags of phase 7's two profiles: the JAX CLI's serving profile over the whole
+#: directory, and float32 xla patch over the Set5 LR images only (2.7 s of device time a
+#: 512x512 image would take it far over the phase's budget)
+SERVE_PROFILES = {"int8": ["--forward", "int8", "--dtype", "bfloat16", "--mode", "fast"],
+                  "xla": ["--forward", "xla", "--dtype", "float32", "--mode", "patch"]}
+#: the exported artifacts: export_model flags and the input size of each
+EXPORTS = {"int8": (["--forward", "int8", "--mode", "fast", "--hw", "512", "512"], 512),
+           "xla": (["--forward", "xla", "--dtype", "float32", "--mode", "patch", "--hw", "128", "128"], 128)}
+#: what a subprocess runs on each artifact: load it with every plain version the
+#: kernels' ops have made to raise, check the outputs and the launch counts, time it
+_LOAD_CHECK = r'''
+import json, statistics, sys, time
+import numpy as np
+import torch
+from image_enhance_keras_tpu_torch.ops import resize
+from image_enhance_keras_tpu_torch.ops.cuda import int8_xla, upsample
+from image_enhance_keras_tpu_torch.runtime.export import load_forward
+
+def refuse(*a, **k):
+    raise RuntimeError("a plain version ran in the loaded program")
+
+for name in ("light53_int8_xla_plain", "light_int8_xla_plain", "light53_int8_xla_dyn_plain"):
+    setattr(int8_xla, name, refuse)
+resize.upsample_phase_plain = refuse
+counted = {"light53_int8_xla": int8_xla.light53_int8_xla, "light_int8_xla": int8_xla.light_int8_xla,
+           "light53_int8_xla_dyn": int8_xla.light53_int8_xla_dyn, "upsample_phase_tf1": upsample.upsample_phase_tf1_kernel}
+out = {}
+for name, art, inp, want in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    fn = load_forward(art)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    x = np.load(inp)
+    for f in counted.values():
+        f.launches = 0
+    y = fn(x)
+    launches = {k: f.launches for k, f in counted.items() if f.launches}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn(x)
+        times.append((time.perf_counter() - t0) * 1e3)
+    nodes = {}
+    for n in fn.program.graph.nodes:
+        if n.op == "call_function" and getattr(n.target, "namespace", None) == "iek":
+            k = n.target.name().split("::")[1].split(".")[0]
+            nodes[k] = nodes.get(k, 0) + 1
+    out[name] = {"equal": bool(np.array_equal(y, np.load(want))), "launches": launches, "iek_nodes": nodes,
+                 "load_ms": load_ms, "ms": statistics.median(times)}
+out["modules"] = sorted(m for m in sys.modules if m.startswith(
+    ("image_enhance_keras_tpu_torch.models", "image_enhance_keras_tpu_torch.engine")))
+print(json.dumps(out))
+'''
+
+
+def _codec_phase(failures: list) -> dict:
+    """7a: build the native codec; decode ms per Set5 image by the native
+    codec, PIL and the numpy decoder, and whether their decodes are equal."""
+    import numpy as np
+
+    from image_enhance_keras_tpu_torch.data import io as pio
+    from image_enhance_keras_tpu_torch.runtime import native_io
+
+    t0 = time.perf_counter()
+    built = native_io.available()
+    out = {"built": built, "build_s": time.perf_counter() - t0, "reason": native_io.unavailable_reason()}
+    print(f"[chip_smoke] native codec (native/iek_io.cpp): built {built} in {out['build_s']:.2f} s"
+          + ("" if built else f"; not available: {(out['reason'] or '')[-400:]}"), flush=True)
+    decoders = {"numpy": pio._png_read}
+    if built:
+        decoders["native"] = native_io.imread
+    pil = pio._pil()
+    if pil is not None:
+        decoders["PIL"] = lambda p: np.asarray(pil.open(p).convert("RGB"))
+    files = pio.list_images(os.path.join(HERE, "data_set5"))
+    decoded, out["decode_ms"] = {}, {}
+    for name, dec in decoders.items():
+        dec(files[0])
+        t0 = time.perf_counter()
+        decoded[name] = [dec(p) for p in files]
+        out["decode_ms"][name] = (time.perf_counter() - t0) * 1e3 / len(files)
+    out["equal"] = all(np.array_equal(a, b) for name in decoded for a, b in zip(decoded[name], decoded["numpy"]))
+    print(f"[chip_smoke] Set5 decode ms per image: "
+          f"{ {k: round(v, 3) for k, v in out['decode_ms'].items()} }; the decodes of "
+          f"{sorted(decoded)} equal: {out['equal']}", flush=True)
+    if not out["equal"]:
+        failures.append(f"the codecs {sorted(decoded)} decode Set5 differently")
+    return out
+
+
+def _serve_dir(tmp: str) -> str:
+    """SERVE_N seeded SERVE_HW^2 images and the Set5 LR images (PIL-bicubic /4
+    of the GT, as scoring makes them), as PNG where a PNG writer is present
+    (the native codec or PIL), else as BMP."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.data import io as pio
+    from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
+
+    ext = ".png" if (pio._native() is not None or pio._pil() is not None) else ".bmp"
+    d = os.path.join(tmp, "serve_base")
+    os.makedirs(d)
+    for i in range(SERVE_N):
+        pio.imwrite(os.path.join(d, f"seeded_{i}{ext}"), _seeded_image(SERVE_HW, SERVE_HW, SEED + 70 + i))
+    for p in pio.list_images(os.path.join(HERE, "data_set5")):
+        hr = pio.imread(p)
+        h, w = hr.shape[0] // 4 * 4, hr.shape[1] // 4 * 4
+        lr = resize_pil_uint8(torch.from_numpy(np.array(hr[:h, :w])), (h // 4, w // 4))
+        stem = os.path.splitext(os.path.basename(p))[0].replace("_GT", "")
+        pio.imwrite(os.path.join(d, f"{stem}_LR{ext}"), lr.numpy().astype(np.uint8))
+    return d
+
+
+def _profiled(run):
+    """``run()`` under ``torch.profiler``: (its result, wall s, device idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_enhance_keras_tpu_torch.utils.profiling import device_kernel_times
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ms for _, ms, _ in device_kernel_times(prof)) / 1e3
+    return out, wall, max(0.0, 1.0 - busy / wall)
+
+
+def _pipeline_runs(tmp: str, base: str, failures: list, gpu: str) -> dict:
+    """7b: ``main_dirpath`` serial and ``--pipeline`` over the same directory in
+    each profile: outputs byte-equal, launches equal (int8: X1 18, X2 6, K3 1
+    an image, and one float32 K3 of the calibration); from inside each run
+    (``upscale_dir`` / ``serve_directory`` under ``torch.profiler``, the
+    engine's set-up excluded) out-Mpix/s including IO and the device idle
+    share, and ``PipelineStats``."""
+    import numpy as np
+
+    from image_enhance_keras_tpu_torch import engine
+    from image_enhance_keras_tpu_torch.cli import main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread, list_images
+    from image_enhance_keras_tpu_torch.runtime import serving
+
+    timed: dict = {}
+    serve, upscale_dir = serving.serve_directory, engine.SuperResolver.upscale_dir
+
+    def timed_serve(*a, **k):
+        st, timed["wall"], timed["idle"] = _profiled(lambda: serve(*a, **k))
+        timed["stats"] = st
+        return st
+
+    def timed_dir(self, *a, **k):
+        outs, timed["wall"], timed["idle"] = _profiled(lambda: upscale_dir(self, *a, **k))
+        return outs
+
+    res = {}
+    for prof, flags in SERVE_PROFILES.items():
+        src = base
+        if prof == "xla":
+            src = os.path.join(tmp, "serve_lr")
+            os.makedirs(src)
+            for n in os.listdir(base):
+                if "_LR" in n:
+                    shutil.copy(os.path.join(base, n), src)
+        n_img = len(list_images(src))
+        out_px = sum(int(np.prod(imread(p).shape[:2])) * 16 for p in list_images(src))
+        runs = {}
+        for name, extra in (("serial", []), ("pipeline", ["--pipeline"])):
+            d = shutil.copytree(src, os.path.join(tmp, f"serve_{prof}_{name}"))
+            _zero_counts()
+            serving.serve_directory, engine.SuperResolver.upscale_dir = timed_serve, timed_dir
+            try:
+                rc = main_dirpath.main([d, *flags, *extra])
+            finally:
+                serving.serve_directory, engine.SuperResolver.upscale_dir = serve, upscale_dir
+            files = {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d)) if "_scaled(1x)" in n}
+            runs[name] = {"rc": rc, "launches": _counts(), "files": files, "wall": timed["wall"],
+                          "idle": timed["idle"]}
+            if rc != 0 or len(files) != n_img:
+                failures.append(f"7b main_dirpath {' '.join(flags + extra)}: rc {rc}, {len(files)} of {n_img} outputs")
+        st = timed["stats"]
+        row = {"images": n_img, "out_mpix": out_px / 1e6, "launches": runs["serial"]["launches"],
+               "serial_out_mpix_s": out_px / runs["serial"]["wall"] / 1e6, "serial_s": runs["serial"]["wall"],
+               "pipeline": {"out_mpix_s": st.out_mpix_s, "wall_s": st.wall_s, "decode_s": st.decode_s,
+                            "device_s": st.device_s, "encode_s": st.encode_s, "images": st.images},
+               "idle_share": {"serial": runs["serial"]["idle"], "pipeline": runs["pipeline"]["idle"]},
+               "bytes_equal": runs["serial"]["files"] == runs["pipeline"]["files"],
+               "launches_equal": runs["serial"]["launches"] == runs["pipeline"]["launches"]}
+        print(f"[chip_smoke] 7b {prof} ({' '.join(flags)}), {n_img} images, {row['out_mpix']:.3f} out-Mpix: serial "
+              f"{row['serial_out_mpix_s']:.3f} out-Mpix/s incl. IO ({row['serial_s']:.3f} s, idle "
+              f"{runs['serial']['idle']:.3f}); --pipeline {st.out_mpix_s:.3f} out-Mpix/s incl. IO (wall "
+              f"{st.wall_s:.3f} s, decode {st.decode_s:.3f} s, device {st.device_s:.3f} s, encode {st.encode_s:.3f} s, "
+              f"idle {runs['pipeline']['idle']:.3f}); outputs byte-equal {row['bytes_equal']}; launches "
+              f"{runs['serial']['launches']} / {runs['pipeline']['launches']}; torch.profiler on; {gpu}", flush=True)
+        if not row["bytes_equal"] or not row["launches_equal"] or st.images != n_img:
+            failures.append(f"7b {prof}: --pipeline differs from the serial run (bytes equal {row['bytes_equal']}, "
+                            f"launches {runs['serial']['launches']} / {runs['pipeline']['launches']})")
+        if prof == "int8":
+            want = {"light53_int8_xla": 18 * n_img, "light_int8_xla": 6 * n_img, "upsample_phase_tf1": n_img + 1,
+                    "upsample_phase_tf1_bf16": n_img}
+            if runs["serial"]["launches"] != want:
+                failures.append(f"7b int8: launches {runs['serial']['launches']} != {want}")
+        elif not runs["serial"]["launches"].get("upsample_phase_tf1"):
+            failures.append(f"7b xla: K3 never launched ({runs['serial']['launches']})")
+        res[prof] = row
+    return res
+
+
+def _intermediate_run(tmp: str, base: str, failures: list) -> dict:
+    """7c: ``--save_intermediate`` on one Set5 LR image: the intermediate is
+    ``resize_pil_uint8`` of the input at the output's size, byte for byte, and
+    a second run over the directory skips it."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.cli import main_dirpath
+    from image_enhance_keras_tpu_torch.data.io import imread
+    from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
+
+    d = os.path.join(tmp, "intermediate")
+    os.makedirs(d)
+    src = next(n for n in sorted(os.listdir(base)) if n.startswith("bird_LR"))
+    shutil.copy(os.path.join(base, src), d)
+    stem, ext = os.path.splitext(src)
+    argv = [d, *SERVE_PROFILES["int8"], "--save_intermediate"]
+    rc = main_dirpath.main(argv)
+    names = sorted(os.listdir(d))
+    inter = os.path.join(d, f"{stem}_intermediate_{ext}")
+    ok = rc == 0 and os.path.exists(inter)
+    equal = False
+    if ok:
+        img, got = imread(os.path.join(d, src)), imread(inter)
+        want = resize_pil_uint8(torch.from_numpy(img), got.shape[:2]).numpy().astype(np.uint8)
+        equal = got.shape == (img.shape[0] * 4, img.shape[1] * 4, 3) and bool(np.array_equal(got, want))
+    rc2 = main_dirpath.main(argv)
+    skipped = rc2 == 0 and sorted(os.listdir(d)) == names
+    print(f"[chip_smoke] 7c --save_intermediate: {names}; the intermediate equals resize_pil_uint8 of the input: "
+          f"{equal}; a second run skips it: {skipped}", flush=True)
+    if not (ok and equal and skipped):
+        failures.append(f"7c --save_intermediate: written {ok}, equal {equal}, second run skips it {skipped}")
+    return {"files": names, "equal": equal, "second_run_skips": skipped}
+
+
+def _export_runs(tmp: str, img128, failures: list, gpu: str) -> dict:
+    """7d: ``export_model`` of the int8 serving program (fast, 512x512) and of
+    the float32 xla patch program (128x128); each loaded in one fresh
+    subprocess that imports no model and no engine, with every plain version
+    the ops could reach made to raise: byte-equal to ``resolver.upscale``, the
+    kernels reached as ``iek::`` ops with their launch counts; MB, load ms and
+    ms per image beside ``resolver.upscale``'s."""
+    import statistics
+
+    import numpy as np
+
+    from image_enhance_keras_tpu_torch.cli import export_model
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+
+    weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
+    images = {"int8": _seeded_image(512, 512, SEED + 80), "xla": img128}
+    engines = {"int8": dict(dtype="bfloat16", forward="int8", mode="fast", split_tile=128),
+               "xla": dict(forward="xla", mode="patch", split_tile=128)}
+    want = {"int8": {"light53_int8_xla": 18, "light_int8_xla": 6, "upsample_phase_tf1": 1},
+            "xla": {"upsample_phase_tf1": 1}}
+    res, cases = {}, []
+    for name, (flags, _) in EXPORTS.items():
+        art = os.path.join(tmp, f"{name}.iekx")
+        t0 = time.perf_counter()
+        rc = export_model.main([art, *flags])
+        export_s = time.perf_counter() - t0
+        eng = SuperResolver(weights=weights, **engines[name])
+        y = eng.upscale(images[name])
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.upscale(images[name])
+            times.append((time.perf_counter() - t0) * 1e3)
+        np.save(os.path.join(tmp, f"{name}_in.npy"), images[name])
+        np.save(os.path.join(tmp, f"{name}_want.npy"), y)
+        res[name] = {"rc": rc, "export_s": export_s, "mb": os.path.getsize(art) / 1e6,
+                     "upscale_ms": statistics.median(times)}
+        cases.append([name, art, os.path.join(tmp, f"{name}_in.npy"), os.path.join(tmp, f"{name}_want.npy")])
+    proc = subprocess.run([sys.executable, "-c", _LOAD_CHECK, json.dumps(cases)], capture_output=True, text=True,
+                          cwd=HERE, timeout=600)
+    try:
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        failures.append(f"7d: the loading subprocess failed (rc {proc.returncode}): {proc.stderr[-2000:]}")
+        return res
+    for name in EXPORTS:
+        r = {**res[name], **loaded[name]}
+        res[name] = r
+        print(f"[chip_smoke] 7d export_model {' '.join(EXPORTS[name][0])}: rc {r['rc']}, {r['mb']:.3f} MB in "
+              f"{r['export_s']:.2f} s; loaded in a fresh process in {r['load_ms']:.1f} ms; byte-equal to "
+              f"resolver.upscale {r['equal']}; launches {r['launches']}; iek:: nodes {r['iek_nodes']}; "
+              f"{r['ms']:.3f} ms per image against resolver.upscale's {r['upscale_ms']:.3f}; {gpu}", flush=True)
+        if r["rc"] != 0 or not r["equal"] or r["launches"] != want[name] or r["iek_nodes"] != want[name]:
+            failures.append(f"7d {name} artifact: rc {r['rc']}, equal {r['equal']}, launches {r['launches']}, "
+                            f"iek:: nodes {r['iek_nodes']} (want {want[name]})")
+    res["modules_in_loader"] = loaded["modules"]
+    if loaded["modules"]:
+        failures.append(f"7d: loading the artifacts imported {loaded['modules']}")
+    return res
+
+
+def _front_door(tmp: str, base: str, failures: list) -> dict:
+    """7e: ``python -m image_enhance_keras_tpu_torch upscale <dir> --forward int8`` exits 0."""
+    d = os.path.join(tmp, "front_door")
+    os.makedirs(d)
+    src = next(n for n in sorted(os.listdir(base)) if n.startswith("head_LR"))
+    shutil.copy(os.path.join(base, src), d)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "image_enhance_keras_tpu_torch", "upscale", d, "--forward", "int8"],
+                          capture_output=True, text=True, cwd=HERE, timeout=600)
+    secs = time.perf_counter() - t0
+    wrote = sorted(n for n in os.listdir(d) if "_scaled(1x)" in n)
+    print(f"[chip_smoke] 7e python -m image_enhance_keras_tpu_torch upscale <dir> --forward int8: rc "
+          f"{proc.returncode} in {secs:.2f} s, wrote {wrote}", flush=True)
+    if proc.returncode != 0 or not wrote:
+        failures.append(f"7e: python -m image_enhance_keras_tpu_torch upscale: rc {proc.returncode}, "
+                        f"{proc.stderr[-1500:]}")
+    return {"rc": proc.returncode, "s": secs, "wrote": wrote}
+
+
+def _serving_phase(tmp: str, img, failures: list, gpu: str) -> dict:
+    """Phase 7: the serving runtime (the native codec, main_dirpath --pipeline
+    and --save_intermediate, the exported artifacts, the python -m front door)."""
+    t0 = time.time()
+    out = {"codec": _codec_phase(failures)}
+    base = _serve_dir(tmp)
+    _phase("7a the native codec", t0)
+    out["pipeline"] = _pipeline_runs(tmp, base, failures, gpu)
+    _phase("7b main_dirpath --pipeline", t0)
+    out["save_intermediate"] = _intermediate_run(tmp, base, failures)
+    _phase("7c --save_intermediate", t0)
+    out["export"] = _export_runs(tmp, img, failures, gpu)
+    _phase("7d export_model and load_forward", t0)
+    out["front_door"] = _front_door(tmp, base, failures)
+    _phase("7e python -m image_enhance_keras_tpu_torch", t0)
     return out
 
 
@@ -3314,6 +3680,13 @@ def main() -> int:
         train = _train_phase(tmp, img, failures, rows, gpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 7. the serving runtime -------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_serve_")
+    try:
+        serve = _serving_phase(tmp, img, failures, gpu)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     _phase("total", t_all)
 
     if failures:
@@ -3327,7 +3700,7 @@ def main() -> int:
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()},
                       "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "mixed_cli": mixed_cli,
                       "split": split, "extras": extras, "int8_cli": int8_cli, "int8_profile": int8_profile,
-                      "set5": set5, "zoo": zoo, "train": train}),
+                      "set5": set5, "zoo": zoo, "train": train, "serving": serve}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

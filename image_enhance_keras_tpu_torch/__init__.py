@@ -8,8 +8,12 @@ float32 Light53 and Light blocks on hand-written CUDA kernels,
 kernels, ``csrc/tower.cu``) and ``pallas_int8`` (every residual block on
 int8 CUDA kernels, ``csrc/int8_blocks.cu``, the x4 on ``csrc/upsample.cu``),
 scores outputs with ``cli.scorpath`` (PSNR-Y / SSIM-Y, NTIRE protocol),
-and trains every zoo model with ``cli.learn`` (``train/trainer.py``).
-Nothing here imports JAX.
+trains every zoo model with ``cli.learn`` (``train/trainer.py``), serves
+directories through ``runtime/serving.py`` (``main_dirpath --pipeline``)
+and exports serving programs (``cli.export_model``, ``runtime/export.py``,
+every kernel a ``torch.library`` op of ``ops/cuda/library.py``); ``python
+-m image_enhance_keras_tpu_torch`` is the front door.  Nothing here imports
+JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,12 @@
 """Directory inference CLI (mirror of ``cli/main_dirpath.py``).
 
 x4-upscales every image of a directory into ``<stem>_<suffix>(<scale>x)<ext>``
-beside it.  The JAX CLI's flags all parse; those this slice does not run
-are rejected with "not yet ported", never ignored.
+beside it, one image after another, or with ``--pipeline`` through the
+overlapped decode / device / encode pipeline (``runtime/serving.py``).
+``--save_intermediate`` also writes ``<stem>_intermediate_<ext>``, the
+input PIL-bicubic resized to the output's size (serial loop only).  The JAX
+CLI's flags all parse; ``--devices`` above 1 is rejected with "not yet
+ported", never ignored.
 
 Usage:  python -m image_enhance_keras_tpu_torch.cli.main_dirpath <imgdir> [options]
 """
@@ -17,15 +21,6 @@ from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY
 from image_enhance_keras_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
-
-_NOT_PORTED = "not yet ported in image_enhance_keras_tpu_torch"
-
-#: JAX flags this slice does not run at all: dest -> (flag, default)
-_UNPORTED_FLAGS = {
-    "save_intermediate": ("--save_intermediate", False),
-    "devices": ("--devices", 1),
-    "pipeline": ("--pipeline", False),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,19 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "on pairs built from the input itself before upscaling it")
     p.add_argument("--internal-learn-lr", type=float, default=None,
                    help="adaptation learning rate (default 2e-5)")
-    # JAX flags that parse but are rejected below
-    p.add_argument("--save_intermediate", default=False, action="store_true")
-    p.add_argument("--devices", default=1, type=int)
-    p.add_argument("--pipeline", action="store_true")
+    p.add_argument("--save_intermediate", default=False, action="store_true",
+                   help="also write <stem>_intermediate_<ext>: the input PIL-bicubic resized to the output size")
+    p.add_argument("--devices", default=1, type=int,
+                   help="data-parallel devices (above 1 not yet ported)")
+    p.add_argument("--pipeline", action="store_true",
+                   help="overlap decode / device / encode (native threaded IO)")
     return p
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (flag, default) in _UNPORTED_FLAGS.items():
-        if getattr(args, dest) != default:
-            parser.error(f"{flag} is {_NOT_PORTED}")
+    if args.devices > 1:
+        parser.error("--devices above 1 (data-parallel inference) is not yet ported in image_enhance_keras_tpu_torch")
     # the int8 knobs are read from the environment at call time: scope them to
     # this run, so that an in-process caller's next main() sees the defaults
     saved = {k: os.environ.get(k) for k in ("IEK_INT8_ACC", "IEK_INT8_EMIT")}
@@ -140,7 +136,17 @@ def _run(args) -> int:
         resolver.int8_calib_dir = args.int8_calib_dir
     if args.internal_learn_lr is not None:
         resolver.internal_learn_lr = args.internal_learn_lr
-    outs = resolver.upscale_dir(args.imgpath, suffix=args.suffix, scale_label=args.scale)
+    if args.pipeline:
+        from image_enhance_keras_tpu_torch.runtime.serving import serve_directory
+
+        if args.save_intermediate:
+            log.warning("--save_intermediate is not supported by the overlapped --pipeline path; no "
+                        "intermediate images will be written")
+        stats = serve_directory(resolver, args.imgpath, suffix=args.suffix, scale_label=args.scale)
+        log.info("wrote %d images (%.2f out-Mpix/s incl. IO)", stats.images, stats.out_mpix_s)
+        return 0
+    outs = resolver.upscale_dir(args.imgpath, suffix=args.suffix, scale_label=args.scale,
+                                save_intermediate=args.save_intermediate)
     log.info("wrote %d images", len(outs))
     return 0
 

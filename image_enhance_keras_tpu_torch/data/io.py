@@ -1,10 +1,13 @@
 """Image file IO (mirror of ``data/io.py``).
 
-Decode order: PIL when importable, else a numpy + zlib PNG decoder (8-bit
-grey, RGB, RGBA and palette, non-interlaced; anything else raises), else a
-numpy 24/32-bit BMP codec.  All return RGB uint8 (H, W, 3), as PIL's
-``convert("RGB")`` does: grey is replicated, alpha is dropped.  Without PIL
-only BMP can be written.  The native codec comes in a later slice.
+Decode order, as JAX's: the native codec (``runtime/native_io.py``: PNG,
+BMP, PPM) when it builds, else PIL when importable, else a numpy + zlib PNG
+decoder (8-bit grey, RGB, RGBA and palette, non-interlaced; anything else
+raises), else a numpy 24/32-bit BMP codec.  All return RGB uint8 (H, W, 3),
+as PIL's ``convert("RGB")`` does: grey is replicated, alpha is dropped.
+Writes go to the native codec, then PIL; without either only BMP can be
+written.  The native PNG writer's files are 8-bit RGB, non-interlaced, so
+the numpy decoder reads them too.
 """
 
 from __future__ import annotations
@@ -33,8 +36,20 @@ def _pil():
     return Image
 
 
+def _native():
+    """The native codec module when its library builds and loads, else None."""
+    from image_enhance_keras_tpu_torch.runtime import native_io
+
+    return native_io if native_io.available() else None
+
+
 def imread(path: str) -> np.ndarray:
     """Read an image file as RGB uint8 (H, W, 3)."""
+    native = _native()
+    if native is not None:
+        arr = native.imread(path)
+        if arr is not None:
+            return arr
     image_mod = _pil()
     if image_mod is not None:
         with image_mod.open(path) as im:
@@ -51,6 +66,9 @@ def imwrite(path: str, arr: np.ndarray) -> None:
     arr = np.asarray(arr)
     if arr.dtype != np.uint8:
         arr = np.clip(np.round(arr), 0, 255).astype(np.uint8)
+    native = _native()
+    if native is not None and native.imwrite(path, arr):
+        return
     image_mod = _pil()
     if image_mod is not None:
         image_mod.fromarray(arr).save(path)
@@ -58,7 +76,8 @@ def imwrite(path: str, arr: np.ndarray) -> None:
     if path.lower().endswith(".bmp"):
         _bmp_write(path, arr)
         return
-    raise RuntimeError(f"no codec available for {path}: PIL is missing and only .bmp has a numpy codec")
+    raise RuntimeError(f"no codec available for {path}: the native codec and PIL are missing and only "
+                       ".bmp has a numpy codec")
 
 
 def _bmp_read(path: str) -> np.ndarray:

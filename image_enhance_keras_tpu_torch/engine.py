@@ -53,6 +53,7 @@ from image_enhance_keras_tpu_torch.models.weights import load_params, params_of_
 from image_enhance_keras_tpu_torch.models.zoo import get_model, init_params
 from image_enhance_keras_tpu_torch.models.zoo_int8 import int8_support
 from image_enhance_keras_tpu_torch.ops.color import im2double
+from image_enhance_keras_tpu_torch.ops.conv import disable_tf32
 from image_enhance_keras_tpu_torch.ops.resize import resize_pil_uint8
 from image_enhance_keras_tpu_torch.tiling.tiles import (
     TilePlan,
@@ -90,14 +91,6 @@ def resolve_device(device: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be cuda or cpu, got {device!r}")
     return dev
-
-
-def disable_tf32() -> None:
-    """Full float32 convs and matmuls on the card, and bf16 matmuls that sum in
-    float32 throughout: the parity bounds assume it."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class SuperResolver:
@@ -794,12 +787,20 @@ class SuperResolver:
             out = self._back_project(out, frames, self.back_projection)
         return out
 
-    def upscale_file(self, img_path: str, suffix: str = "scaled", scale_label: int = 1) -> str:
+    def upscale_file(self, img_path: str, suffix: str = "scaled", scale_label: int = 1,
+                     save_intermediate: bool = False) -> str:
+        """Upscale one file into ``output_name``; ``save_intermediate`` also
+        writes the classical comparison image, ``resize_pil_uint8`` of the input
+        at the output's size, as ``<stem>_intermediate_<ext>`` (``ext`` keeps its dot)."""
         t0 = time.time()
         img = imread(img_path)
         out = self.upscale(img)
         dst = output_name(img_path, suffix, scale_label)
         imwrite(dst, out)
+        if save_intermediate:
+            stem, ext = os.path.splitext(img_path)
+            inter = resize_pil_uint8(torch.from_numpy(np.ascontiguousarray(img)), (out.shape[0], out.shape[1]))
+            imwrite(f"{stem}_intermediate_{ext}", inter.numpy().astype(np.uint8))
         log.info(
             "%s (%dx%d) -> %s (%dx%d) in %.2fs",
             os.path.basename(img_path), img.shape[1], img.shape[0],
@@ -807,7 +808,8 @@ class SuperResolver:
         )
         return dst
 
-    def upscale_dir(self, dir_path: str, suffix: str = "scaled", scale_label: int = 1) -> list[str]:
+    def upscale_dir(self, dir_path: str, suffix: str = "scaled", scale_label: int = 1,
+                    save_intermediate: bool = False) -> list[str]:
         """Upscale every image of a directory, skipping outputs of earlier runs."""
         outs = []
         tag = f"_{suffix}("
@@ -815,5 +817,5 @@ class SuperResolver:
             base = os.path.basename(path)
             if tag in base or "_intermediate_" in base:
                 continue
-            outs.append(self.upscale_file(path, suffix, scale_label))
+            outs.append(self.upscale_file(path, suffix, scale_label, save_intermediate))
         return outs

@@ -18,6 +18,15 @@ import torch
 import torch.nn.functional as F
 
 
+def disable_tf32() -> None:
+    """Full float32 convs and matmuls on the card, and bf16 matmuls that sum in
+    float32 throughout: the parity bounds assume it (process-wide switches,
+    set by every engine and by a loaded exported program)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def conv2d_nhwc(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """(N, H, W, Cin) * (kh, kw, Cin, Cout) -> (N, H, W, Cout), SAME zero padding."""
     kh, kw = int(kernel.shape[0]), int(kernel.shape[1])

@@ -133,6 +133,14 @@ def library(stem: str) -> ctypes.CDLL:
         return lib
 
 
+def check_aligned(*tensors) -> None:
+    """What only real device memory can show: the kernels take 16-byte
+    aligned tensors (None, an absent optional tensor, passes)."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the CUDA kernels take 16-byte aligned tensors")
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if code != 0:

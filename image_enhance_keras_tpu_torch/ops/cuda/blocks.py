@@ -1,13 +1,15 @@
 """Fused Light53 and Light residual blocks: CUDA kernels and their plain versions.
 
 Counterpart of ``ops/pallas/blocks.py``.  ``fused_light53_block`` and
-``fused_light_block`` keep the JAX signatures (x NHWC, weights HWIO).  On a
-CUDA tensor they launch the kernels of ``csrc/blocks.cu`` (two launches per
-block, see the notes there) or raise; on a CPU tensor they run the plain
-PyTorch versions below, which repeat the kernels' arithmetic with
-``F.conv2d``.  Each wrapper counts in ``.launches`` the blocks it ran on
-the kernels (one per call, two CUDA launches each), and in
-``.bf16_launches`` those of them on bf16 tensors.
+``fused_light_block`` keep the JAX signatures (x NHWC, weights HWIO).  They
+check their arguments and call the ops ``iek::light53_block`` and
+``iek::light_block`` (``ops/cuda/library.py``): on a CUDA tensor the op
+launches the kernels of ``csrc/blocks.cu`` (two launches per block, see the
+notes there; :func:`launch_light53_block`, :func:`launch_light_block`) or
+raises; on a CPU tensor it runs the plain PyTorch versions below, which
+repeat the kernels' arithmetic with ``F.conv2d``.  Each wrapper counts in
+``.launches`` the blocks its op ran on the kernels (one per call, two CUDA
+launches each), and in ``.bf16_launches`` those of them on bf16 tensors.
 
 x is float32 or bf16, as the TPU kernels take any input dtype; weights and
 biases are float32.  float32 x runs the convolutions on the TF32 tensor
@@ -28,12 +30,14 @@ import functools
 import torch
 
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
-from image_enhance_keras_tpu_torch.ops.cuda import _build, bf16
+from image_enhance_keras_tpu_torch.ops.cuda import _build, bf16, library
 from image_enhance_keras_tpu_torch.ops.cuda.tf32x3 import CUDA_CHANNELS, packed
 
 __all__ = [
     "fused_light53_block",
     "fused_light_block",
+    "launch_light53_block",
+    "launch_light_block",
     "light53_block_bf16",
     "light53_block_plain",
     "light_block_bf16",
@@ -121,8 +125,13 @@ def check_args(x: torch.Tensor, kernels, biases, lead: tuple = ()) -> None:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("the CUDA kernels take 16-byte aligned tensors")
+
+
+def device_weights(x: torch.Tensor, *weights: torch.Tensor) -> list:
+    """The weights for the op on x's device: HWIO for the plain versions, on
+    CUDA the packed B operand of x's dtype (``bf16.packed`` or the 3xTF32
+    ``tf32x3.packed``)."""
+    return library.device_layout(x, bf16.packed if x.dtype == torch.bfloat16 else packed, *weights)
 
 
 def stream_of(x: torch.Tensor) -> int:
@@ -133,28 +142,41 @@ def fused_light53_block(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
                         res_scale: float = 0.1, identity_scale: float = 0.9):
     """Batched Light53 block, (N, H, W, C) float32 or bf16, SAME semantics."""
     check_args(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)], [ba1, ba2, bb1, bb2])
-    if x.device.type == "cpu":
-        return light53_block_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
-                                   res_scale, identity_scale)
+    wa1, wa2, wb1, wb2 = device_weights(x, wa1, wa2, wb1, wb2)
+    return library.light53_block(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2, float(res_scale),
+                                 float(identity_scale))
+
+
+def fused_light_block(x, w1, b1, w2, b2, res_scale: float = 0.1):
+    """Batched Light block, (N, H, W, C) float32 or bf16, SAME semantics."""
+    check_args(x, [(w1, 3), (w2, 3)], [b1, b2])
+    w1, w2 = device_weights(x, w1, w2)
+    return library.light_block(x, w1, b1, w2, b2, float(res_scale))
+
+
+def launch_light53_block(x, wa1p, ba1, wa2p, ba2, wb1p, bb1, wb2p, bb2, res_scale: float,
+                         identity_scale: float) -> torch.Tensor:
+    """K1 on CUDA tensors, the weights packed (:func:`device_weights`): the
+    CUDA implementation of ``iek::light53_block``."""
+    _build.check_aligned(x, wa1p, ba1, wa2p, ba2, wb1p, bb1, wb2p, bb2)
     lib = _build.library("blocks")
     n, h, w, c = (int(s) for s in x.shape)
     ta, tb, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
     with torch.cuda.device(x.device):
         if x.dtype == torch.bfloat16:
             park = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-            pk = bf16.packed
             code = lib.iek_light53_block_bf16(
                 x.data_ptr(),
-                pk(wa1).data_ptr(), ba1.data_ptr(), pk(wa2).data_ptr(), ba2.data_ptr(),
-                pk(wb1).data_ptr(), bb1.data_ptr(), pk(wb2).data_ptr(), bb2.data_ptr(),
+                wa1p.data_ptr(), ba1.data_ptr(), wa2p.data_ptr(), ba2.data_ptr(),
+                wb1p.data_ptr(), bb1.data_ptr(), wb2p.data_ptr(), bb2.data_ptr(),
                 ta.data_ptr(), tb.data_ptr(), park.data_ptr(), out.data_ptr(),
                 n, h, w, c, float(res_scale), float(identity_scale / res_scale), stream_of(x),
             )
         else:
             code = lib.iek_light53_block(
                 x.data_ptr(),
-                packed(wa1).data_ptr(), ba1.data_ptr(), packed(wa2).data_ptr(), ba2.data_ptr(),
-                packed(wb1).data_ptr(), bb1.data_ptr(), packed(wb2).data_ptr(), bb2.data_ptr(),
+                wa1p.data_ptr(), ba1.data_ptr(), wa2p.data_ptr(), ba2.data_ptr(),
+                wb1p.data_ptr(), bb1.data_ptr(), wb2p.data_ptr(), bb2.data_ptr(),
                 ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
                 n, h, w, c, float(res_scale), float(identity_scale / res_scale), stream_of(x),
             )
@@ -164,19 +186,16 @@ def fused_light53_block(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
     return out
 
 
-def fused_light_block(x, w1, b1, w2, b2, res_scale: float = 0.1):
-    """Batched Light block, (N, H, W, C) float32 or bf16, SAME semantics."""
-    check_args(x, [(w1, 3), (w2, 3)], [b1, b2])
-    if x.device.type == "cpu":
-        return light_block_plain(x, w1, b1, w2, b2, res_scale)
+def launch_light_block(x, w1p, b1, w2p, b2, res_scale: float) -> torch.Tensor:
+    """K2 on CUDA tensors, the weights packed: the CUDA implementation of ``iek::light_block``."""
+    _build.check_aligned(x, w1p, b1, w2p, b2)
     lib = _build.library("blocks")
     n, h, w, c = (int(s) for s in x.shape)
     t, out = torch.empty_like(x), torch.empty_like(x)
-    fn, pk = ((lib.iek_light_block_bf16, bf16.packed) if x.dtype == torch.bfloat16
-              else (lib.iek_light_block, packed))
+    fn = lib.iek_light_block_bf16 if x.dtype == torch.bfloat16 else lib.iek_light_block
     with torch.cuda.device(x.device):
         code = fn(
-            x.data_ptr(), pk(w1).data_ptr(), b1.data_ptr(), pk(w2).data_ptr(), b2.data_ptr(),
+            x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
             t.data_ptr(), out.data_ptr(), n, h, w, c, float(res_scale), stream_of(x),
         )
     _build.check(lib, code, "fused_light_block")

@@ -4,10 +4,13 @@ Counterpart of ``ops/pallas/int8_blocks.py``.  ``light53_int8`` and
 ``light_int8`` keep the JAX signatures (x NHWC bf16 or float32, weights
 HWIO int8 from :func:`quantize_weights_per_channel`, per-output-channel
 float32 scales, float32 biases, ``act_scales``, ``tile``); the output has
-x's dtype.  On a CUDA tensor they launch the kernels of
-``csrc/int8_blocks.cu`` or raise; on a CPU tensor they run the plain
-PyTorch versions below.  Each wrapper counts in ``.launches`` the blocks it
-ran on the kernels.  The kernels run the s8 x s8 -> s32 products on the
+x's dtype.  They check their arguments and call the ops
+``iek::light53_int8`` and ``iek::light_int8`` (``ops/cuda/library.py``):
+on a CUDA tensor the op launches the kernels of ``csrc/int8_blocks.cu``
+(:func:`launch_light53_int8`, :func:`launch_light_int8`, the weights in
+the packed layout of :func:`_packed`) or raises; on a CPU tensor it runs
+the plain PyTorch versions below.  Each wrapper counts in ``.launches`` the
+blocks its op ran on the kernels.  The kernels run the s8 x s8 -> s32 products on the
 tensor cores (wgmma) and take exactly C = 128 channels (:data:`CUDA_CHANNELS`).
 
 Two scale modes, as in JAX:
@@ -37,12 +40,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from image_enhance_keras_tpu_torch.ops.cuda import _build
+from image_enhance_keras_tpu_torch.ops.cuda import _build, library
 
 __all__ = [
     "quantize_weights_per_channel",
     "light53_int8",
     "light_int8",
+    "launch_light53_int8",
+    "launch_light_int8",
     "light53_int8_plain",
     "light_int8_plain",
     "light53_int8_dynamic_plain",
@@ -315,8 +320,6 @@ def _check(x, convs, vectors, act_scales, act_shape: tuple, cuda_dtypes=ACT_DTYP
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("the CUDA kernels take 16-byte aligned tensors")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -355,17 +358,34 @@ def light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, b
     """
     _check(x, [(wa1q, 3), (wa2q, 5), (wb1q, 5), (wb2q, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (3,))
-    convs = (wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2)
-    if x.device.type == "cpu":
-        if act_scales is None:
-            return light53_int8_dynamic_plain(x, *convs, tile, res_scale, identity_scale)
-        return light53_int8_plain(x, *convs, act_scales, res_scale, identity_scale)
+    wa1q, wa2q, wb1q, wb2q = library.device_layout(x, _packed, wa1q, wa2q, wb1q, wb2q)
+    return library.light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, bb2,
+                                float(res_scale), float(identity_scale), [int(t) for t in tile], act_scales)
+
+
+def light_int8(x, w1q, s1, b1, w2q, s2, b2, res_scale: float = 0.1,
+               tile: tuple[int, int] = (64, 128), act_scales=None):
+    """int8 Light block (conv3-relu-conv3 residual), (N, H, W, C) bf16 or float32, SAME.
+
+    ``act_scales``: (2,) float32 calibrated scales (input, intermediate);
+    None quantizes every ``tile`` window dynamically.
+    """
+    _check(x, [(w1q, 3), (w2q, 3)], [s1, b1, s2, b2], act_scales, (2,))
+    w1q, w2q = library.device_layout(x, _packed, w1q, w2q)
+    return library.light_int8(x, w1q, s1, b1, w2q, s2, b2, float(res_scale), [int(t) for t in tile],
+                              act_scales)
+
+
+def launch_light53_int8(x, wa1p, sa1, ba1, wa2p, sa2, ba2, wb1p, sb1, bb1, wb2p, sb2, bb2,
+                        res_scale: float, identity_scale: float, tile, act_scales) -> torch.Tensor:
+    """K4 on CUDA tensors, the codes packed (:func:`_packed`): the CUDA
+    implementation of ``iek::light53_int8``, static or dynamic."""
+    convs = (wa1p, sa1, ba1, wa2p, sa2, ba2, wb1p, sb1, bb1, wb2p, sb2, bb2)
+    _build.check_aligned(x, act_scales, *convs)
     lib = _build.library("int8_blocks")
     n, h, w, c = (int(s) for s in x.shape)
     f32 = int(x.dtype == torch.float32)
-    weights = [(_packed(q).data_ptr(), s.data_ptr(), b.data_ptr())
-               for q, s, b in (convs[0:3], convs[3:6], convs[6:9], convs[9:12])]
-    wptrs = [p for triple in weights for p in triple]
+    wptrs = [t.data_ptr() for t in convs]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         if act_scales is None:
@@ -385,23 +405,14 @@ def light53_int8(x, wa1q, sa1, ba1, wa2q, sa2, ba2, wb1q, sb1, bb1, wb2q, sb2, b
     return out
 
 
-def light_int8(x, w1q, s1, b1, w2q, s2, b2, res_scale: float = 0.1,
-               tile: tuple[int, int] = (64, 128), act_scales=None):
-    """int8 Light block (conv3-relu-conv3 residual), (N, H, W, C) bf16 or float32, SAME.
-
-    ``act_scales``: (2,) float32 calibrated scales (input, intermediate);
-    None quantizes every ``tile`` window dynamically.
-    """
-    _check(x, [(w1q, 3), (w2q, 3)], [s1, b1, s2, b2], act_scales, (2,))
-    if x.device.type == "cpu":
-        if act_scales is None:
-            return light_int8_dynamic_plain(x, w1q, s1, b1, w2q, s2, b2, tile, res_scale)
-        return light_int8_plain(x, w1q, s1, b1, w2q, s2, b2, act_scales, res_scale)
+def launch_light_int8(x, w1p, s1, b1, w2p, s2, b2, res_scale: float, tile, act_scales) -> torch.Tensor:
+    """K5 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light_int8``."""
+    convs = (w1p, s1, b1, w2p, s2, b2)
+    _build.check_aligned(x, act_scales, *convs)
     lib = _build.library("int8_blocks")
     n, h, w, c = (int(s) for s in x.shape)
     f32 = int(x.dtype == torch.float32)
-    wptrs = [_packed(w1q).data_ptr(), s1.data_ptr(), b1.data_ptr(),
-             _packed(w2q).data_ptr(), s2.data_ptr(), b2.data_ptr()]
+    wptrs = [t.data_ptr() for t in convs]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         if act_scales is None:

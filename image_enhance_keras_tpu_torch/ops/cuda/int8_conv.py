@@ -23,23 +23,27 @@ at a time (``jax.disable_jit()``); ``act`` is None, ``"relu"`` or a
 float leaky slope (``where(y >= 0, y, slope * y)``).  The output is
 float32 (N, H, W, C_out).
 
-On a CUDA tensor the wrappers launch the kernel (C_in a multiple of 32 up
-to 256, C_out a multiple of 64) or raise; on a CPU tensor they run the
-plain versions, which convolve the codes exactly in float64 and round
+The wrappers check their arguments and call the ops ``iek::int8_conv3``
+and ``iek::int8_conv3_dyn`` (``ops/cuda/library.py``, the activation as a
+kind and a slope, :func:`act_code`): on a CUDA tensor the op launches the
+kernel (C_in a multiple of 32 up to 256, C_out a multiple of 64; the
+weights in the layout of :func:`packed`) or raises; on a CPU tensor it runs
+the plain versions, which convolve the codes exactly in float64 and round
 every float step as above, so that kernel and plain version agree bit for
-bit.  Each wrapper counts in ``.launches`` the convolutions it ran on the
-kernel.
+bit.  Each wrapper counts in ``.launches`` the convolutions its op ran on
+the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from image_enhance_keras_tpu_torch.ops.cuda import _build
+from image_enhance_keras_tpu_torch.ops.cuda import _build, library
 from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import _stream
 from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import _F32, _acc, _c, _check_acc, _quant_c, _quant_dyn_sample
 
-__all__ = ["int8_conv3", "int8_conv3_dyn", "int8_conv3_plain", "int8_conv3_dyn_plain", "packed"]
+__all__ = ["int8_conv3", "int8_conv3_dyn", "int8_conv3_plain", "int8_conv3_dyn_plain", "packed",
+           "launch_int8_conv3", "launch_int8_conv3_dyn"]
 
 #: the activations' dtypes the kernel takes
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -114,30 +118,50 @@ def _check(x, wq, vectors, acc: str, act) -> None:
         raise ValueError(f"the CUDA kernel takes C_in a multiple of 32 up to {CUDA_MAX_CIN} and C_out "
                          f"a multiple of 64, got {cin} -> {cout}")
     for t in [x, wq, *(v for v, _ in vectors)]:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors")
 
 
-def _act_code(act) -> tuple[int, float]:
+def act_code(act) -> tuple[int, float]:
+    """``act`` as the ops take it: (kind, slope), kind 0 none, 1 relu, 2 leaky."""
     if act is None:
         return 0, 0.0
     return (1, 0.0) if act == "relu" else (2, float(act))
 
 
-def _launch(x, wq, s_in, sf, bias, acc, act) -> torch.Tensor:
+def act_of(kind: int, slope: float):
+    """The inverse of :func:`act_code`."""
+    return (None, "relu", float(slope))[int(kind)]
+
+
+def _launch(x, wp, s_in, sf, bias, acc, kind: int, slope: float) -> torch.Tensor:
+    _build.check_aligned(x, wp, s_in, sf, bias)
     lib = _build.library("int8_conv")
     n, h, w, cin = (int(s) for s in x.shape)
-    cout = int(wq.shape[3])
+    cout = int(sf.shape[0])
     out = torch.empty((n, h, w, cout), dtype=_F32, device=x.device)
     amax = torch.empty(n, dtype=_F32, device=x.device) if s_in is None else None
-    code_act, slope = _act_code(act)
     with torch.cuda.device(x.device):
         code = lib.iek_int8_conv3(
             x.data_ptr(), int(x.dtype == _F32), None if s_in is None else s_in.data_ptr(),
-            packed(wq).data_ptr(), sf.data_ptr(), bias.data_ptr(),
+            wp.data_ptr(), sf.data_ptr(), bias.data_ptr(),
             None if amax is None else amax.data_ptr(), out.data_ptr(), n, h, w, cin, cout, _nt(cout),
-            int(acc == "bf16"), code_act, slope, _stream(x))
+            int(acc == "bf16"), int(kind), float(slope), _stream(x))
     _build.check(lib, code, "int8_conv3")
+    return out
+
+
+def launch_int8_conv3(x, wp, sf, bias, s_in, acc: str, kind: int, slope: float) -> torch.Tensor:
+    """X4 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::int8_conv3``."""
+    out = _launch(x, wp, s_in, sf, bias, acc, kind, slope)
+    int8_conv3.launches += 1
+    return out
+
+
+def launch_int8_conv3_dyn(x, wp, s_w, bias, acc: str, kind: int, slope: float) -> torch.Tensor:
+    """X4's dynamic form on CUDA tensors: the CUDA implementation of ``iek::int8_conv3_dyn``."""
+    out = _launch(x, wp, None, s_w, bias, acc, kind, slope)
+    int8_conv3_dyn.launches += 1
     return out
 
 
@@ -146,11 +170,8 @@ def int8_conv3(x, wq, sf, bias, s_in, acc: str = "bf16", act=None) -> torch.Tens
     with ``s_in``, the folded weights ``wq`` ("qf"), ``sf``, ``bias``; float32 out."""
     cin, cout = int(x.shape[-1]), int(wq.shape[-1])
     _check(x, wq, [(sf, cout), (bias, cout), (s_in, cin)], acc, act)
-    if x.device.type == "cpu":
-        return int8_conv3_plain(x, wq, sf, bias, s_in, acc, act)
-    out = _launch(x, wq, s_in, sf, bias, acc, act)
-    int8_conv3.launches += 1
-    return out
+    (wq,) = library.device_layout(x, packed, wq)
+    return library.int8_conv3(x, wq, sf, bias, s_in, acc, *act_code(act))
 
 
 def int8_conv3_dyn(x, wq, s_w, bias, acc: str = "bf16", act=None) -> torch.Tensor:
@@ -158,11 +179,8 @@ def int8_conv3_dyn(x, wq, s_w, bias, acc: str = "bf16", act=None) -> torch.Tenso
     weights ``wq`` ("q") and their scales ``s_w`` ("s"); float32 out."""
     cout = int(wq.shape[-1])
     _check(x, wq, [(s_w, cout), (bias, cout)], acc, act)
-    if x.device.type == "cpu":
-        return int8_conv3_dyn_plain(x, wq, s_w, bias, acc, act)
-    out = _launch(x, wq, None, s_w, bias, acc, act)
-    int8_conv3_dyn.launches += 1
-    return out
+    (wq,) = library.device_layout(x, packed, wq)
+    return library.int8_conv3_dyn(x, wq, s_w, bias, acc, *act_code(act))
 
 
 int8_conv3.launches = 0

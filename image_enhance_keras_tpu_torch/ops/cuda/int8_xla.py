@@ -28,18 +28,22 @@ convolutions themselves are exact; XLA on the CPU sums the ``f32`` and
 forward differs again: XLA folds the accumulator's conversion into the
 conv and contracts the dequant into FMAs (ROADMAP.md §3).
 
-On a CUDA tensor the wrappers launch the kernels (bf16 x, C = 128) or
-raise; on a CPU tensor they run the plain versions, which compute the
-convolutions exactly in float64 and every float step in the order above,
-so that kernels and plain versions agree bit for bit.  Each wrapper counts
-in ``.launches`` the blocks it ran on the kernels.
+The wrappers check their arguments and call the ops ``iek::light53_int8_xla``,
+``iek::light_int8_xla`` and ``iek::light53_int8_xla_dyn``
+(``ops/cuda/library.py``): on a CUDA tensor the op launches the kernels
+(bf16 x, C = 128; ``launch_*`` below, the codes packed by
+``int8_blocks._packed``) or raises; on a CPU tensor it runs the plain
+versions, which compute the convolutions exactly in float64 and every
+float step in the order above, so that kernels and plain versions agree
+bit for bit.  Each wrapper counts in ``.launches`` the blocks its op ran on
+the kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from image_enhance_keras_tpu_torch.ops.cuda import _build
+from image_enhance_keras_tpu_torch.ops.cuda import _build, library
 from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import _check, _conv_s32, _packed, _stream
 
 __all__ = [
@@ -47,6 +51,9 @@ __all__ = [
     "light53_int8_xla",
     "light_int8_xla",
     "light53_int8_xla_dyn",
+    "launch_light53_int8_xla",
+    "launch_light_int8_xla",
+    "launch_light53_int8_xla_dyn",
     "light53_int8_xla_plain",
     "light_int8_xla_plain",
     "light53_int8_xla_dyn_plain",
@@ -159,23 +166,9 @@ def light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, b
     _check_acc(acc)
     _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (3, "C"), _BF16)
-    convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
-    if x.device.type == "cpu":
-        return light53_int8_xla_plain(x, *convs, act_scales, acc, emit_s8, res_scale, identity_scale)
-    lib = _build.library("int8_blocks")
-    n, h, w, c = (int(s) for s in x.shape)
-    wptrs = [p for q, s, b in (convs[0:3], convs[3:6], convs[6:9], convs[9:12])
-             for p in (_packed(q).data_ptr(), s.data_ptr(), b.data_ptr())]
-    ta = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    tb = torch.empty_like(ta)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        code = lib.iek_light53_int8_xla(
-            x.data_ptr(), act_scales.data_ptr(), *wptrs, ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
-            n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
-    _build.check(lib, code, "light53_int8_xla")
-    light53_int8_xla.launches += 1
-    return out
+    wa1, wa2, wb1, wb2 = library.device_layout(x, _packed, wa1, wa2, wb1, wb2)
+    return library.light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
+                                    acc, bool(emit_s8), float(res_scale), float(identity_scale))
 
 
 def light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16", emit_s8: bool = False,
@@ -183,20 +176,8 @@ def light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16", emi
     """int8 Light block with static per-channel scales (X2); ``act_scales``: (2, C) s_x, s_t."""
     _check_acc(acc)
     _check(x, [(w1, 3), (w2, 3)], [s1, b1, s2, b2], act_scales, (2, "C"), _BF16)
-    if x.device.type == "cpu":
-        return light_int8_xla_plain(x, w1, s1, b1, w2, s2, b2, act_scales, acc, emit_s8, res_scale)
-    lib = _build.library("int8_blocks")
-    n, h, w, c = (int(s) for s in x.shape)
-    t = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        code = lib.iek_light_int8_xla(
-            x.data_ptr(), act_scales.data_ptr(), _packed(w1).data_ptr(), s1.data_ptr(), b1.data_ptr(),
-            _packed(w2).data_ptr(), s2.data_ptr(), b2.data_ptr(), t.data_ptr(), out.data_ptr(),
-            n, h, w, c, int(acc == "bf16"), float(res_scale), _stream(x))
-    _build.check(lib, code, "light_int8_xla")
-    light_int8_xla.launches += 1
-    return out
+    w1, w2 = library.device_layout(x, _packed, w1, w2)
+    return library.light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc, bool(emit_s8), float(res_scale))
 
 
 def light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
@@ -210,21 +191,62 @@ def light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb
     _check_acc(acc)
     _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], None, (), _BF16)
+    wa1, wa2, wb1, wb2 = library.device_layout(x, _packed, wa1, wa2, wb1, wb2)
+    return library.light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc,
+                                        float(res_scale), float(identity_scale))
+
+
+def launch_light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
+                            acc: str, res_scale: float, identity_scale: float) -> torch.Tensor:
+    """X1 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light53_int8_xla``."""
     convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
-    if x.device.type == "cpu":
-        return light53_int8_xla_dyn_plain(x, *convs, acc, res_scale, identity_scale)
+    _build.check_aligned(x, act_scales, *convs)
     lib = _build.library("int8_blocks")
     n, h, w, c = (int(s) for s in x.shape)
-    wptrs = [p for q, s, b in (convs[0:3], convs[3:6], convs[6:9], convs[9:12])
-             for p in (_packed(q).data_ptr(), s.data_ptr(), b.data_ptr())]
+    ta = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    tb = torch.empty_like(ta)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = lib.iek_light53_int8_xla(
+            x.data_ptr(), act_scales.data_ptr(), *(t.data_ptr() for t in convs), ta.data_ptr(), tb.data_ptr(),
+            out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
+    _build.check(lib, code, "light53_int8_xla")
+    light53_int8_xla.launches += 1
+    return out
+
+
+def launch_light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str, res_scale: float) -> torch.Tensor:
+    """X2 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light_int8_xla``."""
+    convs = (w1, s1, b1, w2, s2, b2)
+    _build.check_aligned(x, act_scales, *convs)
+    lib = _build.library("int8_blocks")
+    n, h, w, c = (int(s) for s in x.shape)
+    t = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = lib.iek_light_int8_xla(
+            x.data_ptr(), act_scales.data_ptr(), *(v.data_ptr() for v in convs), t.data_ptr(), out.data_ptr(),
+            n, h, w, c, int(acc == "bf16"), float(res_scale), _stream(x))
+    _build.check(lib, code, "light_int8_xla")
+    light_int8_xla.launches += 1
+    return out
+
+
+def launch_light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc: str,
+                                res_scale: float, identity_scale: float) -> torch.Tensor:
+    """X3 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light53_int8_xla_dyn``."""
+    convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
+    _build.check_aligned(x, *convs)
+    lib = _build.library("int8_blocks")
+    n, h, w, c = (int(s) for s in x.shape)
     amax = torch.empty((3, n), dtype=_F32, device=x.device)
     ta = torch.empty(x.shape, dtype=_F32, device=x.device)
     tb = torch.empty_like(ta)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = lib.iek_light53_int8_xla_dyn(
-            x.data_ptr(), *wptrs, amax.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
-            n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
+            x.data_ptr(), *(t.data_ptr() for t in convs), amax.data_ptr(), ta.data_ptr(), tb.data_ptr(),
+            out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
     _build.check(lib, code, "light53_int8_xla_dyn")
     light53_int8_xla_dyn.launches += 1
     return out

@@ -2,10 +2,12 @@
 
 Counterpart of ``ops/pallas/tower.py``.  ``fused_light53_chain`` and
 ``fused_light_chain`` keep the JAX signatures: x NHWC, weights stacked on a
-leading K axis, (K, kh, kw, C, C) HWIO, biases (K, C).  On a CUDA tensor
-they run the K blocks in one cooperative launch of ``csrc/tower.cu`` (see
-the notes there) or raise; on a CPU tensor they run the plain PyTorch
-versions below, loops of ``conv2d_nhwc`` in the chain body's order
+leading K axis, (K, kh, kw, C, C) HWIO, biases (K, C).  They check their
+arguments and call the ops ``iek::light53_chain`` and ``iek::light_chain``
+(``ops/cuda/library.py``): on a CUDA tensor the op runs the K blocks in one
+cooperative launch of ``csrc/tower.cu`` (see the notes there;
+:func:`launch_light53_chain`, :func:`launch_light_chain`) or raises; on a
+CPU tensor it runs the plain PyTorch versions below, loops of ``conv2d_nhwc`` in the chain body's order
 (``_light53_body``: ``identity*x + res*(ya + yb)`` with each branch's
 second conv and bias summed before the combine).  Each wrapper counts its
 kernel launches in ``.launches`` (one per call), those on bf16 tensors also
@@ -28,13 +30,15 @@ from __future__ import annotations
 import torch
 
 from image_enhance_keras_tpu_torch.ops.conv import conv2d_nhwc
-from image_enhance_keras_tpu_torch.ops.cuda import _build, bf16
-from image_enhance_keras_tpu_torch.ops.cuda.blocks import check_args, stream_of
-from image_enhance_keras_tpu_torch.ops.cuda.tf32x3 import packed, round_tf32, split_tf32
+from image_enhance_keras_tpu_torch.ops.cuda import _build, bf16, library
+from image_enhance_keras_tpu_torch.ops.cuda.blocks import check_args, device_weights, stream_of
+from image_enhance_keras_tpu_torch.ops.cuda.tf32x3 import round_tf32, split_tf32
 
 __all__ = [
     "fused_light53_chain",
     "fused_light_chain",
+    "launch_light53_chain",
+    "launch_light_chain",
     "light53_chain_bf16",
     "light53_chain_plain",
     "light_chain_bf16",
@@ -110,21 +114,42 @@ def fused_light53_chain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
     """K chained Light53 blocks, (N, H, W, C) float32 or bf16, SAME semantics per image."""
     k = _k_blocks(wa1)
     check_args(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)], [ba1, ba2, bb1, bb2], lead=(k,))
-    if x.device.type == "cpu" or k == 0:
-        return light53_chain_plain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2, res_scale, identity_scale)
+    if k == 0:
+        return x
+    wa1, wa2, wb1, wb2 = device_weights(x, wa1, wa2, wb1, wb2)
+    return library.light53_chain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2, float(res_scale),
+                                 float(identity_scale))
+
+
+def fused_light_chain(x, wa1, ba1, wa2, ba2, res_scale: float = 0.1):
+    """K chained Light blocks, (N, H, W, C) float32 or bf16, SAME semantics per image."""
+    k = _k_blocks(wa1)
+    check_args(x, [(wa1, 3), (wa2, 3)], [ba1, ba2], lead=(k,))
+    if k == 0:
+        return x
+    wa1, wa2 = device_weights(x, wa1, wa2)
+    return library.light_chain(x, wa1, ba1, wa2, ba2, float(res_scale))
+
+
+def launch_light53_chain(x, wa1p, ba1, wa2p, ba2, wb1p, bb1, wb2p, bb2, res_scale: float,
+                         identity_scale: float) -> torch.Tensor:
+    """K6 on CUDA tensors, the stacked weights packed (``blocks.device_weights``):
+    the CUDA implementation of ``iek::light53_chain``."""
+    _build.check_aligned(x, wa1p, ba1, wa2p, ba2, wb1p, bb1, wb2p, bb2)
     lib = _build.library("tower")
+    k = int(ba1.shape[0])
     n, h, w, c = (int(s) for s in x.shape)
     act, ta, tb, out = (torch.empty_like(x) for _ in range(4))
     if x.dtype == torch.bfloat16:
-        fn, pk = lib.iek_light53_chain_bf16, bf16.packed
+        fn = lib.iek_light53_chain_bf16
         res_scale, identity_scale = bf16.scalar(res_scale), bf16.scalar(identity_scale)
     else:
-        fn, pk = lib.iek_light53_chain, packed
+        fn = lib.iek_light53_chain
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(),
-            pk(wa1).data_ptr(), ba1.data_ptr(), pk(wa2).data_ptr(), ba2.data_ptr(),
-            pk(wb1).data_ptr(), bb1.data_ptr(), pk(wb2).data_ptr(), bb2.data_ptr(),
+            wa1p.data_ptr(), ba1.data_ptr(), wa2p.data_ptr(), ba2.data_ptr(),
+            wb1p.data_ptr(), bb1.data_ptr(), wb2p.data_ptr(), bb2.data_ptr(),
             act.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
             k, n, h, w, c, float(res_scale), float(identity_scale), stream_of(x),
         )
@@ -134,22 +159,20 @@ def fused_light53_chain(x, wa1, ba1, wa2, ba2, wb1, bb1, wb2, bb2,
     return out
 
 
-def fused_light_chain(x, wa1, ba1, wa2, ba2, res_scale: float = 0.1):
-    """K chained Light blocks, (N, H, W, C) float32 or bf16, SAME semantics per image."""
-    k = _k_blocks(wa1)
-    check_args(x, [(wa1, 3), (wa2, 3)], [ba1, ba2], lead=(k,))
-    if x.device.type == "cpu" or k == 0:
-        return light_chain_plain(x, wa1, ba1, wa2, ba2, res_scale)
+def launch_light_chain(x, wa1p, ba1, wa2p, ba2, res_scale: float) -> torch.Tensor:
+    """K7 on CUDA tensors, the stacked weights packed: the CUDA implementation of ``iek::light_chain``."""
+    _build.check_aligned(x, wa1p, ba1, wa2p, ba2)
     lib = _build.library("tower")
+    k = int(ba1.shape[0])
     n, h, w, c = (int(s) for s in x.shape)
     act, t, out = (torch.empty_like(x) for _ in range(3))
     if x.dtype == torch.bfloat16:
-        fn, pk, res_scale = lib.iek_light_chain_bf16, bf16.packed, bf16.scalar(res_scale)
+        fn, res_scale = lib.iek_light_chain_bf16, bf16.scalar(res_scale)
     else:
-        fn, pk = lib.iek_light_chain, packed
+        fn = lib.iek_light_chain
     with torch.cuda.device(x.device):
         code = fn(
-            x.data_ptr(), pk(wa1).data_ptr(), ba1.data_ptr(), pk(wa2).data_ptr(), ba2.data_ptr(),
+            x.data_ptr(), wa1p.data_ptr(), ba1.data_ptr(), wa2p.data_ptr(), ba2.data_ptr(),
             act.data_ptr(), t.data_ptr(), out.data_ptr(), k, n, h, w, c, float(res_scale), stream_of(x),
         )
     _build.check(lib, code, "fused_light_chain")

@@ -1,17 +1,20 @@
-"""TF1 integer-factor bilinear upsample: the CUDA kernel and its autograd wrapper.
+"""TF1 integer-factor bilinear upsample: the CUDA kernel (K3).
 
-Counterpart of ``ops/pallas/upsample.py``.  ``upsample_phase_tf1_kernel``
-takes (N, H, W, C) float32 or bfloat16 on a CUDA device, any factor and any
-H and W, and launches ``csrc/upsample.cu``, bit-identical to the plain phase
-construction ``ops.resize.upsample_phase_plain``; it counts its launches in
-``.launches``, those on bf16 tensors also in ``.bf16_launches``.  It has no CPU path: ``ops.resize.upsample_phase_tf1``
-dispatches here only for CUDA tensors.  The kernel's interpolation weights
-come from :func:`weight_table` (computed here for every factor, passed to
-the launch as a small device tensor), so the kernel divides nothing.
+Counterpart of ``ops/pallas/upsample.py``.  The op ``iek::upsample_phase_tf1``
+(``ops/cuda/library.py``) runs :func:`_launch` on CUDA tensors: (N, H, W,
+C) float32 or bfloat16, any factor and any H and W, one launch of
+``csrc/upsample.cu``, bit-identical to the plain phase construction
+``ops.resize.upsample_phase_plain``, which is the op's CPU implementation.
+``upsample_phase_tf1_kernel`` calls the op on CUDA tensors only and counts
+its launches in ``.launches``, those on bf16 tensors also in
+``.bf16_launches``; ``ops.resize.upsample_phase_tf1`` calls the op for
+every tensor.  The kernel's interpolation weights come from
+:func:`weight_table` (computed here for every factor, passed to the launch
+as a small device tensor), so the kernel divides nothing.
 
 The op is linear and JAX has no backward kernel for it (``_upsample_pallas_ad``
-differentiates the XLA construction); likewise the backward here is the
-transpose of the plain construction, taken by autograd.
+differentiates the XLA construction); likewise the op's registered backward
+is the transpose of the plain construction, taken by autograd.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import functools
 
 import torch
 
-from image_enhance_keras_tpu_torch.ops.cuda import _build
+from image_enhance_keras_tpu_torch.ops.cuda import _build, library
 
 __all__ = ["upsample_phase_tf1_kernel", "weight_table", "weight_tensor"]
 
@@ -70,29 +73,15 @@ def _launch(x: torch.Tensor, f: int) -> torch.Tensor:
     return out
 
 
-class _Upsample(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, f):
-        ctx.f = f
-        ctx.shape = x.shape
-        return _launch(x, f)
-
-    @staticmethod
-    def backward(ctx, g):
-        from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
-
-        with torch.enable_grad():
-            z = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device, requires_grad=True)
-            (grad,) = torch.autograd.grad(upsample_phase_plain(z, ctx.f), z, g)
-        return grad, None
-
-
 def upsample_phase_tf1_kernel(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """(N, H, W, C) -> (N, f*H, f*W, C) on the CUDA kernel, differentiable."""
+    """(N, H, W, C) -> (N, f*H, f*W, C) on the CUDA kernel, differentiable;
+    raises for a tensor off CUDA."""
     f = int(factor)
     if f == 1:
         return x
-    return _Upsample.apply(x, f)
+    if x.device.type != "cuda":
+        raise ValueError(f"the upsample kernel runs on cuda tensors, not {x.device}")
+    return library.upsample_phase_tf1(x, f)
 
 
 upsample_phase_tf1_kernel.launches = 0

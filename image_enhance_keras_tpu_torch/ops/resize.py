@@ -5,8 +5,9 @@ float32 contractions with dense (out, in) weight matrices built in numpy.
 ``resize_bicubic_pil`` is the float PIL-bicubic resize of back-projection.
 ``upsample_phase_tf1`` is the closed form the module and int8 forwards use:
 per axis ``out[f*k + r] = (1 - r/f)*in[k] + (r/f)*in[k+1]``, last row
-clamped; on a CUDA tensor it runs on the CUDA kernel
-(``ops/cuda/upsample.py``), on a CPU tensor the plain construction.  ``resize_pil_uint8`` is
+clamped; it is the op ``iek::upsample_phase_tf1`` (``ops/cuda/library.py``),
+which runs the CUDA kernel on a CUDA tensor (``ops/cuda/upsample.py``) and
+the plain construction on a CPU tensor.  ``resize_pil_uint8`` is
 PIL's uint8 bicubic resampling, which int8 calibration uses to degrade
 images to the serving distribution.
 """
@@ -110,22 +111,51 @@ def resize_bicubic_pil(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor
     return resize2d(x, out_hw, "pil_bicubic")
 
 
+@functools.lru_cache(maxsize=None)
+def _band(in_size: int, out_size: int, method: str) -> tuple[np.ndarray, np.ndarray]:
+    """Each output's band of inputs with nonzero weight, as (out, taps) index
+    and weight arrays in increasing input order, padded with weight 0."""
+    wm = resize_weight_matrix(in_size, out_size, method)
+    nz = wm != 0
+    first = np.where(nz.any(1), nz.argmax(1), 0)
+    last = np.where(nz.any(1), in_size - 1 - nz[:, ::-1].argmax(1), 0)
+    taps = int((last - first).max()) + 1
+    idx = np.minimum(first[:, None] + np.arange(taps)[None, :], in_size - 1)
+    wt = np.take_along_axis(wm, idx, 1) * (first[:, None] + np.arange(taps)[None, :] <= last[:, None])
+    return idx.astype(np.int64), wt.astype(np.float32)
+
+
+def _resample_axis(x: torch.Tensor, out_size: int, method: str, axis: int) -> torch.Tensor:
+    """The contraction of ``axis`` with the resampling matrix, summed tap by
+    tap in increasing input order, each product and sum rounded to float32
+    (no fused multiply-add), as XLA's float32 dot sums a narrow contraction
+    on the CPU; the same on every device."""
+    idx, wt = _band(int(x.shape[axis]), int(out_size), method)
+    shape = [1] * x.dim()
+    shape[axis] = int(out_size)
+    acc = None
+    for j in range(idx.shape[1]):
+        col = torch.from_numpy(idx[:, j]).to(x.device)
+        term = torch.index_select(x, axis, col) * torch.from_numpy(wt[:, j]).to(x.device).reshape(shape)
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def resize_pil_uint8(x: torch.Tensor, out_hw: tuple[int, int], method: str = "pil_bicubic") -> torch.Tensor:
     """PIL resampling with uint8 image semantics (``scipy.misc.imresize`` on uint8).
 
     Horizontal pass first, then the intermediate is rounded half up and
     clamped to [0, 255] (PIL's fixed-point ``(v + 0.5) >> PRECISION``), then
     the vertical pass, rounded and clamped again.  Input (..., H, W, C) uint8
-    or float 0..255; output float32 holding exact uint8 values.
+    or float 0..255; output float32 holding exact uint8 values.  Each pass
+    sums its taps as JAX's float32 contraction of a narrow input does on the
+    CPU (:func:`_resample_axis`), so that intermediates on a .5 boundary
+    round as JAX's do.
     """
-    h, w = int(x.shape[-3]), int(x.shape[-2])
     oh, ow = int(out_hw[0]), int(out_hw[1])
     xf = x.to(torch.float32)
-    ww = torch.from_numpy(resize_weight_matrix(w, ow, method)).to(xf.device)
-    wh = torch.from_numpy(resize_weight_matrix(h, oh, method)).to(xf.device)
-    y = torch.einsum("pw,...hwc->...hpc", ww, xf)
-    y = torch.clamp(torch.floor(y + 0.5), 0.0, 255.0)
-    y = torch.einsum("oh,...hpc->...opc", wh, y)
+    y = torch.clamp(torch.floor(_resample_axis(xf, ow, method, xf.dim() - 2) + 0.5), 0.0, 255.0)
+    y = _resample_axis(y, oh, method, xf.dim() - 3)
     return torch.clamp(torch.floor(y + 0.5), 0.0, 255.0)
 
 
@@ -156,15 +186,18 @@ def upsample_phase_plain(x: torch.Tensor, factor: int) -> torch.Tensor:
 def upsample_phase_tf1(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Integer-factor TF1 bilinear upsample, (..., H, W, C) -> (..., fH, fW, C).
 
-    CPU tensors take :func:`upsample_phase_plain`; any other tensor runs on
-    the CUDA kernel, bit-identical to it and differentiable through it, which
-    raises on what it cannot take (a device other than CUDA, a dtype other
-    than float32 or bfloat16, C not a multiple of 16 bytes).
+    The op ``iek::upsample_phase_tf1``: :func:`upsample_phase_plain` on CPU
+    tensors, the CUDA kernel on CUDA tensors, bit-identical to it and
+    differentiable through it, which raises on what it cannot take (a dtype
+    other than float32 or bfloat16, C not a multiple of 16 bytes); a tensor
+    on another device is refused.
     """
-    if x.device.type == "cpu":
-        return upsample_phase_plain(x, factor)
-    from image_enhance_keras_tpu_torch.ops.cuda.upsample import upsample_phase_tf1_kernel
+    if int(factor) == 1:
+        return x
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the upsample kernel runs on cuda tensors, not {x.device}")
+    from image_enhance_keras_tpu_torch.ops.cuda import library
 
     lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
-    y = upsample_phase_tf1_kernel(x.reshape(-1, h, w, c).contiguous(), factor)
+    y = library.upsample_phase_tf1(x.reshape(-1, h, w, c).contiguous(), int(factor))
     return y.reshape(*lead, *y.shape[1:])

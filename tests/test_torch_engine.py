@@ -147,10 +147,11 @@ def test_cli_defaults_to_cuda(cli_setup, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mode", "fast", "--devices", "8"], ["--forward", "int8", "--model", "difvdsr", "--save_intermediate"],
-    ["--model", "didbl_subpixel", "--pipeline"], ["--model", "difv4", "--devices", "2"],
-    ["--forward", "pallas_chain", "--internal-learn", "2", "--save_intermediate"], ["--devices", "2"],
-    ["--save_intermediate"], ["--pipeline"],
+    ["--mode", "fast", "--devices", "8"],
+    ["--forward", "int8", "--model", "difvdsr", "--save_intermediate", "--devices", "2"],
+    ["--model", "didbl_subpixel", "--pipeline", "--devices", "4"], ["--model", "difv4", "--devices", "2"],
+    ["--forward", "pallas_chain", "--internal-learn", "2", "--save_intermediate", "--devices", "3"],
+    ["--devices", "2"], ["--save_intermediate", "--devices", "2"], ["--pipeline", "--devices", "2"],
 ])
 def test_cli_rejects_unported_flags(tmp_path, capsys, argv):
     with pytest.raises(SystemExit):
@@ -261,9 +262,11 @@ def test_cli_pallas_int8_matches_jax_cli_and_honours_calib_dir(cli_setup, tmp_pa
 
 
 @pytest.mark.parametrize("argv", [
-    ["--forward", "int8", "--devices", "2"], ["--forward", "int8", "--internal-learn", "1", "--pipeline"],
-    ["--forward", "int8", "--model", "didbl_subpixel", "--internal-learn-lr", "1e-4", "--save_intermediate"],
-    ["--forward", "int8", "--int8-acc", "s32", "--model", "difv4", "--pipeline"],
+    ["--forward", "int8", "--devices", "2"],
+    ["--forward", "int8", "--internal-learn", "1", "--pipeline", "--devices", "2"],
+    ["--forward", "int8", "--model", "didbl_subpixel", "--internal-learn-lr", "1e-4", "--save_intermediate",
+     "--devices", "2"],
+    ["--forward", "int8", "--int8-acc", "s32", "--model", "difv4", "--pipeline", "--devices", "8"],
 ])
 def test_cli_rejects_other_int8_options(tmp_path, capsys, argv):
     with pytest.raises(SystemExit):

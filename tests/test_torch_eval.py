@@ -264,7 +264,9 @@ def test_scorpath_defaults_to_cuda(set5_pairs, monkeypatch):
 
 @pytest.fixture()
 def no_pil(monkeypatch):
+    """A machine without PIL or libpng: the numpy decoders read."""
     monkeypatch.setattr(io, "_pil", lambda: None)
+    monkeypatch.setattr(io, "_native", lambda: None)
 
 
 @pytest.mark.parametrize("path", SET5_FILES, ids=os.path.basename)

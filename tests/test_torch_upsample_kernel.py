@@ -4,10 +4,10 @@ The CUDA kernel (``ops/cuda/upsample.py``) runs only on the card, where
 ``chip_smoke.py`` holds it bit-equal to the plain construction.  Here: the
 plain construction is bit-equal to JAX's ``_upsample_phase_xla`` in float32
 and bfloat16 (as tests/test_pallas_upsample.py holds the Pallas kernel); the
-dispatch keeps CPU tensors on the plain construction and sends every other
-tensor to the kernel, which refuses anything but CUDA; the kernel's
-autograd wrapper differentiates through the plain construction, as JAX's
-``_upsample_pallas_ad`` does.
+op ``iek::upsample_phase_tf1`` keeps CPU tensors on the plain construction
+and sends CUDA tensors to the kernel, and the upsample refuses any other
+device; the op's registered backward differentiates through the plain
+construction, as JAX's ``_upsample_pallas_ad`` does.
 """
 
 import jax
@@ -18,6 +18,7 @@ import torch
 
 from image_enhance_keras_tpu.ops import resize as jax_resize
 from image_enhance_keras_tpu_torch.ops import resize
+from image_enhance_keras_tpu_torch.ops.cuda import library
 from image_enhance_keras_tpu_torch.ops.cuda import upsample as ku
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -63,13 +64,16 @@ def test_kernel_refuses_cpu_tensors():
 
 
 def test_kernel_autograd_is_transpose_of_plain(monkeypatch):
-    """Forward through the autograd wrapper (the launch stubbed with the plain
-    construction, as no card is here); its gradient equals JAX's vjp."""
-    monkeypatch.setattr(ku, "_launch", resize.upsample_phase_plain)
+    """Forward through the op ``iek::upsample_phase_tf1`` (its CPU
+    implementation, as no card is here; the launch must not run), whose
+    registered backward is the kernel's gradient on the card: it equals
+    JAX's vjp."""
+    monkeypatch.setattr(ku, "_launch", lambda x, f: pytest.fail("the kernel ran on a CPU tensor"))
     xj, xt = _x((2, 5, 7, 8), jnp.float32, 2)
     g = np.random.default_rng(3).standard_normal((2, 20, 28, 8)).astype(np.float32)
     xt.requires_grad_(True)
-    y = ku.upsample_phase_tf1_kernel(xt, 4)
+    y = library.upsample_phase_tf1(xt, 4)
+    assert "iek_upsample_phase_tf1" in type(y.grad_fn).__name__  # the registered backward, not plain autograd
     (grad,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
     _, vjp = jax.vjp(lambda t: jax_resize._upsample_phase_xla(t, 4), xj)
     np.testing.assert_allclose(grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-5)
