@@ -159,6 +159,24 @@ Phases (each prints its elapsed seconds):
      many ``iek::`` nodes, with the artifact's MB, load ms and ms an image
      beside ``resolver.upscale``'s; 7e ``python -m
      image_enhance_keras_tpu_torch upscale <dir> --forward int8`` exits 0.
+  8. scale-out (``parallel/``) over every card when there are two or more,
+     else over two entries of the one card (printed as the mesh): 8a
+     ``ShardedResolver`` on the full-width didbl (demo weights) and a
+     seeded 512x512 image, patch ``xla`` float32, fast and split2d
+     (128/128) on the serving profile ``--forward int8 --dtype bfloat16``,
+     fast with ``int8_dynamic_tail`` (X3's abs-maxes reduced over the
+     bands), patch ``pallas_int8``, each against the single-device
+     resolver (patch byte-equal, banded modes within one level, the count
+     of differing values printed), out-Mpix/s and launches of both; 8b one
+     float32 data-parallel train step (batch 10, HR 96, the bundled
+     photos) against the single-device step (loss within 1e-5, params
+     within 1e-6 where the gradient is not below 1e-6, the lr there), ms a
+     step of both; 8c the data-parallel step in a child process through an
+     NCCL process group joined by ``maybe_init_distributed`` (one rank:
+     bit-equal to the step without a group, cuDNN deterministic; two ranks
+     on two cards where there are two), and ``learn`` / ``main_dirpath
+     --devices`` one more than the cards exiting non-zero with the mesh's
+     "requested N devices, have M".
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -2900,6 +2918,405 @@ def _serving_phase(tmp: str, img, failures: list, gpu: str) -> dict:
     return out
 
 
+# -- scale-out (phase 8) ----------------------------------------------------------
+
+#: phase 8a's image side and the modes it shards: patch xla float32, fast and
+#: split2d on the JAX CLI's serving profile (--forward int8 --dtype bfloat16,
+#: split tiles 128/128), fast with int8_dynamic_tail (the per-sample abs-max
+#: reduced over the bands), patch pallas_int8
+SCALE_HW = 512
+SCALE_RUNS = {
+    "patch xla float32": dict(mode="patch", forward="xla"),
+    "fast int8 bf16": dict(mode="fast", forward="int8", dtype="bfloat16"),
+    "split2d int8 bf16": dict(mode="split", forward="int8", dtype="bfloat16", split_tile=128, split_tile_w=128),
+    "fast int8 dynamic tail": dict(mode="fast", forward="int8", dtype="bfloat16", int8_dynamic_tail=True),
+    "patch pallas_int8": dict(mode="patch", forward="pallas_int8"),
+}
+#: phase 8b: the learn CLI's defaults (batch 10, HR 96), float32
+DP_BATCH, DP_HR = 10, 96
+
+
+def _scale_mesh():
+    """Every card when there are two or more; else two entries of the one card."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh(n) if n >= 2 else make_mesh(2, devices=["cuda:0", "cuda:0"])
+
+
+def _timed_upscale(r, img) -> tuple:
+    """(output, seconds) of one upscale after a warm-up, launches counted over the timed call."""
+    import torch
+
+    r.upscale(img)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t1 = time.time()
+    y = r.upscale(img)
+    torch.cuda.synchronize()
+    return y, time.time() - t1, _counts()
+
+
+def _banded_dyn_kernels(failures: list, gpu: str) -> dict:
+    """Phase 8a: X3 and X4's dynamic form in steps over 3 bands of rows (the
+    bands' abs-maxes reduced between the steps, ``parallel.bands.run_bands``)
+    against one launch over the whole sample: bit-equal (torch.equal)."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
+    from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import quantize_weights_per_channel
+    from image_enhance_keras_tpu_torch.parallel.bands import Stage, Weights, run_bands, split_sizes
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+
+    def conv(k, cin=128, cout=128):
+        q, sc = quantize_weights_per_channel(torch.randn((k, k, cin, cout), generator=gen) * 0.05)
+        return [q.cuda(), sc.cuda(), (torch.randn(cout, generator=gen) * 0.01).cuda()]
+
+    x = (torch.randn((1, 192, 256, 128), generator=gen) * 2).to(torch.bfloat16).cuda()
+    x3 = [*conv(3), *conv(5), *conv(5), *conv(3)]
+    x4 = conv(3, 128, 256)
+    checks = {
+        "light53_int8_xla_dyn": (lambda t: kx.light53_int8_xla_dyn(t, *x3),
+                                 Stage(lambda w, t, win: kx.light53_int8_xla_dyn_banded(t, win, *x3), 3, banded=True)),
+        "int8_conv3_dyn": (lambda t: kc.int8_conv3_dyn(t, *x4, act="relu"),
+                           Stage(lambda w, t, win: kc.int8_conv3_dyn_banded(t, win, *x4, act="relu"), 1,
+                                 banded=True)),
+    }
+    out = {}
+    for name, (whole, stage) in checks.items():
+        want = whole(x)
+        bands = list(torch.split(x, split_sizes(x.shape[1], 3), dim=1))
+        got = torch.cat(run_bands([stage], bands, [Weights(None, None)] * 3), 1)
+        torch.cuda.synchronize()
+        out[name] = bool(torch.equal(got, want))
+        print(f"[chip_smoke] 8a {name} over 3 bands of {tuple(x.shape)}, abs-maxes reduced between its steps, "
+              f"bit-equal to one launch over the sample: {out[name]} on {gpu}", flush=True)
+        if not out[name]:
+            failures.append(f"8a banded {name} differs from its whole-sample launch")
+    return out
+
+
+def _sharded_inference(weights: str, mesh, failures: list, gpu: str) -> dict:
+    """Phase 8a: each run of SCALE_RUNS through ShardedResolver against the
+    single-device resolver on a seeded SCALE_HW square: byte-equal for patch,
+    within one level for the banded modes (the count of differing values
+    printed); out-Mpix/s and the launches by op of both."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.parallel import ShardedResolver
+
+    img = _seeded_image(SCALE_HW, SCALE_HW, SEED + 8)
+    mpix = (4 * SCALE_HW) ** 2 / 1e6
+    out = {}
+    for name, kw in SCALE_RUNS.items():
+        extra = {k: kw[k] for k in ("int8_dynamic_tail",) if k in kw}
+        ctor = {k: v for k, v in kw.items() if k not in extra}
+        one = SuperResolver(weights=weights, device="cuda", **ctor)
+        many = ShardedResolver(weights=weights, mesh=mesh, **ctor)
+        for r in (one, many):
+            for k, v in extra.items():
+                setattr(r, k, v)
+        many._qparams = many._place_weights(one._fwd_params()) if one.forward_mode != "xla" else None
+        y1, s1, c1 = _timed_upscale(one, img)
+        yn, sn, cn = _timed_upscale(many, img)
+        dmax, frac = _u8_agreement(yn, y1)
+        n_diff = int(round(frac * y1.size))
+        exact = name.startswith("patch")
+        row = {"single_s": s1, "sharded_s": sn, "single_out_mpix_s": mpix / s1, "sharded_out_mpix_s": mpix / sn,
+               "u8_max_diff": dmax, "differing_values": n_diff, "single_launches": c1, "sharded_launches": cn}
+        print(f"[chip_smoke] 8a {name} {SCALE_HW}x{SCALE_HW} on {many.n_devices} mesh entries: single "
+              f"{mpix / s1:.3f} out-Mpix/s, sharded {mpix / sn:.3f} out-Mpix/s; sharded vs single max diff {dmax}, "
+              f"{n_diff} differing values (bound: {'byte-equal' if exact else 'one level'}); launches single {c1}, "
+              f"sharded {cn} on {gpu}", flush=True)
+        if yn.shape != (4 * SCALE_HW, 4 * SCALE_HW, 3) or float(yn.std()) < 1.0:
+            failures.append(f"8a {name}: sharded output {yn.shape} or flat")
+        if (exact and dmax) or dmax > 1:
+            failures.append(f"8a {name}: sharded differs from single-device by up to {dmax} ({n_diff} values)")
+        if not cn or set(cn) != set(c1):
+            failures.append(f"8a {name}: sharded launches {cn} against single-device {c1}")
+        out[name] = row
+        del one, many
+        torch.cuda.empty_cache()
+    out["cudnn_batch_dependence"] = _cudnn_batch_dependence(weights, img, gpu)
+    return out
+
+
+def _cudnn_batch_dependence(weights: str, img, gpu: str) -> dict:
+    """Why the sharded patch engine keeps the single-device chunks whole (not
+    held): the float32 ``xla`` forward of 8 tiles alone against the same 8
+    tiles inside the batch of 16 the single-device engine runs."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.ops.color import im2double
+    from image_enhance_keras_tpu_torch.tiling.tiles import extract_tiles, pad_to_plan
+
+    r = SuperResolver(weights=weights, device="cuda")
+    plan = r.plan_for(*img.shape[:2])
+    tiles = im2double(extract_tiles(pad_to_plan(torch.tensor(img, device="cuda").to(torch.float32), plan), plan))
+    with torch.inference_mode():
+        y16, y8 = r.module(tiles[:16])[:8], r.module(tiles[:8])
+    u16, u8 = (r._finalize_u8(y * 255.0) for y in (y16, y8))
+    out = {"max_abs_diff": float((y16 - y8).abs().max()), "u8_differing": int((u16 != u8).sum())}
+    print(f"[chip_smoke] 8a the float32 xla forward of 8 tiles alone against the same 8 inside a batch of 16 "
+          f"(cuDNN, TF32 off): max abs diff {out['max_abs_diff']:.3g}, {out['u8_differing']} uint8 values differ "
+          f"on {gpu}", flush=True)
+    return out
+
+
+def _dp_step_check(mesh, failures: list, gpu: str) -> dict:
+    """Phase 8b: one float32 data-parallel train step of the full-width didbl
+    (demo weights, batch DP_BATCH of HR DP_HR patches of the bundled photos)
+    on ``mesh`` against the single-device step: the loss within 1e-5
+    (relative), the params within 1e-6 (elements whose gradient is under
+    1e-6 within twice the lr: Adam divides by sqrt(nu) + 1e-8 there, so
+    such an element moves by up to the lr, either way); ms per step of
+    both."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch.data.pipeline import PatchSampler, builtin_photos
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+    from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
+    from image_enhance_keras_tpu_torch.train.trainer import Trainer
+    from image_enhance_keras_tpu_torch.utils.config import Config
+
+    demo = load_params_npz(resolve_default_weights(MODEL_REGISTRY["didbl"]))
+    batch = torch.from_numpy(PatchSampler(builtin_photos(), hr_patch=DP_HR, batch_size=DP_BATCH,
+                                          seed=SEED).sample())
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_dp_")
+    res = {}
+    try:
+        for name, mesh_ in (("single", None), ("sharded", mesh)):
+            t = Trainer(Config(model="didbl", checkpoint_dir=os.path.join(tmp, name), monitor="val_psnr"),
+                        builtin_photos(), params=demo, device="cuda", mesh=mesh_)
+            b = batch if mesh_ is not None else batch.to("cuda")
+            _, m = t.train_step(t.state, b)
+            grad = {k: p.grad.detach().clone() for k, p in t.state.opt.params.items()}
+            torch.cuda.synchronize()
+            params = {k: v.detach().clone() for k, v in t.state.params().items()}
+            ms = []
+            for _ in range(3):
+                t1 = time.time()
+                t.train_step(t.state, b)
+                torch.cuda.synchronize()
+                ms.append((time.time() - t1) * 1e3)
+            res[name] = {"loss": float(m["loss"]), "params": params, "grad": grad, "ms": statistics.median(ms)}
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one, many = res["single"], res["sharded"]
+    dloss = abs(many["loss"] - one["loss"]) / abs(one["loss"])
+    worst, worst_floor, worst_grad = 0.0, 0.0, 0.0
+    for k, p in one["params"].items():
+        d = (many["params"][k] - p).abs()
+        g = one["grad"].get(k)
+        floor = (g.abs() < 1e-6) if g is not None else torch.zeros_like(d, dtype=torch.bool)
+        if g is not None:
+            out_grad = float((many["grad"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            worst_grad = max(worst_grad, out_grad)
+        worst = max(worst, float(d[~floor].max()) if (~floor).any() else 0.0)
+        worst_floor = max(worst_floor, float(d[floor].max()) if floor.any() else 0.0)
+    out = {"loss_single": one["loss"], "loss_sharded": many["loss"], "loss_rel_diff": dloss,
+           "param_max_diff": worst, "param_max_diff_small_grad": worst_floor, "grad_max_rel_diff": worst_grad,
+           "single_ms": one["ms"],
+           "sharded_ms": many["ms"], "mesh": [str(d) for d in mesh.local_devices()]}
+    print(f"[chip_smoke] 8b DP train step (batch {DP_BATCH}, HR {DP_HR}, float32) over {out['mesh']}: loss "
+          f"{many['loss']:.7f} against single-device {one['loss']:.7f} (relative {dloss:.3g}, bound 1e-5); params "
+          f"max diff {worst:.3g} (bound 1e-6), {worst_floor:.3g} where |grad| < 1e-6 (bound 2e-4: each step "
+          f"moves such an element by up to the lr, 1e-4, either way); "
+          f"gradients within {worst_grad:.3g} of each leaf's largest; "
+          f"{many['ms']:.2f} ms a step against {one['ms']:.2f} on {gpu}", flush=True)
+    if not np.isfinite(many["loss"]) or dloss > 1e-5 or worst > 1e-6 or worst_floor > 2e-4:
+        failures.append(f"8b DP step: loss diff {dloss:.3g}, params {worst:.3g} / {worst_floor:.3g}")
+    return out
+
+
+def _nccl_child(rank: int, world: int, out_path: str) -> int:
+    """Phase 8c's child: one data-parallel step of the full-width didbl (demo
+    weights, a batch of 2 seeded by the rank) on this rank's card, first
+    without a process group (world 1), then after ``maybe_init_distributed``
+    on NCCL with every all_reduce counted; writes both steps' params to
+    ``out_path`` (rank 0)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from image_enhance_keras_tpu_torch.data.pipeline import PatchSampler, builtin_photos
+    from image_enhance_keras_tpu_torch.engine import disable_tf32
+    from image_enhance_keras_tpu_torch.models.weights import load_params
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, get_model, resolve_default_weights
+    from image_enhance_keras_tpu_torch.parallel import make_mesh, maybe_init_distributed
+    from image_enhance_keras_tpu_torch.train import trainer as pt
+    from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
+
+    disable_tf32()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    demo = load_params_npz(resolve_default_weights(MODEL_REGISTRY["didbl"]))
+    batch = torch.from_numpy(PatchSampler(builtin_photos(), hr_patch=DP_HR, batch_size=2, seed=SEED + rank).sample())
+
+    def step():
+        module = get_model("didbl")[0].to(dev)
+        load_params(module, demo)
+        state = pt.TrainState(module, pt.Adam(pt.mask_frozen(module), 1e-4, b1=0.9))
+        state, m = pt.make_train_step(4, 0.5, mesh=make_mesh(1, devices=[dev]))(state, batch)
+        return {k: v.detach().cpu() for k, v in state.params().items()}, float(m["loss"])
+
+    out = {}
+    if world == 1:
+        out["without_group"] = step()
+    calls = []
+    dist = torch.distributed
+    reduce = dist.all_reduce
+    dist.all_reduce = lambda t, *a, **k: calls.append(t.numel()) or reduce(t, *a, **k)
+    if not maybe_init_distributed("cuda"):
+        raise RuntimeError("maybe_init_distributed did not join a group")
+    out["with_group"] = step()
+    out["backend"], out["world"], out["all_reduce_calls"] = dist.get_backend(), dist.get_world_size(), calls
+    if rank == 0:
+        torch.save(out, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_phase(mesh, tmp: str, failures: list, gpu: str) -> dict:
+    """Phase 8c: the data-parallel step through an NCCL process group in
+    child processes (one rank on a single card, whose step must equal the
+    step without a group bit for bit; two ranks on two cards, whose step
+    must match a one-process step over both batches within 1e-6); and
+    ``learn`` / ``main_dirpath --devices`` one more than the cards, which
+    must exit non-zero with the mesh's error."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    world = 2 if n_cards >= 2 else 1
+    port = _free_port()
+    path = os.path.join(tmp, "nccl.pt")
+    env = {k: v for k, v in os.environ.items()}
+    env.update(JAX_COORDINATOR_ADDRESS=f"localhost:{port}", JAX_NUM_PROCESSES=str(world))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nccl-child", str(r), str(world), path],
+                              env={**env, "JAX_PROCESS_ID": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=HERE) for r in range(world)]
+    # one more device than the cards: both CLIs must fail loudly, with no fallback (started alongside)
+    n = n_cards + 1
+    clis = {"learn": ["-m", "image_enhance_keras_tpu_torch.cli.learn", "--devices", str(n), "--epochs", "1",
+                      "--steps-per-epoch", "1", "--checkpoint-dir", os.path.join(tmp, "ck_refused")],
+            "main_dirpath": ["-m", "image_enhance_keras_tpu_torch.cli.main_dirpath", tmp, "--devices", str(n)]}
+    refusals = {k: subprocess.Popen([sys.executable, *v], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, cwd=HERE) for k, v in clis.items()}
+    want = f"requested {n} devices, have {n_cards}"
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=240)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    out = {"world": world, "rcs": [p.returncode for p in procs]}
+    if any(p.returncode for p in procs) or not os.path.exists(path):
+        failures.append(f"8c NCCL child failed: {out['rcs']}: {logs[0][-2000:]}")
+    else:
+        out.update(_nccl_result(torch.load(path), world, failures, gpu))
+    for k, p in refusals.items():
+        try:
+            text = p.communicate(timeout=240)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text = p.communicate()[0]
+        refused = p.returncode != 0 and want in text
+        out[f"{k}_refused"] = refused
+        print(f"[chip_smoke] 8c {k} --devices {n} on {n_cards} card(s): exit {p.returncode}, "
+              f"{'says' if want in text else 'does not say'} {want!r}", flush=True)
+        if not refused:
+            failures.append(f"8c {k} --devices {n}: exit {p.returncode}: {text[-1500:]}")
+    if os.path.exists(os.path.join(tmp, "ck_refused", "history.json")):
+        failures.append("8c learn --devices wrote a history: it fell back to fewer devices")
+    return out
+
+
+def _nccl_result(got: dict, world: int, failures: list, gpu: str) -> dict:
+    """Phase 8c's check of the NCCL ranks' step (see ``_nccl_phase``)."""
+    import torch
+
+    out = {"world": world}
+    out.update(backend=got["backend"], all_reduce_calls=len(got["all_reduce_calls"]),
+               loss=got["with_group"][1])
+    if world == 1:
+        a, b = got["with_group"][0], got["without_group"][0]
+        equal = all(torch.equal(a[k], b[k]) for k in a) and got["with_group"][1] == got["without_group"][1]
+        out["equal_without_group"] = equal
+        ok = equal
+    else:
+        from image_enhance_keras_tpu_torch.data.pipeline import PatchSampler, builtin_photos
+        from image_enhance_keras_tpu_torch.models.weights import load_params
+        from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, get_model, resolve_default_weights
+        from image_enhance_keras_tpu_torch.parallel import make_mesh
+        from image_enhance_keras_tpu_torch.train import trainer as pt
+        from image_enhance_keras_tpu_torch.train.checkpoints import load_params_npz
+
+        demo = load_params_npz(resolve_default_weights(MODEL_REGISTRY["didbl"]))
+        both = torch.cat([torch.from_numpy(PatchSampler(builtin_photos(), hr_patch=DP_HR, batch_size=2,
+                                                        seed=SEED + r).sample()) for r in range(2)])
+        module = get_model("didbl")[0].to("cuda:0")
+        load_params(module, demo)
+        state = pt.TrainState(module, pt.Adam(pt.mask_frozen(module), 1e-4, b1=0.9))
+        state, _ = pt.make_train_step(4, 0.5, mesh=make_mesh(2))(state, both)
+        ref = {k: v.detach().cpu() for k, v in state.params().items()}
+        small = {k: (p.grad.abs() < 1e-6).cpu() for k, p in state.opt.params.items()}
+        diff, diff_small = 0.0, 0.0
+        for k, v in ref.items():
+            d = (got["with_group"][0][k] - v).abs()
+            m = small.get(k, torch.zeros_like(d, dtype=torch.bool))
+            diff = max(diff, float(d[~m].max()) if (~m).any() else 0.0)
+            diff_small = max(diff_small, float(d[m].max()) if m.any() else 0.0)
+        out["param_max_diff_vs_one_process"] = [diff, diff_small]
+        ok = diff <= 1e-6 and diff_small <= 2e-4  # where |grad| < 1e-6 Adam moves by up to the lr either way
+    print(f"[chip_smoke] 8c DP step over a {world}-rank {out['backend']} group ({out['all_reduce_calls']} "
+          f"all_reduce calls, loss {out['loss']:.7f}): {out} on {gpu}", flush=True)
+    if not ok or out["backend"] != "nccl" or not out["all_reduce_calls"]:
+        failures.append(f"8c NCCL step: {out}")
+    return out
+
+
+def _scale_out_phase(tmp: str, failures: list, gpu: str) -> dict:
+    """Phase 8: scale-out (8a ShardedResolver, 8b the data-parallel step,
+    8c NCCL and the refusal of too many devices)."""
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+
+    t0 = time.time()
+    mesh = _scale_mesh()
+    names = [str(d) for d in mesh.local_devices()]
+    print(f"[chip_smoke] 8 mesh: {json.dumps({'mesh': names})}", flush=True)
+    out = {"mesh": names, "banded_kernels": _banded_dyn_kernels(failures, gpu)}
+    out["inference"] = _sharded_inference(resolve_default_weights(MODEL_REGISTRY["didbl"]), mesh, failures, gpu)
+    _phase("8a ShardedResolver", t0)
+    t0 = time.time()
+    out["dp_step"] = _dp_step_check(mesh, failures, gpu)
+    _phase("8b data-parallel train step", t0)
+    t0 = time.time()
+    out["nccl"] = _nccl_phase(mesh, tmp, failures, gpu)
+    _phase("8c NCCL process group and --devices refusals", t0)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3687,6 +4104,13 @@ def main() -> int:
         serve = _serving_phase(tmp, img, failures, gpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 8. scale-out -----------------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_scale_")
+    try:
+        scale_out = _scale_out_phase(tmp, failures, gpu)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     _phase("total", t_all)
 
     if failures:
@@ -3700,7 +4124,8 @@ def main() -> int:
                       "engine_s_per_image": {f: min(v) for f, v in secs.items()},
                       "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "mixed_cli": mixed_cli,
                       "split": split, "extras": extras, "int8_cli": int8_cli, "int8_profile": int8_profile,
-                      "set5": set5, "zoo": zoo, "train": train, "serving": serve}),
+                      "set5": set5, "zoo": zoo, "train": train, "serving": serve,
+                      "scale_out": scale_out}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3709,4 +4134,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--nccl-child"]:  # phase 8c's ranks
+        sys.exit(_nccl_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

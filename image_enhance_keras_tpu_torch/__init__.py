@@ -12,8 +12,27 @@ trains every zoo model with ``cli.learn`` (``train/trainer.py``), serves
 directories through ``runtime/serving.py`` (``main_dirpath --pipeline``)
 and exports serving programs (``cli.export_model``, ``runtime/export.py``,
 every kernel a ``torch.library`` op of ``ops/cuda/library.py``); ``python
--m image_enhance_keras_tpu_torch`` is the front door.  Nothing here imports
-JAX.
+-m image_enhance_keras_tpu_torch`` is the front door; ``parallel/`` shards
+inference and training over several devices (``ShardedResolver``,
+``Trainer(mesh=)``).  Nothing here imports JAX.
 """
 
 __version__ = "0.1.0"
+
+_LAZY = {
+    "SuperResolver": ("image_enhance_keras_tpu_torch.engine", "SuperResolver"),
+    "ShardedResolver": ("image_enhance_keras_tpu_torch.parallel", "ShardedResolver"),
+    "Trainer": ("image_enhance_keras_tpu_torch.train.trainer", "Trainer"),
+    "Config": ("image_enhance_keras_tpu_torch.utils.config", "Config"),
+}
+
+
+def __getattr__(name):
+    """Lazy top-level exports: ``from image_enhance_keras_tpu_torch import
+    ShardedResolver`` without importing the engine for users of the ops alone."""
+    entry = _LAZY.get(name)
+    if entry is None:
+        raise AttributeError(name)
+    import importlib
+
+    return getattr(importlib.import_module(entry[0]), entry[1])

@@ -6,8 +6,11 @@
 Trains any zoo model with the on-device degradation; with no data dirs it
 runs a synthetic smoke fit.  Every flag of the JAX CLI parses with the same
 default; ``--device`` is the port's own (``cuda`` unless the CPU is asked
-for), and ``--devices`` above 1 (data-parallel training) is rejected as not
-yet ported.
+for).  ``--devices N`` above 1 trains data-parallel over
+``parallel.make_mesh(N)`` (``cuda:0 .. cuda:N-1``; N entries of the CPU with
+``--device cpu``); the batch size must be a multiple of N.  As in the JAX
+CLI, a job of several processes is joined by the program that calls
+``main`` (``parallel.maybe_init_distributed``), not by the CLI.
 """
 
 from __future__ import annotations
@@ -33,8 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-patch", type=int, default=24)
     p.add_argument("--checkpoint-dir", default="weights_Double")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel devices (above 1: not yet ported)")
+    p.add_argument("--devices", type=int, default=1, help="data-parallel devices")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--augment", action="store_true", help="random flips/transpose")
     p.add_argument("--moa", type=float, default=0.0, metavar="P",
@@ -71,8 +73,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.devices > 1:
-        parser.error("--devices above 1 (data-parallel training) is not yet ported in image_enhance_keras_tpu_torch")
     cfg = Config(
         model=args.model,
         dtype=args.dtype,
@@ -113,7 +113,12 @@ def main(argv=None) -> int:
         if train_images:
             train_weights = pinned_mass_weights(len(train_images), len(synth), args.real_mass)
         train_images = (train_images or []) + synth
-    trainer = Trainer(cfg, train_images, val_images, train_weights=train_weights, device=args.device)
+    mesh = None
+    if args.devices > 1:
+        from image_enhance_keras_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.devices, devices=["cpu"] * args.devices if args.device == "cpu" else None)
+    trainer = Trainer(cfg, train_images, val_images, mesh=mesh, train_weights=train_weights, device=args.device)
     if args.resume:
         trainer.resume()
     trainer.fit()

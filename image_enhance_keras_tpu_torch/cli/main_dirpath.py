@@ -5,8 +5,9 @@ beside it, one image after another, or with ``--pipeline`` through the
 overlapped decode / device / encode pipeline (``runtime/serving.py``).
 ``--save_intermediate`` also writes ``<stem>_intermediate_<ext>``, the
 input PIL-bicubic resized to the output's size (serial loop only).  The JAX
-CLI's flags all parse; ``--devices`` above 1 is rejected with "not yet
-ported", never ignored.
+CLI's flags all parse.  ``--devices N`` above 1 serves through
+``parallel.ShardedResolver`` over N devices: ``cuda:0 .. cuda:N-1`` (more
+than the machine has raises), or with ``--device cpu`` N entries of the CPU.
 
 Usage:  python -m image_enhance_keras_tpu_torch.cli.main_dirpath <imgdir> [options]
 """
@@ -80,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_intermediate", default=False, action="store_true",
                    help="also write <stem>_intermediate_<ext>: the input PIL-bicubic resized to the output size")
     p.add_argument("--devices", default=1, type=int,
-                   help="data-parallel devices (above 1 not yet ported)")
+                   help="shard tiles (or a frame's rows) across this many devices (data-parallel inference)")
     p.add_argument("--pipeline", action="store_true",
                    help="overlap decode / device / encode (native threaded IO)")
     return p
@@ -89,8 +90,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.devices > 1:
-        parser.error("--devices above 1 (data-parallel inference) is not yet ported in image_enhance_keras_tpu_torch")
     # the int8 knobs are read from the environment at call time: scope them to
     # this run, so that an in-process caller's next main() sees the defaults
     saved = {k: os.environ.get(k) for k in ("IEK_INT8_ACC", "IEK_INT8_EMIT")}
@@ -110,10 +109,17 @@ def main(argv=None) -> int:
 
 def _run(args) -> int:
     from image_enhance_keras_tpu_torch.cli.common import resolve_cli_weights
-    from image_enhance_keras_tpu_torch.engine import SuperResolver
 
     weights = resolve_cli_weights(args.model, args.weights)
-    resolver = SuperResolver(
+    if args.devices > 1:
+        from image_enhance_keras_tpu_torch.parallel import ShardedResolver as Resolver
+
+        sharding = {"n_devices": args.devices}
+    else:
+        from image_enhance_keras_tpu_torch.engine import SuperResolver as Resolver
+
+        sharding = {}
+    resolver = Resolver(
         model=args.model,
         weights=weights,
         dtype="bfloat16" if args.dtype == "bfloat16" else None,
@@ -131,6 +137,7 @@ def _run(args) -> int:
         mixed="tail" if args.dtype == "mixed-tail" else args.dtype == "mixed",
         internal_learn=args.internal_learn,
         device=args.device,
+        **sharding,
     )
     if args.int8_calib_dir:
         resolver.int8_calib_dir = args.int8_calib_dir

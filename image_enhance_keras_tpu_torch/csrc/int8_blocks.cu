@@ -1115,21 +1115,31 @@ sample_absmax_kernel(const bf16* __restrict__ x, float* __restrict__ amax, long 
   atomic_max_block(m, amax + blockIdx.z);
 }
 
+// The pixels whose values an abs-max of X3 covers: rows [y0, y1), columns
+// [x0, x1) of each sample (the whole image, or a band's own rows when the
+// image is one band of a frame with its neighbours' halo rows around it).
+struct Window {
+  int y0, y1, x0, x1;
+};
+
 // X3 launch 2 epilogue: v = relu(dq(acc) + b) of the tile's pixels inside
 // the image, as float32 into dst (N, H, W, C), in two passes of 64 channels
-// through st (TILE_PIX x PITCH16 bytes); the abs-max of v into *amax.
+// through st (TILE_PIX x PITCH16 bytes); the abs-max of v over win into *amax.
 template <int DQ>
 __device__ __forceinline__ void emit_floats(const int (&acc)[MT][ACC], const float* vec, float* dst,
-                                            const Tile& t, int H, int W, uint8_t* st, float* amax) {
+                                            const Tile& t, int H, int W, uint8_t* st, float* amax,
+                                            const Window& win) {
   constexpr int CP = PASS / 4;  // float channels a pass
   const Frag f;
-  bool keep[MT][2];
+  bool keep[MT][2], counted[MT][2];
 #pragma unroll
   for (int j = 0; j < MT; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = f.p0 + j * TILE_W + 8 * h;
-      keep[j][h] = t.y0 + p / TILE_W < H && t.x0 + p % TILE_W < W;
+      const int y = t.y0 + p / TILE_W, x = t.x0 + p % TILE_W;
+      keep[j][h] = y < H && x < W;
+      counted[j][h] = keep[j][h] && y >= win.y0 && y < win.y1 && x >= win.x0 && x < win.x1;
     }
   float m = 0.f;
   uint8_t* db = reinterpret_cast<uint8_t*>(dst);
@@ -1148,7 +1158,7 @@ __device__ __forceinline__ void emit_floats(const int (&acc)[MT][ACC], const flo
           const float v1 = keep[j][h] ? fmaxf(deq<DQ>(acc[j][i + 1], sw1, b1), 0.f) : 0.f;
           *reinterpret_cast<float2*>(st + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + (co - pass * CP) * 4) =
               make_float2(v0, v1);
-          m = fmaxf(m, fmaxf(v0, v1));
+          if (counted[j][h]) m = fmaxf(m, fmaxf(v0, v1));
         }
     }
     __syncthreads();
@@ -1171,7 +1181,7 @@ xdyn_first_kernel(const bf16* __restrict__ x, float* __restrict__ amax,
                   const int8_t* __restrict__ w3, const float* __restrict__ s3,
                   const float* __restrict__ b3, float* __restrict__ t3,
                   const int8_t* __restrict__ w5, const float* __restrict__ s5,
-                  const float* __restrict__ b5, float* __restrict__ t5, int H, int W) {
+                  const float* __restrict__ b5, float* __restrict__ t5, int H, int W, Window win) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
   uint8_t* st = smem + EXTRA_OFF;
@@ -1182,9 +1192,9 @@ xdyn_first_kernel(const bf16* __restrict__ x, float* __restrict__ amax,
   const QuantSrc<bf16, true> src{x, sx, __frcp_rn(sx)};
   int acc[MT][ACC];
   conv_s8<3, 5, true>(acc, smem, src, w3, TileGeo{t, H, W});
-  emit_floats<DQ>(acc, vec, t3, t, H, W, st, amax + samples + t.n);
+  emit_floats<DQ>(acc, vec, t3, t, H, W, st, amax + samples + t.n, win);
   conv_s8<5, 5, false>(acc, smem, src, w5, TileGeo{t, H, W});
-  emit_floats<DQ>(acc, vec + 2 * C, t5, t, H, W, st, amax + 2 * samples + t.n);
+  emit_floats<DQ>(acc, vec + 2 * C, t5, t, H, W, st, amax + 2 * samples + t.n, win);
 }
 
 // X3 launch 3: conv5 over ta and conv3 over tb, each quantized on the way
@@ -1436,31 +1446,55 @@ int light_xla(const bf16* x, const float* act, const int8_t* w1, const float* s1
   return (int)cudaGetLastError();
 }
 
-// amax: float32 [3][n], zeroed here; ta, tb: float32 (n, h, w, C).
+// X3 in its three steps (a banded frame runs them one band after another,
+// its abs-maxes reduced over the bands between them).  amax: float32 [3][n];
+// ta, tb: float32 (n, h, w, C).  Step 0: each sample's abs-max of x into
+// amax[0] (accumulated: zero it first).  Step 1: the first convs from x
+// quantized with amax[0], into ta, tb, their abs-maxes over win accumulated
+// into amax[1], amax[2].  Step 2: the second convs and the residual combine.
+template <int DQ>
+int light53_xla_dyn_step(int step, const bf16* x, const int8_t* wa1, const float* sa1,
+                         const float* ba1, const int8_t* wa2, const float* sa2, const float* ba2,
+                         const int8_t* wb1, const float* sb1, const float* bb1, const int8_t* wb2,
+                         const float* sb2, const float* bb2, float* amax, float* ta, float* tb,
+                         bf16* out, int n, int h, int w, Window win, float res_scale,
+                         float identity_scale, cudaStream_t st) {
+  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
+  if (step == 0) {
+    const long long vecs = (long long)h * w * C * (long long)sizeof(bf16) / 16;  // 16-byte vectors a sample
+    const long long per = (long long)THREADS * 8;
+    const unsigned bx = (unsigned)(vecs / per + 1 < 1024 ? vecs / per + 1 : 1024);
+    sample_absmax_kernel<<<dim3(bx, 1, (unsigned)n), THREADS, 0, st>>>(x, amax, vecs);
+  } else if (step == 1) {
+    cudaError_t err = allow_smem(xdyn_first_kernel<DQ>, SMEM_XDYN_FIRST);
+    if (err != cudaSuccess) return (int)err;
+    xdyn_first_kernel<DQ><<<grid, THREADS, SMEM_XDYN_FIRST, st>>>(x, amax, wa1, sa1, ba1, ta, wb1,
+                                                                  sb1, bb1, tb, h, w, win);
+  } else {
+    cudaError_t err = allow_smem(xdyn_second_kernel<DQ>, SMEM_LIGHT53_B);
+    if (err != cudaSuccess) return (int)err;
+    xdyn_second_kernel<DQ><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(
+        x, amax, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The whole X3 block over whole samples: amax zeroed here, then the three steps.
 template <int DQ>
 int light53_xla_dyn(const bf16* x, const int8_t* wa1, const float* sa1, const float* ba1,
                     const int8_t* wa2, const float* sa2, const float* ba2, const int8_t* wb1,
                     const float* sb1, const float* bb1, const int8_t* wb2, const float* sb2,
                     const float* bb2, float* amax, float* ta, float* tb, bf16* out, int n, int h,
                     int w, float res_scale, float identity_scale, cudaStream_t st) {
-  cudaError_t err = allow_smem(xdyn_first_kernel<DQ>, SMEM_XDYN_FIRST);
-  if (err == cudaSuccess) err = allow_smem(xdyn_second_kernel<DQ>, SMEM_LIGHT53_B);
-  if (err == cudaSuccess) err = cudaMemsetAsync(amax, 0, 3 * (size_t)n * sizeof(float), st);
+  cudaError_t err = cudaMemsetAsync(amax, 0, 3 * (size_t)n * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-  const long long vecs = (long long)h * w * C * (long long)sizeof(bf16) / 16;  // 16-byte vectors a sample
-  const long long per = (long long)THREADS * 8;
-  const unsigned bx = (unsigned)(vecs / per + 1 < 1024 ? vecs / per + 1 : 1024);
-  sample_absmax_kernel<<<dim3(bx, 1, (unsigned)n), THREADS, 0, st>>>(x, amax, vecs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
-  xdyn_first_kernel<DQ><<<grid, THREADS, SMEM_XDYN_FIRST, st>>>(x, amax, wa1, sa1, ba1, ta, wb1, sb1,
-                                                                bb1, tb, h, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  xdyn_second_kernel<DQ><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(
-      x, amax, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
-  return (int)cudaGetLastError();
+  for (int step = 0; step < 3; ++step) {
+    const int code = light53_xla_dyn_step<DQ>(step, x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1,
+                                              wb2, sb2, bb2, amax, ta, tb, out, n, h, w,
+                                              Window{0, h, 0, w}, res_scale, identity_scale, st);
+    if (code != 0) return code;
+  }
+  return 0;
 }
 
 // The window grid of a dynamic launch, or false where th, tw, h8 and w8 do
@@ -1659,6 +1693,32 @@ int iek_light53_int8_xla_dyn(const void* x,
                                     amax, ta, tb, ob, n, h, w, res_scale, identity_scale, st);
   return light53_xla_dyn<DQ_F32>(xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, amax,
                                  ta, tb, ob, n, h, w, res_scale, identity_scale, st);
+}
+
+// One step of X3 (light53_xla_dyn_step) on one band of a frame: amax
+// float32 [3][n], accumulated by steps 0 and 1 (zero it first); the
+// abs-maxes of step 1 cover rows [wy0, wy1) and columns [wx0, wx1) of each
+// sample, the band's own pixels.
+int iek_light53_int8_xla_dyn_step(int step, const void* x,
+                                  const int8_t* wa1, const float* sa1, const float* ba1,
+                                  const int8_t* wa2, const float* sa2, const float* ba2,
+                                  const int8_t* wb1, const float* sb1, const float* bb1,
+                                  const int8_t* wb2, const float* sb2, const float* bb2,
+                                  float* amax, float* ta, float* tb, void* out, int n, int h, int w,
+                                  int c, int wy0, int wy1, int wx0, int wx1, int acc_bf16,
+                                  float res_scale, float identity_scale, void* stream) {
+  if (c != C || n > 65535 || step < 0 || step > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* ob = static_cast<bf16*>(out);
+  const Window win{wy0, wy1, wx0, wx1};
+  if (acc_bf16)
+    return light53_xla_dyn_step<DQ_BF16>(step, xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2,
+                                         sb2, bb2, amax, ta, tb, ob, n, h, w, win, res_scale,
+                                         identity_scale, st);
+  return light53_xla_dyn_step<DQ_F32>(step, xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2,
+                                      sb2, bb2, amax, ta, tb, ob, n, h, w, win, res_scale,
+                                      identity_scale, st);
 }
 
 const char* iek_error_string(int code) {

@@ -452,24 +452,34 @@ conv3_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     }
 }
 
+// Each sample's abs-max of x (n, h, wd, cin) accumulated into amax[n].
+template <typename T>
+int absmax(const T* x, float* amax, int n, int h, int wd, int cin, cudaStream_t st) {
+  const long long vecs = (long long)h * wd * cin * (long long)sizeof(T) / 16;
+  const long long per = (long long)THREADS * 8;
+  const unsigned bx = (unsigned)(vecs / per + 1 < 1024 ? vecs / per + 1 : 1024);
+  sample_absmax_kernel<T><<<dim3(bx, 1, (unsigned)n), THREADS, 0, st>>>(x, amax, vecs);
+  return (int)cudaGetLastError();
+}
+
+// DYN: amax holds the samples' abs-maxes when amax_given (a banded frame's,
+// reduced over its bands), else it is n floats of scratch they are taken into.
 template <typename T, int NT, bool DYN>
 int launch(const void* xv, const float* scale, const int8_t* w, const float* sf, const float* b,
            float* amax, float* out, int n, int h, int wd, int cin, int cout, int acc_bf16, int act,
-           float slope, cudaStream_t st) {
+           float slope, bool amax_given, cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
   cudaError_t err = cudaFuncSetAttribute(conv3_kernel<T, NT, DYN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes(CIN_MAX, NT));
   if (err != cudaSuccess) return (int)err;
   if (DYN) {
-    err = cudaMemsetAsync(amax, 0, (size_t)n * sizeof(float), st);
-    if (err != cudaSuccess) return (int)err;
-    const long long vecs = (long long)h * wd * cin * (long long)sizeof(T) / 16;
-    const long long per = (long long)THREADS * 8;
-    const unsigned bx = (unsigned)(vecs / per + 1 < 1024 ? vecs / per + 1 : 1024);
-    sample_absmax_kernel<T><<<dim3(bx, 1, (unsigned)n), THREADS, 0, st>>>(x, amax, vecs);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (!amax_given) {
+      err = cudaMemsetAsync(amax, 0, (size_t)n * sizeof(float), st);
+      if (err != cudaSuccess) return (int)err;
+      const int code = absmax<T>(x, amax, n, h, wd, cin, st);
+      if (code != 0) return code;
+    }
     scale = amax;
   }
   const unsigned tiles = (unsigned)(((h + TILE_H - 1) / TILE_H) * ((wd + TILE_W - 1) / TILE_W));
@@ -482,12 +492,12 @@ int launch(const void* xv, const float* scale, const int8_t* w, const float* sf,
 template <typename T, bool DYN>
 int dispatch_nt(const void* x, const float* scale, const int8_t* w, const float* sf, const float* b,
                 float* amax, float* out, int n, int h, int wd, int cin, int cout, int nt, int acc_bf16,
-                int act, float slope, cudaStream_t st) {
+                int act, float slope, cudaStream_t st, bool amax_given = false) {
   if (nt == 128)
     return launch<T, 128, DYN>(x, scale, w, sf, b, amax, out, n, h, wd, cin, cout, acc_bf16, act,
-                               slope, st);
+                               slope, amax_given, st);
   return launch<T, 64, DYN>(x, scale, w, sf, b, amax, out, n, h, wd, cin, cout, acc_bf16, act,
-                            slope, st);
+                            slope, amax_given, st);
 }
 
 }  // namespace
@@ -520,6 +530,27 @@ int iek_int8_conv3(const void* x, int x_f32, const float* s_in, const int8_t* w,
                                            acc_bf16, act, slope, st)
                : dispatch_nt<bf16, false>(x, s_in, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
                                           acc_bf16, act, slope, st);
+}
+
+// The dynamic form on one band of a frame, in two steps.  Step 0: each
+// sample's abs-max of x accumulated into amax (n floats; zero them first).
+// Step 1: the conv with amax as the samples' abs-maxes (reduced over the
+// frame's bands).  Arguments as iek_int8_conv3's dynamic form.
+int iek_int8_conv3_dyn_step(int step, const void* x, int x_f32, const int8_t* w, const float* sf,
+                            const float* bias, float* amax, float* out, int n, int h, int wd,
+                            int cin, int cout, int nt, int acc_bf16, int act, float slope,
+                            cudaStream_t st) {
+  if (cin % 32 || cin <= 0 || cin > CIN_MAX || (nt != 64 && nt != 128) || cout % nt || cout <= 0 ||
+      n <= 0 || h <= 0 || wd <= 0 || n > 65535 || act < ACT_NONE || act > ACT_LEAKY ||
+      amax == nullptr || step < 0 || step > 1)
+    return (int)cudaErrorInvalidValue;
+  if (step == 0)
+    return x_f32 ? absmax<float>(static_cast<const float*>(x), amax, n, h, wd, cin, st)
+                 : absmax<bf16>(static_cast<const bf16*>(x), amax, n, h, wd, cin, st);
+  return x_f32 ? dispatch_nt<float, true>(x, nullptr, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
+                                          acc_bf16, act, slope, st, true)
+               : dispatch_nt<bf16, true>(x, nullptr, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
+                                         acc_bf16, act, slope, st, true);
 }
 
 const char* iek_error_string(int code) {

@@ -36,6 +36,15 @@ transforms, ``back_projection=N`` refines the result against the LR input
 steps before ``upscale`` serves it (``_internal_adapt``), and restores the
 base weights afterwards; ``model_kwargs`` builds the model at non-default
 widths, as the trainer's ``Config.model_kwargs`` does.
+
+The data-parallel engine (``parallel/data_parallel.py``, ``ShardedResolver``)
+reuses this one through its hooks, each the identity on one device:
+``_weights_sharding`` / ``_place_weights`` (weight trees replicated to the
+mesh's devices), ``_constrain_tile_batch`` / ``_constrain_frame_batch`` (a
+batch cut into per-device shards), ``_jit_replicated`` (a per-shard program
+run on each shard's device and gathered), ``_video_chunk``, and
+``_fast_fn(hw)`` / ``_frame_fn(hw)`` (the whole-frame forwards, which it
+cuts into bands of rows).
 """
 
 from __future__ import annotations
@@ -176,6 +185,7 @@ class SuperResolver:
         self.internal_learn = int(internal_learn)
 
         self.module = self.module.to(self.device).eval().requires_grad_(False)
+        self._qparams = None
         if params is not None:
             load_params(self.module, params)
         else:
@@ -183,8 +193,7 @@ class SuperResolver:
             if weights is not None:
                 self.params = params_of_module(self.module)
                 self.load_weights(weights)
-        self.params = params_of_module(self.module)
-        self._qparams = None
+        self.params = self._place_weights(params_of_module(self.module))
         self._calib_x = None
         self.int8_calib_source: str | None = None
 
@@ -209,14 +218,27 @@ class SuperResolver:
             load_params(self.module, restore_params(path)["params"])  # flax path -> tensor
         else:
             raise NotImplementedError(f"loading {path!r}: not an .h5, an .npz or a checkpoint directory")
-        self.params = params_of_module(self.module)
+        self.params = self._place_weights(params_of_module(self.module))
         self._qparams = None  # re-quantize int8 weights on next use
+
+    def _weights_sharding(self) -> list[torch.device] | None:
+        """The devices weight trees are replicated to; None: the resolver's
+        own device only.  The sharded engine returns its mesh's devices, so
+        that weights loaded, quantized or adapted after construction are
+        replicated once, not copied on every call."""
+        return None
+
+    def _place_weights(self, tree: Any) -> Any:
+        """A weight tree (params or int8 qparams) placed for the forwards:
+        the tree itself on one device (it lives on ``self.device``)."""
+        return tree
 
     # ------------------------------------------------------------------
     # tiled pipeline
     # ------------------------------------------------------------------
     def _pipeline_for(self, plan: TilePlan) -> Callable:
-        """params, uint8 (H, W, 3) tensor -> uint8 (4H, 4W, 3) over the tile plan."""
+        """params, uint8 (H, W, 3) tensor -> uint8 (4H, 4W, 3) over the tile plan;
+        the chunks run one after another on this device."""
         forward = self._forward_fn()
         n = plan.n_tiles
         # full chunks of tile_chunk plus one remainder call; no dummy tiles
@@ -237,11 +259,12 @@ class SuperResolver:
 
         return run
 
-    def _forward_fn(self) -> Callable:
-        """params, (N,h,w,3) [0,1] -> (N,sh,sw,3): the module or a kernel forward."""
+    def _forward_fn(self, module: torch.nn.Module | None = None) -> Callable:
+        """params, (N,h,w,3) [0,1] -> (N,sh,sw,3): the module (``module``, a
+        replica of it on another device, when given) or a kernel forward."""
         if self.forward_mode == "int8":
             if self.int8_dynamic_tail or self.int8_body_tile:
-                body_fn, tail_fn = self._split_body_tail_fns()
+                body_fn, tail_fn = self._split_body_tail_fns(module)
                 return lambda qp, x: tail_fn(qp, body_fn(qp, x))
             return int8_support(self.module)[1]
         if self.forward_mode == "pallas_int8":
@@ -262,7 +285,7 @@ class SuperResolver:
                 params, b, dtype=self._dtype, n_body53=m.n_body53, n_light=m.n_light,
                 n_tail53=m.n_tail53, scale=m.scale, chain=chain,
             )
-        module = self.module
+        module = self.module if module is None else module
         return lambda params, b: module(b)
 
     def _finalize_u8(self, y: torch.Tensor) -> torch.Tensor:
@@ -277,8 +300,8 @@ class SuperResolver:
             return np.clip(np.floor(y), 0.0, 255.0).astype(np.uint8)
         return np.clip(np.round(y), 0.0, 255.0).astype(np.uint8)
 
-    def _fast_fn(self) -> Callable:
-        """Whole-frame forward with no tiling."""
+    def _fast_fn(self, hw) -> Callable:
+        """Whole-frame forward with no tiling, for an (H, W) = ``hw`` frame."""
         forward = self._forward_fn()
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
@@ -307,12 +330,13 @@ class SuperResolver:
         return (int(getattr(m, "body_upscale", 1)), int(getattr(m, "tail_upscale", m.scale)),
                 int(getattr(m, "split_halo", 3)))
 
-    def _split_body_tail_fns(self) -> tuple[Callable, Callable]:
+    def _split_body_tail_fns(self, module: torch.nn.Module | None = None) -> tuple[Callable, Callable]:
         """(body_fn, tail_fn) of the forward: the module's body and tail for
-        ``xla``, the int8 bodies and tails for ``int8`` and ``pallas_int8``
-        (the same receptive field, so the module's ``split_halo`` holds);
-        ``int8`` honours ``int8_dynamic_tail`` and ``int8_body_tile``."""
-        module = self.module
+        ``xla`` (``module``, a replica on another device, when given), the
+        int8 bodies and tails for ``int8`` and ``pallas_int8`` (the same
+        receptive field, so the module's ``split_halo`` holds); ``int8``
+        honours ``int8_dynamic_tail`` and ``int8_body_tile``."""
+        module = self.module if module is None else module
         fm = self.forward_mode
         if fm == "xla":
             tail = getattr(module, getattr(module, "split_tail_method", "tail"))
@@ -581,15 +605,16 @@ class SuperResolver:
         if self._qparams is None:
             calib = self._calibration_input().to(self.device)
             if self.forward_mode == "int8":
-                self._qparams = int8_support(self.module)[0](self.params, calib)
+                qp = int8_support(self.module)[0](self.params, calib)
             else:
                 from image_enhance_keras_tpu_torch.models.didbl_pallas import quantize_didbl_params
 
                 m = self.module
-                self._qparams = quantize_didbl_params(
+                qp = quantize_didbl_params(
                     self.params, n_body53=m.n_body53, n_light=m.n_light, n_tail53=m.n_tail53,
                     calib_x=calib, scale=m.scale,
                 )
+            self._qparams = self._place_weights(qp)
         return self._qparams
 
     def plan_for(self, height: int, width: int) -> TilePlan:
@@ -661,7 +686,8 @@ class SuperResolver:
             adapted = self._internal_adapt(img, self.internal_learn)
             if adapted is not None:
                 saved = (self.module, self.params, self._qparams)
-                self.module, self.params, self._qparams = adapted, params_of_module(adapted), None
+                self.module, self._qparams = adapted, None
+                self.params = self._place_weights(params_of_module(adapted))
                 try:
                     return self._upscale_post(img)
                 finally:
@@ -728,7 +754,7 @@ class SuperResolver:
             )
         if self.mode == "fast":
             if img.shape[0] * img.shape[1] <= self.fast_max_pixels:
-                return self._fast_fn()(self._fwd_params(), x).cpu().numpy()
+                return self._fast_fn(img.shape[:2])(self._fwd_params(), x).cpu().numpy()
             log.warning(
                 "mode='fast' frame %dx%d exceeds fast_max_pixels=%d; falling back to the "
                 "tiled patch pipeline (interior-identical, borders differ within the conv "
@@ -755,10 +781,40 @@ class SuperResolver:
         scale = self.spec.net_scale
         x = torch.tensor(np.ascontiguousarray(img), device=self.device).to(torch.float32)
         tiles = extract_dense_patches(F.pad(x, (0, 0, 0, w2 - w, 0, h2 - h)), patch, s)
-        lr = resize_pil_uint8(tiles, (patch // scale, patch // scale))
-        y = self._forward_fn()(self._fwd_params(), im2double(lr)) * 255.0
+
+        def run(forward, params, t):
+            lr = resize_pil_uint8(t, (patch // scale, patch // scale))
+            return forward(params, im2double(lr)) * 255.0
+
+        # sharded engines pad the batch to a device multiple and cut it into
+        # per-device shards here; one shard on one device
+        y = self._jit_replicated(run)(self._constrain_tile_batch(tiles))[: tiles.shape[0]]
         recon = reconstruct_average(y, (h2, w2), step=s, pad=4)
         return self._finalize_u8(recon[:h, :w]).cpu().numpy()
+
+    def _constrain_tile_batch(self, tiles: torch.Tensor) -> list[torch.Tensor]:
+        """A dense tile batch as per-device shards: ``[tiles]`` on one device."""
+        return [tiles]
+
+    def _constrain_frame_batch(self, chunk: torch.Tensor) -> list[torch.Tensor]:
+        """A chunk of frames as per-device shards: ``[chunk]`` on one device."""
+        return [chunk]
+
+    def _video_chunk(self, frame_chunk: int) -> int:
+        """Frames a call of the video forward takes: ``frame_chunk`` on one
+        device, a device-count multiple of it on a mesh."""
+        return max(1, frame_chunk)
+
+    def _jit_replicated(self, run: Callable) -> Callable:
+        """``run(forward, params, shard)``, a per-shard program, as a function
+        of the shards that runs it on each shard and gathers the results in
+        order on this device (on one device: one call)."""
+        forward, params = self._forward_fn(), self._fwd_params()
+        return lambda shards: torch.cat([run(forward, params, t) for t in shards])
+
+    def _frame_fn(self, hw) -> Callable:
+        """params, (1, H, W, 3) [0,1] -> the forward's float output for an (H, W) = ``hw`` frame."""
+        return self._forward_fn()
 
     @torch.inference_mode()
     def upscale_frame(self, frame: np.ndarray) -> np.ndarray:
@@ -766,7 +822,7 @@ class SuperResolver:
         contract); honours ``back_projection``."""
         frame = np.asarray(frame)
         x = im2double(self._pre_upscale(torch.tensor(np.ascontiguousarray(frame), device=self.device)))[None]
-        y = self._forward_fn()(self._fwd_params(), x)
+        y = self._frame_fn(x.shape[1:3])(self._fwd_params(), x)
         out = self._finalize_u8(y[0] * 255.0).cpu().numpy()
         if self.back_projection > 0:
             out = self._back_project(out, frame, self.back_projection)
@@ -777,12 +833,15 @@ class SuperResolver:
         """(T, H, W, 3) uint8 -> (T, 4H, 4W, 3) uint8: the whole-frame forward
         over chunks of ``frame_chunk`` frames; honours ``back_projection``."""
         frames = np.asarray(frames)
-        forward, params = self._forward_fn(), self._fwd_params()
         v = torch.tensor(np.ascontiguousarray(frames), device=self.device)
-        tc = max(1, frame_chunk)
-        outs = [self._finalize_u8(forward(params, im2double(self._pre_upscale(v[i : i + tc]))) * 255.0)
-                for i in range(0, v.shape[0], tc)]
-        out = torch.cat(outs).cpu().numpy()
+        tc = self._video_chunk(frame_chunk)
+
+        def one(forward, params, chunk):
+            return self._finalize_u8(forward(params, im2double(self._pre_upscale(chunk))) * 255.0)
+
+        run = self._jit_replicated(one)
+        out = torch.cat([run(self._constrain_frame_batch(v[i : i + tc])) for i in range(0, v.shape[0], tc)])
+        out = out.cpu().numpy()
         if self.back_projection > 0:
             out = self._back_project(out, frames, self.back_projection)
         return out

@@ -42,7 +42,7 @@ from image_enhance_keras_tpu_torch.ops.cuda import _build, library
 from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import _stream
 from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import _F32, _acc, _c, _check_acc, _quant_c, _quant_dyn_sample
 
-__all__ = ["int8_conv3", "int8_conv3_dyn", "int8_conv3_plain", "int8_conv3_dyn_plain", "packed",
+__all__ = ["int8_conv3", "int8_conv3_dyn", "int8_conv3_dyn_banded", "int8_conv3_plain", "int8_conv3_dyn_plain", "packed",
            "launch_int8_conv3", "launch_int8_conv3_dyn"]
 
 #: the activations' dtypes the kernel takes
@@ -64,9 +64,10 @@ def int8_conv3_plain(x, wq, sf, bias, s_in, acc: str = "bf16", act=None) -> torc
     return _act(_acc(_quant_c(x, s_in), wq, acc) * sf + bias, act)
 
 
-def int8_conv3_dyn_plain(x, wq, s_w, bias, acc: str = "bf16", act=None) -> torch.Tensor:
-    """act(A(conv(q(x), wq)) * (s_w * s_x) + bias) with x's per-sample scale s_x, float32."""
-    xq, sx = _quant_dyn_sample(x.to(_F32))
+def int8_conv3_dyn_plain(x, wq, s_w, bias, acc: str = "bf16", act=None, amax=None) -> torch.Tensor:
+    """act(A(conv(q(x), wq)) * (s_w * s_x) + bias) with x's per-sample scale s_x, float32;
+    ``amax`` (N,) gives the samples' abs-maxes in place of x's own."""
+    xq, sx = _quant_dyn_sample(x.to(_F32), amax)
     return _act(_acc(xq, wq, acc) * (s_w * sx) + bias, act)
 
 
@@ -163,6 +164,47 @@ def launch_int8_conv3_dyn(x, wp, s_w, bias, acc: str, kind: int, slope: float) -
     out = _launch(x, wp, None, s_w, bias, acc, kind, slope)
     int8_conv3_dyn.launches += 1
     return out
+
+
+def _dyn_step(step: int, x, wp, s_w, bias, amax, out, acc: str, kind: int, slope: float) -> None:
+    _build.check_aligned(x, wp, s_w, bias, amax, out)
+    lib = _build.library("int8_conv")
+    n, h, w, cin = (int(s) for s in x.shape)
+    cout = int(s_w.shape[0])
+    with torch.cuda.device(x.device):
+        code = lib.iek_int8_conv3_dyn_step(
+            step, x.data_ptr(), int(x.dtype == _F32), wp.data_ptr(), s_w.data_ptr(), bias.data_ptr(),
+            amax.data_ptr(), None if out is None else out.data_ptr(), n, h, w, cin, cout, _nt(cout),
+            int(acc == "bf16"), int(kind), float(slope), _stream(x))
+    _build.check(lib, code, f"int8_conv3_dyn step {step}")
+
+
+def launch_int8_conv3_absmax(x, wp, s_w, bias) -> torch.Tensor:
+    """X4's dynamic step 0 on CUDA tensors: each sample's abs-max of x, (N,)."""
+    amax = torch.zeros(int(x.shape[0]), dtype=_F32, device=x.device)
+    _dyn_step(0, x, wp, s_w, bias, amax, None, "bf16", 0, 0.0)
+    return amax
+
+
+def launch_int8_conv3_dyn_given(x, wp, s_w, bias, amax, acc: str, kind: int, slope: float) -> torch.Tensor:
+    """X4's dynamic step 1 on CUDA tensors: the conv at the given abs-maxes (a banded frame's)."""
+    out = torch.empty((*x.shape[:3], int(s_w.shape[0])), dtype=_F32, device=x.device)
+    _dyn_step(1, x, wp, s_w, bias, amax.to(_F32).contiguous(), out, acc, kind, slope)
+    int8_conv3_dyn.launches += 1
+    return out
+
+
+def int8_conv3_dyn_banded(x, window, wq, s_w, bias, acc: str = "bf16", act=None):
+    """:func:`int8_conv3_dyn` on one band of a frame whose abs-max is reduced
+    over its bands: a generator that yields this band's abs-max of x over
+    ``window`` (its own pixels, (y0, y1, x0, x1)), is sent the frame's, and
+    returns the conv over the whole band."""
+    cout = int(wq.shape[-1])
+    _check(x, wq, [(s_w, cout), (bias, cout)], acc, act)
+    (wq,) = library.device_layout(x, packed, wq)
+    y0, y1, x0, x1 = (int(v) for v in window)
+    amax = yield library.int8_conv3_absmax(x[:, y0:y1, x0:x1].contiguous(), wq, s_w, bias)
+    return library.int8_conv3_dyn_given(x, wq, s_w, bias, amax, acc, *act_code(act))
 
 
 def int8_conv3(x, wq, sf, bias, s_in, acc: str = "bf16", act=None) -> torch.Tensor:

@@ -51,6 +51,8 @@ __all__ = [
     "light53_int8_xla",
     "light_int8_xla",
     "light53_int8_xla_dyn",
+    "light53_int8_xla_dyn_banded",
+    "sample_absmax",
     "launch_light53_int8_xla",
     "launch_light_int8_xla",
     "launch_light53_int8_xla_dyn",
@@ -126,32 +128,60 @@ def light_int8_xla_plain(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16
     return (xf + _c(res_scale) * u).to(x.dtype)
 
 
-def _quant_dyn_sample(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def sample_absmax(t: torch.Tensor) -> torch.Tensor:
+    """Each sample's abs-max over (H, W, C), float32 (N,)."""
+    return t.to(_F32).abs().amax(dim=(1, 2, 3))
+
+
+def _quant_dyn_sample(t: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample codes and scale: s = max(abs-max over (H, W, C), 1e-6) / 127.0
-    (a division), codes clamp(round(t / s), +-127), both float32."""
-    m = torch.clamp_min(t.abs().amax(dim=(1, 2, 3), keepdim=True), 1e-6)
+    (a division), codes clamp(round(t / s), +-127), both float32.  ``amax``
+    (N,) gives the samples' abs-maxes (a banded frame's, reduced over its
+    bands) in place of t's own."""
+    m = (sample_absmax(t) if amax is None else amax).reshape(-1, 1, 1, 1)
+    m = torch.clamp_min(m, 1e-6)
     s = m / torch.full_like(m, 127.0)  # see int8_blocks.quantize_weights_per_channel
     return torch.clamp(torch.round(t / s), -127.0, 127.0), s
 
 
+def light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc: str, window):
+    """X3's first convs: ta = relu(dequant(conv3(q(x)))), tb the same of conv5,
+    x quantized with the samples' abs-maxes ``amax_x`` (N,); returns ta, tb
+    and their abs-maxes (2, N) over ``window`` (y0, y1, x0, x1)."""
+    _check_acc(acc)
+    xq, sx = _quant_dyn_sample(x.to(_F32), amax_x)
+    ta = torch.relu(_acc(xq, wa1, acc) * (sa1 * sx) + ba1)
+    tb = torch.relu(_acc(xq, wb1, acc) * (sb1 * sx) + bb1)
+    y0, y1, x0, x1 = window
+    return ta, tb, torch.stack([sample_absmax(t[:, y0:y1, x0:x1]) for t in (ta, tb)])
+
+
+def light53_int8_xla_dyn_second_plain(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc: str,
+                                      res_scale: float, identity_scale: float):
+    """X3's second convs from ta, tb quantized with the abs-maxes ``amax_ab``
+    (2, N), and the residual combine."""
+    _check_acc(acc)
+
+    def branch(t, w2, s2, b2, amax):
+        tq, st = _quant_dyn_sample(t, amax)
+        return _acc(tq, w2, acc) * (s2 * st) + b2
+
+    a = branch(ta, wa2, sa2, ba2, amax_ab[0])
+    b = branch(tb, wb2, sb2, bb2, amax_ab[1])
+    return (_c(identity_scale) * x.to(_F32) + _c(res_scale) * (a + b)).to(x.dtype)
+
+
 def light53_int8_xla_dyn_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
                                acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9):
-    """The per-sample dynamic Light53 block over the unfolded weights "q" / "s".
+    """The per-sample dynamic Light53 block over the unfolded weights "q" / "s":
+    its two steps over whole samples.
 
     ``IEK_INT8_EMIT=s8`` (``_requant_dyn``) runs the same float ops in JAX,
     so one version serves both emissions."""
-    _check_acc(acc)
-    xf = x.to(_F32)
-    xq, sx = _quant_dyn_sample(xf)
-
-    def branch(w1, s1, b1, w2, s2, b2):
-        t = torch.relu(_acc(xq, w1, acc) * (s1 * sx) + b1)
-        tq, st = _quant_dyn_sample(t)
-        return _acc(tq, w2, acc) * (s2 * st) + b2
-
-    a = branch(wa1, sa1, ba1, wa2, sa2, ba2)
-    b = branch(wb1, sb1, bb1, wb2, sb2, bb2)
-    return (_c(identity_scale) * xf + _c(res_scale) * (a + b)).to(x.dtype)
+    ta, tb, amax_ab = light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, sample_absmax(x), acc,
+                                                       (0, x.shape[1], 0, x.shape[2]))
+    return light53_int8_xla_dyn_second_plain(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc, res_scale,
+                                             identity_scale)
 
 
 def light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
@@ -194,6 +224,28 @@ def light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb
     wa1, wa2, wb1, wb2 = library.device_layout(x, _packed, wa1, wa2, wb1, wb2)
     return library.light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc,
                                         float(res_scale), float(identity_scale))
+
+
+def light53_int8_xla_dyn_banded(x, window, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9):
+    """X3 on one band of a frame whose abs-maxes are reduced over its bands:
+    a generator that yields this band's abs-max of x over ``window`` (its
+    own pixels, (y0, y1, x0, x1)) and is sent the frame's, then yields the
+    branch intermediates' abs-maxes (2, N) over the window and is sent the
+    frame's, and returns the block's output over the whole band (halo rows
+    included).  Driven over a single band that is the whole frame, it is
+    :func:`light53_int8_xla_dyn`."""
+    _check_acc(acc)
+    _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
+           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], None, (), _BF16)
+    wa1, wa2, wb1, wb2 = library.device_layout(x, _packed, wa1, wa2, wb1, wb2)
+    y0, y1, x0, x1 = (int(v) for v in window)
+    amax_x = yield library.light53_int8_xla_dyn_absmax(x[:, y0:y1, x0:x1].contiguous())
+    ta, tb, amax_ab = library.light53_int8_xla_dyn_first(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc,
+                                                         [y0, y1, x0, x1])
+    amax_ab = yield amax_ab
+    return library.light53_int8_xla_dyn_second(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc,
+                                               float(res_scale), float(identity_scale))
 
 
 def launch_light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
@@ -248,6 +300,51 @@ def launch_light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, 
             x.data_ptr(), *(t.data_ptr() for t in convs), amax.data_ptr(), ta.data_ptr(), tb.data_ptr(),
             out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
     _build.check(lib, code, "light53_int8_xla_dyn")
+    light53_int8_xla_dyn.launches += 1
+    return out
+
+
+def _dyn_step(step: int, x, convs, amax, ta, tb, out, window, acc: str, res_scale: float = 0.0,
+              identity_scale: float = 0.0) -> None:
+    """One step of ``iek_light53_int8_xla_dyn_step``; ``convs``: the 12 conv
+    arguments, None where the step does not read them."""
+    _build.check_aligned(x, amax, ta, tb, out, *convs)
+    lib = _build.library("int8_blocks")
+    n, h, w, c = (int(s) for s in x.shape)
+    ptr = [None if t is None else t.data_ptr() for t in (*convs, amax, ta, tb, out)]
+    with torch.cuda.device(x.device):
+        code = lib.iek_light53_int8_xla_dyn_step(step, x.data_ptr(), *ptr, n, h, w, c, *window,
+                                                 int(acc == "bf16"), float(res_scale), float(identity_scale),
+                                                 _stream(x))
+    _build.check(lib, code, f"light53_int8_xla_dyn step {step}")
+
+
+def launch_light53_int8_xla_dyn_absmax(x) -> torch.Tensor:
+    """X3's step 0 on CUDA tensors: each sample's abs-max of x, (N,)."""
+    amax = torch.zeros(int(x.shape[0]), dtype=_F32, device=x.device)
+    _dyn_step(0, x, [None] * 12, amax, None, None, None, (0, 0, 0, 0), "bf16")
+    return amax
+
+
+def launch_light53_int8_xla_dyn_first(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc: str, window):
+    """X3's step 1 on CUDA tensors: ta, tb and their abs-maxes (2, N) over ``window``."""
+    n = int(x.shape[0])
+    amax = torch.cat([amax_x.reshape(1, n).to(_F32), torch.zeros((2, n), dtype=_F32, device=x.device)])
+    ta = torch.empty(x.shape, dtype=_F32, device=x.device)
+    tb = torch.empty_like(ta)
+    _dyn_step(1, x, [wa1, sa1, ba1, None, None, None, wb1, sb1, bb1, None, None, None], amax, ta, tb, None,
+              tuple(window), acc)
+    return ta, tb, amax[1:].clone()
+
+
+def launch_light53_int8_xla_dyn_second(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc: str,
+                                       res_scale: float, identity_scale: float) -> torch.Tensor:
+    """X3's step 2 on CUDA tensors (the block's output): counted as one X3 block."""
+    n = int(x.shape[0])
+    amax = torch.cat([torch.zeros((1, n), dtype=_F32, device=x.device), amax_ab.reshape(2, n).to(_F32)])
+    out = torch.empty_like(x)
+    _dyn_step(2, x, [None, None, None, wa2, sa2, ba2, None, None, None, wb2, sb2, bb2], amax, ta, tb, out,
+              (0, 0, 0, 0), acc, res_scale, identity_scale)
     light53_int8_xla_dyn.launches += 1
     return out
 

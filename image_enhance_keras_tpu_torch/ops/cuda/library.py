@@ -19,8 +19,10 @@ launches stay inside the CUDA implementations.
     K1 light53_block, K2 light_block, K6 light53_chain, K7 light_chain
     (float32 and bf16 x); K3 upsample_phase_tf1 (differentiable); K4
     light53_int8, K5 light_int8 (static ``act_scales``, or None: dynamic);
-    X1 light53_int8_xla, X2 light_int8_xla, X3 light53_int8_xla_dyn;
-    X4 int8_conv3, int8_conv3_dyn.
+    X1 light53_int8_xla, X2 light_int8_xla, X3 light53_int8_xla_dyn (and
+    its steps _absmax, _first, _second, for a frame cut into bands); X4
+    int8_conv3, int8_conv3_dyn (and its steps int8_conv3_absmax,
+    int8_conv3_dyn_given).
 
 Importing this module registers the ops; it imports the kernel modules only
 when an op runs, so a process that loads an exported program needs nothing
@@ -35,7 +37,8 @@ from torch import Tensor
 __all__ = [
     "light53_block", "light_block", "light53_chain", "light_chain", "upsample_phase_tf1",
     "light53_int8", "light_int8", "light53_int8_xla", "light_int8_xla", "light53_int8_xla_dyn",
-    "int8_conv3", "int8_conv3_dyn", "device_layout",
+    "int8_conv3", "int8_conv3_dyn", "light53_int8_xla_dyn_absmax", "light53_int8_xla_dyn_first",
+    "light53_int8_xla_dyn_second", "int8_conv3_absmax", "int8_conv3_dyn_given", "device_layout",
 ]
 
 
@@ -255,6 +258,68 @@ def _(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc, res_sc
                                          res_scale, identity_scale)
 
 
+# X3 in steps, for a frame cut into bands whose abs-maxes are reduced over the
+# bands between the steps (``int8_xla.light53_int8_xla_dyn_banded``)
+
+@_op("light53_int8_xla_dyn_absmax")
+def light53_int8_xla_dyn_absmax(x: Tensor) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.sample_absmax(x)
+
+
+@light53_int8_xla_dyn_absmax.register_kernel("cuda")
+def _(x):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.launch_light53_int8_xla_dyn_absmax(x)
+
+
+@light53_int8_xla_dyn_absmax.register_fake
+def _(x):
+    return x.new_empty((x.shape[0],), dtype=torch.float32)
+
+
+@_op("light53_int8_xla_dyn_first")
+def light53_int8_xla_dyn_first(x: Tensor, wa1: Tensor, sa1: Tensor, ba1: Tensor, wb1: Tensor, sb1: Tensor,
+                               bb1: Tensor, amax_x: Tensor, acc: str,
+                               window: list[int]) -> tuple[Tensor, Tensor, Tensor]:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, tuple(window))
+
+
+@light53_int8_xla_dyn_first.register_kernel("cuda")
+def _(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, window):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.launch_light53_int8_xla_dyn_first(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, window)
+
+
+@light53_int8_xla_dyn_first.register_fake
+def _(x, *args):
+    t = x.new_empty(x.shape, dtype=torch.float32)
+    return t, torch.empty_like(t), x.new_empty((2, x.shape[0]), dtype=torch.float32)
+
+
+@_op("light53_int8_xla_dyn_second")
+def light53_int8_xla_dyn_second(x: Tensor, ta: Tensor, tb: Tensor, wa2: Tensor, sa2: Tensor, ba2: Tensor,
+                                wb2: Tensor, sb2: Tensor, bb2: Tensor, amax_ab: Tensor, acc: str, res_scale: float,
+                                identity_scale: float) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.light53_int8_xla_dyn_second_plain(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc, res_scale,
+                                               identity_scale)
+
+
+@light53_int8_xla_dyn_second.register_kernel("cuda")
+def _(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc, res_scale, identity_scale):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.launch_light53_int8_xla_dyn_second(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc, res_scale,
+                                                identity_scale)
+
+
 # -- X4: the zoo's 3x3 int8 conv (ops/cuda/int8_conv.py) -------------------------
 # ``act_kind`` 0: none, 1: relu, 2: leaky with ``slope``
 
@@ -288,6 +353,42 @@ def _(x, wq, s_w, bias, acc, act_kind, slope):
     return k.launch_int8_conv3_dyn(x, wq, s_w, bias, acc, act_kind, slope)
 
 
+# X4's dynamic form in two steps, for a banded frame (``int8_conv.int8_conv3_dyn_banded``)
+
+@_op("int8_conv3_absmax")
+def int8_conv3_absmax(x: Tensor, wq: Tensor, s_w: Tensor, bias: Tensor) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.sample_absmax(x)
+
+
+@int8_conv3_absmax.register_kernel("cuda")
+def _(x, wq, s_w, bias):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.launch_int8_conv3_absmax(x, wq, s_w, bias)
+
+
+@int8_conv3_absmax.register_fake
+def _(x, *args):
+    return x.new_empty((x.shape[0],), dtype=torch.float32)
+
+
+@_op("int8_conv3_dyn_given")
+def int8_conv3_dyn_given(x: Tensor, wq: Tensor, s_w: Tensor, bias: Tensor, amax: Tensor, acc: str,
+                         act_kind: int, slope: float) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.int8_conv3_dyn_plain(x, wq, s_w, bias, acc, k.act_of(act_kind, slope), amax=amax)
+
+
+@int8_conv3_dyn_given.register_kernel("cuda")
+def _(x, wq, s_w, bias, amax, acc, act_kind, slope):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.launch_int8_conv3_dyn_given(x, wq, s_w, bias, amax, acc, act_kind, slope)
+
+
 def _conv_out(x, wq, scale, *args):
     n, h, w, _ = x.shape
     return x.new_empty((n, h, w, scale.shape[0]), dtype=torch.float32)
@@ -298,4 +399,5 @@ for _o in (light53_block, light_block, light53_chain, light_chain, light53_int8,
     _o.register_fake(_like_x)
 int8_conv3.register_fake(_conv_out)
 int8_conv3_dyn.register_fake(_conv_out)
+int8_conv3_dyn_given.register_fake(_conv_out)
 

@@ -68,7 +68,7 @@ def export_forward(resolver, input_hw: tuple[int, int], path: str) -> int:
     baked in, ``round_mode`` honoured) for the given input size.  Returns the
     artifact's size in bytes."""
     params = resolver._fwd_params()
-    inner = resolver._fast_fn()
+    inner = resolver._fast_fn(input_hw)
     return _save(lambda img: inner(params, img), input_hw, resolver.device, path)
 
 
@@ -102,7 +102,7 @@ def export_pipeline(resolver, input_hw: tuple[int, int], path: str) -> int:
     if resolver.mode == "split" and resolver._supports_split():
         inner = resolver._split_fn(hw)
     elif resolver.mode == "fast" and hw[0] * hw[1] <= resolver.fast_max_pixels:
-        inner = resolver._fast_fn()
+        inner = resolver._fast_fn(hw)
     else:
         if resolver.mode == "split":
             log.warning(

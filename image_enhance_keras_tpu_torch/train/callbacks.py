@@ -14,8 +14,12 @@ __all__ = ["HistoryLogger"]
 
 
 class HistoryLogger:
-    def __init__(self, path: str):
+    """Per-epoch metrics, rewritten to ``path`` after every epoch when ``write``
+    (a job of several processes writes from rank 0 alone)."""
+
+    def __init__(self, path: str, write: bool = True):
         self.path = path
+        self.write = write
         self.history: dict[str, list] = {}
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         if os.path.exists(path):
@@ -29,6 +33,8 @@ class HistoryLogger:
         self.history.setdefault("epoch", []).append(epoch)
         for k, v in metrics.items():
             self.history.setdefault(k, []).append(v)
+        if not self.write:
+            return
         with open(self.path, "w") as f:
             json.dump(self.history, f, indent=2)
 

@@ -17,11 +17,25 @@ count before the increment, applied last), behind
 parameters only (:func:`mask_frozen`).  Every scalar it multiplies or
 divides by is a float32 tensor on the parameters' device.
 
-Data-parallel training (``mesh=``) is not yet ported.
+Data-parallel training (``Trainer(mesh=)``, ``make_train_step(mesh=)``):
+each global batch is cut into one shard per device of the mesh (a batch
+the device count does not divide raises); each device runs the
+degradation, the forward and the loss on its shard with its replica of the
+module; the gradients are combined into the gradient of the global-batch
+mean once, on the first device, which runs the clip, the frozen mask,
+Adam and the EMA, and the updated parameters are copied back to every
+replica.  Across the processes of a ``torch.distributed`` group
+(``parallel.distributed.maybe_init_distributed``) each rank samples its
+own batch (seed ``seed + 7919 * rank``), the global batch being the ranks'
+batches in rank order: the gradients (and the metrics) are summed by one
+``all_reduce`` and scaled to the global mean, rank 0 alone writes the
+checkpoints and ``history.json`` (the others wait at a barrier), and every
+rank restores.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any, Callable
@@ -41,6 +55,7 @@ from image_enhance_keras_tpu_torch.utils.logging import get_logger
 
 __all__ = [
     "Adam",
+    "Replicas",
     "TrainState",
     "Trainer",
     "cosine_decay_schedule",
@@ -218,13 +233,82 @@ def _net_input(lr_x: torch.Tensor, scale: int, pre_upscale: bool) -> torch.Tenso
     return resize_bicubic_pil(lr_x, (lr_x.shape[-3] * scale, lr_x.shape[-2] * scale))
 
 
+def _ema_update(state: "TrainState", ema_decay: float, device: torch.device) -> None:
+    if ema_decay > 0.0 and state.ema is not None:
+        d = _f32(ema_decay, device)
+        one_minus = 1.0 - d
+        for k, p in state.params().items():
+            state.ema[k] = d * state.ema[k] + one_minus * p.to(state.ema[k].dtype)
+
+
+def _process_group():
+    """The ``torch.distributed`` module when this process is in a group, else None."""
+    dist = torch.distributed
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+class Replicas:
+    """Copies of a module on the other devices of a mesh, made once and set
+    equal to the module (:meth:`sync`) after each update."""
+
+    def __init__(self):
+        self._copies: dict[torch.device, tuple[nn.Module, nn.Module]] = {}
+
+    def on(self, module: nn.Module, device: torch.device) -> nn.Module:
+        """``module`` itself on its own device, else its copy on ``device``."""
+        if device == next(module.parameters()).device:
+            return module
+        hit = self._copies.get(device)
+        if hit is None or hit[0] is not module:
+            hit = (module, copy.deepcopy(module).to(device))
+            for p in hit[1].parameters():
+                p.grad = None
+            self._copies[device] = hit
+        return hit[1]
+
+    @torch.no_grad()
+    def sync(self, module: nn.Module) -> None:
+        """Copy ``module``'s parameters into each of its replicas."""
+        for src, dst in self._copies.values():
+            if src is module:
+                for a, b in zip(dst.parameters(), module.parameters()):
+                    a.copy_(b)
+
+
+def _shards(hr_u8: torch.Tensor, devices: list[torch.device]) -> list[torch.Tensor]:
+    n = int(hr_u8.shape[0])
+    if n % len(devices):
+        raise ValueError(f"a batch of {n} does not divide over the mesh's {len(devices)} devices")
+    return list(torch.split(hr_u8, n // len(devices)))
+
+
+def _global_mean(parts: list, device: torch.device) -> list[torch.Tensor]:
+    """Per-shard lists of tensors -> their means over the shards on ``device``,
+    then over the ranks of the process group (one ``all_reduce`` of them all)."""
+    n = _f32(len(parts), device)
+    means = [torch.stack([p[i].to(device) for p in parts]).sum(0) / n for i in range(len(parts[0]))]
+    dist = _process_group()
+    if dist is not None:
+        flat = torch.cat([m.reshape(-1) for m in means])
+        dist.all_reduce(flat)
+        flat = flat / _f32(dist.get_world_size(), device)
+        means = [v.view_as(m) for v, m in zip(torch.split(flat, [m.numel() for m in means]), means)]
+    return means
+
+
 def make_train_step(scale: int, blur_sigma: float, pre_upscale: bool = False, ema_decay: float = 0.0,
-                    loss: str = "mse", charbonnier_eps: float = 1e-3) -> Callable:
+                    loss: str = "mse", charbonnier_eps: float = 1e-3, mesh=None) -> Callable:
     """step(state, hr_u8) -> (state, metrics): degrade, forward, loss,
     gradient, optimizer update and (``ema_decay`` > 0, ``state.ema`` set)
     the EMA, in place on the state's module, optimizer and EMA.  ``hr_u8``
     is a uint8 (B, H, W, 3) tensor on the module's device.  The metrics
-    stay on the device: "loss", and "psnr" from the MSE whatever the loss."""
+    stay on the device: "loss", and "psnr" from the MSE whatever the loss.
+
+    With ``mesh``: the data-parallel step (the module docstring); ``hr_u8``
+    is this process's batch, on any device, and ``step.replicas`` holds the
+    module's copies on the mesh's other devices."""
+    config = dict(scale=scale, blur_sigma=blur_sigma, pre_upscale=pre_upscale, ema_decay=ema_decay, loss=loss,
+                  charbonnier_eps=charbonnier_eps)
     objective = pixel_loss_fn(loss, charbonnier_eps)
 
     def step(state: TrainState, hr_u8: torch.Tensor):
@@ -237,21 +321,55 @@ def make_train_step(scale: int, blur_sigma: float, pre_upscale: bool = False, em
             value.backward()
         state.opt.step()
         with torch.no_grad():
-            if ema_decay > 0.0 and state.ema is not None:
-                d = _f32(ema_decay, hr_y.device)
-                one_minus = 1.0 - d
-                for k, p in state.params().items():
-                    state.ema[k] = d * state.ema[k] + one_minus * p.to(state.ema[k].dtype)
+            _ema_update(state, ema_decay, hr_y.device)
             psnr = -10.0 * torch.log10(torch.mean((pred - hr_y) ** 2))
         state.step += 1
         return state, {"loss": value.detach(), "psnr": psnr}
 
-    return step
+    def dp_step(state: TrainState, hr_u8: torch.Tensor):
+        devices = mesh.local_devices()
+        names = list(state.opt.params)
+        parts = []
+        for shard, dev in zip(_shards(hr_u8, devices), devices):
+            module = replicas.on(state.module, dev)
+            own = {_path(k): p for k, p in module.named_parameters()}
+            x = shard.to(dev)
+            lr_x = degrade_batch_on_device(x, scale=scale, blur_sigma=blur_sigma)
+            hr_y = im2double(x)
+            with torch.enable_grad():
+                pred = module(_net_input(lr_x, scale, pre_upscale))
+                value = objective(pred, hr_y)
+                grads = torch.autograd.grad(value, [own[k] for k in names])
+            with torch.no_grad():
+                parts.append([*grads, value.detach(), torch.mean((pred - hr_y) ** 2)])
+        dev0 = devices[0]
+        with torch.no_grad():
+            *grads, value, mse = _global_mean(parts, dev0)
+        for k, g in zip(names, grads):
+            state.opt.params[k].grad = g
+        state.opt.step()
+        with torch.no_grad():
+            _ema_update(state, ema_decay, dev0)
+            replicas.sync(state.module)
+            psnr = -10.0 * torch.log10(mse)
+        state.step += 1
+        return state, {"loss": value, "psnr": psnr}
+
+    if mesh is None:
+        step.config = config
+        return step
+    replicas = Replicas()
+    dp_step.config = config
+    dp_step.replicas = replicas
+    return dp_step
 
 
-def make_eval_step(scale: int, blur_sigma: float, pre_upscale: bool = False) -> Callable:
+def make_eval_step(scale: int, blur_sigma: float, pre_upscale: bool = False, mesh=None) -> Callable:
     """step(forward, hr_u8) -> {"val_loss", "val_psnr"} on the training
-    degradation; ``forward`` maps the net input to the prediction."""
+    degradation; ``forward`` maps the net input to the prediction.  With
+    ``mesh``: the batch sharded as the train step shards it, ``forward`` a
+    function of the device giving the forward there, the metrics of the
+    global batch."""
 
     @torch.no_grad()
     def step(forward, hr_u8: torch.Tensor):
@@ -259,7 +377,20 @@ def make_eval_step(scale: int, blur_sigma: float, pre_upscale: bool = False) -> 
         mse = torch.mean((forward(_net_input(lr_x, scale, pre_upscale)) - im2double(hr_u8)) ** 2)
         return {"val_loss": mse, "val_psnr": -10.0 * torch.log10(mse)}
 
-    return step
+    @torch.no_grad()
+    def dp_step(forward_on, hr_u8: torch.Tensor):
+        devices = mesh.local_devices()
+        parts = []
+        for shard, dev in zip(_shards(hr_u8, devices), devices):
+            x = shard.to(dev)
+            lr_x = degrade_batch_on_device(x, scale=scale, blur_sigma=blur_sigma)
+            parts.append([torch.mean((forward_on(dev)(_net_input(lr_x, scale, pre_upscale)) - im2double(x)) ** 2)])
+        (mse,) = _global_mean(parts, devices[0])
+        return {"val_loss": mse, "val_psnr": -10.0 * torch.log10(mse)}
+
+    out = step if mesh is None else dp_step
+    out.config = dict(scale=scale, blur_sigma=blur_sigma, pre_upscale=pre_upscale)
+    return out
 
 
 def make_image_metric_step(scale: int, pre_upscale: bool = False) -> Callable:
@@ -289,11 +420,12 @@ def make_image_metric_step(scale: int, pre_upscale: bool = False) -> Callable:
 
 
 class Trainer:
-    """Single-device trainer for any zoo model.
+    """Single-device or data-parallel trainer for any zoo model.
 
     ``params`` (a nested dict of arrays or tensors by flax path, e.g. a
     loaded npz) replaces the seeded random init; ``device`` is ``cuda``
-    unless the CPU is asked for.
+    unless the CPU is asked for; ``mesh`` (``parallel.make_mesh``) trains
+    data-parallel over its devices, the first of which holds the state.
     """
 
     def __init__(self, config: Config | None = None, train_images: list[np.ndarray] | None = None,
@@ -301,11 +433,16 @@ class Trainer:
                  train_weights: list[float] | None = None, params: Any = None,
                  device: str | torch.device = "cuda"):
         from image_enhance_keras_tpu_torch.engine import disable_tf32, resolve_device
+        from image_enhance_keras_tpu_torch.parallel.mesh import Mesh
 
         if mesh is not None:
-            raise NotImplementedError("data-parallel training (mesh=) is not yet ported in "
-                                      "image_enhance_keras_tpu_torch")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            device = mesh.local_devices()[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
+        dist = _process_group()
+        self.rank = dist.get_rank() if dist is not None else 0
         disable_tf32()
         self.config = config or Config()
         cfg = self.config
@@ -323,10 +460,13 @@ class Trainer:
             val_images = train_images[:2]
 
         hr_patch = cfg.lr_patch * scale
-        self.sampler = PatchSampler(train_images, hr_patch=hr_patch, batch_size=cfg.batch_size, seed=cfg.seed,
-                                    augment=cfg.augment, weights=train_weights, moa=cfg.moa)
+        # each process samples its own part of the global batch (a seed of its own)
+        proc = self.rank if dist is not None and dist.get_world_size() > 1 else 0
+        self.sampler = PatchSampler(train_images, hr_patch=hr_patch, batch_size=cfg.batch_size,
+                                    seed=cfg.seed + 7919 * proc, augment=cfg.augment, weights=train_weights,
+                                    moa=cfg.moa)
         self.val_sampler = PatchSampler(val_images, hr_patch=hr_patch, batch_size=cfg.batch_size,
-                                        seed=cfg.seed + 1)
+                                        seed=cfg.seed + 1 + 7919 * proc)
 
         if cfg.lr_schedule == "cosine":
             lr = cosine_decay_schedule(cfg.lr, max(cfg.epochs * cfg.steps_per_epoch, 1), alpha=0.05)
@@ -345,6 +485,11 @@ class Trainer:
         self.train_step = make_train_step(scale, cfg.blur_sigma, pre_up, ema_decay=cfg.ema_decay, loss=cfg.loss,
                                           charbonnier_eps=cfg.charbonnier_eps)
         self.eval_step = make_eval_step(scale, cfg.blur_sigma, pre_up)
+        if mesh is not None:
+            from image_enhance_keras_tpu_torch.parallel.data_parallel import shard_eval_step, shard_train_step
+
+            self.train_step = shard_train_step(self.train_step, mesh)
+            self.eval_step = shard_eval_step(self.eval_step, mesh)
 
         # the full-image metric gate (the scorpath protocol), per epoch on
         # the val frames cropped to a multiple of the scale
@@ -365,19 +510,26 @@ class Trainer:
         # loss-like monitors minimise; psnr and ssim maximise
         mode = "min" if monitor.endswith("loss") else "max"
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, monitor=monitor, mode=mode)
-        self.history = HistoryLogger(f"{cfg.checkpoint_dir}/history.json")
+        self.history = HistoryLogger(f"{cfg.checkpoint_dir}/history.json", write=self.rank == 0)
 
-    def _eval_forward(self) -> Callable[[torch.Tensor], torch.Tensor]:
+    def _eval_forward(self, device: torch.device | None = None) -> Callable[[torch.Tensor], torch.Tensor]:
         """The forward the val metrics and the best-checkpoint gate score:
         on the EMA shadow when enabled (the weights that would be served),
-        else on the module's own parameters."""
+        else on the module's own parameters; on ``device`` (a mesh's other
+        device: the module's replica there) when given."""
+        module = self.module
+        if device is not None and self.mesh is not None:
+            module = self.train_step.replicas.on(self.module, device)
         if self.state.ema is None:
-            return self.module
-        ema = {k.replace("/", "."): v for k, v in self.state.ema.items()}
-        return lambda x: torch.func.functional_call(self.module, ema, (x,))
+            return module
+        dev = next(module.parameters()).device
+        ema = {k.replace("/", "."): v.to(dev) for k, v in self.state.ema.items()}
+        return lambda x: torch.func.functional_call(module, ema, (x,))
 
     def _batch(self, batch_np: np.ndarray) -> torch.Tensor:
-        return torch.tensor(batch_np, device=self.device)
+        """A host batch for the steps: on the state's device, or on the host
+        for the data-parallel step, which sends each shard to its device."""
+        return torch.tensor(batch_np, device="cpu" if self.mesh is not None else self.device)
 
     def _image_metrics(self) -> dict[str, float]:
         if self._image_metric_step is None or not self.metric_images:
@@ -392,6 +544,8 @@ class Trainer:
         if restored is None:
             return False
         self.state.load_state_dict(restored)
+        if self.mesh is not None:
+            self.train_step.replicas.sync(self.module)
         log.info("resumed from step %s", self.state.step)
         return True
 
@@ -418,7 +572,7 @@ class Trainer:
                 self.state, metrics = self.train_step(self.state, self._batch(self.sampler.sample()))
                 losses.append(metrics["loss"])
                 psnrs.append(metrics["psnr"])
-            forward = self._eval_forward()
+            forward = self._eval_forward if self.mesh is not None else self._eval_forward()
             vals = [self.eval_step(forward, self._batch(self.val_sampler.sample())) for _ in range(val_steps)]
             val = {k: float(np.mean([float(v[k]) for v in vals])) for k in vals[0]}
             val.update(self._image_metrics())
@@ -430,7 +584,7 @@ class Trainer:
             }
             # checkpoint cadence: every cfg.ckpt_every epochs and the final one
             is_best = False
-            if epoch % max(cfg.ckpt_every, 1) == 0 or epoch == epochs:
+            if (epoch % max(cfg.ckpt_every, 1) == 0 or epoch == epochs) and self.rank == 0:
                 is_best = self.ckpt.save_epoch(self.state.state_dict(), epoch, epoch_metrics)
                 if self.state.ema is not None:
                     # the serving artifact of the EMA weights the gate scored
@@ -438,6 +592,9 @@ class Trainer:
                     export_params_npz(f"{cfg.checkpoint_dir}/latest_ema.npz", self.state.ema)
                     if is_best:
                         export_params_npz(f"{cfg.checkpoint_dir}/best_ema.npz", self.state.ema)
+            dist = _process_group()
+            if dist is not None:
+                dist.barrier()  # rank 0's checkpoint is written before any rank reads it
             self.history.log_epoch(epoch, epoch_metrics)
             log.info(
                 "epoch %d/%d loss %.5f psnr %.2f val_psnr %.2f (%.1fs)%s",

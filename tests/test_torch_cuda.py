@@ -601,3 +601,41 @@ def test_train_step_on_the_card_matches_cpu():
     for k, g in gc.items():
         assert float((gg[k] - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
         assert float(torch.where(g.abs() >= 1e-6, (pg[k] - pc[k]).abs(), 0.0).max()) <= 1e-6, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", ["bf16", "s32"])
+@pytest.mark.parametrize("n_bands", [2, 3])
+def test_banded_dynamic_steps_bit_equal(n_bands, acc):
+    """X3 and X4's dynamic form in steps over bands of rows (their abs-maxes
+    reduced between the steps, ``parallel.bands.run_bands``), bit-equal to
+    one launch over the sample and to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv
+    from image_enhance_keras_tpu_torch.parallel.bands import Stage, Weights, run_bands, split_sizes
+
+    rng = np.random.default_rng(n_bands)
+
+    def conv(k, cout=C):
+        q, s = int8_blocks.quantize_weights_per_channel(
+            torch.from_numpy((rng.normal(size=(k, k, C, cout)) * 0.05).astype(np.float32)))
+        return [q.cuda(), s.cuda(), torch.from_numpy((rng.normal(size=cout) * 0.01).astype(np.float32)).cuda()]
+
+    x = torch.from_numpy((rng.normal(size=(1, 37, 70, C)) * 2).astype(np.float32)).to(torch.bfloat16).cuda()
+    x3, x4 = [*conv(3), *conv(5), *conv(5), *conv(3)], conv(3, 256)
+    cases = [
+        (lambda t: int8_xla.light53_int8_xla_dyn(t, *x3, acc=acc),
+         lambda t: int8_xla.light53_int8_xla_dyn_plain(t, *x3, acc=acc),
+         Stage(lambda w, t, win: int8_xla.light53_int8_xla_dyn_banded(t, win, *x3, acc=acc), 3, banded=True)),
+        (lambda t: int8_conv.int8_conv3_dyn(t, *x4, acc=acc, act="relu"),
+         lambda t: int8_conv.int8_conv3_dyn_plain(t, *x4, acc=acc, act="relu"),
+         Stage(lambda w, t, win: int8_conv.int8_conv3_dyn_banded(t, win, *x4, acc=acc, act="relu"), 1,
+               banded=True)),
+    ]
+    for whole, plain, stage in cases:
+        want = whole(x)
+        bands = list(torch.split(x, split_sizes(x.shape[1], n_bands), dim=1))
+        got = torch.cat(run_bands([stage], bands, [Weights(None, None)] * n_bands), 1)
+        assert torch.equal(got, want)
+        assert torch.equal(want, plain(x))

@@ -146,6 +146,42 @@ def test_cli_defaults_to_cuda(cli_setup, monkeypatch):
         port_engine.SuperResolver(weights=npz)
 
 
+#: the zoo at narrow widths, for the CLIs' random-init runs
+ZOO_NARROW = {
+    "didbl": NARROW, "didbl_subpixel": NARROW, "difv4": dict(features=8, n_head=1, n_mid=1, n_tail=1),
+    "difv4_x2": dict(features=8, n_head=1, n_mid=1, n_tail=1), "difvdsr": dict(features=8, n_blocks=1),
+}
+
+
+def _sharded_cli_runs(tmp_path, monkeypatch, argv):
+    """Both CLIs on ``argv`` (narrow models, ``--weights none``) over an
+    empty directory: each exits 0, the port through a ShardedResolver over
+    an N-entry CPU mesh (``--devices N``)."""
+    import image_enhance_keras_tpu_torch.parallel as port_parallel
+
+    for mod in (jax_engine, port_engine):
+        monkeypatch.setattr(mod, "get_model", lambda name, dtype=None, _o=mod.get_model, **kw: _o(
+            name, dtype=dtype, **{**ZOO_NARROW[name], **kw}))
+    argv = [*argv, "--weights", "none"]
+    built = []
+
+    class Spy(port_parallel.ShardedResolver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(port_parallel, "ShardedResolver", Spy)
+    os.makedirs(tmp_path / "jax")
+    os.makedirs(tmp_path / "port")
+    assert jax_main([str(tmp_path / "jax"), *argv]) == 0
+    assert port_main([str(tmp_path / "port"), "--device", "cpu", *argv]) == 0
+    n = int(argv[argv.index("--devices") + 1])
+    assert len(built) == 1 and built[0].n_devices == n and built[0].mesh.size == n
+    assert built[0].devices == [torch.device("cpu")] * n
+
+
+# --devices was refused here before the scale-out slice; each argv is now
+# accepted by both CLIs, as JAX's is
 @pytest.mark.parametrize("argv", [
     ["--mode", "fast", "--devices", "8"],
     ["--forward", "int8", "--model", "difvdsr", "--save_intermediate", "--devices", "2"],
@@ -153,10 +189,8 @@ def test_cli_defaults_to_cuda(cli_setup, monkeypatch):
     ["--forward", "pallas_chain", "--internal-learn", "2", "--save_intermediate", "--devices", "3"],
     ["--devices", "2"], ["--save_intermediate", "--devices", "2"], ["--pipeline", "--devices", "2"],
 ])
-def test_cli_rejects_unported_flags(tmp_path, capsys, argv):
-    with pytest.raises(SystemExit):
-        port_main([str(tmp_path), "--device", "cpu", *argv])
-    assert "not yet ported in image_enhance_keras_tpu_torch" in capsys.readouterr().err
+def test_cli_rejects_unported_flags(tmp_path, monkeypatch, argv):
+    _sharded_cli_runs(tmp_path, monkeypatch, argv)
 
 
 @pytest.mark.parametrize("hw", [(20, 28), (64, 64), (37, 101)])
@@ -268,7 +302,5 @@ def test_cli_pallas_int8_matches_jax_cli_and_honours_calib_dir(cli_setup, tmp_pa
      "--devices", "2"],
     ["--forward", "int8", "--int8-acc", "s32", "--model", "difv4", "--pipeline", "--devices", "8"],
 ])
-def test_cli_rejects_other_int8_options(tmp_path, capsys, argv):
-    with pytest.raises(SystemExit):
-        port_main([str(tmp_path), "--device", "cpu", *argv])
-    assert "not yet ported in image_enhance_keras_tpu_torch" in capsys.readouterr().err
+def test_cli_rejects_other_int8_options(tmp_path, monkeypatch, argv):
+    _sharded_cli_runs(tmp_path, monkeypatch, argv)

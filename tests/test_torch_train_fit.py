@@ -172,7 +172,8 @@ def test_engine_loads_port_trainstate_checkpoint(tmp_path):
 def test_engine_model_kwargs_and_trainer_mesh():
     r = SuperResolver(model="difv4", model_kwargs=dict(features=8, n_head=1, n_mid=1, n_tail=1), device="cpu")
     assert r.module.features == 8
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # a mesh= that is not a mesh is refused (data-parallel training is ported)
+    with pytest.raises(TypeError, match="mesh must be a parallel.mesh.Mesh"):
         PortTrainer(PortConfig(model_kwargs=NARROW), mesh=object(), device="cpu")
 
 
@@ -199,12 +200,28 @@ def test_learn_cli_trains_the_zoo_on_cpu(tmp_path, monkeypatch, model):
     assert port_ckpt.restore_params(str(ck / "latest"))["step"] == 4
 
 
-def test_learn_cli_rejects_devices_and_defaults_to_cuda(tmp_path, capsys, monkeypatch):
+def test_learn_cli_rejects_devices_and_defaults_to_cuda(tmp_path, monkeypatch):
+    """``--devices 2`` (refused before the scale-out slice) trains over a
+    2-entry mesh, as JAX's CLI does over 2 of its virtual devices; both write
+    one epoch of history.  Without CUDA the default device raises."""
+    from image_enhance_keras_tpu.cli.learn import main as jax_main
+    from image_enhance_keras_tpu.train import trainer as jax_trainer
     from image_enhance_keras_tpu_torch.cli.learn import main
 
-    with pytest.raises(SystemExit):
-        main(["--devices", "2", "--device", "cpu", "--checkpoint-dir", str(tmp_path)])
-    assert "not yet ported in image_enhance_keras_tpu_torch" in capsys.readouterr().err
+    meshes = []
+    orig_init = PortTrainer.__init__
+    monkeypatch.setattr(PortTrainer, "__init__",
+                        lambda self, *a, **kw: meshes.append(kw.get("mesh")) or orig_init(self, *a, **kw))
+    for mod in (port_trainer, jax_trainer):
+        orig = mod.get_model
+        monkeypatch.setattr(mod, "get_model", lambda name, dtype=None, _o=orig, **kw: _o(name, dtype=dtype,
+                                                                                          **{**NARROW, **kw}))
+    argv = ["--devices", "2", "--epochs", "1", "--steps-per-epoch", "1", "--batch-size", "2", "--lr-patch", "6"]
+    assert main([*argv, "--device", "cpu", "--checkpoint-dir", str(tmp_path / "port")]) == 0
+    assert jax_main([*argv, "--checkpoint-dir", str(tmp_path / "jax")]) == 0
+    assert len(meshes) == 1 and meshes[0].local_devices() == [torch.device("cpu")] * 2
+    for d in ("port", "jax"):
+        assert json.loads((tmp_path / d / "history.json").read_text())["epoch"] == [1]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--checkpoint-dir", str(tmp_path), "--epochs", "1"])
