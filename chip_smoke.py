@@ -7,8 +7,8 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), in all 28 kernel functions
-     (K4/K5's 17, X1-X3's 11) but the three abs-max passes and the
+     must hold wgmma (GMMA) and no dp4a (IDP), in all 32 kernel functions
+     (K4/K5's 17, X1-X3's 11, X1u's 4) but the three abs-max passes and the
      dynamic form's requantization pass,
      the block and chain kernels'
      SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
@@ -167,7 +167,9 @@ Phases (each prints its elapsed seconds):
      fast with ``int8_dynamic_tail`` (X3's abs-maxes reduced over the
      bands), patch ``pallas_int8``, each against the single-device
      resolver (patch byte-equal, banded modes within one level, the count
-     of differing values printed), out-Mpix/s and launches of both; 8b one
+     of differing values printed), out-Mpix/s and launches of both, and
+     ``upscale_patch_average`` at ``compat``'s geometries (patch 32 at step
+     4 and 16, a seeded 96x96) against one device, byte-equal; 8b one
      float32 data-parallel train step (batch 10, HR 96, the bundled
      photos) against the single-device step (loss within 1e-5, params
      within 1e-6 where the gradient is not below 1e-6, the lr there), ms a
@@ -177,6 +179,24 @@ Phases (each prints its elapsed seconds):
      on two cards where there are two), and ``learn`` / ``main_dirpath
      --devices`` one more than the cards exiting non-zero with the mesh's
      "requested N devices, have M".
+  9. the long tail: 9a ``compat.DifvdsrDouble`` on the card with the demo
+     weights: upscaleStepPatch on a seeded 128x128 file byte-equal to
+     ``SuperResolver.upscale_file``, upscalePatch (step 4) and the legacy
+     upscale (step 16) on a seeded 64x64 file byte-equal to
+     ``upscale_patch_average``, upVideo to ``upscale_frame``, K3 launches
+     and ms of each; 9b ``--forward int8 --dtype bfloat16`` under
+     ``IEK_INT8_MERGE55`` (bf16 and s32 accumulators, each byte-equal to
+     the unmerged run), ``IEK_INT8_UPQ`` (K3q 1, X1u 1, X1 17, K3 1) and
+     ``IEK_INT8_UPMM`` (no K3) at 128x128 in patch mode and 512x512 in fast
+     mode, launches and ms per image; K3q and X1u at (9,96,96,128) ->
+     (9,384,384,128) on the forward's own activations, bit-equal to their
+     plain versions, with ms, device ms, bounds (K3q: bytes) and X1u's
+     ``torch._int_mm`` route; Set5 fast int8 under each knob within SSIM-Y
+     1e-3 of the default; 9c every resize method and ``uniform_filter``
+     on the card against the CPU, ``winograd_conv2d_same`` F(2,3) against
+     ``F.conv2d`` (TF32 off) at (9,96,96,128) with both times, and
+     ``utils.profiling.trace`` writing a Chrome trace with the card's
+     kernels.
 Prints the kernels as one JSON line, then the card's name and power limit,
 then the ``{"ok": true, ...}`` line last.  Exits non-zero, before printing
 any of those, when CUDA is missing, the package is not beside this script,
@@ -789,6 +809,10 @@ def _set5_scores(failures: list) -> dict:
 X_REPLACES = {"light53_int8_xla": "image_enhance_keras_tpu/models/didbl_pallas.py:415",
               "light_int8_xla": "image_enhance_keras_tpu/models/didbl_pallas.py:447",
               "light53_int8_xla_dyn": "image_enhance_keras_tpu/models/didbl_pallas.py:500"}
+#: K3q and X1u (IEK_INT8_UPQ) replace no TPU kernel either: JAX's
+#: _light53_i8_xla_upfused leaves the fused x4 + quantize and the block to XLA
+K_UPQ_REPLACES = {"upsample_quant_tf1": "image_enhance_keras_tpu/models/didbl_pallas.py:683",
+                  "light53_int8_xla_upq": "image_enhance_keras_tpu/models/didbl_pallas.py:675"}
 
 
 def _int_mm_convs(pairs):
@@ -1311,7 +1335,8 @@ def _plain_int8_blocks():
 
 #: the XLA int8 forms' wrappers in models/didbl_pallas.py and their plain versions (X1, X2, X3)
 _XLA_FORMS = (("light53_int8_xla", "light53_int8_xla_plain"), ("light_int8_xla", "light_int8_xla_plain"),
-              ("light53_int8_xla_dyn", "light53_int8_xla_dyn_plain"))
+              ("light53_int8_xla_dyn", "light53_int8_xla_dyn_plain"),
+              ("light53_int8_xla_upq", "light53_int8_xla_upq_plain"))
 
 
 class _Swapped:
@@ -1332,7 +1357,10 @@ class _Swapped:
         from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
 
         if self.variant == "plain_x4":
+            from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+
             didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_plain
+            didbl_pallas.upsample_quant_tf1 = kup.upsample_quant_plain
             difv4.upsample_phase_tf1 = zoo_int8.upsample_phase_tf1 = upsample_phase_plain
         elif self.variant == "plain_blocks":
             didbl_pallas.light53_int8, didbl_pallas.light_int8 = _plain_int8_blocks()
@@ -1352,7 +1380,10 @@ class _Swapped:
         from image_enhance_keras_tpu_torch.models import difv4, zoo_int8
         from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
 
+        from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+
         didbl.upsample_phase_tf1 = didbl_pallas.upsample_phase_tf1 = upsample_phase_tf1
+        didbl_pallas.upsample_quant_tf1 = kup.upsample_quant_tf1
         difv4.upsample_phase_tf1 = zoo_int8.upsample_phase_tf1 = upsample_phase_tf1
         didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
         for wrapper, _ in _XLA_FORMS:
@@ -1363,7 +1394,7 @@ class _Swapped:
 
 
 def _counted():
-    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7, X1, X2, X3, X4 (static, dynamic)."""
+    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7, X1, X2, X3, X4 (static, dynamic), K3q, X1u."""
     from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
     from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
     from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
@@ -1373,19 +1404,21 @@ def _counted():
 
     return (kup.upsample_phase_tf1_kernel, ki8.light53_int8, ki8.light_int8, kb.fused_light53_block,
             kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain, kx.light53_int8_xla,
-            kx.light_int8_xla, kx.light53_int8_xla_dyn, kc.int8_conv3, kc.int8_conv3_dyn)
+            kx.light_int8_xla, kx.light53_int8_xla_dyn, kc.int8_conv3, kc.int8_conv3_dyn,
+            kup.upsample_quant_tf1, kx.light53_int8_xla_upq)
 
 
 def _counts() -> dict:
-    """The nonzero launch counts of K3 (all and bf16), K4, K5, X1-X4, and of
-    K1/K2 and K6/K7 on bf16 tensors."""
-    k3, k4, k5, k1, k2, k6, k7, x1, x2, x3, x4, x4d = _counted()
+    """The nonzero launch counts of K3 (all and bf16), K4, K5, X1-X4, K3q, X1u,
+    and of K1/K2 and K6/K7 on bf16 tensors."""
+    k3, k4, k5, k1, k2, k6, k7, x1, x2, x3, x4, x4d, k3q, x1u = _counted()
     counts = {"upsample_phase_tf1": k3.launches, "upsample_phase_tf1_bf16": k3.bf16_launches,
               "light53_int8": k4.launches, "light_int8": k5.launches,
               "light53_block_bf16": k1.bf16_launches, "light_block_bf16": k2.bf16_launches,
               "light53_chain_bf16": k6.bf16_launches, "light_chain_bf16": k7.bf16_launches,
               "light53_int8_xla": x1.launches, "light_int8_xla": x2.launches,
-              "light53_int8_xla_dyn": x3.launches, "int8_conv3": x4.launches, "int8_conv3_dyn": x4d.launches}
+              "light53_int8_xla_dyn": x3.launches, "int8_conv3": x4.launches, "int8_conv3_dyn": x4d.launches,
+              "upsample_quant_tf1": k3q.launches, "light53_int8_xla_upq": x1u.launches}
     return {k: v for k, v in counts.items() if v}
 
 
@@ -2932,6 +2965,8 @@ SCALE_RUNS = {
     "fast int8 dynamic tail": dict(mode="fast", forward="int8", dtype="bfloat16", int8_dynamic_tail=True),
     "patch pallas_int8": dict(mode="patch", forward="pallas_int8"),
 }
+#: phase 8a's patch-average image side (compat's geometries: patch 32, step 4 and 16)
+PATCH_AVG_HW = 96
 #: phase 8b: the learn CLI's defaults (batch 10, HR 96), float32
 DP_BATCH, DP_HR = 10, 96
 
@@ -3043,6 +3078,34 @@ def _sharded_inference(weights: str, mesh, failures: list, gpu: str) -> dict:
         del one, many
         torch.cuda.empty_cache()
     out["cudnn_batch_dependence"] = _cudnn_batch_dependence(weights, img, gpu)
+    return out
+
+
+def _sharded_patch_average(weights: str, mesh, failures: list, gpu: str) -> dict:
+    """Phase 8a: ``ShardedResolver.upscale_patch_average`` against the
+    single-device ``upscale_patch_average`` at ``compat``'s geometries (patch
+    32 at step 4, its ``upscalePatch``, and at step 16, its legacy
+    ``upscale``) on a seeded PATCH_AVG_HW square, float32 ``xla``: the uint8
+    values that differ (held byte-equal: a batch-sharded mode)."""
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.parallel import ShardedResolver
+
+    img = _seeded_image(PATCH_AVG_HW, PATCH_AVG_HW, SEED + 18)
+    one = SuperResolver(weights=weights, device="cuda")
+    many = ShardedResolver(weights=weights, mesh=mesh)
+    out = {}
+    for step in (4, 16):
+        y1 = one.upscale_patch_average(img, patch=32, step=step)
+        yn = many.upscale_patch_average(img, patch=32, step=step)
+        dmax, frac = _u8_agreement(yn, y1)
+        n_diff = int(round(frac * y1.size))
+        n_tiles = ((PATCH_AVG_HW - 32) // step + 1) ** 2
+        out[f"patch 32 step {step}"] = {"tiles": n_tiles, "u8_max_diff": dmax, "differing_values": n_diff}
+        print(f"[chip_smoke] 8a patch-average patch 32 step {step} on {PATCH_AVG_HW}x{PATCH_AVG_HW} ({n_tiles} "
+              f"tiles), float32 xla, {many.n_devices} mesh entries vs one device: {n_diff} uint8 values differ "
+              f"(max {dmax}; bound byte-equal) on {gpu}", flush=True)
+        if n_diff:
+            failures.append(f"8a patch-average step {step}: sharded differs from single-device on {n_diff} values")
     return out
 
 
@@ -3306,7 +3369,9 @@ def _scale_out_phase(tmp: str, failures: list, gpu: str) -> dict:
     names = [str(d) for d in mesh.local_devices()]
     print(f"[chip_smoke] 8 mesh: {json.dumps({'mesh': names})}", flush=True)
     out = {"mesh": names, "banded_kernels": _banded_dyn_kernels(failures, gpu)}
-    out["inference"] = _sharded_inference(resolve_default_weights(MODEL_REGISTRY["didbl"]), mesh, failures, gpu)
+    weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
+    out["inference"] = _sharded_inference(weights, mesh, failures, gpu)
+    out["patch_average"] = _sharded_patch_average(weights, mesh, failures, gpu)
     _phase("8a ShardedResolver", t0)
     t0 = time.time()
     out["dp_step"] = _dp_step_check(mesh, failures, gpu)
@@ -3314,6 +3379,395 @@ def _scale_out_phase(tmp: str, failures: list, gpu: str) -> dict:
     t0 = time.time()
     out["nccl"] = _nccl_phase(mesh, tmp, failures, gpu)
     _phase("8c NCCL process group and --devices refusals", t0)
+    return out
+
+
+# -- the long tail (phase 9) ---------------------------------------------------------
+
+#: phase 9b: the knobs of --forward int8 (each read at call time), their
+#: accumulator, and what each must equal; "s32" is the reference of MERGE55 s32
+KNOB_RUNS = {
+    "default": ({}, "bf16"),
+    "s32": ({}, "s32"),
+    "merge55": ({"IEK_INT8_MERGE55": "1"}, "bf16"),
+    "merge55 s32": ({"IEK_INT8_MERGE55": "1"}, "s32"),
+    "upq": ({"IEK_INT8_UPQ": "1"}, "bf16"),
+    "upmm": ({"IEK_INT8_UPMM": "1"}, "bf16"),
+}
+#: Set5 SSIM-Y of each knob against the default int8 row (how JAX gates every int8 option)
+KNOB_SSIM = 1e-3
+#: 9c: the resize methods, and the float resizes' bound against the CPU at 0..255
+RESIZE_METHODS = ("tf1_bilinear", "tf1_bicubic", "tf1_nearest", "pil_nearest", "pil_bilinear", "pil_bicubic",
+                  "pil_lanczos", "pil_box")
+RESIZE_ATOL = 1e-3
+#: 9c: winograd against the direct conv, JAX's tolerance (tests/test_winograd.py)
+WINO_TOL = 2e-4
+
+
+class _Env:
+    """Within the block: the environment variables set as given (restored after)."""
+
+    def __init__(self, **env):
+        self.env, self.saved = env, {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def _img_path(tmp: str, name: str, img) -> str:
+    """``img`` written as ``name``.png where a PNG encoder is present (PIL or
+    the native codec), else as .bmp (the numpy codec)."""
+    from image_enhance_keras_tpu_torch.data import io as pio
+
+    ext = ".png" if (pio._pil() is not None or pio._native() is not None) else ".bmp"
+    path = os.path.join(tmp, name + ext)
+    pio.imwrite(path, img)
+    return path
+
+
+def _compat_phase(tmp: str, failures: list, gpu: str) -> dict:
+    """Phase 9a: ``compat.DifvdsrDouble`` on the card with the demo weights,
+    each entry byte-equal to the ``SuperResolver`` call it runs: upscaleStepPatch
+    on a seeded 128x128 file (``upscale_file``), upscalePatch (step 4) and the
+    legacy upscale (step 16) on a seeded 64x64 file (``upscale_patch_average``),
+    upVideo (``upscale_frame``); K3 launches and ms of each."""
+    import numpy as np
+    import torch
+
+    from image_enhance_keras_tpu_torch import compat
+    from image_enhance_keras_tpu_torch.data.io import imread
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+
+    m = compat.DifvdsrDouble(scale_factor=1)
+    ref = SuperResolver(weights=m.weight_path, device="cuda")
+    img128, img64 = _seeded_image(128, 128, SEED + 9), _seeded_image(64, 64, SEED + 19)
+    os.makedirs(os.path.join(tmp, "compat"))
+    os.makedirs(os.path.join(tmp, "ref"))
+    p128 = _img_path(os.path.join(tmp, "compat"), "a", img128)
+    r128 = _img_path(os.path.join(tmp, "ref"), "a", img128)
+    p64 = _img_path(os.path.join(tmp, "compat"), "b", img64)
+    m.create_model(load_weights=True)
+    out = {"weights": os.path.relpath(m.weight_path, HERE), "device": str(m._resolver.device)}
+
+    def timed(fn):
+        fn()  # warm-up (cuDNN's algorithm choice)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t1 = time.time()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, 1e3 * (time.time() - t1), _counts()
+
+    cases = {
+        "upscaleStepPatch 128x128 (upscale_file)": (
+            lambda: imread(m.upscaleStepPatch(p128)), lambda: imread(ref.upscale_file(r128))),
+        "upscalePatch step 4, 64x64 (upscale_patch_average)": (
+            lambda: m.upscalePatch(p64, return_image=True), lambda: ref.upscale_patch_average(img64, 32, 4)),
+        "upscale step 16, 64x64 (upscale_patch_average)": (
+            lambda: m.upscale(p64, return_image=True), lambda: ref.upscale_patch_average(img64, 32, 16)),
+        "upVideo 64x64 (upscale_frame)": (lambda: m.upVideo(img64), lambda: ref.upscale_frame(img64)),
+    }
+    for name, (fn, want_fn) in cases.items():
+        got, ms, counts = timed(fn)
+        want = want_fn()
+        same = bool(np.array_equal(got, want))
+        k3 = counts.get("upsample_phase_tf1", 0)
+        out[name] = {"byte_equal": same, "ms": ms, "k3_launches": k3, "launches": counts, "shape": list(got.shape)}
+        print(f"[chip_smoke] 9a compat {name}: {got.shape}, byte-equal {same}, {ms:.2f} ms, K3 {k3} launches "
+              f"{counts} on {gpu}", flush=True)
+        if not same or not k3 or float(got.std()) < 1.0:
+            failures.append(f"9a compat {name}: byte-equal {same}, K3 launches {k3}")
+    return out
+
+
+def _knob_forwards(weights: str, qp, failures: list, gpu: str) -> dict:
+    """Phase 9b: ``--forward int8 --dtype bfloat16`` under each of KNOB_RUNS
+    at 128x128 in patch mode and 512x512 in fast mode (phase 2's quantized
+    tree): launches, ms per image, and the byte checks (MERGE55 equal to the
+    unmerged run of its accumulator; UPQ with K3q and X1u, UPMM with no K3)."""
+    import numpy as np
+
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+
+    imgs = {"patch 128x128": _seeded_image(128, 128, SEED), "fast 512x512": _seeded_image(512, 512, SEED + 3)}
+    out = {}
+    for label, img in imgs.items():
+        r = SuperResolver(weights=weights, forward="int8", dtype="bfloat16", mode=label.split()[0], device="cuda")
+        r._qparams = qp
+        ys = {}
+        for name, (env, acc) in KNOB_RUNS.items():
+            with _Env(IEK_INT8_ACC=acc, **env):
+                y, s, counts = _timed_upscale(r, img)
+            ys[name] = y
+            row = {"ms": 1e3 * s, "out_mpix_s": y.shape[0] * y.shape[1] / 1e6 / s, "launches": counts}
+            want = {"light53_int8_xla": 18, "light_int8_xla": 6, "upsample_phase_tf1": 1}
+            if name == "upq":
+                want = {"light53_int8_xla": 17, "light53_int8_xla_upq": 1, "light_int8_xla": 6,
+                        "upsample_quant_tf1": 1, "upsample_phase_tf1": 1}
+            elif name == "upmm":
+                want = {"light53_int8_xla": 18, "light_int8_xla": 6}
+            got_l = {k: v for k, v in counts.items() if not k.endswith("_bf16")}
+            row["launches_expected"] = got_l == want
+            if got_l != want:
+                failures.append(f"9b {label} {name}: launches {got_l}, expected {want}")
+            if name.startswith("merge55"):
+                row["byte_equal_unmerged"] = bool(np.array_equal(y, ys["default" if acc == "bf16" else "s32"]))
+                if not row["byte_equal_unmerged"]:
+                    failures.append(f"9b {label} {name}: not byte-equal to the unmerged forward")
+            if name in ("upq", "upmm"):
+                row["u8_max_diff_vs_default"], frac = _u8_agreement(y, ys["default"])
+                row["differing_vs_default"] = int(round(frac * y.size))
+            out[f"{label} {name}"] = row
+            print(f"[chip_smoke] 9b int8 bf16 {label} {name}: {row['ms']:.2f} ms, {row['out_mpix_s']:.3f} "
+                  f"out-Mpix/s, launches {counts}"
+                  + (f", byte-equal unmerged {row['byte_equal_unmerged']}" if "byte_equal_unmerged" in row else "")
+                  + (f", vs default max {row['u8_max_diff_vs_default']} on {row['differing_vs_default']} values"
+                     if "differing_vs_default" in row else "") + f" on {gpu}", flush=True)
+        del r
+    return out
+
+
+def _knob_kernels(qp, failures: list, gpu: str) -> list:
+    """Phase 9b: K3q and X1u on the int8 forward's own activations (the body
+    output of the 128x128 image's 9 patches, (9,96,96,128) bf16, and its x4
+    codes and float32 skip at (9,384,384,128)), bit-equal to their plain
+    versions (X1u under the bf16 and s32 accumulators), with ms per call,
+    device ms, the bound and, for X1u, torch._int_mm over an int8 im2col of
+    its convs (as the X rows); launches are set from the main path's run."""
+    import torch
+
+    from image_enhance_keras_tpu_torch.models.didbl_pallas import _stacked_actc, apply_didbl_int8_xla_body
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as kx
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample as kup
+    from image_enhance_keras_tpu_torch.tiling.tiles import extract_tiles, pad_to_plan, plan_tiles
+
+    img = _seeded_image(128, 128, SEED)
+    plan = plan_tiles(128, 128, patch=96, step=64, scale=4, crop=8)
+    pt = qp["tail53_0"]
+    sx = pt["actc"]["x"]
+    act = _stacked_actc(pt, ("a", "b"))
+    convs = [pt[c][k] for c in ("conv_a1", "conv_a2", "conv_b1", "conv_b2") for k in ("qf", "sf", "bias")]
+    rows = []
+    with torch.inference_mode():
+        tiles = extract_tiles(pad_to_plan(torch.from_numpy(img).cuda().float(), plan), plan) / 255.0
+        h = apply_didbl_int8_xla_body(qp, tiles).contiguous()
+        xq = kup.upsample_quant_tf1(h, 4, sx)
+        skip = kup.upsample_phase_tf1_kernel(h.float() * torch.tensor(0.9), 4)
+        c = int(h.shape[-1])
+        # K3q
+        got, want = kup.upsample_quant_tf1(h, 4, sx), kup.upsample_quant_plain(h, 4, sx)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, want))
+        if not exact:
+            failures.append(f"upsample_quant_tf1 (K3q): not bit-equal to plain (differ on "
+                            f"{(got != want).float().mean().item():.3g} of values)")
+        ms = _time_ms(lambda: kup.upsample_quant_tf1(h, 4, sx))
+        dev_ms, how = _device_ms(lambda: kup.upsample_quant_tf1(h, 4, sx))
+        nbytes = 2.0 * h.numel() + 16.0 * h.numel()
+        bound_ms, bound_by = _bound(11.0 * 16 * h.numel(), PEAK_F32_FLOPS, nbytes)
+        row = {"name": "upsample_quant_tf1", "route": "cuda",
+               "source": "image_enhance_keras_tpu_torch/csrc/upsample.cu",
+               "replaces": K_UPQ_REPLACES["upsample_quant_tf1"], "launches": None,
+               "max_abs_err": (got.int() - want.int()).abs().max().item(), "tolerance": 0.0, "ms": ms,
+               "plain_ms": _time_ms(lambda: kup.upsample_quant_plain(h, 4, sx), iters=5, warmup=1),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+               "library": "none: torch has no call for the TF1 (asymmetric) x4 with a per-channel int8 "
+                          "quantize; F.interpolate's bilinear is half-pixel",
+               "shape": list(h.shape), "dtype": "bfloat16", "bit_equal": exact, "device_ms": dev_ms,
+               "device_ms_by": how, "gbps": nbytes / (dev_ms * 1e-3) / 1e9,
+               "bound_share": bound_ms / dev_ms}
+        print(f"[chip_smoke] 9b K3q upsample_quant_tf1 {tuple(h.shape)} -> int8 {tuple(got.shape)}: bit-equal "
+              f"{exact}; {ms:.4f} ms per call, {dev_ms:.4f} ms device ({how}), {row['plain_ms']:.3f} ms plain, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {row['gbps']:.1f} GB/s, {100 * row['bound_share']:.1f}% of "
+              f"the byte bound on {gpu}", flush=True)
+        rows.append(row)
+        del got, want
+        # X1u
+        row = {"shape": list(skip.shape)}
+        for acc in ("bf16", "s32"):
+            got = kx.light53_int8_xla_upq(xq, skip, *convs, act, acc=acc)
+            want = kx.light53_int8_xla_upq_plain(xq, skip, *convs, act, acc=acc)
+            torch.cuda.synchronize()
+            row[f"bit_equal_{acc}"] = bool(torch.equal(got, want))
+            row[f"max_abs_err_{acc}"] = (got.float() - want.float()).abs().max().item()
+            if not row[f"bit_equal_{acc}"]:
+                failures.append(f"light53_int8_xla_upq (X1u, acc {acc}): not bit-equal to plain")
+            row[f"ms_{acc}"] = _time_ms(lambda: kx.light53_int8_xla_upq(xq, skip, *convs, act, acc=acc))
+            del got, want
+        fn = lambda: kx.light53_int8_xla_upq(xq, skip, *convs, act)  # noqa: E731
+        dev_ms, how = _device_ms(fn)
+        ops = 2.0 * 68 * c * c * skip[..., 0].numel()
+        bound_ms, bound_by = _bound(ops, PEAK_INT8_OPS, (1.0 + 4.0 + 2.0) * skip.numel() + 68 * c * c)
+        xq_f = xq.float()
+        aq = kx._first(xq_f, pt["conv_a1"]["qf"], pt["conv_a1"]["sf"], pt["conv_a1"]["bias"], act[0], "bf16", False)
+        bq = kx._first(xq_f, pt["conv_b1"]["qf"], pt["conv_b1"]["sf"], pt["conv_b1"]["bias"], act[1], "bf16", False)
+        pairs = [(xq, pt["conv_a1"]["qf"]), (aq.to(torch.int8), pt["conv_a2"]["qf"]), (xq, pt["conv_b1"]["qf"]),
+                 (bq.to(torch.int8), pt["conv_b2"]["qf"])]
+        del xq_f, aq, bq
+        lib_ms = _time_ms(_int_mm_convs(pairs), iters=3, warmup=1)
+        del pairs
+        rows.append({
+            "name": "light53_int8_xla_upq", "route": "cuda",
+            "source": "image_enhance_keras_tpu_torch/csrc/int8_blocks.cu",
+            "replaces": K_UPQ_REPLACES["light53_int8_xla_upq"], "launches": None,
+            "max_abs_err": max(row["max_abs_err_bf16"], row["max_abs_err_s32"]), "tolerance": 0.0,
+            "ms": row["ms_bf16"], "plain_ms": _time_ms(lambda: kx.light53_int8_xla_upq_plain(xq, skip, *convs, act),
+                                                       iters=3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library": "torch._int_mm over an int8 im2col of the block's convs (s32 sums only)",
+            "device_ms": dev_ms, "device_ms_by": how, "launch_ms": _launch_breakdown(fn),
+            "tops": ops / (row["ms_bf16"] * 1e-3) / 1e12, "dtype": "bfloat16", **row,
+        })
+        r = rows[-1]
+        print(f"[chip_smoke] 9b X1u light53_int8_xla_upq {tuple(skip.shape)}: bit-equal bf16 {r['bit_equal_bf16']} "
+              f"s32 {r['bit_equal_s32']}; {r['ms_bf16']:.4f} ms (acc bf16), {r['ms_s32']:.4f} ms (s32), "
+              f"{dev_ms:.4f} ms device ({how}), {r['plain_ms']:.3f} ms plain, {lib_ms:.4f} ms _int_mm over "
+              f"im2col, bound {bound_ms:.4f} ms ({bound_by}), {r['tops']:.1f} TOPS; device ms by launch "
+              f"{ {k: round(v, 4) for k, v in r['launch_ms'].items()} } on {gpu}", flush=True)
+    return rows
+
+
+def _knob_set5(weights: str, failures: list, gpu: str) -> dict:
+    """Phase 9b: Set5 PSNR-Y / SSIM-Y of fast ``--forward int8`` under each
+    knob beside the default row (one calibration on the bundled photos,
+    shared), each within KNOB_SSIM of the default on SSIM-Y."""
+    from image_enhance_keras_tpu_torch.engine import SuperResolver
+    from image_enhance_keras_tpu_torch.eval import evaluate_model
+
+    set5 = os.path.join(HERE, "data_set5")
+    r = SuperResolver(weights=weights, forward="int8", mode="fast", device="cuda")
+    out = {}
+    for name in ("default", "merge55", "upq", "upmm"):
+        env, acc = KNOB_RUNS[name]
+        with _Env(IEK_INT8_ACC=acc, **env):
+            _, means = evaluate_model(r, set5, verbose=False)
+        out[name] = {"psnr_y": means["psnr_y"], "ssim_y": means["ssim_y"]}
+        d = means["ssim_y"] - out["default"]["ssim_y"]
+        print(f"[chip_smoke] 9b Set5 fast int8 {name}: PSNR-Y {means['psnr_y']:.4f} SSIM-Y {means['ssim_y']:.5f} "
+              f"(SSIM-Y {d:+.5f} against the default, bound {KNOB_SSIM}) on {gpu}", flush=True)
+        if abs(d) > KNOB_SSIM:
+            failures.append(f"9b Set5 int8 {name}: SSIM-Y {means['ssim_y']:.5f} vs default "
+                            f"{out['default']['ssim_y']:.5f}")
+    out["calib_source"] = r.int8_calib_source
+    return out
+
+
+def _ops_tail_phase(tmp: str, failures: list, gpu: str) -> dict:
+    """Phase 9c: every resize method (``resize2d``; ``resize_pil_uint8`` for the
+    PIL ones) and ``uniform_filter`` on the card against the same call on
+    the CPU, with the values that differ; ``winograd_conv2d_same`` F(2,3)
+    against ``F.conv2d`` (TF32 off) at (9,96,96,128), both timed; and
+    ``utils.profiling.trace`` around one such conv (a Chrome trace with the
+    card's kernels in it)."""
+    import glob
+
+    import torch
+    import torch.nn.functional as F
+
+    from image_enhance_keras_tpu_torch.ops import filters, resize, winograd
+    from image_enhance_keras_tpu_torch.utils.profiling import StageTimer, trace
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    x = torch.rand((2, 37, 53, 3), generator=gen) * 255
+    u8 = torch.randint(0, 256, (2, 37, 53, 3), generator=gen, dtype=torch.uint8)
+    out = {"resize": {}}
+    for method in RESIZE_METHODS:
+        row = {}
+        for hw in ((74, 106), (19, 23), (148, 212)):
+            got = resize.resize2d(x.cuda(), hw, method).cpu()
+            want = resize.resize2d(x, hw, method)
+            d = (got - want).abs()
+            row[f"{hw[0]}x{hw[1]}"] = {"max_abs_diff": d.max().item(), "differing": int((d > 0).sum())}
+            if d.max().item() > RESIZE_ATOL:
+                failures.append(f"9c resize2d {method} {hw}: card vs CPU max |d| {d.max().item():.3g}")
+            if method.startswith("pil_"):
+                g8 = resize.resize_pil_uint8(u8.cuda(), hw, method).cpu()
+                w8 = resize.resize_pil_uint8(u8, hw, method)
+                d8 = (g8 - w8).abs()
+                row[f"{hw[0]}x{hw[1]} uint8"] = {"max_abs_diff": d8.max().item(), "differing": int((d8 > 0).sum())}
+                if d8.max().item() > 1:
+                    failures.append(f"9c resize_pil_uint8 {method} {hw}: card vs CPU max {d8.max().item()}")
+        out["resize"][method] = row
+        print(f"[chip_smoke] 9c {method} card vs CPU: {row} on {gpu}", flush=True)
+    uf = {}
+    for size in (3, 4, 7):
+        d = (filters.uniform_filter(x.cuda(), size).cpu() - filters.uniform_filter(x, size)).abs()
+        uf[size] = {"max_abs_diff": d.max().item(), "differing": int((d > 0).sum())}
+        if d.max().item() > RESIZE_ATOL:
+            failures.append(f"9c uniform_filter size {size}: card vs CPU max |d| {d.max().item():.3g}")
+    out["uniform_filter"] = uf
+    print(f"[chip_smoke] 9c uniform_filter card vs CPU: {uf} on {gpu}", flush=True)
+    # winograd F(2,3) against the direct conv at the block convs' shape
+    xs = torch.randn((9, 96, 96, 128), generator=gen).cuda()
+    w = (torch.randn((3, 3, 128, 128), generator=gen) * 0.05).cuda()
+    b = (torch.randn(128, generator=gen) * 0.01).cuda()
+    timer = StageTimer()
+    with torch.inference_mode():
+        def direct():
+            return F.conv2d(xs.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=1).permute(0, 2, 3, 1)
+
+        with timer("winograd"):
+            got = winograd.winograd_conv2d_same(xs, w, b, m=2)
+        with timer("direct"):
+            want = direct()
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        ok = bool((d <= WINO_TOL + WINO_TOL * want.abs()).all())
+        wino_ms = _time_ms(lambda: winograd.winograd_conv2d_same(xs, w, b, m=2), iters=5, warmup=1)
+        conv_ms = _time_ms(direct, iters=5, warmup=1)
+        trace_dir = os.path.join(tmp, "trace")
+        with trace(trace_dir) as where:
+            winograd.winograd_conv2d_same(xs, w, b, m=2)
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(where, "*.json"))
+    text = open(files[0]).read() if files else ""
+    traced = bool(files) and '"cat": "kernel"' in text
+    out["winograd"] = {"shape": list(xs.shape), "m": 2, "k": 3, "max_abs_err": d.max().item(),
+                       "within_tol": ok, "ms": wino_ms, "conv2d_ms": conv_ms, "flops_ratio": winograd.flops_ratio(2, 3),
+                       "stage_timer": timer.report()}
+    out["trace"] = {"files": len(files), "has_kernels": traced}
+    print(f"[chip_smoke] 9c winograd_conv2d_same F(2,3) {tuple(xs.shape)} vs F.conv2d (TF32 off): max |d| "
+          f"{d.max().item():.3g} (within {WINO_TOL} + {WINO_TOL}|ref|: {ok}); {wino_ms:.3f} ms vs "
+          f"{conv_ms:.3f} ms; profiling.trace wrote {len(files)} Chrome trace(s), kernels in it {traced} on {gpu}",
+          flush=True)
+    if not ok:
+        failures.append(f"9c winograd_conv2d_same: max |d| {d.max().item():.3g} beyond {WINO_TOL}")
+    if not traced:
+        failures.append("9c profiling.trace: no Chrome trace with device kernels")
+    return out
+
+
+def _long_tail_phase(tmp: str, qp, failures: list, rows: list, gpu: str) -> dict:
+    """Phase 9: compat on the card (9a), the int8 knobs (9b: forwards, K3q
+    and X1u rows, Set5), the ops tail (9c)."""
+    from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
+
+    weights = resolve_default_weights(MODEL_REGISTRY["didbl"])
+    t0 = time.time()
+    out = {"compat": _compat_phase(tmp, failures, gpu)}
+    _phase("9a compat on the card", t0)
+    t0 = time.time()
+    out["knobs"] = _knob_forwards(weights, qp, failures, gpu)
+    krows = _knob_kernels(qp, failures, gpu)
+    for row in krows:  # launches on the main path: the serving profile under IEK_INT8_UPQ, fast 512x512
+        row["launches"] = out["knobs"]["fast 512x512 upq"]["launches"].get(row["name"], 0)
+    rows += krows
+    out["set5"] = _knob_set5(weights, failures, gpu)
+    _phase("9b the int8 knobs", t0)
+    t0 = time.time()
+    out["ops"] = _ops_tail_phase(tmp, failures, gpu)
+    _phase("9c the ops tail", t0)
     return out
 
 
@@ -3384,9 +3838,9 @@ def main() -> int:
         for k, v in sorted(fns8.items()):
             print(f"[chip_smoke] int8 kernel function {k[:110]}: {v} GMMA lines", flush=True)
         without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k and "requant" not in k]
-        if without or len(fns8) != 28:
-            failures.append(f"int8 kernels: expected 28 kernel functions (17 of K4/K5, 11 of X1-X3), wgmma "
-                            f"in all but the 3 abs-max passes and the requantization pass; got {len(fns8)}, "
+        if without or len(fns8) != 32:
+            failures.append(f"int8 kernels: expected 32 kernel functions (17 of K4/K5, 11 of X1-X3, 4 of X1u), "
+                            f"wgmma in all but the 3 abs-max passes and the requantization pass; got {len(fns8)}, "
                             f"none in {without}")
     # X4: its 8 conv functions (bf16 and float32 x, 64 and 128 output channels a
     # block, static and dynamic) on wgmma, no dp4a; the 2 abs-max passes without
@@ -4111,6 +4565,13 @@ def main() -> int:
         scale_out = _scale_out_phase(tmp, failures, gpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 9. the long tail: compat, the int8 knobs, the ops tail --------------------------
+    tmp = tempfile.mkdtemp(prefix="iek_chip_smoke_tail_")
+    try:
+        long_tail = _long_tail_phase(tmp, qp, failures, rows, gpu)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     _phase("total", t_all)
 
     if failures:
@@ -4125,7 +4586,7 @@ def main() -> int:
                       "bf16_profile": bf16_profile, "bf16_cli": bf16_cli, "mixed_cli": mixed_cli,
                       "split": split, "extras": extras, "int8_cli": int8_cli, "int8_profile": int8_profile,
                       "set5": set5, "zoo": zoo, "train": train, "serving": serve,
-                      "scale_out": scale_out}),
+                      "scale_out": scale_out, "long_tail": long_tail}),
           flush=True)
     print(_gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,7 +14,8 @@ and exports serving programs (``cli.export_model``, ``runtime/export.py``,
 every kernel a ``torch.library`` op of ``ops/cuda/library.py``); ``python
 -m image_enhance_keras_tpu_torch`` is the front door; ``parallel/`` shards
 inference and training over several devices (``ShardedResolver``,
-``Trainer(mesh=)``).  Nothing here imports JAX.
+``Trainer(mesh=)``); ``compat`` is the reference-named surface for users
+of the original Keras repo.  Nothing here imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -24,6 +25,7 @@ _LAZY = {
     "ShardedResolver": ("image_enhance_keras_tpu_torch.parallel", "ShardedResolver"),
     "Trainer": ("image_enhance_keras_tpu_torch.train.trainer", "Trainer"),
     "Config": ("image_enhance_keras_tpu_torch.utils.config", "Config"),
+    "compat": ("image_enhance_keras_tpu_torch.compat", None),
 }
 
 
@@ -35,4 +37,5 @@ def __getattr__(name):
         raise AttributeError(name)
     import importlib
 
-    return getattr(importlib.import_module(entry[0]), entry[1])
+    mod = importlib.import_module(entry[0])
+    return getattr(mod, entry[1]) if entry[1] else mod

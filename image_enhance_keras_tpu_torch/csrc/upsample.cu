@@ -26,6 +26,15 @@
 // the lanes of a warp store consecutive 16-byte vectors of one or two
 // output pixels, by streaming stores (st.global.cs, evict-first: the output
 // is not read back by this kernel).
+//
+// K3q (IEK_INT8_UPQ, the JAX package's _light53_i8_xla_upfused: the x4 whose
+// only consumer is the per-channel int8 quantize of the first HR block):
+// K3's bf16 x4 with the quantize in its epilogue.  Each output is rounded to
+// bf16 first (K3's output), then coded as clamp(rint(y * r_c), -127, 127)
+// with r_c = 1 / s_c rounded to float32 (the division JAX writes as
+// 1.0 / s_c), and the codes leave as int8, 8 bytes a vector: the bf16 HR map
+// (2 bytes an element) is never written.  Bound by bytes too: it reads the
+// bf16 input once and writes f^2 int8 codes an input element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,18 +78,42 @@ struct Arith<__nv_bfloat16> {
   }
 };
 
+// The int8 code clamp(rint(v * inv), -127, 127), in the low byte of the
+// result: clamping first gives the same code, and adding 1.5 * 2^23 (where
+// the float spacing is 1) rounds half to even; no conversion instruction.
+__device__ __forceinline__ unsigned code8(float v, float inv) {
+  const float c = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(c, 12582912.f));
+}
+
+// 8 bf16 values (a 16-byte vector) -> their 8 codes at inv[0..7], as 8 bytes
+__device__ __forceinline__ uint2 codes8(const uint4& o, const float (&inv)[8]) {
+  const uint32_t w[4] = {o.x, o.y, o.z, o.w};
+  unsigned q[8];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    q[2 * v] = code8(__uint_as_float(w[v] << 16), inv[2 * v]);
+    q[2 * v + 1] = code8(__uint_as_float(w[v] & 0xffff0000u), inv[2 * v + 1]);
+  }
+  return make_uint2(__byte_perm(__byte_perm(q[0], q[1], 0x0040), __byte_perm(q[2], q[3], 0x0040), 0x5410),
+                    __byte_perm(__byte_perm(q[4], q[5], 0x0040), __byte_perm(q[6], q[7], 0x0040), 0x5410));
+}
+
 __device__ __forceinline__ void load16(const void* p, uint32_t (&w)[4]) {
   const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
   w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
 }
 
 // F > 0: the factor, unrolled; F == 0: any factor f (the loop form).
-// wt: the host weight table, w0[r] at wt[r], w1[r] at wt[f + r].
-template <typename T, int F>
+// wt: the host weight table, w0[r] at wt[r], w1[r] at wt[f + r].  Q (bf16
+// only, K3q): the output is int8 codes at the C scales (out_q), not T values.
+template <typename T, int F, bool Q>
 __global__ void __launch_bounds__(THREADS)
 upsample_phase_tf1_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W, int C,
-                          int f_rt, const float* __restrict__ wt) {
+                          int f_rt, const float* __restrict__ wt, const float* __restrict__ scales,
+                          int8_t* __restrict__ out_q) {
   constexpr int VEC = Arith<T>::VEC;
+  static_assert(!Q || VEC == 8, "the quantizing form takes bf16");
   const int f = F > 0 ? F : f_rt;
   const int groups = C / VEC;
   const int row = blockIdx.x;  // n * H + k
@@ -94,6 +127,11 @@ upsample_phase_tf1_kernel(const T* __restrict__ in, T* __restrict__ out, int H, 
   load16(base + ((size_t)k1 * W + m) * C, b);
   load16(base + ((size_t)k * W + m1) * C, c);
   load16(base + ((size_t)k1 * W + m1) * C, d);
+  float inv[8];  // K3q: 1 / s of the vector's channels, as JAX's 1.0 / s_c
+  if constexpr (Q) {
+#pragma unroll
+    for (int v = 0; v < 8; ++v) inv[v] = __frcp_rn(__ldg(scales + g * VEC + v));
+  }
   const int OW = W * f;
 #pragma unroll
   for (int r = 0; r < f; ++r) {
@@ -104,7 +142,7 @@ upsample_phase_tf1_kernel(const T* __restrict__ in, T* __restrict__ out, int H, 
       hm[v] = Arith<T>::lerp(a[v], wr0, b[v], wr1);
       hm1[v] = Arith<T>::lerp(c[v], wr0, d[v], wr1);
     }
-    T* orow = out + ((size_t)row * f + r) * OW * C;  // n*fH + f*k + r
+    const size_t orow0 = ((size_t)row * f + r) * OW * C;  // n*fH + f*k + r
 #pragma unroll
     for (int s = 0; s < f; ++s) {
       const uint32_t ws0 = Arith<T>::weight(__ldg(wt + s)), ws1 = Arith<T>::weight(__ldg(wt + f + s));
@@ -113,32 +151,35 @@ upsample_phase_tf1_kernel(const T* __restrict__ in, T* __restrict__ out, int H, 
       o.y = Arith<T>::lerp(hm[1], ws0, hm1[1], ws1);
       o.z = Arith<T>::lerp(hm[2], ws0, hm1[2], ws1);
       o.w = Arith<T>::lerp(hm[3], ws0, hm1[3], ws1);
-      __stcs(reinterpret_cast<uint4*>(orow + (f * m + s) * C + g * VEC), o);
+      if constexpr (Q)
+        __stcs(reinterpret_cast<uint2*>(out_q + orow0 + (f * m + s) * C + g * VEC), codes8(o, inv));
+      else
+        __stcs(reinterpret_cast<uint4*>(out + orow0 + (f * m + s) * C + g * VEC), o);
     }
   }
 }
 
-template <typename T, int F>
+template <typename T, int F, bool Q>
 cudaError_t launch_f(const T* x, T* out, int n, int h, int w, int c, int f, const float* wt,
-                     cudaStream_t st) {
+                     const float* scales, int8_t* out_q, cudaStream_t st) {
   const int groups = c / Arith<T>::VEC;
   const long long blocks_y = ((long long)w * groups + THREADS - 1) / THREADS;
   if (blocks_y > 65535) return cudaErrorInvalidValue;
-  upsample_phase_tf1_kernel<T, F><<<dim3((unsigned)(n * h), (unsigned)blocks_y), THREADS, 0, st>>>(
-      x, out, h, w, c, f, wt);
+  upsample_phase_tf1_kernel<T, F, Q><<<dim3((unsigned)(n * h), (unsigned)blocks_y), THREADS, 0, st>>>(
+      x, out, h, w, c, f, wt, scales, out_q);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Q = false>
 cudaError_t launch(const void* x, void* out, int n, int h, int w, int c, int f, const float* wt,
-                   cudaStream_t st) {
+                   cudaStream_t st, const float* scales = nullptr, int8_t* out_q = nullptr) {
   const T* xi = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
   switch (f) {
-    case 2: return launch_f<T, 2>(xi, o, n, h, w, c, f, wt, st);
-    case 3: return launch_f<T, 3>(xi, o, n, h, w, c, f, wt, st);
-    case 4: return launch_f<T, 4>(xi, o, n, h, w, c, f, wt, st);
-    default: return launch_f<T, 0>(xi, o, n, h, w, c, f, wt, st);
+    case 2: return launch_f<T, 2, Q>(xi, o, n, h, w, c, f, wt, scales, out_q, st);
+    case 3: return launch_f<T, 3, Q>(xi, o, n, h, w, c, f, wt, scales, out_q, st);
+    case 4: return launch_f<T, 4, Q>(xi, o, n, h, w, c, f, wt, scales, out_q, st);
+    default: return launch_f<T, 0, Q>(xi, o, n, h, w, c, f, wt, scales, out_q, st);
   }
 }
 
@@ -159,6 +200,17 @@ int iek_upsample_phase_tf1(const void* x, void* out, int n, int h, int w, int c,
   const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(x, out, n, h, w, c, f, wt, st)
                                   : launch<float>(x, out, n, h, w, c, f, wt, st);
   return (int)err;
+}
+
+// K3q: x bf16 (n,h,w,c), c % 8 == 0, out int8 (n,f*h,f*w,c), scales float32
+// (c,) on the device, the per-channel quantization scales; the rest as
+// iek_upsample_phase_tf1.
+int iek_upsample_quant_tf1(const void* x, int8_t* out, int n, int h, int w, int c, int f,
+                           const float* wt, const float* scales, void* stream) {
+  if (f < 2 || (long long)w * f * c >= (1LL << 31) || (long long)n * h >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<__nv_bfloat16, true>(x, nullptr, n, h, w, c, f, wt,
+                                           static_cast<cudaStream_t>(stream), scales, out);
 }
 
 const char* iek_error_string(int code) {

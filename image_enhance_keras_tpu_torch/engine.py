@@ -78,8 +78,6 @@ __all__ = ["SuperResolver", "output_name", "resolve_device", "TILE_GEOMETRIES"]
 
 log = get_logger(__name__)
 
-_NOT_PORTED = "is not yet ported in image_enhance_keras_tpu_torch"
-
 
 def output_name(img_path: str, suffix: str = "scaled", scale_label: int = 1) -> str:
     """`<stem>_<suffix>(<k>x)<ext>` — the reference naming contract."""
@@ -135,7 +133,8 @@ class SuperResolver:
         self.device = resolve_device(device)
         disable_tf32()
         if forward not in ("xla", "int8", "pallas", "pallas_chain", "pallas_int8"):
-            raise NotImplementedError(f"forward={forward!r} {_NOT_PORTED}")
+            raise ValueError(f"forward={forward!r} is not a forward of this package or of the JAX package "
+                             "(xla, int8, pallas, pallas_chain, pallas_int8)")
         if mode not in ("patch", "fast", "split"):
             raise ValueError(f"mode must be 'patch', 'fast' or 'split', got {mode!r}")
         if round_mode not in ("round", "trunc"):

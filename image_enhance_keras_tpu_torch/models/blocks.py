@@ -32,13 +32,14 @@ _PROFILES = {None: torch.float32, torch.float32: torch.float32, "float32": torch
 
 
 def profile_dtype(dtype: Any) -> torch.dtype:
-    """The conv dtype of a profile (None -> float32); raises for the dtypes
-    the port does not run."""
+    """The conv dtype of a profile (None -> float32); raises for a dtype that
+    is no profile here or in the JAX package (float16, for one)."""
     try:
         return _PROFILES[dtype]
     except (KeyError, TypeError):
         raise NotImplementedError(
-            f"dtype {dtype!r} is not yet ported in image_enhance_keras_tpu_torch (float32 and bfloat16 only)"
+            f"dtype {dtype!r} is not a profile of image_enhance_keras_tpu_torch or of the JAX package: "
+            f"both serve float32 and bfloat16 (the mixed profiles through mixed=)"
         ) from None
 
 

@@ -27,9 +27,15 @@ per-channel int8 kernels of ``ops/cuda/int8_xla.py`` over the folded
 "qf"/"sf" copies (the HR tail, with ``dynamic=True``, on per-sample
 dynamic scales over "q"/"s"), bf16 activations between blocks.  The env
 knobs are read at call time, as JAX reads them at trace time:
-``IEK_INT8_ACC`` (bf16 | s32 | f32, the conv accumulator) and
-``IEK_INT8_EMIT`` (wide | s8, bit-equal); ``IEK_INT8_MERGE55``,
-``IEK_INT8_UPQ`` and ``IEK_INT8_UPMM`` set to 1 raise.
+``IEK_INT8_ACC`` (bf16 | s32 | f32, the conv accumulator),
+``IEK_INT8_EMIT`` (wide | s8, bit-equal), and the research knobs, each on
+when set to 1: ``IEK_INT8_MERGE55`` (each Light53 block's two first convs
+as one 5x5 conv with 2C outputs in the plain versions; exact, so the same
+bytes; the kernels already stage x once for both), ``IEK_INT8_UPQ`` (static
+tail with at least one block: the x4 fused with the first HR block's
+quantize, K3q, and that block on X1u with the skip ``x4(0.9 * h)`` in
+float32) and ``IEK_INT8_UPMM`` (the x4 as ``resize_bilinear_tf1``, two
+dense contractions; K3 does not run).
 
 On CPU tensors the kernel wrappers run their plain versions.
 """
@@ -53,8 +59,10 @@ from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import int8_conv3, int8_co
 from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import (
     light53_int8_xla,
     light53_int8_xla_dyn,
+    light53_int8_xla_upq,
     light_int8_xla,
 )
+from image_enhance_keras_tpu_torch.ops.cuda.upsample import upsample_quant_tf1
 from image_enhance_keras_tpu_torch.ops.cuda.tower import fused_light53_chain, fused_light_chain
 from image_enhance_keras_tpu_torch.ops.pixel_shuffle import depth_to_space
 from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1, upsample_phase_tf1
@@ -331,14 +339,12 @@ def _emit_s8() -> bool:
     return os.environ.get("IEK_INT8_EMIT", "wide") == "s8"
 
 
-def _refuse_env(name: str) -> None:
-    """JAX's research knobs the port does not run: raise rather than ignore them."""
-    if os.environ.get(name, "0") == "1":
-        raise NotImplementedError(f"{name}=1 is not yet ported in image_enhance_keras_tpu_torch")
+def _knob(name: str) -> bool:
+    """A research knob (``IEK_INT8_MERGE55``, ``IEK_INT8_UPQ``, ``IEK_INT8_UPMM``): on when set to 1."""
+    return os.environ.get(name, "0") == "1"
 
 
 def _light53_i8_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
-    _refuse_env("IEK_INT8_MERGE55")
     sc = p["actc"]
     return light53_int8_xla(
         x,
@@ -347,6 +353,26 @@ def _light53_i8_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
         p["conv_b1"]["qf"], p["conv_b1"]["sf"], p["conv_b1"]["bias"],
         p["conv_b2"]["qf"], p["conv_b2"]["sf"], p["conv_b2"]["bias"],
         _stacked_actc(p, ("x", "a", "b")), acc=_int8_acc(), emit_s8=_emit_s8(),
+        merge55=_knob("IEK_INT8_MERGE55"),
+    )
+
+
+def _light53_i8_xla_upfused(h_lr: torch.Tensor, p: dict, scale: int) -> torch.Tensor:
+    """The first HR Light53 block with the x4 fused into both its consumers
+    (``IEK_INT8_UPQ``, JAX's ``_light53_i8_xla_upfused``): the conv input is
+    the codes of the bf16 x4 of ``h_lr`` (K3q: the bf16 HR map is never
+    written), the identity leg the float32 x4 of 0.9 * h_lr (K3), and the
+    combine skip + 0.1 * (a + b) (X1u), bf16 out.  ``h_lr`` is bf16."""
+    sc = p["actc"]
+    xq = upsample_quant_tf1(h_lr, scale, sc["x"])
+    skip = upsample_phase_tf1(h_lr.to(torch.float32) * 0.9, scale)
+    return light53_int8_xla_upq(
+        xq, skip,
+        p["conv_a1"]["qf"], p["conv_a1"]["sf"], p["conv_a1"]["bias"],
+        p["conv_a2"]["qf"], p["conv_a2"]["sf"], p["conv_a2"]["bias"],
+        p["conv_b1"]["qf"], p["conv_b1"]["sf"], p["conv_b1"]["bias"],
+        p["conv_b2"]["qf"], p["conv_b2"]["sf"], p["conv_b2"]["bias"],
+        _stacked_actc(p, ("a", "b")), acc=_int8_acc(), emit_s8=_emit_s8(),
     )
 
 
@@ -360,14 +386,13 @@ def _light_i8_xla(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def _light53_i8_xla_dyn(x: torch.Tensor, p: dict) -> torch.Tensor:
-    _refuse_env("IEK_INT8_MERGE55")
     return light53_int8_xla_dyn(
         x,
         p["conv_a1"]["q"], p["conv_a1"]["s"], p["conv_a1"]["bias"],
         p["conv_a2"]["q"], p["conv_a2"]["s"], p["conv_a2"]["bias"],
         p["conv_b1"]["q"], p["conv_b1"]["s"], p["conv_b1"]["bias"],
         p["conv_b2"]["q"], p["conv_b2"]["s"], p["conv_b2"]["bias"],
-        acc=_int8_acc(),
+        acc=_int8_acc(), merge55=_knob("IEK_INT8_MERGE55"),
     )
 
 
@@ -475,8 +500,12 @@ def apply_didbl_int8_xla_tail(qparams: Any, h: torch.Tensor, n_tail53: int = 2, 
     """bf16 x4 upsample (or the subpixel head: its conv on X4, static or, with
     ``dynamic``, per-sample, rounded to bf16, then depth_to_space), the int8
     HR Light53 blocks (static per-channel, or per-sample dynamic with
-    ``dynamic``), bf16 out conv + relu -> float32."""
+    ``dynamic``), bf16 out conv + relu -> float32.  ``IEK_INT8_UPQ`` (static,
+    ``n_tail53`` >= 1) fuses the x4 into the first block
+    (:func:`_light53_i8_xla_upfused`); else ``IEK_INT8_UPMM`` runs the x4
+    as two dense contractions (``resize_bilinear_tf1``)."""
     h = h.to(torch.bfloat16)
+    start = 0
     if upsampler == "subpixel":
         p = qparams["subpixel_conv"]
         if dynamic:
@@ -484,12 +513,15 @@ def apply_didbl_int8_xla_tail(qparams: Any, h: torch.Tensor, n_tail53: int = 2, 
         else:
             t = int8_conv3(h, p["qf"], p["sf"], p["bias"], p["actc"]["x"], acc=_int8_acc())
         h = depth_to_space(t.to(torch.bfloat16), scale, order="dcr")
+    elif _knob("IEK_INT8_UPQ") and not dynamic and n_tail53 >= 1:
+        h = _light53_i8_xla_upfused(h, qparams["tail53_0"], scale)
+        start = 1
+    elif _knob("IEK_INT8_UPMM"):
+        # the einsums' output is not channels-last; the kernels take contiguous NHWC
+        h = resize_bilinear_tf1(h, (scale * int(h.shape[-3]), scale * int(h.shape[-2]))).contiguous()
     else:
-        if not dynamic and n_tail53 >= 1:
-            _refuse_env("IEK_INT8_UPQ")
-        _refuse_env("IEK_INT8_UPMM")
         h = upsample_phase_tf1(h, scale)
-    for i in range(n_tail53):
+    for i in range(start, n_tail53):
         p = qparams[f"tail53_{i}"]
         h = _light53_i8_xla_dyn(h, p) if dynamic else _light53_i8_xla(h, p)
     return torch.relu(_conv(h, qparams["out"])).to(torch.float32)

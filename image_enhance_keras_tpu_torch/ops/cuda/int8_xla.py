@@ -15,7 +15,20 @@ implicit GEMM of ``csrc/int8_blocks.cu``:
   every sample quantized with its own scale ``max(abs-max, 1e-6) / 127.0``
   (divided, not multiplied), the unfolded weights ("q", "s"), dequant
   ``acc * (s_w * s_in) + bias``; each branch intermediate requantized with
-  its own per-sample abs-max over the whole sample.
+  its own per-sample abs-max over the whole sample;
+* :func:`light53_int8_xla_upq` (X1u, the first HR block under
+  ``IEK_INT8_UPQ``): X1 whose input arrives as int8 codes (the x4 with the
+  quantize fused, ``upsample.upsample_quant_tf1``, K3q) and whose combine
+  adds a given float32 skip: ``bf16(skip + 0.1 * (a + b))``.
+
+``merge55`` (``IEK_INT8_MERGE55``) makes the plain versions of X1 and X3
+run a block's two first convs as JAX does under it: one 5x5 conv with 2C
+outputs over the 3x3 weights zero-padded beside the 5x5 ones
+(:func:`merged_w55`), its sums split into the two branch epilogues.  The
+conv is exact, so this equals the unmerged block bit for bit in every
+accumulator mode.  The kernels ignore the flag: their first launch already
+stages x once for both first convs, which is what the merge buys XLA, and
+they multiply no zero taps.
 
 Every float step rounds where JAX rounds when it runs these ops one at a
 time (``jax.disable_jit()``): the accumulator becomes float32 (``acc="s32"``
@@ -52,6 +65,8 @@ __all__ = [
     "light_int8_xla",
     "light53_int8_xla_dyn",
     "light53_int8_xla_dyn_banded",
+    "light53_int8_xla_upq",
+    "merged_w55",
     "sample_absmax",
     "launch_light53_int8_xla",
     "launch_light_int8_xla",
@@ -59,6 +74,8 @@ __all__ = [
     "light53_int8_xla_plain",
     "light_int8_xla_plain",
     "light53_int8_xla_dyn_plain",
+    "light53_int8_xla_upq_plain",
+    "launch_light53_int8_xla_upq",
 ]
 
 #: accumulator modes (``IEK_INT8_ACC``): the conv output's type before the dequant
@@ -92,10 +109,38 @@ def _requant_c(y: torch.Tensor, s_out: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(y * (1.0 / s_out)), 0.0, 127.0)
 
 
+def _codes(y, s_next, emit_s8: bool) -> torch.Tensor:
+    """Codes of relu(y) at the next conv's scales (the fused emission or the unfused chain)."""
+    return _requant_c(y, s_next) if emit_s8 else _quant_c(torch.relu(y), s_next)
+
+
 def _first(xq, w, sf, b, s_next, acc: str, emit_s8: bool) -> torch.Tensor:
     """Codes of relu(dequant(conv(xq, w))) at the next conv's scales."""
-    y = _acc(xq, w, acc) * sf + b
-    return _requant_c(y, s_next) if emit_s8 else _quant_c(torch.relu(y), s_next)
+    return _codes(_acc(xq, w, acc) * sf + b, s_next, emit_s8)
+
+
+def merged_w55(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_merged_w55``: the two first-conv kernels (HWIO) concatenated
+    on the output channels, the smaller zero-padded to the larger, centred."""
+    kh, kw = max(wa.shape[0], wb.shape[0]), max(wa.shape[1], wb.shape[1])
+
+    def padto(w):
+        out = w.new_zeros((kh, kw, *w.shape[2:]))
+        ph, pw = (kh - w.shape[0]) // 2, (kw - w.shape[1]) // 2
+        out[ph : ph + w.shape[0], pw : pw + w.shape[1]] = w
+        return out
+
+    return torch.cat([padto(wa), padto(wb)], dim=-1)
+
+
+def _first_pair(xq, wa1, wb1, acc: str, merge55: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two first convs' accumulators (as float32): two convs, or under
+    ``merge55`` one conv over :func:`merged_w55` split on its channels."""
+    if not merge55:
+        return _acc(xq, wa1, acc), _acc(xq, wb1, acc)
+    c = int(wa1.shape[-1])
+    both = _acc(xq, merged_w55(wa1, wb1), acc)
+    return both[..., :c], both[..., c:]
 
 
 def _check_acc(acc: str) -> None:
@@ -105,17 +150,31 @@ def _check_acc(acc: str) -> None:
 
 def light53_int8_xla_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
                            act_scales, acc: str = "bf16", emit_s8: bool = False,
-                           res_scale: float = 0.1, identity_scale: float = 0.9):
+                           res_scale: float = 0.1, identity_scale: float = 0.9, merge55: bool = False):
     """The static Light53 block: ``act_scales`` (3, C) holds s_x, s_a, s_b;
     the weights are the folded "qf" codes and the scales their "sf"."""
     _check_acc(acc)
     xf = x.to(_F32)
-    xq = _quant_c(xf, act_scales[0])
-    aq = _first(xq, wa1, sa1, ba1, act_scales[1], acc, emit_s8)
-    bq = _first(xq, wb1, sb1, bb1, act_scales[2], acc, emit_s8)
+    a1, b1 = _first_pair(_quant_c(xf, act_scales[0]), wa1, wb1, acc, merge55)
+    aq = _codes(a1 * sa1 + ba1, act_scales[1], emit_s8)
+    bq = _codes(b1 * sb1 + bb1, act_scales[2], emit_s8)
     a = _acc(aq, wa2, acc) * sa2 + ba2
     b = _acc(bq, wb2, acc) * sb2 + bb2
     return (_c(identity_scale) * xf + _c(res_scale) * (a + b)).to(x.dtype)
+
+
+def light53_int8_xla_upq_plain(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                               act_scales, acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1):
+    """X1u: the static Light53 block from the given codes ``xq`` (int8) of its
+    input; ``act_scales`` (2, C) holds s_a, s_b; out = bf16(skip + res * (a + b))
+    with ``skip`` float32 (JAX's ``_light53_i8_xla_upfused``)."""
+    _check_acc(acc)
+    q = xq.to(_F32)
+    aq = _first(q, wa1, sa1, ba1, act_scales[0], acc, emit_s8)
+    bq = _first(q, wb1, sb1, bb1, act_scales[1], acc, emit_s8)
+    a = _acc(aq, wa2, acc) * sa2 + ba2
+    b = _acc(bq, wb2, acc) * sb2 + bb2
+    return (skip + _c(res_scale) * (a + b)).to(torch.bfloat16)
 
 
 def light_int8_xla_plain(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16",
@@ -144,14 +203,16 @@ def _quant_dyn_sample(t: torch.Tensor, amax: torch.Tensor | None = None) -> tupl
     return torch.clamp(torch.round(t / s), -127.0, 127.0), s
 
 
-def light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc: str, window):
+def light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc: str, window,
+                                     merge55: bool = False):
     """X3's first convs: ta = relu(dequant(conv3(q(x)))), tb the same of conv5,
     x quantized with the samples' abs-maxes ``amax_x`` (N,); returns ta, tb
     and their abs-maxes (2, N) over ``window`` (y0, y1, x0, x1)."""
     _check_acc(acc)
     xq, sx = _quant_dyn_sample(x.to(_F32), amax_x)
-    ta = torch.relu(_acc(xq, wa1, acc) * (sa1 * sx) + ba1)
-    tb = torch.relu(_acc(xq, wb1, acc) * (sb1 * sx) + bb1)
+    a1, b1 = _first_pair(xq, wa1, wb1, acc, merge55)
+    ta = torch.relu(a1 * (sa1 * sx) + ba1)
+    tb = torch.relu(b1 * (sb1 * sx) + bb1)
     y0, y1, x0, x1 = window
     return ta, tb, torch.stack([sample_absmax(t[:, y0:y1, x0:x1]) for t in (ta, tb)])
 
@@ -172,33 +233,52 @@ def light53_int8_xla_dyn_second_plain(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, a
 
 
 def light53_int8_xla_dyn_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                               acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9):
+                               acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9,
+                               merge55: bool = False):
     """The per-sample dynamic Light53 block over the unfolded weights "q" / "s":
     its two steps over whole samples.
 
     ``IEK_INT8_EMIT=s8`` (``_requant_dyn``) runs the same float ops in JAX,
     so one version serves both emissions."""
     ta, tb, amax_ab = light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, sample_absmax(x), acc,
-                                                       (0, x.shape[1], 0, x.shape[2]))
+                                                       (0, x.shape[1], 0, x.shape[2]), merge55)
     return light53_int8_xla_dyn_second_plain(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc, res_scale,
                                              identity_scale)
 
 
 def light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
                      acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1,
-                     identity_scale: float = 0.9):
+                     identity_scale: float = 0.9, merge55: bool = False):
     """int8 Light53 block with static per-channel scales (X1), SAME, output in x's dtype.
 
     ``act_scales``: (3, C) float32, the calibrated s_x, s_a, s_b.  The kernel
     always hands the branch codes from its first launch to its second, which
-    is the fused ``emit_s8`` emission; ``emit_s8`` only selects the plain
-    version's form (bit-equal either way)."""
+    is the fused ``emit_s8`` emission; ``emit_s8`` and ``merge55`` only
+    select the plain version's form (bit-equal either way)."""
     _check_acc(acc)
     _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (3, "C"), _BF16)
     wa1, wa2, wb1, wb2 = library.device_layout(x, _packed, wa1, wa2, wb1, wb2)
     return library.light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
-                                    acc, bool(emit_s8), float(res_scale), float(identity_scale))
+                                    acc, bool(emit_s8), float(res_scale), float(identity_scale), bool(merge55))
+
+
+def light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
+                         acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1):
+    """X1u: the static Light53 block from the int8 codes ``xq`` (N, H, W, C)
+    of its input, plus the float32 ``skip`` (N, H, W, C) in place of 0.9 * x;
+    ``act_scales``: (2, C) float32, s_a and s_b.  Output bf16."""
+    _check_acc(acc)
+    _check(skip, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
+           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (2, "C"), (_F32,))
+    if skip.dtype != _F32 or xq.dtype != torch.int8 or xq.shape != skip.shape or xq.device != skip.device:
+        raise ValueError(f"X1u takes int8 codes and a float32 skip of one shape, got {xq.dtype} "
+                         f"{tuple(xq.shape)} and {skip.dtype} {tuple(skip.shape)}")
+    if xq.device.type == "cuda" and not xq.is_contiguous():
+        raise ValueError("the CUDA kernels take contiguous tensors")
+    wa1, wa2, wb1, wb2 = library.device_layout(skip, _packed, wa1, wa2, wb1, wb2)
+    return library.light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                        act_scales, acc, bool(emit_s8), float(res_scale))
 
 
 def light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16", emit_s8: bool = False,
@@ -211,7 +291,8 @@ def light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16", emi
 
 
 def light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                         acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9):
+                         acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9,
+                         merge55: bool = False):
     """int8 Light53 block with per-sample dynamic scales (X3), over the unfolded "q" / "s".
 
     Three launches: each sample's abs-max of x; the first convs from x
@@ -223,11 +304,12 @@ def light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], None, (), _BF16)
     wa1, wa2, wb1, wb2 = library.device_layout(x, _packed, wa1, wa2, wb1, wb2)
     return library.light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc,
-                                        float(res_scale), float(identity_scale))
+                                        float(res_scale), float(identity_scale), bool(merge55))
 
 
 def light53_int8_xla_dyn_banded(x, window, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                                acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9):
+                                acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9,
+                                merge55: bool = False):
     """X3 on one band of a frame whose abs-maxes are reduced over its bands:
     a generator that yields this band's abs-max of x over ``window`` (its
     own pixels, (y0, y1, x0, x1)) and is sent the frame's, then yields the
@@ -242,7 +324,7 @@ def light53_int8_xla_dyn_banded(x, window, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb
     y0, y1, x0, x1 = (int(v) for v in window)
     amax_x = yield library.light53_int8_xla_dyn_absmax(x[:, y0:y1, x0:x1].contiguous())
     ta, tb, amax_ab = library.light53_int8_xla_dyn_first(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc,
-                                                         [y0, y1, x0, x1])
+                                                         [y0, y1, x0, x1], bool(merge55))
     amax_ab = yield amax_ab
     return library.light53_int8_xla_dyn_second(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc,
                                                float(res_scale), float(identity_scale))
@@ -264,6 +346,25 @@ def launch_light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2,
             out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
     _build.check(lib, code, "light53_int8_xla")
     light53_int8_xla.launches += 1
+    return out
+
+
+def launch_light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                act_scales, acc: str, res_scale: float) -> torch.Tensor:
+    """X1u on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light53_int8_xla_upq``."""
+    convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
+    _build.check_aligned(xq, skip, act_scales, *convs)
+    lib = _build.library("int8_blocks")
+    n, h, w, c = (int(s) for s in skip.shape)
+    ta = torch.empty(skip.shape, dtype=torch.int8, device=skip.device)
+    tb = torch.empty_like(ta)
+    out = torch.empty(skip.shape, dtype=torch.bfloat16, device=skip.device)
+    with torch.cuda.device(skip.device):
+        code = lib.iek_light53_int8_xla_upq(
+            xq.data_ptr(), skip.data_ptr(), act_scales.data_ptr(), *(t.data_ptr() for t in convs), ta.data_ptr(),
+            tb.data_ptr(), out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale), _stream(skip))
+    _build.check(lib, code, "light53_int8_xla_upq")
+    light53_int8_xla_upq.launches += 1
     return out
 
 
@@ -350,5 +451,6 @@ def launch_light53_int8_xla_dyn_second(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, 
 
 
 light53_int8_xla.launches = 0
+light53_int8_xla_upq.launches = 0
 light_int8_xla.launches = 0
 light53_int8_xla_dyn.launches = 0

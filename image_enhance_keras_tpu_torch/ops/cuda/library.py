@@ -17,9 +17,11 @@ constants.  Raw pointers, scratch buffers, per-sample abs-maxes and the
 launches stay inside the CUDA implementations.
 
     K1 light53_block, K2 light_block, K6 light53_chain, K7 light_chain
-    (float32 and bf16 x); K3 upsample_phase_tf1 (differentiable); K4
+    (float32 and bf16 x); K3 upsample_phase_tf1 (differentiable), K3q
+    upsample_quant_tf1 (the x4 with IEK_INT8_UPQ's quantize); K4
     light53_int8, K5 light_int8 (static ``act_scales``, or None: dynamic);
-    X1 light53_int8_xla, X2 light_int8_xla, X3 light53_int8_xla_dyn (and
+    X1 light53_int8_xla, X1u light53_int8_xla_upq (IEK_INT8_UPQ's first HR
+    block), X2 light_int8_xla, X3 light53_int8_xla_dyn (and
     its steps _absmax, _first, _second, for a frame cut into bands); X4
     int8_conv3, int8_conv3_dyn (and its steps int8_conv3_absmax,
     int8_conv3_dyn_given).
@@ -36,7 +38,8 @@ from torch import Tensor
 
 __all__ = [
     "light53_block", "light_block", "light53_chain", "light_chain", "upsample_phase_tf1",
-    "light53_int8", "light_int8", "light53_int8_xla", "light_int8_xla", "light53_int8_xla_dyn",
+    "upsample_quant_tf1", "light53_int8", "light_int8", "light53_int8_xla", "light53_int8_xla_upq",
+    "light_int8_xla", "light53_int8_xla_dyn",
     "int8_conv3", "int8_conv3_dyn", "light53_int8_xla_dyn_absmax", "light53_int8_xla_dyn_first",
     "light53_int8_xla_dyn_second", "int8_conv3_absmax", "int8_conv3_dyn_given", "device_layout",
 ]
@@ -162,6 +165,26 @@ def _upsample_backward(ctx, g):
 upsample_phase_tf1.register_autograd(_upsample_backward, setup_context=_upsample_setup)
 
 
+@_op("upsample_quant_tf1")
+def upsample_quant_tf1(x: Tensor, factor: int, scales: Tensor) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample
+
+    return upsample.upsample_quant_plain(x, factor, scales)
+
+
+@upsample_quant_tf1.register_kernel("cuda")
+def _(x, factor, scales):
+    from image_enhance_keras_tpu_torch.ops.cuda import upsample
+
+    return upsample._launch_quant(x, factor, scales)
+
+
+@upsample_quant_tf1.register_fake
+def _(x, factor, scales):
+    n, h, w, c = x.shape
+    return x.new_empty((n, factor * h, factor * w, c), dtype=torch.int8)
+
+
 # -- K4, K5: int8 blocks, static or per-window dynamic scales (ops/cuda/int8_blocks.py) --
 
 @_op("light53_int8")
@@ -209,20 +232,45 @@ def _(x, w1q, s1, b1, w2q, s2, b2, res_scale, tile, act_scales):
 def light53_int8_xla(x: Tensor, wa1: Tensor, sa1: Tensor, ba1: Tensor, wa2: Tensor, sa2: Tensor, ba2: Tensor,
                      wb1: Tensor, sb1: Tensor, bb1: Tensor, wb2: Tensor, sb2: Tensor, bb2: Tensor,
                      act_scales: Tensor, acc: str, emit_s8: bool, res_scale: float,
-                     identity_scale: float) -> Tensor:
+                     identity_scale: float, merge55: bool) -> Tensor:
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
     return k.light53_int8_xla_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
-                                    acc, emit_s8, res_scale, identity_scale)
+                                    acc, emit_s8, res_scale, identity_scale, merge55)
 
 
 @light53_int8_xla.register_kernel("cuda")
 def _(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales, acc, emit_s8, res_scale,
-      identity_scale):
+      identity_scale, merge55):
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
     return k.launch_light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
                                      acc, res_scale, identity_scale)
+
+
+@_op("light53_int8_xla_upq")
+def light53_int8_xla_upq(xq: Tensor, skip: Tensor, wa1: Tensor, sa1: Tensor, ba1: Tensor, wa2: Tensor,
+                         sa2: Tensor, ba2: Tensor, wb1: Tensor, sb1: Tensor, bb1: Tensor, wb2: Tensor,
+                         sb2: Tensor, bb2: Tensor, act_scales: Tensor, acc: str, emit_s8: bool,
+                         res_scale: float) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.light53_int8_xla_upq_plain(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                        act_scales, acc, emit_s8, res_scale)
+
+
+@light53_int8_xla_upq.register_kernel("cuda")
+def _(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales, acc, emit_s8,
+      res_scale):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
+
+    return k.launch_light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                         act_scales, acc, res_scale)
+
+
+@light53_int8_xla_upq.register_fake
+def _(xq, skip, *args):
+    return skip.new_empty(skip.shape, dtype=torch.bfloat16)
 
 
 @_op("light_int8_xla")
@@ -243,15 +291,15 @@ def _(x, w1, s1, b1, w2, s2, b2, act_scales, acc, emit_s8, res_scale):
 @_op("light53_int8_xla_dyn")
 def light53_int8_xla_dyn(x: Tensor, wa1: Tensor, sa1: Tensor, ba1: Tensor, wa2: Tensor, sa2: Tensor,
                          ba2: Tensor, wb1: Tensor, sb1: Tensor, bb1: Tensor, wb2: Tensor, sb2: Tensor,
-                         bb2: Tensor, acc: str, res_scale: float, identity_scale: float) -> Tensor:
+                         bb2: Tensor, acc: str, res_scale: float, identity_scale: float, merge55: bool) -> Tensor:
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
     return k.light53_int8_xla_dyn_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc,
-                                        res_scale, identity_scale)
+                                        res_scale, identity_scale, merge55)
 
 
 @light53_int8_xla_dyn.register_kernel("cuda")
-def _(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc, res_scale, identity_scale):
+def _(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc, res_scale, identity_scale, merge55):
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
     return k.launch_light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, acc,
@@ -282,15 +330,16 @@ def _(x):
 
 @_op("light53_int8_xla_dyn_first")
 def light53_int8_xla_dyn_first(x: Tensor, wa1: Tensor, sa1: Tensor, ba1: Tensor, wb1: Tensor, sb1: Tensor,
-                               bb1: Tensor, amax_x: Tensor, acc: str,
-                               window: list[int]) -> tuple[Tensor, Tensor, Tensor]:
+                               bb1: Tensor, amax_x: Tensor, acc: str, window: list[int],
+                               merge55: bool) -> tuple[Tensor, Tensor, Tensor]:
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
-    return k.light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, tuple(window))
+    return k.light53_int8_xla_dyn_first_plain(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, tuple(window),
+                                              merge55)
 
 
 @light53_int8_xla_dyn_first.register_kernel("cuda")
-def _(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, window):
+def _(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, window, merge55):
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
     return k.launch_light53_int8_xla_dyn_first(x, wa1, sa1, ba1, wb1, sb1, bb1, amax_x, acc, window)

@@ -1,8 +1,10 @@
-"""Separable and small filters (mirror of ``ops/filters.py``, ``uniform_filter`` not yet ported).
+"""Separable and small filters (mirror of ``ops/filters.py``).
 
 ``separable_filter2d`` filters each channel with k_h along H and k_w along W
-after symmetric edge padding (scipy.ndimage's mode='reflect'); SSIM's window
-and the training degradation's ``gaussian_blur`` run on it.  ``sharpen_pil``
+after edge padding (by default symmetric, scipy.ndimage's mode='reflect';
+any ``np.pad`` mode JAX's ``jnp.pad`` takes); SSIM's window, the training
+degradation's ``gaussian_blur`` and ``uniform_filter`` (scipy.ndimage's
+box filter) run on it.  ``sharpen_pil``
 is PIL's ImageFilter.SHARPEN.  Each pass is a weighted sum of shifted slices
 in float32: no convolution library, and so no TF32, on the card.
 """
@@ -14,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["gaussian_blur", "separable_filter2d", "sharpen_pil"]
+__all__ = ["gaussian_blur", "uniform_filter", "separable_filter2d", "sharpen_pil"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,18 +29,22 @@ def _gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     return k.astype(np.float32)
 
 
-def _pad_symmetric(x: torch.Tensor, axis: int, before: int, after: int) -> torch.Tensor:
-    """np.pad(mode='symmetric') along one axis (edge sample repeated), pads up to the axis length."""
+def _pad(x: torch.Tensor, axis: int, before: int, after: int, mode: str) -> torch.Tensor:
+    """``np.pad(mode=mode)`` along one axis: zeros for "constant", else a
+    gather of the indices ``np.pad`` gives the axis' positions."""
     n = x.shape[axis]
-    if before > n or after > n:
-        raise ValueError(f"symmetric padding of {before}/{after} exceeds the axis length {n}")
-    parts = []
-    if before:
-        parts.append(x.narrow(axis, 0, before).flip(axis))
-    parts.append(x)
-    if after:
-        parts.append(x.narrow(axis, n - after, after).flip(axis))
-    return torch.cat(parts, dim=axis)
+    if mode == "constant":
+        shape = list(x.shape)
+        parts = []
+        for k in (before, None, after):
+            if k is None:
+                parts.append(x)
+            elif k:
+                shape[axis] = k
+                parts.append(x.new_zeros(shape))
+        return torch.cat(parts, dim=axis)
+    idx = np.pad(np.arange(n), (before, after), mode=mode)
+    return torch.index_select(x, axis, torch.from_numpy(idx).to(x.device))
 
 
 def _filter_axis(x: torch.Tensor, kern: np.ndarray, axis: int) -> torch.Tensor:
@@ -55,8 +61,6 @@ def separable_filter2d(x: torch.Tensor, k_h: np.ndarray, k_w: np.ndarray | None 
     """Apply a separable (k_h outer k_w) filter per channel with edge padding.
 
     x is (H, W), (H, W, C) or (N, H, W, C); the output has x's shape."""
-    if pad_mode != "symmetric":
-        raise NotImplementedError(f"pad_mode={pad_mode!r} is not yet ported in image_enhance_keras_tpu_torch")
     if k_w is None:
         k_w = k_h
     if x.dim() not in (2, 3, 4):
@@ -65,9 +69,9 @@ def separable_filter2d(x: torch.Tensor, k_h: np.ndarray, k_w: np.ndarray | None 
     k_h, k_w = np.asarray(k_h, np.float32), np.asarray(k_w, np.float32)
     # scipy origin-0 convention: an even-length kernel spans
     # [-(n//2), n - n//2 - 1], so pad n//2 before and (n-1)//2 after
-    y = _pad_symmetric(x, ax_h, len(k_h) // 2, (len(k_h) - 1) // 2)
+    y = _pad(x, ax_h, len(k_h) // 2, (len(k_h) - 1) // 2, pad_mode)
     y = _filter_axis(y, k_h, ax_h)
-    y = _pad_symmetric(y, ax_w, len(k_w) // 2, (len(k_w) - 1) // 2)
+    y = _pad(y, ax_w, len(k_w) // 2, (len(k_w) - 1) // 2, pad_mode)
     return _filter_axis(y, k_w, ax_w)
 
 
@@ -76,6 +80,12 @@ def gaussian_blur(x: torch.Tensor, sigma: float, truncate: float = 4.0) -> torch
     if sigma <= 0:
         return x
     k = _gaussian_kernel1d(float(sigma), float(truncate))
+    return separable_filter2d(x, k, k, pad_mode="symmetric")
+
+
+def uniform_filter(x: torch.Tensor, size: int) -> torch.Tensor:
+    """scipy.ndimage.uniform_filter parity (mode='reflect') over the spatial axes."""
+    k = np.full((size,), 1.0 / size, dtype=np.float32)
     return separable_filter2d(x, k, k, pad_mode="symmetric")
 
 

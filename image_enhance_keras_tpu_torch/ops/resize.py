@@ -1,15 +1,20 @@
-"""TF1 bilinear and PIL bicubic resampling (mirror of ``ops/resize.py``, a subset).
+"""TF1 and PIL resampling (mirror of ``ops/resize.py``).
 
-``resize_bilinear_tf1`` is the in-network x4 of the ``pallas`` forward: two
-float32 contractions with dense (out, in) weight matrices built in numpy.
-``resize_bicubic_pil`` is the float PIL-bicubic resize of back-projection.
+``resize_weight_matrix`` builds the dense (out, in) matrix of one axis for
+every method JAX has (``tf1_bilinear``, ``tf1_bicubic``, ``tf1_nearest``,
+``pil_nearest``, ``pil_bilinear``, ``pil_bicubic``, ``pil_lanczos``,
+``pil_box``), in numpy, as JAX does.  ``resize2d`` contracts (H, W) with
+two of them: ``resize_bilinear_tf1`` is the in-network x4 of the ``pallas``
+forward and of ``IEK_INT8_UPMM``, ``upscale_bilinear_x4`` the model's x4 as
+a resize, ``resize_bicubic_pil`` the float PIL-bicubic resize of
+back-projection.
 ``upsample_phase_tf1`` is the closed form the module and int8 forwards use:
 per axis ``out[f*k + r] = (1 - r/f)*in[k] + (r/f)*in[k+1]``, last row
 clamped; it is the op ``iek::upsample_phase_tf1`` (``ops/cuda/library.py``),
 which runs the CUDA kernel on a CUDA tensor (``ops/cuda/upsample.py``) and
 the plain construction on a CPU tensor.  ``resize_pil_uint8`` is
-PIL's uint8 bicubic resampling, which int8 calibration uses to degrade
-images to the serving distribution.
+PIL's uint8 resampling under any PIL method (bicubic by default, which int8
+calibration uses to degrade images to the serving distribution).
 """
 
 from __future__ import annotations
@@ -24,14 +29,19 @@ __all__ = [
     "resize2d",
     "resize_bilinear_tf1",
     "resize_bicubic_pil",
+    "upscale_bilinear_x4",
     "resize_pil_uint8",
     "upsample_phase_plain",
     "upsample_phase_tf1",
 ]
 
 
+def _kernel_triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - np.abs(x))
+
+
 def _kernel_cubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
-    """Keys cubic with a=-0.5, the kernel of PIL BICUBIC."""
+    """Keys cubic, a=-0.5 the kernel of PIL BICUBIC (TF1 bicubic takes a=-0.75)."""
     ax = np.abs(x)
     ax2 = ax * ax
     ax3 = ax2 * ax
@@ -42,21 +52,45 @@ def _kernel_cubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
     )
 
 
+def _kernel_lanczos3(x: np.ndarray) -> np.ndarray:
+    with np.errstate(invalid="ignore", divide="ignore"):
+        w = np.sinc(x) * np.sinc(x / 3.0)
+    return np.where(np.abs(x) < 3.0, np.nan_to_num(w), 0.0)
+
+
+def _kernel_box(x: np.ndarray) -> np.ndarray:
+    return np.where((x >= -0.5) & (x < 0.5), 1.0, 0.0)
+
+
+#: PIL's convolution filters: (kernel, support at scale 1)
+_PIL_KERNELS = {
+    "pil_bilinear": (_kernel_triangle, 1.0),
+    "pil_bicubic": (_kernel_cubic, 2.0),
+    "pil_lanczos": (_kernel_lanczos3, 3.0),
+    "pil_box": (_kernel_box, 0.5),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def resize_weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     """Dense (out_size, in_size) float32 resampling matrix for one axis.
 
-    Methods ported:
+    Methods:
       * ``tf1_bilinear`` - TF1 ``resize_bilinear`` with align_corners=False,
         ``src = dst * in/out``, edge-clamped;
-      * ``pil_bicubic`` - PIL convolution resampling: half-pixel centres,
-        kernel support scaled by the downscale factor (antialias), weights
-        normalised per row.
+      * ``tf1_bicubic`` - TF1 ``resize_bicubic`` with align_corners=False:
+        asymmetric coordinates, Keys cubic with a=-0.75, edge-clamped, not
+        renormalised, the fraction quantised to TF's 1024-entry table;
+      * ``tf1_nearest`` - TF1 ``resize_nearest_neighbor`` (floor of ``dst * in/out``);
+      * ``pil_nearest`` - PIL NEAREST (the half-pixel centre, truncated);
+      * ``pil_bilinear`` / ``pil_bicubic`` / ``pil_lanczos`` / ``pil_box`` -
+        PIL convolution resampling: half-pixel centres, kernel support
+        scaled by the downscale factor (antialias), weights normalised per row.
     """
     if in_size <= 0 or out_size <= 0:
         raise ValueError("sizes must be positive")
+    scale = in_size / out_size
     if method == "tf1_bilinear":
-        scale = in_size / out_size
         src = np.arange(out_size, dtype=np.float64) * scale
         i0 = np.floor(src).astype(np.int64)
         frac = src - i0
@@ -67,13 +101,29 @@ def resize_weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray
         w[rows, i0] += 1.0 - frac
         w[rows, i1] += frac
         return w.astype(np.float32)
-    if method != "pil_bicubic":
-        raise NotImplementedError(
-            f"resize method {method!r} is not yet ported in image_enhance_keras_tpu_torch"
-        )
-    scale = in_size / out_size
+    if method == "tf1_bicubic":
+        table = 1024
+        w = np.zeros((out_size, in_size), dtype=np.float64)
+        for i in range(out_size):
+            src = i * scale
+            j0 = int(np.floor(src))
+            frac = round((src - j0) * table) / table
+            for t in range(-1, 3):
+                w[i, min(max(j0 + t, 0), in_size - 1)] += float(_kernel_cubic(np.asarray(t - frac), a=-0.75))
+        return w.astype(np.float32)
+    if method in ("tf1_nearest", "pil_nearest"):
+        if method == "tf1_nearest":
+            src = np.minimum(np.floor(np.arange(out_size) * scale).astype(np.int64), in_size - 1)
+        else:
+            src = np.clip(((np.arange(out_size) + 0.5) * scale).astype(np.int64), 0, in_size - 1)
+        w = np.zeros((out_size, in_size), dtype=np.float32)
+        w[np.arange(out_size), src] = 1.0
+        return w
+    if method not in _PIL_KERNELS:
+        raise ValueError(f"unknown resize method: {method!r}")
+    kernel, base_support = _PIL_KERNELS[method]
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale  # the cubic's support at scale 1
+    support = base_support * filterscale
     inv = 1.0 / filterscale
     w = np.zeros((out_size, in_size), dtype=np.float64)
     for i in range(out_size):
@@ -81,7 +131,7 @@ def resize_weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
         js = np.arange(xmin, xmax)
-        ws = _kernel_cubic((js + 0.5 - center) * inv)
+        ws = kernel((js + 0.5 - center) * inv)
         total = ws.sum()
         if total != 0.0:
             ws = ws / total
@@ -90,11 +140,14 @@ def resize_weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray
 
 
 def resize2d(x: torch.Tensor, out_hw: tuple[int, int], method: str = "tf1_bilinear") -> torch.Tensor:
-    """Resize the (H, W) axes of a (..., H, W, C) float tensor by two contractions."""
+    """Resize the (H, W) axes of a (..., H, W, C) tensor by two contractions
+    in x's dtype; an integer x is promoted to float32 first (JAX's rule)."""
     h, w = int(x.shape[-3]), int(x.shape[-2])
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (h, w) == (oh, ow):
         return x
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
     wh = torch.from_numpy(resize_weight_matrix(h, oh, method)).to(x.device, x.dtype)
     ww = torch.from_numpy(resize_weight_matrix(w, ow, method)).to(x.device, x.dtype)
     y = torch.einsum("oh,...hwc->...owc", wh, x)
@@ -109,6 +162,11 @@ def resize_bilinear_tf1(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tenso
 def resize_bicubic_pil(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """PIL / ``scipy.misc.imresize`` BICUBIC resize in float (antialiased downscale)."""
     return resize2d(x, out_hw, "pil_bicubic")
+
+
+def upscale_bilinear_x4(x: torch.Tensor) -> torch.Tensor:
+    """The in-network x4 upsample of the flagship model as a TF1 bilinear resize."""
+    return resize_bilinear_tf1(x, (4 * int(x.shape[-3]), 4 * int(x.shape[-2])))
 
 
 @functools.lru_cache(maxsize=None)

@@ -284,7 +284,7 @@ def _int8_xla_stages(m, dynamic: bool) -> tuple[list[Stage], list[Stage]]:
     from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import int8_conv3, int8_conv3_dyn_banded
     from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import light53_int8_xla_dyn_banded
     from image_enhance_keras_tpu_torch.ops.pixel_shuffle import depth_to_space
-    from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
+    from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1, upsample_phase_tf1
 
     bf16, f32 = torch.bfloat16, torch.float32
     name = type(m).__name__
@@ -299,6 +299,7 @@ def _int8_xla_stages(m, dynamic: bool) -> tuple[list[Stage], list[Stage]]:
                        _r_block(getattr(m, f"body53_{i}"))) for i in range(m.n_body53)]
         body += [Stage(lambda w, h, i=i: dp._light_i8_xla(h, w.params[f"light_{i}"]),
                        _r_block(getattr(m, f"light_{i}"))) for i in range(m.n_light)]
+        start = 0
         if m.upsampler == "subpixel":
             def sub_static(w, h):
                 p = w.params["subpixel_conv"]
@@ -312,27 +313,34 @@ def _int8_xla_stages(m, dynamic: bool) -> tuple[list[Stage], list[Stage]]:
                 return depth_to_space(t.to(bf16), m.scale, order="dcr")
 
             head = Stage(sub_dyn, 1, m.scale, banded=True) if dynamic else Stage(sub_static, 1, m.scale)
+        elif not dynamic and m.n_tail53 >= 1 and dp._knob("IEK_INT8_UPQ"):
+            # the x4 fused into the first HR block: its radius in LR rows is
+            # the x4's one row and the block's HR rows, rounded up to LR rows
+            r_up = 1 + -(-_r_block(m.tail53_0) // m.scale)
+            head = Stage(lambda w, h: dp._light53_i8_xla_upfused(h.to(bf16), w.params["tail53_0"], m.scale),
+                         r_up, m.scale)
+            start = 1
         else:
             def up(w, h):
-                if not dynamic and m.n_tail53 >= 1:
-                    dp._refuse_env("IEK_INT8_UPQ")
-                dp._refuse_env("IEK_INT8_UPMM")
-                return upsample_phase_tf1(h.to(bf16), m.scale)
+                h = h.to(bf16)
+                if dp._knob("IEK_INT8_UPMM"):
+                    return resize_bilinear_tf1(h, (m.scale * int(h.shape[1]), m.scale * int(h.shape[2]))).contiguous()
+                return upsample_phase_tf1(h, m.scale)
 
             head = Stage(up, 1, m.scale)
 
         def x3(w, h, window, name):
-            dp._refuse_env("IEK_INT8_MERGE55")
             p = w.params[name]
             convs = [p[c][k] for c in ("conv_a1", "conv_a2", "conv_b1", "conv_b2") for k in ("q", "s", "bias")]
-            return (yield from light53_int8_xla_dyn_banded(h, window, *convs, acc=dp._int8_acc()))
+            return (yield from light53_int8_xla_dyn_banded(h, window, *convs, acc=dp._int8_acc(),
+                                                           merge55=dp._knob("IEK_INT8_MERGE55")))
 
         if dynamic:
             blocks = [Stage(lambda w, h, win, i=i: x3(w, h, win, f"tail53_{i}"),
-                            _r_block(getattr(m, f"tail53_{i}")), banded=True) for i in range(m.n_tail53)]
+                            _r_block(getattr(m, f"tail53_{i}")), banded=True) for i in range(start, m.n_tail53)]
         else:
             blocks = [Stage(lambda w, h, i=i: dp._light53_i8_xla(h, w.params[f"tail53_{i}"]),
-                            _r_block(getattr(m, f"tail53_{i}"))) for i in range(m.n_tail53)]
+                            _r_block(getattr(m, f"tail53_{i}"))) for i in range(start, m.n_tail53)]
         return body, [head, *blocks, out]
     entry = Stage(lambda w, x: torch.relu(dp._conv(x.to(bf16), w.params["level1"])), _kc(m.level1))
     if name == "Difvdsr4":

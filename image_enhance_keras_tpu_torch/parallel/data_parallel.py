@@ -14,7 +14,8 @@ with several cards their launches queue concurrently.
     by the batch, and a shard of another size moves a uint8 level here and
     there (ROADMAP.md §3).  Patch-average (one call of every tile on one
     device) pads its tile batch to a device multiple and shards it, as
-    JAX does;
+    JAX does; on the card that still gives one device's bytes at
+    ``compat``'s geometries (``chip_smoke.py`` phase 8a);
   * fast, frame and split: a frame has no batch axis, so its rows are cut
     into bands (``parallel/bands.py``), with a halo exchange before each
     block; split mode's tail stripes are cut into bands of columns.

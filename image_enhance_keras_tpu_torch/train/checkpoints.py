@@ -55,8 +55,8 @@ def restore_params(path: str) -> Any:
     f = os.path.join(path, STATE_FILE)
     if not os.path.isfile(f):
         raise NotImplementedError(
-            f"{path!r} holds no {STATE_FILE}: orbax checkpoint directories are not yet ported in "
-            f"image_enhance_keras_tpu_torch (export an npz from the JAX package instead)"
+            f"{path!r} holds no {STATE_FILE}: an orbax checkpoint directory takes JAX (orbax) to read, and "
+            f"image_enhance_keras_tpu_torch imports no JAX (export an npz from the JAX package instead)"
         )
     return torch.load(f, map_location="cpu", weights_only=True)
 

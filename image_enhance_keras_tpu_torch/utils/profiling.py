@@ -1,4 +1,9 @@
-"""Where the device time of the main path goes: kernels by name, and the idle share.
+"""Profiling: stage timers, a trace context, and where the device time of the main path goes.
+
+``StageTimer`` accumulates wall-clock time by stage name, ``trace(log_dir)``
+records a ``torch.profiler`` trace (CPU activity, and CUDA activity when a
+card is present) and writes it as a Chrome trace under ``log_dir``, and
+``mpix_per_s`` is the throughput of n pixels in a time.  As a script:
 
     python -m image_enhance_keras_tpu_torch.utils.profiling [--size 128] [--iters 3] [--model didbl]
         [--forwards int8 pallas_int8 pallas pallas_chain xla]
@@ -15,11 +20,64 @@ the share of the wall time in which no kernel ran.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
+
+__all__ = ["StageTimer", "trace", "mpix_per_s", "device_kernel_times", "profile_upscale", "main"]
+
+
+class StageTimer:
+    """Accumulating wall-clock stage timer.
+
+    >>> t = StageTimer()
+    >>> with t("decode"): ...
+    >>> print(t.report())
+    """
+
+    def __init__(self):
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[stage] += time.perf_counter() - t0
+            self.counts[stage] += 1
+
+    def report(self) -> str:
+        """One line a stage, longest total first: ``name: T.TTTs / Nx (M.M ms avg)``."""
+        return "\n".join(
+            f"{k}: {self.totals[k]:.3f}s / {self.counts[k]}x "
+            f"({1e3 * self.totals[k] / max(self.counts[k], 1):.1f} ms avg)"
+            for k in sorted(self.totals, key=self.totals.get, reverse=True)
+        )
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "iek_torch_trace"):
+    """``torch.profiler`` over the block (CPU activity, and CUDA activity when
+    a card is present); on exit writes ``<log_dir>/trace_<pid>_<ns>.json``, a
+    Chrome trace (chrome://tracing, Perfetto).  Yields ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def mpix_per_s(n_pixels: int, seconds: float) -> float:
+    return n_pixels / seconds / 1e6
 
 
 def device_kernel_times(prof) -> list[tuple[str, float, int]]:

@@ -228,10 +228,10 @@ def test_profiles():
     assert profile_dtype(None) == profile_dtype("float32") == profile_dtype(torch.float32) == torch.float32
     assert profile_dtype("bfloat16") == profile_dtype(torch.bfloat16) == torch.bfloat16
     for dtype in (torch.float16, "mixed", "mixed-tail", []):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(NotImplementedError, match="is not a profile"):
             profile_dtype(dtype)
     # internal learning is ported: an unported profile under it still raises
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="is not a profile"):
         port_engine.SuperResolver(dtype=torch.float16, forward="int8", device="cpu", weights=None, internal_learn=1)
 
 

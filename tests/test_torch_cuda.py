@@ -359,6 +359,54 @@ def test_upsample_kernel_bit_equal_plain(factor, dtype, shape, c):
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
+# -- K3q and X1u: IEK_INT8_UPQ's fused x4 and first HR block ----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 128])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+@pytest.mark.parametrize("factor", [2, 4, 5])
+def test_upsample_quant_kernel_bit_equal_plain(factor, shape, c):
+    """K3q: the bf16 x4 with the per-channel int8 quantize in its epilogue,
+    bit-equal to upsample_quant_plain (codes that clip at +-127 included);
+    one counted launch, no K3 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the upsample kernel is CUDA C++ with no CPU mode")
+    rng = np.random.default_rng(sum(shape) + factor + c + 1)
+    x = torch.from_numpy((rng.normal(size=(*shape, c)) * 3).astype(np.float32)).cuda().to(torch.bfloat16)
+    s = torch.from_numpy((np.exp(rng.normal(size=c)) * 0.03).astype(np.float32)).cuda()
+    before, before_k3 = upsample.upsample_quant_tf1.launches, upsample.upsample_phase_tf1_kernel.launches
+    got = upsample.upsample_quant_tf1(x, factor, s)
+    torch.cuda.synchronize()
+    assert upsample.upsample_quant_tf1.launches == before + 1
+    assert upsample.upsample_phase_tf1_kernel.launches == before_k3
+    assert got.dtype == torch.int8 and tuple(got.shape) == (shape[0], factor * shape[1], factor * shape[2], c)
+    want = upsample.upsample_quant_plain(x, factor, s)
+    assert torch.equal(got, want), (got.int() - want.int()).abs().max().item()
+    assert want.abs().max().item() == 127  # the clip is exercised
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", ["bf16", "s32"])
+@pytest.mark.parametrize("shape", [(2, 96, 96), (1, 57, 86), (1, 5, 70), "big"])
+def test_int8_xla_upq_kernel_bit_equal_plain(shape, acc):
+    """X1u (given int8 codes, a float32 skip, bf16 out), one counted call,
+    bit-equal to its plain version; with the skip 0.9 * x and x's own codes
+    it is X1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
+    x, args, act = _int8_xla_inputs("light53", shape, 31 + len(str(shape)))
+    xq = int8_xla._quant_c(x, act[0]).to(torch.int8)
+    skip = torch.tensor(0.9) * x.float()
+    before = int8_xla.light53_int8_xla_upq.launches
+    got = int8_xla.light53_int8_xla_upq(xq, skip, *args, act[1:].contiguous(), acc=acc)
+    torch.cuda.synchronize()
+    assert int8_xla.light53_int8_xla_upq.launches == before + 1 and got.dtype == torch.bfloat16
+    want = int8_xla.light53_int8_xla_upq_plain(xq, skip, *args, act[1:].contiguous(), acc=acc)
+    assert torch.equal(got, want), ((got.float() - want.float()).abs().max().item(),
+                                    (got != want).float().mean().item())
+    assert torch.equal(got, int8_xla.light53_int8_xla(x, *args, act, acc=acc))
+
+
 # -- the bf16 forms of K1/K2 and K6/K7 ------------------------------------------
 #: one bf16 block, or a chain of one, against its plain version (both sum in
 #: float32, in other orders within a tap): at most 1e-3 of the elements

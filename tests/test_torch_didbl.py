@@ -100,11 +100,11 @@ def test_demo_blocks_match_flax(demo, name):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="is not a profile"):
         DifvdsrDouble(upsampler="subpixel", dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="is not a profile"):
         DifvdsrDouble(dtype=torch.float16, mixed=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="is not a profile"):
         apply_didbl_pallas({}, torch.zeros(1, 4, 4, 3), dtype=torch.float16, chain=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="is not a profile"):
         DifvdsrDouble(dtype=torch.float16, mixed_tail=True)

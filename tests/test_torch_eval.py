@@ -250,7 +250,7 @@ def test_scorpath_rejects_unported_flags(tmp_path, argv):
     orbax = tmp_path / "orbax"
     orbax.mkdir()
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="not yet ported in image_enhance_keras_tpu_torch"):
+    with pytest.raises(NotImplementedError, match="an orbax checkpoint directory takes JAX"):
         port_scorpath([str(tmp_path), "--generate", "--device", "cpu", "--weights", str(orbax), *argv])
 
 

@@ -83,6 +83,7 @@ def worker(rank: int, world: int, port: int, ckpt: str, out: str) -> int:
     """One rank: join the gloo group, one data-parallel epoch of one step,
     restore rank 0's checkpoint; rank 0 writes the params to ``out``."""
     sys.path.insert(0, ROOT)
+    torch.set_num_threads(1)  # beside the test run's other workers, one core each
     from image_enhance_keras_tpu_torch.parallel import make_mesh, maybe_init_distributed
     from image_enhance_keras_tpu_torch.train.trainer import Trainer
 
@@ -117,6 +118,7 @@ def test_two_process_gloo_step_checkpoint_restore(tmp_path):
     ckpt, out = str(tmp_path / "ck"), str(tmp_path / "rank0.pt")
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_COORDINATOR", "COORDINATOR", "JAX_NUM_P",
                                                                       "JAX_PROCESS"))}
+    env["OMP_NUM_THREADS"] = "1"
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), "2", str(port), ckpt, out],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
              for r in range(2)]

@@ -56,5 +56,7 @@ def test_upsample_phase_equals_dense_resize():
 
 
 def test_other_methods_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        resize.resize_weight_matrix(4, 8, "pil_lanczos")
+    """Every method is ported now: ``pil_lanczos``, once refused here, equals JAX's
+    (the other methods: tests/test_torch_ops_tail.py)."""
+    np.testing.assert_array_equal(resize.resize_weight_matrix(4, 8, "pil_lanczos"),
+                                  jax_resize.resize_weight_matrix(4, 8, "pil_lanczos"))

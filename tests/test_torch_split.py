@@ -186,14 +186,17 @@ def test_split_rejects_pallas_forwards_as_jax_does(narrow, patched, forward):
 
 
 def test_split_int8_forward_not_ported(narrow, patched, monkeypatch):
-    """Split mode on ``--forward int8`` runs (tests/test_torch_int8_xla.py);
-    its tail under ``IEK_INT8_UPMM=1`` (the x4 as two dense matmuls) does not."""
+    """Split mode on ``--forward int8`` runs (tests/test_torch_int8_xla.py),
+    and so does its tail under ``IEK_INT8_UPMM=1`` (the x4 as two dense
+    matmuls), once refused here: byte-equal to fast mode under the knob."""
     pn, img = narrow
-    r = port_engine.SuperResolver(params=pn, mode="split", forward="int8", device="cpu")
-    r.int8_calib = "synthetic"
     monkeypatch.setenv("IEK_INT8_UPMM", "1")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        r.upscale(img)
+    out = {}
+    for mode in ("split", "fast"):
+        r = port_engine.SuperResolver(params=pn, mode=mode, forward="int8", device="cpu")
+        r.int8_calib = "synthetic"
+        out[mode] = r.upscale(img)
+    np.testing.assert_array_equal(out["split"], out["fast"])
 
 
 def test_fast_falls_back_to_patch_above_fast_max_pixels(narrow, patched, caplog):

@@ -165,7 +165,7 @@ def test_engine_loads_port_trainstate_checkpoint(tmp_path):
     # a directory without the port's state file (an orbax checkpoint) is refused
     os.makedirs(tmp_path / "orbax" / "latest")
     (tmp_path / "orbax" / "latest" / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="orbax checkpoint directories are not yet ported"):
+    with pytest.raises(NotImplementedError, match="an orbax checkpoint directory takes JAX"):
         SuperResolver(model="didbl", model_kwargs=NARROW, weights=str(tmp_path / "orbax" / "latest"), device="cpu")
 
 
