@@ -7,9 +7,9 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), in all 32 kernel functions
-     (K4/K5's 17, X1-X3's 11, X1u's 4) but the three abs-max passes and the
-     dynamic form's requantization pass,
+     must hold wgmma (GMMA) and no dp4a (IDP), in all 33 kernel functions
+     (K4/K5's 17, X1-X3's 12, X1u's 4) but the three abs-max passes and the
+     dynamic forms' two requantization passes (K4/K5's, X3's),
      the block and chain kernels'
      SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
      forms' included;
@@ -103,17 +103,23 @@ Phases (each prints its elapsed seconds):
      default, the fast bf16 ``xla`` row; against each other and the
      recorded rows;
   5. the rest of the zoo (didbl_subpixel, difv4, difvdsr) with their
-     committed demo checkpoints: X4 (``csrc/int8_conv.cu``, its SASS 8
-     conv functions on wgmma) at every shape of the zoo's int8 forwards
-     (difv4 256->256 at LR, 2x and 4x, bf16 and float32 x; difvdsr
-     192->192 at HR; the subpixel head 128->2048, static and dynamic),
-     bit-equal to its plain version under the bf16 and s32 accumulators,
+     committed demo checkpoints: X4 (``csrc/int8_conv.cu``, its SASS 15
+     conv functions on wgmma) at every shape of the zoo's int8 forwards,
+     in the block forms the zoo runs (difv4 256->256 at LR, 2x and 4x:
+     conv_a's codes, conv_b + combine; difvdsr 192->192 at HR: conv_a's
+     codes, conv_b's t and codes of d, conv_c from codes to codes, conv_d +
+     combine) and the float32 entry (the subpixel head 128->2048, static
+     and dynamic; difv4's and difvdsr's convs with bf16 and float32 x),
+     bit-equal to their plain versions under the bf16 and s32 accumulators,
      with times, device ms, ``torch._int_mm`` over im2col and the bound;
      K3 at factor 2, C = 256, bf16 and float32, bit-equal; ``main_dirpath
      --model M`` on the seeded 128x128 BMP, ``--forward xla`` and
-     ``--forward int8 --dtype bfloat16``, launches checked (X4 1 / 64 /
-     768, K3 2 and 4, X1 18, X2 6), the int8 runs byte-equal with the
-     plain X4 (X1/X2) and difv4's plain x2 swapped in; the subpixel head's
+     ``--forward int8 --dtype bfloat16``, launches checked (X4 1 on
+     didbl_subpixel; codes 32 + light 32 on difv4; codes 384, diff_b 192,
+     diff_d 192 on difvdsr; K3 2 and 4, X1 18, X2 6), the int8 runs
+     byte-equal with the plain X4 (X1/X2) and difv4's plain x2 swapped in;
+     profiles hold difv4's and difvdsr's int8 forwards to fewer torch
+     elementwise launches than blocks (no combine in plain torch); the subpixel head's
      dynamic form (``int8_dynamic_tail``: X4 dynamic 1, X3 2), byte-equal
      with its plain blocks; each model on a 16x16 crop against the CPU
      (int8: byte-equal with the pre-upscale and the bf16 convs taken from
@@ -351,9 +357,10 @@ def _gmma_lines(functions: dict, row: str) -> int:
     return sum(v for k, v in functions.items() for p in parts if p in k)
 
 
-def _launch_breakdown(fn, iters: int = 3) -> dict:
-    """Device ms per call of each kernel (and memset) that ``fn`` launches,
-    under ``torch.profiler``, after one warm-up call."""
+def _launch_events(fn, iters: int = 3) -> dict:
+    """Device ms per call and the events seen, ``[ms, events]``, of each kernel
+    (and memset) that ``fn`` launches, under ``torch.profiler``, after one
+    warm-up call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -366,10 +373,18 @@ def _launch_breakdown(fn, iters: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for name, ms, _ in device_kernel_times(prof):
+    for name, ms, calls in device_kernel_times(prof):
         short = name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
-        out[short] = out.get(short, 0.0) + ms / iters
+        got = out.setdefault(short, [0.0, 0])
+        got[0] += ms / iters
+        got[1] += calls
     return out
+
+
+def _launch_breakdown(fn, iters: int = 3) -> dict:
+    """Device ms per call of each kernel (and memset) that ``fn`` launches,
+    under ``torch.profiler``, after one warm-up call."""
+    return {k: ms for k, (ms, _) in _launch_events(fn, iters).items()}
 
 
 def _queued_ms(fn, n: int = 20) -> float:
@@ -390,12 +405,20 @@ def _queued_ms(fn, n: int = 20) -> float:
     return a.elapsed_time(b) / n
 
 
-def _device_ms(fn) -> tuple[float, str]:
-    """Device ms per call of ``fn``: the sum of its launches under
-    ``torch.profiler``, or, where the profiler hands back no device event,
-    the queued CUDA-event time (:func:`_queued_ms`); and which of the two."""
-    prof = sum(_launch_breakdown(fn).values())
-    return (prof, "torch.profiler") if prof > 0 else (_queued_ms(fn), "queued CUDA events")
+def _device_ms(fn, bound_ms: float = 0.0, record: dict | None = None) -> tuple[float, str]:
+    """Device ms per call of ``fn``, and which reading it is: the sum of its
+    launches under ``torch.profiler`` where that is not below ``bound_ms``, the
+    least time the card can take for the work; else (the profiler handed back
+    no device event, or lost some) the queued CUDA-event time
+    (:func:`_queued_ms`).  ``record``, where given, gets both readings and the
+    profiler's count of events."""
+    events = _launch_events(fn)
+    prof = sum(ms for ms, _ in events.values())
+    valid = prof > 0 and prof >= bound_ms
+    queued = _queued_ms(fn) if record is not None or not valid else None
+    if record is not None:
+        record.update(profiler_ms=prof, profiler_events=sum(n for _, n in events.values()), queued_ms=queued)
+    return (prof, "torch.profiler") if valid else (queued, "queued CUDA events")
 
 
 def _time_ms(fn, iters: int = MIN_TIMED, warmup: int = 3) -> float:
@@ -1366,8 +1389,10 @@ class _Swapped:
             didbl_pallas.light53_int8, didbl_pallas.light_int8 = _plain_int8_blocks()
             for wrapper, plain in _XLA_FORMS:
                 setattr(didbl_pallas, wrapper, getattr(kx, plain))
-            zoo_int8.int8_conv3 = didbl_pallas.int8_conv3 = kc.int8_conv3_plain
+            didbl_pallas.int8_conv3 = kc.int8_conv3_plain
             didbl_pallas.int8_conv3_dyn = kc.int8_conv3_dyn_plain
+            for form in X4_FORMS:
+                setattr(zoo_int8, form, getattr(kc, f"{form}_plain"))
         return self
 
     def __exit__(self, *exc):
@@ -1388,13 +1413,16 @@ class _Swapped:
         didbl_pallas.light53_int8, didbl_pallas.light_int8 = ki8.light53_int8, ki8.light_int8
         for wrapper, _ in _XLA_FORMS:
             setattr(didbl_pallas, wrapper, getattr(kx, wrapper))
-        zoo_int8.int8_conv3 = didbl_pallas.int8_conv3 = kc.int8_conv3
+        didbl_pallas.int8_conv3 = kc.int8_conv3
         didbl_pallas.int8_conv3_dyn = kc.int8_conv3_dyn
+        for form in X4_FORMS:
+            setattr(zoo_int8, form, getattr(kc, form))
         return False
 
 
 def _counted():
-    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7, X1, X2, X3, X4 (static, dynamic), K3q, X1u."""
+    """The counted wrappers: K3, K4, K5, K1, K2, K6, K7, X1, X2, X3, X4 (static, dynamic), K3q, X1u,
+    X4's block forms (X4_FORMS)."""
     from image_enhance_keras_tpu_torch.ops.cuda import blocks as kb
     from image_enhance_keras_tpu_torch.ops.cuda import int8_blocks as ki8
     from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as kc
@@ -1405,20 +1433,21 @@ def _counted():
     return (kup.upsample_phase_tf1_kernel, ki8.light53_int8, ki8.light_int8, kb.fused_light53_block,
             kb.fused_light_block, kt.fused_light53_chain, kt.fused_light_chain, kx.light53_int8_xla,
             kx.light_int8_xla, kx.light53_int8_xla_dyn, kc.int8_conv3, kc.int8_conv3_dyn,
-            kup.upsample_quant_tf1, kx.light53_int8_xla_upq)
+            kup.upsample_quant_tf1, kx.light53_int8_xla_upq, *(getattr(kc, f) for f in X4_FORMS))
 
 
 def _counts() -> dict:
-    """The nonzero launch counts of K3 (all and bf16), K4, K5, X1-X4, K3q, X1u,
-    and of K1/K2 and K6/K7 on bf16 tensors."""
-    k3, k4, k5, k1, k2, k6, k7, x1, x2, x3, x4, x4d, k3q, x1u = _counted()
+    """The nonzero launch counts of K3 (all and bf16), K4, K5, X1-X4 (X4's
+    block forms by name), K3q, X1u, and of K1/K2 and K6/K7 on bf16 tensors."""
+    k3, k4, k5, k1, k2, k6, k7, x1, x2, x3, x4, x4d, k3q, x1u, *forms = _counted()
     counts = {"upsample_phase_tf1": k3.launches, "upsample_phase_tf1_bf16": k3.bf16_launches,
               "light53_int8": k4.launches, "light_int8": k5.launches,
               "light53_block_bf16": k1.bf16_launches, "light_block_bf16": k2.bf16_launches,
               "light53_chain_bf16": k6.bf16_launches, "light_chain_bf16": k7.bf16_launches,
               "light53_int8_xla": x1.launches, "light_int8_xla": x2.launches,
               "light53_int8_xla_dyn": x3.launches, "int8_conv3": x4.launches, "int8_conv3_dyn": x4d.launches,
-              "upsample_quant_tf1": k3q.launches, "light53_int8_xla_upq": x1u.launches}
+              "upsample_quant_tf1": k3q.launches, "light53_int8_xla_upq": x1u.launches,
+              **{f: fn.launches for f, fn in zip(X4_FORMS, forms)}}
     return {k: v for k, v in counts.items() if v}
 
 
@@ -1769,6 +1798,14 @@ ZOO_MODELS = ("didbl_subpixel", "difv4", "difvdsr")
 #: _quant_dyn_sample, _deq_dyn)
 X4_REPLACES = "image_enhance_keras_tpu/models/didbl_pallas.py:321"
 X4_DYN_REPLACES = "image_enhance_keras_tpu/models/didbl_pallas.py:466"
+#: X4's block forms (ops/cuda/int8_conv.py), the blocks' convs and combines of
+#: models/zoo_int8.py: _light_i8 (conv_a's codes, conv_b + combine) and
+#: _diff_i8 (conv_a's and conv_c's codes, conv_b's t and codes of d, conv_d + combine)
+X4_FORMS = ("int8_conv3_codes", "int8_conv3_light", "int8_conv3_diff_b", "int8_conv3_diff_d")
+X4_FORM_REPLACES = {"int8_conv3_codes": "image_enhance_keras_tpu/models/zoo_int8.py:123",
+                    "int8_conv3_light": "image_enhance_keras_tpu/models/zoo_int8.py:125",
+                    "int8_conv3_diff_b": "image_enhance_keras_tpu/models/zoo_int8.py:243",
+                    "int8_conv3_diff_d": "image_enhance_keras_tpu/models/zoo_int8.py:249"}
 #: the Set5 images the int8 zoo rows are scored on (EVAL_ZOO_INT8_CPU.json,
 #: the TPU's didbl_subpixel_int8_fast_2img): the first two
 ZOO_INT8_IMAGES = 2
@@ -1777,11 +1814,15 @@ ZOO_INT8_IMAGES = 2
 def _x4_rows(qps: dict, img, failures: list, sass_x4, gpu: str) -> tuple[list, dict]:
     """X4 at every shape of the zoo's int8 forwards on their own activations
     (patch mode's 9 tiles of the seeded 128x128 image; difvdsr's first chunk
-    of 16 tiles of its x4 input), static under the bf16 and s32 accumulators
-    and, for the subpixel head, dynamic; each bit-equal to its plain version,
-    with its time, device ms, plain time, ``torch._int_mm`` over an int8
-    im2col of the same conv, bound and GMMA lines.  And K3 at factor 2, C =
-    256, bf16 and float32, bit-equal, with its share of the byte bound."""
+    of 16 tiles of its x4 input): the block forms the zoo's blocks run on
+    (X4_FORMS: conv_a's codes, a LightBlock's conv_b + combine, a DiffBlock's
+    four convs), the float32 entry (the subpixel head; difv4's and difvdsr's
+    first convs as before) and its dynamic form, under the bf16 and s32
+    accumulators; each bit-equal to its plain version, with its time, device
+    ms, plain time, ``torch._int_mm`` over an int8 im2col of the same conv,
+    bound (operations against the bytes its inputs and outputs move) and GMMA
+    lines.  And K3 at factor 2, C = 256, bf16 and float32, bit-equal, with
+    its share of the byte bound."""
     import torch
 
     from image_enhance_keras_tpu_torch.models import didbl_pallas as dp
@@ -1794,6 +1835,11 @@ def _x4_rows(qps: dict, img, failures: list, sass_x4, gpu: str) -> tuple[list, d
 
     dev = torch.device("cuda")
     plan = plan_tiles(128, 128, patch=96, step=64, scale=4, crop=8)
+    acc0 = "bf16"
+
+    def codes(x, p, s_in, s_out, act):
+        return kc.int8_conv3_codes(x, p["qf"], p["sf"], p["bias"], s_in, s_out, acc=acc0, act=act)
+
     with torch.inference_mode():
         tiles = im2double(extract_tiles(pad_to_plan(torch.from_numpy(img).to(dev).float(), plan), plan))
         up = resize_pil_uint8(torch.from_numpy(img).to(dev), (512, 512))
@@ -1810,72 +1856,123 @@ def _x4_rows(qps: dict, img, failures: list, sass_x4, gpu: str) -> tuple[list, d
             h = zi._light_i8(h, q4[f"mid_{i}"], None)
         x_tail = kup.upsample_phase_tf1_kernel(h + x_mid, 2)
         del h
-        t_tail = zi._x4(x_tail, q4["tail_0"]["conv_a"], q4["tail_0"]["actc"]["x"], "relu")
+        lb = {k: q4[f"{k}_0"] for k in ("head", "mid", "tail")}
+        tq = {"head": codes(x_head, lb["head"]["conv_a"], lb["head"]["actc"]["x"], lb["head"]["actc"]["t"],
+                            zi._DIFV4_LEAKY_HEAD),
+              "mid": codes(x_mid, lb["mid"]["conv_a"], lb["mid"]["actc"]["x"], lb["mid"]["actc"]["t"], "relu"),
+              "tail": codes(x_tail, lb["tail"]["conv_a"], lb["tail"]["actc"]["x"], lb["tail"]["actc"]["t"], "relu")}
+        t_tail = kc.int8_conv3(x_tail, lb["tail"]["conv_a"]["qf"], lb["tail"]["conv_a"]["sf"],
+                               lb["tail"]["conv_a"]["bias"], lb["tail"]["actc"]["x"], acc=acc0, act="relu")
         x_dsr = torch.relu(dp._conv(tiles1.to(torch.bfloat16), qd["level1"]))
-        t_dsr = zi._x4(zi._x4(x_dsr, qd["diff_0"]["conv_a"], qd["diff_0"]["actc"]["x"], "relu"),
-                       qd["diff_0"]["conv_b"], qd["diff_0"]["actc"]["t1"])
+        db, sd = qd["diff_0"], qd["diff_0"]["actc"]
+        t1q = codes(x_dsr, db["conv_a"], sd["x"], sd["t1"], "relu")
+        pb = db["conv_b"]
+        t_dsr, dq = kc.int8_conv3_diff_b(t1q, pb["qf"], pb["sf"], pb["bias"], x_dsr, sd["d"], acc=acc0)
+        u1q = codes(dq, db["conv_c"], None, sd["u1"], zi._DSR_LEAKY)
         d_dsr = t_dsr - x_dsr.float()
         x_sub = dp.apply_didbl_int8_xla_body(qs, tiles)
 
+    def form(name, *args, **kw):
+        """(wrapper, kernel(acc), plain(acc), conv input, weights, the input's codes, dynamic?, the
+        activations it reads: the conv input, and the block input x and t of the combines)."""
+        fn, plain = getattr(kc, name), getattr(kc, f"{name}_plain")
+        x, w = args[0], args[1]
+        reads = [x, *(a for a in args[2:] if torch.is_tensor(a) and a.dim() == 4)]
+        return (name, (lambda acc: fn(*args, acc=acc, **kw)), (lambda acc: plain(*args, acc=acc, **kw)), x, w,
+                (lambda: x) if x.dtype == torch.int8 else (lambda: torch.clamp(
+                    torch.round(x.float() * (1.0 / args[4])), -127.0, 127.0)), False, reads)
+
     def static(x, p, s_in, act):
-        return ((lambda acc: kc.int8_conv3(x, p["qf"], p["sf"], p["bias"], s_in, acc=acc, act=act)),
-                (lambda acc: kc.int8_conv3_plain(x, p["qf"], p["sf"], p["bias"], s_in, acc=acc, act=act)),
-                x, p["qf"], lambda: torch.clamp(torch.round(x.float() * (1.0 / s_in)), -127.0, 127.0), False)
+        return form("int8_conv3", x, p["qf"], p["sf"], p["bias"], s_in, act=act)
 
     def dynamic(x, p):
-        return ((lambda acc: kc.int8_conv3_dyn(x, p["q"], p["s"], p["bias"], acc=acc)),
+        return ("int8_conv3_dyn", (lambda acc: kc.int8_conv3_dyn(x, p["q"], p["s"], p["bias"], acc=acc)),
                 (lambda acc: kc.int8_conv3_dyn_plain(x, p["q"], p["s"], p["bias"], acc=acc)), x, p["q"],
-                lambda: kc._quant_dyn_sample(x.float())[0], True)
+                lambda: kc._quant_dyn_sample(x.float())[0], True, [x])
+
+    def w(p):
+        return p["qf"], p["sf"], p["bias"]
 
     sub = qs["subpixel_conv"]
-    specs = [  # name, (kernel(acc), plain(acc), x, weights, x's codes, dynamic?)
-        ("difv4 head 256->256 LR, leaky", static(x_head, q4["head_0"]["conv_a"], q4["head_0"]["actc"]["x"],
-                                                   zi._DIFV4_LEAKY_HEAD)),
-        ("difv4 mid 256->256 2x", static(x_mid, q4["mid_0"]["conv_a"], q4["mid_0"]["actc"]["x"], "relu")),
-        ("difv4 tail 256->256 4x", static(x_tail, q4["tail_0"]["conv_a"], q4["tail_0"]["actc"]["x"], "relu")),
-        ("difv4 tail 256->256 4x, float32 x", static(t_tail, q4["tail_0"]["conv_b"], q4["tail_0"]["actc"]["t"],
-                                                      None)),
-        ("difvdsr 192->192 HR", static(x_dsr, qd["diff_0"]["conv_a"], qd["diff_0"]["actc"]["x"], "relu")),
-        ("difvdsr 192->192 HR, float32 x, leaky", static(d_dsr, qd["diff_0"]["conv_c"], qd["diff_0"]["actc"]["d"],
-                                                          zi._DSR_LEAKY)),
+    lk = zi._DIFV4_LEAKY_HEAD
+    specs = [  # name, (wrapper, kernel(acc), plain(acc), x, weights, x's codes, dynamic?, activations read)
+        ("difv4 head 256->256 LR conv_a codes, leaky",
+         form("int8_conv3_codes", x_head, *w(lb["head"]["conv_a"]), lb["head"]["actc"]["x"], lb["head"]["actc"]["t"],
+              act=lk)),
+        ("difv4 head 256->256 LR conv_b + combine", form("int8_conv3_light", tq["head"], *w(lb["head"]["conv_b"]),
+                                                         x_head)),
+        ("difv4 mid 256->256 2x conv_a codes",
+         form("int8_conv3_codes", x_mid, *w(lb["mid"]["conv_a"]), lb["mid"]["actc"]["x"], lb["mid"]["actc"]["t"],
+              act="relu")),
+        ("difv4 mid 256->256 2x conv_b + combine", form("int8_conv3_light", tq["mid"], *w(lb["mid"]["conv_b"]), x_mid)),
+        ("difv4 tail 256->256 4x conv_a codes",
+         form("int8_conv3_codes", x_tail, *w(lb["tail"]["conv_a"]), lb["tail"]["actc"]["x"], lb["tail"]["actc"]["t"],
+              act="relu")),
+        ("difv4 tail 256->256 4x conv_b + combine", form("int8_conv3_light", tq["tail"], *w(lb["tail"]["conv_b"]),
+                                                         x_tail)),
+        ("difvdsr 192->192 HR conv_a codes", form("int8_conv3_codes", x_dsr, *w(db["conv_a"]), sd["x"], sd["t1"],
+                                                  act="relu")),
+        ("difvdsr 192->192 HR conv_b t + codes of d", form("int8_conv3_diff_b", t1q, *w(db["conv_b"]), x_dsr, sd["d"])),
+        ("difvdsr 192->192 HR conv_c codes -> codes, leaky",
+         form("int8_conv3_codes", dq, *w(db["conv_c"]), None, sd["u1"], act=zi._DSR_LEAKY)),
+        ("difvdsr 192->192 HR conv_d + combine", form("int8_conv3_diff_d", u1q, *w(db["conv_d"]), x_dsr, t_dsr)),
+        ("difv4 head 256->256 LR float32 out, leaky", static(x_head, lb["head"]["conv_a"], lb["head"]["actc"]["x"], lk)),
+        ("difv4 mid 256->256 2x float32 out", static(x_mid, lb["mid"]["conv_a"], lb["mid"]["actc"]["x"], "relu")),
+        ("difv4 tail 256->256 4x float32 out", static(x_tail, lb["tail"]["conv_a"], lb["tail"]["actc"]["x"], "relu")),
+        ("difv4 tail 256->256 4x, float32 x", static(t_tail, lb["tail"]["conv_b"], lb["tail"]["actc"]["t"], None)),
+        ("difvdsr 192->192 HR float32 out", static(x_dsr, db["conv_a"], sd["x"], "relu")),
+        ("difvdsr 192->192 HR, float32 x, leaky", static(d_dsr, db["conv_c"], sd["d"], zi._DSR_LEAKY)),
         ("didbl_subpixel head 128->2048 LR", static(x_sub, sub, sub["actc"]["x"], None)),
         ("didbl_subpixel head 128->2048 LR, dynamic", dynamic(x_sub, sub)),
     ]
     fns = (sass_x4 or {}).get("functions", {})
+    src_tag = {torch.bfloat16: "13__nv_bfloat16", torch.float32: "f", torch.int8: "a"}
+
+    def nbytes(v):
+        return sum(nbytes(t) for t in v) if isinstance(v, (tuple, list)) else v.numel() * v.element_size()
+
     out = {}
     with torch.inference_mode():
-        for name, (kern, plain, x, w, codes, dyn) in specs:
-            row = {"shape": list(x.shape), "dtype": str(x.dtype)[6:], "c_out": int(w.shape[-1])}
+        for name, (wrapper, kern, plain, x, wq, xcodes, dyn, reads) in specs:
+            row = {"wrapper": wrapper, "shape": list(x.shape), "dtype": str(x.dtype)[6:], "c_out": int(wq.shape[-1])}
             for acc in ("bf16", "s32"):
                 got, want = kern(acc), plain(acc)
                 torch.cuda.synchronize()
-                d = (got - want).abs()
-                same = bool(torch.equal(got, want))
-                row[f"bit_equal_{acc}"], row[f"max_abs_err_{acc}"] = same, d.max().item()
+                pairs = list(zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))))
+                same = all(torch.equal(g, v) for g, v in pairs)
+                d = max((g.float() - v.float()).abs().max().item() for g, v in pairs)
+                row[f"bit_equal_{acc}"], row[f"max_abs_err_{acc}"] = same, d
                 if not same:
-                    failures.append(f"X4 {name} (acc {acc}): not bit-equal to its plain version (differ on "
-                                    f"{(d > 0).float().mean().item():.3g} of values, max |diff| {d.max().item():.3g})")
-                del got, want, d
+                    failures.append(f"X4 {name} (acc {acc}): not bit-equal to its plain version (max |diff| {d:.3g})")
+                out_bytes = nbytes(got)
+                del got, want, pairs
             row["ms"] = _time_ms(lambda: kern("bf16"))
             row["ms_s32"] = _time_ms(lambda: kern("s32"))
             row["plain_ms"] = _time_ms(lambda: plain("bf16"), iters=1, warmup=1)
-            row["device_ms"], row["device_ms_by"] = _device_ms(lambda: kern("bf16"))
-            pix, cin, cout = x[..., 0].numel(), int(x.shape[-1]), int(w.shape[-1])
+            pix, cin, cout = x[..., 0].numel(), int(x.shape[-1]), int(wq.shape[-1])
             ops = 2.0 * 9 * cin * cout * pix
-            nbytes = x.numel() * x.element_size() + 4.0 * cout * pix + w.numel()
-            row["bound_ms"], row["bound_by"] = _bound(ops, PEAK_INT8_OPS, nbytes)
-            row["library_ms"] = _time_ms(_int_mm_convs([(codes().to(torch.int8), w)]), iters=3, warmup=1)
+            row["bytes"] = nbytes(reads) + out_bytes + wq.numel()
+            row["bound_ms"], row["bound_by"] = _bound(ops, PEAK_INT8_OPS, row["bytes"])
+            row["device_ms"], row["device_ms_by"] = _device_ms(lambda: kern("bf16"), row["bound_ms"], row)
+            if row["device_ms"] < row["bound_ms"]:
+                failures.append(f"X4 {name}: {row['device_ms']:.4f} ms device ({row['device_ms_by']}) is below "
+                                f"its bound {row['bound_ms']:.4f} ms: the reading or the bound is wrong")
+            row["library_ms"] = _time_ms(_int_mm_convs([(xcodes().to(torch.int8), wq)]), iters=3, warmup=1)
             row["tops"] = ops / (row["ms"] * 1e-3) / 1e12
-            mangled = (f"conv3_kernelI{'f' if x.dtype == torch.float32 else '13__nv_bfloat16'}"
-                       f"Li{128 if cout % 128 == 0 else 64}ELb{int(dyn)}E")
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            nt = 128 if cout % 128 == 0 else 96 if cout % 96 == 0 else 64
+            mangled = f"conv3_kernelI{src_tag[x.dtype]}Lb{int(dyn)}ELi{nt}E"
             row["sass_gmma"] = sum(v for k, v in fns.items() if mangled in k)
             if row["sass_gmma"] == 0:
                 failures.append(f"X4 {name}: no GMMA (wgmma) line in the SASS of its kernel function")
             print(f"[chip_smoke] X4 {name} {tuple(x.shape)} -> {cout}: bit-equal bf16 {row['bit_equal_bf16']} s32 "
                   f"{row['bit_equal_s32']}; {row['ms']:.4f} ms (acc bf16), {row['ms_s32']:.4f} ms (s32), "
-                  f"{row['device_ms']:.4f} ms device ({row['device_ms_by']}), {row['plain_ms']:.3f} ms plain, {row['library_ms']:.4f} ms "
-                  f"_int_mm over im2col, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tops']:.1f} TOPS, "
-                  f"{row['sass_gmma']} GMMA lines on {gpu}", flush=True)
+                  f"{row['device_ms']:.4f} ms device ({row['device_ms_by']}; torch.profiler "
+                  f"{row['profiler_ms']:.4f} ms over {row['profiler_events']} events of 3 calls, queued CUDA "
+                  f"events {row['queued_ms']:.4f} ms), {row['plain_ms']:.3f} ms plain, "
+                  f"{row['library_ms']:.4f} ms _int_mm over im2col, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                  f"{100 * row['share_of_bound']:.1f}% of it), {row['tops']:.1f} TOPS, {row['sass_gmma']} GMMA lines "
+                  f"on {gpu}", flush=True)
             out[name] = row
         # K3 at factor 2, C = 256: the head tower's output, bf16 (the int8 forward) and float32 (xla)
         k3 = {}
@@ -1886,31 +1983,47 @@ def _x4_rows(qps: dict, img, failures: list, sass_x4, gpu: str) -> tuple[list, d
             if not same:
                 failures.append(f"K3 factor 2 C=256 {dt}: not bit-equal to its plain version")
             ms = _time_ms(lambda: kup.upsample_phase_tf1_kernel(x, 2))
-            dms, dby = _device_ms(lambda: kup.upsample_phase_tf1_kernel(x, 2))
             nbytes = 5.0 * x.numel() * x.element_size()  # read once, write 4x
             bound = 1e3 * nbytes / PEAK_BYTES_S
+            dms, dby = _device_ms(lambda: kup.upsample_phase_tf1_kernel(x, 2), bound)
+            if dms < bound:
+                failures.append(f"K3 factor 2 C=256 {dt}: {dms:.4f} ms device ({dby}) is below its byte bound "
+                                f"{bound:.4f} ms")
             k3[str(dt)[6:]] = {"shape": list(x.shape), "bit_equal": same, "ms": ms, "device_ms": dms,
                                "device_ms_by": dby, "bound_ms": bound, "share_of_byte_bound": bound / dms,
                                "plain_ms": _time_ms(lambda: upsample_phase_plain(x, 2), iters=3, warmup=1)}
             print(f"[chip_smoke] K3 factor 2 {tuple(x.shape)} {str(dt)[6:]}: bit-equal {same}; {ms:.4f} ms, "
                   f"{dms:.4f} ms device ({dby}), byte bound {bound:.4f} ms ({100 * bound / dms:.1f}% of it) on {gpu}",
                   flush=True)
-    static_rows = [v for k, v in out.items() if "dynamic" not in k]
-    main_row = out["difv4 mid 256->256 2x"]
-    dyn_row = out["didbl_subpixel head 128->2048 LR, dynamic"]
+    # one line of the kernels JSON a wrapper: its main-path row, the largest error over its rows
+    main_rows = {"int8_conv3": "didbl_subpixel head 128->2048 LR",
+                 "int8_conv3_dyn": "didbl_subpixel head 128->2048 LR, dynamic",
+                 "int8_conv3_codes": "difv4 mid 256->256 2x conv_a codes",
+                 "int8_conv3_light": "difv4 mid 256->256 2x conv_b + combine",
+                 "int8_conv3_diff_b": "difvdsr 192->192 HR conv_b t + codes of d",
+                 "int8_conv3_diff_d": "difvdsr 192->192 HR conv_d + combine"}
+    replaces = {"int8_conv3": X4_REPLACES, "int8_conv3_dyn": X4_DYN_REPLACES, **X4_FORM_REPLACES}
     rows = []
-    for name, row, src in (("int8_conv3", main_row, X4_REPLACES), ("int8_conv3_dyn", dyn_row, X4_DYN_REPLACES)):
+    for name, key in main_rows.items():
+        row = out[key]
+        mine = [r for r in out.values() if r["wrapper"] == name]
         rows.append({
             "name": name, "route": "cuda", "source": "image_enhance_keras_tpu_torch/csrc/int8_conv.cu",
-            "replaces": src, "launches": None,
-            "max_abs_err": max(max(r["max_abs_err_bf16"], r["max_abs_err_s32"])
-                               for r in (static_rows if name == "int8_conv3" else [dyn_row])),
+            "replaces": replaces[name], "launches": None,
+            "max_abs_err": max(max(r["max_abs_err_bf16"], r["max_abs_err_s32"]) for r in mine),
             "tolerance": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": "torch._int_mm over an int8 im2col of the same conv (s32 sums only)",
             "shape": row["shape"], "device_ms": row["device_ms"],
         })
     return rows, {"x4": out, "k3_factor2": k3}
+
+
+def _dsr_chunks() -> int:
+    """The chunks of 16 tiles difvdsr's patch mode runs on the seeded 128x128 image (its x4, 512x512)."""
+    from image_enhance_keras_tpu_torch.tiling.tiles import plan_tiles
+
+    return -(-plan_tiles(512, 512, patch=96, step=64, scale=1, crop=8).n_tiles // 16)
 
 
 def _zoo_want(n_dsr_calls: int) -> dict:
@@ -1923,8 +2036,10 @@ def _zoo_want(n_dsr_calls: int) -> dict:
         ("difv4", "xla"): {"upsample_phase_tf1": 2},
         ("difvdsr", "xla"): {},
         ("didbl_subpixel", "int8"): {"light53_int8_xla": 18, "light_int8_xla": 6, "int8_conv3": 1},
-        ("difv4", "int8"): {"upsample_phase_tf1": 4, "upsample_phase_tf1_bf16": 2, "int8_conv3": 64},
-        ("difvdsr", "int8"): {"int8_conv3": 128 * n_dsr_calls},
+        ("difv4", "int8"): {"upsample_phase_tf1": 4, "upsample_phase_tf1_bf16": 2, "int8_conv3_codes": 32,
+                            "int8_conv3_light": 32},
+        ("difvdsr", "int8"): {"int8_conv3_codes": 64 * n_dsr_calls, "int8_conv3_diff_b": 32 * n_dsr_calls,
+                              "int8_conv3_diff_d": 32 * n_dsr_calls},
     }
 
 
@@ -1932,7 +2047,7 @@ def _without(counts: dict, variant: str) -> dict:
     """The launches left when ``variant``'s kernels are swapped for their plain versions."""
     gone = {"plain_x4": ("upsample_phase_tf1", "upsample_phase_tf1_bf16"),
             "plain_blocks": ("int8_conv3", "int8_conv3_dyn", "light53_int8_xla", "light_int8_xla",
-                             "light53_int8_xla_dyn", "light53_int8", "light_int8")}.get(variant, ())
+                             "light53_int8_xla_dyn", "light53_int8", "light_int8", *X4_FORMS)}.get(variant, ())
     return {k: v for k, v in counts.items() if k not in gone}
 
 
@@ -1952,10 +2067,8 @@ def _zoo_cli(tmp: str, img, failures: list, gpu: str) -> dict:
     from image_enhance_keras_tpu_torch.data.io import imread, imwrite
     from image_enhance_keras_tpu_torch.engine import SuperResolver
     from image_enhance_keras_tpu_torch.models.zoo import MODEL_REGISTRY, resolve_default_weights
-    from image_enhance_keras_tpu_torch.tiling.tiles import plan_tiles
 
-    n_dsr = plan_tiles(512, 512, patch=96, step=64, scale=1, crop=8).n_tiles
-    want = _zoo_want(-(-n_dsr // 16))
+    want = _zoo_want(_dsr_chunks())
     out, outs = {}, {}
     for model in ZOO_MODELS:
         runs = [("xla", [], "kernels"), ("int8", ["--dtype", "bfloat16"], "kernels"),
@@ -2194,9 +2307,9 @@ def _zoo_phase(tmp: str, img, failures: list, rows: list, sass_x4, gpu: str) -> 
     _phase("5a X4 and K3 at the zoo's shapes", t0)
     t0 = time.time()
     cli = _zoo_cli(tmp, img, failures, gpu)
-    x4_rows[0]["launches"] = sum(v["launches"].get("int8_conv3", 0) for k, v in cli.items()
-                                 if isinstance(v, dict) and "(kernels)" in k)
-    x4_rows[1]["launches"] = cli["didbl_subpixel int8_dynamic_tail (kernels)"]["launches"].get("int8_conv3_dyn", 0)
+    for row in x4_rows:  # the launches of the main paths' runs on the kernels
+        row["launches"] = sum(v["launches"].get(row["name"], 0) for k, v in cli.items()
+                              if isinstance(v, dict) and "(kernels)" in k)
     for row in x4_rows:
         if not row["launches"]:
             failures.append(f"{row['name']}: no launch on the zoo's main paths")
@@ -2215,11 +2328,22 @@ def _zoo_phase(tmp: str, img, failures: list, rows: list, sass_x4, gpu: str) -> 
             wall, prof_rows = profile_upscale(r, img, iters)
             busy = sum(ms for _, ms, _ in prof_rows) / iters
             idle = max(0.0, 1.0 - busy / (wall * 1e3))
+            # torch's elementwise kernels (casts, adds, products, copies) a forward launches: the float32
+            # block combines of difv4 and difvdsr (4 or more a block in plain torch) live in X4's
+            # epilogues, so what is left is the skip adds, the entry and out convs' activations,
+            # casts and layout copies, fewer than one a block
+            elementwise = sum(c for n, _, c in prof_rows if "elementwise" in n) // iters
             profiles[f"{model} {forward}"] = {"wall_ms": wall * 1e3, "device_ms": busy, "idle_share": idle,
+                                              "elementwise_launches": elementwise,
                                               "kernels": [(n[:90], ms / iters, c // iters)
                                                           for n, ms, c in prof_rows[:8]]}
             print(f"[chip_smoke] profile --model {model} --forward {forward}, 128x128 patch mode: {wall * 1e3:.3f} ms "
-                  f"wall, {busy:.3f} ms device, idle share {idle:.3f} on {gpu}", flush=True)
+                  f"wall, {busy:.3f} ms device, idle share {idle:.3f}, {elementwise} elementwise launches an "
+                  f"image on {gpu}", flush=True)
+            blocks = {"difv4": 32, "difvdsr": 32 * _dsr_chunks()}.get(model, 0)  # blocks run an image
+            if forward == "int8" and blocks and elementwise >= blocks:
+                failures.append(f"profile {model} int8: {elementwise} elementwise launches an image for {blocks} "
+                                f"blocks: a block combine runs in plain torch")
             for name, ms, calls in profiles[f"{model} {forward}"]["kernels"]:
                 print(f"[chip_smoke]   {ms:9.3f} ms {100 * ms / busy:5.1f}% {calls:4d} calls  {name}", flush=True)
             del r
@@ -2272,12 +2396,13 @@ def _k3_grad_rows(failures: list, gpu: str) -> list:
             equal = bool(torch.equal(gk, gp))
             z = torch.zeros(shape, dtype=dt, device="cuda", requires_grad=True)
             bwd = lambda: torch.autograd.grad(upsample_phase_plain(z, f), z, g)  # what the op's backward runs
+            nbytes = x.numel() * x.element_size() * (1 + f * f)
+            bound = nbytes / PEAK_BYTES_S * 1e3  # read g, write the gradient
             row = {"factor": f, "shape": list(shape), "dtype": str(dt).replace("torch.", ""), "bit_equal": equal,
                    "max_abs_err": float((gk.float() - gp.float()).abs().max()),
-                   "backward_ms": _time_ms(bwd, iters=6, warmup=2), "backward_device_ms": _device_ms(bwd)[0],
-                   "forward_ms": _time_ms(lambda: kup.upsample_phase_tf1_kernel(x.detach(), f), iters=6, warmup=2)}
-            nbytes = x.numel() * x.element_size() * (1 + f * f)
-            row["backward_bound_ms"] = nbytes / PEAK_BYTES_S * 1e3  # read g, write the gradient
+                   "backward_ms": _time_ms(bwd, iters=6, warmup=2), "backward_device_ms": _device_ms(bwd, bound)[0],
+                   "forward_ms": _time_ms(lambda: kup.upsample_phase_tf1_kernel(x.detach(), f), iters=6, warmup=2),
+                   "backward_bound_ms": bound}
             print(f"[chip_smoke] K3 gradient x{f} {row['dtype']} {tuple(shape)}: bit-equal to the plain "
                   f"autograd {equal}; plain backward {row['backward_ms']:.4f} ms per call "
                   f"({row['backward_device_ms']:.4f} device, byte bound {row['backward_bound_ms']:.4f}), "
@@ -3573,9 +3698,11 @@ def _knob_kernels(qp, failures: list, gpu: str) -> list:
             failures.append(f"upsample_quant_tf1 (K3q): not bit-equal to plain (differ on "
                             f"{(got != want).float().mean().item():.3g} of values)")
         ms = _time_ms(lambda: kup.upsample_quant_tf1(h, 4, sx))
-        dev_ms, how = _device_ms(lambda: kup.upsample_quant_tf1(h, 4, sx))
         nbytes = 2.0 * h.numel() + 16.0 * h.numel()
         bound_ms, bound_by = _bound(11.0 * 16 * h.numel(), PEAK_F32_FLOPS, nbytes)
+        dev_ms, how = _device_ms(lambda: kup.upsample_quant_tf1(h, 4, sx), bound_ms)
+        if dev_ms < bound_ms:
+            failures.append(f"upsample_quant_tf1 (K3q): {dev_ms:.4f} ms device ({how}) is below its bound")
         row = {"name": "upsample_quant_tf1", "route": "cuda",
                "source": "image_enhance_keras_tpu_torch/csrc/upsample.cu",
                "replaces": K_UPQ_REPLACES["upsample_quant_tf1"], "launches": None,
@@ -3606,9 +3733,11 @@ def _knob_kernels(qp, failures: list, gpu: str) -> list:
             row[f"ms_{acc}"] = _time_ms(lambda: kx.light53_int8_xla_upq(xq, skip, *convs, act, acc=acc))
             del got, want
         fn = lambda: kx.light53_int8_xla_upq(xq, skip, *convs, act)  # noqa: E731
-        dev_ms, how = _device_ms(fn)
         ops = 2.0 * 68 * c * c * skip[..., 0].numel()
         bound_ms, bound_by = _bound(ops, PEAK_INT8_OPS, (1.0 + 4.0 + 2.0) * skip.numel() + 68 * c * c)
+        dev_ms, how = _device_ms(fn, bound_ms)
+        if dev_ms < bound_ms:
+            failures.append(f"light53_int8_xla_upq (X1u): {dev_ms:.4f} ms device ({how}) is below its bound")
         xq_f = xq.float()
         aq = kx._first(xq_f, pt["conv_a1"]["qf"], pt["conv_a1"]["sf"], pt["conv_a1"]["bias"], act[0], "bf16", False)
         bq = kx._first(xq_f, pt["conv_b1"]["qf"], pt["conv_b1"]["sf"], pt["conv_b1"]["bias"], act[1], "bf16", False)
@@ -3838,18 +3967,19 @@ def main() -> int:
         for k, v in sorted(fns8.items()):
             print(f"[chip_smoke] int8 kernel function {k[:110]}: {v} GMMA lines", flush=True)
         without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k and "requant" not in k]
-        if without or len(fns8) != 32:
-            failures.append(f"int8 kernels: expected 32 kernel functions (17 of K4/K5, 11 of X1-X3, 4 of X1u), "
+        if without or len(fns8) != 33:
+            failures.append(f"int8 kernels: expected 33 kernel functions (17 of K4/K5, 12 of X1-X3, 4 of X1u), "
                             f"wgmma in all but the 3 abs-max passes and the requantization pass; got {len(fns8)}, "
                             f"none in {without}")
-    # X4: its 8 conv functions (bf16 and float32 x, 64 and 128 output channels a
-    # block, static and dynamic) on wgmma, no dp4a; the 2 abs-max passes without
+    # X4: its 15 conv functions (bf16 / float32 x static and dynamic, int8 codes
+    # static; 64, 96 and 128 output channels a column block) on wgmma, no dp4a;
+    # the 2 abs-max passes without
     if sass["int8_conv"] is not None:
         fns4 = sass["int8_conv"]["functions"]
         convs4 = {k: v for k, v in fns4.items() if "conv3_kernel" in k}
         print(f"[chip_smoke] X4 kernel functions' GMMA lines: {sorted(convs4.values())}", flush=True)
-        if sass["int8_conv"]["IDP"] > 0 or len(convs4) != 8 or min(convs4.values()) == 0 or len(fns4) != 10:
-            failures.append(f"X4: expected 10 kernel functions, the 8 conv functions each with wgmma (GMMA), "
+        if sass["int8_conv"]["IDP"] > 0 or len(convs4) != 15 or min(convs4.values()) == 0 or len(fns4) != 17:
+            failures.append(f"X4: expected 17 kernel functions, the 15 conv functions each with wgmma (GMMA), "
                             f"no dp4a (IDP); got {len(fns4)}, GMMA lines {sorted(convs4.values())}, "
                             f"IDP {sass['int8_conv']['IDP']}")
     # every kernel function of the block and chain libraries, the bf16 forms'
@@ -4207,7 +4337,9 @@ def main() -> int:
             row = i8_rows[name]
             nbytes = 17.0 * xk.numel() * xk.element_size()
             # the kernel's own device time (the per-call time holds the wrapper's host time)
-            row["device_ms"] = sum(_launch_breakdown(lambda: kup.upsample_phase_tf1_kernel(xk, 4)).values())
+            row["device_ms"] = _device_ms(lambda: kup.upsample_phase_tf1_kernel(xk, 4), row["bound_ms"])[0]
+            if row["device_ms"] < row["bound_ms"]:
+                failures.append(f"{name}: {row['device_ms']:.4f} ms device is below its byte bound")
             row["gbps"] = nbytes / (row["ms"] * 1e-3) / 1e9
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print(f"[chip_smoke] {name} {tuple(xk.shape)}: {row['ms']:.4f} ms per call, {row['gbps']:.1f} GB/s, "

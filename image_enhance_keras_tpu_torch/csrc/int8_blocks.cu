@@ -90,17 +90,23 @@
 //      cp.async exactly as the static launch B stages its scratch, dequantized
 //      with the window's intermediate scales, and the epilogue.
 // The XLA forms reuse the static template: X1/X2 are launches A and B with
-// a per-channel quantizing source and the DQ epilogues; X3 is three
+// a per-channel quantizing source and the DQ epilogues; X3 is four
 // launches: each sample's abs-max of x; both first convs from x quantized with
 // its sample's scale into float32 intermediates (N,H,W,C) with their
-// per-sample abs-maxes (atomicMax); both second convs with the intermediates
-// quantized while staging (a global reduction sits between the two convs,
-// so the intermediate cannot stay on chip), and the combine.
+// per-sample abs-maxes (atomicMax), the float32 pairs stored straight from
+// the registers so that they drain while the block's second first conv
+// runs; the requantization pass, which turns each intermediate into int8
+// codes once at its sample's scale (codes8_div; stream order hands it the
+// finished abs-maxes: a global reduction sits between the two convs, so the
+// intermediate cannot stay on chip); both second convs over the codes,
+// staged by cp.async as X1's launch B stages its scratch, and the combine.
 //
 // The intermediate is stored, not recomputed: the first convs run once, for
 // 2 x 4 bytes of traffic per ring value and 1 + 1 more for its code (at the
 // HR tail's (9,384,384,128) the two float32 rings are 2 x 0.74 GB), where
-// recomputing them would double their products.
+// recomputing them would double their products.  The requantization pass
+// reads each float32 value once, where staging them through the second
+// convs' 5x5 and 3x3 halos would read and quantize each about 3.6 times.
 
 // What bounds it on an H100: operations.  A Light53 block does 68 taps of a
 // C x C product per pixel (2*68*C^2 int8 ops), a Light block 18; against the
@@ -191,7 +197,7 @@ constexpr int SMEM_LIGHT53_B = EXTRA_OFF + MT * ACC * THREADS * 4;
 constexpr int X_INV_OFF = EXTRA_OFF;
 constexpr int X_EXTRA_OFF = X_INV_OFF + 3 * C * 4;
 constexpr int SMEM_FIRST_X = X_EXTRA_OFF + TILE_PIX * PITCH8;
-constexpr int SMEM_XDYN_FIRST = EXTRA_OFF + TILE_PIX * PITCH16;
+constexpr int SMEM_XDYN_FIRST = EXTRA_OFF;
 
 // The dynamic ring launch's window: its M tiles are 256 consecutive raster
 // positions of a ring segment staged at a pitch of at most PITCH_MAX pixels
@@ -1232,52 +1238,35 @@ struct Window {
 };
 
 // X3 launch 2 epilogue: v = relu(dq(acc) + b) of the tile's pixels inside
-// the image, as float32 into dst (N, H, W, C), in two passes of 64 channels
-// through st (TILE_PIX x PITCH16 bytes); the abs-max of v over win into *amax.
+// the image, as float32 into dst (N, H, W, C), each thread's channel pairs
+// straight from the registers (4 lanes make a 32-byte sector), so the
+// stores drain while the block's next conv runs; the abs-max of v over win
+// into *amax.
 template <int DQ>
 __device__ __forceinline__ void emit_floats(const int (&acc)[MT][ACC], const float* vec, float* dst,
-                                            const Tile& t, int H, int W, uint8_t* st, float* amax,
+                                            const Tile& t, int H, int W, float* amax,
                                             const Window& win) {
-  constexpr int CP = PASS / 4;  // float channels a pass
   const Frag f;
-  bool keep[MT][2], counted[MT][2];
+  float m = 0.f;
 #pragma unroll
   for (int j = 0; j < MT; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = f.p0 + j * TILE_W + 8 * h;
       const int y = t.y0 + p / TILE_W, x = t.x0 + p % TILE_W;
-      keep[j][h] = y < H && x < W;
-      counted[j][h] = keep[j][h] && y >= win.y0 && y < win.y1 && x >= win.x0 && x < win.x1;
+      if (y >= H || x >= W) continue;
+      const bool counted = y >= win.y0 && y < win.y1 && x >= win.x0 && x < win.x1;
+      float* o = dst + (((size_t)t.n * H + y) * W + x) * C;
+#pragma unroll
+      for (int n8 = 0; n8 < C / 8; ++n8) {
+        const int co = n8 * 8 + f.cq;
+        const int i = n8 * 4 + h * 2;
+        const float v0 = fmaxf(deq<DQ>(acc[j][i], vec[co], vec[C + co]), 0.f);
+        const float v1 = fmaxf(deq<DQ>(acc[j][i + 1], vec[co + 1], vec[C + co + 1]), 0.f);
+        *reinterpret_cast<float2*>(o + co) = make_float2(v0, v1);
+        if (counted) m = fmaxf(m, fmaxf(v0, v1));
+      }
     }
-  float m = 0.f;
-  uint8_t* db = reinterpret_cast<uint8_t*>(dst);
-#pragma unroll
-  for (int pass = 0; pass < C / CP; ++pass) {
-#pragma unroll
-    for (int n8 = pass * CP / 8; n8 < (pass + 1) * CP / 8; ++n8) {
-      const int co = n8 * 8 + f.cq;
-      const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
-#pragma unroll
-      for (int j = 0; j < MT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = n8 * 4 + h * 2;
-          const float v0 = keep[j][h] ? fmaxf(deq<DQ>(acc[j][i], sw0, b0), 0.f) : 0.f;
-          const float v1 = keep[j][h] ? fmaxf(deq<DQ>(acc[j][i + 1], sw1, b1), 0.f) : 0.f;
-          *reinterpret_cast<float2*>(st + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + (co - pass * CP) * 4) =
-              make_float2(v0, v1);
-          if (counted[j][h]) m = fmaxf(m, fmaxf(v0, v1));
-        }
-    }
-    __syncthreads();
-    for_tile_pieces<PASS, PITCH16>(OutTile{t.n, t.y0, t.x0, H, W}, H, W, C * 4, pass * PASS,
-                                   [&](size_t g, int s) {
-                                     *reinterpret_cast<int4*>(db + g) =
-                                         *reinterpret_cast<const int4*>(st + s);
-                                   });
-    __syncthreads();  // st is read out before it is written again
-  }
   atomic_max_block(m, amax);
 }
 
@@ -1293,7 +1282,6 @@ xdyn_first_kernel(const bf16* __restrict__ x, float* __restrict__ amax,
                   const float* __restrict__ b5, float* __restrict__ t5, int H, int W, Window win) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
-  uint8_t* st = smem + EXTRA_OFF;
   const Tile t = tile_of_block(W);
   const int samples = gridDim.z;
   const float sx = sample_scale(amax[t.n]);
@@ -1301,20 +1289,55 @@ xdyn_first_kernel(const bf16* __restrict__ x, float* __restrict__ amax,
   const QuantSrc<bf16, true> src{x, sx, __frcp_rn(sx)};
   int acc[MT][ACC];
   conv_s8<3, 5, true>(acc, smem, src, w3, TileGeo{t, H, W});
-  emit_floats<DQ>(acc, vec, t3, t, H, W, st, amax + samples + t.n, win);
+  emit_floats<DQ>(acc, vec, t3, t, H, W, amax + samples + t.n, win);
   conv_s8<5, 5, false>(acc, smem, src, w5, TileGeo{t, H, W});
-  emit_floats<DQ>(acc, vec + 2 * C, t5, t, H, W, st, amax + 2 * samples + t.n, win);
+  emit_floats<DQ>(acc, vec + 2 * C, t5, t, H, W, amax + 2 * samples + t.n, win);
 }
 
-// X3 launch 3: conv5 over ta and conv3 over tb, each quantized on the way
-// with its sample's scale (amax[1][n], amax[2][n]), dequant scales s_w[c] *
-// s_branch, and the residual combine.
+// float4 vectors a thread of a requantization pass converts
+constexpr int RQ_VECS = 4;
+
+// X3's requantization pass: ta, tb (float32, (N, H, W, C)) into their int8
+// codes clamp(rint(v / s), -127, 127) at each sample's scale s =
+// sample_scale(amax[1 + branch][n]) (stream order hands it the finished
+// abs-maxes of launch 2), once per value.  blockIdx.y: the branch,
+// blockIdx.z: the sample; each thread RQ_VECS float4 vectors, lanes on
+// consecutive vectors; vecs: float4 vectors a sample.
+__global__ void __launch_bounds__(THREADS)
+xdyn_requant_kernel(const float* __restrict__ ta, const float* __restrict__ tb,
+                    const float* __restrict__ amax, int8_t* __restrict__ qa,
+                    int8_t* __restrict__ qb, long long vecs) {
+  const int samples = gridDim.z, n = blockIdx.z;
+  const float s = sample_scale(amax[(1 + blockIdx.y) * samples + n]), rs = __frcp_rn(s);
+  const float4* src = reinterpret_cast<const float4*>(blockIdx.y ? tb : ta) + (size_t)n * vecs;
+  unsigned* dst = reinterpret_cast<unsigned*>(blockIdx.y ? qb : qa) + (size_t)n * vecs;
+  for (long long i0 = (long long)blockIdx.x * THREADS * RQ_VECS + threadIdx.x; i0 < vecs;
+       i0 += (long long)gridDim.x * THREADS * RQ_VECS) {
+    float4 v[RQ_VECS];
+#pragma unroll
+    for (int u = 0; u < RQ_VECS; ++u)
+      if (i0 + u * THREADS < vecs) v[u] = __ldcs(src + i0 + u * THREADS);
+#pragma unroll
+    for (int u = 0; u < RQ_VECS; ++u) {
+      if (i0 + u * THREADS >= vecs) continue;
+      const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+      unsigned q[4];
+      codes8_div(f, s, rs, q);
+      dst[i0 + u * THREADS] = (unsigned)pack4(q[0], q[1], q[2], q[3]);
+    }
+  }
+}
+
+// X3 launch 4: conv5 over ta's codes and conv3 over tb's (the requantization
+// pass's, staged by cp.async as X1's second launch stages its scratch),
+// dequant scales s_w[c] * s_branch (amax[1][n], amax[2][n]), and the
+// residual combine.
 template <int DQ>
 __global__ void __launch_bounds__(THREADS, 1)
 xdyn_second_kernel(const bf16* __restrict__ x, const float* __restrict__ amax,
-                   const float* __restrict__ ta, const int8_t* __restrict__ wa2,
+                   const int8_t* __restrict__ qa, const int8_t* __restrict__ wa2,
                    const float* __restrict__ sa2, const float* __restrict__ ba2,
-                   const float* __restrict__ tb, const int8_t* __restrict__ wb2,
+                   const int8_t* __restrict__ qb, const int8_t* __restrict__ wb2,
                    const float* __restrict__ sb2, const float* __restrict__ bb2,
                    bf16* __restrict__ out, int H, int W, float res_scale, float identity_scale) {
   extern __shared__ __align__(128) uint8_t smem[];
@@ -1325,11 +1348,9 @@ xdyn_second_kernel(const bf16* __restrict__ x, const float* __restrict__ amax,
   const float sa = sample_scale(amax[samples + t.n]), sb = sample_scale(amax[2 * samples + t.n]);
   stage_vecs(vec, sa, sa2, ba2, sb, sb2, bb2);
   int acc[MT][ACC];
-  conv_s8<5, 5, true>(acc, smem, QuantSrc<float, true>{ta, sa, __frcp_rn(sa)}, wa2,
-                      TileGeo{t, H, W});
+  conv_s8<5, 5, true>(acc, smem, I8Src{qa}, wa2, TileGeo{t, H, W});
   park_sums<DQ>(acc, vec, park);
-  conv_s8<3, 3, true>(acc, smem, QuantSrc<float, true>{tb, sb, __frcp_rn(sb)}, wb2,
-                      TileGeo{t, H, W});
+  conv_s8<3, 3, true>(acc, smem, I8Src{qb}, wb2, TileGeo{t, H, W});
   residual_epilogue<bf16, true, false, DQ>(acc, vec + 2 * C, park, smem, x, out,
                                            OutTile{t.n, t.y0, t.x0, H, W}, H, W, res_scale,
                                            identity_scale);
@@ -1401,8 +1422,6 @@ dyn_first_kernel(const T* __restrict__ x, float* __restrict__ amax,
 // value, into [window][eh][ew][C] int8.  blockIdx.y: the branch (t0 -> q0,
 // t1 -> q1), blockIdx.z: the window; each thread four float4 vectors of it,
 // lanes on consecutive vectors.
-constexpr int RQ_VECS = 4;
-
 __global__ void __launch_bounds__(THREADS)
 ring_requant_kernel(const float* __restrict__ t0, const float* __restrict__ t1,
                     const float* __restrict__ amax, int8_t* __restrict__ q0,
@@ -1577,17 +1596,19 @@ int light53_xla_upq(const int8_t* xq, const float* skip, const float* act, const
 
 // X3 in its three steps (a banded frame runs them one band after another,
 // its abs-maxes reduced over the bands between them).  amax: float32 [3][n];
-// ta, tb: float32 (n, h, w, C).  Step 0: each sample's abs-max of x into
-// amax[0] (accumulated: zero it first).  Step 1: the first convs from x
-// quantized with amax[0], into ta, tb, their abs-maxes over win accumulated
-// into amax[1], amax[2].  Step 2: the second convs and the residual combine.
+// ta, tb: float32 (n, h, w, C); qa, qb: int8, their codes.  Step 0: each
+// sample's abs-max of x into amax[0] (accumulated: zero it first).  Step 1:
+// the first convs from x quantized with amax[0], into ta, tb, their
+// abs-maxes over win accumulated into amax[1], amax[2].  Step 2: the
+// requantization pass (ta, tb into qa, qb at amax[1], amax[2]), then the
+// second convs over the codes and the residual combine.
 template <int DQ>
 int light53_xla_dyn_step(int step, const bf16* x, const int8_t* wa1, const float* sa1,
                          const float* ba1, const int8_t* wa2, const float* sa2, const float* ba2,
                          const int8_t* wb1, const float* sb1, const float* bb1, const int8_t* wb2,
                          const float* sb2, const float* bb2, float* amax, float* ta, float* tb,
-                         bf16* out, int n, int h, int w, Window win, float res_scale,
-                         float identity_scale, cudaStream_t st) {
+                         int8_t* qa, int8_t* qb, bf16* out, int n, int h, int w, Window win,
+                         float res_scale, float identity_scale, cudaStream_t st) {
   const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
   if (step == 0) {
     const long long vecs = (long long)h * w * C * (long long)sizeof(bf16) / 16;  // 16-byte vectors a sample
@@ -1600,10 +1621,16 @@ int light53_xla_dyn_step(int step, const bf16* x, const int8_t* wa1, const float
     xdyn_first_kernel<DQ><<<grid, THREADS, SMEM_XDYN_FIRST, st>>>(x, amax, wa1, sa1, ba1, ta, wb1,
                                                                   sb1, bb1, tb, h, w, win);
   } else {
-    cudaError_t err = allow_smem(xdyn_second_kernel<DQ>, SMEM_LIGHT53_B);
+    const long long vecs = (long long)h * w * C / 4;  // float4 vectors a sample
+    const long long per = (long long)THREADS * RQ_VECS;
+    const unsigned bx = (unsigned)((vecs + per - 1) / per < 1024 ? (vecs + per - 1) / per : 1024);
+    xdyn_requant_kernel<<<dim3(bx, 2, (unsigned)n), THREADS, 0, st>>>(ta, tb, amax, qa, qb, vecs);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = allow_smem(xdyn_second_kernel<DQ>, SMEM_LIGHT53_B);
     if (err != cudaSuccess) return (int)err;
     xdyn_second_kernel<DQ><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(
-        x, amax, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
+        x, amax, qa, wa2, sa2, ba2, qb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
   }
   return (int)cudaGetLastError();
 }
@@ -1613,13 +1640,14 @@ template <int DQ>
 int light53_xla_dyn(const bf16* x, const int8_t* wa1, const float* sa1, const float* ba1,
                     const int8_t* wa2, const float* sa2, const float* ba2, const int8_t* wb1,
                     const float* sb1, const float* bb1, const int8_t* wb2, const float* sb2,
-                    const float* bb2, float* amax, float* ta, float* tb, bf16* out, int n, int h,
-                    int w, float res_scale, float identity_scale, cudaStream_t st) {
+                    const float* bb2, float* amax, float* ta, float* tb, int8_t* qa, int8_t* qb,
+                    bf16* out, int n, int h, int w, float res_scale, float identity_scale,
+                    cudaStream_t st) {
   cudaError_t err = cudaMemsetAsync(amax, 0, 3 * (size_t)n * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
   for (int step = 0; step < 3; ++step) {
     const int code = light53_xla_dyn_step<DQ>(step, x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1,
-                                              wb2, sb2, bb2, amax, ta, tb, out, n, h, w,
+                                              wb2, sb2, bb2, amax, ta, tb, qa, qb, out, n, h, w,
                                               Window{0, h, 0, w}, res_scale, identity_scale, st);
     if (code != 0) return code;
   }
@@ -1825,37 +1853,40 @@ int iek_light53_int8_xla_upq(const int8_t* xq, const float* skip, const float* a
 }
 
 // Per-sample dynamic scales over the unfolded weights "q" / "s".  amax:
-// float32 [3][n]; ta, tb: float32 (n, h, w, C).
+// float32 [3][n]; ta, tb: float32 (n, h, w, C); qa, qb: int8 (n, h, w, C).
 int iek_light53_int8_xla_dyn(const void* x,
                              const int8_t* wa1, const float* sa1, const float* ba1,
                              const int8_t* wa2, const float* sa2, const float* ba2,
                              const int8_t* wb1, const float* sb1, const float* bb1,
                              const int8_t* wb2, const float* sb2, const float* bb2,
-                             float* amax, float* ta, float* tb, void* out, int n, int h, int w, int c,
-                             int acc_bf16, float res_scale, float identity_scale, void* stream) {
+                             float* amax, float* ta, float* tb, int8_t* qa, int8_t* qb, void* out,
+                             int n, int h, int w, int c, int acc_bf16, float res_scale,
+                             float identity_scale, void* stream) {
   if (c != C || n > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* ob = static_cast<bf16*>(out);
   if (acc_bf16)
     return light53_xla_dyn<DQ_BF16>(xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                                    amax, ta, tb, ob, n, h, w, res_scale, identity_scale, st);
+                                    amax, ta, tb, qa, qb, ob, n, h, w, res_scale, identity_scale, st);
   return light53_xla_dyn<DQ_F32>(xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, amax,
-                                 ta, tb, ob, n, h, w, res_scale, identity_scale, st);
+                                 ta, tb, qa, qb, ob, n, h, w, res_scale, identity_scale, st);
 }
 
 // One step of X3 (light53_xla_dyn_step) on one band of a frame: amax
 // float32 [3][n], accumulated by steps 0 and 1 (zero it first); the
 // abs-maxes of step 1 cover rows [wy0, wy1) and columns [wx0, wx1) of each
-// sample, the band's own pixels.
+// sample, the band's own pixels; step 2 requantizes ta, tb into qa, qb at
+// the frame's abs-maxes, then runs the second convs.
 int iek_light53_int8_xla_dyn_step(int step, const void* x,
                                   const int8_t* wa1, const float* sa1, const float* ba1,
                                   const int8_t* wa2, const float* sa2, const float* ba2,
                                   const int8_t* wb1, const float* sb1, const float* bb1,
                                   const int8_t* wb2, const float* sb2, const float* bb2,
-                                  float* amax, float* ta, float* tb, void* out, int n, int h, int w,
-                                  int c, int wy0, int wy1, int wx0, int wx1, int acc_bf16,
-                                  float res_scale, float identity_scale, void* stream) {
+                                  float* amax, float* ta, float* tb, int8_t* qa, int8_t* qb,
+                                  void* out, int n, int h, int w, int c, int wy0, int wy1, int wx0,
+                                  int wx1, int acc_bf16, float res_scale, float identity_scale,
+                                  void* stream) {
   if (c != C || n > 65535 || step < 0 || step > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
@@ -1863,10 +1894,10 @@ int iek_light53_int8_xla_dyn_step(int step, const void* x,
   const Window win{wy0, wy1, wx0, wx1};
   if (acc_bf16)
     return light53_xla_dyn_step<DQ_BF16>(step, xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2,
-                                         sb2, bb2, amax, ta, tb, ob, n, h, w, win, res_scale,
+                                         sb2, bb2, amax, ta, tb, qa, qb, ob, n, h, w, win, res_scale,
                                          identity_scale, st);
   return light53_xla_dyn_step<DQ_F32>(step, xb, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2,
-                                      sb2, bb2, amax, ta, tb, ob, n, h, w, win, res_scale,
+                                      sb2, bb2, amax, ta, tb, qa, qb, ob, n, h, w, win, res_scale,
                                       identity_scale, st);
 }
 

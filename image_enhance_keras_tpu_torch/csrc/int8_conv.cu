@@ -1,7 +1,7 @@
 // X4: a 3x3 SAME int8 convolution with per-channel folded scales, for sm_90a,
 // on the s8 tensor cores (wgmma): the convs of the zoo's int8 forwards
 // (difv4's LightBlocks, difvdsr's DiffBlocks, the subpixel head of
-// didbl_subpixel).
+// didbl_subpixel), with the blocks' combines in its epilogues.
 //
 // Replaces work the JAX package leaves to XLA, not a Pallas kernel
 // (models/didbl_pallas.py _quant_c, _qconv_xla, _deqf, _quant_dyn_sample,
@@ -12,90 +12,199 @@
 //   dynamic: s = max(abs-max of the sample, 1e-6) / 127.0 (a division)
 //            q = clamp(rint(x / s), -127, 127)              (the rounded quotient)
 //            y = A(acc) * (s_w[co] * s) + b[co]
-//   out = act(y): none, relu max(y, 0), or leaky where(y >= 0, y, slope * y)
+//   v = act(y): none, relu max(y, 0), or leaky where(y >= 0, y, slope * y)
 // acc is the exact s32 sum over 3 x 3 x C_in; A(acc) is float(acc), or
 // bf16(float(acc)) under the bf16 accumulator (XLA converts the s32 sum to
 // float32, then to bf16).  Every product and add is rounded on its own (no
 // FMA), as JAX computes these ops one at a time; build without
-// --use_fast_math.  x is bf16 or float32 NHWC (C_in a multiple of 32, at
-// most 256), the weights int8 HWIO (C_out a multiple of 64), out float32
-// NHWC.  ops/cuda/int8_conv.py wraps it and holds its plain version.
+// --use_fast_math.
+//
+// The input is bf16 or float32 NHWC x quantized while it is staged, or the
+// int8 codes an earlier launch emitted (the block-level forms: no float
+// activation between two convs of a block leaves the chip).  The epilogue
+// (EPI_*) writes one of:
+//   F32     v as float32 (the subpixel head, static or dynamic);
+//   CODES   clamp(rint(v * (1/s_out[co])), -127, 127): the codes of the next
+//           conv's input (a LightBlock's or a DiffBlock's conv_a, conv_c);
+//   LIGHT   T(x + 0.1 * y), x the block input of type T (a LightBlock's conv_b);
+//   DIFF_B  t = y as float32 and the codes of d = t - x (a DiffBlock's conv_b);
+//   DIFF_D  T(x + 0.1 * ((d + y) + t)) with d = t - x recomputed (conv_d).
+// C_in a multiple of 32, at most 256; C_out a multiple of 64 or 96; the
+// weights int8 HWIO, repacked (ops/cuda/int8_conv.py wraps the kernel and
+// holds its plain versions).
 //
 // What bounds it on an H100: operations.  2 * 9 * C_in * C_out int8 ops a
-// pixel (1.18 M at 256 -> 256) against 1 to 4 bytes of x and 4 * C_out of
-// out: far above the balance point of 1,979 TOPS over 3.35 TB/s.
+// pixel (1.18 M at 256 -> 256) against 1 to 4 bytes of input and 1 to 6 of
+// output per channel: far above the balance point of 1,979 TOPS over 3.35 TB/s.
 //
-// Design (the static template of csrc/int8_blocks.cu, with C_in and C_out
-// parameters): an implicit GEMM on wgmma.m64nNTk32.s32.s8.s8, NT = 128
-// output channels a block where C_out allows it, else 64; both operands in
-// shared memory, K-major, without swizzle.  A thread block (two
-// warpgroups, each 2 M tiles of 64 consecutive output pixels of a row)
-// computes 4 rows x 64 columns x NT channels; grid.y walks C_out in NT
-// steps, each block staging its own window.
-//   * A: the input window with its 1-pixel halo, (4 + 2) x (64 + 2) pixels,
-//     quantized while staged (batched 16-byte loads), as C_in / 16 planes of
-//     16 channels [row][col][16 bytes]; a tap (ky, kx) moves the
-//     descriptor's start by ky window rows and kx * 16 bytes, the two halves
-//     of a 32-channel K step are a plane apart (the leading byte offset).
-//     Outside the image the loads are zeros, whose codes are zero: SAME
-//     padding of the codes, as XLA pads the quantized tensor.
-//   * B: the weights repacked to [tap][C_in/32][C_out/NT][2][NT][16], so
-//     each (tap, K step, column block) is one contiguous NT x 32 tile,
-//     streamed through a ring of 6 tiles by cp.async, 4 ahead of the
-//     products; one wgmma group stays in flight while the next is issued.
-//   * The epilogue writes each thread's pairs of channels straight from
-//     the registers as float2 stores (4 lanes make a 32-byte sector).
-// The dynamic form adds a launch before the conv: each sample's abs-max of
-// x, as float bits by atomicMax.
-// Left on the table: the staging and the epilogue do not overlap the
-// products (one block per SM), blocks of one tile re-stage and re-quantize
-// its window once per NT column block, and a 96-pixel-wide map fills 1.5 M
-// tiles of 64 per row.
+// Design: an implicit GEMM on wgmma.m64nNTk32.s32.s8.s8 (NT = 128 output
+// channels a column block where C_out allows it, else 96 or 64), both
+// operands in shared memory, K-major, without swizzle.  A persistent,
+// warp-specialised block (one per SM) walks over the tiles of 256 output
+// positions; three warpgroups:
+//   * the producer: warp 0 streams the weight tiles through a ring of up to
+//     8 slots (cp.async.bulk, completion on an mbarrier's transaction count);
+//     warps 1-3 stage each tile's input window once, for every output
+//     channel, into one of two window buffers (one where two would leave a
+//     ring of fewer than 4 slots), so the next tile's window lands while
+//     this one's products run (int8 codes by cp.async with zero
+//     fill; bf16 / float32 x by batched 16-byte loads quantized on the way);
+//   * two consumers, 2 M tiles of 64 positions each: for every column block
+//     of NT channels, 9 taps x C_in / 32 steps of wgmma over the resident
+//     window, then the epilogue straight from the registers.  A consumer
+//     releases a ring slot once its products are done, and the window once
+//     the tile's last column block has read it, before that block's epilogue.
+//     The epilogue's kind, accumulator rounding and activation are template
+//     parameters picked once a launch, so that its unrolled code holds no
+//     branch; the combines' loads of x (and t) run one channel group ahead,
+//     and at the start of a tile one consumer thread prefetches those rows
+//     into the L2 (cp.async.bulk.prefetch).
+//   * The window holds C_in / 16 planes of 16 channels, [position][16 bytes];
+//     a tap (ky, kx) moves the descriptor's start by ky * pitch + kx
+//     positions, the two halves of a 32-channel K step are a plane apart
+//     (the leading byte offset).  Two tilings: 4 rows x 64 columns (a 6 x 66
+//     window, pitch 66) where W is a multiple of 64 or two windows of the
+//     other kind do not fit; else 256 consecutive positions of the image's
+//     raster padded to a pitch of W + 2 (a window of 256 + 2 * pitch + 2
+//     positions; the 2 padding columns of each row are computed but not
+//     stored), so a 96-wide map wastes 2 positions in 98, not 32 in 128.
+//     Outside the image the staged codes are zero: SAME padding of the
+//     codes, as XLA pads the quantized tensor.
+//   * B: the weights repacked to [tap][C_in/32][C_out/NT][2][NT][16], so each
+//     (tap, K step, column block) is one contiguous NT x 32 tile.
+// The dynamic form adds a launch before the conv: each sample's abs-max of x,
+// as float bits by atomicMax.
+// Codes leave 8 bytes a lane: the 4 lanes of a quad trade their pairs so that
+// a quad fills a 32-byte sector.
+// Left on the table (scripts/probe_x4_parts.py times the kernel without its
+// epilogue and without its products): the two consumers run their epilogues
+// together after each column block, and the tensor cores idle meanwhile; with
+// two warps a scheduler the epilogue is latency-bound, and about as long as
+// the block's products.  The weight tiles stream from the L2 anew for every
+// tile (4 KB a K step for 256 positions), about as fast as the tensor cores
+// take them, so the products alone run near that stream's rate; larger tiles
+// need more sums than the registers hold, or a cluster multicasting the
+// weights.  The kernel holds 168 registers a thread (384 threads), and its
+// 128-channel forms spill a few of the consumers' (ptxas -v).  The difv4
+// head's 96-wide map at C_in = 256 keeps the 4 x 64 tiling (two raster
+// windows of 454 positions do not fit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int TILE_W = 64;                  // output columns of an M tile (wgmma M)
-constexpr int MT = 2;                       // M tiles (output rows) per warpgroup
-constexpr int WGS = 2;                      // warpgroups per thread block
-constexpr int TILE_H = MT * WGS;            // output rows per thread block
-constexpr int THREADS = 128 * WGS;
-constexpr int WIN_H = TILE_H + 2;
+constexpr int TILE_W = 64;                  // positions of an M tile (wgmma M)
+constexpr int MT = 2;                       // M tiles per consumer warpgroup
+constexpr int CONSUMERS = 2;                // consumer warpgroups
+constexpr int TILE_M = TILE_W * MT * CONSUMERS;  // output positions of a tile
+constexpr int THREADS = 128 * (1 + CONSUMERS);   // + the producer warpgroup
+constexpr int STAGERS = 96;                 // producer threads staging windows (warps 1-3)
+constexpr int WIN_H = MT * CONSUMERS + 2;   // the 4 x 64 tiling's window
 constexpr int WIN_W = TILE_W + 2;
 constexpr int CIN_MAX = 256;
-// +16 bytes: the planes of one pixel fall in different bank groups
-constexpr int PLANE = WIN_H * WIN_W * 16 + 16;
-constexpr int STAGES = 6;                   // weight ring; STAGES - 2 tiles ahead
+constexpr int COUT_CODES_MAX = 1024;        // C_out of the forms that emit codes
+constexpr int MAX_STAGES = 8;               // weight ring slots
+constexpr int MIN_STAGES = 4;               // slots two windows must leave, else one window
+constexpr int WINDOWS = 2;                  // window buffers where they fit
+constexpr int BAR_BYTES = (16 * (MAX_STAGES + WINDOWS) + 127) / 128 * 128;  // the mbarriers, first
+constexpr int SMEM_MAX = 232448;
+constexpr int ABS_THREADS = 256;
 constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY = 2;
+constexpr int EPI_F32 = 0, EPI_CODES = 1, EPI_LIGHT = 2, EPI_DIFF_B = 3, EPI_DIFF_D = 4;
+constexpr int SRC_BF16 = 0, SRC_F32 = 1, SRC_I8 = 2;
+constexpr int DYN_NONE = 0, DYN_FULL = 1, DYN_ABSMAX = 2, DYN_GIVEN = 3;
 
-// shared memory: [window: C_in/16 planes][weight ring][1/s_in: CIN_MAX][scales: NT][biases: NT]
-__host__ __device__ constexpr int smem_bytes(int cin, int nt) {
-  return (cin / 16) * PLANE + STAGES * nt * 32 + (CIN_MAX + 2 * nt) * 4;
-}
+// Everything a launch needs; the geometry (tiling, window, ring) is set by geometry().
+struct Params {
+  const void* x;       // the input: bf16 / float32 values or int8 codes
+  const float* scale;  // static: s_in (C_in); dynamic: the samples' abs-maxes (N)
+  const int8_t* w;     // the packed weights
+  const float* sf;     // (C_out) dequant scales (dynamic: the weight scales s_w)
+  const float* bias;   // (C_out)
+  const float* s_out;  // (C_out) the scales of emitted codes (CODES, DIFF_B)
+  const void* xr;      // the block input x of the combines (LIGHT, DIFF_B, DIFF_D)
+  const float* t_in;   // DIFF_D: t
+  float* out_f;        // F32: v; DIFF_B: t
+  int8_t* out_q;       // CODES, DIFF_B: the codes
+  void* out_x;         // LIGHT, DIFF_D: the block output, xr's type
+  int n, H, W, cin, cout;
+  int epi, xr_f32, acc_bf16, act;
+  float slope;
+  // geometry
+  int raster;     // 0: 4 x 64 tiles; 1: 256 positions of the padded raster
+  int pitch;      // window positions a row (WIN_W, or W + 2)
+  int positions;  // window positions
+  int plane;      // bytes a plane of 16 channels (positions * 16 + 16)
+  int win_bytes;  // bytes a window
+  int nwin;       // window buffers (2: the next tile's lands while this one's products run)
+  int ring_off, vec_off, smem;
+  int stages;     // weight ring slots
+  int tiles_w, tiles_a_sample, tiles;
+};
 
-// ---- PTX: cp.async, proxy fence, wgmma ------------------------------------
+// ---- PTX: cp.async, bulk copies, mbarriers, proxy fence, wgmma ---------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+// src_size 0 fills the 16 bytes with zeros (src is not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_size) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_size)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from global memory into shared memory, counted
+// on bar's transaction count
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // shared-memory writes of this thread become visible to wgmma (async proxy)
@@ -137,6 +246,9 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 template <int N>
 __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db);
 
+#define IEK_R8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
+                  "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
 template <>
 __device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
@@ -146,10 +258,21 @@ __device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da, uint64_t
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : IEK_R8(0), IEK_R8(8), IEK_R8(16), IEK_R8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<96>(int (&d)[48], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      : IEK_R8(0), IEK_R8(8), IEK_R8(16), IEK_R8(24), IEK_R8(32), IEK_R8(40)
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -164,16 +287,11 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : IEK_R8(0), IEK_R8(8), IEK_R8(16), IEK_R8(24), IEK_R8(32), IEK_R8(40), IEK_R8(48), IEK_R8(56)
       : "l"(da), "l"(db), "r"(1));
 }
+
+#undef IEK_R8
 
 // ---- quantization ---------------------------------------------------------
 
@@ -277,12 +395,12 @@ __device__ __forceinline__ float sample_scale(float amax) {
 // atomicMax (non-negative floats order as their bits do); vecs: 16-byte
 // vectors a sample.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(ABS_THREADS)
 sample_absmax_kernel(const T* __restrict__ x, float* __restrict__ amax, long long vecs) {
   const uint4* p = reinterpret_cast<const uint4*>(x) + (size_t)blockIdx.z * vecs;
   float m = 0.f;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < vecs;
-       i += (long long)gridDim.x * THREADS)
+  for (long long i = (long long)blockIdx.x * ABS_THREADS + threadIdx.x; i < vecs;
+       i += (long long)gridDim.x * ABS_THREADS)
     m = fmaxf(m, Act<T>::absmax16B(__ldg(p + i)));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -290,267 +408,703 @@ sample_absmax_kernel(const T* __restrict__ x, float* __restrict__ amax, long lon
     atomicMax(reinterpret_cast<unsigned*>(amax + blockIdx.z), __float_as_uint(m));
 }
 
-// ---- the convolution --------------------------------------------------------
+// ---- tiles ------------------------------------------------------------------
 
-// Weight tile s (of the (tap, K step) sequence) of column block nb into its ring slot.
-template <int NT>
-__device__ __forceinline__ void load_b(uint8_t* ring, const int8_t* wgt, int s, int nbs, int nb) {
-  constexpr int B_TILE = NT * 32;
-  const int8_t* src = wgt + ((size_t)s * nbs + nb) * B_TILE;
-  uint8_t* dst = ring + (s % STAGES) * B_TILE;
-  for (int i = threadIdx.x; i < B_TILE / 16; i += THREADS) cp_async16(dst + i * 16, src + i * 16);
+// A tile: sample n and its first position: the 4 x 64 tiling's (y0, x0), or
+// the raster tiling's first raster position r0 (in y0; x0 unused).
+struct Tile {
+  int n, y0, x0;
+};
+
+__device__ __forceinline__ Tile tile_of(const Params& p, int tile) {
+  Tile t;
+  t.n = tile / p.tiles_a_sample;
+  const int r = tile - t.n * p.tiles_a_sample;
+  if (p.raster) {
+    t.y0 = r * TILE_M;
+    t.x0 = 0;
+  } else {
+    t.y0 = (r / p.tiles_w) * (MT * CONSUMERS);
+    t.x0 = (r % p.tiles_w) * TILE_W;
+  }
+  return t;
 }
 
-// One float of the epilogue: A(acc) * sc + b, then the activation.
-__device__ __forceinline__ float epilogue(int acc, float sc, float b, int acc_bf16, int act,
-                                          float slope) {
+// The image pixel (gy, gx) of window position pos; false outside the image.
+__device__ __forceinline__ bool window_pixel(const Params& p, const Tile& t, int pos, int& gy,
+                                             int& gx) {
+  if (p.raster) {
+    // rr = r + 2 * pitch >= 0, r = r0 + pos - pitch - 1 the position's raster
+    // index (row r / pitch, padded column r % pitch, image column one less)
+    const int rr = t.y0 + pos + p.pitch - 1;
+    gy = rr / p.pitch - 2;
+    gx = rr - (gy + 2) * p.pitch - 1;
+  } else {
+    const int wr = pos / WIN_W;
+    gy = t.y0 - 1 + wr;
+    gx = t.x0 - 1 + pos - wr * WIN_W;
+  }
+  return gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+}
+
+// The image pixel of output position m (0..255) of tile t; false where it is not stored.
+__device__ __forceinline__ bool out_pixel(const Params& p, const Tile& t, int m, int& y, int& x) {
+  if (p.raster) {
+    const int rr = t.y0 + m;
+    y = rr / p.pitch;
+    x = rr - y * p.pitch - 1;
+  } else {
+    y = t.y0 + m / TILE_W;
+    x = t.x0 + m % TILE_W;
+  }
+  return y < p.H && x >= 0 && x < p.W;
+}
+
+// ---- the producer -----------------------------------------------------------
+
+// Warp 0, one lane: every weight tile of every (tile, column block, step), in
+// the order the consumers take them, through the ring.
+template <int NT>
+__device__ __forceinline__ void load_weights(const Params& p, uint8_t* ring, uint64_t* full,
+                                             uint64_t* empty) {
+  constexpr int B_TILE = NT * 32;
+  const int nbs = p.cout / NT, steps = 9 * (p.cin / 32);
+  int slot = 0;
+  unsigned phase = 0;  // of the slot's next use; its first wait passes (parity 1)
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x)
+    for (int nb = 0; nb < nbs; ++nb)
+      for (int st = 0; st < steps; ++st) {
+        mbar_wait(empty + slot, phase ^ 1u);
+        mbar_arrive_expect_tx(full + slot, B_TILE);
+        bulk_g2s(ring + slot * B_TILE, p.w + ((size_t)st * nbs + nb) * B_TILE, B_TILE, full + slot);
+        if (++slot == p.stages) {
+          slot = 0;
+          phase ^= 1u;
+        }
+      }
+}
+
+// Warps 1-3: each tile's window into window buffer k % 2 (k: the block's
+// tile count), quantized on the way (S = bf16 / float) or as codes (S = int8_t).
+template <typename S, bool DYN>
+__device__ __forceinline__ void stage_windows(const Params& p, uint8_t* win, const float* inv,
+                                              uint64_t* wfull, uint64_t* wempty, int tid) {
+  const int planes = p.cin / 16;
+  const int items = p.positions * planes;
+  int k = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+    const int buf = k % p.nwin;
+    const Tile t = tile_of(p, tile);
+    mbar_wait(wempty + buf, ((k / p.nwin) & 1) ^ 1u);
+    uint8_t* w = win + buf * p.win_bytes;
+    if constexpr (std::is_same<S, int8_t>::value) {
+      const int8_t* x = static_cast<const int8_t*>(p.x);
+      for (int i = tid; i < items; i += STAGERS) {
+        const int pos = i / planes, g = i - pos * planes;
+        int gy, gx;
+        const bool in = window_pixel(p, t, pos, gy, gx);
+        const int8_t* src = in ? x + (((size_t)t.n * p.H + gy) * p.W + gx) * p.cin + g * 16 : x;
+        cp_async16_zfill(w + g * p.plane + pos * 16, src, in ? 16 : 0);
+      }
+      cp_async_wait_all();
+    } else {
+      constexpr int L = Act<S>::LOADS;
+      constexpr int WB = 16 / L;  // staging items in flight a thread
+      const S* x = static_cast<const S*>(p.x);
+      float s = 0.f, rs = 0.f;
+      if constexpr (DYN) {
+        s = sample_scale(__ldg(p.scale + t.n));
+        rs = __frcp_rn(s);
+      }
+      for (int i0 = tid; i0 < items; i0 += WB * STAGERS) {
+        uint4 raw[WB][L];
+#pragma unroll
+        for (int u = 0; u < WB; ++u) {
+#pragma unroll
+          for (int l = 0; l < L; ++l) raw[u][l] = make_uint4(0, 0, 0, 0);
+          const int i = i0 + u * STAGERS;
+          if (i >= items) continue;
+          const int pos = i / planes, g = i - pos * planes;
+          int gy, gx;
+          if (window_pixel(p, t, pos, gy, gx)) {
+            const uint4* src =
+                reinterpret_cast<const uint4*>(x + (((size_t)t.n * p.H + gy) * p.W + gx) * p.cin + g * 16);
+#pragma unroll
+            for (int l = 0; l < L; ++l) raw[u][l] = __ldg(src + l);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < WB; ++u) {
+          const int i = i0 + u * STAGERS;
+          if (i >= items) continue;
+          const int pos = i / planes, g = i - pos * planes;
+          float f[16];
+          Act<S>::to_floats(raw[u], f);
+          unsigned q[16];
+          if constexpr (DYN) {
+            codes8_div(f, s, rs, q);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 16; ++c) q[c] = code8(f[c], inv[16 * g + c]);
+          }
+          *reinterpret_cast<int4*>(w + g * p.plane + pos * 16) =
+              make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                        pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+        }
+      }
+    }
+    fence_proxy_async();
+    mbar_arrive(wfull + buf);
+  }
+}
+
+// ---- the consumers ------------------------------------------------------------
+
+// act(A(acc) * sc + b); ACCB: A(acc) rounds to bf16.  Both switches are
+// template parameters, so that the unrolled epilogue holds no branch and its
+// conversions and loads interleave.
+template <bool ACCB, int ACT>
+__device__ __forceinline__ float dequant(int acc, float sc, float b, float slope) {
   float v = __int2float_rn(acc);
-  if (acc_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+  if constexpr (ACCB) v = __bfloat162float(__float2bfloat16_rn(v));
   v = __fadd_rn(__fmul_rn(v, sc), b);
-  if (act == ACT_RELU) v = fmaxf(v, 0.f);
-  else if (act == ACT_LEAKY) v = v >= 0.f ? v : __fmul_rn(slope, v);
+  if constexpr (ACT == ACT_RELU) v = fmaxf(v, 0.f);
+  if constexpr (ACT == ACT_LEAKY) v = v >= 0.f ? v : __fmul_rn(slope, v);
   return v;
 }
 
-// out[n, y0.., x0.., NT*nb ..] of one 4 x 64 tile.  DYN: scale holds the
-// samples' abs-maxes and sf the weight scales s_w; else scale holds s_in.
-template <typename T, int NT, bool DYN>
-__global__ void __launch_bounds__(THREADS, 1)
-conv3_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-             const int8_t* __restrict__ wgt, const float* __restrict__ sf,
-             const float* __restrict__ bias, float* __restrict__ out, int H, int W, int cin,
-             int cout, int acc_bf16, int act, float slope) {
-  constexpr int ACC = NT / 2;  // s32 sums a thread holds per M tile
-  constexpr int B_TILE = NT * 32;
-  constexpr int L = Act<T>::LOADS;
-  constexpr int WB = 8 / L;  // staging items in flight a thread
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int planes = cin / 16, steps = 9 * (cin / 32);
-  const int nb = blockIdx.y, nbs = gridDim.y;
-  uint8_t* win = smem;
-  uint8_t* ring = smem + planes * PLANE;
-  float* inv = reinterpret_cast<float*>(ring + STAGES * B_TILE);
-  float* ssw = inv + CIN_MAX;
-  float* bb = ssw + NT;
-  const int tiles_w = (W + TILE_W - 1) / TILE_W;
-  const int y0 = (blockIdx.x / tiles_w) * TILE_H, x0 = (blockIdx.x % tiles_w) * TILE_W;
-  const int n = blockIdx.z;
-  float s = 0.f, rs = 0.f;
-  if constexpr (DYN) {
-    s = sample_scale(__ldg(scale + n));
-    rs = __frcp_rn(s);
-  }
-  for (int i = threadIdx.x; i < NT; i += THREADS) {
-    const int co = nb * NT + i;
-    ssw[i] = DYN ? __fmul_rn(__ldg(sf + co), s) : __ldg(sf + co);
-    bb[i] = __ldg(bias + co);
-  }
-  if constexpr (!DYN)
-    for (int i = threadIdx.x; i < cin; i += THREADS) inv[i] = __frcp_rn(__ldg(scale + i));
-#pragma unroll
-  for (int s0 = 0; s0 < STAGES - 2; ++s0) {
-    load_b<NT>(ring, wgt, s0, nbs, nb);
-    cp_async_commit();
-  }
-  __syncthreads();  // inv is staged
+// Two channels of x (type T) as floats, and back.
+template <typename T>
+struct Pair;
 
-  // the window, quantized on the way; WB items' loads in flight together
-  const int items = WIN_H * WIN_W * planes;
-  for (int i0 = threadIdx.x; i0 < items; i0 += WB * THREADS) {
-    uint4 raw[WB][L];
-#pragma unroll
-    for (int u = 0; u < WB; ++u) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) raw[u][l] = make_uint4(0, 0, 0, 0);
-      const int i = i0 + u * THREADS;
-      if (i >= items) continue;
-      const int pix = i / planes, g = i - pix * planes;
-      const int r = pix / WIN_W;
-      const int gy = y0 - 1 + r, gx = x0 - 1 + pix - r * WIN_W;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const uint4* p = reinterpret_cast<const uint4*>(x + (((size_t)n * H + gy) * W + gx) * cin + g * 16);
-#pragma unroll
-        for (int l = 0; l < L; ++l) raw[u][l] = __ldg(p + l);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < WB; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i >= items) continue;
-      const int pix = i / planes, g = i - pix * planes;
-      float f[16];
-      Act<T>::to_floats(raw[u], f);
-      unsigned q[16];
-      if constexpr (DYN) {
-        codes8_div(f, s, rs, q);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 16; ++k) q[k] = code8(f[k], inv[16 * g + k]);
-      }
-      *reinterpret_cast<int4*>(win + g * PLANE + pix * 16) =
-          make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
-                    pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
-    }
+template <>
+struct Pair<bf16> {
+  using Raw = unsigned;
+  __device__ static __forceinline__ Raw load(const void* base, size_t i) {
+    return __ldg(reinterpret_cast<const unsigned*>(static_cast<const bf16*>(base) + i));
   }
-
-  int acc[MT][ACC];
-#pragma unroll
-  for (int j = 0; j < MT; ++j)
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) acc[j][i] = 0;
-  const int row0 = (threadIdx.x / 128) * MT;
-  const uint32_t win_a = smem_addr(win);
-  const uint32_t ring_a = smem_addr(ring);
-  const int chunks = cin / 32;
-#pragma unroll 1
-  for (int st = 0; st < steps; ++st) {
-    cp_async_wait<STAGES - 3>();  // tile st has landed (this thread's part)
-    fence_proxy_async();
-    __syncthreads();  // all of tile st (and the window) written; slot of st-2 released
-    if (st + STAGES - 2 < steps) load_b<NT>(ring, wgt, st + STAGES - 2, nbs, nb);
-    cp_async_commit();
-    const int tap = st / chunks;
-    const int chunk = st - tap * chunks;
-    const int ky = tap / 3;
-    const int kx = tap - ky * 3;
-    const uint64_t db = desc(ring_a + (st % STAGES) * B_TILE, NT * 16, 128);
-#pragma unroll
-    for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < MT; ++j) {
-      const uint64_t da = desc(win_a + 2 * chunk * PLANE + ((row0 + j + ky) * WIN_W + kx) * 16, PLANE, 128);
-      wgmma_s8<NT>(acc[j], da, db);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // the products of step st-1 are done: its ring slot can be refilled
+  __device__ static __forceinline__ float2 floats(Raw r) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
   }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
+  __device__ static __forceinline__ void store(void* base, size_t i, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(base) + i) = __floats2bfloat162_rn(a, b);
+  }
+};
 
-  // epilogue: this thread's channel pairs, straight to global memory
-  const int lane = threadIdx.x & 31;
-  const int p0 = (threadIdx.x >> 7) * MT * TILE_W + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-  const int cq = (lane & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < MT; ++j)
+template <>
+struct Pair<float> {
+  using Raw = float2;
+  __device__ static __forceinline__ Raw load(const void* base, size_t i) {
+    return __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(base) + i));
+  }
+  __device__ static __forceinline__ float2 floats(Raw r) { return r; }
+  __device__ static __forceinline__ void store(void* base, size_t i, float a, float b) {
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + i) = make_float2(a, b);
+  }
+};
+
+__device__ __forceinline__ uint16_t code_pair(float a, float b, float ia, float ib) {
+  return (uint16_t)((code8(a, ia) & 0xFFu) | ((code8(b, ib) & 0xFFu) << 8));
+}
+
+__device__ __forceinline__ uint32_t sel4(uint32_t a, uint32_t b, uint32_t c, uint32_t d, int i) {
+  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+}
+
+// Where a thread's sums of M tile j go: for each of its 2 output positions
+// the element offset of the pixel's channel 0 (0 where the position is not
+// stored, so that loads stay inside the tensor) and whether it is stored.
+struct Spots {
+  size_t off[2];
+  bool in[2];
+  __device__ __forceinline__ Spots(const Params& p, const Tile& t, int cw, int j) {
+    const int r0 = ((threadIdx.x & 127) >> 5) * 16 + ((threadIdx.x & 31) >> 2);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int p = p0 + j * TILE_W + 8 * h;
-      const int y = y0 + p / TILE_W, xx = x0 + p % TILE_W;
-      if (y >= H || xx >= W) continue;
-      float* o = out + (((size_t)n * H + y) * W + xx) * cout + nb * NT;
+      int y, x;
+      in[h] = out_pixel(p, t, (cw * MT + j) * TILE_W + r0 + 8 * h, y, x);
+      off[h] = in[h] ? (((size_t)t.n * p.H + y) * p.W + x) * p.cout : 0;
+    }
+  }
+};
+
+// For M tile j and each channel-pair group n8 of column block nb: st(stored?,
+// offset, channel, v0, v1, h, buffer) with v = act(A(acc) * sc + b) for the
+// 2 positions; ld(offset, h, buffer) loads what st reads, one group ahead
+// (two buffers), so that a group's loads are in flight while the group
+// before is computed and stored.
+template <int NT, bool DYN, bool ACCB, int ACT, typename LoadF, typename StoreF>
+__device__ __forceinline__ void for_pairs(const Params& p, const int (&acc)[NT / 2], const Spots& sp, int nb,
+                                          float s, LoadF&& ld, StoreF&& st) {
+  const int c0 = nb * NT + (threadIdx.x & 3) * 2;
 #pragma unroll
-      for (int n8 = 0; n8 < NT / 8; ++n8) {
+  for (int h = 0; h < 2; ++h) ld(sp.off[h] + c0, h, 0);
+#pragma unroll
+  for (int n8 = 0; n8 < NT / 8; ++n8) {
+    const int co = c0 + n8 * 8;
+    if (n8 + 1 < NT / 8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) ld(sp.off[h] + co + 8, h, (n8 + 1) & 1);
+    }
+    float2 sc = __ldg(reinterpret_cast<const float2*>(p.sf + co));
+    if constexpr (DYN) sc = make_float2(__fmul_rn(sc.x, s), __fmul_rn(sc.y, s));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + co));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = n8 * 4 + h * 2;
+      st(sp.in[h], sp.off[h] + co, co, dequant<ACCB, ACT>(acc[i], sc.x, b.x, p.slope),
+         dequant<ACCB, ACT>(acc[i + 1], sc.y, b.y, p.slope), h, n8 & 1);
+    }
+  }
+}
+
+// The codes of M tile j, column block nb, at the scales 1 / inv_out, 8 bytes
+// a store: for each 32 channels, the 4 lanes of a quad trade their code
+// pairs so that lane q stores channels 8 q .. 8 q + 7 of them (a quad fills
+// a 32-byte sector).  ld / fx as for_pairs' ld / st, fx returning the pair
+// to code.
+template <int NT, bool DYN, bool ACCB, int ACT, typename LoadF, typename F>
+__device__ __forceinline__ void store_codes(const Params& p, const int (&acc)[NT / 2], const Spots& sp, int nb,
+                                            float s, const float* inv_out, int8_t* out, LoadF&& ld, F&& fx) {
+  const int q = threadIdx.x & 3;
+  const int c0 = nb * NT + 2 * q;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) ld(sp.off[h] + c0, h, 0);
+#pragma unroll
+  for (int k4 = 0; k4 < NT / 32; ++k4) {
+    uint32_t w[2][4];  // this lane's code pairs of n8 = 4 k4 + u
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int n8 = 4 * k4 + u;
+      const int co = c0 + n8 * 8;
+      if (n8 + 1 < NT / 8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) ld(sp.off[h] + co + 8, h, (n8 + 1) & 1);
+      }
+      float2 sc = __ldg(reinterpret_cast<const float2*>(p.sf + co));
+      if constexpr (DYN) sc = make_float2(__fmul_rn(sc.x, s), __fmul_rn(sc.y, s));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + co));
+      const float i0 = inv_out[co], i1 = inv_out[co + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
         const int i = n8 * 4 + h * 2;
-        const int co = n8 * 8 + cq;
-        const float v0 = epilogue(acc[j][i], ssw[co], bb[co], acc_bf16, act, slope);
-        const float v1 = epilogue(acc[j][i + 1], ssw[co + 1], bb[co + 1], acc_bf16, act, slope);
-        *reinterpret_cast<float2*>(o + co) = make_float2(v0, v1);
+        const float2 v = fx(sp.in[h], sp.off[h] + co, dequant<ACCB, ACT>(acc[i], sc.x, b.x, p.slope),
+                            dequant<ACCB, ACT>(acc[i + 1], sc.y, b.y, p.slope), h, n8 & 1);
+        w[h][u] = code_pair(v.x, v.y, i0, i1);
       }
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // round x: lane q receives from lane q ^ x its pair of n8 = 4 k4 + q
+      uint32_t got[4];
+      got[0] = sel4(w[h][0], w[h][1], w[h][2], w[h][3], q);
+#pragma unroll
+      for (int x = 1; x < 4; ++x)
+        got[x] = __shfl_xor_sync(0xffffffffu, sel4(w[h][0], w[h][1], w[h][2], w[h][3], q ^ x), x);
+      // the pair of lane r came in round q ^ r
+      const uint32_t lo = sel4(got[0], got[1], got[2], got[3], q) | (sel4(got[0], got[1], got[2], got[3], q ^ 1) << 16);
+      const uint32_t hi = sel4(got[0], got[1], got[2], got[3], q ^ 2) | (sel4(got[0], got[1], got[2], got[3], q ^ 3) << 16);
+      if (sp.in[h])
+        *reinterpret_cast<uint2*>(out + sp.off[h] + nb * NT + (4 * k4 + q) * 8) = make_uint2(lo, hi);
+    }
+  }
+}
+
+// The combine epilogues of M tile j, x (and out) of type T.
+template <int NT, bool DYN, bool ACCB, typename T>
+__device__ __forceinline__ void combine(const Params& p, const int (&acc)[NT / 2], const Spots& sp, int nb,
+                                        float s, const float* inv_out) {
+  using P = Pair<T>;
+  const float res = 0.1f;
+  typename P::Raw xv[2][2];  // [buffer][position]
+  if (p.epi == EPI_LIGHT) {
+    for_pairs<NT, DYN, ACCB, ACT_NONE>(
+        p, acc, sp, nb, s, [&](size_t o, int h, int u) { xv[u][h] = P::load(p.xr, o); },
+        [&](bool in, size_t o, int, float v0, float v1, int h, int u) {
+          const float2 x = P::floats(xv[u][h]);
+          if (in) P::store(p.out_x, o, __fadd_rn(x.x, __fmul_rn(res, v0)), __fadd_rn(x.y, __fmul_rn(res, v1)));
+        });
+  } else if (p.epi == EPI_DIFF_B) {  // t, and the codes of d = t - x
+    store_codes<NT, DYN, ACCB, ACT_NONE>(
+        p, acc, sp, nb, s, inv_out, p.out_q, [&](size_t o, int h, int u) { xv[u][h] = P::load(p.xr, o); },
+        [&](bool in, size_t o, float v0, float v1, int h, int u) {
+          const float2 x = P::floats(xv[u][h]);
+          if (in) *reinterpret_cast<float2*>(p.out_f + o) = make_float2(v0, v1);
+          return make_float2(__fsub_rn(v0, x.x), __fsub_rn(v1, x.y));
+        });
+  } else {  // EPI_DIFF_D: x + 0.1 * ((d + u) + t), d = t - x
+    float2 tv[2][2];
+    for_pairs<NT, DYN, ACCB, ACT_NONE>(
+        p, acc, sp, nb, s,
+        [&](size_t o, int h, int u) {
+          xv[u][h] = P::load(p.xr, o);
+          tv[u][h] = __ldg(reinterpret_cast<const float2*>(p.t_in + o));
+        },
+        [&](bool in, size_t o, int, float v0, float v1, int h, int u) {
+          const float2 x = P::floats(xv[u][h]), t = tv[u][h];
+          const float s0 = __fadd_rn(__fadd_rn(__fsub_rn(t.x, x.x), v0), t.x);
+          const float s1 = __fadd_rn(__fadd_rn(__fsub_rn(t.y, x.y), v1), t.y);
+          if (in) P::store(p.out_x, o, __fadd_rn(x.x, __fmul_rn(res, s0)), __fadd_rn(x.y, __fmul_rn(res, s1)));
+        });
+  }
+}
+
+// The epilogue of column block nb, M tile by M tile, straight from the
+// registers: the kinds the kernel's input S takes (float32 out and codes
+// from x; codes and the combines from codes; float32 out in the dynamic form).
+template <typename S, int NT, bool DYN, bool ACCB, int ACT>
+__device__ __forceinline__ void epilogue_of(const Params& p, const int (&acc)[MT][NT / 2], const Tile& t,
+                                            int nb, float s, const float* inv_out, int cw) {
+  auto none = [](size_t, int, int) {};
+  auto same = [](bool, size_t, float v0, float v1, int, int) { return make_float2(v0, v1); };
+  auto f32 = [&](const Spots& sp, const int(&a)[NT / 2]) {
+    for_pairs<NT, DYN, ACCB, ACT>(p, a, sp, nb, s, none, [&](bool in, size_t o, int, float v0, float v1, int, int) {
+      if (in) *reinterpret_cast<float2*>(p.out_f + o) = make_float2(v0, v1);
+    });
+  };
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    const Spots sp(p, t, cw, j);
+    if constexpr (DYN) {
+      f32(sp, acc[j]);
+    } else if constexpr (std::is_same<S, int8_t>::value) {
+      if (p.epi == EPI_CODES) {
+        store_codes<NT, DYN, ACCB, ACT>(p, acc[j], sp, nb, s, inv_out, p.out_q, none, same);
+      } else if constexpr (ACT == ACT_NONE) {
+        if (p.xr_f32) combine<NT, DYN, ACCB, float>(p, acc[j], sp, nb, s, inv_out);
+        else combine<NT, DYN, ACCB, bf16>(p, acc[j], sp, nb, s, inv_out);
+      }
+    } else if (p.epi == EPI_F32) {
+      f32(sp, acc[j]);
+    } else {
+      store_codes<NT, DYN, ACCB, ACT>(p, acc[j], sp, nb, s, inv_out, p.out_q, none, same);
+    }
+  }
+}
+
+template <typename S, int NT, bool DYN, bool ACCB>
+__device__ __forceinline__ void epilogue_acc(const Params& p, const int (&acc)[MT][NT / 2], const Tile& t,
+                                             int nb, float s, const float* inv_out, int cw) {
+  if (p.act == ACT_RELU) epilogue_of<S, NT, DYN, ACCB, ACT_RELU>(p, acc, t, nb, s, inv_out, cw);
+  else if (p.act == ACT_LEAKY) epilogue_of<S, NT, DYN, ACCB, ACT_LEAKY>(p, acc, t, nb, s, inv_out, cw);
+  else epilogue_of<S, NT, DYN, ACCB, ACT_NONE>(p, acc, t, nb, s, inv_out, cw);
+}
+
+template <typename S, int NT, bool DYN>
+__device__ __forceinline__ void epilogue(const Params& p, const int (&acc)[MT][NT / 2], const Tile& t,
+                                         int nb, float s, const float* inv_out, int cw) {
+  if (p.acc_bf16) epilogue_acc<S, NT, DYN, true>(p, acc, t, nb, s, inv_out, cw);
+  else epilogue_acc<S, NT, DYN, false>(p, acc, t, nb, s, inv_out, cw);
+}
+
+// The rows of tile t's outputs in x (and t) into the L2 ahead of the
+// combine epilogues' loads (one thread): a bulk prefetch a row segment.
+__device__ __forceinline__ void prefetch_rows(const Params& p, const Tile& t) {
+  const size_t ex = p.xr_f32 ? 4 : 2;
+  const int r_end = p.raster ? t.y0 + TILE_M : 0;
+  for (int r = 0;; ++r) {
+    int y, x0, x1;
+    if (p.raster) {  // positions [y0, y0 + TILE_M) of the padded raster, row by row
+      const int start = t.y0 + r * p.pitch - (r == 0 ? 0 : t.y0 % p.pitch);
+      if (start >= r_end) break;
+      y = start / p.pitch;
+      x0 = max(start - y * p.pitch - 1, 0);
+      x1 = min(min(r_end - y * p.pitch - 1, p.W), p.W);
+    } else {
+      if (r == MT * CONSUMERS) break;
+      y = t.y0 + r;
+      x0 = t.x0;
+      x1 = min(t.x0 + TILE_W, p.W);
+    }
+    if (y >= p.H) break;
+    if (x1 <= x0) continue;
+    const size_t first = (((size_t)t.n * p.H + y) * p.W + x0) * p.cout;
+    const unsigned n = (unsigned)((x1 - x0) * p.cout);
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(static_cast<const uint8_t*>(p.xr) + first * ex),
+                 "r"((unsigned)(n * ex))
+                 : "memory");
+    if (p.t_in != nullptr)
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p.t_in + first), "r"(n * 4u) : "memory");
+  }
+}
+
+// Consumer warpgroup cw (0 or 1): M tiles 2 cw and 2 cw + 1 of every tile,
+// every column block, from the resident window and the weight ring.
+template <typename S, int NT, bool DYN>
+__device__ __forceinline__ void consume(const Params& p, const uint8_t* win, const uint8_t* ring,
+                                        uint64_t* full, uint64_t* empty, uint64_t* wfull,
+                                        uint64_t* wempty, const float* inv_out, int cw) {
+  constexpr int ACC = NT / 2;  // s32 sums a thread holds per M tile
+  constexpr int B_TILE = NT * 32;
+  const bool leader = (threadIdx.x & 31) == 0;  // one arrival a warp
+  const int nbs = p.cout / NT, chunks = p.cin / 32;
+  // the descriptors' constant fields; shared addresses stay below 2^18
+  const uint64_t a_hi = desc(0, p.plane, 128), b_hi = desc(0, NT * 16, 128);
+  const uint32_t ring_a = smem_addr(ring);
+  // M tile j's first staged position, and the second M tile's offset, in bytes
+  const uint32_t m0 = cw * MT * (p.raster ? TILE_W : WIN_W) * 16, dm = (p.raster ? TILE_W : WIN_W) * 16;
+  int slot = 0;
+  unsigned phase = 0;
+  int k = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+    const int buf = k % p.nwin;
+    const Tile t = tile_of(p, tile);
+    const float s = DYN ? sample_scale(__ldg(p.scale + t.n)) : 0.f;
+    if (p.xr != nullptr && threadIdx.x == 128) prefetch_rows(p, t);
+    mbar_wait(wfull + buf, (k / p.nwin) & 1);
+    const uint32_t wa = smem_addr(win) + buf * p.win_bytes + m0;
+    for (int nb = 0; nb < nbs; ++nb) {
+      int acc[MT][ACC];
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) acc[j][i] = 0;
+      int prev = -1;  // the ring slot of the step before, freed once its products are done
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ky = tap / 3;
+        uint32_t a = wa + (ky * p.pitch + tap - 3 * ky) * 16;  // the tap's first K step
+#pragma unroll 1
+        for (int chunk = 0; chunk < chunks; ++chunk, a += 2 * p.plane) {
+          mbar_wait(full + slot, phase);
+          const uint64_t db = b_hi | ((ring_a + slot * B_TILE) >> 4);
+#pragma unroll
+          for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < MT; ++j) wgmma_s8<NT>(acc[j], a_hi | ((a + j * dm) >> 4), db);
+          wgmma_commit();
+          wgmma_wait<1>();  // the products of the step before are done: its ring slot is free
+          if (prev >= 0 && leader) mbar_arrive(empty + prev);
+          prev = slot;
+          if (++slot == p.stages) {
+            slot = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
+      if (leader) {
+        mbar_arrive(empty + prev);
+        if (nb == nbs - 1) mbar_arrive(wempty + buf);  // the tile's window is read
+      }
+      epilogue<S, NT, DYN>(p, acc, t, nb, s, inv_out, cw);
+    }
+  }
+}
+
+// ---- the kernel -----------------------------------------------------------------
+
+template <typename S, bool DYN, int NT>
+__global__ void __launch_bounds__(THREADS, 1) conv3_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* wfull = empty + MAX_STAGES;
+  uint64_t* wempty = wfull + WINDOWS;
+  uint8_t* win = smem + BAR_BYTES;
+  uint8_t* ring = smem + p.ring_off;
+  float* inv_in = reinterpret_cast<float*>(smem + p.vec_off);
+  float* inv_out = inv_in + CIN_MAX;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CONSUMERS * 4);
+    }
+    for (int i = 0; i < WINDOWS; ++i) {
+      mbar_init(wfull + i, STAGERS);
+      mbar_init(wempty + i, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the reciprocals, as JAX's 1.0 / s
+  if constexpr (!DYN && !std::is_same<S, int8_t>::value)
+    for (int i = threadIdx.x; i < p.cin; i += THREADS) inv_in[i] = __frcp_rn(__ldg(p.scale + i));
+  if (p.s_out != nullptr)
+    for (int i = threadIdx.x; i < p.cout; i += THREADS) inv_out[i] = __frcp_rn(__ldg(p.s_out + i));
+  __syncthreads();
+  if (threadIdx.x == 0) load_weights<NT>(p, ring, full, empty);
+  else if (threadIdx.x >= 32 && threadIdx.x < 128)
+    stage_windows<S, DYN>(p, win, inv_in, wfull, wempty, threadIdx.x - 32);
+  else if (threadIdx.x >= 128)
+    consume<S, NT, DYN>(p, win, ring, full, empty, wfull, wempty, inv_out, threadIdx.x / 128 - 1);
+}
+
+// ---- host side ------------------------------------------------------------------
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The tiling, the window and the ring of p (n, H, W, cin, cout set); false
+// where the window and a ring of 2 slots do not fit shared memory.
+bool geometry(Params& p, int nt) {
+  const int planes = p.cin / 16, b_tile = nt * 32;
+  const int vec_bytes = (CIN_MAX + (p.s_out != nullptr ? p.cout : 0)) * 4;
+  // ring slots left beside nwin windows of the given positions
+  auto slots = [&](int positions, int nwin) {
+    const int plane = positions * 16 + 16;  // +16 bytes: a pixel's planes fall in different bank groups
+    const int ring_off = (BAR_BYTES + nwin * planes * plane + 127) / 128 * 128;
+    return (SMEM_MAX - ring_off - vec_bytes) / b_tile;
+  };
+  const int pitch_r = p.W + 2, pos_r = TILE_M + 2 * pitch_r + 2;
+  p.raster = p.W % TILE_W != 0 && slots(pos_r, WINDOWS) >= MIN_STAGES;
+  p.pitch = p.raster ? pitch_r : WIN_W;
+  p.positions = p.raster ? pos_r : WIN_H * WIN_W;
+  p.plane = p.positions * 16 + 16;
+  p.win_bytes = planes * p.plane;
+  p.nwin = slots(p.positions, WINDOWS) >= MIN_STAGES ? WINDOWS : 1;
+  const int ring = slots(p.positions, p.nwin);
+  if (ring < 2) return false;
+  p.stages = ring < MAX_STAGES ? ring : MAX_STAGES;
+  p.ring_off = (BAR_BYTES + p.nwin * p.win_bytes + 127) / 128 * 128;
+  p.vec_off = p.ring_off + p.stages * b_tile;
+  p.smem = p.vec_off + vec_bytes;
+  if (p.raster) {
+    p.tiles_w = 1;
+    p.tiles_a_sample = (p.H * pitch_r + TILE_M - 1) / TILE_M;
+  } else {
+    p.tiles_w = (p.W + TILE_W - 1) / TILE_W;
+    p.tiles_a_sample = p.tiles_w * ((p.H + MT * CONSUMERS - 1) / (MT * CONSUMERS));
+  }
+  const long long tiles = (long long)p.n * p.tiles_a_sample;
+  if (tiles > (1LL << 30)) return false;
+  p.tiles = (int)tiles;
+  return true;
+}
+
+template <typename S, bool DYN, int NT>
+int launch_conv(Params p, cudaStream_t st) {
+  if (!geometry(p, NT)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv3_kernel<S, DYN, NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  conv3_kernel<S, DYN, NT><<<grid, THREADS, p.smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename S, bool DYN>
+int dispatch_nt(const Params& p, int nt, cudaStream_t st) {
+  if (nt == 128) return launch_conv<S, DYN, 128>(p, st);
+  if (nt == 96) return launch_conv<S, DYN, 96>(p, st);
+  return launch_conv<S, DYN, 64>(p, st);
 }
 
 // Each sample's abs-max of x (n, h, wd, cin) accumulated into amax[n].
 template <typename T>
 int absmax(const T* x, float* amax, int n, int h, int wd, int cin, cudaStream_t st) {
   const long long vecs = (long long)h * wd * cin * (long long)sizeof(T) / 16;
-  const long long per = (long long)THREADS * 8;
+  const long long per = (long long)ABS_THREADS * 8;
   const unsigned bx = (unsigned)(vecs / per + 1 < 1024 ? vecs / per + 1 : 1024);
-  sample_absmax_kernel<T><<<dim3(bx, 1, (unsigned)n), THREADS, 0, st>>>(x, amax, vecs);
+  sample_absmax_kernel<T><<<dim3(bx, 1, (unsigned)n), ABS_THREADS, 0, st>>>(x, amax, vecs);
   return (int)cudaGetLastError();
 }
 
-// DYN: amax holds the samples' abs-maxes when amax_given (a banded frame's,
-// reduced over its bands), else it is n floats of scratch they are taken into.
-template <typename T, int NT, bool DYN>
-int launch(const void* xv, const float* scale, const int8_t* w, const float* sf, const float* b,
-           float* amax, float* out, int n, int h, int wd, int cin, int cout, int acc_bf16, int act,
-           float slope, bool amax_given, cudaStream_t st) {
-  const T* x = static_cast<const T*>(xv);
-  cudaError_t err = cudaFuncSetAttribute(conv3_kernel<T, NT, DYN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes(CIN_MAX, NT));
-  if (err != cudaSuccess) return (int)err;
-  if (DYN) {
-    if (!amax_given) {
-      err = cudaMemsetAsync(amax, 0, (size_t)n * sizeof(float), st);
-      if (err != cudaSuccess) return (int)err;
-      const int code = absmax<T>(x, amax, n, h, wd, cin, st);
-      if (code != 0) return code;
-    }
-    scale = amax;
-  }
-  const unsigned tiles = (unsigned)(((h + TILE_H - 1) / TILE_H) * ((wd + TILE_W - 1) / TILE_W));
-  conv3_kernel<T, NT, DYN><<<dim3(tiles, (unsigned)(cout / NT), (unsigned)n), THREADS,
-                             smem_bytes(cin, NT), st>>>(x, scale, w, sf, b, out, h, wd, cin, cout,
-                                                        acc_bf16, act, slope);
-  return (int)cudaGetLastError();
+// The conv of p on x of kind src (SRC_*): static scales in p.scale, or
+// (dyn) the samples' abs-maxes there.
+int run(const Params& p, int src, bool dyn, int nt, cudaStream_t st) {
+  if (dyn) return src == SRC_F32 ? dispatch_nt<float, true>(p, nt, st) : dispatch_nt<bf16, true>(p, nt, st);
+  if (src == SRC_I8) return dispatch_nt<int8_t, false>(p, nt, st);
+  return src == SRC_F32 ? dispatch_nt<float, false>(p, nt, st) : dispatch_nt<bf16, false>(p, nt, st);
 }
 
-template <typename T, bool DYN>
-int dispatch_nt(const void* x, const float* scale, const int8_t* w, const float* sf, const float* b,
-                float* amax, float* out, int n, int h, int wd, int cin, int cout, int nt, int acc_bf16,
-                int act, float slope, cudaStream_t st, bool amax_given = false) {
-  if (nt == 128)
-    return launch<T, 128, DYN>(x, scale, w, sf, b, amax, out, n, h, wd, cin, cout, acc_bf16, act,
-                               slope, amax_given, st);
-  return launch<T, 64, DYN>(x, scale, w, sf, b, amax, out, n, h, wd, cin, cout, acc_bf16, act,
-                            slope, amax_given, st);
+bool shape_ok(int n, int h, int wd, int cin, int cout, int nt, int act) {
+  return cin % 32 == 0 && cin > 0 && cin <= CIN_MAX && (nt == 64 || nt == 96 || nt == 128) &&
+         cout % nt == 0 && cout > 0 && n > 0 && h > 0 && wd > 0 && act >= ACT_NONE && act <= ACT_LEAKY;
+}
+
+Params base_params(const void* x, const float* scale, const int8_t* w, const float* sf,
+                   const float* bias, int n, int h, int wd, int cin, int cout, int acc_bf16, int act,
+                   float slope) {
+  Params p{};
+  p.x = x;
+  p.scale = scale;
+  p.w = w;
+  p.sf = sf;
+  p.bias = bias;
+  p.n = n;
+  p.H = h;
+  p.W = wd;
+  p.cin = cin;
+  p.cout = cout;
+  p.acc_bf16 = acc_bf16;
+  p.act = act;
+  p.slope = slope;
+  p.epi = EPI_F32;
+  return p;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (n, h, w, cin) bf16 (x_f32 == 0) or float32; s_in: the (cin,) static
-// input scales, or null for the per-sample dynamic form, which then needs
-// amax (n floats of scratch) and takes sf as the weight scales s_w; w: the
-// int8 weights repacked to [9][cin/32][cout/nt][2][nt][16], nt 64 or 128 (the
-// output channels a thread block computes, which the packing chose); sf,
-// bias: (cout,) float32; out: (n, h, w, cout) float32.  cin a multiple of
-// 32 up to 256, cout a multiple of nt,
-// every pointer 16-byte aligned, all tensors contiguous (the Python wrapper
-// checks).  act: 0 none, 1 relu, 2 leaky with slope.  Returns the CUDA
-// error code of the launches (0 = success).
-int iek_int8_conv3(const void* x, int x_f32, const float* s_in, const int8_t* w, const float* sf,
-                   const float* bias, float* amax, float* out, int n, int h, int wd, int cin,
-                   int cout, int nt, int acc_bf16, int act, float slope, cudaStream_t st) {
-  if (cin % 32 || cin <= 0 || cin > CIN_MAX || (nt != 64 && nt != 128) || cout % nt || cout <= 0 ||
-      n <= 0 || h <= 0 || wd <= 0 || n > 65535 || act < ACT_NONE || act > ACT_LEAKY ||
-      (s_in == nullptr && amax == nullptr))
+// The one entry of the kernel.  x: (n, h, w, cin) of kind src (0 bf16, 1
+// float32: quantized while staged; 2 int8 codes); w: the int8 weights
+// repacked to [9][cin/32][cout/nt][2][nt][16], nt 64, 96 or 128 (the output
+// channels of a column block, which the packing chose); sf, bias: (cout,)
+// float32.  dyn (DYN_*): NONE static scales, s_in (cin,) for bf16 / float32
+// x, null for codes; FULL the per-sample dynamic form (amax: n floats of
+// scratch, zeroed here, then each sample's abs-max of x, then the conv at
+// it, sf being the weight scales s_w); ABSMAX only the abs-maxes, accumulated
+// into amax (a banded frame's first step; the caller zeroes it); GIVEN the
+// conv at amax as given (the frame's).  The dynamic forms take bf16 /
+// float32 x and the F32 epilogue.  epi (EPI_*) and its arrays, each (n, h,
+// w, cout): F32 out_f; CODES s_out, out_q; LIGHT xr, out_x; DIFF_B xr,
+// s_out, out_f, out_q; DIFF_D xr, t_in, out_x; xr and out_x bf16 (xr_f32 ==
+// 0) or float32; LIGHT and the DIFF forms take codes and act 0.  cin a
+// multiple of 32 up to 256, cout a multiple of nt, every pointer 16-byte
+// aligned, all tensors contiguous (the Python wrapper checks).  act: 0 none,
+// 1 relu, 2 leaky with slope.  Returns the CUDA error code of the launches
+// (0 = success).
+int iek_int8_conv3x(const void* x, int src, const float* s_in, float* amax, int dyn, const int8_t* w,
+                    const float* sf, const float* bias, const float* s_out, const void* xr, int xr_f32,
+                    const float* t_in, float* out_f, int8_t* out_q, void* out_x, int epi, int n, int h,
+                    int wd, int cin, int cout, int nt, int acc_bf16, int act, float slope,
+                    cudaStream_t st) {
+  if (!shape_ok(n, h, wd, cin, cout, nt, act) || src < SRC_BF16 || src > SRC_I8 || dyn < DYN_NONE ||
+      dyn > DYN_GIVEN || epi < EPI_F32 || epi > EPI_DIFF_D ||
+      (dyn == DYN_NONE && (src == SRC_I8) != (s_in == nullptr)) ||
+      (dyn != DYN_NONE && (src == SRC_I8 || s_in != nullptr || amax == nullptr || epi != EPI_F32)) ||
+      (epi == EPI_F32 && src == SRC_I8) ||
+      (epi != EPI_CODES && epi != EPI_F32 && (act != ACT_NONE || src != SRC_I8)))
     return (int)cudaErrorInvalidValue;
-  if (s_in == nullptr)
-    return x_f32 ? dispatch_nt<float, true>(x, s_in, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
-                                            acc_bf16, act, slope, st)
-                 : dispatch_nt<bf16, true>(x, s_in, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
-                                           acc_bf16, act, slope, st);
-  return x_f32 ? dispatch_nt<float, false>(x, s_in, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
-                                           acc_bf16, act, slope, st)
-               : dispatch_nt<bf16, false>(x, s_in, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
-                                          acc_bf16, act, slope, st);
-}
-
-// The dynamic form on one band of a frame, in two steps.  Step 0: each
-// sample's abs-max of x accumulated into amax (n floats; zero them first).
-// Step 1: the conv with amax as the samples' abs-maxes (reduced over the
-// frame's bands).  Arguments as iek_int8_conv3's dynamic form.
-int iek_int8_conv3_dyn_step(int step, const void* x, int x_f32, const int8_t* w, const float* sf,
-                            const float* bias, float* amax, float* out, int n, int h, int wd,
-                            int cin, int cout, int nt, int acc_bf16, int act, float slope,
-                            cudaStream_t st) {
-  if (cin % 32 || cin <= 0 || cin > CIN_MAX || (nt != 64 && nt != 128) || cout % nt || cout <= 0 ||
-      n <= 0 || h <= 0 || wd <= 0 || n > 65535 || act < ACT_NONE || act > ACT_LEAKY ||
-      amax == nullptr || step < 0 || step > 1)
+  const bool codes = epi == EPI_CODES || epi == EPI_DIFF_B;
+  if ((codes && (s_out == nullptr || out_q == nullptr || cout > COUT_CODES_MAX)) ||
+      (epi != EPI_CODES && epi != EPI_F32 && xr == nullptr) ||
+      ((epi == EPI_F32 || epi == EPI_DIFF_B) && out_f == nullptr && dyn != DYN_ABSMAX) ||
+      ((epi == EPI_LIGHT || epi == EPI_DIFF_D) && out_x == nullptr) ||
+      (epi == EPI_DIFF_D && t_in == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (step == 0)
-    return x_f32 ? absmax<float>(static_cast<const float*>(x), amax, n, h, wd, cin, st)
-                 : absmax<bf16>(static_cast<const bf16*>(x), amax, n, h, wd, cin, st);
-  return x_f32 ? dispatch_nt<float, true>(x, nullptr, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
-                                          acc_bf16, act, slope, st, true)
-               : dispatch_nt<bf16, true>(x, nullptr, w, sf, bias, amax, out, n, h, wd, cin, cout, nt,
-                                         acc_bf16, act, slope, st, true);
+  if (dyn == DYN_FULL || dyn == DYN_ABSMAX) {
+    if (dyn == DYN_FULL) {
+      const cudaError_t err = cudaMemsetAsync(amax, 0, (size_t)n * sizeof(float), st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int code = src == SRC_F32 ? absmax<float>(static_cast<const float*>(x), amax, n, h, wd, cin, st)
+                                    : absmax<bf16>(static_cast<const bf16*>(x), amax, n, h, wd, cin, st);
+    if (code != 0 || dyn == DYN_ABSMAX) return code;
+  }
+  Params p = base_params(x, dyn == DYN_NONE ? s_in : amax, w, sf, bias, n, h, wd, cin, cout, acc_bf16,
+                         act, slope);
+  p.epi = epi;
+  p.s_out = codes ? s_out : nullptr;
+  p.xr = xr;
+  p.xr_f32 = xr_f32;
+  p.t_in = t_in;
+  p.out_f = out_f;
+  p.out_q = out_q;
+  p.out_x = out_x;
+  return run(p, src, dyn != DYN_NONE, nt, st);
 }
 
 const char* iek_error_string(int code) {

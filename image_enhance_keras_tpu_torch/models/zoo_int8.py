@@ -4,9 +4,13 @@ The didbl branch (both heads) is ``models/didbl_pallas.py``'s
 ``apply_didbl_int8_xla``.  difv4 and difvdsr: every residual-block conv is
 an int8 convolution over per-channel calibrated codes, the input-channel
 scales folded into the weights ("qf"), on X4 (``ops/cuda/int8_conv.py``),
-with the activation after it; the skip paths, the combines, the x2
-upsamples (on K3 for CUDA tensors) and the entry and out convs stay in
-bf16 / float32 torch, as JAX leaves them to XLA.  The accumulator is
+with the activation after it.  Each block runs on X4's block forms: the
+first conv quantizes the block input while staging it, every conv after it
+reads the int8 codes its predecessor emitted, and the last conv's epilogue
+computes the block's combine, so only the block output (and a DiffBlock's
+float32 t, which JAX's combine reads) leaves the chip.  The skip paths,
+the x2 upsamples (on K3 for CUDA tensors) and the entry and out convs stay
+in bf16 / float32 torch, as JAX leaves them to XLA.  The accumulator is
 ``IEK_INT8_ACC``, read at call time.
 """
 
@@ -19,8 +23,8 @@ import torch
 from image_enhance_keras_tpu_torch.models import didbl_pallas as dp
 from image_enhance_keras_tpu_torch.models.didbl_pallas import _conv, _int8_acc
 from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import quantize_weights_per_channel
-from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import _act, int8_conv3
-from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import _c
+from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import (_act, int8_conv3_codes, int8_conv3_diff_b,
+                                                             int8_conv3_diff_d, int8_conv3_light)
 from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
 
 __all__ = [
@@ -88,11 +92,6 @@ def _qfold(p: dict, s_in: torch.Tensor) -> dict:
     return {"qf": qf, "sf": sf, "bias": p["bias"].to(_F32)}
 
 
-def _x4(x: torch.Tensor, p: dict, s_in: torch.Tensor, act=None) -> torch.Tensor:
-    """act(dequant(int8 conv of x at the scales s_in)) on X4, float32."""
-    return int8_conv3(x, p["qf"], p["sf"], p["bias"], s_in, acc=_int8_acc(), act=act)
-
-
 def _relu_or_leaky(leaky: float | None):
     """X4's ``act`` for a block's activation: relu, or the leaky slope."""
     return "relu" if leaky is None else float(leaky)
@@ -111,10 +110,17 @@ def _quantize_light(p: dict, sc: dict) -> dict:
     return {"conv_a": _qfold(p["conv_a"], sc["x"]), "conv_b": _qfold(p["conv_b"], sc["t"]), "actc": sc}
 
 
+def _codes(x: torch.Tensor, p: dict, s_in, s_out: torch.Tensor, act=None) -> torch.Tensor:
+    """The int8 codes at ``s_out`` of act(dequant(int8 conv)) on X4, from x
+    quantized at ``s_in`` or from int8 codes (``s_in`` None)."""
+    return int8_conv3_codes(x, p["qf"], p["sf"], p["bias"], s_in, s_out, acc=_int8_acc(), act=act)
+
+
 def _light_i8(x: torch.Tensor, p: dict, leaky: float | None) -> torch.Tensor:
-    t = _x4(x, p["conv_a"], p["actc"]["x"], _relu_or_leaky(leaky))
-    u = _x4(t, p["conv_b"], p["actc"]["t"])
-    return (x.to(_F32) + _c(0.1) * u).to(x.dtype)
+    """JAX's ``(x + 0.1 * u).astype(x.dtype)``, t = act(conv_a(q(x))), u = conv_b(q(t))."""
+    b = p["conv_b"]
+    tq = _codes(x, p["conv_a"], p["actc"]["x"], p["actc"]["t"], _relu_or_leaky(leaky))
+    return int8_conv3_light(tq, b["qf"], b["sf"], b["bias"], x, acc=_int8_acc())
 
 
 # -- difv4 ----------------------------------------------------------------------
@@ -199,14 +205,13 @@ def quantize_difvdsr_params(params: Any, calib_x: torch.Tensor, n_blocks: int = 
 
 
 def _diff_i8(x: torch.Tensor, p: dict) -> torch.Tensor:
-    sc = p["actc"]
-    t1 = _x4(x, p["conv_a"], sc["x"], "relu")
-    t = _x4(t1, p["conv_b"], sc["t1"])
-    xf = x.to(_F32)
-    d = t - xf
-    u1 = _x4(d, p["conv_c"], sc["d"], _DSR_LEAKY)
-    u = _x4(u1, p["conv_d"], sc["u1"])
-    return (xf + _c(0.1) * (d + u + t)).to(x.dtype)
+    """JAX's ``(x + 0.1 * (d + u + t)).astype(x.dtype)``: t1 = relu(conv_a(q(x))),
+    t = conv_b(q(t1)), d = t - x, u1 = leaky(conv_c(q(d))), u = conv_d(q(u1))."""
+    sc, b, d = p["actc"], p["conv_b"], p["conv_d"]
+    t1q = _codes(x, p["conv_a"], sc["x"], sc["t1"], "relu")
+    t, dq = int8_conv3_diff_b(t1q, b["qf"], b["sf"], b["bias"], x, sc["d"], acc=_int8_acc())
+    u1q = _codes(dq, p["conv_c"], None, sc["u1"], _DSR_LEAKY)
+    return int8_conv3_diff_d(u1q, d["qf"], d["sf"], d["bias"], x, t, acc=_int8_acc())
 
 
 def apply_difvdsr_int8(qp: Any, x: torch.Tensor, n_blocks: int = 32) -> torch.Tensor:

@@ -32,6 +32,23 @@ the plain versions, which convolve the codes exactly in float64 and round
 every float step as above, so that kernel and plain version agree bit for
 bit.  Each wrapper counts in ``.launches`` the convolutions its op ran on
 the kernel.
+
+The zoo's blocks run on four more forms of the same kernel, so that no
+float32 activation between two convs of a block leaves the chip (JAX's
+``_light_i8`` and ``_diff_i8`` op by op, ``models/zoo_int8.py``):
+
+* :func:`int8_conv3_codes`: the int8 codes ``_quant_c(act(y), s_out)`` of
+  the conv's output, from x quantized with ``s_in`` or from int8 codes
+  (``s_in=None``): a LightBlock's conv_a, a DiffBlock's conv_a and conv_c;
+* :func:`int8_conv3_light`: ``(x + 0.1 * y).to(x.dtype)`` from the codes
+  of t, x the block input (a LightBlock's conv_b);
+* :func:`int8_conv3_diff_b`: ``t = y`` (float32) and the codes of
+  ``d = t - x`` (a DiffBlock's conv_b);
+* :func:`int8_conv3_diff_d`: ``(x + 0.1 * ((d + y) + t)).to(x.dtype)``
+  with ``d = t - x`` recomputed (a DiffBlock's conv_d).
+
+Here y is ``A(acc) * sf + bias`` without an activation, and the rounding
+is JAX's, op by op, as above.
 """
 
 from __future__ import annotations
@@ -43,12 +60,19 @@ from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import _stream
 from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import _F32, _acc, _c, _check_acc, _quant_c, _quant_dyn_sample
 
 __all__ = ["int8_conv3", "int8_conv3_dyn", "int8_conv3_dyn_banded", "int8_conv3_plain", "int8_conv3_dyn_plain", "packed",
-           "launch_int8_conv3", "launch_int8_conv3_dyn"]
+           "launch_int8_conv3", "launch_int8_conv3_dyn", "int8_conv3_codes", "int8_conv3_light", "int8_conv3_diff_b",
+           "int8_conv3_diff_d", "int8_conv3_codes_plain", "int8_conv3_light_plain", "int8_conv3_diff_b_plain",
+           "int8_conv3_diff_d_plain"]
 
 #: the activations' dtypes the kernel takes
 _DTYPES = (torch.bfloat16, torch.float32)
 #: the widest C_in the kernel stages in shared memory
 CUDA_MAX_CIN = 256
+#: the widest C_out of the forms that emit codes (their 1 / s_out sit in shared memory)
+CUDA_MAX_COUT_CODES = 1024
+#: the epilogues and dynamic steps of ``iek_int8_conv3x`` (csrc/int8_conv.cu's EPI_* and DYN_*)
+_EPI_F32, _EPI_CODES, _EPI_LIGHT, _EPI_DIFF_B, _EPI_DIFF_D = 0, 1, 2, 3, 4
+_DYN_FULL, _DYN_ABSMAX, _DYN_GIVEN = 1, 2, 3
 
 
 def _act(y: torch.Tensor, act) -> torch.Tensor:
@@ -71,10 +95,41 @@ def int8_conv3_dyn_plain(x, wq, s_w, bias, acc: str = "bf16", act=None, amax=Non
     return _act(_acc(xq, wq, acc) * (s_w * sx) + bias, act)
 
 
+def _codes(x: torch.Tensor, s_in) -> torch.Tensor:
+    """The conv input's codes as float32: x quantized with ``s_in``, or x
+    itself when it is int8 codes (``s_in`` None)."""
+    return x.to(_F32) if s_in is None else _quant_c(x, s_in)
+
+
+def int8_conv3_codes_plain(x, wq, sf, bias, s_in, s_out, acc: str = "bf16", act=None) -> torch.Tensor:
+    """clamp(round(act(A(conv(q)) * sf + bias) * (1/s_out)), +-127), int8; q
+    the codes of x at ``s_in``, or x itself (int8, ``s_in`` None)."""
+    return _quant_c(_act(_acc(_codes(x, s_in), wq, acc) * sf + bias, act), s_out).to(torch.int8)
+
+
+def int8_conv3_light_plain(xq, wq, sf, bias, x, acc: str = "bf16") -> torch.Tensor:
+    """(x + 0.1 * (A(conv(xq)) * sf + bias)) in x's dtype: a LightBlock's second conv and combine."""
+    u = _acc(xq.to(_F32), wq, acc) * sf + bias
+    return (x.to(_F32) + _c(0.1) * u).to(x.dtype)
+
+
+def int8_conv3_diff_b_plain(xq, wq, sf, bias, x, s_d, acc: str = "bf16"):
+    """(t, codes of d): t = A(conv(xq)) * sf + bias (float32), d = t - x at the scales ``s_d``."""
+    t = _acc(xq.to(_F32), wq, acc) * sf + bias
+    return t, _quant_c(t - x.to(_F32), s_d).to(torch.int8)
+
+
+def int8_conv3_diff_d_plain(xq, wq, sf, bias, x, t, acc: str = "bf16") -> torch.Tensor:
+    """(x + 0.1 * ((d + u) + t)) in x's dtype, u = A(conv(xq)) * sf + bias, d = t - x."""
+    u = _acc(xq.to(_F32), wq, acc) * sf + bias
+    xf = x.to(_F32)
+    return (xf + _c(0.1) * ((t - xf) + u + t)).to(x.dtype)
+
+
 def _nt(cout: int) -> int:
-    """Output channels a thread block computes (the kernel's NT, passed to it):
-    128 where they divide C_out, else 64."""
-    return 128 if cout % 128 == 0 else 64
+    """Output channels of a column block (the kernel's NT, passed to it):
+    128 where they divide C_out, else 96 where they do, else 64."""
+    return 128 if cout % 128 == 0 else 96 if cout % 96 == 0 else 64
 
 
 def packed(wq: torch.Tensor) -> torch.Tensor:
@@ -95,12 +150,16 @@ def packed(wq: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _check(x, wq, vectors, acc: str, act) -> None:
+def _check(x, wq, vectors, acc: str, act, codes: bool = False, like: tuple = ()) -> None:
+    """Arguments of a conv of x: bf16 / float32, or int8 codes where
+    ``codes``; ``like``: tensors of the output's (N, H, W, C_out) shape with
+    their allowed dtypes."""
     _check_acc(acc)
     if not (act is None or act == "relu" or isinstance(act, float)):
         raise ValueError(f"act must be None, 'relu' or a float leaky slope, got {act!r}")
-    if x.dim() != 4 or x.dtype not in _DTYPES:
-        raise ValueError(f"x must be bfloat16 or float32 (N, H, W, C), got {x.dtype} {tuple(x.shape)}")
+    if x.dim() != 4 or not (x.dtype in _DTYPES or (codes and x.dtype == torch.int8)):
+        kinds = "bfloat16 or float32" + (" values or int8 codes" if codes else "")
+        raise ValueError(f"x must be {kinds} (N, H, W, C), got {x.dtype} {tuple(x.shape)}")
     cin = int(x.shape[-1])
     if wq.dtype != torch.int8 or wq.dim() != 4 or tuple(wq.shape[:3]) != (3, 3, cin):
         raise ValueError(f"weights must be int8 (3, 3, {cin}, C_out), got {wq.dtype} {tuple(wq.shape)}")
@@ -108,17 +167,24 @@ def _check(x, wq, vectors, acc: str, act) -> None:
     for v, n in vectors:
         if tuple(v.shape) != (n,) or v.dtype != _F32:
             raise ValueError(f"scales and biases must be float32 ({n},), got {v.dtype} {tuple(v.shape)}")
-    for t in [wq, *(v for v, _ in vectors)]:
+    for t, dtypes in like:
+        if tuple(t.shape) != (*x.shape[:3], cout) or t.dtype not in dtypes:
+            raise ValueError(f"the block's tensors must be {dtypes} {(*x.shape[:3], cout)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    tensors = [x, wq, *(v for v, _ in vectors), *(t for t, _ in like)]
+    for t in tensors:
         if t.device != x.device:
             raise ValueError(f"all tensors must be on {x.device}, got one on {t.device}")
     if x.device.type == "cpu":
         return
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3 runs on cpu or cuda tensors, not {x.device}")
-    if cin % 32 or cin > CUDA_MAX_CIN or cout % 64:
+    if cin % 32 or cin > CUDA_MAX_CIN or cout % 64 and cout % 96:
         raise ValueError(f"the CUDA kernel takes C_in a multiple of 32 up to {CUDA_MAX_CIN} and C_out "
-                         f"a multiple of 64, got {cin} -> {cout}")
-    for t in [x, wq, *(v for v, _ in vectors)]:
+                         f"a multiple of 64 or 96, got {cin} -> {cout}")
+    if codes and cout > CUDA_MAX_COUT_CODES:
+        raise ValueError(f"the CUDA kernel's block forms take C_out up to {CUDA_MAX_COUT_CODES}, got {cout}")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors")
 
@@ -135,62 +201,94 @@ def act_of(kind: int, slope: float):
     return (None, "relu", float(slope))[int(kind)]
 
 
-def _launch(x, wp, s_in, sf, bias, acc, kind: int, slope: float) -> torch.Tensor:
-    _build.check_aligned(x, wp, s_in, sf, bias)
-    lib = _build.library("int8_conv")
+def launch_int8_conv3x(epi: int, x, wp, sf, bias, s_in=None, s_out=None, xr=None, t=None, amax=None,
+                       dyn: int = 0, acc: str = "bf16", kind: int = 0, slope: float = 0.0):
+    """One launch of X4 on CUDA tensors (``iek_int8_conv3x``: epilogue ``epi``,
+    dynamic step ``dyn``, csrc/int8_conv.cu's EPI_* and DYN_*); returns what
+    the epilogue writes (nothing for the abs-max step, which fills ``amax``).
+    Not counted: the ``launch_int8_conv3*`` functions below count."""
     n, h, w, cin = (int(s) for s in x.shape)
     cout = int(sf.shape[0])
-    out = torch.empty((n, h, w, cout), dtype=_F32, device=x.device)
-    amax = torch.empty(n, dtype=_F32, device=x.device) if s_in is None else None
-    with torch.cuda.device(x.device):
-        code = lib.iek_int8_conv3(
-            x.data_ptr(), int(x.dtype == _F32), None if s_in is None else s_in.data_ptr(),
-            wp.data_ptr(), sf.data_ptr(), bias.data_ptr(),
-            None if amax is None else amax.data_ptr(), out.data_ptr(), n, h, w, cin, cout, _nt(cout),
-            int(acc == "bf16"), int(kind), float(slope), _stream(x))
-    _build.check(lib, code, "int8_conv3")
-    return out
+    dev = x.device
+    out_q = torch.empty((n, h, w, cout), dtype=torch.int8, device=dev) if epi in (_EPI_CODES, _EPI_DIFF_B) else None
+    out_f = (torch.empty((n, h, w, cout), dtype=_F32, device=dev)
+             if epi in (_EPI_F32, _EPI_DIFF_B) and dyn != _DYN_ABSMAX else None)
+    out_x = torch.empty_like(xr) if epi in (_EPI_LIGHT, _EPI_DIFF_D) else None
+    _build.check_aligned(x, wp, sf, bias, s_in, amax, s_out, xr, t, out_q, out_f, out_x)
+    lib = _build.library("int8_conv")
+    src = 2 if x.dtype == torch.int8 else int(x.dtype == _F32)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    with torch.cuda.device(dev):
+        code = lib.iek_int8_conv3x(
+            x.data_ptr(), src, ptr(s_in), ptr(amax), dyn, wp.data_ptr(), sf.data_ptr(), bias.data_ptr(),
+            ptr(s_out), ptr(xr), int(xr is not None and xr.dtype == _F32), ptr(t), ptr(out_f), ptr(out_q),
+            ptr(out_x), epi, n, h, w, cin, cout, _nt(cout), int(acc == "bf16"), int(kind), float(slope), _stream(x))
+    _build.check(lib, code, f"int8_conv3x epilogue {epi} dynamic step {dyn}")
+    if epi == _EPI_CODES:
+        return out_q
+    if epi == _EPI_DIFF_B:
+        return out_f, out_q
+    return out_f if epi == _EPI_F32 else out_x
 
 
 def launch_int8_conv3(x, wp, sf, bias, s_in, acc: str, kind: int, slope: float) -> torch.Tensor:
     """X4 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::int8_conv3``."""
-    out = _launch(x, wp, s_in, sf, bias, acc, kind, slope)
+    out = launch_int8_conv3x(_EPI_F32, x, wp, sf, bias, s_in=s_in, acc=acc, kind=kind, slope=slope)
     int8_conv3.launches += 1
     return out
 
 
 def launch_int8_conv3_dyn(x, wp, s_w, bias, acc: str, kind: int, slope: float) -> torch.Tensor:
     """X4's dynamic form on CUDA tensors: the CUDA implementation of ``iek::int8_conv3_dyn``."""
-    out = _launch(x, wp, None, s_w, bias, acc, kind, slope)
+    amax = torch.empty(int(x.shape[0]), dtype=_F32, device=x.device)
+    out = launch_int8_conv3x(_EPI_F32, x, wp, s_w, bias, amax=amax, dyn=_DYN_FULL, acc=acc, kind=kind, slope=slope)
     int8_conv3_dyn.launches += 1
     return out
-
-
-def _dyn_step(step: int, x, wp, s_w, bias, amax, out, acc: str, kind: int, slope: float) -> None:
-    _build.check_aligned(x, wp, s_w, bias, amax, out)
-    lib = _build.library("int8_conv")
-    n, h, w, cin = (int(s) for s in x.shape)
-    cout = int(s_w.shape[0])
-    with torch.cuda.device(x.device):
-        code = lib.iek_int8_conv3_dyn_step(
-            step, x.data_ptr(), int(x.dtype == _F32), wp.data_ptr(), s_w.data_ptr(), bias.data_ptr(),
-            amax.data_ptr(), None if out is None else out.data_ptr(), n, h, w, cin, cout, _nt(cout),
-            int(acc == "bf16"), int(kind), float(slope), _stream(x))
-    _build.check(lib, code, f"int8_conv3_dyn step {step}")
 
 
 def launch_int8_conv3_absmax(x, wp, s_w, bias) -> torch.Tensor:
     """X4's dynamic step 0 on CUDA tensors: each sample's abs-max of x, (N,)."""
     amax = torch.zeros(int(x.shape[0]), dtype=_F32, device=x.device)
-    _dyn_step(0, x, wp, s_w, bias, amax, None, "bf16", 0, 0.0)
+    launch_int8_conv3x(_EPI_F32, x, wp, s_w, bias, amax=amax, dyn=_DYN_ABSMAX)
     return amax
 
 
 def launch_int8_conv3_dyn_given(x, wp, s_w, bias, amax, acc: str, kind: int, slope: float) -> torch.Tensor:
     """X4's dynamic step 1 on CUDA tensors: the conv at the given abs-maxes (a banded frame's)."""
-    out = torch.empty((*x.shape[:3], int(s_w.shape[0])), dtype=_F32, device=x.device)
-    _dyn_step(1, x, wp, s_w, bias, amax.to(_F32).contiguous(), out, acc, kind, slope)
+    out = launch_int8_conv3x(_EPI_F32, x, wp, s_w, bias, amax=amax.to(_F32).contiguous(), dyn=_DYN_GIVEN, acc=acc,
+                             kind=kind, slope=slope)
     int8_conv3_dyn.launches += 1
+    return out
+
+
+def launch_int8_conv3_codes(x, wp, sf, bias, s_in, s_out, acc: str, kind: int, slope: float) -> torch.Tensor:
+    """The codes-emitting form on CUDA tensors: the CUDA implementation of ``iek::int8_conv3_codes``."""
+    out = launch_int8_conv3x(_EPI_CODES, x, wp, sf, bias, s_in=s_in, s_out=s_out, acc=acc, kind=kind, slope=slope)
+    int8_conv3_codes.launches += 1
+    return out
+
+
+def launch_int8_conv3_light(xq, wp, sf, bias, x, acc: str) -> torch.Tensor:
+    """The LightBlock combine form on CUDA tensors: ``iek::int8_conv3_light``."""
+    out = launch_int8_conv3x(_EPI_LIGHT, xq, wp, sf, bias, xr=x, acc=acc)
+    int8_conv3_light.launches += 1
+    return out
+
+
+def launch_int8_conv3_diff_b(xq, wp, sf, bias, x, s_d, acc: str):
+    """The DiffBlock conv_b form on CUDA tensors: ``iek::int8_conv3_diff_b``."""
+    out = launch_int8_conv3x(_EPI_DIFF_B, xq, wp, sf, bias, s_out=s_d, xr=x, acc=acc)
+    int8_conv3_diff_b.launches += 1
+    return out
+
+
+def launch_int8_conv3_diff_d(xq, wp, sf, bias, x, t, acc: str) -> torch.Tensor:
+    """The DiffBlock combine form on CUDA tensors: ``iek::int8_conv3_diff_d``."""
+    out = launch_int8_conv3x(_EPI_DIFF_D, xq, wp, sf, bias, xr=x, t=t, acc=acc)
+    int8_conv3_diff_d.launches += 1
     return out
 
 
@@ -225,5 +323,53 @@ def int8_conv3_dyn(x, wq, s_w, bias, acc: str = "bf16", act=None) -> torch.Tenso
     return library.int8_conv3_dyn(x, wq, s_w, bias, acc, *act_code(act))
 
 
+def int8_conv3_codes(x, wq, sf, bias, s_in, s_out, acc: str = "bf16", act=None) -> torch.Tensor:
+    """X4 emitting the int8 codes of act(y) at the (C_out,) scales ``s_out``:
+    from x (bf16 / float32) quantized with ``s_in``, or from x's int8 codes
+    (``s_in`` None); int8 (N, H, W, C_out) out."""
+    cin, cout = int(x.shape[-1]), int(wq.shape[-1])
+    vectors = [(sf, cout), (bias, cout), (s_out, cout)] + ([] if s_in is None else [(s_in, cin)])
+    _check(x, wq, vectors, acc, act, codes=True)
+    if (s_in is None) != (x.dtype == torch.int8):
+        raise ValueError("int8_conv3_codes takes int8 codes without s_in, or bf16 / float32 x with s_in")
+    (wq,) = library.device_layout(x, packed, wq)
+    return library.int8_conv3_codes(x, wq, sf, bias, s_in, s_out, acc, *act_code(act))
+
+
+def _check_block(xq, wq, sf, bias, x, acc: str, vectors=(), like=()) -> None:
+    cout = int(wq.shape[-1])
+    if xq.dtype != torch.int8:
+        raise ValueError(f"the block forms take the int8 codes of the conv's input, got {xq.dtype}")
+    _check(xq, wq, [(sf, cout), (bias, cout), *vectors], acc, None, codes=True, like=[(x, _DTYPES), *like])
+
+
+def int8_conv3_light(xq, wq, sf, bias, x, acc: str = "bf16") -> torch.Tensor:
+    """X4 from the int8 codes ``xq`` of a LightBlock's t, with the block's
+    combine: (x + 0.1 * y) in x's dtype, x the block input (N, H, W, C_out)."""
+    _check_block(xq, wq, sf, bias, x, acc)
+    (wq,) = library.device_layout(xq, packed, wq)
+    return library.int8_conv3_light(xq, wq, sf, bias, x, acc)
+
+
+def int8_conv3_diff_b(xq, wq, sf, bias, x, s_d, acc: str = "bf16"):
+    """X4 from the codes of a DiffBlock's t1: (t float32, the int8 codes of
+    d = t - x at the scales ``s_d``)."""
+    _check_block(xq, wq, sf, bias, x, acc, vectors=[(s_d, int(wq.shape[-1]))])
+    (wq,) = library.device_layout(xq, packed, wq)
+    return library.int8_conv3_diff_b(xq, wq, sf, bias, x, s_d, acc)
+
+
+def int8_conv3_diff_d(xq, wq, sf, bias, x, t, acc: str = "bf16") -> torch.Tensor:
+    """X4 from the codes of a DiffBlock's u1, with the block's combine:
+    (x + 0.1 * ((d + u) + t)) in x's dtype, d = t - x, t float32."""
+    _check_block(xq, wq, sf, bias, x, acc, like=[(t, (_F32,))])
+    (wq,) = library.device_layout(xq, packed, wq)
+    return library.int8_conv3_diff_d(xq, wq, sf, bias, x, t, acc)
+
+
 int8_conv3.launches = 0
 int8_conv3_dyn.launches = 0
+int8_conv3_codes.launches = 0
+int8_conv3_light.launches = 0
+int8_conv3_diff_b.launches = 0
+int8_conv3_diff_d.launches = 0

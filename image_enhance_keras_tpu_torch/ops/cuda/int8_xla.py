@@ -15,7 +15,10 @@ implicit GEMM of ``csrc/int8_blocks.cu``:
   every sample quantized with its own scale ``max(abs-max, 1e-6) / 127.0``
   (divided, not multiplied), the unfolded weights ("q", "s"), dequant
   ``acc * (s_w * s_in) + bias``; each branch intermediate requantized with
-  its own per-sample abs-max over the whole sample;
+  its own per-sample abs-max over the whole sample, once, by a pass of its
+  own between the two conv launches (:func:`dyn_requant_plain` is its plain
+  version, :func:`light53_int8_xla_dyn_codes_plain` that of the second
+  convs over the codes);
 * :func:`light53_int8_xla_upq` (X1u, the first HR block under
   ``IEK_INT8_UPQ``): X1 whose input arrives as int8 codes (the x4 with the
   quantize fused, ``upsample.upsample_quant_tf1``, K3q) and whose combine
@@ -76,6 +79,8 @@ __all__ = [
     "light53_int8_xla_dyn_plain",
     "light53_int8_xla_upq_plain",
     "launch_light53_int8_xla_upq",
+    "dyn_requant_plain",
+    "light53_int8_xla_dyn_codes_plain",
 ]
 
 #: accumulator modes (``IEK_INT8_ACC``): the conv output's type before the dequant
@@ -232,6 +237,28 @@ def light53_int8_xla_dyn_second_plain(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, a
     return (_c(identity_scale) * x.to(_F32) + _c(res_scale) * (a + b)).to(x.dtype)
 
 
+def dyn_requant_plain(t: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """X3's requantization pass: the int8 codes of t (N, H, W, C) at each
+    sample's scale from the abs-maxes ``amax`` (N,)."""
+    return _quant_dyn_sample(t, amax)[0].to(torch.int8)
+
+
+def light53_int8_xla_dyn_codes_plain(x, qa, qb, wa2, sa2, ba2, wb2, sb2, bb2, amax_ab, acc: str,
+                                     res_scale: float, identity_scale: float):
+    """X3's second convs over the requantization pass's codes ``qa``, ``qb``
+    (int8) with the branch scales from ``amax_ab`` (2, N), and the residual
+    combine: :func:`light53_int8_xla_dyn_second_plain` as the kernel splits it."""
+    _check_acc(acc)
+
+    def branch(q, w2, s2, b2, amax):
+        m = torch.clamp_min(amax.reshape(-1, 1, 1, 1), 1e-6)
+        return _acc(q.to(_F32), w2, acc) * (s2 * (m / torch.full_like(m, 127.0))) + b2
+
+    a = branch(qa, wa2, sa2, ba2, amax_ab[0])
+    b = branch(qb, wb2, sb2, bb2, amax_ab[1])
+    return (_c(identity_scale) * x.to(_F32) + _c(res_scale) * (a + b)).to(x.dtype)
+
+
 def light53_int8_xla_dyn_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
                                acc: str = "bf16", res_scale: float = 0.1, identity_scale: float = 0.9,
                                merge55: bool = False):
@@ -295,10 +322,11 @@ def light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb
                          merge55: bool = False):
     """int8 Light53 block with per-sample dynamic scales (X3), over the unfolded "q" / "s".
 
-    Three launches: each sample's abs-max of x; the first convs from x
+    Four launches: each sample's abs-max of x; the first convs from x
     quantized with its sample's scale into float32 intermediates with their
-    per-sample abs-maxes; the second convs from the intermediates quantized
-    on the way, and the residual combine."""
+    per-sample abs-maxes; the requantization pass, which turns the
+    intermediates into int8 codes once; the second convs over the codes,
+    and the residual combine."""
     _check_acc(acc)
     _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], None, (), _BF16)
@@ -395,24 +423,28 @@ def launch_light53_int8_xla_dyn(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, 
     amax = torch.empty((3, n), dtype=_F32, device=x.device)
     ta = torch.empty(x.shape, dtype=_F32, device=x.device)
     tb = torch.empty_like(ta)
+    qa = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    qb = torch.empty_like(qa)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = lib.iek_light53_int8_xla_dyn(
             x.data_ptr(), *(t.data_ptr() for t in convs), amax.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-            out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale), float(identity_scale), _stream(x))
+            qa.data_ptr(), qb.data_ptr(), out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale),
+            float(identity_scale), _stream(x))
     _build.check(lib, code, "light53_int8_xla_dyn")
     light53_int8_xla_dyn.launches += 1
     return out
 
 
 def _dyn_step(step: int, x, convs, amax, ta, tb, out, window, acc: str, res_scale: float = 0.0,
-              identity_scale: float = 0.0) -> None:
+              identity_scale: float = 0.0, qa=None, qb=None) -> None:
     """One step of ``iek_light53_int8_xla_dyn_step``; ``convs``: the 12 conv
-    arguments, None where the step does not read them."""
-    _build.check_aligned(x, amax, ta, tb, out, *convs)
+    arguments, None where the step does not read them; qa, qb: step 2's
+    int8 scratch for the codes of ta, tb."""
+    _build.check_aligned(x, amax, ta, tb, qa, qb, out, *convs)
     lib = _build.library("int8_blocks")
     n, h, w, c = (int(s) for s in x.shape)
-    ptr = [None if t is None else t.data_ptr() for t in (*convs, amax, ta, tb, out)]
+    ptr = [None if t is None else t.data_ptr() for t in (*convs, amax, ta, tb, qa, qb, out)]
     with torch.cuda.device(x.device):
         code = lib.iek_light53_int8_xla_dyn_step(step, x.data_ptr(), *ptr, n, h, w, c, *window,
                                                  int(acc == "bf16"), float(res_scale), float(identity_scale),
@@ -444,8 +476,10 @@ def launch_light53_int8_xla_dyn_second(x, ta, tb, wa2, sa2, ba2, wb2, sb2, bb2, 
     n = int(x.shape[0])
     amax = torch.cat([torch.zeros((1, n), dtype=_F32, device=x.device), amax_ab.reshape(2, n).to(_F32)])
     out = torch.empty_like(x)
+    qa = torch.empty(ta.shape, dtype=torch.int8, device=x.device)
+    qb = torch.empty_like(qa)
     _dyn_step(2, x, [None, None, None, wa2, sa2, ba2, None, None, None, wb2, sb2, bb2], amax, ta, tb, out,
-              (0, 0, 0, 0), acc, res_scale, identity_scale)
+              (0, 0, 0, 0), acc, res_scale, identity_scale, qa, qb)
     light53_int8_xla_dyn.launches += 1
     return out
 

@@ -24,7 +24,8 @@ launches stay inside the CUDA implementations.
     block), X2 light_int8_xla, X3 light53_int8_xla_dyn (and
     its steps _absmax, _first, _second, for a frame cut into bands); X4
     int8_conv3, int8_conv3_dyn (and its steps int8_conv3_absmax,
-    int8_conv3_dyn_given).
+    int8_conv3_dyn_given), and the zoo's block forms int8_conv3_codes,
+    int8_conv3_light, int8_conv3_diff_b, int8_conv3_diff_d.
 
 Importing this module registers the ops; it imports the kernel modules only
 when an op runs, so a process that loads an exported program needs nothing
@@ -41,7 +42,8 @@ __all__ = [
     "upsample_quant_tf1", "light53_int8", "light_int8", "light53_int8_xla", "light53_int8_xla_upq",
     "light_int8_xla", "light53_int8_xla_dyn",
     "int8_conv3", "int8_conv3_dyn", "light53_int8_xla_dyn_absmax", "light53_int8_xla_dyn_first",
-    "light53_int8_xla_dyn_second", "int8_conv3_absmax", "int8_conv3_dyn_given", "device_layout",
+    "light53_int8_xla_dyn_second", "int8_conv3_absmax", "int8_conv3_dyn_given", "int8_conv3_codes",
+    "int8_conv3_light", "int8_conv3_diff_b", "int8_conv3_diff_d", "device_layout",
 ]
 
 
@@ -438,6 +440,81 @@ def _(x, wq, s_w, bias, amax, acc, act_kind, slope):
     return k.launch_int8_conv3_dyn_given(x, wq, s_w, bias, amax, acc, act_kind, slope)
 
 
+# X4's block forms: the zoo's convs from and to int8 codes, with the blocks' combines
+
+@_op("int8_conv3_codes")
+def int8_conv3_codes(x: Tensor, wq: Tensor, sf: Tensor, bias: Tensor, s_in: Optional[Tensor], s_out: Tensor,
+                     acc: str, act_kind: int, slope: float) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.int8_conv3_codes_plain(x, wq, sf, bias, s_in, s_out, acc, k.act_of(act_kind, slope))
+
+
+@int8_conv3_codes.register_kernel("cuda")
+def _(x, wq, sf, bias, s_in, s_out, acc, act_kind, slope):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.launch_int8_conv3_codes(x, wq, sf, bias, s_in, s_out, acc, act_kind, slope)
+
+
+@int8_conv3_codes.register_fake
+def _(x, wq, sf, *args):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h, w, sf.shape[0]), dtype=torch.int8)
+
+
+@_op("int8_conv3_light")
+def int8_conv3_light(xq: Tensor, wq: Tensor, sf: Tensor, bias: Tensor, x: Tensor, acc: str) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.int8_conv3_light_plain(xq, wq, sf, bias, x, acc)
+
+
+@int8_conv3_light.register_kernel("cuda")
+def _(xq, wq, sf, bias, x, acc):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.launch_int8_conv3_light(xq, wq, sf, bias, x, acc)
+
+
+@_op("int8_conv3_diff_b")
+def int8_conv3_diff_b(xq: Tensor, wq: Tensor, sf: Tensor, bias: Tensor, x: Tensor, s_d: Tensor,
+                      acc: str) -> tuple[Tensor, Tensor]:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.int8_conv3_diff_b_plain(xq, wq, sf, bias, x, s_d, acc)
+
+
+@int8_conv3_diff_b.register_kernel("cuda")
+def _(xq, wq, sf, bias, x, s_d, acc):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.launch_int8_conv3_diff_b(xq, wq, sf, bias, x, s_d, acc)
+
+
+@int8_conv3_diff_b.register_fake
+def _(xq, wq, sf, bias, x, *args):
+    return x.new_empty(x.shape, dtype=torch.float32), x.new_empty(x.shape, dtype=torch.int8)
+
+
+@_op("int8_conv3_diff_d")
+def int8_conv3_diff_d(xq: Tensor, wq: Tensor, sf: Tensor, bias: Tensor, x: Tensor, t: Tensor, acc: str) -> Tensor:
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.int8_conv3_diff_d_plain(xq, wq, sf, bias, x, t, acc)
+
+
+@int8_conv3_diff_d.register_kernel("cuda")
+def _(xq, wq, sf, bias, x, t, acc):
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    return k.launch_int8_conv3_diff_d(xq, wq, sf, bias, x, t, acc)
+
+
+def _block_out(xq, wq, sf, bias, x, *args):
+    return torch.empty_like(x)
+
+
 def _conv_out(x, wq, scale, *args):
     n, h, w, _ = x.shape
     return x.new_empty((n, h, w, scale.shape[0]), dtype=torch.float32)
@@ -449,4 +526,6 @@ for _o in (light53_block, light_block, light53_chain, light_chain, light53_int8,
 int8_conv3.register_fake(_conv_out)
 int8_conv3_dyn.register_fake(_conv_out)
 int8_conv3_dyn_given.register_fake(_conv_out)
+int8_conv3_light.register_fake(_block_out)
+int8_conv3_diff_d.register_fake(_block_out)
 

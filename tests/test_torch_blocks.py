@@ -7,6 +7,7 @@ tests/test_pallas_blocks.py: float32 sums over 68*128 terms in another order.
 """
 
 import os
+import re
 import stat
 
 import jax
@@ -131,3 +132,21 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def _c_kind(param: str):
+    """The ctypes type a C parameter takes: a pointer (or stream), a float or an int."""
+    if "*" in param or "cudaStream_t" in param:
+        return _build.ctypes.c_void_p
+    return _build.ctypes.c_float if param.split()[-2] == "float" else _build.ctypes.c_int
+
+
+@pytest.mark.parametrize("stem,entry", [(s, e) for s, sigs in _build.SIGNATURES.items() for e in sigs])
+def test_entry_signature_matches_its_c_prototype(stem, entry):
+    """Each ctypes signature has the C entry's parameters, kind for kind: a
+    wrong count or kind shows on the CPU, not at the first launch on the card."""
+    src = open(os.path.join(_build.CSRC, f"{stem}.cu")).read()
+    m = re.search(rf"\bint {entry}\(([^)]*)\)\s*\{{", src)
+    assert m, f"csrc/{stem}.cu defines no int {entry}(...)"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    assert [_c_kind(p) for p in params] == _build.SIGNATURES[stem][entry]

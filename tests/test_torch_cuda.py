@@ -585,6 +585,45 @@ def test_int8_conv_kernel_bit_equal_plain(conv, shape, dtype, acc, act):
                                         (got != want).float().mean().item())
 
 
+#: (N, H, W) of the block forms: raster tiles (W not a multiple of 64, a
+#: 96-wide map), 4 x 64 tiles (W = 128), a sample smaller than a tile
+X4_BLOCK_SHAPES = [(2, 12, 12), (1, 6, 96), (1, 9, 128), (1, 5, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", ["bf16", "s32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", X4_BLOCK_SHAPES)
+@pytest.mark.parametrize("c", [256, 192, 64])
+def test_int8_conv_block_forms_bit_equal_plain(c, shape, dtype, acc):
+    """X4's block forms (codes from x and from codes under every activation,
+    LightBlock's conv_b + combine, DiffBlock's conv_b and conv_d + combine),
+    one counted launch each, bit-equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int8 conv kernel is CUDA C++ with no CPU mode")
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k
+
+    x, q, s, b, s_in = _x4_inputs(c, c, shape, dtype, c + sum(shape))
+    s_out = (s_in * 3.0).contiguous()
+
+    def held(wrapper, plain, *args, **kw):
+        before = wrapper.launches
+        got = wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        want = plain(*args, **kw)
+        for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+            assert g.dtype == w.dtype and torch.equal(g, w), (wrapper.__name__, (g.float() - w.float()).abs().max())
+        return got
+
+    for act in (None, "relu", 0.2):
+        xq = held(k.int8_conv3_codes, k.int8_conv3_codes_plain, x, q, s, b, s_in, s_out, acc=acc, act=act)
+        held(k.int8_conv3_codes, k.int8_conv3_codes_plain, xq, q, s, b, None, s_out, acc=acc, act=act)
+    held(k.int8_conv3_light, k.int8_conv3_light_plain, xq, q, s, b, x, acc=acc)
+    t, _ = held(k.int8_conv3_diff_b, k.int8_conv3_diff_b_plain, xq, q, s, b, x, s_out, acc=acc)
+    held(k.int8_conv3_diff_d, k.int8_conv3_diff_d_plain, xq, q, s, b, x, t, acc=acc)
+
+
 @pytest.mark.cuda
 def test_input_scaling_divides_on_the_card_as_on_the_cpu():
     """The engines' /255 of every uint8 value gives the CPU's quotient on the
@@ -687,3 +726,9 @@ def test_banded_dynamic_steps_bit_equal(n_bands, acc):
         got = torch.cat(run_bands([stage], bands, [Weights(None, None)] * n_bands), 1)
         assert torch.equal(got, want)
         assert torch.equal(want, plain(x))
+    # X3's launches in turn: the requantization pass and the second convs over its codes
+    ta, tb, amax_ab = int8_xla.light53_int8_xla_dyn_first_plain(x, *x3[:3], *x3[6:9], int8_xla.sample_absmax(x),
+                                                               acc, (0, 37, 0, 70))
+    qa, qb = (int8_xla.dyn_requant_plain(t, m) for t, m in zip((ta, tb), amax_ab))
+    assert torch.equal(int8_xla.light53_int8_xla_dyn_codes_plain(x, qa, qb, *x3[3:6], *x3[9:], amax_ab, acc, 0.1, 0.9),
+                       int8_xla.light53_int8_xla_dyn_plain(x, *x3, acc=acc))

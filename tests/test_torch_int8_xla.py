@@ -152,6 +152,44 @@ def test_block_at_full_width_bit_equal_eager_jax(monkeypatch, which, acc):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
+@pytest.mark.parametrize("acc", ACCS)
+@pytest.mark.parametrize("n_bands", [1, 3])
+def test_x3_requant_pass_and_code_convs_bit_equal_plain(acc, n_bands):
+    """X3 as its kernels split it, whole (one band) and banded: the first
+    convs per band over their own rows, the branch abs-maxes reduced over the
+    frame's bands, the requantization pass into int8 codes, the second convs
+    over the codes; bit-equal to today's ``light53_int8_xla_dyn_plain``."""
+    from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import quantize_weights_per_channel
+
+    rng = np.random.default_rng(n_bands + len(acc))
+    c, halo = 32, 3  # Light53's radius: a 3x3 then a 5x5 conv, or a 5x5 then a 3x3
+
+    def conv(k):
+        q, sw = quantize_weights_per_channel(torch.from_numpy(
+            (rng.normal(size=(k, k, c, c)) * (2.0 / (k * k * c)) ** 0.5).astype(np.float32)))
+        return [q, sw, torch.from_numpy((rng.normal(size=c) * 0.02).astype(np.float32))]
+
+    wa1, wa2, wb1, wb2 = conv(3), conv(5), conv(5), conv(3)
+    x = torch.from_numpy((rng.normal(size=(2, 13, 10, c)) * 2).astype(np.float32)).to(torch.bfloat16)
+    want = int8_xla.light53_int8_xla_dyn_plain(x, *wa1, *wa2, *wb1, *wb2, acc=acc)
+    cuts = np.linspace(0, x.shape[1], n_bands + 1).astype(int)
+    bands, firsts = [], []
+    for y0, y1 in zip(cuts[:-1], cuts[1:]):
+        lo, hi = max(0, y0 - halo), min(x.shape[1], y1 + halo)
+        xb = x[:, lo:hi]
+        bands.append((xb, y0 - lo, y1 - lo))
+        firsts.append(int8_xla.light53_int8_xla_dyn_first_plain(xb, *wa1, *wb1, int8_xla.sample_absmax(x), acc,
+                                                                (y0 - lo, y1 - lo, 0, x.shape[2])))
+    amax_ab = torch.stack([f[2] for f in firsts]).amax(dim=0)
+    got = []
+    for (xb, r0, r1), (ta, tb, _) in zip(bands, firsts):
+        qa, qb = int8_xla.dyn_requant_plain(ta, amax_ab[0]), int8_xla.dyn_requant_plain(tb, amax_ab[1])
+        assert qa.dtype == torch.int8
+        out = int8_xla.light53_int8_xla_dyn_codes_plain(xb, qa, qb, *wa2, *wb2, amax_ab, acc, 0.1, 0.9)
+        got.append(out[:, r0:r1])
+    assert torch.equal(torch.cat(got, 1), want)
+
+
 def _crafted_sums(targets):
     """int8 codes x (1, 5, 5, 128) and weights (5, 5, 128, len(targets)) whose
     centre output sums to each target exactly."""

@@ -170,6 +170,99 @@ def test_x4_plain_bit_equal_eager_jax(monkeypatch, case, acc, act):
     np.testing.assert_array_equal(got_d.numpy(), _np(acts[1]))
 
 
+#: X4's block forms against JAX's blocks: (channels, x dtype), under every accumulator
+BLOCK_CASES = [(32, "bfloat16"), (64, "float32"), (96, "bfloat16")]
+ACCS3 = ["bf16", "s32", "f32"]
+
+
+def _block_case(c, dtype, names, seed):
+    """x (as JAX's and the port's), the float32 params of the block's convs (numpy)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(2, 9, 11, c)) * np.exp(rng.normal(size=c) * 0.5)).astype(np.float32)
+    convs = {n: {"kernel": (rng.normal(size=(3, 3, c, c)) * (2.0 / (9 * c)) ** 0.5).astype(np.float32),
+                 "bias": (rng.normal(size=c) * 0.02).astype(np.float32)} for n in names}
+    xj = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    return xj, torch.from_numpy(x).to(getattr(torch, dtype)), convs
+
+
+def _scale(t):
+    """A calibration-like scale of t: its channels' abs-max / 100 (clips a few codes)."""
+    return (np.maximum(np.abs(_np(t)).max(axis=(0, 1, 2)), 1e-6) / np.float32(100.0)).astype(np.float32)
+
+
+def _jq_conv(convs, name, v, s, act=False):
+    """JAX's folded conv ``name`` at the scales s and its dequantized output
+    (with JAX's ``_act`` unless act is False)."""
+    p = jax_zi._qfold(convs[name], s)
+    y = jax_dp._deqf(jax_dp._qconv_xla(jax_dp._quant_c(v, jnp.asarray(s)), p["qf"]), p)
+    return p, (y if act is False else jax_zi._act(y, act))
+
+
+@pytest.mark.parametrize("leaky", [None, jax_zi._DIFV4_LEAKY_HEAD], ids=["relu", "leaky"])
+@pytest.mark.parametrize("acc", ACCS3)
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_light_block_forms_bit_equal_eager_jax(monkeypatch, case, acc, leaky):
+    """A LightBlock on X4's forms, plain versions: conv_a's codes are JAX's
+    _quant_c(t, s_t), conv_b with the combine is JAX's _light_i8, op by op."""
+    c, dtype = case
+    monkeypatch.setenv("IEK_INT8_ACC", acc)
+    xj, xt, convs = _block_case(c, dtype, ("conv_a", "conv_b"), c + len(acc))
+    with jax.disable_jit():
+        s_x = _scale(xj)
+        _, t = _jq_conv(convs, "conv_a", xj, s_x, leaky)
+        p = jax_zi._quantize_light(convs, {"x": jnp.asarray(s_x), "t": jnp.asarray(_scale(t))})
+        tq = jax_dp._quant_c(t, p["actc"]["t"])
+        want = jax_zi._light_i8(xj, p, leaky)
+    qp = params_from_numpy(jax.tree_util.tree_map(np.asarray, p))
+    a, b = qp["conv_a"], qp["conv_b"]
+    got_tq = int8_conv.int8_conv3_codes(xt, a["qf"], a["sf"], a["bias"], qp["actc"]["x"], qp["actc"]["t"], acc=acc,
+                                        act=zi._relu_or_leaky(leaky))
+    np.testing.assert_array_equal(got_tq.numpy(), np.asarray(tq))
+    got = int8_conv.int8_conv3_light(got_tq, b["qf"], b["sf"], b["bias"], xt, acc=acc)
+    assert got.dtype == xt.dtype
+    np.testing.assert_array_equal(_np(got), _np(want))
+    np.testing.assert_array_equal(_np(zi._light_i8(xt, qp, leaky)), _np(want))
+
+
+@pytest.mark.parametrize("acc", ACCS3)
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_diff_block_forms_bit_equal_eager_jax(monkeypatch, case, acc):
+    """A DiffBlock on X4's four forms, plain versions, against JAX op by op:
+    the codes of t1, d and u1 (JAX's _quant_c), t, and _diff_i8's output."""
+    c, dtype = case
+    monkeypatch.setenv("IEK_INT8_ACC", acc)
+    xj, xt, convs = _block_case(c, dtype, ("conv_a", "conv_b", "conv_c", "conv_d"), 2 * c + len(acc))
+    with jax.disable_jit():
+        sc, p = {"x": _scale(xj)}, {}
+        p["conv_a"], t1 = _jq_conv(convs, "conv_a", xj, sc["x"], None)
+        sc["t1"] = _scale(t1)
+        p["conv_b"], t = _jq_conv(convs, "conv_b", t1, sc["t1"])
+        d = t - xj.astype(jnp.float32)
+        sc["d"] = _scale(d)
+        p["conv_c"], u1 = _jq_conv(convs, "conv_c", d, sc["d"], jax_zi._DSR_LEAKY)
+        sc["u1"] = _scale(u1)
+        p["conv_d"] = jax_zi._qfold(convs["conv_d"], sc["u1"])
+        p["actc"] = {k: jnp.asarray(v) for k, v in sc.items()}
+        codes = [np.asarray(jax_dp._quant_c(v, p["actc"][k])) for v, k in ((t1, "t1"), (d, "d"), (u1, "u1"))]
+        want = jax_zi._diff_i8(xj, p)
+    qp = params_from_numpy(jax.tree_util.tree_map(np.asarray, p))
+    s = qp["actc"]
+
+    def w(name):
+        return qp[name]["qf"], qp[name]["sf"], qp[name]["bias"]
+
+    t1q = int8_conv.int8_conv3_codes(xt, *w("conv_a"), s["x"], s["t1"], acc=acc, act="relu")
+    got_t, dq = int8_conv.int8_conv3_diff_b(t1q, *w("conv_b"), xt, s["d"], acc=acc)
+    u1q = int8_conv.int8_conv3_codes(dq, *w("conv_c"), None, s["u1"], acc=acc, act=zi._DSR_LEAKY)
+    got = int8_conv.int8_conv3_diff_d(u1q, *w("conv_d"), xt, got_t, acc=acc)
+    for g, want_codes in zip((t1q, dq, u1q), codes):
+        np.testing.assert_array_equal(g.numpy(), want_codes)
+    np.testing.assert_array_equal(got_t.numpy(), _np(t))
+    assert got.dtype == xt.dtype
+    np.testing.assert_array_equal(_np(got), _np(want))
+    np.testing.assert_array_equal(_np(zi._diff_i8(xt, qp)), _np(want))
+
+
 def test_x4_wrapper_checks_its_arguments():
     x = torch.zeros(1, 4, 4, 32)
     q = torch.zeros(3, 3, 32, 64, dtype=torch.int8)
@@ -182,9 +275,15 @@ def test_x4_wrapper_checks_its_arguments():
         int8_conv.int8_conv3(x, q[:, :, :16], v, v, torch.ones(32))
     with pytest.raises(ValueError, match="float32"):
         int8_conv.int8_conv3_dyn(x, q, v[:32], v)
+    with pytest.raises(ValueError, match="int8 codes without s_in"):
+        int8_conv.int8_conv3_codes(x, q, v, v, None, v)
+    with pytest.raises(ValueError, match="int8 codes of the conv's input"):
+        int8_conv.int8_conv3_light(x, q, v, v, torch.zeros(1, 4, 4, 64))
+    with pytest.raises(ValueError, match="block's tensors"):
+        int8_conv.int8_conv3_diff_d(x.to(torch.int8), q, v, v, torch.zeros(1, 4, 4, 64), torch.zeros(1, 4, 4, 32))
     packed = int8_conv.packed(torch.arange(9 * 64 * 192, dtype=torch.int64).remainder(127).to(torch.int8)
                               .reshape(3, 3, 64, 192))
-    assert tuple(packed.shape) == (9, 2, 3, 2, 64, 16)  # C_out 192: three blocks of 64
+    assert tuple(packed.shape) == (9, 2, 2, 2, 96, 16)  # C_out 192: two column blocks of 96
 
 
 def test_int8_support_of_every_model():
@@ -232,6 +331,32 @@ def test_engine_byte_equal_eager_jax(zoo, monkeypatch, name, mode, acc):
     got = pr.upscale(img)
     assert got.dtype == np.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+#: the ``iek::`` ops of X4's block forms an int8 forward of the model runs
+ZOO_BLOCK_OPS = {"difv4": {"int8_conv3_codes", "int8_conv3_light"},
+                 "difvdsr": {"int8_conv3_codes", "int8_conv3_diff_b", "int8_conv3_diff_d"}}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_BLOCK_OPS))
+def test_exported_int8_zoo_runs_the_block_forms(zoo, tmp_path, name):
+    """``runtime/export.py`` exports the int8 difv4 / difvdsr with X4's block
+    forms as opaque ``iek::`` nodes (their fake registrations), and the loaded
+    program gives ``upscale``'s bytes."""
+    from image_enhance_keras_tpu_torch.runtime import export
+
+    img = np.random.default_rng(15).integers(0, 256, (20, 28, 3), dtype=np.uint8)
+    _, pr = _engines(zoo, name, mode="fast")
+    x = img
+    if pr.spec.pre_upscaled_input:  # the artifact takes the bicubic-upscaled serving input
+        x = pr._pre_upscale(torch.from_numpy(img)).to(torch.uint8).numpy()
+    path = str(tmp_path / "zoo.iekx")
+    export.export_pipeline(pr, x.shape[:2], path)
+    fn = export.load_forward(path)
+    np.testing.assert_array_equal(fn(x), pr.upscale(img))
+    ops = {n.target.name().split("::")[1].split(".")[0] for n in fn.program.graph.nodes
+           if n.op == "call_function" and getattr(n.target, "namespace", None) == "iek"}
+    assert ZOO_BLOCK_OPS[name] <= ops and "int8_conv3" not in ops
 
 
 @pytest.mark.parametrize("mode", ["fast", "split2d"])
