@@ -7,9 +7,11 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), in all 33 kernel functions
-     (K4/K5's 17, X1-X3's 12, X1u's 4) but the three abs-max passes and the
-     dynamic forms' two requantization passes (K4/K5's, X3's),
+     must hold wgmma (GMMA) and no dp4a (IDP), in all 27 kernel functions
+     of ``int8_blocks.cu`` (K4/K5's 17, X3's 6, X1u's 4) but the three
+     abs-max passes and the dynamic forms' two requantization passes
+     (K4/K5's, X3's), and in the 19 conv functions of ``int8_conv.cu`` (X4's
+     15, X1's and X2's 4 ``xla_block_kernel`` forms),
      the block and chain kernels'
      SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
      forms' included;
@@ -103,8 +105,8 @@ Phases (each prints its elapsed seconds):
      default, the fast bf16 ``xla`` row; against each other and the
      recorded rows;
   5. the rest of the zoo (didbl_subpixel, difv4, difvdsr) with their
-     committed demo checkpoints: X4 (``csrc/int8_conv.cu``, its SASS 15
-     conv functions on wgmma) at every shape of the zoo's int8 forwards,
+     committed demo checkpoints: X4 (``csrc/int8_conv.cu``, its 15 conv
+     functions on wgmma) at every shape of the zoo's int8 forwards,
      in the block forms the zoo runs (difv4 256->256 at LR, 2x and 4x:
      conv_a's codes, conv_b + combine; difvdsr 192->192 at HR: conv_a's
      codes, conv_b's t and codes of d, conv_c from codes to codes, conv_d +
@@ -335,17 +337,20 @@ def _sass_counts(so_path: str) -> dict:
     return counts
 
 
-def _gmma_lines(functions: dict, row: str) -> int:
+def _gmma_lines(functions: dict, row: str, functions4: dict | None = None) -> int:
     """GMMA lines in the SASS of the int8 kernel functions that a phase-2 row
     (``light53_int8``, ``light_int8_dynamic_f32``, ...) launches, matched on
     their mangled names: the kernel, then its activation type and, for the
-    dynamic kernels, the Light53 flag."""
-    if "_xla" in row:  # the XLA int8 forms: bf16 only, the accumulator mode as Li1 / Li2
-        if row.startswith("light53_int8_xla_dyn"):
+    dynamic kernels, the Light53 flag.  X1 and X2 run on csrc/int8_conv.cu
+    (``functions4``): two launches each of ``xla_block_kernel`` (X1's forms
+    0 and 1, X2's 2 and 3)."""
+    if "_xla" in row:  # the XLA int8 forms: bf16 only
+        if row.startswith("light53_int8_xla_dyn"):  # the accumulator mode as Li1 / Li2
             parts = ["xdyn_first_kernel", "xdyn_second_kernel"]
         else:
-            second = "light53_i8_second_kernel" if row.startswith("light53") else "light_i8_second_kernel"
-            parts = ["x8_first_kernel", f"{second}I13__nv_bfloat16Li1E", f"{second}I13__nv_bfloat16Li2E"]
+            functions = functions4 or {}
+            parts = (["xla_block_kernelILi0E", "xla_block_kernelILi1E"] if row.startswith("light53")
+                     else ["xla_block_kernelILi2E", "xla_block_kernelILi3E"])
         return sum(v for k, v in functions.items() for p in parts if p in k)
     t = "If" if row.endswith("_f32") else "I13__nv_bfloat16"
     if "dynamic" in row:
@@ -857,15 +862,19 @@ def _int_mm_convs(pairs):
     return run
 
 
-def _int8_xla_kernels(qp, x8, sass8, failures: list, gpu: str) -> list:
+def _int8_xla_kernels(qp, x8, sass8, sass4, failures: list, gpu: str) -> list:
     """Phase 2 of the XLA int8 forms on the int8 forward's own activations:
     the level1 output x8 (9,96,96,128) bf16 for X1, the 16 plain X1 blocks'
     output for X2, and the x4 of the 6 plain X2 blocks' output, (9,384,384,128),
     for X1 and X3 at HR.  Each bit-equal to its plain version under the bf16
     and s32 accumulators (and on the ragged crops of x8), its time per call
-    (both accumulators), device ms per launch, GMMA lines, the bound (K4/K5's
-    int8 operations over the int8 peak, x read and written once) and the
-    library time: ``torch._int_mm`` over an int8 im2col of the block's convs."""
+    (both accumulators), device ms per call (:func:`_device_ms`: the profiler's
+    sum where it is not below the bound, else 20 calls queued behind a spin
+    kernel; a reading below the bound fails) and per launch (the profiler;
+    ``scripts/probe_x1_parts.py`` queues X1's launches one by one), GMMA lines (X1 and X2 in
+    csrc/int8_conv.cu's SASS, ``sass4``), the bound (K4/K5's int8 operations
+    over the int8 peak, x read and written once) and the library time:
+    ``torch._int_mm`` over an int8 im2col of the block's convs."""
     import torch
 
     from image_enhance_keras_tpu_torch.models.didbl_pallas import _stacked_actc
@@ -943,12 +952,21 @@ def _int8_xla_kernels(qp, x8, sass8, failures: list, gpu: str) -> list:
             row["bound_ms"], row["bound_by"] = _bound(ops, PEAK_INT8_OPS, 4.0 * x.numel() + taps * c * c)
             row["library_ms"] = _time_ms(_int_mm_convs(libs[lib]), iters=3, warmup=1)
             row["launch_ms"] = _launch_breakdown(lambda: kern(x, "bf16"))
+            row["device_ms"], row["device_ms_by"] = _device_ms(lambda: kern(x, "bf16"), row["bound_ms"], row)
+            if row["device_ms"] < row["bound_ms"]:
+                failures.append(f"{name}: {row['device_ms']:.4f} ms device ({row['device_ms_by']}) is below its "
+                                f"bound {row['bound_ms']:.4f} ms: the reading or the bound is wrong")
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
             row["tops"] = ops / (row["ms_bf16"] * 1e-3) / 1e12
-            row["sass_gmma"] = _gmma_lines((sass8 or {}).get("functions", {}), name)
+            row["sass_gmma"] = _gmma_lines((sass8 or {}).get("functions", {}), name,
+                                           (sass4 or {}).get("functions", {}))
             if row["sass_gmma"] == 0:
                 failures.append(f"{name}: no GMMA (wgmma) line in the SASS of its kernel functions")
             print(f"[chip_smoke] {name} {tuple(x.shape)}: bit-equal bf16 {row['bit_equal_bf16']} s32 "
                   f"{row['bit_equal_s32']}; {row['ms_bf16']:.4f} ms (acc bf16), {row['ms_s32']:.4f} ms (s32), "
+                  f"{row['device_ms']:.4f} ms device ({row['device_ms_by']}; torch.profiler "
+                  f"{row['profiler_ms']:.4f} ms over {row['profiler_events']} events of 3 calls, queued CUDA "
+                  f"events {row['queued_ms']:.4f} ms; {100 * row['share_of_bound']:.1f}% of the bound), "
                   f"{row['plain_ms']:.3f} ms plain, {row['library_ms']:.4f} ms _int_mm over im2col, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tops']:.1f} TOPS, {row['sass_gmma']} "
                   f"GMMA lines; device ms by launch "
@@ -974,7 +992,9 @@ def _int8_xla_kernels(qp, x8, sass8, failures: list, gpu: str) -> list:
             hr = res["light53_int8_xla_hr"]
             extra = {f"hr_{k}": v for k, v in hr.items()}
         rows.append({
-            "name": name, "route": "cuda", "source": "image_enhance_keras_tpu_torch/csrc/int8_blocks.cu",
+            "name": name, "route": "cuda",
+            "source": "image_enhance_keras_tpu_torch/csrc/" + ("int8_blocks.cu" if name == "light53_int8_xla_dyn"
+                                                               else "int8_conv.cu"),
             "replaces": X_REPLACES[name], "launches": None, "max_abs_err": max(row["max_abs_err_bf16"],
                                                                                row["max_abs_err_s32"]),
             "tolerance": 0.0, "ms": row["ms_bf16"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3967,21 +3987,23 @@ def main() -> int:
         for k, v in sorted(fns8.items()):
             print(f"[chip_smoke] int8 kernel function {k[:110]}: {v} GMMA lines", flush=True)
         without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k and "requant" not in k]
-        if without or len(fns8) != 33:
-            failures.append(f"int8 kernels: expected 33 kernel functions (17 of K4/K5, 12 of X1-X3, 4 of X1u), "
+        if without or len(fns8) != 27:
+            failures.append(f"int8 kernels: expected 27 kernel functions (17 of K4/K5, 6 of X3, 4 of X1u), "
                             f"wgmma in all but the 3 abs-max passes and the requantization pass; got {len(fns8)}, "
                             f"none in {without}")
     # X4: its 15 conv functions (bf16 / float32 x static and dynamic, int8 codes
-    # static; 64, 96 and 128 output channels a column block) on wgmma, no dp4a;
-    # the 2 abs-max passes without
+    # static; 64, 96 and 128 output channels a column block) and the 4 of X1
+    # and X2 (xla_block_kernel: two launches each) on wgmma, no dp4a; the 2
+    # abs-max passes without
     if sass["int8_conv"] is not None:
         fns4 = sass["int8_conv"]["functions"]
-        convs4 = {k: v for k, v in fns4.items() if "conv3_kernel" in k}
-        print(f"[chip_smoke] X4 kernel functions' GMMA lines: {sorted(convs4.values())}", flush=True)
-        if sass["int8_conv"]["IDP"] > 0 or len(convs4) != 15 or min(convs4.values()) == 0 or len(fns4) != 17:
-            failures.append(f"X4: expected 17 kernel functions, the 15 conv functions each with wgmma (GMMA), "
-                            f"no dp4a (IDP); got {len(fns4)}, GMMA lines {sorted(convs4.values())}, "
-                            f"IDP {sass['int8_conv']['IDP']}")
+        convs4 = {k: v for k, v in fns4.items() if "conv3_kernel" in k or "xla_block_kernel" in k}
+        print(f"[chip_smoke] X4, X1 and X2 kernel functions' GMMA lines: "
+              f"{ {k.split('(')[0][-40:]: v for k, v in sorted(convs4.items())} }", flush=True)
+        if sass["int8_conv"]["IDP"] > 0 or len(convs4) != 19 or min(convs4.values()) == 0 or len(fns4) != 21:
+            failures.append(f"X4, X1 and X2: expected 21 kernel functions, X4's 15 conv functions and the 4 of "
+                            f"X1 and X2 each with wgmma (GMMA), no dp4a (IDP); got {len(fns4)}, GMMA lines "
+                            f"{sorted(convs4.values())}, IDP {sass['int8_conv']['IDP']}")
     # every kernel function of the block and chain libraries, the bf16 forms'
     # (two launches of two block kinds, one chain kernel of two kinds) included
     for stem, what, n_bf16 in (("tower", "chain", 2), ("blocks", "block", 4)):
@@ -4366,7 +4388,7 @@ def main() -> int:
               f"(K4 at this shape {i8_rows['light53_int8_hr']['ms']:.4f} ms) on {gpu}", flush=True)
         del xc, w4
     # the XLA int8 forms (X1-X3) on the int8 forward's own activations
-    rows += _int8_xla_kernels(qp, x8, sass["int8_blocks"], failures, gpu)
+    rows += _int8_xla_kernels(qp, x8, sass["int8_blocks"], sass["int8_conv"], failures, gpu)
     del x8, xl8, xu8, xh8, xd, xld, xhd, x8f, xl8f, xdf, xldf
     up32 = i8_rows.pop("upsample_phase_tf1_f32")
     hrs = {"light53_int8": i8_rows.pop("light53_int8_hr"),

@@ -12,20 +12,21 @@
 //       t = q(relu(dq(conv3(q(x, s0), w1), s0, s1w) + b1), s1)
 //       out = x + 0.1*(dq(conv3(t, w2), s1, s2w) + b2)
 // and, for the XLA int8 forward of the JAX package (models/didbl_pallas.py
-// _light53_i8_xla, _light_i8_xla, _light53_i8_xla_dyn: XLA convolutions there,
-// no Pallas kernel; ops/cuda/int8_xla.py wraps these):
-//   * iek_light53_int8_xla / iek_light_int8_xla (X1, X2): the same blocks with
-//     per-channel static scales: q(v, s_c) = clamp(rint(v * (1/s_c)), +-127)
-//     per input channel, the weights with those scales folded in ("qf") and
-//     a per-output-channel dequant scale ("sf");
+// _light53_i8_xla_dyn, _light53_i8_xla_upfused: XLA convolutions there, no
+// Pallas kernel; ops/cuda/int8_xla.py wraps these):
 //   * iek_light53_int8_xla_dyn (X3): per-sample dynamic scales s = max(amax,
 //     1e-6) / 127.0 of x and of each branch intermediate over the whole
 //     sample, dequant scale s_w[cout] * s;
 //   * iek_light53_int8_xla_upq (X1u, the first HR block under IEK_INT8_UPQ,
-//     _light53_i8_xla_upfused): X1 whose input arrives as int8 codes (the
-//     x4 with the quantize in its epilogue, upsample.cu's K3q) and whose
-//     combine adds a given float32 skip (the x4 of 0.9 * h in float32):
-//     out = bf16(skip + 0.1*(a + b)).
+//     _light53_i8_xla_upfused): the static Light53 block with per-channel
+//     scales q(v, s_c) = clamp(rint(v * (1/s_c)), +-127), the weights with
+//     those scales folded in ("qf") and a per-output-channel dequant scale
+//     ("sf"), whose input arrives as int8 codes (the x4 with the quantize in
+//     its epilogue, upsample.cu's K3q) and whose combine adds a given
+//     float32 skip (the x4 of 0.9 * h in float32): out = bf16(skip + 0.1*(a + b)).
+// X1 and X2, the static per-channel blocks of that forward (_light53_i8_xla,
+// _light_i8_xla), run on csrc/int8_conv.cu: X1 on its persistent,
+// warp-specialised Light53 pair launches, X2 on X4's codes and LightBlock forms.
 // There the accumulator is float(acc) or bf16(float(acc)) (IEK_INT8_ACC), and
 // every product and add of the dequant and the combine is rounded on its own
 // (no FMA), as JAX computes these ops one at a time:
@@ -89,8 +90,8 @@
 //   4. per window, the second conv(s) VALID over the code rings, staged by
 //      cp.async exactly as the static launch B stages its scratch, dequantized
 //      with the window's intermediate scales, and the epilogue.
-// The XLA forms reuse the static template: X1/X2 are launches A and B with
-// a per-channel quantizing source and the DQ epilogues; X3 is four
+// The XLA forms reuse the static template: X1u is launches A and B with
+// given codes and the non-FMA epilogues; X3 is four
 // launches: each sample's abs-max of x; both first convs from x quantized with
 // its sample's scale into float32 intermediates (N,H,W,C) with their
 // per-sample abs-maxes (atomicMax), the float32 pairs stored straight from
@@ -99,7 +100,7 @@
 // codes once at its sample's scale (codes8_div; stream order hands it the
 // finished abs-maxes: a global reduction sits between the two convs, so the
 // intermediate cannot stay on chip); both second convs over the codes,
-// staged by cp.async as X1's launch B stages its scratch, and the combine.
+// staged by cp.async as the static launch B stages its scratch, and the combine.
 //
 // The intermediate is stored, not recomputed: the first convs run once, for
 // 2 x 4 bytes of traffic per ring value and 1 + 1 more for its code (at the
@@ -433,24 +434,6 @@ struct QuantSrc {
   }
 };
 
-// Static per-channel scales (the XLA int8 forms): codes clamp(rint(v *
-// inv[c]), -127, 127) with inv the C reciprocals of the scales, in shared memory.
-template <typename T>
-struct QuantSrcC {
-  using Elem = T;
-  const T* x;
-  const float* inv;
-  __device__ __forceinline__ int4 quant16(const uint4 (&r)[Act<T>::LOADS], int g) const {
-    float f[16];
-    Act<T>::to_floats(r, f);
-    unsigned q[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) q[i] = code8(f[i], inv[16 * g + i]);
-    return make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
-                     pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
-  }
-};
-
 struct I8Src {  // int8 codes of an intermediate
   const int8_t* x;
 };
@@ -566,7 +549,7 @@ __device__ __forceinline__ void stage_window(uint8_t* win, const I8Src& src, con
   cp_async_commit();
 }
 
-// bf16 or float32 values, quantized on the way (a QuantSrc or QuantSrcC):
+// bf16 or float32 values, quantized on the way (a QuantSrc):
 // the loads of WB items are in flight together.
 template <int K, typename Src>
 __device__ __forceinline__ void stage_window_q(uint8_t* win, const Src& src, const Tile& t, int H,
@@ -1023,9 +1006,7 @@ i8_first_kernel(const T* __restrict__ x, const float* __restrict__ act,
 }
 
 // Launch B of Light53: out = fma(id, x, res*((dq(conv5(ta)) + ba2) + (dq(conv3(tb)) + bb2))).
-// The XLA forms (DQ != DQ_FMA): sa2, sb2 are the per-channel "sf" (act is
-// not read) and the combine rounds every step (residual_epilogue).
-template <typename T, int DQ = DQ_FMA>
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 light53_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
                          const int8_t* __restrict__ ta, const int8_t* __restrict__ wa2,
@@ -1037,23 +1018,20 @@ light53_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
   float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
   float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);
   const Tile t = tile_of_block(W);
-  if constexpr (DQ == DQ_FMA)
-    stage_vecs(vec, __ldg(act + 1), sa2, ba2, __ldg(act + 2), sb2, bb2);
-  else
-    stage_vecs(vec, 1.f, sa2, ba2, 1.f, sb2, bb2);
+  stage_vecs(vec, __ldg(act + 1), sa2, ba2, __ldg(act + 2), sb2, bb2);
   int acc[MT][ACC];
   conv_s8<5, 5, true>(acc, smem, I8Src{ta}, wa2, TileGeo{t, H, W});
-  park_sums<DQ>(acc, vec, park);
+  park_sums(acc, vec, park);
   conv_s8<3, 3, true>(acc, smem, I8Src{tb}, wb2, TileGeo{t, H, W});
   // x into the window's space; outputs written over it, then out
-  residual_epilogue<T, true, false, DQ>(acc, vec + 2 * C, park, smem, x, out,
+  residual_epilogue<T, true, false>(acc, vec + 2 * C, park, smem, x, out,
                                     OutTile{t.n, t.y0, t.x0, H, W}, H, W, res_scale,
                                     identity_scale);
 }
 
 // Launch B of Light: out = fma(res, dq(conv3(t)) + b2, x).  x (its first
-// pass) is fetched before the conv, into its own space.  DQ as for Light53.
-template <typename T, int DQ = DQ_FMA>
+// pass) is fetched before the conv, into its own space.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 light_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
                        const int8_t* __restrict__ tin, const int8_t* __restrict__ w2,
@@ -1064,48 +1042,14 @@ light_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
   uint8_t* xs = smem + EXTRA_OFF;
   const Tile t = tile_of_block(W);
   const OutTile o{t.n, t.y0, t.x0, H, W};
-  stage_vecs(vec, DQ == DQ_FMA ? __ldg(act + 1) : 1.f, s2, b2);
+  stage_vecs(vec, __ldg(act + 1), s2, b2);
   prefetch_x(xs, x, o, H, W, 0);  // the oldest cp.async group: complete once the conv starts
   int acc[MT][ACC];
   conv_s8<3, 3, true>(acc, smem, I8Src{tin}, w2, TileGeo{t, H, W});
-  residual_epilogue<T, false, true, DQ>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
+  residual_epilogue<T, false, true>(acc, vec, nullptr, xs, x, out, o, H, W, res_scale, 1.f);
 }
 
 // ---- the XLA int8 forms: per-channel static scales, per-sample dynamic --------
-
-// Launch A of the static per-channel forms (X1, X2): x quantized with the
-// (C,) reciprocals of act[0] while staging, then as i8_first_kernel with the
-// folded weights' "sf" as the dequant scales, the accumulator rounded by DQ,
-// no FMA, and the codes at act[1] (conv3) and act[2] (conv5, Light53) per
-// channel.  act: [2 or 3][C] float32 scales.
-template <int DQ>
-__global__ void __launch_bounds__(THREADS, 1)
-x8_first_kernel(const bf16* __restrict__ x, const float* __restrict__ act,
-                const int8_t* __restrict__ w3, const float* __restrict__ s3,
-                const float* __restrict__ b3, int8_t* __restrict__ t3,
-                const int8_t* __restrict__ w5, const float* __restrict__ s5,
-                const float* __restrict__ b5, int8_t* __restrict__ t5, int H, int W) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
-  float* inv = reinterpret_cast<float*>(smem + X_INV_OFF);
-  uint8_t* stage = smem + X_EXTRA_OFF;
-  const Tile t = tile_of_block(W);
-  stage_vecs(vec, 1.f, s3, b3, 1.f, s5, b5);
-  // the reciprocals, as JAX's 1.0 / s_c (conv_s8 synchronizes before staging)
-  for (int i = threadIdx.x; i < (w5 == nullptr ? 2 : 3) * C; i += THREADS)
-    inv[i] = __frcp_rn(__ldg(act + i));
-  const QuantSrcC<bf16> src{x, inv};
-  int acc[MT][ACC];
-  if (w5 == nullptr) {
-    conv_s8<3, 3, true>(acc, smem, src, w3, TileGeo{t, H, W});
-    emit_codes<DQ>(acc, vec, 0.f, stage, t3, t, H, W, inv + C);
-  } else {
-    conv_s8<3, 5, true>(acc, smem, src, w3, TileGeo{t, H, W});
-    emit_codes<DQ>(acc, vec, 0.f, stage, t3, t, H, W, inv + C);
-    conv_s8<5, 5, false>(acc, smem, src, w5, TileGeo{t, H, W});
-    emit_codes<DQ>(acc, vec + 2 * C, 0.f, stage, t5, t, H, W, inv + 2 * C);
-  }
-}
 
 // X1u's residual epilogue: out = bf16(skip + res * (a + (dq(acc) + b))), a the
 // parked branch-a sums, every product and add rounded (the XLA form).  The
@@ -1166,8 +1110,9 @@ __device__ __forceinline__ void skip_epilogue(const int (&acc)[MT][ACC], const f
 }
 
 // Launch A of X1u: the input arrives as int8 codes (xq, K3q's output) and is
-// staged by cp.async once for both first convs; the convs and epilogues are
-// X1's.  act: float32 [2][C], the scales of the branch intermediates.
+// staged by cp.async once for both first convs (conv3, then conv5), each
+// followed by the codes of relu(dq(acc) + b) at its branch's per-channel
+// scale (the XLA form's rounding).  act: float32 [2][C], those scales.
 template <int DQ>
 __global__ void __launch_bounds__(THREADS, 1)
 x8u_first_kernel(const int8_t* __restrict__ xq, const float* __restrict__ act,
@@ -1189,7 +1134,7 @@ x8u_first_kernel(const int8_t* __restrict__ xq, const float* __restrict__ act,
   emit_codes<DQ>(acc, vec + 2 * C, 0.f, stage, t5, t, H, W, inv + C);
 }
 
-// Launch B of X1u: X1's second convs, and the combine with the skip.
+// Launch B of X1u: the second convs over ta, tb, and the combine with the skip.
 template <int DQ>
 __global__ void __launch_bounds__(THREADS, 1)
 x8u_second_kernel(const float* __restrict__ skip, const int8_t* __restrict__ ta,
@@ -1329,7 +1274,7 @@ xdyn_requant_kernel(const float* __restrict__ ta, const float* __restrict__ tb,
 }
 
 // X3 launch 4: conv5 over ta's codes and conv3 over tb's (the requantization
-// pass's, staged by cp.async as X1's second launch stages its scratch),
+// pass's, staged by cp.async as the static launch B stages its scratch),
 // dequant scales s_w[c] * s_branch (amax[1][n], amax[2][n]), and the
 // residual combine.
 template <int DQ>
@@ -1536,45 +1481,8 @@ int light_static(const T* x, const float* act, const int8_t* w1, const float* s1
   return (int)cudaGetLastError();
 }
 
-// The XLA int8 forms: two launches per static block (X1, X2), three per
-// dynamic one (X3); DQ says how the accumulator is rounded.
-template <int DQ>
-int light53_xla(const bf16* x, const float* act, const int8_t* wa1, const float* sa1,
-                const float* ba1, const int8_t* wa2, const float* sa2, const float* ba2,
-                const int8_t* wb1, const float* sb1, const float* bb1, const int8_t* wb2,
-                const float* sb2, const float* bb2, int8_t* ta, int8_t* tb, bf16* out, int n, int h,
-                int w, float res_scale, float identity_scale, cudaStream_t st) {
-  cudaError_t err = allow_smem(x8_first_kernel<DQ>, SMEM_FIRST_X);
-  if (err == cudaSuccess) err = allow_smem(light53_i8_second_kernel<bf16, DQ>, SMEM_LIGHT53_B);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
-  x8_first_kernel<DQ><<<grid, THREADS, SMEM_FIRST_X, st>>>(x, act, wa1, sa1, ba1, ta, wb1, sb1, bb1,
-                                                           tb, h, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  light53_i8_second_kernel<bf16, DQ><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(
-      x, nullptr, ta, wa2, sa2, ba2, tb, wb2, sb2, bb2, out, h, w, res_scale, identity_scale);
-  return (int)cudaGetLastError();
-}
-
-template <int DQ>
-int light_xla(const bf16* x, const float* act, const int8_t* w1, const float* s1, const float* b1,
-              const int8_t* w2, const float* s2, const float* b2, int8_t* t, bf16* out, int n, int h,
-              int w, float res_scale, cudaStream_t st) {
-  cudaError_t err = allow_smem(x8_first_kernel<DQ>, SMEM_FIRST_X);
-  if (err == cudaSuccess) err = allow_smem(light_i8_second_kernel<bf16, DQ>, SMEM_LIGHT_B);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
-  x8_first_kernel<DQ><<<grid, THREADS, SMEM_FIRST_X, st>>>(x, act, w1, s1, b1, t, nullptr, nullptr,
-                                                           nullptr, nullptr, h, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  light_i8_second_kernel<bf16, DQ><<<grid, THREADS, SMEM_LIGHT_B, st>>>(x, nullptr, t, w2, s2, b2,
-                                                                         out, h, w, res_scale);
-  return (int)cudaGetLastError();
-}
-
-// X1u: two launches, as X1.
+// X1u: two launches, the codes of both branches from the given codes, then
+// the second convs and the combine with the skip.
 template <int DQ>
 int light53_xla_upq(const int8_t* xq, const float* skip, const float* act, const int8_t* wa1,
                     const float* sa1, const float* ba1, const int8_t* wa2, const float* sa2,
@@ -1796,45 +1704,11 @@ int iek_light_int8_dynamic(const void* x,
                                     st);
 }
 
-// The XLA int8 forms, bf16 x and out, C == 128: acc_bf16 = 1 rounds the
-// accumulator to bf16 (IEK_INT8_ACC=bf16), 0 keeps float32 (s32, f32).
-// act: float32 [3][C] (Light53) or [2][C] (Light) calibrated scales; the
-// weights "qf" repacked, their "sf" and biases; ta, tb, t: int8 (n, h, w, C).
-int iek_light53_int8_xla(const void* x, const float* act,
-                         const int8_t* wa1, const float* sa1, const float* ba1,
-                         const int8_t* wa2, const float* sa2, const float* ba2,
-                         const int8_t* wb1, const float* sb1, const float* bb1,
-                         const int8_t* wb2, const float* sb2, const float* bb2,
-                         int8_t* ta, int8_t* tb, void* out, int n, int h, int w, int c,
-                         int acc_bf16, float res_scale, float identity_scale, void* stream) {
-  if (c != C) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* ob = static_cast<bf16*>(out);
-  if (acc_bf16)
-    return light53_xla<DQ_BF16>(xb, act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                                ta, tb, ob, n, h, w, res_scale, identity_scale, st);
-  return light53_xla<DQ_F32>(xb, act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, ta,
-                             tb, ob, n, h, w, res_scale, identity_scale, st);
-}
-
-int iek_light_int8_xla(const void* x, const float* act,
-                       const int8_t* w1, const float* s1, const float* b1,
-                       const int8_t* w2, const float* s2, const float* b2,
-                       int8_t* t, void* out, int n, int h, int w, int c, int acc_bf16,
-                       float res_scale, void* stream) {
-  if (c != C) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* ob = static_cast<bf16*>(out);
-  if (acc_bf16)
-    return light_xla<DQ_BF16>(xb, act, w1, s1, b1, w2, s2, b2, t, ob, n, h, w, res_scale, st);
-  return light_xla<DQ_F32>(xb, act, w1, s1, b1, w2, s2, b2, t, ob, n, h, w, res_scale, st);
-}
-
 // X1u (IEK_INT8_UPQ's first HR block): xq int8 (n, h, w, C) codes, skip
 // float32 (n, h, w, C), act float32 [2][C] (the branch intermediates'
-// scales), out bf16; the rest as iek_light53_int8_xla.
+// scales), out bf16; weights repacked as K4's, their "sf" and biases; ta,
+// tb: int8 (n, h, w, C) scratch; acc_bf16 = 1 rounds the accumulator to
+// bf16 (IEK_INT8_ACC=bf16), 0 keeps float32 (s32, f32).
 int iek_light53_int8_xla_upq(const int8_t* xq, const float* skip, const float* act,
                              const int8_t* wa1, const float* sa1, const float* ba1,
                              const int8_t* wa2, const float* sa2, const float* ba2,

@@ -1,9 +1,11 @@
 // X4: a 3x3 SAME int8 convolution with per-channel folded scales, for sm_90a,
 // on the s8 tensor cores (wgmma): the convs of the zoo's int8 forwards
 // (difv4's LightBlocks, difvdsr's DiffBlocks, the subpixel head of
-// didbl_subpixel), with the blocks' combines in its epilogues.
+// didbl_subpixel), with the blocks' combines in its epilogues.  And, on the
+// same machinery, X1 and X2: the static Light53 and Light blocks of didbl's
+// XLA int8 forward (--forward int8), xla_block_kernel, two launches each.
 //
-// Replaces work the JAX package leaves to XLA, not a Pallas kernel
+// X4 replaces work the JAX package leaves to XLA, not a Pallas kernel
 // (models/didbl_pallas.py _quant_c, _qconv_xla, _deqf, _quant_dyn_sample,
 // _deq_dyn, as models/zoo_int8.py and apply_didbl_int8_xla_tail call them),
 // followed by the block's activation:
@@ -33,9 +35,25 @@
 // weights int8 HWIO, repacked (ops/cuda/int8_conv.py wraps the kernel and
 // holds its plain versions).
 //
+// X1 and X2 (models/didbl_pallas.py _light53_i8_xla, _light_i8_xla; wrapped
+// by ops/cuda/int8_xla.py), bf16 x, C = 128, per-channel static scales
+// (act_scales rows s_x, then the branch intermediates'), the folded "qf"
+// weights with their "sf":
+//   X1: ta = codes of relu(conv3(q(x)) dequantized) at s_a, tb of conv5 at s_b
+//       out = bf16(0.9 * x + 0.1 * ((A(conv5(ta)) * sa2 + ba2) + (A(conv3(tb)) * sb2 + bb2)))
+//   X2: t = codes of relu(conv3(q(x)) dequantized) at s_t
+//       out = bf16(x + 0.1 * (A(conv3(t)) * s2 + b2))
+// each in two launches of xla_block_kernel<FORM> (the codes between them):
+// PAIR_CODES (both first convs over one window of x staged with the 5 x 5
+// halo), PAIR_LIGHT53 (per 64 output channels conv5 over ta's window and
+// conv3 over tb's, into two sets of sums in the registers, then the
+// combine from them), ONE_CODES and ONE_LIGHT (X2's convs).  They run at
+// the same rounding points as X4's forms.
+//
 // What bounds it on an H100: operations.  2 * 9 * C_in * C_out int8 ops a
-// pixel (1.18 M at 256 -> 256) against 1 to 4 bytes of input and 1 to 6 of
-// output per channel: far above the balance point of 1,979 TOPS over 3.35 TB/s.
+// pixel (1.18 M at 256 -> 256; X1's 68 taps at 128: 2.2 M) against 1 to 4
+// bytes of input and 1 to 6 of output per channel: far above the balance
+// point of 1,979 TOPS over 3.35 TB/s.
 //
 // Design: an implicit GEMM on wgmma.m64nNTk32.s32.s8.s8 (NT = 128 output
 // channels a column block where C_out allows it, else 96 or 64), both
@@ -43,14 +61,15 @@
 // warp-specialised block (one per SM) walks over the tiles of 256 output
 // positions; three warpgroups:
 //   * the producer: warp 0 streams the weight tiles through a ring of up to
-//     8 slots (cp.async.bulk, completion on an mbarrier's transaction count);
-//     warps 1-3 stage each tile's input window once, for every output
-//     channel, into one of two window buffers (one where two would leave a
-//     ring of fewer than 4 slots), so the next tile's window lands while
-//     this one's products run (int8 codes by cp.async with zero
+//     8 slots (X1, X2: 16; a slot one K step of NT x 32 bytes, X1 and X2
+//     two, X1's second launch four) by cp.async.bulk, completion on an mbarrier's
+//     transaction count; warps 1-3 stage each tile's input window once, for
+//     every output channel, into one of two window buffers (one where two
+//     would leave a ring of fewer than 4 slots), so the next tile's window
+//     lands while this one's products run (int8 codes by cp.async with zero
 //     fill; bf16 / float32 x by batched 16-byte loads quantized on the way);
 //   * two consumers, 2 M tiles of 64 positions each: for every column block
-//     of NT channels, 9 taps x C_in / 32 steps of wgmma over the resident
+//     of NT channels, the taps x C_in / 32 steps of wgmma over the resident
 //     window, then the epilogue straight from the registers.  A consumer
 //     releases a ring slot once its products are done, and the window once
 //     the tile's last column block has read it, before that block's epilogue.
@@ -58,36 +77,46 @@
 //     parameters picked once a launch, so that its unrolled code holds no
 //     branch; the combines' loads of x (and t) run one channel group ahead,
 //     and at the start of a tile one consumer thread prefetches those rows
-//     into the L2 (cp.async.bulk.prefetch).
-//   * The window holds C_in / 16 planes of 16 channels, [position][16 bytes];
-//     a tap (ky, kx) moves the descriptor's start by ky * pitch + kx
-//     positions, the two halves of a 32-channel K step are a plane apart
-//     (the leading byte offset).  Two tilings: 4 rows x 64 columns (a 6 x 66
-//     window, pitch 66) where W is a multiple of 64 or two windows of the
-//     other kind do not fit; else 256 consecutive positions of the image's
-//     raster padded to a pitch of W + 2 (a window of 256 + 2 * pitch + 2
-//     positions; the 2 padding columns of each row are computed but not
-//     stored), so a 96-wide map wastes 2 positions in 98, not 32 in 128.
-//     Outside the image the staged codes are zero: SAME padding of the
-//     codes, as XLA pads the quantized tensor.
+//     into the L2 (cp.async.bulk.prefetch).  In X1 and X2 the producer
+//     warpgroup gives its registers to the consumers (setmaxnreg 72 / 216:
+//     no spills), the epilogues take both M tiles a channel group at a time
+//     with the per-channel vectors in shared memory, and the combines' x is
+//     loaded into registers while the last conv's products run.
+//   * The window holds C_in / 16 planes of 16 channels, [position][16 bytes].
+//     The pitch of a row leaves E columns of padding on each side (E the
+//     halo of the launch's widest conv: 1, X1's 2); a window of halo e <= E
+//     holds its tile's rows of a conv of that halo.  A tap (ky, kx) of a
+//     KW x KW conv moves the descriptor's start by (ky - KW/2 + e) * pitch +
+//     kx - KW/2 + E positions, the two halves of a 32-channel K step are a
+//     plane apart (the leading byte offset).  Two tilings: 4 rows x 64
+//     columns (a window of 4 + 2 e rows of 64 + 2 E) where W is a multiple
+//     of 64 or two windows of the other kind do not fit; else 256
+//     consecutive positions of the image's raster padded to a pitch of
+//     W + 2 E (a window of 256 + 2 e pitch + 2 E positions; the padding
+//     columns of each row are computed but not stored), so a 96-wide map
+//     wastes 4 positions in 100, not 32 in 128 (X1's first launch and X2's;
+//     X1's second launch holds ta's window in two buffers and tb's in one,
+//     which fit raster tiles of a 96-wide map only without a ring: 4 x 64
+//     tiles there).  Outside the image the staged codes are zero: SAME
+//     padding of the codes, as XLA pads the quantized tensor.
 //   * B: the weights repacked to [tap][C_in/32][C_out/NT][2][NT][16], so each
 //     (tap, K step, column block) is one contiguous NT x 32 tile.
 // The dynamic form adds a launch before the conv: each sample's abs-max of x,
 // as float bits by atomicMax.
 // Codes leave 8 bytes a lane: the 4 lanes of a quad trade their pairs so that
 // a quad fills a 32-byte sector.
-// Left on the table (scripts/probe_x4_parts.py times the kernel without its
-// epilogue and without its products): the two consumers run their epilogues
-// together after each column block, and the tensor cores idle meanwhile; with
-// two warps a scheduler the epilogue is latency-bound, and about as long as
-// the block's products.  The weight tiles stream from the L2 anew for every
-// tile (4 KB a K step for 256 positions), about as fast as the tensor cores
-// take them, so the products alone run near that stream's rate; larger tiles
-// need more sums than the registers hold, or a cluster multicasting the
-// weights.  The kernel holds 168 registers a thread (384 threads), and its
-// 128-channel forms spill a few of the consumers' (ptxas -v).  The difv4
-// head's 96-wide map at C_in = 256 keeps the 4 x 64 tiling (two raster
-// windows of 454 positions do not fit).
+// Left on the table (scripts/probe_x4_parts.py and scripts/probe_x1_parts.py
+// time the kernel without its epilogue and without its products): the two
+// consumers run their epilogues together after each column block, and the
+// tensor cores idle meanwhile; the epilogue does not hide under the
+// products, and costs about a third of a launch.  The weight tiles stream
+// from the L2 anew for every tile (4 KB a K step for 256 positions), about
+// as fast as the tensor cores take them, so the products alone run near
+// that stream's rate; larger tiles need more sums than the registers hold,
+// or a cluster multicasting the weights.  X4's 128-channel forms spill a
+// few of the consumers' registers (ptxas -v; X4 keeps 168 registers a
+// thread).  The difv4 head's 96-wide map at C_in = 256 keeps the 4 x 64
+// tiling (two raster windows of 454 positions do not fit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,20 +134,36 @@ constexpr int CONSUMERS = 2;                // consumer warpgroups
 constexpr int TILE_M = TILE_W * MT * CONSUMERS;  // output positions of a tile
 constexpr int THREADS = 128 * (1 + CONSUMERS);   // + the producer warpgroup
 constexpr int STAGERS = 96;                 // producer threads staging windows (warps 1-3)
-constexpr int WIN_H = MT * CONSUMERS + 2;   // the 4 x 64 tiling's window
-constexpr int WIN_W = TILE_W + 2;
+constexpr int TILE_ROWS = MT * CONSUMERS;   // output rows of a 4 x 64 tile
 constexpr int CIN_MAX = 256;
 constexpr int COUT_CODES_MAX = 1024;        // C_out of the forms that emit codes
 constexpr int MAX_STAGES = 8;               // weight ring slots
 constexpr int MIN_STAGES = 4;               // slots two windows must leave, else one window
 constexpr int WINDOWS = 2;                  // window buffers where they fit
-constexpr int BAR_BYTES = (16 * (MAX_STAGES + WINDOWS) + 127) / 128 * 128;  // the mbarriers, first
+// the mbarriers, first: the ring's full / empty, the windows' full / empty, X1's second window's
+constexpr int BAR_BYTES = (8 * (2 * MAX_STAGES + 2 * WINDOWS + 2) + 127) / 128 * 128;
 constexpr int SMEM_MAX = 232448;
 constexpr int ABS_THREADS = 256;
 constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY = 2;
 constexpr int EPI_F32 = 0, EPI_CODES = 1, EPI_LIGHT = 2, EPI_DIFF_B = 3, EPI_DIFF_D = 4;
 constexpr int SRC_BF16 = 0, SRC_F32 = 1, SRC_I8 = 2;
 constexpr int DYN_NONE = 0, DYN_FULL = 1, DYN_ABSMAX = 2, DYN_GIVEN = 3;
+// The static blocks of the XLA int8 forward (xla_block_kernel): X1's two
+// launches, the pair of first convs into codes and the pair of second convs
+// with the combine; X2's two, one conv into codes and one with the combine
+constexpr int PAIR_CODES = 0, PAIR_LIGHT53 = 1, ONE_CODES = 2, ONE_LIGHT = 3;
+constexpr int X_C = 128;                    // their channels
+constexpr int X_STAGES = 16;                // their weight ring's slots at most
+constexpr int X_BAR_BYTES = (8 * (2 * X_STAGES + 2 * WINDOWS + 2) + 127) / 128 * 128;
+constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;  // setmaxnreg: 72 * 128 + 216 * 256 = 168 * 384
+constexpr int X_S64 = 4, X_S128 = 2;        // K steps a ring slot: X1's second launch (2 KB each), the others
+constexpr int X_VECS = 7;                   // their vectors in shared memory: 3 reciprocals, sf, bias, sf2, bias2
+
+// The 4 x 64 tiling's window pitch where the widest conv has halo E (5 x 5: E = 2)
+template <int E>
+__host__ __device__ constexpr int pitch4() {
+  return TILE_W + 2 * E;
+}
 
 // Everything a launch needs; the geometry (tiling, window, ring) is set by geometry().
 struct Params {
@@ -136,13 +181,23 @@ struct Params {
   int n, H, W, cin, cout;
   int epi, xr_f32, acc_bf16, act;
   float slope;
+  float res;            // X1, X2: the combines' residual scale
+  // X1 and X2 (xla_block_kernel): the second conv of a launch and the second window
+  const int8_t* w2;     // the second conv's weights (codes: conv5 wb1; light53: conv3 wb2)
+  const float* sf2;
+  const float* bias2;
+  const float* s_out2;  // codes: the scales of tb
+  int8_t* out_q2;       // codes: tb
+  const void* x2;       // light53: tb's codes, the second conv's input
+  float id;             // light53: the identity scale
   // geometry
   int raster;     // 0: 4 x 64 tiles; 1: 256 positions of the padded raster
-  int pitch;      // window positions a row (WIN_W, or W + 2)
+  int pitch;      // window positions a row (pitch4<E>(), or W + 2 E)
   int positions;  // window positions
   int plane;      // bytes a plane of 16 channels (positions * 16 + 16)
   int win_bytes;  // bytes a window
   int nwin;       // window buffers (2: the next tile's lands while this one's products run)
+  int positions2, plane2, win2_off;  // X1's light53 launch: tb's window (halo 1), one buffer
   int ring_off, vec_off, smem;
   int stages;     // weight ring slots
   int tiles_w, tiles_a_sample, tiles;
@@ -424,35 +479,45 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int tile) {
     t.y0 = r * TILE_M;
     t.x0 = 0;
   } else {
-    t.y0 = (r / p.tiles_w) * (MT * CONSUMERS);
+    t.y0 = (r / p.tiles_w) * TILE_ROWS;
     t.x0 = (r % p.tiles_w) * TILE_W;
   }
   return t;
 }
 
-// The image pixel (gy, gx) of window position pos; false outside the image.
-__device__ __forceinline__ bool window_pixel(const Params& p, const Tile& t, int pos, int& gy,
+// Windows and pitches.  The pitch leaves E padding columns on each side of a
+// row (E: the halo of the launch's widest conv); a window of halo e <= E
+// holds the rows its tile's outputs read through a conv of that halo, all
+// pitch columns of them.  Raster tiling: a row of the padded raster is
+// pitch = W + 2 E positions, padded column c holding image column c - E.
+
+// The image pixel (gy, gx) of position pos of tile t's window of halo e;
+// false outside the image.
+template <int E>
+__device__ __forceinline__ bool window_pixel(const Params& p, const Tile& t, int e, int pos, int& gy,
                                              int& gx) {
   if (p.raster) {
-    // rr = r + 2 * pitch >= 0, r = r0 + pos - pitch - 1 the position's raster
-    // index (row r / pitch, padded column r % pitch, image column one less)
-    const int rr = t.y0 + pos + p.pitch - 1;
-    gy = rr / p.pitch - 2;
-    gx = rr - (gy + 2) * p.pitch - 1;
+    // rr = r + (e + 1) * pitch >= 0, r = r0 + pos - e * pitch - E the
+    // position's raster index (row r / pitch, image column r % pitch - E)
+    const int rr = t.y0 + pos + p.pitch - E;
+    gy = rr / p.pitch - (e + 1);
+    gx = rr - (gy + e + 1) * p.pitch - E;
   } else {
-    const int wr = pos / WIN_W;
-    gy = t.y0 - 1 + wr;
-    gx = t.x0 - 1 + pos - wr * WIN_W;
+    constexpr int PW = pitch4<E>();
+    const int wr = pos / PW;
+    gy = t.y0 - e + wr;
+    gx = t.x0 - E + pos - wr * PW;
   }
   return gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
 }
 
 // The image pixel of output position m (0..255) of tile t; false where it is not stored.
+template <int E>
 __device__ __forceinline__ bool out_pixel(const Params& p, const Tile& t, int m, int& y, int& x) {
   if (p.raster) {
     const int rr = t.y0 + m;
     y = rr / p.pitch;
-    x = rr - y * p.pitch - 1;
+    x = rr - y * p.pitch - E;
   } else {
     y = t.y0 + m / TILE_W;
     x = t.x0 + m % TILE_W;
@@ -462,98 +527,126 @@ __device__ __forceinline__ bool out_pixel(const Params& p, const Tile& t, int m,
 
 // ---- the producer -----------------------------------------------------------
 
-// Warp 0, one lane: every weight tile of every (tile, column block, step), in
-// the order the consumers take them, through the ring.
+// A position in the weight ring: the slot, the parity of its next phase, and
+// (consumers) the slot of the step before, freed once its products are done.
+struct RingPos {
+  int slot = 0;
+  unsigned phase = 0;
+  int prev = -1;
+};
+
+// Warp 0, one lane: the weight tiles of one conv of taps x C_in / 32 steps,
+// column block nb of nbs, through the ring, S consecutive steps a slot (a
+// slot's first wait passes: parity 1).
+template <int NT, int S = 1>
+__device__ __forceinline__ void push_conv(const Params& p, const int8_t* w, int taps, int nb, int nbs,
+                                          uint8_t* ring, uint64_t* full, uint64_t* empty, RingPos& r) {
+  constexpr int B_TILE = NT * 32;
+  const int steps = taps * (p.cin / 32);
+  for (int st = 0; st < steps; st += S) {
+    mbar_wait(empty + r.slot, r.phase ^ 1u);
+    mbar_arrive_expect_tx(full + r.slot, S * B_TILE);
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      bulk_g2s(ring + (r.slot * S + k) * B_TILE, w + ((size_t)(st + k) * nbs + nb) * B_TILE, B_TILE, full + r.slot);
+    if (++r.slot == p.stages) {
+      r.slot = 0;
+      r.phase ^= 1u;
+    }
+  }
+}
+
+// X4's weight stream: every (tile, column block, step), in the order the consumers take them.
 template <int NT>
 __device__ __forceinline__ void load_weights(const Params& p, uint8_t* ring, uint64_t* full,
                                              uint64_t* empty) {
-  constexpr int B_TILE = NT * 32;
-  const int nbs = p.cout / NT, steps = 9 * (p.cin / 32);
-  int slot = 0;
-  unsigned phase = 0;  // of the slot's next use; its first wait passes (parity 1)
+  RingPos r;
+  const int nbs = p.cout / NT;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x)
-    for (int nb = 0; nb < nbs; ++nb)
-      for (int st = 0; st < steps; ++st) {
-        mbar_wait(empty + slot, phase ^ 1u);
-        mbar_arrive_expect_tx(full + slot, B_TILE);
-        bulk_g2s(ring + slot * B_TILE, p.w + ((size_t)st * nbs + nb) * B_TILE, B_TILE, full + slot);
-        if (++slot == p.stages) {
-          slot = 0;
-          phase ^= 1u;
-        }
-      }
+    for (int nb = 0; nb < nbs; ++nb) push_conv<NT>(p, p.w, 9, nb, nbs, ring, full, empty, r);
 }
 
-// Warps 1-3: each tile's window into window buffer k % 2 (k: the block's
-// tile count), quantized on the way (S = bf16 / float) or as codes (S = int8_t).
+// Warps 1-3 (tid 0..95): tile t's window of halo e (positions, plane as it
+// has them) from src into w, quantized on the way (S = bf16 / float: static
+// reciprocals inv, or DYN the sample's scale s and its reciprocal rs; BATCH
+// 16-byte loads in flight a thread) or as codes (S = int8_t, by cp.async with
+// zero fill).  Outside the image the staged codes are zero.
+template <typename S, bool DYN, int E, int BATCH = 16>
+__device__ __forceinline__ void stage_window(const Params& p, const void* src, const Tile& t, int e,
+                                             int positions, int plane, uint8_t* w, const float* inv,
+                                             float s, float rs, int tid) {
+  const int planes = p.cin / 16;
+  const int items = positions * planes;
+  if constexpr (std::is_same<S, int8_t>::value) {
+    const int8_t* x = static_cast<const int8_t*>(src);
+    for (int i = tid; i < items; i += STAGERS) {
+      const int pos = i / planes, g = i - pos * planes;
+      int gy, gx;
+      const bool in = window_pixel<E>(p, t, e, pos, gy, gx);
+      const int8_t* from = in ? x + (((size_t)t.n * p.H + gy) * p.W + gx) * p.cin + g * 16 : x;
+      cp_async16_zfill(w + g * plane + pos * 16, from, in ? 16 : 0);
+    }
+    cp_async_wait_all();
+  } else {
+    constexpr int L = Act<S>::LOADS;
+    constexpr int WB = BATCH / L;  // staging items in flight a thread
+    const S* x = static_cast<const S*>(src);
+    for (int i0 = tid; i0 < items; i0 += WB * STAGERS) {
+      uint4 raw[WB][L];
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+#pragma unroll
+        for (int l = 0; l < L; ++l) raw[u][l] = make_uint4(0, 0, 0, 0);
+        const int i = i0 + u * STAGERS;
+        if (i >= items) continue;
+        const int pos = i / planes, g = i - pos * planes;
+        int gy, gx;
+        if (window_pixel<E>(p, t, e, pos, gy, gx)) {
+          const uint4* from =
+              reinterpret_cast<const uint4*>(x + (((size_t)t.n * p.H + gy) * p.W + gx) * p.cin + g * 16);
+#pragma unroll
+          for (int l = 0; l < L; ++l) raw[u][l] = __ldg(from + l);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+        const int i = i0 + u * STAGERS;
+        if (i >= items) continue;
+        const int pos = i / planes, g = i - pos * planes;
+        float f[16];
+        Act<S>::to_floats(raw[u], f);
+        unsigned q[16];
+        if constexpr (DYN) {
+          codes8_div(f, s, rs, q);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 16; ++c) q[c] = code8(f[c], inv[16 * g + c]);
+        }
+        *reinterpret_cast<int4*>(w + g * plane + pos * 16) =
+            make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                      pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+      }
+    }
+  }
+  fence_proxy_async();
+}
+
+// X4's stagers: each tile's window into window buffer k % nwin (k: the
+// block's tile count), for every column block.
 template <typename S, bool DYN>
 __device__ __forceinline__ void stage_windows(const Params& p, uint8_t* win, const float* inv,
                                               uint64_t* wfull, uint64_t* wempty, int tid) {
-  const int planes = p.cin / 16;
-  const int items = p.positions * planes;
   int k = 0;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
     const int buf = k % p.nwin;
     const Tile t = tile_of(p, tile);
     mbar_wait(wempty + buf, ((k / p.nwin) & 1) ^ 1u);
-    uint8_t* w = win + buf * p.win_bytes;
-    if constexpr (std::is_same<S, int8_t>::value) {
-      const int8_t* x = static_cast<const int8_t*>(p.x);
-      for (int i = tid; i < items; i += STAGERS) {
-        const int pos = i / planes, g = i - pos * planes;
-        int gy, gx;
-        const bool in = window_pixel(p, t, pos, gy, gx);
-        const int8_t* src = in ? x + (((size_t)t.n * p.H + gy) * p.W + gx) * p.cin + g * 16 : x;
-        cp_async16_zfill(w + g * p.plane + pos * 16, src, in ? 16 : 0);
-      }
-      cp_async_wait_all();
-    } else {
-      constexpr int L = Act<S>::LOADS;
-      constexpr int WB = 16 / L;  // staging items in flight a thread
-      const S* x = static_cast<const S*>(p.x);
-      float s = 0.f, rs = 0.f;
-      if constexpr (DYN) {
-        s = sample_scale(__ldg(p.scale + t.n));
-        rs = __frcp_rn(s);
-      }
-      for (int i0 = tid; i0 < items; i0 += WB * STAGERS) {
-        uint4 raw[WB][L];
-#pragma unroll
-        for (int u = 0; u < WB; ++u) {
-#pragma unroll
-          for (int l = 0; l < L; ++l) raw[u][l] = make_uint4(0, 0, 0, 0);
-          const int i = i0 + u * STAGERS;
-          if (i >= items) continue;
-          const int pos = i / planes, g = i - pos * planes;
-          int gy, gx;
-          if (window_pixel(p, t, pos, gy, gx)) {
-            const uint4* src =
-                reinterpret_cast<const uint4*>(x + (((size_t)t.n * p.H + gy) * p.W + gx) * p.cin + g * 16);
-#pragma unroll
-            for (int l = 0; l < L; ++l) raw[u][l] = __ldg(src + l);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < WB; ++u) {
-          const int i = i0 + u * STAGERS;
-          if (i >= items) continue;
-          const int pos = i / planes, g = i - pos * planes;
-          float f[16];
-          Act<S>::to_floats(raw[u], f);
-          unsigned q[16];
-          if constexpr (DYN) {
-            codes8_div(f, s, rs, q);
-          } else {
-#pragma unroll
-            for (int c = 0; c < 16; ++c) q[c] = code8(f[c], inv[16 * g + c]);
-          }
-          *reinterpret_cast<int4*>(w + g * p.plane + pos * 16) =
-              make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
-                        pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
-        }
-      }
+    float s = 0.f, rs = 0.f;
+    if constexpr (DYN) {
+      s = sample_scale(__ldg(p.scale + t.n));
+      rs = __frcp_rn(s);
     }
-    fence_proxy_async();
+    stage_window<S, DYN, 1>(p, p.x, t, 1, p.positions, p.plane, win + buf * p.win_bytes, inv, s, rs, tid);
     mbar_arrive(wfull + buf);
   }
 }
@@ -570,6 +663,17 @@ __device__ __forceinline__ float dequant(int acc, float sc, float b, float slope
   v = __fadd_rn(__fmul_rn(v, sc), b);
   if constexpr (ACT == ACT_RELU) v = fmaxf(v, 0.f);
   if constexpr (ACT == ACT_LEAKY) v = v >= 0.f ? v : __fmul_rn(slope, v);
+  return v;
+}
+
+// act(A(acc) * sc + b) of two channels; ACCB rounds both sums to bf16 in one
+// packed conversion (each rounded to nearest even, as one at a time).
+template <bool ACCB, int ACT>
+__device__ __forceinline__ float2 dequant2(int a0, int a1, float2 sc, float2 b) {
+  float2 v = make_float2(__int2float_rn(a0), __int2float_rn(a1));
+  if constexpr (ACCB) v = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+  v = make_float2(__fadd_rn(__fmul_rn(v.x, sc.x), b.x), __fadd_rn(__fmul_rn(v.y, sc.y), b.y));
+  if constexpr (ACT == ACT_RELU) v = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
   return v;
 }
 
@@ -617,25 +721,28 @@ __device__ __forceinline__ uint32_t sel4(uint32_t a, uint32_t b, uint32_t c, uin
 struct Spots {
   size_t off[2];
   bool in[2];
-  __device__ __forceinline__ Spots(const Params& p, const Tile& t, int cw, int j) {
+  template <int E>
+  __device__ static __forceinline__ Spots at(const Params& p, const Tile& t, int cw, int j) {
+    Spots sp;
     const int r0 = ((threadIdx.x & 127) >> 5) * 16 + ((threadIdx.x & 31) >> 2);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int y, x;
-      in[h] = out_pixel(p, t, (cw * MT + j) * TILE_W + r0 + 8 * h, y, x);
-      off[h] = in[h] ? (((size_t)t.n * p.H + y) * p.W + x) * p.cout : 0;
+      sp.in[h] = out_pixel<E>(p, t, (cw * MT + j) * TILE_W + r0 + 8 * h, y, x);
+      sp.off[h] = sp.in[h] ? (((size_t)t.n * p.H + y) * p.W + x) * p.cout : 0;
     }
+    return sp;
   }
 };
 
 // For M tile j and each channel-pair group n8 of column block nb: st(stored?,
 // offset, channel, v0, v1, h, buffer) with v = act(A(acc) * sc + b) for the
-// 2 positions; ld(offset, h, buffer) loads what st reads, one group ahead
-// (two buffers), so that a group's loads are in flight while the group
-// before is computed and stored.
+// 2 positions (sc, b from sf, bias); ld(offset, h, buffer) loads what st
+// reads, one group ahead (two buffers), so that a group's loads are in
+// flight while the group before is computed and stored.
 template <int NT, bool DYN, bool ACCB, int ACT, typename LoadF, typename StoreF>
 __device__ __forceinline__ void for_pairs(const Params& p, const int (&acc)[NT / 2], const Spots& sp, int nb,
-                                          float s, LoadF&& ld, StoreF&& st) {
+                                          float s, const float* sf, const float* bias, LoadF&& ld, StoreF&& st) {
   const int c0 = nb * NT + (threadIdx.x & 3) * 2;
 #pragma unroll
   for (int h = 0; h < 2; ++h) ld(sp.off[h] + c0, h, 0);
@@ -646,9 +753,9 @@ __device__ __forceinline__ void for_pairs(const Params& p, const int (&acc)[NT /
 #pragma unroll
       for (int h = 0; h < 2; ++h) ld(sp.off[h] + co + 8, h, (n8 + 1) & 1);
     }
-    float2 sc = __ldg(reinterpret_cast<const float2*>(p.sf + co));
+    float2 sc = __ldg(reinterpret_cast<const float2*>(sf + co));
     if constexpr (DYN) sc = make_float2(__fmul_rn(sc.x, s), __fmul_rn(sc.y, s));
-    const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + co));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + co));
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = n8 * 4 + h * 2;
@@ -665,7 +772,8 @@ __device__ __forceinline__ void for_pairs(const Params& p, const int (&acc)[NT /
 // to code.
 template <int NT, bool DYN, bool ACCB, int ACT, typename LoadF, typename F>
 __device__ __forceinline__ void store_codes(const Params& p, const int (&acc)[NT / 2], const Spots& sp, int nb,
-                                            float s, const float* inv_out, int8_t* out, LoadF&& ld, F&& fx) {
+                                            float s, const float* sf, const float* bias, const float* inv_out,
+                                            int8_t* out, LoadF&& ld, F&& fx) {
   const int q = threadIdx.x & 3;
   const int c0 = nb * NT + 2 * q;
 #pragma unroll
@@ -681,9 +789,9 @@ __device__ __forceinline__ void store_codes(const Params& p, const int (&acc)[NT
 #pragma unroll
         for (int h = 0; h < 2; ++h) ld(sp.off[h] + co + 8, h, (n8 + 1) & 1);
       }
-      float2 sc = __ldg(reinterpret_cast<const float2*>(p.sf + co));
+      float2 sc = __ldg(reinterpret_cast<const float2*>(sf + co));
       if constexpr (DYN) sc = make_float2(__fmul_rn(sc.x, s), __fmul_rn(sc.y, s));
-      const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + co));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(bias + co));
       const float i0 = inv_out[co], i1 = inv_out[co + 1];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -719,14 +827,15 @@ __device__ __forceinline__ void combine(const Params& p, const int (&acc)[NT / 2
   typename P::Raw xv[2][2];  // [buffer][position]
   if (p.epi == EPI_LIGHT) {
     for_pairs<NT, DYN, ACCB, ACT_NONE>(
-        p, acc, sp, nb, s, [&](size_t o, int h, int u) { xv[u][h] = P::load(p.xr, o); },
+        p, acc, sp, nb, s, p.sf, p.bias, [&](size_t o, int h, int u) { xv[u][h] = P::load(p.xr, o); },
         [&](bool in, size_t o, int, float v0, float v1, int h, int u) {
           const float2 x = P::floats(xv[u][h]);
           if (in) P::store(p.out_x, o, __fadd_rn(x.x, __fmul_rn(res, v0)), __fadd_rn(x.y, __fmul_rn(res, v1)));
         });
   } else if (p.epi == EPI_DIFF_B) {  // t, and the codes of d = t - x
     store_codes<NT, DYN, ACCB, ACT_NONE>(
-        p, acc, sp, nb, s, inv_out, p.out_q, [&](size_t o, int h, int u) { xv[u][h] = P::load(p.xr, o); },
+        p, acc, sp, nb, s, p.sf, p.bias, inv_out, p.out_q,
+        [&](size_t o, int h, int u) { xv[u][h] = P::load(p.xr, o); },
         [&](bool in, size_t o, float v0, float v1, int h, int u) {
           const float2 x = P::floats(xv[u][h]);
           if (in) *reinterpret_cast<float2*>(p.out_f + o) = make_float2(v0, v1);
@@ -735,7 +844,7 @@ __device__ __forceinline__ void combine(const Params& p, const int (&acc)[NT / 2
   } else {  // EPI_DIFF_D: x + 0.1 * ((d + u) + t), d = t - x
     float2 tv[2][2];
     for_pairs<NT, DYN, ACCB, ACT_NONE>(
-        p, acc, sp, nb, s,
+        p, acc, sp, nb, s, p.sf, p.bias,
         [&](size_t o, int h, int u) {
           xv[u][h] = P::load(p.xr, o);
           tv[u][h] = __ldg(reinterpret_cast<const float2*>(p.t_in + o));
@@ -749,27 +858,36 @@ __device__ __forceinline__ void combine(const Params& p, const int (&acc)[NT / 2
   }
 }
 
+// ld and fx of the epilogues that load nothing and code the dequantized pair as it is
+struct NoLoad {
+  __device__ __forceinline__ void operator()(size_t, int, int) const {}
+};
+struct Same {
+  __device__ __forceinline__ float2 operator()(bool, size_t, float v0, float v1, int, int) const {
+    return make_float2(v0, v1);
+  }
+};
+
 // The epilogue of column block nb, M tile by M tile, straight from the
 // registers: the kinds the kernel's input S takes (float32 out and codes
 // from x; codes and the combines from codes; float32 out in the dynamic form).
 template <typename S, int NT, bool DYN, bool ACCB, int ACT>
 __device__ __forceinline__ void epilogue_of(const Params& p, const int (&acc)[MT][NT / 2], const Tile& t,
                                             int nb, float s, const float* inv_out, int cw) {
-  auto none = [](size_t, int, int) {};
-  auto same = [](bool, size_t, float v0, float v1, int, int) { return make_float2(v0, v1); };
   auto f32 = [&](const Spots& sp, const int(&a)[NT / 2]) {
-    for_pairs<NT, DYN, ACCB, ACT>(p, a, sp, nb, s, none, [&](bool in, size_t o, int, float v0, float v1, int, int) {
-      if (in) *reinterpret_cast<float2*>(p.out_f + o) = make_float2(v0, v1);
-    });
+    for_pairs<NT, DYN, ACCB, ACT>(p, a, sp, nb, s, p.sf, p.bias, NoLoad{},
+                                  [&](bool in, size_t o, int, float v0, float v1, int, int) {
+                                    if (in) *reinterpret_cast<float2*>(p.out_f + o) = make_float2(v0, v1);
+                                  });
   };
 #pragma unroll
   for (int j = 0; j < MT; ++j) {
-    const Spots sp(p, t, cw, j);
+    const Spots sp = Spots::at<1>(p, t, cw, j);
     if constexpr (DYN) {
       f32(sp, acc[j]);
     } else if constexpr (std::is_same<S, int8_t>::value) {
       if (p.epi == EPI_CODES) {
-        store_codes<NT, DYN, ACCB, ACT>(p, acc[j], sp, nb, s, inv_out, p.out_q, none, same);
+        store_codes<NT, DYN, ACCB, ACT>(p, acc[j], sp, nb, s, p.sf, p.bias, inv_out, p.out_q, NoLoad{}, Same{});
       } else if constexpr (ACT == ACT_NONE) {
         if (p.xr_f32) combine<NT, DYN, ACCB, float>(p, acc[j], sp, nb, s, inv_out);
         else combine<NT, DYN, ACCB, bf16>(p, acc[j], sp, nb, s, inv_out);
@@ -777,7 +895,7 @@ __device__ __forceinline__ void epilogue_of(const Params& p, const int (&acc)[MT
     } else if (p.epi == EPI_F32) {
       f32(sp, acc[j]);
     } else {
-      store_codes<NT, DYN, ACCB, ACT>(p, acc[j], sp, nb, s, inv_out, p.out_q, none, same);
+      store_codes<NT, DYN, ACCB, ACT>(p, acc[j], sp, nb, s, p.sf, p.bias, inv_out, p.out_q, NoLoad{}, Same{});
     }
   }
 }
@@ -799,6 +917,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const int (&acc)[MT][N
 
 // The rows of tile t's outputs in x (and t) into the L2 ahead of the
 // combine epilogues' loads (one thread): a bulk prefetch a row segment.
+template <int E>
 __device__ __forceinline__ void prefetch_rows(const Params& p, const Tile& t) {
   const size_t ex = p.xr_f32 ? 4 : 2;
   const int r_end = p.raster ? t.y0 + TILE_M : 0;
@@ -808,10 +927,10 @@ __device__ __forceinline__ void prefetch_rows(const Params& p, const Tile& t) {
       const int start = t.y0 + r * p.pitch - (r == 0 ? 0 : t.y0 % p.pitch);
       if (start >= r_end) break;
       y = start / p.pitch;
-      x0 = max(start - y * p.pitch - 1, 0);
-      x1 = min(min(r_end - y * p.pitch - 1, p.W), p.W);
+      x0 = max(start - y * p.pitch - E, 0);
+      x1 = min(min(r_end - y * p.pitch - E, p.W), p.W);
     } else {
-      if (r == MT * CONSUMERS) break;
+      if (r == TILE_ROWS) break;
       y = t.y0 + r;
       x0 = t.x0;
       x1 = min(t.x0 + TILE_W, p.W);
@@ -828,6 +947,77 @@ __device__ __forceinline__ void prefetch_rows(const Params& p, const Tile& t) {
   }
 }
 
+// The K steps of one conv of KW x KW taps over C_in into acc (2 M tiles of
+// 64 positions), from the resident window of halo e at wa (shared address of
+// the consumer's first M tile, planes plane bytes apart; the second M tile
+// dm bytes on) and the weight ring.  A tap (ky, kx) moves the descriptor's
+// start by (ky - KW/2 + e) * pitch + kx - KW/2 + E positions, the two halves
+// of a 32-channel step are a plane apart.  One wgmma group stays in flight;
+// the ring slot of the step before is released once its products are done.
+// other: the consumer's other sums, whose registers stay fenced.  S steps a
+// ring slot (C_in / 32 a multiple of S), one wgmma group.
+template <int NT, int KW, int E, int S = 1>
+__device__ __forceinline__ void conv_steps(const Params& p, int (&acc)[MT][NT / 2], int (&other)[MT][NT / 2],
+                                           uint32_t wa, int e, int plane, uint32_t dm, uint32_t ring_a,
+                                           uint64_t* full, uint64_t* empty, RingPos& r, bool leader) {
+  constexpr int B_TILE = NT * 32, K = KW / 2;
+  // the descriptors' constant fields; shared addresses stay below 2^18
+  const uint64_t a_hi = desc(0, plane, 128), b_hi = desc(0, NT * 16, 128);
+  const int chunks = p.cin / 32;
+#pragma unroll 1
+  for (int tap = 0; tap < KW * KW; ++tap) {
+    const int ky = tap / KW;
+    uint32_t a = wa + ((ky - K + e) * p.pitch + tap - KW * ky - K + E) * 16;  // the tap's first K step
+#pragma unroll 1
+    for (int chunk = 0; chunk < chunks; chunk += S, a += 2 * S * plane) {
+      mbar_wait(full + r.slot, r.phase);
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        fence_acc(acc[j]);
+        fence_acc(other[j]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const uint64_t db = b_hi | ((ring_a + (r.slot * S + k) * B_TILE) >> 4);
+#pragma unroll
+        for (int j = 0; j < MT; ++j) wgmma_s8<NT>(acc[j], a_hi | ((a + 2 * k * plane + j * dm) >> 4), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the products of the step before are done: its ring slot is free
+      if (r.prev >= 0 && leader) mbar_arrive(empty + r.prev);
+      r.prev = r.slot;
+      if (++r.slot == p.stages) {
+        r.slot = 0;
+        r.phase ^= 1u;
+      }
+    }
+  }
+}
+
+// Waits for the last products of the consumer's convs and releases their
+// last ring slot.
+template <int N>
+__device__ __forceinline__ void conv_done(int (&acc)[MT][N], int (&other)[MT][N], uint64_t* empty, RingPos& r,
+                                          bool leader) {
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    fence_acc(acc[j]);
+    fence_acc(other[j]);
+  }
+  if (leader) mbar_arrive(empty + r.prev);
+  r.prev = -1;
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(int (&acc)[MT][N]) {
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[j][i] = 0;
+}
+
 // Consumer warpgroup cw (0 or 1): M tiles 2 cw and 2 cw + 1 of every tile,
 // every column block, from the resident window and the weight ring.
 template <typename S, int NT, bool DYN>
@@ -835,61 +1025,27 @@ __device__ __forceinline__ void consume(const Params& p, const uint8_t* win, con
                                         uint64_t* full, uint64_t* empty, uint64_t* wfull,
                                         uint64_t* wempty, const float* inv_out, int cw) {
   constexpr int ACC = NT / 2;  // s32 sums a thread holds per M tile
-  constexpr int B_TILE = NT * 32;
   const bool leader = (threadIdx.x & 31) == 0;  // one arrival a warp
-  const int nbs = p.cout / NT, chunks = p.cin / 32;
-  // the descriptors' constant fields; shared addresses stay below 2^18
-  const uint64_t a_hi = desc(0, p.plane, 128), b_hi = desc(0, NT * 16, 128);
+  const int nbs = p.cout / NT;
   const uint32_t ring_a = smem_addr(ring);
   // M tile j's first staged position, and the second M tile's offset, in bytes
-  const uint32_t m0 = cw * MT * (p.raster ? TILE_W : WIN_W) * 16, dm = (p.raster ? TILE_W : WIN_W) * 16;
-  int slot = 0;
-  unsigned phase = 0;
+  const int rowp = p.raster ? TILE_W : pitch4<1>();
+  const uint32_t m0 = cw * MT * rowp * 16, dm = rowp * 16;
+  RingPos r;
   int k = 0;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
     const int buf = k % p.nwin;
     const Tile t = tile_of(p, tile);
     const float s = DYN ? sample_scale(__ldg(p.scale + t.n)) : 0.f;
-    if (p.xr != nullptr && threadIdx.x == 128) prefetch_rows(p, t);
+    if (p.xr != nullptr && threadIdx.x == 128) prefetch_rows<1>(p, t);
     mbar_wait(wfull + buf, (k / p.nwin) & 1);
     const uint32_t wa = smem_addr(win) + buf * p.win_bytes + m0;
     for (int nb = 0; nb < nbs; ++nb) {
       int acc[MT][ACC];
-#pragma unroll
-      for (int j = 0; j < MT; ++j)
-#pragma unroll
-        for (int i = 0; i < ACC; ++i) acc[j][i] = 0;
-      int prev = -1;  // the ring slot of the step before, freed once its products are done
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3;
-        uint32_t a = wa + (ky * p.pitch + tap - 3 * ky) * 16;  // the tap's first K step
-#pragma unroll 1
-        for (int chunk = 0; chunk < chunks; ++chunk, a += 2 * p.plane) {
-          mbar_wait(full + slot, phase);
-          const uint64_t db = b_hi | ((ring_a + slot * B_TILE) >> 4);
-#pragma unroll
-          for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
-          wgmma_fence();
-#pragma unroll
-          for (int j = 0; j < MT; ++j) wgmma_s8<NT>(acc[j], a_hi | ((a + j * dm) >> 4), db);
-          wgmma_commit();
-          wgmma_wait<1>();  // the products of the step before are done: its ring slot is free
-          if (prev >= 0 && leader) mbar_arrive(empty + prev);
-          prev = slot;
-          if (++slot == p.stages) {
-            slot = 0;
-            phase ^= 1u;
-          }
-        }
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
-      if (leader) {
-        mbar_arrive(empty + prev);
-        if (nb == nbs - 1) mbar_arrive(wempty + buf);  // the tile's window is read
-      }
+      zero_acc(acc);
+      conv_steps<NT, 3, 1>(p, acc, acc, wa, 1, p.plane, dm, ring_a, full, empty, r, leader);
+      conv_done(acc, acc, empty, r, leader);
+      if (leader && nb == nbs - 1) mbar_arrive(wempty + buf);  // the tile's window is read
       epilogue<S, NT, DYN>(p, acc, t, nb, s, inv_out, cw);
     }
   }
@@ -932,6 +1088,340 @@ __global__ void __launch_bounds__(THREADS, 1) conv3_kernel(const __grid_constant
     consume<S, NT, DYN>(p, win, ring, full, empty, wfull, wempty, inv_out, threadIdx.x / 128 - 1);
 }
 
+// ---- X1 and X2: the static blocks of the XLA int8 forward ------------------------------
+//
+// xla_block_kernel<FORM>, one launch of a block; windows at a pitch with E
+// padding columns (the halo of the launch's widest conv):
+//   PAIR_CODES (X1's first, E = 2): one window of halo 2 of bf16 x, quantized
+//     with 1 / s_x while staged, for both first convs: conv3 (w, 9 taps) ->
+//     the codes of relu(y) at s_a into out_q, then conv5 (w2, 25 taps) -> at
+//     s_b into out_q2; 128 output channels a column block;
+//   PAIR_LIGHT53 (X1's second, E = 2): ta's window of halo 2 (x, two buffers)
+//     and tb's of halo 1 (x2, one buffer); per column block of 64 channels
+//     conv5 over ta (w) into one set of sums and conv3 over tb (w2) into
+//     another, then id * xr + res * (a + b) from the registers;
+//   ONE_CODES (X2's first, E = 1): conv3 over bf16 x -> the codes of relu(y) at s_t;
+//   ONE_LIGHT (X2's second, E = 1): conv3 over t's codes, xr + res * u.
+// The producer warpgroup gives up registers to the consumers (setmaxnreg),
+// and the epilogues run over both M tiles of a consumer a channel group at a
+// time, so that the per-channel vectors are loaded once for 4 positions.
+
+__host__ __device__ constexpr int form_nt(int form) {
+  return form == PAIR_LIGHT53 ? 64 : 128;
+}
+
+__host__ __device__ constexpr int form_s(int form) {
+  return form == PAIR_LIGHT53 ? X_S64 : X_S128;
+}
+
+__host__ __device__ constexpr int form_e(int form) {
+  return form == PAIR_CODES || form == PAIR_LIGHT53 ? 2 : 1;
+}
+
+// Warp 0, one lane: the weight tiles in the consumers' order.
+template <int FORM>
+__device__ __forceinline__ void xla_weights(const Params& p, uint8_t* ring, uint64_t* full, uint64_t* empty) {
+  constexpr int NT = form_nt(FORM), S = form_s(FORM);
+  RingPos r;
+  const int nbs = p.cout / NT;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    if constexpr (FORM == PAIR_CODES) {
+      push_conv<NT, S>(p, p.w, 9, 0, nbs, ring, full, empty, r);
+      push_conv<NT, S>(p, p.w2, 25, 0, nbs, ring, full, empty, r);
+    } else if constexpr (FORM == PAIR_LIGHT53) {
+      for (int nb = 0; nb < nbs; ++nb) {
+        push_conv<NT, S>(p, p.w, 25, nb, nbs, ring, full, empty, r);
+        push_conv<NT, S>(p, p.w2, 9, nb, nbs, ring, full, empty, r);
+      }
+    } else {
+      push_conv<NT, S>(p, p.w, 9, 0, nbs, ring, full, empty, r);
+    }
+  }
+}
+
+// Warps 1-3: each tile's windows.  PAIR_LIGHT53 stages tb's (one buffer)
+// after ta's, once the tile before has read it.
+template <int FORM>
+__device__ __forceinline__ void xla_windows(const Params& p, uint8_t* win, uint8_t* win2, const float* inv,
+                                            uint64_t* wfull, uint64_t* wempty, int tid) {
+  constexpr int E = form_e(FORM);
+  using S = typename std::conditional<FORM == PAIR_CODES || FORM == ONE_CODES, bf16, int8_t>::type;
+  int k = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+    const int buf = k % p.nwin;
+    const Tile t = tile_of(p, tile);
+    mbar_wait(wempty + buf, ((k / p.nwin) & 1) ^ 1u);
+    stage_window<S, false, E, 8>(p, p.x, t, E, p.positions, p.plane, win + buf * p.win_bytes, inv, 0.f, 0.f, tid);
+    mbar_arrive(wfull + buf);
+    if constexpr (FORM == PAIR_LIGHT53) {  // tb's window, one buffer: barriers WINDOWS
+      mbar_wait(wempty + WINDOWS, (k & 1) ^ 1u);
+      stage_window<int8_t, false, E>(p, p.x2, t, 1, p.positions2, p.plane2, win2, inv, 0.f, 0.f, tid);
+      mbar_arrive(wfull + WINDOWS);
+    }
+  }
+}
+
+// The 4 lanes of a quad trade their words: lane q holds w[u], its word of
+// channel group u of 4; it gets every lane's word of group q, in the order
+// of the lanes (lane r's in round q ^ r).
+__device__ __forceinline__ uint4 quad_trade(const uint32_t (&w)[4], int q) {
+  uint32_t got[4];
+  got[0] = sel4(w[0], w[1], w[2], w[3], q);
+#pragma unroll
+  for (int x = 1; x < 4; ++x) got[x] = __shfl_xor_sync(0xffffffffu, sel4(w[0], w[1], w[2], w[3], q ^ x), x);
+  return make_uint4(sel4(got[0], got[1], got[2], got[3], q), sel4(got[0], got[1], got[2], got[3], q ^ 1),
+                    sel4(got[0], got[1], got[2], got[3], q ^ 2), sel4(got[0], got[1], got[2], got[3], q ^ 3));
+}
+
+// The codes of relu(A(acc) * sf + bias) at 1 / inv of both M tiles of the
+// consumer, 8 bytes a store as store_codes leaves them; sf, bias and inv in
+// shared memory.
+template <int E, bool ACCB>
+__device__ __forceinline__ void xla_codes_out(const Params& p, const int (&acc)[MT][64], const Tile& t, int cw,
+                                              const float* sf, const float* bias, const float* inv, int8_t* out) {
+  Spots sp[MT];
+#pragma unroll
+  for (int j = 0; j < MT; ++j) sp[j] = Spots::at<E>(p, t, cw, j);
+  const int q = threadIdx.x & 3;
+  const int c0 = 2 * q;
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4) {
+    uint32_t w[MT][2][4];  // this lane's code pairs of n8 = 4 k4 + u
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int co = c0 + (4 * k4 + u) * 8;
+      const float2 sc = *reinterpret_cast<const float2*>(sf + co);
+      const float2 b = *reinterpret_cast<const float2*>(bias + co);
+      const float2 iv = *reinterpret_cast<const float2*>(inv + co);
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = (4 * k4 + u) * 4 + h * 2;
+          const float2 v = dequant2<ACCB, ACT_RELU>(acc[j][i], acc[j][i + 1], sc, b);
+          w[j][h][u] = code_pair(v.x, v.y, iv.x, iv.y);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // lane q: the code pairs of n8 = 4 k4 + q, lane by lane
+        const uint4 v = quad_trade(w[j][h], q);
+        if (sp[j].in[h])
+          *reinterpret_cast<uint2*>(out + sp[j].off[h] + (4 * k4 + q) * 8) = make_uint2(v.x | (v.y << 16), v.z | (v.w << 16));
+      }
+  }
+}
+
+// x of column block nb of the consumer's outputs (bf16 pairs, xr), into registers.
+template <int NT, int E>
+__device__ __forceinline__ void load_x(const Params& p, const Tile& t, int cw, int nb, unsigned (&xv)[MT][2][NT / 8]) {
+  const int c0 = nb * NT + (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    const Spots sp = Spots::at<E>(p, t, cw, j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int n8 = 0; n8 < NT / 8; ++n8) xv[j][h][n8] = Pair<bf16>::load(p.xr, sp.off[h] + c0 + n8 * 8);
+  }
+}
+
+// The combine of column block nb of both M tiles: TWO (X1) bf16(id * x +
+// res * (a + b)), a = A(acc_a) * sf + bias, b = A(acc_b) * sf2 + bias2;
+// else (X2) bf16(x + res * a).  Every product and add rounded on its own;
+// x in registers (load_x); vec: sf, bias, sf2, bias2 in shared memory, X_C
+// floats each.  32 channels a step, as xla_codes_out's.  X2's quad trades its
+// bf16 pairs, as there, so that a lane stores 16 bytes of a pixel (with 4
+// bytes a lane its stores took a third of the launch); X1's stores its pairs
+// as they are (the trade measured slower there).
+template <int NT, int E, bool ACCB, bool TWO>
+__device__ __forceinline__ void xla_combine(const Params& p, const int (&acc_a)[MT][NT / 2],
+                                            const int (&acc_b)[MT][NT / 2],
+                                            const unsigned (&xv)[MT][2][NT / 8], const float* vec, const Tile& t,
+                                            int cw, int nb) {
+  using P = Pair<bf16>;
+  Spots sp[MT];
+#pragma unroll
+  for (int j = 0; j < MT; ++j) sp[j] = Spots::at<E>(p, t, cw, j);
+  const int q = threadIdx.x & 3;
+  const int c0 = nb * NT + q * 2;
+#pragma unroll
+  for (int g = 0; g < NT / 32; ++g) {
+    uint32_t w[MT][2][4];  // X2: this lane's bf16 pairs of n8 = 4 g + l
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      const int n8 = 4 * g + l;
+      const int co = c0 + n8 * 8;
+      const float2 sa = *reinterpret_cast<const float2*>(vec + co);
+      const float2 ba = *reinterpret_cast<const float2*>(vec + X_C + co);
+      float2 sb = sa, bb = ba;
+      if constexpr (TWO) {
+        sb = *reinterpret_cast<const float2*>(vec + 2 * X_C + co);
+        bb = *reinterpret_cast<const float2*>(vec + 3 * X_C + co);
+      }
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = n8 * 4 + h * 2;
+          const float2 x = P::floats(xv[j][h][n8]);
+          float2 u = dequant2<ACCB, ACT_NONE>(acc_a[j][i], acc_a[j][i + 1], sa, ba);
+          float o0, o1;
+          if constexpr (TWO) {
+            const float2 v = dequant2<ACCB, ACT_NONE>(acc_b[j][i], acc_b[j][i + 1], sb, bb);
+            u = make_float2(__fadd_rn(u.x, v.x), __fadd_rn(u.y, v.y));
+            o0 = __fadd_rn(__fmul_rn(p.id, x.x), __fmul_rn(p.res, u.x));
+            o1 = __fadd_rn(__fmul_rn(p.id, x.y), __fmul_rn(p.res, u.y));
+          } else {
+            o0 = __fadd_rn(x.x, __fmul_rn(p.res, u.x));
+            o1 = __fadd_rn(x.y, __fmul_rn(p.res, u.y));
+          }
+          if constexpr (TWO) {
+            if (sp[j].in[h]) P::store(p.out_x, sp[j].off[h] + co, o0, o1);
+          } else {
+            const __nv_bfloat162 o = __floats2bfloat162_rn(o0, o1);
+            w[j][h][l] = *reinterpret_cast<const uint32_t*>(&o);
+          }
+        }
+    }
+    if constexpr (!TWO) {
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // lane q: channels 8 q .. 8 q + 7 of the group
+          const uint4 v = quad_trade(w[j][h], q);
+          if (sp[j].in[h])
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out_x) + sp[j].off[h] + nb * NT + 32 * g + 8 * q) = v;
+        }
+    }
+  }
+}
+
+// The codes epilogue under the launch's accumulator rounding.
+template <int E>
+__device__ __forceinline__ void xla_codes(const Params& p, const int (&acc)[MT][64], const Tile& t, int cw,
+                                          const float* sf, const float* bias, const float* inv, int8_t* out) {
+  if (p.acc_bf16) xla_codes_out<E, true>(p, acc, t, cw, sf, bias, inv, out);
+  else xla_codes_out<E, false>(p, acc, t, cw, sf, bias, inv, out);
+}
+
+// Consumer warpgroup cw of launch FORM.
+// vec: the X_VECS vectors of X_C floats in shared memory (xla_block_kernel).
+template <int FORM>
+__device__ __forceinline__ void xla_consume(const Params& p, const uint8_t* win, const uint8_t* win2,
+                                            const uint8_t* ring, uint64_t* full, uint64_t* empty, uint64_t* wfull,
+                                            uint64_t* wempty, const float* vec, int cw) {
+  const float *inv_a = vec + X_C, *inv_b = vec + 2 * X_C, *dq = vec + 3 * X_C;
+  constexpr int NT = form_nt(FORM), ACC = NT / 2, E = form_e(FORM), S = form_s(FORM);
+  const bool leader = (threadIdx.x & 31) == 0;
+  const uint32_t ring_a = smem_addr(ring);
+  const int rowp = p.raster ? TILE_W : pitch4<E>();
+  const uint32_t m0 = cw * MT * rowp * 16, dm = rowp * 16;
+  RingPos r;
+  int k = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+    const int buf = k % p.nwin;
+    const Tile t = tile_of(p, tile);
+    if ((FORM == PAIR_LIGHT53 || FORM == ONE_LIGHT) && threadIdx.x == 128) prefetch_rows<E>(p, t);
+    mbar_wait(wfull + buf, (k / p.nwin) & 1);
+    const uint32_t wa = smem_addr(win) + buf * p.win_bytes + m0;
+    if constexpr (FORM == PAIR_CODES) {
+      int acc[MT][ACC];
+      zero_acc(acc);
+      conv_steps<NT, 3, E, S>(p, acc, acc, wa, E, p.plane, dm, ring_a, full, empty, r, leader);
+      conv_done(acc, acc, empty, r, leader);
+      xla_codes<E>(p, acc, t, cw, dq, dq + X_C, inv_a, p.out_q);
+      zero_acc(acc);
+      conv_steps<NT, 5, E, S>(p, acc, acc, wa, E, p.plane, dm, ring_a, full, empty, r, leader);
+      conv_done(acc, acc, empty, r, leader);
+      if (leader) mbar_arrive(wempty + buf);  // the tile's window is read
+      xla_codes<E>(p, acc, t, cw, dq + 2 * X_C, dq + 3 * X_C, inv_b, p.out_q2);
+    } else if constexpr (FORM == PAIR_LIGHT53) {
+      const uint32_t wb = smem_addr(win2) + m0;
+      const int nbs = p.cout / NT;
+      for (int nb = 0; nb < nbs; ++nb) {
+        int acc_a[MT][ACC], acc_b[MT][ACC];
+        zero_acc(acc_a);
+        zero_acc(acc_b);
+        conv_steps<NT, 5, E, S>(p, acc_a, acc_b, wa, E, p.plane, dm, ring_a, full, empty, r, leader);
+        unsigned xv[MT][2][NT / 8];  // x of the combine, in flight while conv3's products run
+        load_x<NT, E>(p, t, cw, nb, xv);
+        if (nb == 0) mbar_wait(wfull + WINDOWS, k & 1);
+        conv_steps<NT, 3, E, S>(p, acc_b, acc_a, wb, 1, p.plane2, dm, ring_a, full, empty, r, leader);
+        conv_done(acc_a, acc_b, empty, r, leader);
+        if (leader && nb == nbs - 1) {  // both windows of the tile are read
+          mbar_arrive(wempty + buf);
+          mbar_arrive(wempty + WINDOWS);
+        }
+        if (p.acc_bf16) xla_combine<NT, E, true, true>(p, acc_a, acc_b, xv, dq, t, cw, nb);
+        else xla_combine<NT, E, false, true>(p, acc_a, acc_b, xv, dq, t, cw, nb);
+      }
+    } else {
+      int acc[MT][ACC];
+      unsigned xv[MT][2][NT / 8];  // ONE_LIGHT: x of the combine, in flight while the products run
+      if constexpr (FORM == ONE_LIGHT) load_x<NT, E>(p, t, cw, 0, xv);
+      zero_acc(acc);
+      conv_steps<NT, 3, E, S>(p, acc, acc, wa, E, p.plane, dm, ring_a, full, empty, r, leader);
+      conv_done(acc, acc, empty, r, leader);
+      if (leader) mbar_arrive(wempty + buf);
+      if constexpr (FORM == ONE_CODES) {
+        xla_codes<E>(p, acc, t, cw, dq, dq + X_C, inv_a, p.out_q);
+      } else {
+        if (p.acc_bf16) xla_combine<NT, E, true, false>(p, acc, acc, xv, dq, t, cw, 0);
+        else xla_combine<NT, E, false, false>(p, acc, acc, xv, dq, t, cw, 0);
+      }
+    }
+  }
+}
+
+template <int FORM>
+__global__ void __launch_bounds__(THREADS, 1) xla_block_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + X_STAGES;
+  uint64_t* wfull = empty + X_STAGES;  // [WINDOWS] the first window's buffers, then tb's
+  uint64_t* wempty = wfull + WINDOWS + 1;
+  uint8_t* win = smem + X_BAR_BYTES;
+  uint8_t* win2 = smem + p.win2_off;
+  uint8_t* ring = smem + p.ring_off;
+  // 1 / s_x, 1 / s_a (X2: s_t), 1 / s_b (the codes forms), then sf, bias, sf2, bias2
+  float* vec = reinterpret_cast<float*>(smem + p.vec_off);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CONSUMERS * 4);
+    }
+    for (int i = 0; i <= WINDOWS; ++i) {
+      mbar_init(wfull + i, STAGERS);
+      mbar_init(wempty + i, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < X_C; i += THREADS) {
+    if constexpr (FORM == PAIR_CODES || FORM == ONE_CODES) {  // the reciprocals, as JAX's 1.0 / s
+      vec[i] = __frcp_rn(__ldg(p.scale + i));
+      vec[X_C + i] = __frcp_rn(__ldg(p.s_out + i));
+      if (FORM == PAIR_CODES) vec[2 * X_C + i] = __frcp_rn(__ldg(p.s_out2 + i));
+    }
+    vec[3 * X_C + i] = __ldg(p.sf + i);
+    vec[4 * X_C + i] = __ldg(p.bias + i);
+    if (FORM == PAIR_CODES || FORM == PAIR_LIGHT53) {
+      vec[5 * X_C + i] = __ldg(p.sf2 + i);
+      vec[6 * X_C + i] = __ldg(p.bias2 + i);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {  // the producer warpgroup, with few registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) xla_weights<FORM>(p, ring, full, empty);
+    else if (threadIdx.x >= 32) xla_windows<FORM>(p, win, win2, vec, wfull, wempty, threadIdx.x - 32);
+  } else {  // the consumers, with the registers it gave up
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    xla_consume<FORM>(p, win, win2, ring, full, empty, wfull, wempty, vec, threadIdx.x / 128 - 1);
+  }
+}
+
 // ---- host side ------------------------------------------------------------------
 
 int sm_count() {
@@ -945,51 +1435,87 @@ int sm_count() {
   return sms;
 }
 
-// The tiling, the window and the ring of p (n, H, W, cin, cout set); false
-// where the window and a ring of 2 slots do not fit shared memory.
-bool geometry(Params& p, int nt) {
-  const int planes = p.cin / 16, b_tile = nt * 32;
-  const int vec_bytes = (CIN_MAX + (p.s_out != nullptr ? p.cout : 0)) * 4;
-  // ring slots left beside nwin windows of the given positions
-  auto slots = [&](int positions, int nwin) {
-    const int plane = positions * 16 + 16;  // +16 bytes: a pixel's planes fall in different bank groups
-    const int ring_off = (BAR_BYTES + nwin * planes * plane + 127) / 128 * 128;
-    return (SMEM_MAX - ring_off - vec_bytes) / b_tile;
+// The tiling, the windows and the ring of p (n, H, W, cin, cout set) for a
+// launch whose widest conv has halo E: a window of halo E in two buffers
+// where they leave a ring of MIN_STAGES slots (else one), and, where halo2
+// >= 0, a second window of halo halo2 in one buffer; nt output channels a
+// column block, vec_bytes of vectors after the ring.  The raster tiling
+// where W is not a multiple of 64 and two windows of it fit so.  false where
+// the windows and a ring of 2 slots do not fit shared memory.  The
+// mbarriers (bar_bytes) come first, the ring holds at most max_stages slots.
+bool geometry(Params& p, int E, int halo2, int nt, int vec_bytes, int bar_bytes = BAR_BYTES,
+              int max_stages = MAX_STAGES) {
+  const long long planes = p.cin / 16, b_tile = nt * 32;
+  auto pitch_of = [&](bool raster) { return raster ? p.W + 2 * E : TILE_W + 2 * E; };
+  auto positions_of = [&](bool raster, int e) {
+    const long long pitch = pitch_of(raster);
+    return raster ? TILE_M + 2 * e * pitch + 2 * E : (TILE_ROWS + 2 * e) * pitch;
   };
-  const int pitch_r = p.W + 2, pos_r = TILE_M + 2 * pitch_r + 2;
-  p.raster = p.W % TILE_W != 0 && slots(pos_r, WINDOWS) >= MIN_STAGES;
-  p.pitch = p.raster ? pitch_r : WIN_W;
-  p.positions = p.raster ? pos_r : WIN_H * WIN_W;
-  p.plane = p.positions * 16 + 16;
-  p.win_bytes = planes * p.plane;
-  p.nwin = slots(p.positions, WINDOWS) >= MIN_STAGES ? WINDOWS : 1;
-  const int ring = slots(p.positions, p.nwin);
+  // +16 bytes a plane: a pixel's planes fall in different bank groups
+  auto bytes_of = [&](long long positions) { return planes * (positions * 16 + 16); };
+  // ring slots left beside nwin windows (and the second window)
+  auto slots = [&](bool raster, int nwin) {
+    const long long wins = bar_bytes + nwin * bytes_of(positions_of(raster, E)) +
+                           (halo2 >= 0 ? bytes_of(positions_of(raster, halo2)) : 0);
+    return (SMEM_MAX - (wins + 127) / 128 * 128 - vec_bytes) / b_tile;
+  };
+  p.raster = p.W % TILE_W != 0 && slots(true, WINDOWS) >= MIN_STAGES;
+  p.pitch = pitch_of(p.raster);
+  p.nwin = slots(p.raster, WINDOWS) >= MIN_STAGES ? WINDOWS : 1;
+  const long long ring = slots(p.raster, p.nwin);
   if (ring < 2) return false;
-  p.stages = ring < MAX_STAGES ? ring : MAX_STAGES;
-  p.ring_off = (BAR_BYTES + p.nwin * p.win_bytes + 127) / 128 * 128;
-  p.vec_off = p.ring_off + p.stages * b_tile;
+  p.positions = (int)positions_of(p.raster, E);
+  p.plane = p.positions * 16 + 16;
+  p.win_bytes = (int)planes * p.plane;
+  p.stages = ring < max_stages ? (int)ring : max_stages;
+  p.win2_off = bar_bytes + p.nwin * p.win_bytes;
+  int end = p.win2_off;
+  if (halo2 >= 0) {
+    p.positions2 = (int)positions_of(p.raster, halo2);
+    p.plane2 = p.positions2 * 16 + 16;
+    end += (int)planes * p.plane2;
+  }
+  p.ring_off = (end + 127) / 128 * 128;
+  p.vec_off = p.ring_off + p.stages * (int)b_tile;
   p.smem = p.vec_off + vec_bytes;
+  long long tiles;
   if (p.raster) {
     p.tiles_w = 1;
-    p.tiles_a_sample = (p.H * pitch_r + TILE_M - 1) / TILE_M;
+    tiles = ((long long)p.H * p.pitch + TILE_M - 1) / TILE_M;
   } else {
     p.tiles_w = (p.W + TILE_W - 1) / TILE_W;
-    p.tiles_a_sample = p.tiles_w * ((p.H + MT * CONSUMERS - 1) / (MT * CONSUMERS));
+    tiles = (long long)p.tiles_w * ((p.H + TILE_ROWS - 1) / TILE_ROWS);
   }
-  const long long tiles = (long long)p.n * p.tiles_a_sample;
-  if (tiles > (1LL << 30)) return false;
-  p.tiles = (int)tiles;
+  if (tiles * p.n > (1LL << 30)) return false;
+  p.tiles_a_sample = (int)tiles;
+  p.tiles = (int)tiles * p.n;
   return true;
 }
 
 template <typename S, bool DYN, int NT>
 int launch_conv(Params p, cudaStream_t st) {
-  if (!geometry(p, NT)) return (int)cudaErrorInvalidValue;
+  if (!geometry(p, 1, -1, NT, (CIN_MAX + (p.s_out != nullptr ? p.cout : 0)) * 4)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(conv3_kernel<S, DYN, NT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (err != cudaSuccess) return (int)err;
   const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
   conv3_kernel<S, DYN, NT><<<grid, THREADS, p.smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// One launch of X1 or X2: the window of halo E in two buffers, tb's of halo
+// 1 beside ta's in X1's second launch, the vectors after the ring.
+template <int FORM>
+int launch_xla(Params p, cudaStream_t st) {
+  // a ring slot: NT x 32 bytes a K step, form_s steps
+  const int halo2 = FORM == PAIR_LIGHT53 ? 1 : -1, slot = form_nt(FORM) * form_s(FORM);
+  if (!geometry(p, form_e(FORM), halo2, slot, X_VECS * X_C * 4, X_BAR_BYTES, X_STAGES))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(xla_block_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  xla_block_kernel<FORM><<<grid, THREADS, p.smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1105,6 +1631,62 @@ int iek_int8_conv3x(const void* x, int src, const float* s_in, float* amax, int 
   p.out_q = out_q;
   p.out_x = out_x;
   return run(p, src, dyn != DYN_NONE, nt, st);
+}
+
+// X1, the static Light53 block of the XLA int8 forward, in two launches of
+// xla_block_kernel: PAIR_CODES (x bf16 (n, h, w, 128) quantized with 1 /
+// act[0] while staged; ta, tb: the int8 codes of both branches at act[1],
+// act[2]) and PAIR_LIGHT53 (out bf16 = id * x + res * (a + b)).  act: float32
+// [3][128]; wa1 (3 x 3) and wb1 (5 x 5) packed with nt 128, wa2 (5 x 5) and
+// wb2 (3 x 3) with nt 64 ([taps][cin/32][cout/nt][2][nt][16]); the "sf" and
+// biases (128,) float32.  acc_bf16 as iek_int8_conv3x's.  Pointers 16-byte
+// aligned, tensors contiguous.  Returns the CUDA error code (0 = success).
+int iek_light53_int8_xla(const void* x, const float* act, const int8_t* wa1, const float* sa1, const float* ba1,
+                         const int8_t* wa2, const float* sa2, const float* ba2, const int8_t* wb1,
+                         const float* sb1, const float* bb1, const int8_t* wb2, const float* sb2,
+                         const float* bb2, int8_t* ta, int8_t* tb, void* out, int n, int h, int wd, int c,
+                         int acc_bf16, float res_scale, float identity_scale, cudaStream_t st) {
+  if (c != X_C || n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
+  Params a = base_params(x, act, wa1, sa1, ba1, n, h, wd, c, c, acc_bf16, ACT_RELU, 0.f);
+  a.s_out = act + c;
+  a.out_q = ta;
+  a.w2 = wb1;
+  a.sf2 = sb1;
+  a.bias2 = bb1;
+  a.s_out2 = act + 2 * c;
+  a.out_q2 = tb;
+  const int code = launch_xla<PAIR_CODES>(a, st);
+  if (code != 0) return code;
+  Params b = base_params(ta, nullptr, wa2, sa2, ba2, n, h, wd, c, c, acc_bf16, ACT_NONE, 0.f);
+  b.x2 = tb;
+  b.w2 = wb2;
+  b.sf2 = sb2;
+  b.bias2 = bb2;
+  b.xr = x;
+  b.out_x = out;
+  b.res = res_scale;
+  b.id = identity_scale;
+  return launch_xla<PAIR_LIGHT53>(b, st);
+}
+
+// X2, the static Light block, in two launches of xla_block_kernel: ONE_CODES
+// (t: the codes of relu(conv3(q(x))) at act[1], x quantized with 1 / act[0])
+// and ONE_LIGHT (out bf16 = x + res * u).  act: float32 [2][128]; w1, w2
+// packed with nt 128; the rest as iek_light53_int8_xla.
+int iek_light_int8_xla(const void* x, const float* act, const int8_t* w1, const float* s1, const float* b1,
+                       const int8_t* w2, const float* s2, const float* b2, int8_t* t, void* out, int n, int h,
+                       int wd, int c, int acc_bf16, float res_scale, cudaStream_t st) {
+  if (c != X_C || n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
+  Params a = base_params(x, act, w1, s1, b1, n, h, wd, c, c, acc_bf16, ACT_RELU, 0.f);
+  a.s_out = act + c;
+  a.out_q = t;
+  const int code = launch_xla<ONE_CODES>(a, st);
+  if (code != 0) return code;
+  Params b = base_params(t, nullptr, w2, s2, b2, n, h, wd, c, c, acc_bf16, ACT_NONE, 0.f);
+  b.xr = x;
+  b.out_x = out;
+  b.res = res_scale;
+  return launch_xla<ONE_LIGHT>(b, st);
 }
 
 const char* iek_error_string(int code) {

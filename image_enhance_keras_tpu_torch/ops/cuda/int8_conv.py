@@ -58,6 +58,7 @@ import torch
 from image_enhance_keras_tpu_torch.ops.cuda import _build, library
 from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import _stream
 from image_enhance_keras_tpu_torch.ops.cuda.int8_xla import _F32, _acc, _c, _check_acc, _quant_c, _quant_dyn_sample
+from image_enhance_keras_tpu_torch.ops.cuda.tf32x3 import cached_pack
 
 __all__ = ["int8_conv3", "int8_conv3_dyn", "int8_conv3_dyn_banded", "int8_conv3_plain", "int8_conv3_dyn_plain", "packed",
            "launch_int8_conv3", "launch_int8_conv3_dyn", "int8_conv3_codes", "int8_conv3_light", "int8_conv3_diff_b",
@@ -132,22 +133,19 @@ def _nt(cout: int) -> int:
     return 128 if cout % 128 == 0 else 96 if cout % 96 == 0 else 64
 
 
-def packed(wq: torch.Tensor) -> torch.Tensor:
-    """HWIO int8 (3, 3, C_in, C_out) -> [9][C_in/32][C_out/NT][2][NT][16], the kernel's B operand.
+def packed(wq: torch.Tensor, nt: int | None = None) -> torch.Tensor:
+    """HWIO int8 (k, k, C_in, C_out) -> [k*k][C_in/32][C_out/NT][2][NT][16], the kernel's B operand.
 
     Each (tap, 32-input-channel step, NT-channel column block) is one
     contiguous NT x 32 tile, K-major: the two 16-byte halves of the step are
-    NT*16 bytes apart.  Cached on the weight tensor (inference tensors carry
-    no version counter: they are not repacked after an in-place change)."""
-    version = None if wq.is_inference() else wq._version
-    cached = getattr(wq, "_iek_packed_x4", None)
-    if cached is not None and cached[0] == version:
-        return cached[1]
-    _, _, cin, cout = (int(s) for s in wq.shape)
-    nt = _nt(cout)
-    out = wq.reshape(9, cin // 32, 2, 16, cout // nt, nt).permute(0, 1, 4, 2, 5, 3).contiguous()
-    wq._iek_packed_x4 = (version, out)
-    return out
+    NT*16 bytes apart.  ``nt``: the output channels of a column block, by
+    default :func:`_nt` of C_out (X4's 3 x 3 convs); X1's launches take 128
+    and 64.  Cached on the weight tensor, one pack per ``nt``
+    (``tf32x3.cached_pack``)."""
+    k, _, cin, cout = (int(s) for s in wq.shape)
+    nt = _nt(cout) if nt is None else int(nt)
+    return cached_pack(wq, f"_iek_packed_x4_{nt}", lambda w: w.reshape(k * k, cin // 32, 2, 16, cout // nt, nt)
+                       .permute(0, 1, 4, 2, 5, 3).contiguous())
 
 
 def _check(x, wq, vectors, acc: str, act, codes: bool = False, like: tuple = ()) -> None:

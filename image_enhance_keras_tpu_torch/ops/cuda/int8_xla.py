@@ -3,14 +3,21 @@
 The JAX package runs these blocks as XLA convolutions over quantized
 tensors (``models/didbl_pallas.py``, ``_light53_i8_xla``, ``_light_i8_xla``,
 ``_light53_i8_xla_dyn``), not as Pallas kernels.  Torch has no int8
-convolution on CUDA, so the port runs them on forms of the s8 ``wgmma``
-implicit GEMM of ``csrc/int8_blocks.cu``:
+convolution on CUDA, so the port runs them on s8 ``wgmma`` implicit GEMMs
+written for Hopper:
 
 * :func:`light53_int8_xla`, :func:`light_int8_xla` (static per-channel
   scales): x (N, H, W, C) bf16 quantized as ``clamp(rint(x * (1/s_c)),
   +-127)`` with the (C,) calibrated vectors of ``act_scales`` (rows: input,
   then the branch intermediates), weights with those scales folded into them
-  ("qf") and a per-output-channel dequant scale ("sf");
+  ("qf") and a per-output-channel dequant scale ("sf").  Each runs on two
+  launches of the persistent, warp-specialised ``xla_block_kernel`` of
+  ``csrc/int8_conv.cu`` (X4's machinery): X1 both first convs over one
+  staged window into the branch codes, then per 64 output channels both
+  second convs into two sets of sums in registers and the combine; X2 its
+  conv into t's codes, then its second conv and the combine.  Their weights
+  are packed by ``int8_conv.packed`` (128 output channels a column block;
+  64 for X1's second convs);
 * :func:`light53_int8_xla_dyn` (the HR tail under ``int8_dynamic_tail``):
   every sample quantized with its own scale ``max(abs-max, 1e-6) / 127.0``
   (divided, not multiplied), the unfolded weights ("q", "s"), dequant
@@ -18,11 +25,13 @@ implicit GEMM of ``csrc/int8_blocks.cu``:
   its own per-sample abs-max over the whole sample, once, by a pass of its
   own between the two conv launches (:func:`dyn_requant_plain` is its plain
   version, :func:`light53_int8_xla_dyn_codes_plain` that of the second
-  convs over the codes);
+  convs over the codes); on ``csrc/int8_blocks.cu``;
 * :func:`light53_int8_xla_upq` (X1u, the first HR block under
   ``IEK_INT8_UPQ``): X1 whose input arrives as int8 codes (the x4 with the
   quantize fused, ``upsample.upsample_quant_tf1``, K3q) and whose combine
-  adds a given float32 skip: ``bf16(skip + 0.1 * (a + b))``.
+  adds a given float32 skip: ``bf16(skip + 0.1 * (a + b))``; on
+  ``csrc/int8_blocks.cu``, K4/K5's static template, weights packed by
+  ``int8_blocks._packed``.
 
 ``merge55`` (``IEK_INT8_MERGE55``) makes the plain versions of X1 and X3
 run a block's two first convs as JAX does under it: one 5x5 conv with 2C
@@ -47,8 +56,8 @@ conv and contracts the dequant into FMAs (ROADMAP.md §3).
 The wrappers check their arguments and call the ops ``iek::light53_int8_xla``,
 ``iek::light_int8_xla`` and ``iek::light53_int8_xla_dyn``
 (``ops/cuda/library.py``): on a CUDA tensor the op launches the kernels
-(bf16 x, C = 128; ``launch_*`` below, the codes packed by
-``int8_blocks._packed``) or raises; on a CPU tensor it runs the plain
+(bf16 x, C = 128; ``launch_*`` below, the weights packed as above) or
+raises; on a CPU tensor it runs the plain
 versions, which compute the convolutions exactly in float64 and every
 float step in the order above, so that kernels and plain versions agree
 bit for bit.  Each wrapper counts in ``.launches`` the blocks its op ran on
@@ -285,7 +294,11 @@ def light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, b
     _check_acc(acc)
     _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (3, "C"), _BF16)
-    wa1, wa2, wb1, wb2 = library.device_layout(x, _packed, wa1, wa2, wb1, wb2)
+    if x.device.type == "cuda":
+        from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import packed
+
+        # the first convs' launch takes 128 output channels a column block, the second's 64
+        wa1, wa2, wb1, wb2 = packed(wa1, 128), packed(wa2, 64), packed(wb1, 128), packed(wb2, 64)
     return library.light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
                                     acc, bool(emit_s8), float(res_scale), float(identity_scale), bool(merge55))
 
@@ -313,7 +326,9 @@ def light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16", emi
     """int8 Light block with static per-channel scales (X2); ``act_scales``: (2, C) s_x, s_t."""
     _check_acc(acc)
     _check(x, [(w1, 3), (w2, 3)], [s1, b1, s2, b2], act_scales, (2, "C"), _BF16)
-    w1, w2 = library.device_layout(x, _packed, w1, w2)
+    from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import packed
+
+    w1, w2 = library.device_layout(x, packed, w1, w2)
     return library.light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc, bool(emit_s8), float(res_scale))
 
 
@@ -360,10 +375,12 @@ def light53_int8_xla_dyn_banded(x, window, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb
 
 def launch_light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
                             acc: str, res_scale: float, identity_scale: float) -> torch.Tensor:
-    """X1 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light53_int8_xla``."""
+    """X1 on CUDA tensors, the weights packed: the CUDA implementation of
+    ``iek::light53_int8_xla`` (two launches of ``csrc/int8_conv.cu``, the
+    branch codes ta, tb between them)."""
     convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
     _build.check_aligned(x, act_scales, *convs)
-    lib = _build.library("int8_blocks")
+    lib = _build.library("int8_conv")
     n, h, w, c = (int(s) for s in x.shape)
     ta = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     tb = torch.empty_like(ta)
@@ -397,10 +414,12 @@ def launch_light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1
 
 
 def launch_light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str, res_scale: float) -> torch.Tensor:
-    """X2 on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light_int8_xla``."""
+    """X2 on CUDA tensors, the weights packed: the CUDA implementation of
+    ``iek::light_int8_xla`` (two launches of ``csrc/int8_conv.cu``, t's codes
+    between them)."""
     convs = (w1, s1, b1, w2, s2, b2)
     _build.check_aligned(x, act_scales, *convs)
-    lib = _build.library("int8_blocks")
+    lib = _build.library("int8_conv")
     n, h, w, c = (int(s) for s in x.shape)
     t = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     out = torch.empty_like(x)

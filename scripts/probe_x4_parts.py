@@ -35,12 +35,12 @@ from image_enhance_keras_tpu_torch.ops.cuda import _build, int8_blocks  # noqa: 
 from image_enhance_keras_tpu_torch.ops.cuda import int8_conv as k  # noqa: E402
 
 EPILOGUE = "      epilogue<S, NT, DYN>(p, acc, t, nb, s, inv_out, cw);\n"
-PRODUCTS = "          for (int j = 0; j < MT; ++j) wgmma_s8<NT>(acc[j], a_hi | ((a + j * dm) >> 4), db);\n"
+PRODUCTS = "        for (int j = 0; j < MT; ++j) wgmma_s8<NT>(acc[j], a_hi | ((a + 2 * k * plane + j * dm) >> 4), db);\n"
 VARIANTS = {
     "kernel": [],
     "no epilogue": [(EPILOGUE, "")],
-    "no products": [(PRODUCTS, "          (void)db;\n")],
-    "no products, no epilogue": [(PRODUCTS, "          (void)db;\n"), (EPILOGUE, "")],
+    "no products": [(PRODUCTS, "        (void)db;\n")],
+    "no products, no epilogue": [(PRODUCTS, "        (void)db;\n"), (EPILOGUE, "")],
 }
 SHAPES = {"difv4 mid": ((9, 192, 192), 256), "difvdsr": ((16, 96, 96), 192)}
 

@@ -240,9 +240,12 @@ def test_int8_static_kernels_float32_bit_equal_plain(which, hw):
 
 # -- X1-X3, the XLA int8 forward's blocks (per-channel static, per-sample dynamic) --
 #: (N, H, W): a batch of 96x96 patches, ragged crops that cut the 4 x 64 tiles,
-#: an image narrower than one tile, and "big": codes and weights near 127,
-#: whose sums pass 2^24 (the bf16 accumulator then rounds twice)
-INT8_XLA_SHAPES = [(2, 96, 96), (1, 57, 86), (1, 86, 57), (1, 5, 70), (2, 8, 64), "big"]
+#: an image narrower than one tile, "big": codes and weights near 127,
+#: whose sums pass 2^24 (the bf16 accumulator then rounds twice), and more
+#: tiles than the card's SMs, so that each persistent block walks several:
+#: (4, 96, 96) in raster tiles (X1's first launch, X2) and 4 x 64 ones (X1's
+#: second), (1, 128, 384) in 4 x 64 tiles
+INT8_XLA_SHAPES = [(2, 96, 96), (1, 57, 86), (1, 86, 57), (1, 5, 70), (2, 8, 64), "big", (4, 96, 96), (1, 128, 384)]
 INT8_XLA = {"light53": (int8_xla.light53_int8_xla, int8_xla.light53_int8_xla_plain, (3, 5, 5, 3), 3),
             "light": (int8_xla.light_int8_xla, int8_xla.light_int8_xla_plain, (3, 3), 2),
             "light53_dyn": (int8_xla.light53_int8_xla_dyn, int8_xla.light53_int8_xla_dyn_plain, (3, 5, 5, 3), 0)}

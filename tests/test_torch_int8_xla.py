@@ -152,6 +152,53 @@ def test_block_at_full_width_bit_equal_eager_jax(monkeypatch, which, acc):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
+def _full_width_light(monkeypatch):
+    """One C = 128 Light block (JAX's quantized tree and the port's) and a 12x12 input."""
+    rng = np.random.default_rng(22)
+    c = 128
+    blk = {cv: {"kernel": jnp.asarray(rng.normal(size=(3, 3, c, c)).astype(np.float32) * (2.0 / (9 * c)) ** 0.5),
+                "bias": jnp.asarray(rng.normal(size=c).astype(np.float32) * 0.02)} for cv in ("conv_a", "conv_b")}
+    x = rng.random((1, 12, 12, c)).astype(np.float32)
+    scales = {"light_0": {"x": jnp.asarray(np.abs(x).max(axis=(0, 1, 2)) / 127 + 1e-3),
+                          "t": jnp.asarray(0.01 + 0.02 * rng.random(c).astype(np.float32))}}
+    monkeypatch.setattr(jax_dp, "calibrate_didbl_act_scales", lambda *a, **k: scales)
+    jq = jax_dp.quantize_didbl_params({"level1": None, "out": None, "light_0": blk}, n_body53=0, n_light=1,
+                                      n_tail53=0, calib_x=jnp.zeros((1, 4, 4, 3)))
+    return jq["light_0"], params_from_numpy(jax.tree_util.tree_map(np.asarray, {"light_0": jq["light_0"]}))["light_0"], x
+
+
+@pytest.mark.parametrize("emit", ["wide", "s8"])
+@pytest.mark.parametrize("acc", ["bf16", "s32"])
+@pytest.mark.parametrize("width", ["narrow", "full"])
+def test_x2_on_x4_block_forms_bit_equal(narrow, monkeypatch, width, acc, emit):
+    """X2 is X4's codes form (from bf16 x, relu, at s_x then s_t) followed by
+    its LightBlock form, at the same rounding points (the CUDA launches of
+    both, and X2's own two launches, run these forms).  Their plain
+    composition equals X2's plain version and eager JAX's ``_light_i8_xla``
+    bit for bit, under both accumulators and both emissions (IEK_INT8_EMIT),
+    at features 16 and 128."""
+    from image_enhance_keras_tpu_torch.ops.cuda import int8_conv
+
+    monkeypatch.setenv("IEK_INT8_ACC", acc)
+    monkeypatch.setenv("IEK_INT8_EMIT", emit)
+    if width == "narrow":
+        _, _, jq, qp = narrow
+        jp, tp = jq["light_0"], qp["light_0"]
+        x = np.random.default_rng(6).random((2, 12, 14, 16)).astype(np.float32) * 1.5
+    else:
+        jp, tp, x = _full_width_light(monkeypatch)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    a, b, sc = tp["conv_a"], tp["conv_b"], tp["actc"]
+    tq = int8_conv.int8_conv3_codes_plain(xt, a["qf"], a["sf"], a["bias"], sc["x"], sc["t"], acc, act="relu")
+    got = int8_conv.int8_conv3_light_plain(tq, b["qf"], b["sf"], b["bias"], xt, acc)
+    plain = int8_xla.light_int8_xla_plain(xt, a["qf"], a["sf"], a["bias"], b["qf"], b["sf"], b["bias"],
+                                          torch.stack([sc["x"], sc["t"]]), acc, emit == "s8")
+    assert got.dtype == torch.bfloat16 and torch.equal(got, plain)
+    with jax.disable_jit():
+        want = jax_dp._light_i8_xla(jnp.asarray(x).astype(jnp.bfloat16), jp)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
 @pytest.mark.parametrize("acc", ACCS)
 @pytest.mark.parametrize("n_bands", [1, 3])
 def test_x3_requant_pass_and_code_convs_bit_equal_plain(acc, n_bands):
