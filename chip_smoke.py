@@ -311,11 +311,17 @@ def _gpu_name_power() -> str:
     return out[0].strip()
 
 
+#: the bf16 tile's copies in SASS: TMA tensor loads (the windows) and bulk
+#: copies (the weight slots)
+SASS_COPY_OPS = ("UTMALDG", "UBLKCP")
+
+
 def _sass_counts(so_path: str) -> dict:
     """Lines of the library's SASS with a GMMA (wgmma) and an IDP (dp4a)
     instruction, by ``cuobjdump`` beside nvcc or on PATH, in all and per
-    kernel function (``functions``: mangled name -> GMMA lines); raises where
-    it cannot be found, so that the check never passes unrun."""
+    kernel function (``functions``: mangled name -> GMMA lines; ``ops``:
+    mangled name -> lines of each SASS_COPY_OPS); raises where it cannot be
+    found, so that the check never passes unrun."""
     from image_enhance_keras_tpu_torch.ops.cuda import _build
 
     beside = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -326,14 +332,19 @@ def _sass_counts(so_path: str) -> dict:
                           text=True, timeout=120).stdout.splitlines()
     counts = {op: sum(op in line for line in sass) for op in ("GMMA", "IDP")}
     functions: dict = {}
+    ops: dict = {}
     name = None
     for line in sass:
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             functions[name] = 0
-        elif name is not None and "GMMA" in line:
-            functions[name] += 1
+            ops[name] = dict.fromkeys(SASS_COPY_OPS, 0)
+        elif name is not None:
+            functions[name] += "GMMA" in line
+            for op in SASS_COPY_OPS:
+                ops[name][op] += op in line
     counts["functions"] = functions
+    counts["ops"] = ops
     return counts
 
 
@@ -1118,6 +1129,33 @@ def _uncalibrated_phase(params, qp_static, img, plan, failures: list, rows: list
     return out
 
 
+def _device_fields(device: list, bound_ms: float) -> dict:
+    """A bf16 row's device times by queued CUDA events (kernel, cuDNN, kernel
+    in turns): the kernel's mean of its two readings, cuDNN's, and the
+    kernel's share of its bound."""
+    kernel_ms = (device[0] + device[2]) / 2
+    return {"device_ms": kernel_ms, "device_ms_readings": [device[0], device[2]], "library_device_ms": device[1],
+            "bound_share": bound_ms / kernel_ms}
+
+
+def _device_text(row: dict) -> str:
+    return (f"device {row['device_ms']:.4f} ms ({row['device_ms_readings'][0]:.4f}; "
+            f"{row['device_ms_readings'][1]:.4f}; queued CUDA events), {100 * row['bound_share']:.1f}% of the "
+            f"bound, cuDNN bf16 {row['library_device_ms']:.4f} ms device")
+
+
+def _device_check(row: dict, failures: list) -> None:
+    """No device reading of a bf16 kernel is below its bound, and the Light53
+    forms (K1, K6) are not slower than cuDNN's bf16 convs of the same blocks
+    in the same run."""
+    if row["name"].startswith("light53") and row["device_ms"] > row["library_device_ms"]:
+        failures.append(f"{row['name']}: {row['device_ms']:.4f} ms device, slower than cuDNN bf16's "
+                        f"{row['library_device_ms']:.4f} ms in the same run")
+    if min(row["device_ms_readings"]) < row["bound_ms"]:
+        failures.append(f"{row['name']}: a device reading {min(row['device_ms_readings']):.4f} ms below the bound "
+                        f"{row['bound_ms']:.4f} ms")
+
+
 def _bf16_kernels(params, tiles, failures: list, oihw, lib53, libl) -> list:
     """Phase 2 for the bf16 forms of K1, K2, K6 and K7 (``--dtype bfloat16``):
     each on the bf16 path's own inputs (the tiles cast to bf16, level1 in
@@ -1184,6 +1222,9 @@ def _bf16_kernels(params, tiles, failures: list, oihw, lib53, libl) -> list:
             xc = x.permute(0, 3, 1, 2)
             largs = [(oihw(a) if a.dim() == 4 else a).to(torch.bfloat16) for a in args]
             library_ms = _time_ms(lambda: lib(xc, *largs))
+            # device ms a call without the host: kernel, cuDNN, kernel (queued CUDA events)
+            device = [_queued_ms(lambda: kern(x, *args)), _queued_ms(lambda: lib(xc, *largs)),
+                      _queued_ms(lambda: kern(x, *args))]
             flops = 2.0 * taps * c * c * n * hh * ww
             bound_ms, bound_by = bound(flops, x, args)
             rows.append({
@@ -1193,10 +1234,12 @@ def _bf16_kernels(params, tiles, failures: list, oihw, lib53, libl) -> list:
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                 "library": "cuDNN bf16 F.conv2d of the same convs (rounds at other points)",
                 "ragged": ragged, "dtype": "bfloat16", "tflops": flops / (ms * 1e-3) / 1e12,
+                **_device_fields(device, bound_ms),
             })
             print(f"[chip_smoke] {name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms "
                   f"cuDNN bf16 F.conv2d, bound {bound_ms:.4f} ms ({bound_by}), "
-                  f"{rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
+                  f"{rows[-1]['tflops']:.2f} TFLOP/s; {_device_text(rows[-1])}", flush=True)
+            _device_check(rows[-1], failures)
 
     # the chains: K = 1 under the single-block bound (the chain's near-zero
     # scale), then the path's 16 / 6 blocks against the yardstick
@@ -1258,6 +1301,8 @@ def _bf16_kernels(params, tiles, failures: list, oihw, lib53, libl) -> list:
             largs = [(a.permute(0, 4, 3, 1, 2).contiguous() if a.dim() == 5 else a).to(torch.bfloat16)
                      for a in args]
             library_ms = _time_ms(lambda: lib(xc, *largs), iters=3, warmup=1)
+            device = [_queued_ms(lambda: kern(x, *args), n=5), _queued_ms(lambda: lib(xc, *largs), n=5),
+                      _queued_ms(lambda: kern(x, *args), n=5)]
             flops = 2.0 * taps * c * c * n * hh * ww
             bound_ms, bound_by = bound(flops, x, args)
             rows.append({
@@ -1270,10 +1315,12 @@ def _bf16_kernels(params, tiles, failures: list, oihw, lib53, libl) -> list:
                 "library_ms": library_ms,
                 "library": "cuDNN bf16 F.conv2d of the same convs, looped over the blocks (rounds at other points)",
                 "dtype": "bfloat16", "tflops": flops / (ms * 1e-3) / 1e12,
+                **_device_fields(device, bound_ms),
             })
             print(f"[chip_smoke] {name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, {library_ms:.3f} ms "
                   f"cuDNN bf16 F.conv2d, bound {bound_ms:.4f} ms ({bound_by}), "
-                  f"{rows[-1]['tflops']:.2f} TFLOP/s", flush=True)
+                  f"{rows[-1]['tflops']:.2f} TFLOP/s; {_device_text(rows[-1])}", flush=True)
+            _device_check(rows[-1], failures)
     return rows
 
 
@@ -3977,7 +4024,7 @@ def main() -> int:
             sass[stem] = None
             failures.append(f"csrc/{stem}.cu: the SASS could not be read ({e})")
         print(f"[chip_smoke] SASS of csrc/{stem}.cu: "
-              f"{ {k: v for k, v in (sass[stem] or {}).items() if k != 'functions'} }", flush=True)
+              f"{ {k: v for k, v in (sass[stem] or {}).items() if k not in ('functions', 'ops')} }", flush=True)
     if sass["int8_blocks"] is not None and (sass["int8_blocks"]["GMMA"] == 0 or sass["int8_blocks"]["IDP"] > 0):
         failures.append(f"int8 kernels: expected wgmma (GMMA) and no dp4a (IDP) in the SASS, got {sass['int8_blocks']}")
     if sass["int8_blocks"] is not None:
@@ -4005,19 +4052,24 @@ def main() -> int:
                             f"X1 and X2 each with wgmma (GMMA), no dp4a (IDP); got {len(fns4)}, GMMA lines "
                             f"{sorted(convs4.values())}, IDP {sass['int8_conv']['IDP']}")
     # every kernel function of the block and chain libraries, the bf16 forms'
-    # (two launches of two block kinds, one chain kernel of two kinds) included
+    # (two launches of two block kinds, one chain kernel of two kinds, on the
+    # tile of csrc/conv_bf16.cuh) included; those also hold the tile's TMA
+    # window loads and bulk weight copies
     for stem, what, n_bf16 in (("tower", "chain", 2), ("blocks", "block", 4)):
         if sass[stem] is None:
             continue
         fns = sass[stem]["functions"]
         without = [k for k, v in fns.items() if v == 0]
-        bf16_fns = [k for k in fns if "bfloat16" in k]  # instantiated for bf16 activations
+        bf16_fns = [k for k in fns if "bf16_tile" in k]  # the bf16 tile's kernels
+        copies = {k: sass[stem]["ops"][k] for k in bf16_fns}
         print(f"[chip_smoke] {what} kernels' GMMA lines by function (bf16 forms {len(bf16_fns)}): "
-              f"{sorted(fns.values())}", flush=True)
-        if sass[stem]["GMMA"] == 0 or without or len(bf16_fns) != n_bf16:
-            failures.append(f"{what} kernels: expected wgmma (GMMA) in the SASS of every kernel and {n_bf16} "
-                            f"bf16 kernels, got {sass[stem]['GMMA']} GMMA lines, none in {without}, bf16 "
-                            f"kernels {sorted(bf16_fns)}")
+              f"{sorted(fns.values())}; bf16 copies {sorted(copies.values(), key=str)}", flush=True)
+        no_copy = [k for k, v in copies.items() if not (v["UTMALDG"] and v["UBLKCP"])]
+        if sass[stem]["GMMA"] == 0 or without or len(bf16_fns) != n_bf16 or no_copy:
+            failures.append(f"{what} kernels: expected wgmma (GMMA) in the SASS of every kernel, {n_bf16} "
+                            f"bf16 kernels with TMA (UTMALDG) and bulk copies (UBLKCP); got {sass[stem]['GMMA']} "
+                            f"GMMA lines, none in {without}, bf16 kernels {sorted(bf16_fns)}, without copies "
+                            f"{no_copy}")
     _phase(f"1 build ({build_s:.2f} s)", t0)
 
     # -- 2. kernels against their plain versions ------------------------------

@@ -52,40 +52,14 @@
 // over the items, so the weight ring's mbarriers are set up once per thread
 // block (persistent_grid, make_ring).
 //
-// The bf16 policy.  The same tile also runs the bf16 forms of the kernels
-// (bf16 activations, weights cast to bf16 by the wrapper, float32 sums, as
-// the TPU kernels compute them): the product policy is chosen by the
-// activations' type (Policy<T>, mma_step<T>, stage_slice's overloads).
-//   * one wgmma.m64n128k16.f32.bf16.bf16 per 16 input channels in place of
-//     mma_step's three TF32 products: each bf16 x bf16 product is exact, so
-//     nothing is split;
-//   * A: the whole 128-channel window with its halo, planes of 8 channels,
-//     [plane][row][col][16 bytes]: 16 planes of PLANE bytes, the bytes of one
-//     float32 slice's hi and lo planes, so it is staged once per conv for all
-//     taps and channels; a k16 step reads two planes (the leading byte offset
-//     between them, as the k8 step's);
-//   * B: the weights cast (round to nearest even) and repacked by the wrapper
-//     to [tap][cin/16][2][cout][8] bf16 (ops/cuda/bf16.py packed): each
-//     (tap, 16-channel step) is one 4 KB tile, a tap's 8 tiles one 32 KB ring
-//     step, as one float32 (slice, tap) step;
-//   * each tap's 8 products go into a fresh wgmma sum that is added to the
-//     float32 sums with rounded adds, as each 3xTF32 step's are.
-// A ring step is 32 KB and a window WIN_BYTES under both policies, so the
-// shared-memory plan, the ring and the epilogues are the same.  The bf16
-// epilogues load and store bf16 activations 4 channels (8 bytes) at a time
-// and round to bf16 (to nearest even) where the TPU kernels do (rnd4, st4).
+// The bf16 forms of the kernels run on their own tile, conv_bf16.cuh.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int C = 128;                 // channels: N of every product
 constexpr int WGS = 2;                 // warpgroups per thread block
@@ -115,31 +89,8 @@ constexpr int SMEM_BYTES = RING_BYTES + 2 * STAGES * 8;     // and the ring's mb
 
 static_assert(RING_BYTES % 8 == 0, "the mbarriers are 8-byte aligned");
 
-// The product policy of a conv by the activations' type: float32 runs 3xTF32
-// over SLICES 32-channel slices (KSTEPS k8 steps of 8 KB hi/lo weight tiles
-// per (slice, tap) step), bf16 one bf16 product over the whole window (8 k16
-// steps of 4 KB weight tiles per tap step).  TAP_BYTES: one tap's packed
-// weights, C x C of them.
-template <typename T>
-struct Policy;
-template <>
-struct Policy<float> {
-  static constexpr int SLICES = C / CS;
-  static constexpr int KSTEPS = CS / 8;
-  static constexpr int B_TILE = 2 * B_HALF;
-  static constexpr size_t TAP_BYTES = (size_t)SLICES * B_STEP;
-};
-template <>
-struct Policy<bf16> {
-  static constexpr int SLICES = 1;
-  static constexpr int KSTEPS = C / 16;
-  static constexpr int B_TILE = 16 * C * 2;
-  static constexpr size_t TAP_BYTES = (size_t)SLICES * B_STEP;
-};
-static_assert(Policy<float>::KSTEPS * Policy<float>::B_TILE == B_STEP, "a float32 step is one ring slot");
-static_assert(Policy<bf16>::KSTEPS * Policy<bf16>::B_TILE == B_STEP, "a bf16 step is one ring slot");
-static_assert(Policy<bf16>::TAP_BYTES == (size_t)C * C * 2, "a bf16 tap is C x C bf16 weights");
-static_assert((C / 8) * PLANE <= WIN_BYTES, "a 128-channel bf16 window fits the window's bytes");
+// One tap's packed weights: SLICES (slice, tap) steps of B_STEP bytes
+constexpr size_t TAP_BYTES = (size_t)SLICES * B_STEP;
 static_assert(TILE_PIX * PITCH * 4 <= RING_BYTES, "a staged output tile fits the window and ring");
 static_assert(SMEM_BYTES <= 232448, "fits one block's shared memory");
 
@@ -270,44 +221,13 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[ACC], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], bf16 x bf16 -> f32, both
-// operands K-major (no transpose); the fragment of d as wgmma_tf32's.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[ACC], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// One K step of the policy of T.  float32: one k8 step of the 3xTF32
-// product, small terms first; a/b: descriptors of the hi operands, the lo
-// operands lie a_lo / b_lo bytes further.  bf16: one k16 step.
-template <typename T = float>
+// One k8 step of the 3xTF32 product, small terms first; a/b: descriptors
+// of the hi operands, the lo operands lie a_lo / b_lo bytes further.
 __device__ __forceinline__ void mma_step(float (&d)[ACC], uint32_t a, uint32_t b, int scale_d) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    wgmma_bf16(d, desc(a, PLANE, WIN_W * 16), desc(b, C * 16, 128), scale_d);
-  } else {
-    constexpr uint32_t a_lo = PL * PLANE, b_lo = B_HALF;
-    wgmma_tf32(d, desc(a + a_lo, PLANE, WIN_W * 16), desc(b, C * 16, 128), scale_d);
-    wgmma_tf32(d, desc(a, PLANE, WIN_W * 16), desc(b + b_lo, C * 16, 128), 1);
-    wgmma_tf32(d, desc(a, PLANE, WIN_W * 16), desc(b, C * 16, 128), 1);
-  }
+  constexpr uint32_t a_lo = PL * PLANE, b_lo = B_HALF;
+  wgmma_tf32(d, desc(a + a_lo, PLANE, WIN_W * 16), desc(b, C * 16, 128), scale_d);
+  wgmma_tf32(d, desc(a, PLANE, WIN_W * 16), desc(b + b_lo, C * 16, 128), 1);
+  wgmma_tf32(d, desc(a, PLANE, WIN_W * 16), desc(b, C * 16, 128), 1);
 }
 
 // ---- the convolution --------------------------------------------------------
@@ -362,49 +282,6 @@ __device__ __forceinline__ void stage_slice(uint8_t* win, const float* src, cons
   }
 }
 
-// The whole window of a KxK conv over bf16 activations, all 128 channels as
-// C/8 planes of 8 channels; zeros outside the image.  Read through L2, as
-// the float32 slices are.  (sl is always 0: the bf16 policy has one slice.)
-template <int K>
-__device__ __forceinline__ void stage_slice(uint8_t* win, const bf16* src, const Tile& t, int H, int W,
-                                            int /*sl*/) {
-  constexpr int P = K / 2;
-  constexpr int RH = TILE_H + K - 1;
-  constexpr int RW = TILE_W + K - 1;
-  constexpr int PLANES = C / 8;
-  constexpr int ITEMS = RH * RW * PLANES;
-  constexpr int PER = (ITEMS + THREADS - 1) / THREADS;
-  constexpr int WB = 4;  // loads in flight together
-  const bf16* base = src + (size_t)t.n * H * W * C;
-#pragma unroll
-  for (int b0 = 0; b0 < PER; b0 += WB) {
-    uint4 v[WB];
-#pragma unroll
-    for (int u = 0; u < WB; ++u) {
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      const int i = threadIdx.x + (b0 + u) * THREADS;
-      if (b0 + u >= PER || i >= ITEMS) continue;
-      const int g = i % PLANES;
-      const int pix = i / PLANES;
-      const int r = pix / RW;
-      const int gy = t.y0 - P + r;
-      const int gx = t.x0 - P + pix - r * RW;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v[u] = __ldcg(reinterpret_cast<const uint4*>(base + ((size_t)gy * W + gx) * C + g * 8));
-    }
-#pragma unroll
-    for (int u = 0; u < WB; ++u) {
-      const int i = threadIdx.x + (b0 + u) * THREADS;
-      if (b0 + u >= PER || i >= ITEMS) continue;
-      const int g = i % PLANES;
-      const int pix = i / PLANES;
-      const int r = pix / RW;
-      const int c = pix - r * RW;
-      *reinterpret_cast<uint4*>(win + g * PLANE + (r * WIN_W + c) * 16) = v[u];
-    }
-  }
-}
-
 // The weight ring: STAGES slots of one step's weights (B_STEP bytes) after
 // the window, and their mbarriers after the slots.  seq counts the steps this
 // thread block has sent through the ring (across convs): step number g uses
@@ -436,35 +313,32 @@ __device__ __forceinline__ Ring make_ring(uint8_t* smem) {
 
 // (one thread) Step s of a KxK conv, the ring's step number g: once every
 // warp is done with the slot's previous use, the step's KSTEPS weight tiles,
-// contiguous in wgt (float32: [K*K][C/8][2][2][C][4] floats, 8 KB tiles, a
-// (slice, tap) step; bf16: [K*K][C/16][2][C][8] bf16, 4 KB tiles, a tap),
-// into slot g % STAGES.
-template <int K, typename T>
-__device__ __forceinline__ void produce(const Ring& r, uint32_t g, const T* wgt, int s) {
+// contiguous in wgt ([K*K][C/8][2][2][C][4] floats, 8 KB tiles, a (slice,
+// tap) step), into slot g % STAGES.
+template <int K>
+__device__ __forceinline__ void produce(const Ring& r, uint32_t g, const float* wgt, int s) {
   const int sl = s / (K * K);
   const int tap = s - sl * K * K;
   const uint32_t slot = g % STAGES, use = g / STAGES;
   if (use > 0) mbar_wait(r.empty + slot, (use - 1) & 1);
   mbar_expect_tx(r.full + slot, B_STEP);
   bulk_copy(r.data + slot * B_STEP,
-            reinterpret_cast<const uint8_t*>(wgt) + ((size_t)tap * Policy<T>::SLICES + sl) * B_STEP, B_STEP,
+            reinterpret_cast<const uint8_t*>(wgt) + ((size_t)tap * SLICES + sl) * B_STEP, B_STEP,
             r.full + slot);
 }
 
 // acc[j] = SAME KxK conv of src over M tile j of this warpgroup (8 rows x 8
-// columns from x0 + 8*(MT*warpgroup + j)), all 128 output channels, under the
-// policy of src's type.  One step is one tap of one slice (float32: 4 k8
-// steps x 3 products; bf16: one tap of the whole window, 8 k16 products): its
-// products go into a fresh wgmma sum `part`, which is then added to acc with
-// rounded float32 adds.  The tensor cores' own float32 accumulation does not
+// columns from x0 + 8*(MT*warpgroup + j)), all 128 output channels.  One
+// step is one tap of one slice (4 k8 steps x 3 products): its products go
+// into a fresh wgmma sum `part`, which is then added to acc with rounded
+// float32 adds.  The tensor cores' own float32 accumulation does not
 // round as an FMA does: summed there over all taps and channels, a float32
 // conv was 5-50x further from float64 than cuDNN's float32, and 0.2-1.1x
 // with the rounded adds (scripts/probe_tf32x3.py).
-template <int K, typename T>
-__device__ __forceinline__ void conv(float (&acc)[MT][ACC], uint8_t* smem, Ring& ring, const T* src,
-                                     const T* __restrict__ wgt, const Tile& t, int H, int W) {
-  using P = Policy<T>;
-  constexpr int STEPS = P::SLICES * K * K;
+template <int K>
+__device__ __forceinline__ void conv(float (&acc)[MT][ACC], uint8_t* smem, Ring& ring, const float* src,
+                                     const float* __restrict__ wgt, const Tile& t, int H, int W) {
+  constexpr int STEPS = SLICES * K * K;
   static_assert(STEPS >= STAGES - 2, "the prologue fits the sequence");
   uint8_t* win = smem;
   const uint32_t g0 = ring.seq;
@@ -488,7 +362,7 @@ __device__ __forceinline__ void conv(float (&acc)[MT][ACC], uint8_t* smem, Ring&
     const int tap = s - sl * K * K;
     const int ky = tap / K;
     const int kx = tap - ky * K;
-    if (tap == 0) {  // a new slice (bf16: the window), once every warpgroup is done with the old one
+    if (tap == 0) {  // a new slice, once every warpgroup is done with the old one
       __syncthreads();
       stage_slice<K>(win, src, t, H, W, sl);
       fence_proxy_async();
@@ -502,11 +376,11 @@ __device__ __forceinline__ void conv(float (&acc)[MT][ACC], uint8_t* smem, Ring&
     for (int j = 0; j < MT; ++j) fence_acc(part[j]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < P::KSTEPS; ++kk) {
-      const uint32_t b = ring_a + (g % STAGES) * B_STEP + kk * P::B_TILE;
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t b = ring_a + (g % STAGES) * B_STEP + kk * B_TILE;
 #pragma unroll
       for (int j = 0; j < MT; ++j)
-        mma_step<T>(part[j], win_a + 2 * kk * PLANE + (ky * WIN_W + col0 + 8 * j + kx) * 16, b, kk != 0);
+        mma_step(part[j], win_a + 2 * kk * PLANE + (ky * WIN_W + col0 + 8 * j + kx) * 16, b, kk != 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -574,33 +448,6 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// bf16 activations, 4 channels (8 bytes) at a time: loads through L2
-// (exact widening), stores rounded to nearest even.
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
-}
-
-__device__ __forceinline__ void st4(bf16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
-}
-
-// v rounded to the activations' type T (bf16: to nearest even), as float:
-// the bf16 combines round after every step, as the TPU chain body does.
-template <typename T>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)), __bfloat162float(__float2bfloat16_rn(v.y)),
-                       __bfloat162float(__float2bfloat16_rn(v.z)), __bfloat162float(__float2bfloat16_rn(v.w)));
-  } else {
-    return v;
-  }
-}
-
 // the staged sums of a piece (for_tile_pieces' second offset)
 __device__ __forceinline__ float4 staged4(const float* st, int s) {
   return *reinterpret_cast<const float4*>(st + s);
@@ -614,10 +461,9 @@ __device__ __forceinline__ float4 scale4(float s, float4 a) {
   return make_float4(__fmul_rn(s, a.x), __fmul_rn(s, a.y), __fmul_rn(s, a.z), __fmul_rn(s, a.w));
 }
 
-// dst = relu(acc + bias), through the staged tile (bf16 dst: rounded once)
-template <typename T>
+// dst = relu(acc + bias), through the staged tile
 __device__ __forceinline__ void emit_relu(const float (&acc)[MT][ACC], float* st, const float* bias,
-                                          T* dst, const Tile& t, int H, int W) {
+                                          float* dst, const Tile& t, int H, int W) {
   stage_acc(acc, st);
   for_tile_pieces(t, H, W, [&](size_t g, int s, int ch) {
     const float4 v = add4(staged4(st, s), ldg4(bias + ch));

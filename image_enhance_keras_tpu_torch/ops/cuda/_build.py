@@ -34,7 +34,7 @@ SIGNATURES = {
     "blocks": {
         "iek_light53_block": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
         "iek_light_block": [_P] * 7 + [_I] * 4 + [_F, _P],
-        "iek_light53_block_bf16": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+        "iek_light53_block_bf16": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
         "iek_light_block_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     },
     "int8_blocks": {

@@ -4,9 +4,10 @@ The block kernels (``ops/cuda/blocks.py``, K1/K2) and the chain kernels
 (``ops/cuda/tower.py``, K6/K7) take bf16 activations as the TPU kernels do
 (``ops/pallas/blocks.py`` and ``ops/pallas/tower.py`` cast the weights to
 x's dtype and sum in float32).  On the card every conv runs on the bf16
-policy of ``csrc/conv_tf32x3.cuh`` (one bf16 wgmma per 16 input channels);
-:func:`packed` casts the float32 weights to bf16 (round to nearest even)
-and repacks them once per weight tensor into that policy's B operand.
+tile of ``csrc/conv_bf16.cuh`` (one bf16 wgmma per 16 input channels, a
+tap's 8 in one chain, one rounded float32 add per tap); :func:`packed`
+casts the float32 weights to bf16 (round to nearest even) and repacks them
+once per weight tensor into that tile's B operand.
 
 A product of two bf16 values is exact in float32, so the plain versions
 compute each conv as :func:`conv_exact`: the bf16 values held in float32
@@ -79,7 +80,7 @@ def packed(w: torch.Tensor) -> torch.Tensor:
     Each (block, tap, 16-input-channel step) is one contiguous 4 KB tile,
     K-major: the two 8-channel halves of the step C*16 bytes apart, output
     channel ``co`` holding its 8 input channels at ``co*16``; a tap's 8
-    tiles are one 32 KB step of the kernels' weight ring.  Cast with round
+    tiles are two 16 KB slots of the kernels' weight ring, 4 tiles each.  Cast with round
     to nearest even and cached on the weight tensor itself under its own
     attribute (``tf32x3.cached_pack``), apart from the 3xTF32 pack.
     """

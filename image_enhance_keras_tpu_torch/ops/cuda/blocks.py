@@ -15,10 +15,11 @@ x is float32 or bf16, as the TPU kernels take any input dtype; weights and
 biases are float32.  float32 x runs the convolutions on the TF32 tensor
 cores in split precision (3xTF32, ``tf32x3.split_tf32``), the weights split
 and repacked once per weight tensor (``tf32x3.packed``).  bf16 x runs them
-on the bf16 tensor cores, the weights cast to bf16 and repacked once
-(``bf16.packed``), the biases float32; ta and tb round to bf16, the combine
-is float32 and only the output rounds to bf16, as ``_light53_kernel`` and
-``_light_kernel`` do (:func:`light53_block_bf16`, :func:`light_block_bf16`).
+on the bf16 tensor cores (``csrc/conv_bf16.cuh``), the weights cast to
+bf16 and repacked once (``bf16.packed``), the biases float32; ta and tb
+round to bf16, the combine is float32 and only the output rounds to bf16,
+as ``_light53_kernel`` and ``_light_kernel`` do (:func:`light53_block_bf16`,
+:func:`light_block_bf16`).
 The kernels take exactly C = 128 channels on CUDA tensors; on CPU tensors
 any C is taken.
 """
@@ -162,24 +163,15 @@ def launch_light53_block(x, wa1p, ba1, wa2p, ba2, wb1p, bb1, wb2p, bb2, res_scal
     lib = _build.library("blocks")
     n, h, w, c = (int(s) for s in x.shape)
     ta, tb, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    fn = lib.iek_light53_block_bf16 if x.dtype == torch.bfloat16 else lib.iek_light53_block
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
-            park = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-            code = lib.iek_light53_block_bf16(
-                x.data_ptr(),
-                wa1p.data_ptr(), ba1.data_ptr(), wa2p.data_ptr(), ba2.data_ptr(),
-                wb1p.data_ptr(), bb1.data_ptr(), wb2p.data_ptr(), bb2.data_ptr(),
-                ta.data_ptr(), tb.data_ptr(), park.data_ptr(), out.data_ptr(),
-                n, h, w, c, float(res_scale), float(identity_scale / res_scale), stream_of(x),
-            )
-        else:
-            code = lib.iek_light53_block(
-                x.data_ptr(),
-                wa1p.data_ptr(), ba1.data_ptr(), wa2p.data_ptr(), ba2.data_ptr(),
-                wb1p.data_ptr(), bb1.data_ptr(), wb2p.data_ptr(), bb2.data_ptr(),
-                ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
-                n, h, w, c, float(res_scale), float(identity_scale / res_scale), stream_of(x),
-            )
+        code = fn(
+            x.data_ptr(),
+            wa1p.data_ptr(), ba1.data_ptr(), wa2p.data_ptr(), ba2.data_ptr(),
+            wb1p.data_ptr(), bb1.data_ptr(), wb2p.data_ptr(), bb2.data_ptr(),
+            ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+            n, h, w, c, float(res_scale), float(identity_scale / res_scale), stream_of(x),
+        )
     _build.check(lib, code, "fused_light53_block")
     fused_light53_block.launches += 1
     fused_light53_block.bf16_launches += int(x.dtype == torch.bfloat16)

@@ -18,8 +18,9 @@ x is float32 or bf16 (weights and biases float32), as the TPU chain kernels
 take any input dtype.  float32 x runs the convolutions on the TF32 tensor
 cores in split precision (3xTF32, :func:`split_tf32`,
 ``ops/cuda/tf32x3.py``), the weights split and repacked once per weight
-tensor (``tf32x3.packed``).  bf16 x runs them on the bf16 tensor cores, the
-weights cast to bf16 and repacked once (``bf16.packed``), and rounds to
+tensor (``tf32x3.packed``).  bf16 x runs them on the bf16 tensor cores
+(``csrc/conv_bf16.cuh``), the weights cast to bf16 and repacked once
+(``bf16.packed``), and rounds to
 bf16 after each conv and each step of the combine, as ``_light53_body`` and
 ``_light_body`` do (:func:`light53_chain_bf16`, :func:`light_chain_bf16`).
 The kernels take exactly C = 128 channels.

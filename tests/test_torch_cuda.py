@@ -423,6 +423,15 @@ BF16_FRAC, BF16_MIN_COUNT = 1e-3, 64
 BF16_NEAR_ZERO, BF16_CHAIN_NEAR_ZERO = 2.0 ** -6, 0.1
 BF16_BLOCK_ULPS, BF16_CHAIN_ULPS = 1.0, 2.0
 BF16_CHAIN_MAX, BF16_CHAIN_MEAN = 2.0 ** -6, 1e-4
+#: a chain of 16 against its plain version: within this many times the gap
+#: between the plain version summed in float64 and in float32, in mean and
+#: in max (chip_smoke.py's bound for the didbl tower's chains)
+BF16_YARDSTICK_TIMES = 2.0
+#: shapes for the bf16 tile's (csrc/conv_bf16.cuh) persistent grid of 8 x 16
+#: tiles: ragged crops with an odd number of tiles, whose last tiles lie
+#: partly outside the image, batches of 2 and 3, and one 96 x 96 image, whose
+#: 72 tiles are fewer than the card's SMs
+BF16_TILE_SHAPES = [(1, 37, 40), (3, 8, 48), (2, 13, 37), (1, 96, 96)]
 
 
 def _bf16_share_ok(frac, got):
@@ -441,7 +450,7 @@ def _bf16_inputs(shape, sizes, lead, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", CHAIN_SHAPES)
+@pytest.mark.parametrize("shape", CHAIN_SHAPES + BF16_TILE_SHAPES)
 @pytest.mark.parametrize("which", sorted(BLOCKS))
 def test_bf16_block_kernels_match_plain(which, shape, monkeypatch):
     """One counted bf16 call (two launches, bf16 wgmma) per block against the
@@ -490,6 +499,38 @@ def test_bf16_chain_kernels_match_plain(which, shape, k_blocks, monkeypatch):
     print(f"bf16 {which} chain K=3 {shape}: max |d| {d.max().item():.3g}, mean {d.mean().item():.3g}, "
           f"max|ref| {ref:.3g}")
     assert d.max().item() <= BF16_CHAIN_MAX * ref and d.mean().item() <= BF16_CHAIN_MEAN * ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_blocks", [2, 16])
+@pytest.mark.parametrize("shape", BF16_TILE_SHAPES)
+@pytest.mark.parametrize("which", sorted(CHAINS))
+def test_bf16_chain_kernels_deep_on_odd_tile_counts(which, shape, k_blocks, monkeypatch):
+    """One bf16 launch per chain of 2 or 16 blocks on the bf16 tile's ragged
+    and small shapes: 2 blocks within the bounds of a chain of three, 16 within
+    BF16_YARDSTICK_TIMES the float64-vs-float32 gap of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the chain kernels are CUDA C++ with no CPU mode")
+    wrapper, plain, sizes, _ = CHAINS[which]
+    bf16_plain = tower.light53_chain_bf16 if which == "light53" else tower.light_chain_bf16
+    x, args = _bf16_inputs(shape, sizes, (k_blocks,), sum(shape) + 7 * k_blocks)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    before = wrapper.bf16_launches
+    got = wrapper(x, *args)
+    torch.cuda.synchronize()
+    assert wrapper.bf16_launches == before + 1 and got.dtype == torch.bfloat16
+    want = plain(x, *args).float()
+    d = (got.float() - want).abs()
+    if k_blocks == 2:
+        ref = want.abs().max().item()
+        print(f"bf16 {which} chain K=2 {shape}: max |d| {d.max().item():.3g}, mean {d.mean().item():.3g}")
+        assert d.max().item() <= BF16_CHAIN_MAX * ref and d.mean().item() <= BF16_CHAIN_MEAN * ref
+        return
+    y = (bf16_plain(x, *args, sum_dtype=torch.float64).float() - want).abs()
+    print(f"bf16 {which} chain K=16 {shape}: |kernel - plain| mean {d.mean().item():.3g} max {d.max().item():.3g}; "
+          f"yardstick mean {y.mean().item():.3g} max {y.max().item():.3g}")
+    assert d.mean().item() <= BF16_YARDSTICK_TIMES * y.mean().item()
+    assert d.max().item() <= BF16_YARDSTICK_TIMES * y.max().item()
 
 
 #: split mode's stripes and 2-D tiles on a 40x56 image (halo 3 at n_tail53 = 2)

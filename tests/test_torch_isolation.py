@@ -1,4 +1,4 @@
-"""The port and chip_smoke.py import nothing of JAX or of the JAX package."""
+"""The port, chip_smoke.py and the card probes (scripts/probe_*.py) import nothing of JAX or of the JAX package."""
 
 import ast
 import os
@@ -11,6 +11,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "image_enhance_keras_tpu
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "scripts", f) for f in os.listdir(os.path.join(ROOT, "scripts"))
+            if f.startswith("probe_") and f.endswith(".py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "image_enhance_keras_tpu_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -32,6 +34,7 @@ def _imported(path):
 def test_port_has_sources():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names
+    assert os.path.join("scripts", "probe_bf16_parts.py") in names
     assert os.path.join("image_enhance_keras_tpu_torch", "engine.py") in names
     assert len(names) > 20
 
