@@ -7,11 +7,11 @@ Phases (each prints its elapsed seconds):
   0. the card's name and power limit; TF32 off;
   1. build the CUDA kernels from ``image_enhance_keras_tpu_torch/csrc``
      (one nvcc per source, all started together); the int8 kernels' SASS
-     must hold wgmma (GMMA) and no dp4a (IDP), in all 27 kernel functions
-     of ``int8_blocks.cu`` (K4/K5's 17, X3's 6, X1u's 4) but the three
+     must hold wgmma (GMMA) and no dp4a (IDP), in all 23 kernel functions
+     of ``int8_blocks.cu`` (K4/K5's 17, X3's 6) but the three
      abs-max passes and the dynamic forms' two requantization passes
-     (K4/K5's, X3's), and in the 19 conv functions of ``int8_conv.cu`` (X4's
-     15, X1's and X2's 4 ``xla_block_kernel`` forms),
+     (K4/K5's, X3's), and in the 21 conv functions of ``int8_conv.cu`` (X4's
+     15, X1's, X2's and X1u's 6 ``xla_block_kernel`` forms),
      the block and chain kernels'
      SASS wgmma (their 3xTF32 products), in every kernel function, the bf16
      forms' included;
@@ -194,7 +194,8 @@ Phases (each prints its elapsed seconds):
      ``upscale_patch_average``, upVideo to ``upscale_frame``, K3 launches
      and ms of each; 9b ``--forward int8 --dtype bfloat16`` under
      ``IEK_INT8_MERGE55`` (bf16 and s32 accumulators, each byte-equal to
-     the unmerged run), ``IEK_INT8_UPQ`` (K3q 1, X1u 1, X1 17, K3 1) and
+     the unmerged run), ``IEK_INT8_UPQ`` (K3q 1, X1u 1, X1 17, K3 0; byte-
+     equal to itself on the plain x4, K3q and blocks) and
      ``IEK_INT8_UPMM`` (no K3) at 128x128 in patch mode and 512x512 in fast
      mode, launches and ms per image; K3q and X1u at (9,96,96,128) ->
      (9,384,384,128) on the forward's own activations, bit-equal to their
@@ -3687,7 +3688,9 @@ def _knob_forwards(weights: str, qp, failures: list, gpu: str) -> dict:
     """Phase 9b: ``--forward int8 --dtype bfloat16`` under each of KNOB_RUNS
     at 128x128 in patch mode and 512x512 in fast mode (phase 2's quantized
     tree): launches, ms per image, and the byte checks (MERGE55 equal to the
-    unmerged run of its accumulator; UPQ with K3q and X1u, UPMM with no K3)."""
+    unmerged run of its accumulator; UPQ with K3q and X1u and no K3, and
+    byte-equal to itself with the plain x4, K3q and blocks swapped in; UPMM
+    with no K3)."""
     import numpy as np
 
     from image_enhance_keras_tpu_torch.engine import SuperResolver
@@ -3704,9 +3707,9 @@ def _knob_forwards(weights: str, qp, failures: list, gpu: str) -> dict:
             ys[name] = y
             row = {"ms": 1e3 * s, "out_mpix_s": y.shape[0] * y.shape[1] / 1e6 / s, "launches": counts}
             want = {"light53_int8_xla": 18, "light_int8_xla": 6, "upsample_phase_tf1": 1}
-            if name == "upq":
+            if name == "upq":  # X1u forms its skip from the LR map: no K3
                 want = {"light53_int8_xla": 17, "light53_int8_xla_upq": 1, "light_int8_xla": 6,
-                        "upsample_quant_tf1": 1, "upsample_phase_tf1": 1}
+                        "upsample_quant_tf1": 1}
             elif name == "upmm":
                 want = {"light53_int8_xla": 18, "light_int8_xla": 6}
             got_l = {k: v for k, v in counts.items() if not k.endswith("_bf16")}
@@ -3717,6 +3720,11 @@ def _knob_forwards(weights: str, qp, failures: list, gpu: str) -> dict:
                 row["byte_equal_unmerged"] = bool(np.array_equal(y, ys["default" if acc == "bf16" else "s32"]))
                 if not row["byte_equal_unmerged"]:
                     failures.append(f"9b {label} {name}: not byte-equal to the unmerged forward")
+            if name == "upq":
+                with _Env(IEK_INT8_ACC=acc, **env), _Swapped("plain_x4"), _Swapped("plain_blocks"):
+                    row["byte_equal_plain"] = bool(np.array_equal(y, r.upscale(img)))
+                if not row["byte_equal_plain"]:
+                    failures.append(f"9b {label} {name}: not byte-equal to the forward on the plain versions")
             if name in ("upq", "upmm"):
                 row["u8_max_diff_vs_default"], frac = _u8_agreement(y, ys["default"])
                 row["differing_vs_default"] = int(round(frac * y.size))
@@ -3724,6 +3732,7 @@ def _knob_forwards(weights: str, qp, failures: list, gpu: str) -> dict:
             print(f"[chip_smoke] 9b int8 bf16 {label} {name}: {row['ms']:.2f} ms, {row['out_mpix_s']:.3f} "
                   f"out-Mpix/s, launches {counts}"
                   + (f", byte-equal unmerged {row['byte_equal_unmerged']}" if "byte_equal_unmerged" in row else "")
+                  + (f", byte-equal plain {row['byte_equal_plain']}" if "byte_equal_plain" in row else "")
                   + (f", vs default max {row['u8_max_diff_vs_default']} on {row['differing_vs_default']} values"
                      if "differing_vs_default" in row else "") + f" on {gpu}", flush=True)
         del r
@@ -3733,10 +3742,11 @@ def _knob_forwards(weights: str, qp, failures: list, gpu: str) -> dict:
 def _knob_kernels(qp, failures: list, gpu: str) -> list:
     """Phase 9b: K3q and X1u on the int8 forward's own activations (the body
     output of the 128x128 image's 9 patches, (9,96,96,128) bf16, and its x4
-    codes and float32 skip at (9,384,384,128)), bit-equal to their plain
-    versions (X1u under the bf16 and s32 accumulators), with ms per call,
-    device ms, the bound and, for X1u, torch._int_mm over an int8 im2col of
-    its convs (as the X rows); launches are set from the main path's run."""
+    codes at (9,384,384,128)), bit-equal to their plain versions (X1u under
+    the bf16 and s32 accumulators), with ms per call, device ms (K3q by
+    _device_ms, X1u by queued CUDA events), the bound and, for X1u,
+    torch._int_mm over an int8 im2col of its convs (as the X rows); launches
+    are set from the main path's run."""
     import torch
 
     from image_enhance_keras_tpu_torch.models.didbl_pallas import _stacked_actc, apply_didbl_int8_xla_body
@@ -3755,7 +3765,6 @@ def _knob_kernels(qp, failures: list, gpu: str) -> list:
         tiles = extract_tiles(pad_to_plan(torch.from_numpy(img).cuda().float(), plan), plan) / 255.0
         h = apply_didbl_int8_xla_body(qp, tiles).contiguous()
         xq = kup.upsample_quant_tf1(h, 4, sx)
-        skip = kup.upsample_phase_tf1_kernel(h.float() * torch.tensor(0.9), 4)
         c = int(h.shape[-1])
         # K3q
         got, want = kup.upsample_quant_tf1(h, 4, sx), kup.upsample_quant_plain(h, 4, sx)
@@ -3787,22 +3796,23 @@ def _knob_kernels(qp, failures: list, gpu: str) -> list:
               f"the byte bound on {gpu}", flush=True)
         rows.append(row)
         del got, want
-        # X1u
-        row = {"shape": list(skip.shape)}
+        # X1u: its skip formed from the LR map h
+        row = {"shape": list(xq.shape)}
         for acc in ("bf16", "s32"):
-            got = kx.light53_int8_xla_upq(xq, skip, *convs, act, acc=acc)
-            want = kx.light53_int8_xla_upq_plain(xq, skip, *convs, act, acc=acc)
+            got = kx.light53_int8_xla_upq(xq, h, *convs, act, acc=acc)
+            want = kx.light53_int8_xla_upq_plain(xq, h, *convs, act, acc=acc)
             torch.cuda.synchronize()
             row[f"bit_equal_{acc}"] = bool(torch.equal(got, want))
             row[f"max_abs_err_{acc}"] = (got.float() - want.float()).abs().max().item()
             if not row[f"bit_equal_{acc}"]:
                 failures.append(f"light53_int8_xla_upq (X1u, acc {acc}): not bit-equal to plain")
-            row[f"ms_{acc}"] = _time_ms(lambda: kx.light53_int8_xla_upq(xq, skip, *convs, act, acc=acc))
+            row[f"ms_{acc}"] = _time_ms(lambda: kx.light53_int8_xla_upq(xq, h, *convs, act, acc=acc))
             del got, want
-        fn = lambda: kx.light53_int8_xla_upq(xq, skip, *convs, act)  # noqa: E731
-        ops = 2.0 * 68 * c * c * skip[..., 0].numel()
-        bound_ms, bound_by = _bound(ops, PEAK_INT8_OPS, (1.0 + 4.0 + 2.0) * skip.numel() + 68 * c * c)
-        dev_ms, how = _device_ms(fn, bound_ms)
+        fn = lambda: kx.light53_int8_xla_upq(xq, h, *convs, act)  # noqa: E731
+        ops = 2.0 * 68 * c * c * xq[..., 0].numel()
+        # the codes read and the bf16 output written (1 + 2 bytes an HR element), the LR map read once
+        bound_ms, bound_by = _bound(ops, PEAK_INT8_OPS, (1.0 + 2.0) * xq.numel() + 2.0 * h.numel() + 68 * c * c)
+        dev_ms, how = _queued_ms(fn), "queued CUDA events"
         if dev_ms < bound_ms:
             failures.append(f"light53_int8_xla_upq (X1u): {dev_ms:.4f} ms device ({how}) is below its bound")
         xq_f = xq.float()
@@ -3815,10 +3825,10 @@ def _knob_kernels(qp, failures: list, gpu: str) -> list:
         del pairs
         rows.append({
             "name": "light53_int8_xla_upq", "route": "cuda",
-            "source": "image_enhance_keras_tpu_torch/csrc/int8_blocks.cu",
+            "source": "image_enhance_keras_tpu_torch/csrc/int8_conv.cu",
             "replaces": K_UPQ_REPLACES["light53_int8_xla_upq"], "launches": None,
             "max_abs_err": max(row["max_abs_err_bf16"], row["max_abs_err_s32"]), "tolerance": 0.0,
-            "ms": row["ms_bf16"], "plain_ms": _time_ms(lambda: kx.light53_int8_xla_upq_plain(xq, skip, *convs, act),
+            "ms": row["ms_bf16"], "plain_ms": _time_ms(lambda: kx.light53_int8_xla_upq_plain(xq, h, *convs, act),
                                                        iters=3, warmup=1),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "library": "torch._int_mm over an int8 im2col of the block's convs (s32 sums only)",
@@ -3826,7 +3836,7 @@ def _knob_kernels(qp, failures: list, gpu: str) -> list:
             "tops": ops / (row["ms_bf16"] * 1e-3) / 1e12, "dtype": "bfloat16", **row,
         })
         r = rows[-1]
-        print(f"[chip_smoke] 9b X1u light53_int8_xla_upq {tuple(skip.shape)}: bit-equal bf16 {r['bit_equal_bf16']} "
+        print(f"[chip_smoke] 9b X1u light53_int8_xla_upq {tuple(xq.shape)}: bit-equal bf16 {r['bit_equal_bf16']} "
               f"s32 {r['bit_equal_s32']}; {r['ms_bf16']:.4f} ms (acc bf16), {r['ms_s32']:.4f} ms (s32), "
               f"{dev_ms:.4f} ms device ({how}), {r['plain_ms']:.3f} ms plain, {lib_ms:.4f} ms _int_mm over "
               f"im2col, bound {bound_ms:.4f} ms ({bound_by}), {r['tops']:.1f} TOPS; device ms by launch "
@@ -4034,22 +4044,22 @@ def main() -> int:
         for k, v in sorted(fns8.items()):
             print(f"[chip_smoke] int8 kernel function {k[:110]}: {v} GMMA lines", flush=True)
         without = [k for k, v in fns8.items() if v == 0 and "absmax" not in k and "requant" not in k]
-        if without or len(fns8) != 27:
-            failures.append(f"int8 kernels: expected 27 kernel functions (17 of K4/K5, 6 of X3, 4 of X1u), "
+        if without or len(fns8) != 23:
+            failures.append(f"int8 kernels: expected 23 kernel functions (17 of K4/K5, 6 of X3), "
                             f"wgmma in all but the 3 abs-max passes and the requantization pass; got {len(fns8)}, "
                             f"none in {without}")
     # X4: its 15 conv functions (bf16 / float32 x static and dynamic, int8 codes
-    # static; 64, 96 and 128 output channels a column block) and the 4 of X1
-    # and X2 (xla_block_kernel: two launches each) on wgmma, no dp4a; the 2
+    # static; 64, 96 and 128 output channels a column block) and the 6 of X1,
+    # X2 and X1u (xla_block_kernel: two launches each) on wgmma, no dp4a; the 2
     # abs-max passes without
     if sass["int8_conv"] is not None:
         fns4 = sass["int8_conv"]["functions"]
         convs4 = {k: v for k, v in fns4.items() if "conv3_kernel" in k or "xla_block_kernel" in k}
-        print(f"[chip_smoke] X4, X1 and X2 kernel functions' GMMA lines: "
+        print(f"[chip_smoke] X4, X1, X2 and X1u kernel functions' GMMA lines: "
               f"{ {k.split('(')[0][-40:]: v for k, v in sorted(convs4.items())} }", flush=True)
-        if sass["int8_conv"]["IDP"] > 0 or len(convs4) != 19 or min(convs4.values()) == 0 or len(fns4) != 21:
-            failures.append(f"X4, X1 and X2: expected 21 kernel functions, X4's 15 conv functions and the 4 of "
-                            f"X1 and X2 each with wgmma (GMMA), no dp4a (IDP); got {len(fns4)}, GMMA lines "
+        if sass["int8_conv"]["IDP"] > 0 or len(convs4) != 21 or min(convs4.values()) == 0 or len(fns4) != 23:
+            failures.append(f"X4, X1, X2 and X1u: expected 23 kernel functions, X4's 15 conv functions and the 6 "
+                            f"of X1, X2 and X1u each with wgmma (GMMA), no dp4a (IDP); got {len(fns4)}, GMMA lines "
                             f"{sorted(convs4.values())}, IDP {sass['int8_conv']['IDP']}")
     # every kernel function of the block and chain libraries, the bf16 forms'
     # (two launches of two block kinds, one chain kernel of two kinds, on the

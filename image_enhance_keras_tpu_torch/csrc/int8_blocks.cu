@@ -12,25 +12,18 @@
 //       t = q(relu(dq(conv3(q(x, s0), w1), s0, s1w) + b1), s1)
 //       out = x + 0.1*(dq(conv3(t, w2), s1, s2w) + b2)
 // and, for the XLA int8 forward of the JAX package (models/didbl_pallas.py
-// _light53_i8_xla_dyn, _light53_i8_xla_upfused: XLA convolutions there, no
-// Pallas kernel; ops/cuda/int8_xla.py wraps these):
+// _light53_i8_xla_dyn: XLA convolutions there, no Pallas kernel;
+// ops/cuda/int8_xla.py wraps it):
 //   * iek_light53_int8_xla_dyn (X3): per-sample dynamic scales s = max(amax,
 //     1e-6) / 127.0 of x and of each branch intermediate over the whole
-//     sample, dequant scale s_w[cout] * s;
-//   * iek_light53_int8_xla_upq (X1u, the first HR block under IEK_INT8_UPQ,
-//     _light53_i8_xla_upfused): the static Light53 block with per-channel
-//     scales q(v, s_c) = clamp(rint(v * (1/s_c)), +-127), the weights with
-//     those scales folded in ("qf") and a per-output-channel dequant scale
-//     ("sf"), whose input arrives as int8 codes (the x4 with the quantize in
-//     its epilogue, upsample.cu's K3q) and whose combine adds a given
-//     float32 skip (the x4 of 0.9 * h in float32): out = bf16(skip + 0.1*(a + b)).
-// X1 and X2, the static per-channel blocks of that forward (_light53_i8_xla,
-// _light_i8_xla), run on csrc/int8_conv.cu: X1 on its persistent,
-// warp-specialised Light53 pair launches, X2 on X4's codes and LightBlock forms.
-// There the accumulator is float(acc) or bf16(float(acc)) (IEK_INT8_ACC), and
-// every product and add of the dequant and the combine is rounded on its own
-// (no FMA), as JAX computes these ops one at a time:
-//   out = bf16(0.9*x + 0.1*(a + b)), bf16(x + 0.1*u).
+//     sample, dequant scale s_w[cout] * s.
+// X1, X1u and X2, the static per-channel blocks of that forward
+// (_light53_i8_xla, _light53_i8_xla_upfused, _light_i8_xla), run on
+// csrc/int8_conv.cu's persistent, warp-specialised xla_block_kernel.  There,
+// as in X3, the accumulator is float(acc) or bf16(float(acc))
+// (IEK_INT8_ACC), and every product and add of the dequant and the combine
+// is rounded on its own (no FMA), as JAX computes these ops one at a time:
+//   out = bf16(0.9*x + 0.1*(a + b)).
 // K4/K5 compute dq(acc, s, sw) + b = fma(float(acc), s * sw[cout], b), sw the
 // per-output-channel weight scales; the convs are s8 x s8 -> s32, NHWC,
 // C = 128.  x and out are bf16 or float32 (the template's T); the identity and
@@ -90,10 +83,9 @@
 //   4. per window, the second conv(s) VALID over the code rings, staged by
 //      cp.async exactly as the static launch B stages its scratch, dequantized
 //      with the window's intermediate scales, and the epilogue.
-// The XLA forms reuse the static template: X1u is launches A and B with
-// given codes and the non-FMA epilogues; X3 is four
-// launches: each sample's abs-max of x; both first convs from x quantized with
-// its sample's scale into float32 intermediates (N,H,W,C) with their
+// X3 reuses the static template, in four launches: each sample's abs-max
+// of x; both first convs from x quantized with its sample's scale into
+// float32 intermediates (N,H,W,C) with their
 // per-sample abs-maxes (atomicMax), the float32 pairs stored straight from
 // the registers so that they drain while the block's second first conv
 // runs; the requantization pass, which turns each intermediate into int8
@@ -187,17 +179,13 @@ constexpr int PITCH8 = C + 16;
 constexpr int PITCH16 = PASS + 16;
 // shared memory: [window][weight ring][scales, biases][extra]; extra is the
 // staged codes (launch A), the parked branch-a sums (the second launch of
-// Light53) or x (the second launch of Light)
+// Light53) or x (the second launch of Light); X3's launch 2 stores its
+// float32 sums from the registers and needs no extra
 constexpr int VEC_OFF = WIN_BYTES + STAGES * B_TILE;
 constexpr int EXTRA_OFF = VEC_OFF + 4 * C * 4;
 constexpr int SMEM_FIRST = EXTRA_OFF + TILE_PIX * PITCH8;
 constexpr int SMEM_LIGHT_B = EXTRA_OFF + TILE_PIX * PITCH16;
 constexpr int SMEM_LIGHT53_B = EXTRA_OFF + MT * ACC * THREADS * 4;
-// The XLA forms' launch A: three (C,) reciprocal vectors after the dequant
-// vectors, then the staged codes; X3's launch 2 stages float32 passes there.
-constexpr int X_INV_OFF = EXTRA_OFF;
-constexpr int X_EXTRA_OFF = X_INV_OFF + 3 * C * 4;
-constexpr int SMEM_FIRST_X = X_EXTRA_OFF + TILE_PIX * PITCH8;
 constexpr int SMEM_XDYN_FIRST = EXTRA_OFF;
 
 // The dynamic ring launch's window: its M tiles are 256 consecutive raster
@@ -215,7 +203,7 @@ static_assert(THREADS * 16 == B_TILE, "one 16-byte copy per thread fills a weigh
 static_assert(SMEM_RING <= 232448, "the ring launch fits one block's shared memory");
 static_assert(TILE_PIX * PITCH16 <= WIN_BYTES, "a staged epilogue pass fits the window's space");
 static_assert(SMEM_LIGHT53_B <= 232448 && SMEM_LIGHT_B <= 232448, "fits one block's shared memory");
-static_assert(SMEM_FIRST_X <= 232448 && SMEM_XDYN_FIRST <= 232448, "fits one block's shared memory");
+static_assert(SMEM_FIRST <= 232448 && SMEM_XDYN_FIRST <= 232448, "fits one block's shared memory");
 
 // A thread block's 4 x 64 tile: image n, first pixel (y0, x0) in the
 // coordinates of the source it stages from.
@@ -789,27 +777,23 @@ __device__ __forceinline__ void stage_vecs(float* v, float s1, const float* sw1,
 }
 
 // Static launch A epilogue: the codes of relu(dq(acc) + b) at the next scale
-// (inv_next = 1 / s_next; the XLA forms: inv_vec[c], per channel) into the
-// staging area, then out to dst.  vec holds s * sw and b of the conv.
-template <int DQ = DQ_FMA>
+// (inv_next = 1 / s_next) into the staging area, then out to dst.  vec
+// holds s * sw and b of the conv.
 __device__ __forceinline__ void emit_codes(const int (&acc)[MT][ACC], const float* vec,
                                            float inv_next, uint8_t* stage, int8_t* dst,
-                                           const Tile& t, int H, int W,
-                                           const float* inv_vec = nullptr) {
+                                           const Tile& t, int H, int W) {
   const Frag f;
 #pragma unroll
   for (int n8 = 0; n8 < C / 8; ++n8) {
     const int co = n8 * 8 + f.cq;
     const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
-    const float i0 = DQ == DQ_FMA ? inv_next : inv_vec[co];
-    const float i1 = DQ == DQ_FMA ? inv_next : inv_vec[co + 1];
 #pragma unroll
     for (int j = 0; j < MT; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = n8 * 4 + h * 2;
-        const unsigned q0 = code8(fmaxf(deq<DQ>(acc[j][i], sw0, b0), 0.f), i0);
-        const unsigned q1 = code8(fmaxf(deq<DQ>(acc[j][i + 1], sw1, b1), 0.f), i1);
+        const unsigned q0 = code8(fmaxf(dequant(acc[j][i], sw0, b0), 0.f), inv_next);
+        const unsigned q1 = code8(fmaxf(dequant(acc[j][i + 1], sw1, b1), 0.f), inv_next);
         *reinterpret_cast<uint16_t*>(stage + (f.p0 + j * TILE_W + 8 * h) * PITCH8 + co) =
             (uint16_t)pack2(q0, q1);
       }
@@ -1050,111 +1034,6 @@ light_i8_second_kernel(const T* __restrict__ x, const float* __restrict__ act,
 }
 
 // ---- the XLA int8 forms: per-channel static scales, per-sample dynamic --------
-
-// X1u's residual epilogue: out = bf16(skip + res * (a + (dq(acc) + b))), a the
-// parked branch-a sums, every product and add rounded (the XLA form).  The
-// float32 skip passes through st in two passes of 64 channels; each pass's
-// outputs wait in registers (as bf16 pairs) until every thread has read its
-// skip values, then leave through st as bf16, 128 bytes a pixel.
-template <int DQ>
-__device__ __forceinline__ void skip_epilogue(const int (&acc)[MT][ACC], const float* vec,
-                                              const float* park, uint8_t* st, const float* skip,
-                                              bf16* out, const OutTile& o, int H, int W,
-                                              float res_scale) {
-  constexpr int CP = PASS / 4;  // float channels a pass
-  constexpr int PASSES = C / CP;
-  const Frag f;
-  uint8_t* ob = reinterpret_cast<uint8_t*>(out);
-#pragma unroll
-  for (int pass = 0; pass < PASSES; ++pass) {
-    prefetch_x(st, skip, o, H, W, pass);
-    cp_async_wait<0>();
-    __syncthreads();
-    uint32_t ov[CP / 8][MT][2];
-#pragma unroll
-    for (int n8 = 0; n8 < CP / 8; ++n8) {
-      const int co = (pass * CP / 8 + n8) * 8 + f.cq;
-      const float sw0 = vec[co], sw1 = vec[co + 1], b0 = vec[C + co], b1 = vec[C + co + 1];
-#pragma unroll
-      for (int j = 0; j < MT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = (pass * CP / 8 + n8) * 4 + h * 2;
-          const float2 sv =
-              Act<float>::load2(st + (f.p0 + j * TILE_W + 8 * h) * PITCH16 + (co - pass * CP) * 4);
-          const float u0 = deq<DQ>(acc[j][i], sw0, b0);
-          const float u1 = deq<DQ>(acc[j][i + 1], sw1, b1);
-          const float a0 = park[(j * ACC + i) * THREADS + threadIdx.x];
-          const float a1 = park[(j * ACC + i + 1) * THREADS + threadIdx.x];
-          const __nv_bfloat162 r =
-              __floats2bfloat162_rn(__fadd_rn(sv.x, __fmul_rn(res_scale, __fadd_rn(a0, u0))),
-                                    __fadd_rn(sv.y, __fmul_rn(res_scale, __fadd_rn(a1, u1))));
-          ov[n8][j][h] = *reinterpret_cast<const uint32_t*>(&r);
-        }
-    }
-    __syncthreads();  // every skip value of the pass is read: st takes the outputs
-#pragma unroll
-    for (int n8 = 0; n8 < CP / 8; ++n8)
-#pragma unroll
-      for (int j = 0; j < MT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint32_t*>(st + (f.p0 + j * TILE_W + 8 * h) * PITCH8 + (n8 * 8 + f.cq) * 2) =
-              ov[n8][j][h];
-    __syncthreads();
-    for_tile_pieces<CP * 2, PITCH8>(o, H, W, C * 2, pass * CP * 2, [&](size_t g, int s) {
-      *reinterpret_cast<int4*>(ob + g) = *reinterpret_cast<const int4*>(st + s);
-    });
-    if (pass + 1 < PASSES) __syncthreads();  // st is read out before the next pass lands
-  }
-}
-
-// Launch A of X1u: the input arrives as int8 codes (xq, K3q's output) and is
-// staged by cp.async once for both first convs (conv3, then conv5), each
-// followed by the codes of relu(dq(acc) + b) at its branch's per-channel
-// scale (the XLA form's rounding).  act: float32 [2][C], those scales.
-template <int DQ>
-__global__ void __launch_bounds__(THREADS, 1)
-x8u_first_kernel(const int8_t* __restrict__ xq, const float* __restrict__ act,
-                 const int8_t* __restrict__ w3, const float* __restrict__ s3,
-                 const float* __restrict__ b3, int8_t* __restrict__ t3,
-                 const int8_t* __restrict__ w5, const float* __restrict__ s5,
-                 const float* __restrict__ b5, int8_t* __restrict__ t5, int H, int W) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
-  float* inv = reinterpret_cast<float*>(smem + X_INV_OFF);
-  uint8_t* stage = smem + X_EXTRA_OFF;
-  const Tile t = tile_of_block(W);
-  stage_vecs(vec, 1.f, s3, b3, 1.f, s5, b5);
-  for (int i = threadIdx.x; i < 2 * C; i += THREADS) inv[i] = __frcp_rn(__ldg(act + i));
-  int acc[MT][ACC];
-  conv_s8<3, 5, true>(acc, smem, I8Src{xq}, w3, TileGeo{t, H, W});
-  emit_codes<DQ>(acc, vec, 0.f, stage, t3, t, H, W, inv);
-  conv_s8<5, 5, false>(acc, smem, I8Src{xq}, w5, TileGeo{t, H, W});
-  emit_codes<DQ>(acc, vec + 2 * C, 0.f, stage, t5, t, H, W, inv + C);
-}
-
-// Launch B of X1u: the second convs over ta, tb, and the combine with the skip.
-template <int DQ>
-__global__ void __launch_bounds__(THREADS, 1)
-x8u_second_kernel(const float* __restrict__ skip, const int8_t* __restrict__ ta,
-                  const int8_t* __restrict__ wa2, const float* __restrict__ sa2,
-                  const float* __restrict__ ba2, const int8_t* __restrict__ tb,
-                  const int8_t* __restrict__ wb2, const float* __restrict__ sb2,
-                  const float* __restrict__ bb2, bf16* __restrict__ out, int H, int W,
-                  float res_scale) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  float* vec = reinterpret_cast<float*>(smem + VEC_OFF);
-  float* park = reinterpret_cast<float*>(smem + EXTRA_OFF);
-  const Tile t = tile_of_block(W);
-  stage_vecs(vec, 1.f, sa2, ba2, 1.f, sb2, bb2);
-  int acc[MT][ACC];
-  conv_s8<5, 5, true>(acc, smem, I8Src{ta}, wa2, TileGeo{t, H, W});
-  park_sums<DQ>(acc, vec, park);
-  conv_s8<3, 3, true>(acc, smem, I8Src{tb}, wb2, TileGeo{t, H, W});
-  skip_epilogue<DQ>(acc, vec + 2 * C, park, smem, skip, out, OutTile{t.n, t.y0, t.x0, H, W}, H, W,
-                    res_scale);
-}
 
 // The per-sample dynamic form (X3) quantizes with s = max(abs-max, 1e-6) /
 // 127.0 (a division, as JAX writes it) and codes clamp(rint(v / s), -127,
@@ -1481,27 +1360,6 @@ int light_static(const T* x, const float* act, const int8_t* w1, const float* s1
   return (int)cudaGetLastError();
 }
 
-// X1u: two launches, the codes of both branches from the given codes, then
-// the second convs and the combine with the skip.
-template <int DQ>
-int light53_xla_upq(const int8_t* xq, const float* skip, const float* act, const int8_t* wa1,
-                    const float* sa1, const float* ba1, const int8_t* wa2, const float* sa2,
-                    const float* ba2, const int8_t* wb1, const float* sb1, const float* bb1,
-                    const int8_t* wb2, const float* sb2, const float* bb2, int8_t* ta, int8_t* tb,
-                    bf16* out, int n, int h, int w, float res_scale, cudaStream_t st) {
-  cudaError_t err = allow_smem(x8u_first_kernel<DQ>, SMEM_FIRST_X);
-  if (err == cudaSuccess) err = allow_smem(x8u_second_kernel<DQ>, SMEM_LIGHT53_B);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles_of(h, w), 1, (unsigned)n);
-  x8u_first_kernel<DQ><<<grid, THREADS, SMEM_FIRST_X, st>>>(xq, act, wa1, sa1, ba1, ta, wb1, sb1,
-                                                            bb1, tb, h, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  x8u_second_kernel<DQ><<<grid, THREADS, SMEM_LIGHT53_B, st>>>(skip, ta, wa2, sa2, ba2, tb, wb2, sb2,
-                                                                bb2, out, h, w, res_scale);
-  return (int)cudaGetLastError();
-}
-
 // X3 in its three steps (a banded frame runs them one band after another,
 // its abs-maxes reduced over the bands between them).  amax: float32 [3][n];
 // ta, tb: float32 (n, h, w, C); qa, qb: int8, their codes.  Step 0: each
@@ -1702,28 +1560,6 @@ int iek_light_int8_dynamic(const void* x,
                                     nullptr, nullptr, nullptr, nullptr, nullptr, amax, t, nullptr,
                                     q, nullptr, static_cast<bf16*>(out), n, h, w, g, res_scale, 1.f,
                                     st);
-}
-
-// X1u (IEK_INT8_UPQ's first HR block): xq int8 (n, h, w, C) codes, skip
-// float32 (n, h, w, C), act float32 [2][C] (the branch intermediates'
-// scales), out bf16; weights repacked as K4's, their "sf" and biases; ta,
-// tb: int8 (n, h, w, C) scratch; acc_bf16 = 1 rounds the accumulator to
-// bf16 (IEK_INT8_ACC=bf16), 0 keeps float32 (s32, f32).
-int iek_light53_int8_xla_upq(const int8_t* xq, const float* skip, const float* act,
-                             const int8_t* wa1, const float* sa1, const float* ba1,
-                             const int8_t* wa2, const float* sa2, const float* ba2,
-                             const int8_t* wb1, const float* sb1, const float* bb1,
-                             const int8_t* wb2, const float* sb2, const float* bb2,
-                             int8_t* ta, int8_t* tb, void* out, int n, int h, int w, int c,
-                             int acc_bf16, float res_scale, void* stream) {
-  if (c != C) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* ob = static_cast<bf16*>(out);
-  if (acc_bf16)
-    return light53_xla_upq<DQ_BF16>(xq, skip, act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2,
-                                    sb2, bb2, ta, tb, ob, n, h, w, res_scale, st);
-  return light53_xla_upq<DQ_F32>(xq, skip, act, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2,
-                                 bb2, ta, tb, ob, n, h, w, res_scale, st);
 }
 
 // Per-sample dynamic scales over the unfolded weights "q" / "s".  amax:

@@ -50,6 +50,27 @@
 // combine from them), ONE_CODES and ONE_LIGHT (X2's convs).  They run at
 // the same rounding points as X4's forms.
 //
+// X1u (models/didbl_pallas.py _light53_i8_xla_upfused, IEK_INT8_UPQ's first
+// HR block; JAX leaves it to XLA): X1 whose input arrives as the int8 codes
+// of the bf16 x f of the LR map h_lr (csrc/upsample.cu's K3q) and whose
+// identity leg is the float32 x f of 0.9 * h_lr (K3's float32 arithmetic):
+//   out = bf16(skip + 0.1 * (a + b)),  skip = U_f(fl(float(h_lr) * fl(0.9)))
+// in two launches: PAIR_CODES_I8 (PAIR_CODES over a window of the codes,
+// staged by cp.async with zero fill, nothing quantized) and PAIR_LIGHT53_UP
+// (PAIR_LIGHT53 whose combine forms the skip itself from h_lr: the HR skip
+// map is never written).  For output (n, f k + r, f m + s, c) the skip is
+// K3's: y = fl(h * fl(0.9)) at (k, m), (k1, m), (k, m1), (k1, m1) (k1 =
+// min(k + 1, H/f - 1), m1 likewise), the H pass with the weights of r, then
+// the W pass with those of s, every product and sum rounded on its own.
+// The light53 launch keeps to 4 x 64 tiles and an even f, so that a
+// consumer thread's two HR rows lie in one LR row pair and its 4 outputs of
+// a channel pair read 8 LR words (2 columns, 4 neighbours); they arrive one
+// channel group ahead of the combine (the first while conv3's products
+// run), from the L2, where one thread prefetches the tile's LR rows.  The
+// skip's arithmetic (2 + 6 + 3 rounded operations an output) runs in the
+// consumers' epilogue: it needs no shared memory, which X1's light53 launch
+// has no room for beside its windows and a ring of 4 slots.
+//
 // What bounds it on an H100: operations.  2 * 9 * C_in * C_out int8 ops a
 // pixel (1.18 M at 256 -> 256; X1's 68 taps at 128: 2.2 M) against 1 to 4
 // bytes of input and 1 to 6 of output per channel: far above the balance
@@ -150,8 +171,10 @@ constexpr int SRC_BF16 = 0, SRC_F32 = 1, SRC_I8 = 2;
 constexpr int DYN_NONE = 0, DYN_FULL = 1, DYN_ABSMAX = 2, DYN_GIVEN = 3;
 // The static blocks of the XLA int8 forward (xla_block_kernel): X1's two
 // launches, the pair of first convs into codes and the pair of second convs
-// with the combine; X2's two, one conv into codes and one with the combine
-constexpr int PAIR_CODES = 0, PAIR_LIGHT53 = 1, ONE_CODES = 2, ONE_LIGHT = 3;
+// with the combine; X2's two, one conv into codes and one with the combine;
+// X1u's two, X1's from int8 codes and with the skip formed from the LR map
+constexpr int PAIR_CODES = 0, PAIR_LIGHT53 = 1, ONE_CODES = 2, ONE_LIGHT = 3, PAIR_CODES_I8 = 4,
+              PAIR_LIGHT53_UP = 5;
 constexpr int X_C = 128;                    // their channels
 constexpr int X_STAGES = 16;                // their weight ring's slots at most
 constexpr int X_BAR_BYTES = (8 * (2 * X_STAGES + 2 * WINDOWS + 2) + 127) / 128 * 128;
@@ -190,6 +213,10 @@ struct Params {
   int8_t* out_q2;       // codes: tb
   const void* x2;       // light53: tb's codes, the second conv's input
   float id;             // light53: the identity scale
+  // X1u's light53 launch: the identity leg from the LR map
+  const bf16* lr;       // h_lr (n, lr_h, lr_w, X_C); H = factor * lr_h, W = factor * lr_w
+  const float* wt;      // K3's float32 weights: 1 - r / f at wt[r], r / f at wt[f + r]
+  int lr_h, lr_w, factor;
   // geometry
   int raster;     // 0: 4 x 64 tiles; 1: 256 positions of the padded raster
   int pitch;      // window positions a row (pitch4<E>(), or W + 2 E)
@@ -1101,21 +1128,32 @@ __global__ void __launch_bounds__(THREADS, 1) conv3_kernel(const __grid_constant
 //     conv5 over ta (w) into one set of sums and conv3 over tb (w2) into
 //     another, then id * xr + res * (a + b) from the registers;
 //   ONE_CODES (X2's first, E = 1): conv3 over bf16 x -> the codes of relu(y) at s_t;
-//   ONE_LIGHT (X2's second, E = 1): conv3 over t's codes, xr + res * u.
+//   ONE_LIGHT (X2's second, E = 1): conv3 over t's codes, xr + res * u;
+//   PAIR_CODES_I8 (X1u's first): PAIR_CODES over a window of int8 codes (x);
+//   PAIR_LIGHT53_UP (X1u's second): PAIR_LIGHT53 with skip + res * (a + b),
+//     the skip formed from the LR map (lr) in the combine, 4 x 64 tiles.
 // The producer warpgroup gives up registers to the consumers (setmaxnreg),
 // and the epilogues run over both M tiles of a consumer a channel group at a
 // time, so that the per-channel vectors are loaded once for 4 positions.
 
+__host__ __device__ constexpr bool pair_codes(int form) {
+  return form == PAIR_CODES || form == PAIR_CODES_I8;
+}
+
+__host__ __device__ constexpr bool pair_light53(int form) {
+  return form == PAIR_LIGHT53 || form == PAIR_LIGHT53_UP;
+}
+
 __host__ __device__ constexpr int form_nt(int form) {
-  return form == PAIR_LIGHT53 ? 64 : 128;
+  return pair_light53(form) ? 64 : 128;
 }
 
 __host__ __device__ constexpr int form_s(int form) {
-  return form == PAIR_LIGHT53 ? X_S64 : X_S128;
+  return pair_light53(form) ? X_S64 : X_S128;
 }
 
 __host__ __device__ constexpr int form_e(int form) {
-  return form == PAIR_CODES || form == PAIR_LIGHT53 ? 2 : 1;
+  return pair_codes(form) || pair_light53(form) ? 2 : 1;
 }
 
 // Warp 0, one lane: the weight tiles in the consumers' order.
@@ -1125,10 +1163,10 @@ __device__ __forceinline__ void xla_weights(const Params& p, uint8_t* ring, uint
   RingPos r;
   const int nbs = p.cout / NT;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-    if constexpr (FORM == PAIR_CODES) {
+    if constexpr (pair_codes(FORM)) {
       push_conv<NT, S>(p, p.w, 9, 0, nbs, ring, full, empty, r);
       push_conv<NT, S>(p, p.w2, 25, 0, nbs, ring, full, empty, r);
-    } else if constexpr (FORM == PAIR_LIGHT53) {
+    } else if constexpr (pair_light53(FORM)) {
       for (int nb = 0; nb < nbs; ++nb) {
         push_conv<NT, S>(p, p.w, 25, nb, nbs, ring, full, empty, r);
         push_conv<NT, S>(p, p.w2, 9, nb, nbs, ring, full, empty, r);
@@ -1139,8 +1177,9 @@ __device__ __forceinline__ void xla_weights(const Params& p, uint8_t* ring, uint
   }
 }
 
-// Warps 1-3: each tile's windows.  PAIR_LIGHT53 stages tb's (one buffer)
-// after ta's, once the tile before has read it.
+// Warps 1-3: each tile's windows (bf16 x quantized on the way in X1's and
+// X2's codes launches, int8 codes in the others).  The light53 forms stage
+// tb's (one buffer) after ta's, once the tile before has read it.
 template <int FORM>
 __device__ __forceinline__ void xla_windows(const Params& p, uint8_t* win, uint8_t* win2, const float* inv,
                                             uint64_t* wfull, uint64_t* wempty, int tid) {
@@ -1153,7 +1192,7 @@ __device__ __forceinline__ void xla_windows(const Params& p, uint8_t* win, uint8
     mbar_wait(wempty + buf, ((k / p.nwin) & 1) ^ 1u);
     stage_window<S, false, E, 8>(p, p.x, t, E, p.positions, p.plane, win + buf * p.win_bytes, inv, 0.f, 0.f, tid);
     mbar_arrive(wfull + buf);
-    if constexpr (FORM == PAIR_LIGHT53) {  // tb's window, one buffer: barriers WINDOWS
+    if constexpr (pair_light53(FORM)) {  // tb's window, one buffer: barriers WINDOWS
       mbar_wait(wempty + WINDOWS, (k & 1) ^ 1u);
       stage_window<int8_t, false, E>(p, p.x2, t, 1, p.positions2, p.plane2, win2, inv, 0.f, 0.f, tid);
       mbar_arrive(wfull + WINDOWS);
@@ -1298,6 +1337,127 @@ __device__ __forceinline__ void xla_combine(const Params& p, const int (&acc_a)[
   }
 }
 
+// ---- X1u's identity leg from the LR map (PAIR_LIGHT53_UP) ----
+
+// Where a consumer thread's skip comes from.  Its outputs of M tile j lie in
+// HR row Y_j = y0 + MT cw + j, those of position h (0, 1) in column X_h =
+// x0 + r0 + 8 h; Y_0 is even and so is f, so Y_0 + 1 is no multiple of f and
+// both rows read LR rows k = Y_0 / f and k1 = min(k + 1, lr_h - 1), with
+// the row phases r_j = Y_j - f k; column X_h reads m_h = X_h / f and m1_h =
+// min(m_h + 1, lr_w - 1) at phase s_h.  Rows and columns past the map (not
+// stored) read its last row or column.  The weights are K3's table's.
+struct UpSpots {
+  const unsigned* row;  // LR row k of sample n, as bf16 pairs
+  int dk;               // words from row k to row k1
+  int col[2], dm[2];    // words to column m_h, and from m_h to m1_h
+  float wr0[MT], wr1[MT], ws0[2], ws1[2];
+
+  __device__ static __forceinline__ UpSpots at(const Params& p, const Tile& t, int cw) {
+    UpSpots u;
+    constexpr int WORDS = X_C / 2;  // words a pixel
+    const int f = p.factor, y = t.y0 + MT * cw, kk = y / f;
+    const int k = min(kk, p.lr_h - 1);
+    u.row = reinterpret_cast<const unsigned*>(p.lr) + ((size_t)t.n * p.lr_h + k) * p.lr_w * WORDS;
+    u.dk = (min(k + 1, p.lr_h - 1) - k) * p.lr_w * WORDS;
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      const int r = y + j - kk * f;
+      u.wr0[j] = __ldg(p.wt + r);
+      u.wr1[j] = __ldg(p.wt + f + r);
+    }
+    const int r0 = ((threadIdx.x & 127) >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = t.x0 + r0 + 8 * h, mm = x / f, m = min(mm, p.lr_w - 1), s = x - mm * f;
+      u.col[h] = m * WORDS;
+      u.dm[h] = (min(m + 1, p.lr_w - 1) - m) * WORDS;
+      u.ws0[h] = __ldg(p.wt + s);
+      u.ws1[h] = __ldg(p.wt + f + s);
+    }
+    return u;
+  }
+
+  // The LR words of channel pair nb NT + 8 n8 + 2 (lane % 4) of both
+  // positions h: (k, m_h), (k1, m_h), (k, m1_h), (k1, m1_h) at v[4 h ..].
+  template <int NT>
+  __device__ __forceinline__ void load(int nb, int n8, unsigned (&v)[8]) const {
+    const unsigned* base = row + nb * (NT / 2) + 4 * n8 + (threadIdx.x & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned* a = base + col[h];
+      v[4 * h] = __ldg(a);
+      v[4 * h + 1] = __ldg(a + dk);
+      v[4 * h + 2] = __ldg(a + dm[h]);
+      v[4 * h + 3] = __ldg(a + dk + dm[h]);
+    }
+  }
+};
+
+// a * w0 + b * w1, each product and the sum rounded on its own (K3's float32 lerp)
+__device__ __forceinline__ float lerp_rn(float a, float w0, float b, float w1) {
+  return __fadd_rn(__fmul_rn(a, w0), __fmul_rn(b, w1));
+}
+
+// The LR rows and columns that tile t's skip reads, into the L2 (one thread).
+__device__ __forceinline__ void prefetch_lr(const Params& p, const Tile& t) {
+  const int f = p.factor;
+  const int k0 = min(t.y0 / f, p.lr_h - 1), k1 = min((t.y0 + TILE_ROWS - 1) / f + 1, p.lr_h - 1);
+  const int m0 = min(t.x0 / f, p.lr_w - 1), m1 = min((t.x0 + TILE_W - 1) / f + 1, p.lr_w - 1);
+  const unsigned bytes = (unsigned)(m1 - m0 + 1) * X_C * 2;
+  for (int k = k0; k <= k1; ++k)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p.lr + (((size_t)t.n * p.lr_h + k) * p.lr_w + m0) * X_C),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// X1u's combine of column block nb of both M tiles: bf16(skip + res * (a +
+// b)), a and b as xla_combine's, the skip of each output from the LR words
+// lv of its channel group n8 (loaded a group ahead: lv takes group n8 + 1
+// once group n8's words are read), every product and add rounded on its
+// own.
+template <int NT, int E, bool ACCB>
+__device__ __forceinline__ void xla_combine_up(const Params& p, const int (&acc_a)[MT][NT / 2],
+                                               const int (&acc_b)[MT][NT / 2], unsigned (&lv)[8],
+                                               const UpSpots& us, const float* vec, const Tile& t, int cw, int nb) {
+  using P = Pair<bf16>;
+  Spots sp[MT];
+#pragma unroll
+  for (int j = 0; j < MT; ++j) sp[j] = Spots::at<E>(p, t, cw, j);
+  const int c0 = nb * NT + (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int n8 = 0; n8 < NT / 8; ++n8) {
+    const int co = c0 + n8 * 8;
+    float2 y[2][4];  // fl(h * id) of each position's 4 neighbours
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 v = P::floats(lv[i]);
+      y[i / 4][i % 4] = make_float2(__fmul_rn(v.x, p.id), __fmul_rn(v.y, p.id));
+    }
+    if (n8 + 1 < NT / 8) us.load<NT>(nb, n8 + 1, lv);
+    const float2 sa = *reinterpret_cast<const float2*>(vec + co);
+    const float2 ba = *reinterpret_cast<const float2*>(vec + X_C + co);
+    const float2 sb = *reinterpret_cast<const float2*>(vec + 2 * X_C + co);
+    const float2 bb = *reinterpret_cast<const float2*>(vec + 3 * X_C + co);
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = n8 * 4 + h * 2;
+        float2 u = dequant2<ACCB, ACT_NONE>(acc_a[j][i], acc_a[j][i + 1], sa, ba);
+        const float2 v = dequant2<ACCB, ACT_NONE>(acc_b[j][i], acc_b[j][i + 1], sb, bb);
+        u = make_float2(__fadd_rn(u.x, v.x), __fadd_rn(u.y, v.y));
+        // the H pass at columns m and m1 (row phase r_j), then the W pass (column phase s_h)
+        const float2 *q = y[h];
+        const float s0 = lerp_rn(lerp_rn(q[0].x, us.wr0[j], q[1].x, us.wr1[j]), us.ws0[h],
+                                 lerp_rn(q[2].x, us.wr0[j], q[3].x, us.wr1[j]), us.ws1[h]);
+        const float s1 = lerp_rn(lerp_rn(q[0].y, us.wr0[j], q[1].y, us.wr1[j]), us.ws0[h],
+                                 lerp_rn(q[2].y, us.wr0[j], q[3].y, us.wr1[j]), us.ws1[h]);
+        if (sp[j].in[h])
+          P::store(p.out_x, sp[j].off[h] + co, __fadd_rn(s0, __fmul_rn(p.res, u.x)), __fadd_rn(s1, __fmul_rn(p.res, u.y)));
+      }
+  }
+}
+
 // The codes epilogue under the launch's accumulator rounding.
 template <int E>
 __device__ __forceinline__ void xla_codes(const Params& p, const int (&acc)[MT][64], const Tile& t, int cw,
@@ -1324,9 +1484,10 @@ __device__ __forceinline__ void xla_consume(const Params& p, const uint8_t* win,
     const int buf = k % p.nwin;
     const Tile t = tile_of(p, tile);
     if ((FORM == PAIR_LIGHT53 || FORM == ONE_LIGHT) && threadIdx.x == 128) prefetch_rows<E>(p, t);
+    if (FORM == PAIR_LIGHT53_UP && threadIdx.x == 128) prefetch_lr(p, t);
     mbar_wait(wfull + buf, (k / p.nwin) & 1);
     const uint32_t wa = smem_addr(win) + buf * p.win_bytes + m0;
-    if constexpr (FORM == PAIR_CODES) {
+    if constexpr (pair_codes(FORM)) {
       int acc[MT][ACC];
       zero_acc(acc);
       conv_steps<NT, 3, E, S>(p, acc, acc, wa, E, p.plane, dm, ring_a, full, empty, r, leader);
@@ -1356,6 +1517,27 @@ __device__ __forceinline__ void xla_consume(const Params& p, const uint8_t* win,
         }
         if (p.acc_bf16) xla_combine<NT, E, true, true>(p, acc_a, acc_b, xv, dq, t, cw, nb);
         else xla_combine<NT, E, false, true>(p, acc_a, acc_b, xv, dq, t, cw, nb);
+      }
+    } else if constexpr (FORM == PAIR_LIGHT53_UP) {
+      const uint32_t wb = smem_addr(win2) + m0;
+      const int nbs = p.cout / NT;
+      const UpSpots us = UpSpots::at(p, t, cw);
+      for (int nb = 0; nb < nbs; ++nb) {
+        int acc_a[MT][ACC], acc_b[MT][ACC];
+        zero_acc(acc_a);
+        zero_acc(acc_b);
+        conv_steps<NT, 5, E, S>(p, acc_a, acc_b, wa, E, p.plane, dm, ring_a, full, empty, r, leader);
+        unsigned lv[8];  // the skip's LR words of channel group 0, in flight while conv3's products run
+        us.load<NT>(nb, 0, lv);
+        if (nb == 0) mbar_wait(wfull + WINDOWS, k & 1);
+        conv_steps<NT, 3, E, S>(p, acc_b, acc_a, wb, 1, p.plane2, dm, ring_a, full, empty, r, leader);
+        conv_done(acc_a, acc_b, empty, r, leader);
+        if (leader && nb == nbs - 1) {  // both windows of the tile are read
+          mbar_arrive(wempty + buf);
+          mbar_arrive(wempty + WINDOWS);
+        }
+        if (p.acc_bf16) xla_combine_up<NT, E, true>(p, acc_a, acc_b, lv, us, dq, t, cw, nb);
+        else xla_combine_up<NT, E, false>(p, acc_a, acc_b, lv, us, dq, t, cw, nb);
       }
     } else {
       int acc[MT][ACC];
@@ -1399,14 +1581,14 @@ __global__ void __launch_bounds__(THREADS, 1) xla_block_kernel(const __grid_cons
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = threadIdx.x; i < X_C; i += THREADS) {
-    if constexpr (FORM == PAIR_CODES || FORM == ONE_CODES) {  // the reciprocals, as JAX's 1.0 / s
-      vec[i] = __frcp_rn(__ldg(p.scale + i));
+    if constexpr (pair_codes(FORM) || FORM == ONE_CODES) {  // the reciprocals, as JAX's 1.0 / s
+      if (FORM != PAIR_CODES_I8) vec[i] = __frcp_rn(__ldg(p.scale + i));
       vec[X_C + i] = __frcp_rn(__ldg(p.s_out + i));
-      if (FORM == PAIR_CODES) vec[2 * X_C + i] = __frcp_rn(__ldg(p.s_out2 + i));
+      if (pair_codes(FORM)) vec[2 * X_C + i] = __frcp_rn(__ldg(p.s_out2 + i));
     }
     vec[3 * X_C + i] = __ldg(p.sf + i);
     vec[4 * X_C + i] = __ldg(p.bias + i);
-    if (FORM == PAIR_CODES || FORM == PAIR_LIGHT53) {
+    if (pair_codes(FORM) || pair_light53(FORM)) {
       vec[5 * X_C + i] = __ldg(p.sf2 + i);
       vec[6 * X_C + i] = __ldg(p.bias2 + i);
     }
@@ -1440,11 +1622,12 @@ int sm_count() {
 // where they leave a ring of MIN_STAGES slots (else one), and, where halo2
 // >= 0, a second window of halo halo2 in one buffer; nt output channels a
 // column block, vec_bytes of vectors after the ring.  The raster tiling
-// where W is not a multiple of 64 and two windows of it fit so.  false where
+// where W is not a multiple of 64, two windows of it fit so and raster_ok
+// (else 4 x 64 tiles).  false where
 // the windows and a ring of 2 slots do not fit shared memory.  The
 // mbarriers (bar_bytes) come first, the ring holds at most max_stages slots.
 bool geometry(Params& p, int E, int halo2, int nt, int vec_bytes, int bar_bytes = BAR_BYTES,
-              int max_stages = MAX_STAGES) {
+              int max_stages = MAX_STAGES, bool raster_ok = true) {
   const long long planes = p.cin / 16, b_tile = nt * 32;
   auto pitch_of = [&](bool raster) { return raster ? p.W + 2 * E : TILE_W + 2 * E; };
   auto positions_of = [&](bool raster, int e) {
@@ -1459,7 +1642,7 @@ bool geometry(Params& p, int E, int halo2, int nt, int vec_bytes, int bar_bytes 
                            (halo2 >= 0 ? bytes_of(positions_of(raster, halo2)) : 0);
     return (SMEM_MAX - (wins + 127) / 128 * 128 - vec_bytes) / b_tile;
   };
-  p.raster = p.W % TILE_W != 0 && slots(true, WINDOWS) >= MIN_STAGES;
+  p.raster = raster_ok && p.W % TILE_W != 0 && slots(true, WINDOWS) >= MIN_STAGES;
   p.pitch = pitch_of(p.raster);
   p.nwin = slots(p.raster, WINDOWS) >= MIN_STAGES ? WINDOWS : 1;
   const long long ring = slots(p.raster, p.nwin);
@@ -1503,13 +1686,14 @@ int launch_conv(Params p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// One launch of X1 or X2: the window of halo E in two buffers, tb's of halo
-// 1 beside ta's in X1's second launch, the vectors after the ring.
+// One launch of X1, X1u or X2: the window of halo E in two buffers, tb's of
+// halo 1 beside ta's in the light53 launches, the vectors after the ring;
+// X1u's light53 launch on 4 x 64 tiles (its skip takes a tile's rows).
 template <int FORM>
 int launch_xla(Params p, cudaStream_t st) {
   // a ring slot: NT x 32 bytes a K step, form_s steps
-  const int halo2 = FORM == PAIR_LIGHT53 ? 1 : -1, slot = form_nt(FORM) * form_s(FORM);
-  if (!geometry(p, form_e(FORM), halo2, slot, X_VECS * X_C * 4, X_BAR_BYTES, X_STAGES))
+  const int halo2 = pair_light53(FORM) ? 1 : -1, slot = form_nt(FORM) * form_s(FORM);
+  if (!geometry(p, form_e(FORM), halo2, slot, X_VECS * X_C * 4, X_BAR_BYTES, X_STAGES, FORM != PAIR_LIGHT53_UP))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(xla_block_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -1687,6 +1871,52 @@ int iek_light_int8_xla(const void* x, const float* act, const int8_t* w1, const 
   b.out_x = out;
   b.res = res_scale;
   return launch_xla<ONE_LIGHT>(b, st);
+}
+
+// X1u, IEK_INT8_UPQ's first HR Light53 block, in two launches of
+// xla_block_kernel: PAIR_CODES_I8 (xq: int8 (n, f h, f wd, 128), the codes
+// of the bf16 x f of h_lr (K3q); ta, tb: the codes of both branches at
+// act[0], act[1]) and PAIR_LIGHT53_UP (out bf16 (n, f h, f wd, 128) = skip +
+// res * (a + b), the skip the float32 x f of identity * h_lr formed from
+// h_lr, bf16 (n, h, wd, 128), with K3's float32 weights wt: 2 f floats on
+// the device, 1 - r/f at wt[r], r/f at wt[f + r]).  act: float32 [2][128];
+// f even; weights packed as X1's; acc_bf16 as iek_int8_conv3x's.  Pointers
+// 16-byte aligned, tensors contiguous.  Returns the CUDA error code (0 =
+// success).
+int iek_light53_int8_xla_upq(const int8_t* xq, const void* h_lr, const float* act, const int8_t* wa1,
+                             const float* sa1, const float* ba1, const int8_t* wa2, const float* sa2,
+                             const float* ba2, const int8_t* wb1, const float* sb1, const float* bb1,
+                             const int8_t* wb2, const float* sb2, const float* bb2, int8_t* ta, int8_t* tb,
+                             void* out, const float* wt, int n, int h, int wd, int c, int factor, int acc_bf16,
+                             float res_scale, float identity_scale, cudaStream_t st) {
+  if (c != X_C || n <= 0 || h <= 0 || wd <= 0 || factor < 2 || factor % 2 != 0 ||
+      (long long)h * wd * factor * factor > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const int H = factor * h, W = factor * wd;
+  Params a = base_params(xq, nullptr, wa1, sa1, ba1, n, H, W, c, c, acc_bf16, ACT_RELU, 0.f);
+  a.s_out = act;
+  a.out_q = ta;
+  a.w2 = wb1;
+  a.sf2 = sb1;
+  a.bias2 = bb1;
+  a.s_out2 = act + c;
+  a.out_q2 = tb;
+  const int code = launch_xla<PAIR_CODES_I8>(a, st);
+  if (code != 0) return code;
+  Params b = base_params(ta, nullptr, wa2, sa2, ba2, n, H, W, c, c, acc_bf16, ACT_NONE, 0.f);
+  b.x2 = tb;
+  b.w2 = wb2;
+  b.sf2 = sb2;
+  b.bias2 = bb2;
+  b.lr = static_cast<const bf16*>(h_lr);
+  b.wt = wt;
+  b.lr_h = h;
+  b.lr_w = wd;
+  b.factor = factor;
+  b.out_x = out;
+  b.res = res_scale;
+  b.id = identity_scale;
+  return launch_xla<PAIR_LIGHT53_UP>(b, st);
 }
 
 const char* iek_error_string(int code) {

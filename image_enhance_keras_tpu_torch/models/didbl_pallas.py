@@ -33,8 +33,8 @@ when set to 1: ``IEK_INT8_MERGE55`` (each Light53 block's two first convs
 as one 5x5 conv with 2C outputs in the plain versions; exact, so the same
 bytes; the kernels already stage x once for both), ``IEK_INT8_UPQ`` (static
 tail with at least one block: the x4 fused with the first HR block's
-quantize, K3q, and that block on X1u with the skip ``x4(0.9 * h)`` in
-float32) and ``IEK_INT8_UPMM`` (the x4 as ``resize_bilinear_tf1``, two
+quantize, K3q, and that block on X1u, which forms its float32 skip
+``x4(0.9 * h)`` from the LR map) and ``IEK_INT8_UPMM`` (the x4 as ``resize_bilinear_tf1``, two
 dense contractions; K3 does not run).
 
 On CPU tensors the kernel wrappers run their plain versions.
@@ -361,13 +361,13 @@ def _light53_i8_xla_upfused(h_lr: torch.Tensor, p: dict, scale: int) -> torch.Te
     """The first HR Light53 block with the x4 fused into both its consumers
     (``IEK_INT8_UPQ``, JAX's ``_light53_i8_xla_upfused``): the conv input is
     the codes of the bf16 x4 of ``h_lr`` (K3q: the bf16 HR map is never
-    written), the identity leg the float32 x4 of 0.9 * h_lr (K3), and the
-    combine skip + 0.1 * (a + b) (X1u), bf16 out.  ``h_lr`` is bf16."""
+    written), the identity leg the float32 x4 of 0.9 * h_lr, formed from
+    ``h_lr`` inside the block's combine, skip + 0.1 * (a + b) (X1u: no HR
+    skip map is written either), bf16 out.  ``h_lr`` is bf16."""
     sc = p["actc"]
     xq = upsample_quant_tf1(h_lr, scale, sc["x"])
-    skip = upsample_phase_tf1(h_lr.to(torch.float32) * 0.9, scale)
     return light53_int8_xla_upq(
-        xq, skip,
+        xq, h_lr,
         p["conv_a1"]["qf"], p["conv_a1"]["sf"], p["conv_a1"]["bias"],
         p["conv_a2"]["qf"], p["conv_a2"]["sf"], p["conv_a2"]["bias"],
         p["conv_b1"]["qf"], p["conv_b1"]["sf"], p["conv_b1"]["bias"],

@@ -44,12 +44,12 @@ SIGNATURES = {
         "iek_light_int8_dynamic": [_P] * 11 + [_I] * 9 + [_F, _P],
         "iek_light53_int8_xla_dyn": [_P] * 19 + [_I] * 5 + [_F, _F, _P],
         "iek_light53_int8_xla_dyn_step": [_I] + [_P] * 19 + [_I] * 9 + [_F, _F, _P],
-        "iek_light53_int8_xla_upq": [_P] * 18 + [_I] * 5 + [_F, _P],
     },
     "int8_conv": {
         "iek_int8_conv3x": [_P, _I, _P, _P, _I] + [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_F, _P],
         "iek_light53_int8_xla": [_P] * 17 + [_I] * 5 + [_F, _F, _P],
         "iek_light_int8_xla": [_P] * 10 + [_I] * 5 + [_F, _P],
+        "iek_light53_int8_xla_upq": [_P] * 19 + [_I] * 6 + [_F, _F, _P],
     },
     "upsample": {
         "iek_upsample_phase_tf1": [_P, _P] + [_I] * 6 + [_P, _P],

@@ -27,11 +27,14 @@ written for Hopper:
   version, :func:`light53_int8_xla_dyn_codes_plain` that of the second
   convs over the codes); on ``csrc/int8_blocks.cu``;
 * :func:`light53_int8_xla_upq` (X1u, the first HR block under
-  ``IEK_INT8_UPQ``): X1 whose input arrives as int8 codes (the x4 with the
-  quantize fused, ``upsample.upsample_quant_tf1``, K3q) and whose combine
-  adds a given float32 skip: ``bf16(skip + 0.1 * (a + b))``; on
-  ``csrc/int8_blocks.cu``, K4/K5's static template, weights packed by
-  ``int8_blocks._packed``.
+  ``IEK_INT8_UPQ``): X1 whose input arrives as int8 codes (the x f with
+  the quantize fused, ``upsample.upsample_quant_tf1``, K3q) and whose
+  identity leg is the float32 x f of ``0.9 * h_lr`` (:func:`upq_skip_plain`,
+  K3's float32 arithmetic), formed from the LR map ``h_lr`` itself:
+  ``bf16(skip + 0.1 * (a + b))``.  Two launches of ``xla_block_kernel`` as
+  X1's: both first convs over a staged window of the codes, then both
+  second convs and the combine, which computes each output's skip from
+  four LR pixels (the HR skip map is never written); weights packed as X1's.
 
 ``merge55`` (``IEK_INT8_MERGE55``) makes the plain versions of X1 and X3
 run a block's two first convs as JAX does under it: one 5x5 conv with 2C
@@ -54,7 +57,7 @@ forward differs again: XLA folds the accumulator's conversion into the
 conv and contracts the dequant into FMAs (ROADMAP.md §3).
 
 The wrappers check their arguments and call the ops ``iek::light53_int8_xla``,
-``iek::light_int8_xla`` and ``iek::light53_int8_xla_dyn``
+``iek::light53_int8_xla_upq``, ``iek::light_int8_xla`` and ``iek::light53_int8_xla_dyn``
 (``ops/cuda/library.py``): on a CUDA tensor the op launches the kernels
 (bf16 x, C = 128; ``launch_*`` below, the weights packed as above) or
 raises; on a CPU tensor it runs the plain
@@ -87,6 +90,7 @@ __all__ = [
     "light_int8_xla_plain",
     "light53_int8_xla_dyn_plain",
     "light53_int8_xla_upq_plain",
+    "upq_skip_plain",
     "launch_light53_int8_xla_upq",
     "dyn_requant_plain",
     "light53_int8_xla_dyn_codes_plain",
@@ -177,12 +181,28 @@ def light53_int8_xla_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, 
     return (_c(identity_scale) * xf + _c(res_scale) * (a + b)).to(x.dtype)
 
 
-def light53_int8_xla_upq_plain(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                               act_scales, acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1):
-    """X1u: the static Light53 block from the given codes ``xq`` (int8) of its
-    input; ``act_scales`` (2, C) holds s_a, s_b; out = bf16(skip + res * (a + b))
-    with ``skip`` float32 (JAX's ``_light53_i8_xla_upfused``)."""
+#: X1u's identity scale: the skip is the x f of 0.9 * h_lr (JAX's ``_light53_i8_xla_upfused``)
+UPQ_IDENTITY = 0.9
+
+
+def upq_skip_plain(h_lr: torch.Tensor, factor: int) -> torch.Tensor:
+    """X1u's identity leg: the float32 x f (``upsample_phase_plain``, K3's
+    arithmetic) of ``float32(h_lr) * 0.9``, (N, f H, f W, C)."""
+    from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_plain
+
+    return upsample_phase_plain(h_lr.to(_F32) * UPQ_IDENTITY, factor)
+
+
+def light53_int8_xla_upq_plain(xq, h_lr, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                               act_scales, acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1,
+                               factor: int | None = None):
+    """X1u: the static Light53 block from the given codes ``xq`` (int8, (N, f H,
+    f W, C)) of its input, the x f of the bf16 LR map ``h_lr`` (N, H, W, C);
+    ``act_scales`` (2, C) holds s_a, s_b; out = bf16(skip + res * (a + b)),
+    skip = :func:`upq_skip_plain` of ``h_lr`` (JAX's ``_light53_i8_xla_upfused``).
+    ``factor``: f, by default xq's height over h_lr's."""
     _check_acc(acc)
+    skip = upq_skip_plain(h_lr, int(xq.shape[-3]) // int(h_lr.shape[-3]) if factor is None else factor)
     q = xq.to(_F32)
     aq = _first(q, wa1, sa1, ba1, act_scales[0], acc, emit_s8)
     bq = _first(q, wb1, sb1, bb1, act_scales[1], acc, emit_s8)
@@ -282,6 +302,18 @@ def light53_int8_xla_dyn_plain(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, w
                                              identity_scale)
 
 
+def _light53_layout(x, wa1, wa2, wb1, wb2) -> list:
+    """X1's and X1u's weights in the layout of the implementation that runs
+    on x's device: HWIO for the plain versions; for the kernels packed with
+    128 output channels a column block for the first convs' launch, 64 for
+    the second's."""
+    if x.device.type != "cuda":
+        return [wa1, wa2, wb1, wb2]
+    from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import packed
+
+    return [packed(wa1, 128), packed(wa2, 64), packed(wb1, 128), packed(wb2, 64)]
+
+
 def light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
                      acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1,
                      identity_scale: float = 0.9, merge55: bool = False):
@@ -294,31 +326,35 @@ def light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, b
     _check_acc(acc)
     _check(x, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
            [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (3, "C"), _BF16)
-    if x.device.type == "cuda":
-        from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import packed
-
-        # the first convs' launch takes 128 output channels a column block, the second's 64
-        wa1, wa2, wb1, wb2 = packed(wa1, 128), packed(wa2, 64), packed(wb1, 128), packed(wb2, 64)
+    wa1, wa2, wb1, wb2 = _light53_layout(x, wa1, wa2, wb1, wb2)
     return library.light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
                                     acc, bool(emit_s8), float(res_scale), float(identity_scale), bool(merge55))
 
 
-def light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
+def light53_int8_xla_upq(xq, h_lr, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
                          acc: str = "bf16", emit_s8: bool = False, res_scale: float = 0.1):
-    """X1u: the static Light53 block from the int8 codes ``xq`` (N, H, W, C)
-    of its input, plus the float32 ``skip`` (N, H, W, C) in place of 0.9 * x;
-    ``act_scales``: (2, C) float32, s_a and s_b.  Output bf16."""
+    """X1u: the static Light53 block from the int8 codes ``xq`` (N, f H, f W,
+    C) of its input, the x f of the bf16 LR map ``h_lr`` (N, H, W, C), whose
+    identity leg is the float32 x f of 0.9 * h_lr; ``act_scales``: (2, C)
+    float32, s_a and s_b.  Output bf16 (N, f H, f W, C).  The kernels take
+    an even f."""
     _check_acc(acc)
-    _check(skip, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
-           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (2, "C"), (_F32,))
-    if skip.dtype != _F32 or xq.dtype != torch.int8 or xq.shape != skip.shape or xq.device != skip.device:
-        raise ValueError(f"X1u takes int8 codes and a float32 skip of one shape, got {xq.dtype} "
-                         f"{tuple(xq.shape)} and {skip.dtype} {tuple(skip.shape)}")
-    if xq.device.type == "cuda" and not xq.is_contiguous():
-        raise ValueError("the CUDA kernels take contiguous tensors")
-    wa1, wa2, wb1, wb2 = library.device_layout(skip, _packed, wa1, wa2, wb1, wb2)
-    return library.light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                                        act_scales, acc, bool(emit_s8), float(res_scale))
+    _check(h_lr, [(wa1, 3), (wa2, 5), (wb1, 5), (wb2, 3)],
+           [sa1, ba1, sa2, ba2, sb1, bb1, sb2, bb2], act_scales, (2, "C"), _BF16)
+    n, h, w, c = (int(s) for s in h_lr.shape)
+    f = int(xq.shape[1]) // h if xq.dim() == 4 else 0
+    if (h_lr.dtype != torch.bfloat16 or xq.dtype != torch.int8 or f < 2 or tuple(xq.shape) != (n, f * h, f * w, c)
+            or xq.device != h_lr.device):
+        raise ValueError(f"X1u takes int8 codes (N, f H, f W, C), f >= 2, and the bf16 LR map (N, H, W, C), got "
+                         f"{xq.dtype} {tuple(xq.shape)} and {h_lr.dtype} {tuple(h_lr.shape)}")
+    if xq.device.type == "cuda":
+        if not xq.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+        if f % 2:
+            raise ValueError(f"the X1u kernel takes an even factor, got {f}")
+    wa1, wa2, wb1, wb2 = _light53_layout(xq, wa1, wa2, wb1, wb2)
+    return library.light53_int8_xla_upq(xq, h_lr, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                        act_scales, acc, bool(emit_s8), float(res_scale), f)
 
 
 def light_int8_xla(x, w1, s1, b1, w2, s2, b2, act_scales, acc: str = "bf16", emit_s8: bool = False,
@@ -394,20 +430,26 @@ def launch_light53_int8_xla(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2,
     return out
 
 
-def launch_light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                                act_scales, acc: str, res_scale: float) -> torch.Tensor:
-    """X1u on CUDA tensors, the codes packed: the CUDA implementation of ``iek::light53_int8_xla_upq``."""
+def launch_light53_int8_xla_upq(xq, h_lr, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                act_scales, acc: str, res_scale: float, factor: int) -> torch.Tensor:
+    """X1u on CUDA tensors, the weights packed: the CUDA implementation of
+    ``iek::light53_int8_xla_upq`` (two launches of ``csrc/int8_conv.cu``, the
+    branch codes ta, tb between them)."""
+    from image_enhance_keras_tpu_torch.ops.cuda.upsample import weight_tensor
+
     convs = (wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2)
-    _build.check_aligned(xq, skip, act_scales, *convs)
-    lib = _build.library("int8_blocks")
-    n, h, w, c = (int(s) for s in skip.shape)
-    ta = torch.empty(skip.shape, dtype=torch.int8, device=skip.device)
+    _build.check_aligned(xq, h_lr, act_scales, *convs)
+    lib = _build.library("int8_conv")
+    n, h, w, c = (int(s) for s in h_lr.shape)
+    wt = weight_tensor(factor, _F32, h_lr.device)
+    ta = torch.empty(xq.shape, dtype=torch.int8, device=xq.device)
     tb = torch.empty_like(ta)
-    out = torch.empty(skip.shape, dtype=torch.bfloat16, device=skip.device)
-    with torch.cuda.device(skip.device):
+    out = torch.empty(xq.shape, dtype=torch.bfloat16, device=xq.device)
+    with torch.cuda.device(xq.device):
         code = lib.iek_light53_int8_xla_upq(
-            xq.data_ptr(), skip.data_ptr(), act_scales.data_ptr(), *(t.data_ptr() for t in convs), ta.data_ptr(),
-            tb.data_ptr(), out.data_ptr(), n, h, w, c, int(acc == "bf16"), float(res_scale), _stream(skip))
+            xq.data_ptr(), h_lr.data_ptr(), act_scales.data_ptr(), *(t.data_ptr() for t in convs), ta.data_ptr(),
+            tb.data_ptr(), out.data_ptr(), wt.data_ptr(), n, h, w, c, int(factor), int(acc == "bf16"),
+            float(res_scale), float(UPQ_IDENTITY), _stream(xq))
     _build.check(lib, code, "light53_int8_xla_upq")
     light53_int8_xla_upq.launches += 1
     return out

@@ -251,28 +251,28 @@ def _(x, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales,
 
 
 @_op("light53_int8_xla_upq")
-def light53_int8_xla_upq(xq: Tensor, skip: Tensor, wa1: Tensor, sa1: Tensor, ba1: Tensor, wa2: Tensor,
+def light53_int8_xla_upq(xq: Tensor, h_lr: Tensor, wa1: Tensor, sa1: Tensor, ba1: Tensor, wa2: Tensor,
                          sa2: Tensor, ba2: Tensor, wb1: Tensor, sb1: Tensor, bb1: Tensor, wb2: Tensor,
                          sb2: Tensor, bb2: Tensor, act_scales: Tensor, acc: str, emit_s8: bool,
-                         res_scale: float) -> Tensor:
+                         res_scale: float, factor: int) -> Tensor:
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
-    return k.light53_int8_xla_upq_plain(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                                        act_scales, acc, emit_s8, res_scale)
+    return k.light53_int8_xla_upq_plain(xq, h_lr, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                        act_scales, acc, emit_s8, res_scale, factor)
 
 
 @light53_int8_xla_upq.register_kernel("cuda")
-def _(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales, acc, emit_s8,
-      res_scale):
+def _(xq, h_lr, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2, act_scales, acc, emit_s8,
+      res_scale, factor):
     from image_enhance_keras_tpu_torch.ops.cuda import int8_xla as k
 
-    return k.launch_light53_int8_xla_upq(xq, skip, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
-                                         act_scales, acc, res_scale)
+    return k.launch_light53_int8_xla_upq(xq, h_lr, wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2,
+                                         act_scales, acc, res_scale, factor)
 
 
 @light53_int8_xla_upq.register_fake
-def _(xq, skip, *args):
-    return skip.new_empty(skip.shape, dtype=torch.bfloat16)
+def _(xq, h_lr, *args):
+    return xq.new_empty(xq.shape, dtype=torch.bfloat16)
 
 
 @_op("light_int8_xla")

@@ -390,24 +390,26 @@ def test_upsample_quant_kernel_bit_equal_plain(factor, shape, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("acc", ["bf16", "s32"])
-@pytest.mark.parametrize("shape", [(2, 96, 96), (1, 57, 86), (1, 5, 70), "big"])
-def test_int8_xla_upq_kernel_bit_equal_plain(shape, acc):
-    """X1u (given int8 codes, a float32 skip, bf16 out), one counted call,
-    bit-equal to its plain version; with the skip 0.9 * x and x's own codes
-    it is X1."""
+@pytest.mark.parametrize("shape,factor", [((2, 24, 24), 4), ((1, 5, 70), 4), ("big", 4), ((1, 7, 33), 2)])
+def test_int8_xla_upq_kernel_bit_equal_plain(shape, factor, acc):
+    """X1u (the int8 codes of the bf16 x f of the LR map h_lr, and h_lr, from
+    which it forms its float32 skip; bf16 out), one counted call and no K3
+    launch, bit-equal to its plain version: at an LR -> HR map, at a stripe
+    whose last LR row clamps and whose x4 ends in a ragged column tile (5 x
+    70 -> 20 x 280), with the codes at +-127 ("big"), and at f = 2."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the int8 kernels are CUDA C++ with no CPU mode")
-    x, args, act = _int8_xla_inputs("light53", shape, 31 + len(str(shape)))
-    xq = int8_xla._quant_c(x, act[0]).to(torch.int8)
-    skip = torch.tensor(0.9) * x.float()
-    before = int8_xla.light53_int8_xla_upq.launches
-    got = int8_xla.light53_int8_xla_upq(xq, skip, *args, act[1:].contiguous(), acc=acc)
+    h, args, act = _int8_xla_inputs("light53", shape, 31 + len(str(shape)))
+    xq = upsample.upsample_quant_tf1(h, factor, act[0].contiguous())
+    before, before_k3 = int8_xla.light53_int8_xla_upq.launches, upsample.upsample_phase_tf1_kernel.launches
+    got = int8_xla.light53_int8_xla_upq(xq, h, *args, act[1:].contiguous(), acc=acc)
     torch.cuda.synchronize()
-    assert int8_xla.light53_int8_xla_upq.launches == before + 1 and got.dtype == torch.bfloat16
-    want = int8_xla.light53_int8_xla_upq_plain(xq, skip, *args, act[1:].contiguous(), acc=acc)
+    assert int8_xla.light53_int8_xla_upq.launches == before + 1
+    assert upsample.upsample_phase_tf1_kernel.launches == before_k3
+    assert got.dtype == torch.bfloat16 and got.shape == xq.shape
+    want = int8_xla.light53_int8_xla_upq_plain(xq, h, *args, act[1:].contiguous(), acc=acc, factor=factor)
     assert torch.equal(got, want), ((got.float() - want.float()).abs().max().item(),
                                     (got != want).float().mean().item())
-    assert torch.equal(got, int8_xla.light53_int8_xla(x, *args, act, acc=acc))
 
 
 # -- the bf16 forms of K1/K2 and K6/K7 ------------------------------------------

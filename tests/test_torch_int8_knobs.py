@@ -99,22 +99,59 @@ def test_upq_tail_bit_equal_eager_jax(narrow, monkeypatch, acc, emit):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_upq_parts_equal_their_definitions(narrow):
-    """K3q's plain version is the codes of the bf16 x4; X1u's with the skip
-    0.9 * x and x's own codes is X1 (the fusion changes the order only)."""
-    _, _, _, qp = narrow
+def _upq_block_with_skip(xq, skip, convs, act, acc="bf16", emit_s8=False):
+    """X1u as the codes of its input and a float32 skip given apart: the
+    block's convs from ``xq``, then bf16(skip + 0.1 * (a + b)) (the
+    composition the port ran before X1u formed its skip from the LR map)."""
+    wa1, sa1, ba1, wa2, sa2, ba2, wb1, sb1, bb1, wb2, sb2, bb2 = convs
+    q = xq.to(torch.float32)
+    aq = int8_xla._first(q, wa1, sa1, ba1, act[0], acc, emit_s8)
+    bq = int8_xla._first(q, wb1, sb1, bb1, act[1], acc, emit_s8)
+    a = int8_xla._acc(aq, wa2, acc) * sa2 + ba2
+    b = int8_xla._acc(bq, wb2, acc) * sb2 + bb2
+    return (skip + torch.tensor(0.1, dtype=torch.float32) * (a + b)).to(torch.bfloat16)
+
+
+def _upq_parts(qp, shape, seed, factor=4):
     p = qp["tail53_0"]
-    _, h = _bf16_input((1, 6, 7, 16), 8)
-    codes = upsample.upsample_quant_tf1(h, 4, p["actc"]["x"])
-    up = resize.upsample_phase_tf1(h, 4)
-    assert codes.dtype == torch.int8 and codes.shape == up.shape
-    assert torch.equal(codes.float(), int8_xla._quant_c(up, p["actc"]["x"]))
+    _, h = _bf16_input(shape, seed)
     convs = [p[c][k] for c in ("conv_a1", "conv_a2", "conv_b1", "conv_b2") for k in ("qf", "sf", "bias")]
     act = torch.stack([p["actc"][k] for k in ("x", "a", "b")])
+    return h, upsample.upsample_quant_tf1(h, factor, p["actc"]["x"]), convs, act
+
+
+def test_upq_parts_equal_their_definitions(narrow):
+    """K3q's plain version is the codes of the bf16 x4; X1u's skip is K3's
+    float32 x4 of 0.9 * h; the block with the skip 0.9 * x and x's own codes
+    is X1 (the fusion changes the order only)."""
+    _, _, _, qp = narrow
+    h, codes, convs, act = _upq_parts(qp, (1, 6, 7, 16), 8)
+    up = resize.upsample_phase_tf1(h, 4)
+    assert codes.dtype == torch.int8 and codes.shape == up.shape
+    assert torch.equal(codes.float(), int8_xla._quant_c(up, act[0]))
+    assert torch.equal(int8_xla.upq_skip_plain(h, 4), resize.upsample_phase_tf1(h.float() * 0.9, 4))
     skip = torch.tensor(0.9, dtype=torch.float32) * up.float()
-    got = int8_xla.light53_int8_xla_upq(codes, skip, *convs, act[1:])
+    got = _upq_block_with_skip(codes, skip, convs, act[1:])
     want = int8_xla.light53_int8_xla(up, *convs, act)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("acc,emit_s8,factor", [("bf16", False, 4), ("bf16", True, 4), ("s32", False, 4),
+                                                ("s32", True, 4), ("bf16", False, 2), ("s32", True, 3)])
+def test_upq_from_the_lr_map_bit_equal_the_composition(narrow, acc, emit_s8, factor):
+    """X1u from the LR map (its skip formed from ``h_lr``) is bit-equal to the
+    composition it replaces: K3's float32 x f of ``h_lr * 0.9``, then the
+    block with that skip, in both accumulators and both emissions; the LR
+    map's last row and column clamp (7 columns: no multiple of 16)."""
+    _, _, _, qp = narrow
+    h, codes, convs, act = _upq_parts(qp, (2, 5, 7, 16), 10 + factor, factor)
+    skip = resize.upsample_phase_tf1(h.float() * 0.9, factor)
+    want = _upq_block_with_skip(codes, skip, convs, act[1:], acc, emit_s8)
+    got = int8_xla.light53_int8_xla_upq(codes, h, *convs, act[1:], acc=acc, emit_s8=emit_s8)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 5 * factor, 7 * factor, 16)
+    assert torch.equal(got, want)
+    assert torch.equal(int8_xla.light53_int8_xla_upq_plain(codes, h, *convs, act[1:], acc, emit_s8, 0.1, factor),
+                       want)
 
 
 def test_upq_distance_from_the_unfused_forward(narrow, monkeypatch):

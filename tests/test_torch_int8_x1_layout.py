@@ -33,11 +33,16 @@ X_BAR_BYTES = (8 * (2 * X_STAGES + 2 * WINDOWS + 2) + 127) // 128 * 128
 X_S64, X_S128 = 4, 2
 SMS = 132
 #: the launches: (E, halo of the second window or -1, NT, vector bytes, mbarrier bytes, ring slots at most):
-#: X4 at C_out 128; X1's codes and light53 launches; X2's codes and light launches
+#: X4 at C_out 128; X1's codes and light53 launches; X2's codes and light launches; X1u's (IEK_INT8_UPQ's
+#: first HR block: X1's codes launch over a window of int8 codes, its light53 launch with the skip formed
+#: from the LR map, on 4 x 64 tiles only)
 XVEC = 7 * 128 * 4  # the reciprocals and dequant vectors of X1 and X2 in shared memory
 FORMS = {"x4": (1, -1, 128, (CIN_MAX + 128) * 4, BAR_BYTES, MAX_STAGES),
          "codes": (2, -1, 128, XVEC, X_BAR_BYTES, X_STAGES), "light53": (2, 1, 64, XVEC, X_BAR_BYTES, X_STAGES),
-         "one_codes": (1, -1, 128, XVEC, X_BAR_BYTES, X_STAGES), "one_light": (1, -1, 128, XVEC, X_BAR_BYTES, X_STAGES)}
+         "one_codes": (1, -1, 128, XVEC, X_BAR_BYTES, X_STAGES), "one_light": (1, -1, 128, XVEC, X_BAR_BYTES, X_STAGES),
+         "codes_i8": (2, -1, 128, XVEC, X_BAR_BYTES, X_STAGES), "light53_up": (2, 1, 64, XVEC, X_BAR_BYTES, X_STAGES)}
+#: the launches that keep to 4 x 64 tiles (geometry's raster_ok false)
+NO_RASTER = ("light53_up",)
 #: chip_smoke.py's INT8_RAGGED crops and the LR and HR shapes
 SHAPES = [(9, 96, 96), (9, 384, 384), (1, 57, 86), (1, 70, 70), (1, 86, 57), (1, 5, 70), (1, 8, 64)]
 
@@ -47,7 +52,7 @@ def _plan(n, h, w, form, cin=128):
     ring and tiles of one launch; a ring slot holds X_S64 or X_S128 K steps
     in X1's and X2's launches."""
     e_max, halo2, nt, vec_bytes, bar_bytes, max_stages = FORMS[form]
-    steps = 1 if form == "x4" else X_S64 if form == "light53" else X_S128
+    steps = 1 if form == "x4" else X_S64 if form.startswith("light53") else X_S128
     planes, b_tile = cin // 16, nt * 32 * steps
 
     def pitch_of(raster):
@@ -65,7 +70,7 @@ def _plan(n, h, w, form, cin=128):
         wins += bytes_of(positions_of(raster, halo2)) if halo2 >= 0 else 0
         return (SMEM_MAX - (wins + 127) // 128 * 128 - vec_bytes) // b_tile
 
-    raster = w % TILE_W != 0 and slots(True, WINDOWS) >= MIN_STAGES
+    raster = form not in NO_RASTER and w % TILE_W != 0 and slots(True, WINDOWS) >= MIN_STAGES
     nwin = WINDOWS if slots(raster, WINDOWS) >= MIN_STAGES else 1
     ring = slots(raster, nwin)
     assert ring >= 2
@@ -178,8 +183,10 @@ def test_persistent_walk_covers_every_output_once(form, shape):
 
 #: (form, conv width kw, window halo e): X4's 3 x 3, X1's codes launch's
 #: conv3 and conv5 over one halo-2 window, its light53 launch's conv5 over
-#: ta's (halo 2) and conv3 over tb's (halo 1), X2's conv3 (halo 1)
-TAPS = [("x4", 3, 1), ("codes", 3, 2), ("codes", 5, 2), ("light53", 5, 2), ("light53", 3, 1), ("one_codes", 3, 1)]
+#: ta's (halo 2) and conv3 over tb's (halo 1), X2's conv3 (halo 1); X1u's
+#: conv5 over its codes window, and its light53 launch's two on 4 x 64 tiles
+TAPS = [("x4", 3, 1), ("codes", 3, 2), ("codes", 5, 2), ("light53", 5, 2), ("light53", 3, 1), ("one_codes", 3, 1),
+        ("codes_i8", 5, 2), ("light53_up", 5, 2), ("light53_up", 3, 1)]
 
 
 @pytest.mark.parametrize("form,kw,e", TAPS)
@@ -191,7 +198,7 @@ def test_window_taps_read_the_conv_inputs(form, kw, e, shape):
     where that lies outside the image, in both tilings."""
     n, h, w = shape
     p = _plan(n, h, w, form)
-    size = p["positions2"] if (form == "light53" and e == 1) else p["positions"]
+    size = p["positions2"] if (form.startswith("light53") and e == 1) else p["positions"]
     k = kw // 2
     m = torch.arange(TILE_M)
     for tile in range(p["tiles"]):
@@ -239,7 +246,7 @@ def _pair_sums(q, wq, form, kw, e, nt):
     n, h, w, c = (int(s) for s in q.shape)
     cout = int(wq.shape[-1])
     p = _plan(n, h, w, form, cin=c)
-    size = p["positions2"] if (form == "light53" and e == 1) else p["positions"]
+    size = p["positions2"] if (form.startswith("light53") and e == 1) else p["positions"]
     b = int8_conv.packed(wq, nt).reshape(-1).to(torch.int64)
     kk, nn = torch.arange(32), torch.arange(nt)
     q64 = q.to(torch.int64)
