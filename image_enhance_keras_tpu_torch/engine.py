@@ -73,6 +73,23 @@ from image_enhance_keras_tpu_torch.tiling.tiles import (
     stitch_tiles,
 )
 from image_enhance_keras_tpu_torch.utils.logging import get_logger
+from image_enhance_keras_tpu_torch.utils.profiling import (
+    COUNT_D2H_BYTES,
+    COUNT_FORWARD_CALLS,
+    COUNT_FORWARD_PIXELS,
+    COUNT_IMAGES,
+    SPAN_D2H,
+    SPAN_EXTRACT,
+    SPAN_FINALIZE,
+    SPAN_FORWARD,
+    SPAN_H2D,
+    SPAN_STITCH,
+    SPAN_UPSCALE,
+    SPAN_WAIT,
+    count,
+    span,
+    tracing,
+)
 
 __all__ = ["SuperResolver", "output_name", "resolve_device", "TILE_GEOMETRIES"]
 
@@ -87,6 +104,17 @@ def output_name(img_path: str, suffix: str = "scaled", scale_label: int = 1) -> 
 
 #: tile geometries (patch, step, crop): "ref" is the reference's 96/64/8
 TILE_GEOMETRIES = {"ref": (96, 64, 8), "perf": (192, 176, 8)}
+
+
+def _forward_call(forward: Callable, params: Any, x: torch.Tensor, from_image: bool = True) -> torch.Tensor:
+    """One counted call of a forward, in its span; ``from_image``: the call
+    starts from the image (a chunk of tiles, the frame, the body), whose
+    input pixels are counted, and not from a body map (a tail stripe or tile)."""
+    count(COUNT_FORWARD_CALLS)
+    if from_image:
+        count(COUNT_FORWARD_PIXELS, int(x.shape[0]) * int(x.shape[1]) * int(x.shape[2]))
+    with span(SPAN_FORWARD):
+        return forward(params, x)
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -246,15 +274,15 @@ class SuperResolver:
         n_full = n - rem
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
-            img = img_u8.to(torch.float32)
-            padded = pad_to_plan(img, plan)
-            tiles = im2double(extract_tiles(padded, plan))
-            outs = [forward(params, tiles[i : i + chunk]) for i in range(0, n_full, chunk)]
+            with span(SPAN_EXTRACT):
+                padded = pad_to_plan(img_u8.to(torch.float32), plan)
+                tiles = im2double(extract_tiles(padded, plan))
+            outs = [_forward_call(forward, params, tiles[i : i + chunk]) for i in range(0, n_full, chunk)]
             if rem:
-                outs.append(forward(params, tiles[n_full:]))
-            out = torch.cat(outs) * 255.0
-            canvas = stitch_tiles(out, plan)
-            return self._finalize_u8(crop_output(canvas, plan))
+                outs.append(_forward_call(forward, params, tiles[n_full:]))
+            with span(SPAN_STITCH):
+                out = crop_output(stitch_tiles(torch.cat(outs) * 255.0, plan), plan)
+            return self._finalize_u8(out)
 
         return run
 
@@ -289,9 +317,23 @@ class SuperResolver:
 
     def _finalize_u8(self, y: torch.Tensor) -> torch.Tensor:
         """[0,255]-domain float -> uint8: "round" is half-to-even, "trunc" the reference's cast."""
-        if self.round_mode == "trunc":
-            return torch.clamp(torch.floor(y), 0.0, 255.0).to(torch.uint8)
-        return torch.clamp(torch.round(y), 0.0, 255.0).to(torch.uint8)
+        with span(SPAN_FINALIZE):
+            if self.round_mode == "trunc":
+                return torch.clamp(torch.floor(y), 0.0, 255.0).to(torch.uint8)
+            return torch.clamp(torch.round(y), 0.0, 255.0).to(torch.uint8)
+
+    @staticmethod
+    def _to_host(y: torch.Tensor) -> np.ndarray:
+        """The uint8 output as a host array.  While a profiler records, the
+        device is waited for first, in a span of its own, so that the copy's
+        span holds the copy alone; untraced, ``.cpu()`` does the wait."""
+        if y.is_cuda and tracing():
+            with span(SPAN_WAIT):
+                torch.cuda.current_stream(y.device).synchronize()
+        with span(SPAN_D2H):
+            out = y.cpu().numpy()
+        count(COUNT_D2H_BYTES, out.nbytes)
+        return out
 
     def _finalize_u8_np(self, y: np.ndarray) -> np.ndarray:
         """Host twin of :meth:`_finalize_u8` (the x8 ensemble average); np.round is half to even."""
@@ -304,8 +346,9 @@ class SuperResolver:
         forward = self._forward_fn()
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
-            x = im2double(img_u8)[None]
-            y = forward(params, x)[0] * 255.0
+            y = _forward_call(forward, params, im2double(img_u8)[None])
+            with span(SPAN_STITCH):
+                y = y[0] * 255.0
             return self._finalize_u8(y)
 
         return run
@@ -383,15 +426,16 @@ class SuperResolver:
         t = max(1, self.split_tile)
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
-            x = im2double(img_u8)[None]
-            feats = body_fn(params, x)
+            feats = _forward_call(body_fn, params, im2double(img_u8)[None])
             outs = []
             for k in range(0, h_total, t):
                 tt = min(t, h_total - k)
                 s0, e0 = max(k - halo, 0), min(k + tt + halo, h_total)
-                y = tail_fn(params, feats[:, s0:e0].contiguous())
+                y = _forward_call(tail_fn, params, feats[:, s0:e0].contiguous(), from_image=False)
                 outs.append(y[:, (k - s0) * ts : (k - s0 + tt) * ts])
-            return self._finalize_u8(torch.cat(outs, dim=1)[0] * 255.0)
+            with span(SPAN_STITCH):
+                y = torch.cat(outs, dim=1)[0] * 255.0
+            return self._finalize_u8(y)
 
         return run
 
@@ -454,12 +498,16 @@ class SuperResolver:
             )
 
         def run(params, img_u8: torch.Tensor) -> torch.Tensor:
-            x = im2double(img_u8)[None]
-            tiles = self._split2d_extract(body_fn(params, x)[0], g)
-            parts = [tail_fn(params, tiles[i : i + chunk]) for i in range(0, n_full, chunk)]
+            feats = _forward_call(body_fn, params, im2double(img_u8)[None])
+            with span(SPAN_EXTRACT):
+                tiles = self._split2d_extract(feats[0], g)
+            parts = [_forward_call(tail_fn, params, tiles[i : i + chunk], from_image=False)
+                     for i in range(0, n_full, chunk)]
             if rem:
-                parts.append(tail_fn(params, tiles[n_full:]))
-            return self._finalize_u8(self._split2d_stitch(torch.cat(parts), g) * 255.0)
+                parts.append(_forward_call(tail_fn, params, tiles[n_full:], from_image=False))
+            with span(SPAN_STITCH):
+                y = self._split2d_stitch(torch.cat(parts), g) * 255.0
+            return self._finalize_u8(y)
 
         return run
 
@@ -681,17 +729,19 @@ class SuperResolver:
         before any ensemble transform; the base module, params and int8
         scales (recalibrated on the adapted params) are restored afterwards."""
         img = np.asarray(img)
-        if self.internal_learn > 0:
-            adapted = self._internal_adapt(img, self.internal_learn)
-            if adapted is not None:
-                saved = (self.module, self.params, self._qparams)
-                self.module, self._qparams = adapted, None
-                self.params = self._place_weights(params_of_module(adapted))
-                try:
-                    return self._upscale_post(img)
-                finally:
-                    self.module, self.params, self._qparams = saved
-        return self._upscale_post(img)
+        count(COUNT_IMAGES)
+        with span(SPAN_UPSCALE):
+            if self.internal_learn > 0:
+                adapted = self._internal_adapt(img, self.internal_learn)
+                if adapted is not None:
+                    saved = (self.module, self.params, self._qparams)
+                    self.module, self._qparams = adapted, None
+                    self.params = self._place_weights(params_of_module(adapted))
+                    try:
+                        return self._upscale_post(img)
+                    finally:
+                        self.module, self.params, self._qparams = saved
+            return self._upscale_post(img)
 
     def _upscale_post(self, img: np.ndarray) -> np.ndarray:
         out = self._upscale_ensemble(img) if self.self_ensemble else self._upscale_single(img)
@@ -743,17 +793,18 @@ class SuperResolver:
             up = self._pre_upscale(torch.tensor(img, device=self.device))
             img = up.to(torch.uint8).cpu().numpy()
         self._maybe_calibrate_int8(img)
-        x = torch.tensor(img, device=self.device)
+        with span(SPAN_H2D):
+            x = torch.tensor(img, device=self.device)
         if self.mode == "split":
             if self._supports_split():
-                return self._split_fn(img.shape[:2])(self._fwd_params(), x).cpu().numpy()
+                return self._to_host(self._split_fn(img.shape[:2])(self._fwd_params(), x))
             log.warning(
                 "mode='split' unavailable for %r (no body/tail decomposition); falling back to "
                 "the tiled patch pipeline (different border semantics)", self.model_name,
             )
         if self.mode == "fast":
             if img.shape[0] * img.shape[1] <= self.fast_max_pixels:
-                return self._fast_fn(img.shape[:2])(self._fwd_params(), x).cpu().numpy()
+                return self._to_host(self._fast_fn(img.shape[:2])(self._fwd_params(), x))
             log.warning(
                 "mode='fast' frame %dx%d exceeds fast_max_pixels=%d; falling back to the "
                 "tiled patch pipeline (interior-identical, borders differ within the conv "
@@ -761,7 +812,7 @@ class SuperResolver:
                 "memory", img.shape[1], img.shape[0], self.fast_max_pixels,
             )
         plan = self.plan_for(img.shape[0], img.shape[1])
-        return self._pipeline_for(plan)(self._fwd_params(), x).cpu().numpy()
+        return self._to_host(self._pipeline_for(plan)(self._fwd_params(), x))
 
     @torch.inference_mode()
     def upscale_patch_average(self, img: np.ndarray, patch: int = 32, step: int = 16) -> np.ndarray:

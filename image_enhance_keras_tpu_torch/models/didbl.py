@@ -30,6 +30,7 @@ from torch import nn
 from image_enhance_keras_tpu_torch.models.blocks import Light53Block, LightBlock, make_conv, profile_dtype
 from image_enhance_keras_tpu_torch.ops.pixel_shuffle import depth_to_space
 from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
+from image_enhance_keras_tpu_torch.utils.profiling import SPAN_BLOCK, SPAN_UPSAMPLE, span
 
 __all__ = ["DifvdsrDouble"]
 
@@ -76,10 +77,11 @@ class DifvdsrDouble(nn.Module):
         if not self.mixed:  # mixed keeps activations float32; its convs round their inputs
             x = x.to(self.dtype)
         h = torch.relu(self.level1(x))
-        for i in range(self.n_body53):
-            h = getattr(self, f"body53_{i}")(h)
-        for i in range(self.n_light):
-            h = getattr(self, f"light_{i}")(h)
+        with span(SPAN_BLOCK):
+            for i in range(self.n_body53):
+                h = getattr(self, f"body53_{i}")(h)
+            for i in range(self.n_light):
+                h = getattr(self, f"light_{i}")(h)
         return h
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:
@@ -87,11 +89,13 @@ class DifvdsrDouble(nn.Module):
         if not self.mixed:  # an identity under mixed_tail: the body handed over bf16
             h = h.to(self.dtype)
         if self.upsampler == "tf1_bilinear":
-            h = upsample_phase_tf1(h, self.scale)
+            with span(SPAN_UPSAMPLE):
+                h = upsample_phase_tf1(h, self.scale)
         else:
             h = depth_to_space(self.subpixel_conv(h), self.scale, order="dcr")
-        for i in range(self.n_tail53):
-            h = getattr(self, f"tail53_{i}")(h)
+        with span(SPAN_BLOCK):
+            for i in range(self.n_tail53):
+                h = getattr(self, f"tail53_{i}")(h)
         return torch.relu(self.out(h)).to(torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -67,6 +67,7 @@ from image_enhance_keras_tpu_torch.ops.cuda.tower import fused_light53_chain, fu
 from image_enhance_keras_tpu_torch.ops.pixel_shuffle import depth_to_space
 from image_enhance_keras_tpu_torch.ops.resize import resize_bilinear_tf1, upsample_phase_tf1
 from image_enhance_keras_tpu_torch.utils.logging import get_logger
+from image_enhance_keras_tpu_torch.utils.profiling import SPAN_BLOCK, SPAN_UPSAMPLE, span
 
 log = get_logger(__name__)
 
@@ -420,10 +421,11 @@ def apply_didbl_int8_xla_body(qparams: Any, x: torch.Tensor, n_body53: int = 16,
     """XLA-int8 pre-upsample tower at LR: bf16 level1 + relu, then the per-channel int8 blocks."""
     _require_act(qparams)
     h = torch.relu(_conv(x.to(torch.bfloat16), qparams["level1"]))
-    for i in range(n_body53):
-        h = _light53_i8_xla(h, qparams[f"body53_{i}"])
-    for i in range(n_light):
-        h = _light_i8_xla(h, qparams[f"light_{i}"])
+    with span(SPAN_BLOCK):
+        for i in range(n_body53):
+            h = _light53_i8_xla(h, qparams[f"body53_{i}"])
+        for i in range(n_light):
+            h = _light_i8_xla(h, qparams[f"light_{i}"])
     return h
 
 
@@ -520,10 +522,12 @@ def apply_didbl_int8_xla_tail(qparams: Any, h: torch.Tensor, n_tail53: int = 2, 
         # the einsums' output is not channels-last; the kernels take contiguous NHWC
         h = resize_bilinear_tf1(h, (scale * int(h.shape[-3]), scale * int(h.shape[-2]))).contiguous()
     else:
-        h = upsample_phase_tf1(h, scale)
-    for i in range(start, n_tail53):
-        p = qparams[f"tail53_{i}"]
-        h = _light53_i8_xla_dyn(h, p) if dynamic else _light53_i8_xla(h, p)
+        with span(SPAN_UPSAMPLE):
+            h = upsample_phase_tf1(h, scale)
+    with span(SPAN_BLOCK):
+        for i in range(start, n_tail53):
+            p = qparams[f"tail53_{i}"]
+            h = _light53_i8_xla_dyn(h, p) if dynamic else _light53_i8_xla(h, p)
     return torch.relu(_conv(h, qparams["out"])).to(torch.float32)
 
 

@@ -26,6 +26,7 @@ from image_enhance_keras_tpu_torch.ops.cuda.int8_blocks import quantize_weights_
 from image_enhance_keras_tpu_torch.ops.cuda.int8_conv import (_act, int8_conv3_codes, int8_conv3_diff_b,
                                                              int8_conv3_diff_d, int8_conv3_light)
 from image_enhance_keras_tpu_torch.ops.resize import upsample_phase_tf1
+from image_enhance_keras_tpu_torch.utils.profiling import SPAN_BLOCK, SPAN_UPSAMPLE, span
 
 __all__ = [
     "int8_support",
@@ -152,12 +153,15 @@ def quantize_difv4_params(params: Any, calib_x: torch.Tensor, n_head: int = 6, n
 def apply_difv4_int8_body(qp: Any, x: torch.Tensor, n_head: int = 6, n_mid: int = 20) -> torch.Tensor:
     """Difvdsr4.body on int8: bf16 level1 + relu, the head at 1x, x2, the mid tower + long skip."""
     h = torch.relu(_conv(x.to(torch.bfloat16), qp["level1"]))
-    for i in range(n_head):
-        h = _light_i8(h, qp[f"head_{i}"], _DIFV4_LEAKY_HEAD)
-    h = upsample_phase_tf1(h, 2)
+    with span(SPAN_BLOCK):
+        for i in range(n_head):
+            h = _light_i8(h, qp[f"head_{i}"], _DIFV4_LEAKY_HEAD)
+    with span(SPAN_UPSAMPLE):
+        h = upsample_phase_tf1(h, 2)
     skip = h
-    for i in range(n_mid):
-        h = _light_i8(h, qp[f"mid_{i}"], None)
+    with span(SPAN_BLOCK):
+        for i in range(n_mid):
+            h = _light_i8(h, qp[f"mid_{i}"], None)
     return h + skip
 
 
@@ -165,9 +169,11 @@ def apply_difv4_int8_tail(qp: Any, h: torch.Tensor, n_tail: int = 6, scale: int 
     """Difvdsr4.tail_fn on int8: (x2 at scale=4), the tail tower, bf16 out conv + relu -> float32."""
     h = h.to(torch.bfloat16)
     if scale == 4:
-        h = upsample_phase_tf1(h, 2)
-    for i in range(n_tail):
-        h = _light_i8(h, qp[f"tail_{i}"], None)
+        with span(SPAN_UPSAMPLE):
+            h = upsample_phase_tf1(h, 2)
+    with span(SPAN_BLOCK):
+        for i in range(n_tail):
+            h = _light_i8(h, qp[f"tail_{i}"], None)
     return torch.relu(_conv(h, qp["out"])).to(_F32)
 
 
